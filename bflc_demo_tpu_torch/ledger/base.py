@@ -1,0 +1,88 @@
+"""Shared ledger types and the canonical client-op encoders.
+
+Copy of `bflc_demo_tpu/ledger/base.py`, synchronous subset: the status
+codes, the record views and the register/upload/scores encoders, byte for
+byte (the encoders define the op bytes the hash chain covers).  Dropped:
+the async (`OP_AUPLOAD`/`OP_ASCORES`/`OP_ACOMMIT`) and genome (`OP_GENOME`)
+encoders and the legacy/arming switches of the modes this port has not
+reached.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import struct
+from typing import List, Sequence
+
+import numpy as np
+
+OP_REGISTER, OP_UPLOAD, OP_SCORES, OP_COMMIT = 1, 2, 3, 4
+
+
+def _put_str(b: bytearray, s: str) -> None:
+    raw = s.encode()
+    b += struct.pack("<q", len(raw)) + raw
+
+
+def encode_register_op(addr: str) -> bytes:
+    op = bytearray([OP_REGISTER])
+    _put_str(op, addr)
+    return bytes(op)
+
+
+def encode_upload_op(sender: str, payload_hash: bytes, n_samples: int,
+                     avg_cost: float, epoch: int) -> bytes:
+    op = bytearray([OP_UPLOAD])
+    _put_str(op, sender)
+    op += bytes(payload_hash)
+    op += struct.pack("<q", n_samples)
+    op += struct.pack("<f", np.float32(avg_cost))
+    op += struct.pack("<q", epoch)
+    return bytes(op)
+
+
+def encode_scores_op(sender: str, epoch: int,
+                     scores: Sequence[float]) -> bytes:
+    op = bytearray([OP_SCORES])
+    _put_str(op, sender)
+    op += struct.pack("<q", epoch)
+    op += struct.pack("<q", len(scores))
+    for s in scores:
+        op += struct.pack("<f", np.float32(s))
+    return bytes(op)
+
+
+def encode_commit_op(model_hash: bytes, epoch: int) -> bytes:
+    """REDUCTION SPEC v1 commit body (no block-geometry tail)."""
+    return bytes([OP_COMMIT]) + bytes(model_hash) + struct.pack("<q", epoch)
+
+
+class LedgerStatus(enum.IntEnum):
+    OK = 0
+    NOT_STARTED = 1        # registration phase (epoch at genesis sentinel)
+    WRONG_EPOCH = 2        # stale upload
+    DUPLICATE = 3          # same sender re-upload
+    CAP_REACHED = 4        # needed_update_count hit
+    NOT_COMMITTEE = 5      # scores from non-committee
+    ALREADY_REGISTERED = 6
+    NOT_READY = 7
+    BAD_ARG = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateInfo:
+    """Ledger view of one collected update — hash + meta, no tensors."""
+    sender: str
+    payload_hash: bytes
+    n_samples: int
+    avg_cost: float
+
+
+@dataclasses.dataclass(frozen=True)
+class PendingInfo:
+    """Outcome of a completed scoring phase, awaiting model commit."""
+    medians: np.ndarray        # (update_count,)
+    order: List[int]           # slots best-first (median desc, slot asc)
+    selected: List[int]        # top-aggregate_count slots
+    global_loss: float

@@ -1,0 +1,232 @@
+"""Pure-Python committee ledger — the synchronous subset.
+
+Copy of `bflc_demo_tpu/ledger/pyledger.py:PyLedger`, cut to the ops the
+host round (`client.simulation.run_federated`) drives: `register_node`,
+`query_state`, `upload_local_update`, `upload_scores`,
+`query_all_updates`, `aggregate_ready`, `pending`, `commit_model`, the
+read-only inspection properties the round uses, and the
+SHA-256 op-log chain (`_append_log`, `log_head`, `log_size`,
+`verify_log`, `log_op`).  Same op bytes, same statuses, same median /
+rank / election order, so the same op sequence gives the same chain head
+as the reference ledger, bit for bit.
+
+Not ported (calling them raises `AttributeError`): the recovery ops
+(`close_round`, `force_aggregate`, `reseat_committee`), writer fencing,
+the asynchronous buffered family, genome updates, the blocked commit
+tail, WAL, snapshots/compaction and op replay (`apply_op`).  The native
+`.so` is not bound either.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from bflc_demo_tpu_torch.ledger.base import (LedgerStatus, PendingInfo,
+                                             UpdateInfo, encode_commit_op,
+                                             encode_register_op,
+                                             encode_scores_op,
+                                             encode_upload_op)
+
+
+class PyLedger:
+    def __init__(self, client_num: int, comm_count: int, aggregate_count: int,
+                 needed_update_count: int, genesis_epoch: int = -999):
+        self.client_num = client_num
+        self.comm_count = comm_count
+        self.aggregate_count = aggregate_count
+        self.needed_update_count = needed_update_count
+        self.genesis_epoch = genesis_epoch
+
+        self._epoch = genesis_epoch
+        self._last_loss = 0.0
+        self._reg_order: List[str] = []
+        self._roles: Dict[str, str] = {}
+        self._updates: List[UpdateInfo] = []
+        self._update_slot: Dict[str, int] = {}
+        self._scores: Dict[str, List[float]] = {}
+        self._pending: Optional[PendingInfo] = None
+        self._ops: List[bytes] = []
+        self._log: List[bytes] = []
+
+    # --- log plumbing (matches the reference's append_log) ---
+    def _append_log(self, op: bytes) -> None:
+        h = hashlib.sha256()
+        if self._log:
+            h.update(self._log[-1])
+        h.update(op)
+        self._ops.append(op)
+        self._log.append(h.digest())
+
+    # --- protocol surface ---
+    def register_node(self, addr: str) -> LedgerStatus:
+        if not addr:
+            return LedgerStatus.BAD_ARG
+        if addr in self._roles:
+            return LedgerStatus.ALREADY_REGISTERED
+        self._roles[addr] = "trainer"
+        self._reg_order.append(addr)
+        self._append_log(encode_register_op(addr))
+        if (len(self._reg_order) == self.client_num
+                and self._epoch == self.genesis_epoch):
+            for a in self._reg_order[: self.comm_count]:
+                self._roles[a] = "comm"
+            self._epoch = 0
+        return LedgerStatus.OK
+
+    def query_state(self, addr: str) -> Tuple[str, int]:
+        return self._roles.get(addr, "trainer"), self._epoch
+
+    def upload_local_update(self, sender: str, payload_hash: bytes,
+                            n_samples: int, avg_cost: float,
+                            epoch: int) -> LedgerStatus:
+        if not sender or n_samples <= 0:
+            return LedgerStatus.BAD_ARG
+        if self._epoch == self.genesis_epoch:
+            return LedgerStatus.NOT_STARTED
+        if epoch != self._epoch:
+            return LedgerStatus.WRONG_EPOCH
+        if sender in self._update_slot:
+            return LedgerStatus.DUPLICATE
+        # the update set freezes once scoring can begin
+        if self._scores:
+            return LedgerStatus.CAP_REACHED
+        if len(self._updates) >= self.needed_update_count:
+            return LedgerStatus.CAP_REACHED
+        self._update_slot[sender] = len(self._updates)
+        self._updates.append(UpdateInfo(sender, bytes(payload_hash),
+                                        n_samples, float(avg_cost)))
+        self._append_log(encode_upload_op(sender, payload_hash, n_samples,
+                                          avg_cost, epoch))
+        return LedgerStatus.OK
+
+    def upload_scores(self, sender: str, epoch: int,
+                      scores: Sequence[float]) -> LedgerStatus:
+        if not sender:
+            return LedgerStatus.BAD_ARG
+        if self._epoch == self.genesis_epoch:
+            return LedgerStatus.NOT_STARTED
+        if epoch != self._epoch:
+            return LedgerStatus.WRONG_EPOCH
+        if self._roles.get(sender) != "comm":
+            return LedgerStatus.NOT_COMMITTEE
+        if len(scores) != len(self._updates):
+            return LedgerStatus.BAD_ARG
+        # non-finite scores never enter the log: checked after float32
+        # conversion — a finite float64 can overflow to inf in f32
+        with np.errstate(over="ignore"):
+            vals = [float(np.float32(s)) for s in scores]
+        if any(not math.isfinite(v) for v in vals):
+            return LedgerStatus.BAD_ARG
+        if len(self._updates) < self.needed_update_count:
+            return LedgerStatus.NOT_READY
+        if self._pending is not None:
+            return LedgerStatus.NOT_READY
+        self._scores[sender] = vals
+        self._append_log(encode_scores_op(sender, epoch, scores))
+        self._maybe_fire()
+        return LedgerStatus.OK
+
+    def _maybe_fire(self) -> None:
+        """Fire when every CURRENT committee member's row is in."""
+        comm_now = sum(1 for r in self._roles.values() if r == "comm")
+        present = sum(1 for a in self._scores
+                      if self._roles.get(a) == "comm")
+        if present == comm_now and comm_now > 0:
+            self._finish_scoring()
+
+    def _finish_scoring(self) -> None:
+        k = len(self._updates)
+        # scorer rows in address order (bytewise == sorted() for ASCII)
+        rows = [self._scores[a] for a in sorted(self._scores)
+                if len(self._scores[a]) == k]
+        if not rows:
+            medians = np.zeros(k, np.float32)
+        else:
+            cols = np.asarray(rows, np.float32)          # (C, k)
+            srt = np.sort(cols, axis=0)
+            n = cols.shape[0]
+            medians = 0.5 * (srt[(n - 1) // 2] + srt[n // 2])
+        order = sorted(range(k), key=lambda s: (-medians[s], s))
+        take = min(self.aggregate_count, k)
+        selected = order[:take]
+        loss = (sum(self._updates[s].avg_cost for s in selected) / take
+                if take else 0.0)
+        self._pending = PendingInfo(medians=medians.astype(np.float32),
+                                    order=order, selected=selected,
+                                    global_loss=float(np.float32(loss)))
+
+    def query_all_updates(self) -> List[UpdateInfo]:
+        if len(self._updates) < self.needed_update_count:
+            return []
+        return list(self._updates)
+
+    # --- aggregation handshake ---
+    def aggregate_ready(self) -> bool:
+        return self._pending is not None
+
+    def pending(self) -> Optional[PendingInfo]:
+        return self._pending
+
+    def commit_model(self, new_model_hash: bytes, epoch: int) -> LedgerStatus:
+        if self._pending is None:
+            return LedgerStatus.NOT_READY
+        if epoch != self._epoch:
+            return LedgerStatus.WRONG_EPOCH
+        self._last_loss = self._pending.global_loss
+        for a in self._roles:
+            self._roles[a] = "trainer"
+        for s in self._pending.order[: self.comm_count]:
+            self._roles[self._updates[s].sender] = "comm"
+        self._updates = []
+        self._update_slot = {}
+        self._scores = {}
+        self._pending = None
+        self._epoch += 1
+        self._append_log(encode_commit_op(new_model_hash, epoch))
+        return LedgerStatus.OK
+
+    # --- inspection ---
+    @property
+    def epoch(self) -> int:
+        return self._epoch
+
+    @property
+    def update_count(self) -> int:
+        return len(self._updates)
+
+    @property
+    def score_count(self) -> int:
+        return len(self._scores)
+
+    @property
+    def last_global_loss(self) -> float:
+        return self._last_loss
+
+    def committee(self) -> List[str]:
+        return [a for a in self._reg_order if self._roles.get(a) == "comm"]
+
+    # --- op log ---
+    def log_size(self) -> int:
+        return len(self._log)
+
+    def log_head(self) -> bytes:
+        return self._log[-1] if self._log else b"\0" * 32
+
+    def verify_log(self) -> bool:
+        prev = b""
+        for op, dig in zip(self._ops, self._log):
+            h = hashlib.sha256()
+            if prev:
+                h.update(prev)
+            h.update(op)
+            prev = h.digest()
+            if prev != dig:
+                return False
+        return True
+
+    def log_op(self, i: int) -> bytes:
+        return self._ops[i]

@@ -1,0 +1,83 @@
+"""The model contract the port's protocol code builds against.
+
+Port of `bflc_demo_tpu/models/base.py`.  The reference's model is a pytree
+of parameters plus a pure `apply(params, x)`; every protocol layer (local
+training, candidate scoring, aggregation, hashing) moves parameter values,
+never a model object.  The port keeps that shape with PyTorch idiom: a
+model is an `nn.Module` whose parameter names mirror the reference's tree
+(`blocks.0.wq` <-> `['blocks'][0]['wq']`), and the values the protocol
+moves are flat `{keystr: tensor}` dicts — `Params` — keyed by the
+reference's `jax.tree_util.keystr` paths, so the content hash of a port
+model equals the reference's for the same values.  `apply` runs the
+module on such a dict through `torch.func.functional_call`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+Params = Dict[str, torch.Tensor]
+
+
+def keystr(name: str) -> str:
+    """Module parameter name -> the reference's keystr path:
+    'blocks.0.ln1.scale' -> "['blocks'][0]['ln1']['scale']"."""
+    return "".join(f"[{p}]" if p.isdigit() else f"['{p}']"
+                   for p in name.split("."))
+
+
+def canonical_params(module: nn.Module) -> Params:
+    """The module's own parameters as a keystr-keyed `Params` dict."""
+    return {keystr(n): p.detach() for n, p in module.named_parameters()}
+
+
+def _flatten_tree(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(keystr, leaf) pairs of a nested dict/tuple tree of arrays."""
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _flatten_tree(sub, f"{prefix}['{key}']")
+    elif isinstance(tree, (tuple, list)):
+        for i, sub in enumerate(tree):
+            yield from _flatten_tree(sub, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+class Model(nn.Module):
+    """An `nn.Module` whose parameter values travel as `Params` dicts."""
+
+    num_classes: int
+
+    def init_params(self, seed: int = 0,
+                    device: torch.device | str = "cpu") -> Params:
+        """Fresh parameter values drawn from `torch.Generator(seed)`."""
+        raise NotImplementedError
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Logits of the model with parameter values `params` on `x`."""
+        names = {keystr(n): n for n, _ in self.named_parameters()}
+        return torch.func.functional_call(
+            self, {names[k]: v for k, v in params.items()}, (x,),
+            strict=True)
+
+    def params_from_jax(self, tree: Any,
+                        device: torch.device | str = "cpu") -> Params:
+        """The reference's params (nested dicts and tuples of arrays, as
+        numpy) as a `Params` dict on `device`.  Keys and shapes must match
+        this module's exactly."""
+        want = {k: tuple(p.shape) for k, p in
+                canonical_params(self).items()}
+        got = {k: np.array(v, np.float32) for k, v in _flatten_tree(tree)}
+        if set(got) != set(want):
+            raise KeyError(f"parameter trees differ: missing "
+                           f"{sorted(set(want) - set(got))}, extra "
+                           f"{sorted(set(got) - set(want))}")
+        for k, arr in got.items():
+            if arr.shape != want[k]:
+                raise ValueError(f"{k}: shape {arr.shape} != {want[k]}")
+        return {k: torch.as_tensor(arr, device=device)
+                for k, arr in got.items()}

@@ -1,0 +1,91 @@
+"""Build the port's CUDA kernels from the repo's sources, at first use.
+
+Each source under `ops/csrc/` compiles with `nvcc` for `sm_90a` into a
+shared library with a plain C interface, loaded with `ctypes`.  The
+library lands in `build/torch_kernels/` at the repository root, named by
+a hash of its source and flags, so an edited source never loads a stale
+build.  `build_all` starts one `nvcc` per missing library and waits for
+all of them, so the sources compile in parallel.
+
+Nothing here runs at import: the CPU tests import every module, and the
+CPU path never needs a compiler.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+# library name -> source file under ops/csrc
+SOURCES = {"flash_attention": "flash_attention.cu"}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the port's CUDA kernels build only where the "
+            "CUDA toolkit is installed (PATH or /usr/local/cuda/bin)")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (_CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile every named library that is not built yet, all at once.
+
+    Returns {name: {"path", "seconds", "log"}} — `log` holds nvcc's
+    `-Xptxas -v` report (registers, shared memory, spills per kernel);
+    seconds is 0.0 for a library that was already built.
+    """
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out: Dict[str, dict] = {}
+    running = {}
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            out[name] = {"path": str(path), "seconds": 0.0, "log": ""}
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(_CSRC / SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, path, time.perf_counter())
+    for name, (proc, tmp, path, t0) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
+                               f"(exit {proc.returncode}):\n{log}")
+        os.replace(tmp, path)     # atomic: a reader never sees half a file
+        out[name] = {"path": str(path),
+                     "seconds": time.perf_counter() - t0, "log": log}
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, building it first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(build_all([name])[name]["path"])
+        _loaded[name] = lib
+    return lib

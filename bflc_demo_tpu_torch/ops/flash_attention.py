@@ -1,0 +1,258 @@
+"""Masked flash attention: CUDA kernels, their plain versions, autograd.
+
+Port of `bflc_demo_tpu/ops/pallas_attention.py:flash_attention` (:409-430)
+and the three Pallas kernels behind it:
+
+- `flash_fwd`  <- `_flash_kernel` via `_flash_fwd_impl` (:42-150):
+  (out, lse) with an online softmax over k-tiles;
+- `flash_dkdv` <- `_dkdv_kernel` via `_flash_bwd_impl` (:153-193, :257);
+- `flash_dq`   <- `_dq_kernel` via `_flash_bwd_impl` (:196-224, :286).
+
+Each wrapper runs its hand-written CUDA kernel (`csrc/flash_attention.cu`)
+on a CUDA tensor and its plain PyTorch version on a CPU tensor — the
+choice follows the tensor's device only, and a CUDA tensor the kernel
+cannot take raises instead of falling back.  `LAUNCHES` counts kernel
+launches per wrapper (plain runs do not count), so a run can show that
+its main path went through the kernels.
+
+Layouts follow the reference: q/k/v/out and their gradients are
+(B, S, H, D); `kv_mask` is (B, S_kv) bool (False = PAD); lse and delta
+are (B*H, 1, S_q) float32.  `delta = rowsum(dO * O)` stays plain torch,
+as the reference computes it outside its kernels (:244-245).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+import torch
+
+NEG_INF = -1e30
+TINY = 1e-30
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches per wrapper since the last reset (plain runs excluded)
+LAUNCHES = {"flash_fwd": 0, "flash_dkdv": 0, "flash_dq": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _scale(d: int) -> float:
+    # the reference multiplies f32 logits by 1/sqrt(d), a float32 constant
+    return float(np.float32(1.0 / np.sqrt(d)))
+
+
+# ------------------------------------------------------------ plain versions
+def _logits(q, k, kv_mask, scale):
+    """f32 (B, H, S_q, S_kv) logits and the broadcast key mask."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return s, kv_mask[:, None, None, :]
+
+
+def flash_fwd_plain(q, k, v, kv_mask) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out (B, S_q, H, D) in q's dtype, lse (B*H, 1, S_q) f32)."""
+    b, sq, h, d = q.shape
+    s, valid = _logits(q, k, kv_mask, _scale(d))
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)    # NEG_INF-NEG_INF guard
+    l = p.sum(-1, keepdim=True).clamp_min(TINY)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
+    out = (acc / l).permute(0, 2, 1, 3).to(q.dtype)
+    lse = (m + torch.log(l)).reshape(b * h, 1, sq)
+    return out, lse
+
+
+def _probs_and_ds(q, k, v, kv_mask, do, lse, delta):
+    b, sq, h, d = q.shape
+    scale = _scale(d)
+    s, valid = _logits(q, k, kv_mask, scale)
+    lse = lse.reshape(b, h, sq, 1)
+    # selected, never multiplied: exp(s - lse) may be inf on a fully
+    # masked row, and inf * 0 would be NaN
+    p = torch.where(valid, torch.exp(s - lse), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta.reshape(b, h, sq, 1)) * scale
+    return p, ds
+
+
+def flash_dkdv_plain(q, k, v, kv_mask, do, lse, delta):
+    """(dK, dV), each (B, S_kv, H, D) in k's / v's dtype."""
+    p, ds = _probs_and_ds(q, k, v, kv_mask, do, lse, delta)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_dq_plain(q, k, v, kv_mask, do, lse, delta):
+    """dQ, (B, S_q, H, D) in q's dtype."""
+    _, ds = _probs_and_ds(q, k, v, kv_mask, do, lse, delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype)
+
+
+# ------------------------------------------------------------------ kernels
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "bflc_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, ctypes.c_float, _P],
+    "bflc_flash_dkdv": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, ctypes.c_float, _P],
+    "bflc_flash_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, ctypes.c_float, _P],
+}
+
+
+def _entry(name: str):
+    """The C entry `name` of the built library (built on first use)."""
+    from bflc_demo_tpu_torch.ops.build import load
+    fn = getattr(load("flash_attention"), name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(name: str, counter: str, *args) -> None:
+    err = _entry(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    LAUNCHES[counter] += 1
+
+
+def _check_inputs(q, k, v, kv_mask, *more) -> None:
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
+            or q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
+        raise ValueError(f"q/k/v must be (B, S, H, D) with matching B, H, "
+                         f"D: {tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    if tuple(kv_mask.shape) != (k.shape[0], k.shape[1]) \
+            or kv_mask.dtype != torch.bool:
+        raise ValueError(f"kv_mask must be bool (B, S_kv), got "
+                         f"{kv_mask.dtype} {tuple(kv_mask.shape)}")
+    tensors = (q, k, v, kv_mask) + more
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("flash attention inputs lie on different devices")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"q/k/v must share float32 or bfloat16, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.is_cuda:
+        if q.shape[-1] not in HEAD_DIMS:
+            raise ValueError(f"the kernels take head dims {HEAD_DIMS}, got "
+                             f"{q.shape[-1]}")
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError("the kernels read contiguous tensors")
+
+
+def _check_bwd(q, do, lse, delta) -> None:
+    b, sq, h, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"dO must match q: {do.dtype} {tuple(do.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (b * h, 1, sq) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 (B*H, 1, S_q), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
+def _check_blocks(s_q: int, s_kv: int, block_q: int, block_k: int) -> None:
+    if s_q % block_q or s_kv % block_k:
+        raise ValueError(f"seq lens ({s_q}, {s_kv}) must divide blocks "
+                         f"({block_q}, {block_k})")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_fwd(q, k, v, kv_mask) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward: (out (B, S_q, H, D), lse (B*H, 1, S_q) f32)."""
+    _check_inputs(q, k, v, kv_mask)
+    if not q.is_cuda:
+        return flash_fwd_plain(q, k, v, kv_mask)
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, 1, sq), dtype=torch.float32, device=q.device)
+    _launch("bflc_flash_fwd", "flash_fwd", _DTYPE_CODE[q.dtype], d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, sq, k.shape[1], h,
+            _scale(d), _stream(q))
+    return out, lse
+
+
+def flash_dkdv(q, k, v, kv_mask, do, lse, delta):
+    """dK/dV: (dK, dV), each (B, S_kv, H, D)."""
+    _check_inputs(q, k, v, kv_mask, do, lse, delta)
+    _check_bwd(q, do, lse, delta)
+    if not q.is_cuda:
+        return flash_dkdv_plain(q, k, v, kv_mask, do, lse, delta)
+    b, sq, h, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("bflc_flash_dkdv", "flash_dkdv", _DTYPE_CODE[q.dtype], d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, sq, k.shape[1], h, _scale(d), _stream(q))
+    return dk, dv
+
+
+def flash_dq(q, k, v, kv_mask, do, lse, delta):
+    """dQ: (B, S_q, H, D)."""
+    _check_inputs(q, k, v, kv_mask, do, lse, delta)
+    _check_bwd(q, do, lse, delta)
+    if not q.is_cuda:
+        return flash_dq_plain(q, k, v, kv_mask, do, lse, delta)
+    b, sq, h, d = q.shape
+    dq = torch.empty_like(q)
+    _launch("bflc_flash_dq", "flash_dq", _DTYPE_CODE[q.dtype], d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, sq, k.shape[1], h, _scale(d), _stream(q))
+    return dq
+
+
+def attention_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, laid out (B*H, 1, S_q) like lse."""
+    b, sq, h, _ = do.shape
+    rows = (do.float() * out.float()).sum(-1)             # (B, S_q, H)
+    return rows.permute(0, 2, 1).reshape(b * h, 1, sq).contiguous()
+
+
+class FlashAttention(torch.autograd.Function):
+    """The reference's `custom_vjp`: the forward keeps (q, k, v, mask,
+    out, lse); the backward recomputes probabilities from lse tile by
+    tile in the dK/dV and dQ kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, block_q: int, block_k: int):
+        _check_blocks(q.shape[1], k.shape[1], block_q, block_k)
+        out, lse = flash_fwd(q, k, v, kv_mask)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        do = g.contiguous()
+        delta = attention_delta(do, out)
+        dk, dv = flash_dkdv(q, k, v, kv_mask, do, lse, delta)
+        dq = flash_dq(q, k, v, kv_mask, do, lse, delta)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, kv_mask, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """Masked flash attention.  q/k/v: (B, S, H, D); kv_mask: (B, S_kv)
+    bool (False = PAD).  Returns (B, S_q, H, D).  The blocks must divide
+    the sequence lengths (ValueError otherwise), as in the reference; the
+    CUDA kernels tile at 64 x 64 whatever they are, since the blocks do
+    not change the function."""
+    return FlashAttention.apply(q, k, v, kv_mask, block_q, block_k)

@@ -1,0 +1,88 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Imports no JAX, so it runs where only PyTorch with CUDA is installed:
+`python -m pytest tests/test_torch_kernels_cuda.py` on a machine with an
+NVIDIA H100 (the kernels build for sm_90a at first use).  Without a card
+every test skips: a CUDA kernel has no CPU mode.
+
+Shapes: the config-5 transformer's (B=16, S=64, H=4, D=32), a
+multi-tile one (S=256) with ragged padding and one fully masked 64-key
+tile, a sequence shorter than one 64-row tile, and more keys than
+queries.  Tolerances: float32 differs only in summation order (1e-4);
+bfloat16 rounds p, dS and outputs at the same places in both versions,
+so they agree to a couple of bf16 ulps (2e-2).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bflc_demo_tpu_torch.ops import flash_attention as fa
+
+TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+       torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(shape, dtype, device, s_kv=None, seed=11):
+    """q/dO of `shape` (B, S_q, H, D); k/v with S_kv keys (default S_q)."""
+    b, s, h, d = shape
+    s_kv = s_kv or s
+    rng = np.random.default_rng(seed)
+
+    def rand(rows):
+        return torch.as_tensor(rng.standard_normal((b, rows, h, d)),
+                               device=device).to(dtype)
+    q, g, k, v = rand(s), rand(s), rand(s_kv), rand(s_kv)
+    mask = torch.ones((b, s_kv), dtype=torch.bool)
+    if s_kv > 128:
+        mask[0, 64:128] = False          # one fully masked 64-key tile
+        mask[-1, 150:] = False           # ragged tail
+    else:
+        mask[0, s_kv // 2:] = False
+    return q, k, v, g, mask.to(device)
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,s_kv", [
+    ((16, 64, 4, 32), None),             # the config-5 training batch
+    ((2, 256, 2, 64), None),             # several tiles each way
+    ((3, 40, 2, 16), None),              # a sequence shorter than a tile
+    ((2, 64, 2, 128), 192),              # more keys than queries
+])
+def test_kernels_match_plain(cuda_device, dtype, shape, s_kv):
+    q, k, v, g, mask = _inputs(shape, dtype, cuda_device, s_kv)
+    out, lse = fa.flash_fwd(q, k, v, mask)
+    want_out, want_lse = fa.flash_fwd_plain(q, k, v, mask)
+    delta = fa.attention_delta(g, out)
+    dk, dv = fa.flash_dkdv(q, k, v, mask, g, lse, delta)
+    dq = fa.flash_dq(q, k, v, mask, g, lse, delta)
+    want_dk, want_dv = fa.flash_dkdv_plain(q, k, v, mask, g, lse, delta)
+    want_dq = fa.flash_dq_plain(q, k, v, mask, g, lse, delta)
+    torch.cuda.synchronize()
+    for got, want in ((out, want_out), (lse, want_lse), (dq, want_dq),
+                      (dk, want_dk), (dv, want_dv)):
+        _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_launches_counted_and_bad_head_dim_raises(cuda_device):
+    q, k, v, _, mask = _inputs((2, 64, 2, 16), torch.float32, cuda_device)
+    fa.reset_launches()
+    fa.flash_fwd(q, k, v, mask)
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_dkdv": 0, "flash_dq": 0}
+    q24 = torch.zeros((2, 64, 2, 24), device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_fwd(q24, q24, q24, mask)
