@@ -7,8 +7,10 @@ never `jax`, and nothing of `bflc_demo_tpu`: what it needs of the
 reference's jax-free modules (ledger, protocol constants, data) it keeps
 as its own copies, each naming the file it copies.
 
-This slice ports the in-process committee round (`--runtime host`) of the
-config-5 transformer preset, with hand-written CUDA flash-attention
-kernels (`ops/csrc/flash_attention.cu`).  Entry points run on `cuda`
-unless the caller asks for the CPU (`device="cpu"`).
+Ported so far: the in-process committee round (`--runtime host`) of the
+config-5 transformer preset, and the sequence-parallel long-context
+transformer with ring attention (`parallel/`, `eval/long_context.py`),
+with hand-written CUDA flash-attention kernels for both
+(`ops/csrc/flash_attention.cu`).  Entry points run on `cuda` unless the
+caller asks for the CPU (`device="cpu"`).
 """

@@ -57,11 +57,13 @@ class Model(nn.Module):
         """Fresh parameter values drawn from `torch.Generator(seed)`."""
         raise NotImplementedError
 
-    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        """Logits of the model with parameter values `params` on `x`."""
+    def apply(self, params: Params, x: torch.Tensor,
+              **kwargs) -> torch.Tensor:
+        """Logits of the model with parameter values `params` on `x`;
+        `kwargs` go to `forward`."""
         names = {keystr(n): n for n, _ in self.named_parameters()}
         return torch.func.functional_call(
-            self, {names[k]: v for k, v in params.items()}, (x,),
+            self, {names[k]: v for k, v in params.items()}, (x,), kwargs,
             strict=True)
 
     def params_from_jax(self, tree: Any,

@@ -17,19 +17,27 @@ Matched numerics, each a place a straight transcription goes wrong:
 - pooling sums over PAD != 0 positions and divides by the count clamped
   to at least 1; the head starts at zero.
 
+The reference's three sequence-parallel hooks of `transformer_forward`
+(:171-202) and `block_forward` (:137-150) are `forward_hooked`'s
+arguments: `attn_fn(q, k, v, kv_mask)` replaces the attention core,
+`pos_offset` gives each row its offset into `pos`, and `pool(num, den)`
+replaces the mean pool's division (the sp path sums both over the
+sequence shards first, the reference's `pool_psum_axis`).  Without hooks
+the forward is the dense path above.
+
 Documented divergences: the initial values come from `torch.Generator`
 with the reference's distributions (normal * 0.02 for embeddings and
 projections, ones/zeros for norms, zeros for biases and the head), which
 cannot reproduce `jax.random` seed for seed — `params_from_jax` loads the
 reference's values where a run must match it.  Not ported: the `dtype`
-knob (the port computes in float32, as config 5 does), the mixture-of-
-experts MLP, and the sequence-parallel hooks (`attn_fn`, `pos_offset`,
-`pool_psum_axis`).
+knob (the port computes in float32, as config 5 does) and the mixture-of-
+experts MLP.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +45,10 @@ from torch import nn
 
 from bflc_demo_tpu_torch.models.base import Model, Params, keystr
 from bflc_demo_tpu_torch.ops.flash_attention import flash_attention
+
+AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
+                  torch.Tensor]
+PoolFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,15 +105,19 @@ class Block(nn.Module):
         self.w2 = nn.Parameter(torch.empty(hid, d))
         self.b2 = nn.Parameter(torch.zeros(d))
 
-    def forward(self, x: torch.Tensor, pad: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad: torch.Tensor,
+                attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
         b, s, d = x.shape
         shape = (b, s, self.heads, d // self.heads)
         y = self.ln1(x)
         q = (y @ self.wq).reshape(shape)
         k = (y @ self.wk).reshape(shape)
         v = (y @ self.wv).reshape(shape)
-        blk = attention_block(s)
-        o = flash_attention(q, k, v, pad, blk, blk)
+        if attn_fn is None:
+            blk = attention_block(s)
+            o = flash_attention(q, k, v, pad, blk, blk)
+        else:
+            o = attn_fn(q, k, v, pad)
         x = x + o.reshape(b, s, d) @ self.wo
         y = self.ln2(x)
         y = F.gelu(y @ self.w1 + self.b1, approximate="tanh")
@@ -121,16 +137,42 @@ class TransformerClassifier(Model):
         self.head_w = nn.Parameter(torch.zeros(d, cfg.num_classes))
         self.head_b = nn.Parameter(torch.zeros(cfg.num_classes))
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: (B, S) integer, 0 = PAD.  Returns (B, classes) f32."""
+    def forward(self, tokens: torch.Tensor, attn_fn: Optional[AttnFn] = None,
+                pos_offset: Optional[torch.Tensor] = None,
+                pool: Optional[PoolFn] = None) -> torch.Tensor:
+        """tokens: (B, S) integer, 0 = PAD.  Returns (B, classes) f32.
+        The hooks are `forward_hooked`'s."""
         pad = tokens != 0
-        x = self.embed[tokens] + self.pos[: tokens.shape[1]][None]
+        s = tokens.shape[1]
+        if pos_offset is None:
+            pos = self.pos[:s][None]
+        else:
+            pos = self.pos[pos_offset[:, None]
+                           + torch.arange(s, device=tokens.device)]
+        x = self.embed[tokens] + pos
         for blk in self.blocks:
-            x = blk(x, pad)
+            x = blk(x, pad, attn_fn)
         x = self.ln_f(x)
         num = (x * pad[..., None]).sum(1)
-        den = pad.sum(-1, keepdim=True).clamp_min(1).to(torch.float32)
-        return (num / den) @ self.head_w + self.head_b
+        den = pad.sum(-1, keepdim=True)
+        if pool is None:
+            pooled = num / den.clamp_min(1).to(torch.float32)
+        else:
+            pooled = pool(num, den)
+        return pooled @ self.head_w + self.head_b
+
+    def forward_hooked(self, params: Params, tokens: torch.Tensor,
+                       attn_fn: Optional[AttnFn] = None,
+                       pos_offset: Optional[torch.Tensor] = None,
+                       pool: Optional[PoolFn] = None) -> torch.Tensor:
+        """Logits of `params` on `tokens`, with the reference's
+        sequence-parallel hooks: `attn_fn(q, k, v, kv_mask)` in every block
+        in place of flash attention; `pos_offset` (B,) integer, each row's
+        first position in `pos`; `pool(num (B, d), den (B, 1) integer
+        count of non-PAD tokens)` returning the pooled (B', d) — the
+        head then runs on B' rows.  With no hooks this is `apply`."""
+        return self.apply(params, tokens, attn_fn=attn_fn,
+                          pos_offset=pos_offset, pool=pool)
 
     def init_params(self, seed: int = 0,
                     device: torch.device | str = "cpu") -> Params:

@@ -1,10 +1,13 @@
-// Masked flash attention for Hopper (sm_90a): forward, dK/dV and dQ.
+// Masked flash attention for Hopper (sm_90a): forward, dK/dV, dQ and the
+// ring-attention carry step.
 //
-// Replaces the three Pallas TPU kernels behind
-// bflc_demo_tpu/ops/pallas_attention.py:flash_attention —
-//   flash_fwd_kernel  <- _flash_kernel (:42-102), launched at :124
-//   flash_dkdv_kernel <- _dkdv_kernel  (:153-193), launched at :257
-//   flash_dq_kernel   <- _dq_kernel    (:196-224), launched at :286
+// Replaces the four Pallas TPU kernels of
+// bflc_demo_tpu/ops/pallas_attention.py —
+//   flash_fwd_kernel<.., false> <- _flash_kernel (:42-102), launched at :124
+//   flash_dkdv_kernel           <- _dkdv_kernel  (:153-193), launched at :257
+//   flash_dq_kernel             <- _dq_kernel    (:196-224), launched at :286
+//   flash_fwd_kernel<.., true>  <- _flash_carry_kernel (:300-340), launched
+//                                  by flash_attention_carry at :369
 // and computes what they compute (see the plain PyTorch versions in
 // ../flash_attention.py), not their block-by-block schedule: a Pallas grid
 // carries scratch state across its sequential innermost axis, CUDA blocks
@@ -16,8 +19,21 @@
 //
 // What bounds them on the card: at the transformer's shapes (S = 64,
 // head dim 32) one training forward moves ~2 MB of q/k/v/out in f32 for
-// ~34 MFLOP, so launch latency and bytes bound the work, not FLOPs.  The
-// design therefore stays simple: q/k/v/dO are read once from their
+// ~34 MFLOP, so launch latency and bytes bound the work, not FLOPs.
+//
+// The carry step (one ring hop of sequence-parallel attention) is K1 with
+// its init and finish replaced by a load and a store of the f32 streaming
+// state (acc (B*H, S_q, D), m and l (B*H, 1, S_q)), stored unnormalised;
+// the caller divides acc by max(l, 1e-30) after the last hop.  At the
+// ring's training shape (folded batch 32, S_q = S_kv = 1024, 4 heads, head
+// dim 32) one hop reads q/k/v (3 x 16.8 MB) and the carry and writes the
+// carry (2 x 16.8 MB), ~84 MB or ~25 us at 3.35 TB/s, for two products of
+// 2*1024*1024*32 flops per (batch, head) row, ~17 GFLOP or ~0.26 ms at
+// 67 TFLOP/s in f32: the port's first kernel bound by operations, not
+// bytes.  It stays on the CUDA cores in f32 all the same (tensor cores are
+// later work), so its time is the products' time.
+//
+// The design therefore stays simple: q/k/v/dO are read once from their
 // (B, S, H, D) layout through strides (no transposed copies), staged as
 // f32 tiles in shared memory (rows padded by one word, so the row-strided
 // reads below are free of bank conflicts), and every product accumulates
@@ -134,12 +150,26 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // ---------------------------------------------------------------- forward
-template <typename T, int D>
+// The ring-attention carry, (acc, m, l) per (b*h, q row), in and out; the
+// plain forward leaves it null.
+struct Carry {
+  const float* acc_in;
+  const float* m_in;
+  const float* l_in;
+  float* acc_out;
+  float* m_out;
+  float* l_out;
+};
+
+// kCarry = false: the forward, from m = -1e30, l = 0, acc = 0 to
+// out = acc / max(l, 1e-30) and lse.  kCarry = true: the carry step, from
+// the carry in to the carry out, unnormalised; out and lse are unused.
+template <typename T, int D, bool kCarry>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const bool* __restrict__ mask,
-                 T* __restrict__ out, float* __restrict__ lse, int Sq,
-                 int Skv, int H, float scale) {
+                 T* __restrict__ out, float* __restrict__ lse, Carry carry,
+                 int Sq, int Skv, int H, float scale) {
   constexpr int P = D + 1;
   constexpr int kCols = D / kLanes;        // output columns per thread
   extern __shared__ float smem[];
@@ -153,11 +183,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.y * kTile;
   const int r = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
 
+  const int sq = q0 + r;
+  const size_t row = static_cast<size_t>(bh) * Sq + sq;   // carry/lse row
+
   load_tile<T, D>(qs, q, b, h, q0, Sq, H);
   float m = kNegInf, l = 0.f;
   float acc[kCols];
 #pragma unroll
   for (int j = 0; j < kCols; ++j) acc[j] = 0.f;
+  if constexpr (kCarry) {
+    if (sq < Sq) {
+      m = carry.m_in[row];
+      l = carry.l_in[row];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        acc[j] = carry.acc_in[row * D + lane + kLanes * j];
+    }
+  }
 
   for (int k0 = 0; k0 < Skv; k0 += kTile) {
     __syncthreads();                       // previous tile consumed
@@ -198,14 +240,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  const int sq = q0 + r;
-  if (sq < Sq) {
+  if (sq >= Sq) return;
+  if constexpr (kCarry) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      carry.acc_out[row * D + lane + kLanes * j] = acc[j];
+    if (lane == 0) {
+      carry.m_out[row] = m;
+      carry.l_out[row] = l;
+    }
+  } else {
     const float denom = fmaxf(l, kTiny);
     const size_t base = at<D>(b, sq, h, Sq, H);
 #pragma unroll
     for (int j = 0; j < kCols; ++j)
       out[base + lane + kLanes * j] = from_f32<T>(acc[j] / denom);
-    if (lane == 0) lse[static_cast<size_t>(bh) * Sq + sq] = m + logf(denom);
+    if (lane == 0) lse[row] = m + logf(denom);
   }
 }
 
@@ -393,11 +443,29 @@ int run_fwd(const void* q, const void* k, const void* v, const void* mask,
             void* out, void* lse, int B, int Sq, int Skv, int H, float scale,
             cudaStream_t stream) {
   static bool configured = false;
-  return launch(flash_fwd_kernel<T, D>, &configured, fwd_smem(D),
+  return launch(flash_fwd_kernel<T, D, false>, &configured, fwd_smem(D),
                 dim3(B * H, tiles(Sq)), stream, static_cast<const T*>(q),
                 static_cast<const T*>(k), static_cast<const T*>(v),
                 static_cast<const bool*>(mask), static_cast<T*>(out),
-                static_cast<float*>(lse), Sq, Skv, H, scale);
+                static_cast<float*>(lse), Carry{}, Sq, Skv, H, scale);
+}
+
+template <typename T, int D>
+int run_carry(const void* q, const void* k, const void* v, const void* mask,
+              const void* acc_in, const void* m_in, const void* l_in,
+              void* acc_out, void* m_out, void* l_out, int B, int Sq,
+              int Skv, int H, float scale, cudaStream_t stream) {
+  static bool configured = false;
+  const Carry carry{static_cast<const float*>(acc_in),
+                    static_cast<const float*>(m_in),
+                    static_cast<const float*>(l_in),
+                    static_cast<float*>(acc_out), static_cast<float*>(m_out),
+                    static_cast<float*>(l_out)};
+  return launch(flash_fwd_kernel<T, D, true>, &configured, fwd_smem(D),
+                dim3(B * H, tiles(Sq)), stream, static_cast<const T*>(q),
+                static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<const bool*>(mask), static_cast<T*>(nullptr),
+                static_cast<float*>(nullptr), carry, Sq, Skv, H, scale);
 }
 
 template <typename T, int D>
@@ -470,6 +538,15 @@ int bflc_flash_dq(int dtype, int head_dim, const void* q, const void* k,
                   int Sq, int Skv, int H, float scale, void* stream) {
   BFLC_DISPATCH(run_dq, q, k, v, mask, dout, lse, delta, dq, B, Sq, Skv, H,
                 scale, static_cast<cudaStream_t>(stream))
+}
+
+int bflc_flash_carry(int dtype, int head_dim, const void* q, const void* k,
+                     const void* v, const void* mask, const void* acc_in,
+                     const void* m_in, const void* l_in, void* acc_out,
+                     void* m_out, void* l_out, int B, int Sq, int Skv, int H,
+                     float scale, void* stream) {
+  BFLC_DISPATCH(run_carry, q, k, v, mask, acc_in, m_in, l_in, acc_out, m_out,
+                l_out, B, Sq, Skv, H, scale, static_cast<cudaStream_t>(stream))
 }
 
 }  // extern "C"

@@ -1,12 +1,17 @@
 """Masked flash attention: CUDA kernels, their plain versions, autograd.
 
 Port of `bflc_demo_tpu/ops/pallas_attention.py:flash_attention` (:409-430)
-and the three Pallas kernels behind it:
+and the four Pallas kernels of that file:
 
 - `flash_fwd`  <- `_flash_kernel` via `_flash_fwd_impl` (:42-150):
   (out, lse) with an online softmax over k-tiles;
 - `flash_dkdv` <- `_dkdv_kernel` via `_flash_bwd_impl` (:153-193, :257);
-- `flash_dq`   <- `_dq_kernel` via `_flash_bwd_impl` (:196-224, :286).
+- `flash_dq`   <- `_dq_kernel` via `_flash_bwd_impl` (:196-224, :286);
+- `flash_carry` <- `_flash_carry_kernel` via `flash_attention_carry`
+  (:300-399): one ring-attention hop, the online softmax resumed from an
+  (acc, m, l) carry and returned unnormalised.  The reference has no
+  backward kernel for it (ring attention's backward recomputes with the
+  einsum ring), so neither has the port.
 
 Each wrapper runs its hand-written CUDA kernel (`csrc/flash_attention.cu`)
 on a CUDA tensor and its plain PyTorch version on a CPU tensor — the
@@ -18,7 +23,8 @@ its main path went through the kernels.
 Layouts follow the reference: q/k/v/out and their gradients are
 (B, S, H, D); `kv_mask` is (B, S_kv) bool (False = PAD); lse and delta
 are (B*H, 1, S_q) float32.  `delta = rowsum(dO * O)` stays plain torch,
-as the reference computes it outside its kernels (:244-245).
+as the reference computes it outside its kernels (:244-245).  The carry
+is acc (B*H, S_q, D) and m, l (B*H, 1, S_q), all float32.
 """
 
 from __future__ import annotations
@@ -32,10 +38,12 @@ import torch
 NEG_INF = -1e30
 TINY = 1e-30
 HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_TILE = 64        # q and k rows per tile of every kernel
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches per wrapper since the last reset (plain runs excluded)
-LAUNCHES = {"flash_fwd": 0, "flash_dkdv": 0, "flash_dq": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_dkdv": 0, "flash_dq": 0,
+            "flash_carry": 0}
 
 
 def reset_launches() -> None:
@@ -97,6 +105,25 @@ def flash_dq_plain(q, k, v, kv_mask, do, lse, delta):
     return dq.to(q.dtype)
 
 
+def flash_carry_plain(q, k, v, kv_mask, acc, m, l):
+    """One hop resumed from the carry: the updated (acc, m, l), f32 and
+    unnormalised.  Masked probabilities are selected to 0 (a fully masked
+    hop leaves m at NEG_INF, where exp(s - m) would be 1), and p is
+    rounded to v's dtype before the PV product, as the kernel does."""
+    b, sq, h, d = q.shape
+    s, valid = _logits(q, k, kv_mask, _scale(d))
+    s = torch.where(valid, s, NEG_INF)
+    m = m.reshape(b, h, sq)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+    corr = torch.exp(m - m_new)
+    l_new = l.reshape(b, h, sq) * corr + p.sum(-1)
+    acc_new = acc.reshape(b, h, sq, d) * corr[..., None] + torch.einsum(
+        "bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
+    return (acc_new.reshape(b * h, sq, d), m_new.reshape(b * h, 1, sq),
+            l_new.reshape(b * h, 1, sq))
+
+
 # ------------------------------------------------------------------ kernels
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -107,6 +134,8 @@ _ARGTYPES = {
                         _I, _I, _I, _I, ctypes.c_float, _P],
     "bflc_flash_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, ctypes.c_float, _P],
+    "bflc_flash_carry": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, ctypes.c_float, _P],
 }
 
 
@@ -164,6 +193,15 @@ def _check_bwd(q, do, lse, delta) -> None:
                              f"{t.dtype} {tuple(t.shape)}")
 
 
+def _check_carry(q, acc, m, l) -> None:
+    b, sq, h, d = q.shape
+    want = {"acc": (b * h, sq, d), "m": (b * h, 1, sq), "l": (b * h, 1, sq)}
+    for name, t in (("acc", acc), ("m", m), ("l", l)):
+        if tuple(t.shape) != want[name] or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {want[name]}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+
+
 def _check_blocks(s_q: int, s_kv: int, block_q: int, block_k: int) -> None:
     if s_q % block_q or s_kv % block_k:
         raise ValueError(f"seq lens ({s_q}, {s_kv}) must divide blocks "
@@ -217,6 +255,28 @@ def flash_dq(q, k, v, kv_mask, do, lse, delta):
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, sq, k.shape[1], h, _scale(d), _stream(q))
     return dq
+
+
+def flash_carry(q, k, v, kv_mask, acc, m, l):
+    """One ring hop: the carry (acc, m, l) updated over this KV block,
+    unnormalised, in new tensors.  On a CUDA tensor both sequence lengths
+    must be multiples of the kernel's 64-row tile."""
+    _check_inputs(q, k, v, kv_mask, acc, m, l)
+    _check_carry(q, acc, m, l)
+    if not q.is_cuda:
+        return flash_carry_plain(q, k, v, kv_mask, acc, m, l)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if sq % KERNEL_TILE or skv % KERNEL_TILE:
+        raise ValueError(f"the carry kernel takes sequence lengths that are "
+                         f"multiples of {KERNEL_TILE}, got ({sq}, {skv})")
+    acc_out, m_out, l_out = (torch.empty_like(t) for t in (acc, m, l))
+    _launch("bflc_flash_carry", "flash_carry", _DTYPE_CODE[q.dtype], d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), acc_out.data_ptr(),
+            m_out.data_ptr(), l_out.data_ptr(), b, sq, skv, h, _scale(d),
+            _stream(q))
+    return acc_out, m_out, l_out
 
 
 def attention_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:

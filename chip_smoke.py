@@ -22,7 +22,21 @@ each; any failure raises and exits non-zero:
 5. slice   — the config-5 federated round on the host runtime, full width,
              4 rounds on `cuda`, with the launch counts reset just before
              and read just after; then the final model's logits on the
-             card against the CPU path on a small input.
+             card against the CPU path on a small input;
+6. compare — the ring's carry kernel (`flash_carry`) against its plain
+             version over two chained hops, float32 and bfloat16, at
+             S = 256 (ragged keys, one fully masked 64-key tile) and at
+             the sp training shard (folded batch 32, S = 1024);
+7. timing  — `flash_carry` and its plain version at that shard; beside
+             it, on the same (4, 8192, 4, 32) sequence, the 8-hop ring
+             forward, the flash forward unsharded and PyTorch's SDPA;
+8. sp      — the sequence-parallel transformer at config 5's width on
+             the folded axis (8 shards), launch counts reset just before
+             and read just after: 3 SGD steps at seq 8192 (batch 4) and a
+             forward at seq 32768 (batch 2); then the 32k logits against
+             the dense forward (flash forward kernel) and the first 8k
+             step against one dense SGD step (flash kernels forward and
+             backward).
 
 Then the `kernels` line and, last, {"ok": true, "device": {...}}.
 Without a card, or without the package beside it, it exits non-zero and
@@ -46,15 +60,34 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 
 TRAIN_SHAPE = (16, 64, 4, 32)        # config-5 trainer batch: B, S, H, D
 MULTI_SHAPE = (4, 256, 4, 32)        # several 64-tiles each way
+SHARD_SHAPE = (32, 1024, 4, 32)      # sp training shard: 8 shards x B 4
+RING_SHAPE = (4, 8192, 4, 32)        # the same sequence, unsharded
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # x max(1, max|plain|)
 ROUNDS = 4
 MIN_BEST_ACC = 0.9
+SP_RUNS = {"train": dict(seq_len=8192, n_sp=8, batch=4, steps=3, lr=0.05),
+           "forward": dict(seq_len=32768, n_sp=8, batch=2, steps=0)}
+# the sp logits vs the dense forward: the reference's own 8k oracle bound
+# moved onto the card (tests/test_long_context.py:90-101), loosened for
+# the card's summation orders
+SP_LOGITS_TOL = dict(rtol=1e-4, atol=1e-5)
+# one sp step vs one dense step: new params within the reference's own
+# 4k-step bound (tests/test_long_context.py:186-187); the gradients they
+# imply, (old - new) / lr, within 1e-3 of each leaf's largest dense
+# gradient — both sides are float32 and differ only in summation order
+# (ring hops vs flash tiles, 8192-long reductions; 3.5e-5 measured on an
+# H100), while a wrong assembly (a gradient missing a shard, or n_sp
+# times too large) is off by O(1)
+SP_STEP_TOL = dict(rtol=5e-4, atol=5e-5)
+SP_GRAD_TOL = 1e-3
 
 KERNELS = {
     "flash_fwd": "bflc_demo_tpu/ops/pallas_attention.py:42",
     "flash_dkdv": "bflc_demo_tpu/ops/pallas_attention.py:153",
     "flash_dq": "bflc_demo_tpu/ops/pallas_attention.py:196",
+    "flash_carry": "bflc_demo_tpu/ops/pallas_attention.py:300",
 }
+DENSE_KERNELS = ("flash_fwd", "flash_dkdv", "flash_dq")
 SOURCE = "bflc_demo_tpu_torch/ops/csrc/flash_attention.cu"
 
 
@@ -107,7 +140,7 @@ def compare_phase(torch, fa, device) -> dict:
                     "flash_dq": (fa.flash_dq_plain(q, k, v, mask, g, lse,
                                                    delta),)}
             torch.cuda.synchronize()
-            for name in KERNELS:
+            for name in DENSE_KERNELS:
                 err = scale = 0.0
                 for a, b in zip(got[name], want[name]):
                     a, b = a.float(), b.float()
@@ -125,6 +158,62 @@ def compare_phase(torch, fa, device) -> dict:
                 if dtype_name == "float32" and shape == TRAIN_SHAPE:
                     train_err[name] = err
     return train_err
+
+
+def carry_err(torch, got, want) -> tuple:
+    """(max abs err, scale) over acc, m and l.  m is NEG_INF (-1e30)
+    exactly where no key was valid yet, in both versions alike, so those
+    entries are left out of the scale (they would make it 1e30)."""
+    err = scale = 0.0
+    for a, b in zip(got, want):
+        if not torch.isfinite(a).all():
+            raise RuntimeError("flash_carry: non-finite output")
+        err = max(err, float((a - b).abs().max()))
+        scale = max(scale, float(b[b > -1e29].abs().max()))
+    return err, scale
+
+
+def zero_carry(torch, fa, shape, device) -> tuple:
+    """The ring's initial (acc, m, l) for q of `shape` (B, S, H, D)."""
+    b, s, h, d = shape
+    return (torch.zeros((b * h, s, d), device=device),
+            torch.full((b * h, 1, s), fa.NEG_INF, device=device),
+            torch.zeros((b * h, 1, s), device=device))
+
+
+def carry_compare_phase(torch, fa, device) -> float:
+    """flash_carry vs flash_carry_plain over two chained hops: hop 2
+    resumes from the kernel's hop-1 carry on both sides, and its keys are
+    all PAD for the last batch row.  Returns the largest float32 error at
+    the sp training shard."""
+    shard_err = 0.0
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for shape in (MULTI_SHAPE, SHARD_SHAPE):
+            q, k1, v1, _, m1 = attention_inputs(torch, shape, dtype, device,
+                                                seed=3)
+            _, k2, v2, _, m2 = attention_inputs(torch, shape, dtype, device,
+                                                seed=4)
+            m2[-1] = False
+            carry = zero_carry(torch, fa, shape, device)
+            for hop, (kb, vb, mb) in enumerate(((k1, v1, m1), (k2, v2, m2))):
+                got = fa.flash_carry(q, kb, vb, mb, *carry)
+                want = fa.flash_carry_plain(q, kb, vb, mb, *carry)
+                torch.cuda.synchronize()
+                err, scale = carry_err(torch, got, want)
+                tol = TOL[dtype_name] * max(1.0, scale)
+                emit("compare", kernel="flash_carry", dtype=dtype_name,
+                     shape=list(shape), hop=hop + 1, max_abs_err=err,
+                     tol=tol, ok=err <= tol)
+                if err > tol:
+                    raise RuntimeError(f"flash_carry {dtype_name} {shape} "
+                                       f"hop {hop + 1}: max abs err {err} "
+                                       f"> {tol}")
+                if dtype_name == "float32" and shape == SHARD_SHAPE:
+                    shard_err = max(shard_err, err)
+                carry = got
+            del q, k1, v1, k2, v2, got, want, carry
+    return shard_err
 
 
 def device_ms(torch, fn, calls: int = 50, replays: int = 5,
@@ -163,10 +252,14 @@ def bound(shape, mask, dtype_name: str, name: str) -> tuple:
     rows = b * h * s * 4                     # one f32 per (b, h, q row)
     valid_keys = int(mask.sum())             # summed over the batch
     pairs = h * s * valid_keys               # (q row, valid key) per head
+    carry = b * h * s * d * 4 + 2 * rows     # acc, m, l
     moved = {"flash_fwd": 4 * tensor + rows + b * s,      # q k v | out lse
              "flash_dkdv": 6 * tensor + 2 * rows + b * s,  # q k v dO | dk dv
-             "flash_dq": 5 * tensor + 2 * rows + b * s}[name]
-    ops = {"flash_fwd": 4, "flash_dkdv": 8, "flash_dq": 6}[name] * pairs * d
+             "flash_dq": 5 * tensor + 2 * rows + b * s,
+             "flash_carry": 3 * tensor + 2 * carry + b * s,  # q k v c | c
+             }[name]
+    ops = {"flash_fwd": 4, "flash_dkdv": 8, "flash_dq": 6,
+           "flash_carry": 4}[name] * pairs * d
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype_name] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -208,6 +301,137 @@ def timing_phase(torch, fa, device) -> dict:
     return result
 
 
+def carry_timing_phase(torch, fa, device) -> dict:
+    """flash_carry at the sp training shard; then the ring as a whole
+    beside the unsharded flash forward and SDPA on the same sequence."""
+    import torch.nn.functional as F
+    from bflc_demo_tpu_torch.parallel import FoldedAxis
+    from bflc_demo_tpu_torch.parallel.ring_attention import ring_attention
+
+    q, k, v, _, mask = attention_inputs(torch, SHARD_SHAPE, torch.float32,
+                                        device, seed=5)
+    carry = zero_carry(torch, fa, SHARD_SHAPE, device)
+    few = dict(calls=5, replays=2, repeats=5)
+    bound_ms, bound_by = bound(SHARD_SHAPE, mask, "float32", "flash_carry")
+    row = {"ms": device_ms(torch, lambda: fa.flash_carry(q, k, v, mask,
+                                                         *carry), **few),
+           "plain_ms": device_ms(torch, lambda: fa.flash_carry_plain(
+               q, k, v, mask, *carry), **few),
+           "library_ms": None,     # no PyTorch call returns the raw carry
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    emit("timing", kernel="flash_carry", shape=list(SHARD_SHAPE),
+         dtype="float32", **row)
+    del q, k, v, mask, carry
+
+    b, s, h, d = RING_SHAPE
+    n = SHARD_SHAPE[0] // b
+    q, k, v, _, mask = attention_inputs(torch, RING_SHAPE, torch.float32,
+                                        device, seed=6)
+
+    def fold(t):
+        return t.reshape(b, n, s // n, *t.shape[2:]).transpose(0, 1) \
+            .reshape(n * b, s // n, *t.shape[2:]).contiguous()
+    fq, fk, fv, fm = (fold(t) for t in (q, k, v, mask))
+    axis = FoldedAxis(n, b, device)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ring = ring_attention(fq, fk, fv, fm, axis, impl="pallas")
+    dense, _ = fa.flash_fwd(q, k, v, mask)
+    err = float((fold(dense) - ring).abs().max())
+    few = dict(calls=2, replays=2, repeats=3)
+    emit("ring_timing", shape=list(RING_SHAPE), n_sp=n, dtype="float32",
+         ring_ms=device_ms(torch, lambda: ring_attention(
+             fq, fk, fv, fm, axis, impl="pallas"), **few),
+         flash_fwd_ms=device_ms(torch, lambda: fa.flash_fwd(q, k, v, mask),
+                                **few),
+         sdpa_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, attn_mask=mask[:, None, None, :]), **few),
+         ring_vs_flash_fwd_max_abs_err=err)
+    if err > TOL["float32"]:
+        raise RuntimeError(f"the ring differs from the flash forward: {err}")
+    return row
+
+
+def sp_slice_phase(torch, fa, device) -> int:
+    """The sp path's runs between a reset and a read of the launch
+    counts; then the card's oracles for them.  Returns flash_carry's
+    launches."""
+    from bflc_demo_tpu_torch.core.losses import softmax_cross_entropy
+    from bflc_demo_tpu_torch.eval.long_context import long_context_sp
+
+    fa.reset_launches()
+    runs = {name: long_context_sp(**kw, device=device)
+            for name, kw in SP_RUNS.items()}
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+
+    for name, res in runs.items():
+        kw = SP_RUNS[name]
+        expected = kw["n_sp"] * res.model.cfg.depth * res.forwards
+        emit("sp_slice", run=name, seq_len=kw["seq_len"], n_sp=kw["n_sp"],
+             batch=kw["batch"], losses=res.losses, step_s=res.step_s,
+             forward_s=res.forward_s, forwards=res.forwards,
+             launches=res.launches, expected_carry_launches=expected,
+             peak_mem_gib=res.peak_mem_bytes / 2**30,
+             logits=res.logits.tolist())
+        if not (np.isfinite(res.losses).all()
+                and torch.isfinite(res.logits).all()):
+            raise RuntimeError(f"sp {name}: non-finite loss or logits")
+        if res.launches["flash_carry"] != expected:
+            raise RuntimeError(f"sp {name}: {res.launches['flash_carry']} "
+                               f"flash_carry launches, expected {expected}")
+        if any(res.launches[k] for k in DENSE_KERNELS):
+            raise RuntimeError(f"sp {name}: dense kernels launched inside "
+                               f"the sp path: {res.launches}")
+    if launches["flash_carry"] != sum(r.launches["flash_carry"]
+                                      for r in runs.values()):
+        raise RuntimeError(f"launch counts disagree: {launches}")
+
+    # 32k: the sp logits vs the dense forward on the unsharded sequence
+    fwd = runs["forward"]
+    with torch.no_grad():
+        dense = fwd.model.apply(fwd.params[-1], fwd.tokens)
+    err = (fwd.logits - dense).abs()
+    limit = SP_LOGITS_TOL["atol"] + SP_LOGITS_TOL["rtol"] * dense.abs()
+    emit("sp_check", run="forward", check="sp logits vs dense forward",
+         max_abs_err=float(err.max()), ok=bool((err <= limit).all()),
+         **SP_LOGITS_TOL)
+    if not (err <= limit).all():
+        raise RuntimeError(f"32k sp logits differ from the dense forward: "
+                           f"{float(err.max())}")
+
+    # 8k: the first sp step vs one dense SGD step from the same params
+    tr = runs["train"]
+    lr = SP_RUNS["train"]["lr"]
+    before, after = tr.params[0], tr.params[1]
+    work = {k: p.clone().requires_grad_(True) for k, p in before.items()}
+    loss = softmax_cross_entropy(tr.model.apply(work, tr.tokens), tr.labels)
+    grads = torch.autograd.grad(loss, list(work.values()))
+    param_err = grad_err = 0.0
+    bad = []
+    for (key, p), g in zip(before.items(), grads):
+        want = p - lr * g
+        diff = (after[key] - want).abs()
+        implied = (p - after[key]) / lr
+        rel = float((implied - g).abs().max()) / max(float(g.abs().max()),
+                                                     1e-12)
+        param_err = max(param_err, float(diff.max()))
+        grad_err = max(grad_err, rel)
+        if (diff > SP_STEP_TOL["atol"] + SP_STEP_TOL["rtol"]
+                * want.abs()).any() or rel > SP_GRAD_TOL:
+            bad.append(key)
+    body_moved = float((after["['blocks'][0]['w1']"]
+                        - before["['blocks'][0]['w1']"]).abs().max())
+    emit("sp_check", run="train", check="sp step vs dense step",
+         dense_loss=float(loss.detach()), sp_loss=tr.losses[0],
+         max_abs_param_err=param_err, max_rel_grad_err=grad_err,
+         body_moved=body_moved, ok=not bad, **SP_STEP_TOL,
+         grad_tol=SP_GRAD_TOL)
+    if bad or body_moved <= 0:
+        raise RuntimeError(f"8k sp step differs from the dense step at "
+                           f"{bad} (body moved {body_moved})")
+    return launches["flash_carry"]
+
+
 def slice_phase(torch, fa, device) -> dict:
     from bflc_demo_tpu_torch.eval.configs import config5_transformer_sst2
     from bflc_demo_tpu_torch.models.transformer import \
@@ -230,7 +454,7 @@ def slice_phase(torch, fa, device) -> dict:
          ledger_verified=res.ledger.verify_log(), launches=launches)
     if res.rounds_completed != ROUNDS or not res.ledger.verify_log():
         raise RuntimeError("the slice did not complete a verified chain")
-    missing = [n for n in KERNELS if launches.get(n, 0) <= 0]
+    missing = [n for n in DENSE_KERNELS if launches.get(n, 0) <= 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: "
                            f"{missing}")
@@ -291,6 +515,9 @@ def main() -> int:
     errors = compare_phase(torch, fa, device)
     timings = timing_phase(torch, fa, device)
     launches = slice_phase(torch, fa, device)
+    errors["flash_carry"] = carry_compare_phase(torch, fa, device)
+    timings["flash_carry"] = carry_timing_phase(torch, fa, device)
+    launches["flash_carry"] = sp_slice_phase(torch, fa, device)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,

@@ -8,9 +8,11 @@ every test skips: a CUDA kernel has no CPU mode.
 Shapes: the config-5 transformer's (B=16, S=64, H=4, D=32), a
 multi-tile one (S=256) with ragged padding and one fully masked 64-key
 tile, a sequence shorter than one 64-row tile, and more keys than
-queries.  Tolerances: float32 differs only in summation order (1e-4);
-bfloat16 rounds p, dS and outputs at the same places in both versions,
-so they agree to a couple of bf16 ulps (2e-2).
+queries.  The carry kernel (one ring hop) runs two hops chained from a
+zero carry, at multiples of its 64-row tile.  Tolerances: float32
+differs only in summation order (1e-4); bfloat16 rounds p, dS and
+outputs at the same places in both versions, so they agree to a couple
+of bf16 ulps (2e-2).
 """
 
 import numpy as np
@@ -82,7 +84,47 @@ def test_launches_counted_and_bad_head_dim_raises(cuda_device):
     q, k, v, _, mask = _inputs((2, 64, 2, 16), torch.float32, cuda_device)
     fa.reset_launches()
     fa.flash_fwd(q, k, v, mask)
-    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_dkdv": 0, "flash_dq": 0}
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_dkdv": 0, "flash_dq": 0,
+                           "flash_carry": 0}
     q24 = torch.zeros((2, 64, 2, 24), device=cuda_device)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_fwd(q24, q24, q24, mask)
+
+
+def _zero_carry(shape, device):
+    b, s, h, d = shape
+    return (torch.zeros((b * h, s, d), device=device),
+            torch.full((b * h, 1, s), fa.NEG_INF, device=device),
+            torch.zeros((b * h, 1, s), device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,s_kv", [
+    ((4, 256, 2, 32), None),             # ragged + a fully masked tile
+    ((2, 64, 2, 128), 192),              # more keys than queries
+    ((2, 128, 2, 16), 64),
+])
+def test_carry_kernel_matches_plain_over_two_hops(cuda_device, dtype, shape,
+                                                  s_kv):
+    q, k, v, _, mask = _inputs(shape, dtype, cuda_device, s_kv)
+    _, k2, v2, _, mask2 = _inputs(shape, dtype, cuda_device, s_kv, seed=12)
+    mask2[-1] = False                    # a hop with no valid key
+    carry = _zero_carry(shape, cuda_device)
+    for kb, vb, mb in ((k, v, mask), (k2, v2, mask2)):
+        got = fa.flash_carry(q, kb, vb, mb, *carry)
+        want = fa.flash_carry_plain(q, kb, vb, mb, *carry)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            scale = max(1.0, float(w[w > fa.NEG_INF / 2].abs().max()))
+            _close(g / scale, w / scale, dtype)
+        carry = got                      # the next hop resumes from it
+
+
+@pytest.mark.cuda
+def test_carry_kernel_rejects_ragged_tiles(cuda_device):
+    q, k, v, _, mask = _inputs((2, 96, 2, 32), torch.float32, cuda_device)
+    fa.reset_launches()
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fa.flash_carry(q, k, v, mask, *_zero_carry(q.shape, cuda_device))
+    assert fa.LAUNCHES["flash_carry"] == 0
