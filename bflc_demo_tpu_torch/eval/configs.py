@@ -41,6 +41,14 @@ def _split(x, y, test_frac=0.2, seed=0):
     return x[n_test:], y[n_test:], x[:n_test], y[:n_test]
 
 
+def config5_data(seed: int = 0, n_data: int = 4000, client_num: int = 20):
+    """Config 5's client shards and the sponsor's test set (x, y)."""
+    x, y = synthetic_text_classification(n_data, seq_len=64, vocab_size=1000,
+                                         num_classes=2, seed=seed)
+    xtr, ytr, xte, yte = _split(x, y)
+    return iid_shards(xtr, ytr, client_num), (xte, yte)
+
+
 def config5_transformer_sst2(rounds: int = 5, seed: int = 0,
                              n_data: int = 4000,
                              cfg: Optional[ProtocolConfig] = None,
@@ -57,10 +65,7 @@ def config5_transformer_sst2(rounds: int = 5, seed: int = 0,
         client_num=20, comm_count=4, aggregate_count=6,
         needed_update_count=10, learning_rate=0.05,
         batch_size=16, local_epochs=1)).validate()
-    x, y = synthetic_text_classification(n_data, seq_len=64, vocab_size=1000,
-                                         num_classes=2, seed=seed)
-    xtr, ytr, xte, yte = _split(x, y)
-    shards = iid_shards(xtr, ytr, cfg.client_num)
+    shards, (xte, yte) = config5_data(seed, n_data, cfg.client_num)
     model = make_transformer_classifier(vocab_size=1000, seq_len=64,
                                         num_classes=2, dim=128, depth=2,
                                         heads=4)

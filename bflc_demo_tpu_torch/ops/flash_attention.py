@@ -18,7 +18,9 @@ on a CUDA tensor and its plain PyTorch version on a CPU tensor — the
 choice follows the tensor's device only, and a CUDA tensor the kernel
 cannot take raises instead of falling back.  `LAUNCHES` counts kernel
 launches per wrapper (plain runs do not count), so a run can show that
-its main path went through the kernels.
+its main path went through the kernels.  The forward and carry kernels
+run their products on the tensor cores (3xTF32 for float32, at float32's
+accuracy); `fwd_warps` picks their block size from the shape.
 
 Layouts follow the reference: q/k/v/out and their gradients are
 (B, S, H, D); `kv_mask` is (B, S_kv) bool (False = PAD); lse and delta
@@ -30,6 +32,7 @@ is acc (B*H, S_q, D) and m, l (B*H, 1, S_q), all float32.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -38,7 +41,8 @@ import torch
 NEG_INF = -1e30
 TINY = 1e-30
 HEAD_DIMS = (16, 32, 64, 128)
-KERNEL_TILE = 64        # q and k rows per tile of every kernel
+KERNEL_TILE = 64        # k rows per tile of every kernel (q rows of K2/K3)
+WARP_ROWS = 16          # q rows per warp of the forward and carry kernels
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches per wrapper since the last reset (plain runs excluded)
@@ -129,13 +133,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "bflc_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, ctypes.c_float, _P],
+                       _I, _I, _I, _I, ctypes.c_float, _I, _P],
     "bflc_flash_dkdv": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, ctypes.c_float, _P],
     "bflc_flash_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, ctypes.c_float, _P],
     "bflc_flash_carry": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, ctypes.c_float, _P],
+                         _I, _I, _I, _I, ctypes.c_float, _I, _P],
 }
 
 
@@ -181,6 +185,9 @@ def _check_inputs(q, k, v, kv_mask, *more) -> None:
                              f"{q.shape[-1]}")
         if not all(t.is_contiguous() for t in tensors):
             raise ValueError("the kernels read contiguous tensors")
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("the kernels copy q/k/v in 16-byte pieces: "
+                             "their storage must start 16-byte aligned")
 
 
 def _check_bwd(q, do, lse, delta) -> None:
@@ -200,6 +207,9 @@ def _check_carry(q, acc, m, l) -> None:
         if tuple(t.shape) != want[name] or t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 {want[name]}, got "
                              f"{t.dtype} {tuple(t.shape)}")
+    if acc.is_cuda and acc.data_ptr() % 8:
+        raise ValueError("the carry kernel reads acc in 8-byte pieces: its "
+                         "storage must start 8-byte aligned")
 
 
 def _check_blocks(s_q: int, s_kv: int, block_q: int, block_k: int) -> None:
@@ -210,6 +220,31 @@ def _check_blocks(s_q: int, s_kv: int, block_q: int, block_k: int) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def fwd_warps(batch_heads: int, s_q: int, sms: int) -> int:
+    """Warps a block (each owning WARP_ROWS query rows) of the forward
+    and carry kernels: the most of 4, 2, 1 whose grid, batch_heads x
+    ceil(s_q / (16 x warps)) blocks, still gives each of the card's `sms`
+    multiprocessors a block; 1 where none does.  More warps share each
+    staged K/V tile; fewer give a small batch more blocks."""
+    for warps in (4, 2):
+        if batch_heads * -(-s_q // (WARP_ROWS * warps)) >= sms:
+            return warps
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _warps(q: torch.Tensor) -> int:
+    b, sq, h, _ = q.shape
+    index = q.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return fwd_warps(b * h, sq, _sm_count(index))
 
 
 def flash_fwd(q, k, v, kv_mask) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -223,7 +258,7 @@ def flash_fwd(q, k, v, kv_mask) -> Tuple[torch.Tensor, torch.Tensor]:
     _launch("bflc_flash_fwd", "flash_fwd", _DTYPE_CODE[q.dtype], d,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b, sq, k.shape[1], h,
-            _scale(d), _stream(q))
+            _scale(d), _warps(q), _stream(q))
     return out, lse
 
 
@@ -260,7 +295,7 @@ def flash_dq(q, k, v, kv_mask, do, lse, delta):
 def flash_carry(q, k, v, kv_mask, acc, m, l):
     """One ring hop: the carry (acc, m, l) updated over this KV block,
     unnormalised, in new tensors.  On a CUDA tensor both sequence lengths
-    must be multiples of the kernel's 64-row tile."""
+    must be multiples of 64 (the kernel's key tile)."""
     _check_inputs(q, k, v, kv_mask, acc, m, l)
     _check_carry(q, acc, m, l)
     if not q.is_cuda:
@@ -275,7 +310,7 @@ def flash_carry(q, k, v, kv_mask, acc, m, l):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
             acc.data_ptr(), m.data_ptr(), l.data_ptr(), acc_out.data_ptr(),
             m_out.data_ptr(), l_out.data_ptr(), b, sq, skv, h, _scale(d),
-            _stream(q))
+            _warps(q), _stream(q))
     return acc_out, m_out, l_out
 
 
@@ -313,6 +348,7 @@ def flash_attention(q, k, v, kv_mask, block_q: int = 128,
     """Masked flash attention.  q/k/v: (B, S, H, D); kv_mask: (B, S_kv)
     bool (False = PAD).  Returns (B, S_q, H, D).  The blocks must divide
     the sequence lengths (ValueError otherwise), as in the reference; the
-    CUDA kernels tile at 64 x 64 whatever they are, since the blocks do
+    CUDA kernels keep their own tiles (64 keys; 16-64 query rows in the
+    forward, 64 in the backward) whatever they are, since the blocks do
     not change the function."""
     return FlashAttention.apply(q, k, v, kv_mask, block_q, block_k)

@@ -94,7 +94,7 @@ def _carry_ring(q, k, v, kv_mask, axis: FoldedAxis) -> torch.Tensor:
     crosses hops outside the kernel, K/V tiles stream inside it."""
     nb, s, h, d = q.shape
     # the reference's kernel block for the shard; the CUDA kernel keeps
-    # its own 64-row tile, so the block only decides what is accepted
+    # its own tiles, so the block only decides what is accepted
     blk = 128
     while s % blk:
         blk //= 2

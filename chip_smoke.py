@@ -13,23 +13,34 @@ each; any failure raises and exits non-zero:
 2. device  — the card's name and power limit, as nvidia-smi reports them;
 3. compare — each kernel against its plain PyTorch version on the same
              card tensors, float32 and bfloat16, at the transformer's
-             shape and at a multi-tile shape (S = 256) with ragged padding
-             and one fully masked 64-key tile;
-4. timing  — each kernel, its plain version and (forward) PyTorch's
-             scaled_dot_product_attention, at the training shape; device
-             time per call from CUDA-graph replays between CUDA events
-             (warmup, then the median of several repeats);
+             training and scoring shapes, at a multi-tile shape (S = 256)
+             with ragged padding and one fully masked 64-key tile, and at
+             a batch of 32 — between them the forward's 1-, 2- and 4-warp
+             blocks;
+4. timing  — each kernel, its plain version and one PyTorch call as the
+             yardstick (the forward: scaled_dot_product_attention; the
+             dK/dV + dQ pair: SDPA's backward, which computes all three),
+             at the training shape, and the forward also at the
+             committee's score shape (B = 160); device time per call from
+             CUDA-graph replays between CUDA events (warmup, then the
+             median of several repeats), beside the bound, its share and
+             TFLOP/s;
 5. slice   — the config-5 federated round on the host runtime, full width,
-             4 rounds on `cuda`, with the launch counts reset just before
-             and read just after; then the final model's logits on the
-             card against the CPU path on a small input;
+             5 rounds (the preset's own count) on `cuda`, with the launch
+             counts reset just before and read just after; then the
+             final model's logits on the card against the CPU path on a
+             small input; and the decisions of the model after round 2
+             (from a second, 2-round run) and of the final one
+             (accuracies of the sponsor's test set and of every client's
+             shard) against the CPU path's on the same params;
 6. compare — the ring's carry kernel (`flash_carry`) against its plain
              version over two chained hops, float32 and bfloat16, at
              S = 256 (ragged keys, one fully masked 64-key tile) and at
              the sp training shard (folded batch 32, S = 1024);
 7. timing  — `flash_carry` and its plain version at that shard; beside
              it, on the same (4, 8192, 4, 32) sequence, the 8-hop ring
-             forward, the flash forward unsharded and PyTorch's SDPA;
+             forward, the flash forward unsharded (a timing row of its
+             own) and PyTorch's SDPA;
 8. sp      — the sequence-parallel transformer at config 5's width on
              the folded axis (8 shards), launch counts reset just before
              and read just after: 3 SGD steps at seq 8192 (batch 4) and a
@@ -54,16 +65,32 @@ import time
 
 import numpy as np
 
-# the card's published peaks (NVIDIA H100 SXM data sheet; dense rates)
+# the card's published peaks (NVIDIA H100 SXM data sheet; dense rates).
+# float32 products at float32's accuracy have two routes: the CUDA cores
+# (67 TFLOP/s) or 3xTF32 on the tensor cores (three TF32 products each,
+# 495 / 3 = 165 TFLOP/s; TF32 alone is not float32-accurate).  The bound
+# names the faster; rows keep the CUDA-core bound beside it.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+F32_CUDA_CORE_OPS = 67e12
+PEAK_OPS = {"float32": max(F32_CUDA_CORE_OPS, 495e12 / 3),
+            "bfloat16": 989e12}
 
 TRAIN_SHAPE = (16, 64, 4, 32)        # config-5 trainer batch: B, S, H, D
+SCORE_SHAPE = (160, 64, 4, 32)       # config-5 committee scoring batch
 MULTI_SHAPE = (4, 256, 4, 32)        # several 64-tiles each way
+PAIR_SHAPE = (32, 64, 4, 32)         # the forward's two-warp blocks
+# the forward's block geometry follows the shape (fwd_warps): on an H100
+# the training batch and MULTI_SHAPE take one-warp blocks, PAIR_SHAPE two
+# and the score (and sponsor) batch four; the compare phase covers each
+DENSE_SHAPES = (TRAIN_SHAPE, MULTI_SHAPE, PAIR_SHAPE, SCORE_SHAPE)
 SHARD_SHAPE = (32, 1024, 4, 32)      # sp training shard: 8 shards x B 4
 RING_SHAPE = (4, 8192, 4, 32)        # the same sequence, unsharded
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # x max(1, max|plain|)
-ROUNDS = 4
+# config 5's preset runs 5 rounds (eval/configs.py).  Over 4 its best
+# accuracy sits at the 0.9 limit, above or below it by the summation
+# order alone (threaded CPU reductions cross it between two runs of the
+# same code); the model converges at round 5.  See PERF.md section 2.
+ROUNDS = 5
 MIN_BEST_ACC = 0.9
 SP_RUNS = {"train": dict(seq_len=8192, n_sp=8, batch=4, steps=3, lr=0.05),
            "forward": dict(seq_len=32768, n_sp=8, batch=2, steps=0)}
@@ -118,13 +145,25 @@ def attention_inputs(torch, shape, dtype, device, seed):
     return q, k, v, g, torch.as_tensor(mask).to(device)
 
 
+def fwd_warps(torch, fa, shape) -> int:
+    """Warps a block that the forward and carry kernels run at `shape`."""
+    b, s, h, _ = shape
+    return fa.fwd_warps(b * h, s, torch.cuda.get_device_properties(0)
+                        .multi_processor_count)
+
+
 def compare_phase(torch, fa, device) -> dict:
-    """Max abs error of each kernel vs plain on identical inputs; the
-    float32 errors at the training shape go into the kernels line."""
+    """Max abs error of each kernel vs plain on identical inputs, at
+    shapes that reach each of the forward's block geometries; the float32
+    errors at the training shape go into the kernels line."""
+    warps = {fwd_warps(torch, fa, shape) for shape in DENSE_SHAPES}
+    if warps != {1, 2, 4}:
+        raise RuntimeError(f"the compare shapes reach forward blocks of "
+                           f"{sorted(warps)} warps, not 1, 2 and 4")
     train_err = {}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
-        for shape in (TRAIN_SHAPE, MULTI_SHAPE):
+        for shape in DENSE_SHAPES:
             q, k, v, g, mask = attention_inputs(torch, shape, dtype,
                                                 device, seed=1)
             out, lse = fa.flash_fwd(q, k, v, mask)
@@ -149,9 +188,11 @@ def compare_phase(torch, fa, device) -> dict:
                     err = max(err, float((a - b).abs().max()))
                     scale = max(scale, float(b.abs().max()))
                 tol = TOL[dtype_name] * max(1.0, scale)
+                geometry = ({"warps": fwd_warps(torch, fa, shape)}
+                            if name == "flash_fwd" else {})
                 emit("compare", kernel=name, dtype=dtype_name,
-                     shape=list(shape), max_abs_err=err, tol=tol,
-                     ok=err <= tol)
+                     shape=list(shape), **geometry, max_abs_err=err,
+                     tol=tol, ok=err <= tol)
                 if err > tol:
                     raise RuntimeError(f"{name} {dtype_name} {shape}: "
                                        f"max abs err {err} > {tol}")
@@ -203,8 +244,8 @@ def carry_compare_phase(torch, fa, device) -> float:
                 err, scale = carry_err(torch, got, want)
                 tol = TOL[dtype_name] * max(1.0, scale)
                 emit("compare", kernel="flash_carry", dtype=dtype_name,
-                     shape=list(shape), hop=hop + 1, max_abs_err=err,
-                     tol=tol, ok=err <= tol)
+                     shape=list(shape), warps=fwd_warps(torch, fa, shape),
+                     hop=hop + 1, max_abs_err=err, tol=tol, ok=err <= tol)
                 if err > tol:
                     raise RuntimeError(f"flash_carry {dtype_name} {shape} "
                                        f"hop {hop + 1}: max abs err {err} "
@@ -217,14 +258,15 @@ def carry_compare_phase(torch, fa, device) -> float:
 
 
 def device_ms(torch, fn, calls: int = 50, replays: int = 5,
-              repeats: int = 7) -> float:
+              repeats: int = 7, stream=None) -> float:
     """Median device time of one `fn()` call: `calls` calls captured in a
-    CUDA graph (no host launch overhead), replayed between CUDA events."""
+    CUDA graph (no host launch overhead) on `stream` (default: the
+    graph's own), replayed between CUDA events."""
     for _ in range(3):
         fn()                        # warm up: build, autotune, allocate
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -242,10 +284,10 @@ def device_ms(torch, fn, calls: int = 50, replays: int = 5,
     return statistics.median(times)
 
 
-def bound(shape, mask, dtype_name: str, name: str) -> tuple:
-    """Least time (ms) the card needs for this call's work: bytes each
-    read or written once over HBM bandwidth vs. the products over the
-    dtype's peak (counting only the keys this mask lets through)."""
+def work(shape, mask, dtype_name: str, name: str) -> tuple:
+    """(bytes, operations) of this call: each input read once and each
+    output written once; the products over the keys this mask lets
+    through."""
     b, s, h, d = shape
     esize = 4 if dtype_name == "float32" else 2
     tensor = b * s * h * d * esize
@@ -260,10 +302,40 @@ def bound(shape, mask, dtype_name: str, name: str) -> tuple:
              }[name]
     ops = {"flash_fwd": 4, "flash_dkdv": 8, "flash_dq": 6,
            "flash_carry": 4}[name] * pairs * d
+    return moved, ops
+
+
+def bound(shape, mask, dtype_name: str, name: str,
+          peak_ops: float = None) -> tuple:
+    """Least time (ms) the card needs for this call's work: bytes over
+    HBM bandwidth vs. the products over the dtype's peak."""
+    moved, ops = work(shape, mask, dtype_name, name)
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
+    t_ops = ops / (peak_ops or PEAK_OPS[dtype_name]) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
+
+
+def timing_row(shape, mask, dtype_name: str, name: str, ms: float,
+               plain_ms, library_ms) -> dict:
+    """A kernel's timing beside its bound: share_of_bound = bound / time,
+    and the TFLOP/s its products reach; float32 rows also carry the bound
+    on the CUDA cores alone (the route of the first forward body)."""
+    bound_ms, bound_by = bound(shape, mask, dtype_name, name)
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "share_of_bound": bound_ms / ms,
+           "tflops": work(shape, mask, dtype_name, name)[1] / ms / 1e9}
+    if dtype_name == "float32":
+        row["bound_ms_cuda_cores"] = bound(shape, mask, dtype_name, name,
+                                           F32_CUDA_CORE_OPS)[0]
+    return row
+
+
+def sdpa_inputs(q, k, v, mask):
+    """SDPA's (B, H, S, D) layout and a key mask broadcast over rows."""
+    return tuple(t.transpose(1, 2).contiguous() for t in (q, k, v)) + (
+        mask[:, None, None, :],)
 
 
 def timing_phase(torch, fa, device) -> dict:
@@ -272,9 +344,21 @@ def timing_phase(torch, fa, device) -> dict:
                                         device, seed=2)
     out, lse = fa.flash_fwd(q, k, v, mask)
     delta = fa.attention_delta(g, out)
-    # SDPA takes (B, H, S, D) and a key mask broadcast over query rows
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    attn_mask = mask[:, None, None, :]
+    qt, kt, vt, attn_mask = sdpa_inputs(q, k, v, mask)
+    # one library call for the backward pair: SDPA's backward computes
+    # dQ, dK and dV together (the graph is kept for the replays).
+    # Autograd runs a backward on its forward's stream, so the forward
+    # runs on the stream that the replays are captured on.
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+    gt = g.transpose(1, 2).contiguous()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg,
+                                                  attn_mask=attn_mask)
+    torch.cuda.current_stream().wait_stream(side)
+    sdpa_bwd_ms = device_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, (qg, kg, vg), gt, retain_graph=True), stream=side)
     calls = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, mask),
                       lambda: fa.flash_fwd_plain(q, k, v, mask),
@@ -289,21 +373,49 @@ def timing_phase(torch, fa, device) -> dict:
     }
     result = {}
     for name, (kernel, plain, library) in calls.items():
-        bound_ms, bound_by = bound(TRAIN_SHAPE, mask, "float32", name)
-        row = {"ms": device_ms(torch, kernel),
-               "plain_ms": device_ms(torch, plain),
-               "library_ms": None if library is None
-               else device_ms(torch, library),
-               "bound_ms": bound_ms, "bound_by": bound_by}
+        # no one PyTorch call computes dK/dV or dQ alone: those rows have
+        # no library time, and the pair's row below holds SDPA's backward
+        row = timing_row(TRAIN_SHAPE, mask, "float32", name,
+                         device_ms(torch, kernel), device_ms(torch, plain),
+                         None if library is None
+                         else device_ms(torch, library))
+        row["library"] = (None if library is None
+                          else "scaled_dot_product_attention")
         emit("timing", kernel=name, shape=list(TRAIN_SHAPE),
              dtype="float32", **row)
         result[name] = row
+    pair = {"kernels": ["flash_dkdv", "flash_dq"],
+            "ms": result["flash_dkdv"]["ms"] + result["flash_dq"]["ms"],
+            "plain_ms": (result["flash_dkdv"]["plain_ms"]
+                         + result["flash_dq"]["plain_ms"]),
+            "library_ms": sdpa_bwd_ms,
+            "library": "scaled_dot_product_attention backward (dQ, dK and "
+                       "dV in one call)"}
+    emit("timing", kernel="flash_dkdv+flash_dq", shape=list(TRAIN_SHAPE),
+         dtype="float32", **pair)
+    result["flash_dkdv"]["pair"] = result["flash_dq"]["pair"] = pair
+
+    # the forward at the committee's score batch (eval only, no backward)
+    q, k, v, _, mask = attention_inputs(torch, SCORE_SHAPE, torch.float32,
+                                        device, seed=8)
+    qt, kt, vt, attn_mask = sdpa_inputs(q, k, v, mask)
+    row = timing_row(
+        SCORE_SHAPE, mask, "float32", "flash_fwd",
+        device_ms(torch, lambda: fa.flash_fwd(q, k, v, mask)),
+        device_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, mask)),
+        device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=attn_mask)))
+    emit("timing", kernel="flash_fwd", shape=list(SCORE_SHAPE),
+         dtype="float32", **row)
+    result["flash_fwd"]["at"] = {"score": dict(row, shape=list(SCORE_SHAPE))}
     return result
 
 
-def carry_timing_phase(torch, fa, device) -> dict:
+def carry_timing_phase(torch, fa, device) -> tuple:
     """flash_carry at the sp training shard; then the ring as a whole
-    beside the unsharded flash forward and SDPA on the same sequence."""
+    beside the unsharded flash forward and SDPA on the same sequence.
+    Returns the timing rows of flash_carry and of the unsharded
+    forward."""
     import torch.nn.functional as F
     from bflc_demo_tpu_torch.parallel import FoldedAxis
     from bflc_demo_tpu_torch.parallel.ring_attention import ring_attention
@@ -312,13 +424,13 @@ def carry_timing_phase(torch, fa, device) -> dict:
                                         device, seed=5)
     carry = zero_carry(torch, fa, SHARD_SHAPE, device)
     few = dict(calls=5, replays=2, repeats=5)
-    bound_ms, bound_by = bound(SHARD_SHAPE, mask, "float32", "flash_carry")
-    row = {"ms": device_ms(torch, lambda: fa.flash_carry(q, k, v, mask,
-                                                         *carry), **few),
-           "plain_ms": device_ms(torch, lambda: fa.flash_carry_plain(
-               q, k, v, mask, *carry), **few),
-           "library_ms": None,     # no PyTorch call returns the raw carry
-           "bound_ms": bound_ms, "bound_by": bound_by}
+    row = timing_row(
+        SHARD_SHAPE, mask, "float32", "flash_carry",
+        device_ms(torch, lambda: fa.flash_carry(q, k, v, mask, *carry),
+                  **few),
+        device_ms(torch, lambda: fa.flash_carry_plain(q, k, v, mask,
+                                                      *carry), **few),
+        None)                      # no PyTorch call returns the raw carry
     emit("timing", kernel="flash_carry", shape=list(SHARD_SHAPE),
          dtype="float32", **row)
     del q, k, v, mask, carry
@@ -333,22 +445,27 @@ def carry_timing_phase(torch, fa, device) -> dict:
             .reshape(n * b, s // n, *t.shape[2:]).contiguous()
     fq, fk, fv, fm = (fold(t) for t in (q, k, v, mask))
     axis = FoldedAxis(n, b, device)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    qt, kt, vt, attn_mask = sdpa_inputs(q, k, v, mask)
     ring = ring_attention(fq, fk, fv, fm, axis, impl="pallas")
     dense, _ = fa.flash_fwd(q, k, v, mask)
     err = float((fold(dense) - ring).abs().max())
     few = dict(calls=2, replays=2, repeats=3)
+    fwd_row = timing_row(
+        RING_SHAPE, mask, "float32", "flash_fwd",
+        device_ms(torch, lambda: fa.flash_fwd(q, k, v, mask), **few),
+        device_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, mask), **few),
+        device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=attn_mask), **few))
+    emit("timing", kernel="flash_fwd", shape=list(RING_SHAPE),
+         dtype="float32", **fwd_row)
     emit("ring_timing", shape=list(RING_SHAPE), n_sp=n, dtype="float32",
          ring_ms=device_ms(torch, lambda: ring_attention(
              fq, fk, fv, fm, axis, impl="pallas"), **few),
-         flash_fwd_ms=device_ms(torch, lambda: fa.flash_fwd(q, k, v, mask),
-                                **few),
-         sdpa_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
-             qt, kt, vt, attn_mask=mask[:, None, None, :]), **few),
+         flash_fwd_ms=fwd_row["ms"], sdpa_ms=fwd_row["library_ms"],
          ring_vs_flash_fwd_max_abs_err=err)
     if err > TOL["float32"]:
         raise RuntimeError(f"the ring differs from the flash forward: {err}")
-    return row
+    return row, dict(fwd_row, shape=list(RING_SHAPE))
 
 
 def sp_slice_phase(torch, fa, device) -> int:
@@ -394,7 +511,7 @@ def sp_slice_phase(torch, fa, device) -> int:
     limit = SP_LOGITS_TOL["atol"] + SP_LOGITS_TOL["rtol"] * dense.abs()
     emit("sp_check", run="forward", check="sp logits vs dense forward",
          max_abs_err=float(err.max()), ok=bool((err <= limit).all()),
-         **SP_LOGITS_TOL)
+         max_err_over_limit=float((err / limit).max()), **SP_LOGITS_TOL)
     if not (err <= limit).all():
         raise RuntimeError(f"32k sp logits differ from the dense forward: "
                            f"{float(err.max())}")
@@ -478,7 +595,67 @@ def slice_phase(torch, fa, device) -> dict:
          max_abs_err_vs_cpu=err, tol=1e-4)
     if on_card.shape != (32, 2) or err > 1e-4:
         raise RuntimeError(f"card logits differ from the CPU path: {err}")
+    # decisions: the model after round 2 (accuracy ~0.8: rows on both
+    # sides of the boundary; the initial model's zero head decides none)
+    # and the final one
+    early = config5_transformer_sst2(rounds=2, runtime="host",
+                                     device="cuda")
+    decision_check(torch, early.final_params, device, "round 2",
+                   early.final_accuracy)
+    decision_check(torch, params, device, "final", res.final_accuracy)
     return launches
+
+
+def decision_check(torch, params, device, model_name: str,
+                   recorded: float = None) -> None:
+    """A model's decisions on the card (kernels at the sponsor's and the
+    committee's batch shapes) against the CPU path's on the same params:
+    logits within 1e-4 on every row of config 5's data, and the
+    accuracies — the sponsor's and the score op of every client's shard —
+    equal, but for a row whose two CPU logits are within 2e-4 of each
+    other (a tie inside the tolerance).  `recorded`: the sponsor accuracy
+    the run recorded for these params, which the card's must equal."""
+    from bflc_demo_tpu_torch.eval.configs import config5_data
+    from bflc_demo_tpu_torch.models.transformer import \
+        make_transformer_classifier
+
+    shards, test_set = config5_data()
+    sets = {"sponsor": test_set,
+            **{f"client{i}": shard for i, shard in enumerate(shards)}}
+    cpu_params = {k: p.cpu() for k, p in params.items()}
+    card_model = make_transformer_classifier().to(device)
+    cpu_model = make_transformer_classifier()
+    acc, err, ties = {}, 0.0, 0
+    with torch.no_grad():
+        for name, (x, y) in sets.items():
+            tokens = torch.as_tensor(x, dtype=torch.long)
+            labels = torch.as_tensor(y)
+            on_card = card_model.apply(params, tokens.to(device)).cpu()
+            on_cpu = cpu_model.apply(cpu_params, tokens)
+            err = max(err, float((on_card - on_cpu).abs().max()))
+            flips = on_card.argmax(-1) != on_cpu.argmax(-1)
+            top2 = on_cpu.topk(2, dim=-1).values
+            ties += int((flips & (top2[:, 0] - top2[:, 1] <= 2e-4)).sum())
+            if (flips & (top2[:, 0] - top2[:, 1] > 2e-4)).any():
+                raise RuntimeError(f"{model_name} model, {name}: the card "
+                                   f"decides rows that the CPU path decides "
+                                   f"otherwise")
+            acc[name] = [float((m.argmax(-1) == labels).float().mean())
+                         for m in (on_card, on_cpu)]
+    emit("decision_check", model=model_name, sets=len(sets),
+         rows=sum(len(y) for _, y in sets.values()),
+         max_abs_err_vs_cpu=err, tol=1e-4, ties_flipped=ties,
+         sponsor_acc_card=acc["sponsor"][0], sponsor_acc_cpu=acc["sponsor"][1],
+         sponsor_acc_recorded=recorded,
+         score_ops_card=[acc[f"client{i}"][0] for i in range(len(shards))],
+         score_ops_equal=all(a == b for a, b in acc.values()))
+    if err > 1e-4:
+        raise RuntimeError(f"{model_name} model: card logits differ from the "
+                           f"CPU path on the config-5 data: {err}")
+    if recorded is not None and abs(acc["sponsor"][0] - recorded) > 1e-6:
+        raise RuntimeError(f"the sponsor's accuracy re-evaluated on the card "
+                           f"({acc['sponsor'][0]}) is not the run's "
+                           f"({recorded})")
 
 
 def main() -> int:
@@ -516,7 +693,8 @@ def main() -> int:
     timings = timing_phase(torch, fa, device)
     launches = slice_phase(torch, fa, device)
     errors["flash_carry"] = carry_compare_phase(torch, fa, device)
-    timings["flash_carry"] = carry_timing_phase(torch, fa, device)
+    timings["flash_carry"], timings["flash_fwd"]["at"]["ring"] = \
+        carry_timing_phase(torch, fa, device)
     launches["flash_carry"] = sp_slice_phase(torch, fa, device)
 
     print(json.dumps({"kernels": [

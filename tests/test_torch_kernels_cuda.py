@@ -8,9 +8,13 @@ every test skips: a CUDA kernel has no CPU mode.
 Shapes: the config-5 transformer's (B=16, S=64, H=4, D=32), a
 multi-tile one (S=256) with ragged padding and one fully masked 64-key
 tile, a sequence shorter than one 64-row tile, and more keys than
-queries.  The carry kernel (one ring hop) runs two hops chained from a
-zero carry, at multiples of its 64-row tile.  Tolerances: float32
-differs only in summation order (1e-4); bfloat16 rounds p, dS and
+queries; the forward runs 1, 2 or 4 warps a block by the shape
+(`fwd_warps`), and the cases reach each (one (b, h) row; (2, 1024); (16,
+512)).  The carry kernel (one ring hop) runs two hops chained from a
+zero carry, at multiples of its 64-key tile, up to the sp training shard
+(folded B=32, S=1024).  Between them every head dim runs in both dtypes.
+Tolerances: float32 differs only in summation order and the 3xTF32
+products (~2^-21 relative each) (1e-4); bfloat16 rounds p, dS and
 outputs at the same places in both versions, so they agree to a couple
 of bf16 ulps (2e-2).
 """
@@ -63,6 +67,9 @@ def _close(got, want, dtype):
     ((2, 256, 2, 64), None),             # several tiles each way
     ((3, 40, 2, 16), None),              # a sequence shorter than a tile
     ((2, 64, 2, 128), 192),              # more keys than queries
+    ((1, 64, 1, 32), None),              # forward: 4 one-warp blocks
+    ((2, 1024, 4, 32), None),            # forward: two-warp blocks
+    ((16, 512, 4, 32), None),            # forward: four-warp blocks
 ])
 def test_kernels_match_plain(cuda_device, dtype, shape, s_kv):
     q, k, v, g, mask = _inputs(shape, dtype, cuda_device, s_kv)
@@ -104,6 +111,8 @@ def _zero_carry(shape, device):
     ((4, 256, 2, 32), None),             # ragged + a fully masked tile
     ((2, 64, 2, 128), 192),              # more keys than queries
     ((2, 128, 2, 16), 64),
+    ((2, 256, 2, 64), None),
+    ((32, 1024, 4, 32), None),           # the sp training shard
 ])
 def test_carry_kernel_matches_plain_over_two_hops(cuda_device, dtype, shape,
                                                   s_kv):
@@ -119,6 +128,30 @@ def test_carry_kernel_matches_plain_over_two_hops(cuda_device, dtype, shape,
             scale = max(1.0, float(w[w > fa.NEG_INF / 2].abs().max()))
             _close(g / scale, w / scale, dtype)
         carry = got                      # the next hop resumes from it
+
+
+def _offset_by_one(t):
+    """A contiguous copy of `t` whose storage starts one element in."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,match", [("q", "16-byte"),
+                                         ("acc", "8-byte")])
+def test_carry_kernel_rejects_misaligned_storage(cuda_device, which, match):
+    q, k, v, _, mask = _inputs((2, 64, 2, 32), torch.float32, cuda_device)
+    acc, m, l = _zero_carry(q.shape, cuda_device)
+    if which == "q":
+        q = _offset_by_one(q)
+    else:
+        acc = _offset_by_one(acc)
+    fa.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        fa.flash_carry(q, k, v, mask, acc, m, l)
+    assert fa.LAUNCHES["flash_carry"] == 0
 
 
 @pytest.mark.cuda
