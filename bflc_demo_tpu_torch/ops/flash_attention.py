@@ -18,9 +18,10 @@ on a CUDA tensor and its plain PyTorch version on a CPU tensor — the
 choice follows the tensor's device only, and a CUDA tensor the kernel
 cannot take raises instead of falling back.  `LAUNCHES` counts kernel
 launches per wrapper (plain runs do not count), so a run can show that
-its main path went through the kernels.  The forward and carry kernels
-run their products on the tensor cores (3xTF32 for float32, at float32's
-accuracy); `fwd_warps` picks their block size from the shape.
+its main path went through the kernels.  All four kernels run their
+products on the tensor cores (3xTF32 for float32, at float32's
+accuracy); `block_warps` picks their block size from the shape
+(`launch_warps` says which rows each kernel's warps own).
 
 Layouts follow the reference: q/k/v/out and their gradients are
 (B, S, H, D); `kv_mask` is (B, S_kv) bool (False = PAD); lse and delta
@@ -41,8 +42,8 @@ import torch
 NEG_INF = -1e30
 TINY = 1e-30
 HEAD_DIMS = (16, 32, 64, 128)
-KERNEL_TILE = 64        # k rows per tile of every kernel (q rows of K2/K3)
-WARP_ROWS = 16          # q rows per warp of the forward and carry kernels
+KERNEL_TILE = 64        # rows per streamed tile (keys; queries for dK/dV)
+WARP_ROWS = 16          # output rows per warp (queries; keys for dK/dV)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches per wrapper since the last reset (plain runs excluded)
@@ -135,9 +136,9 @@ _ARGTYPES = {
     "bflc_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, ctypes.c_float, _I, _P],
     "bflc_flash_dkdv": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, ctypes.c_float, _P],
+                        _I, _I, _I, _I, ctypes.c_float, _I, _P],
     "bflc_flash_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, ctypes.c_float, _P],
+                      _I, _I, _I, _I, ctypes.c_float, _I, _P],
     "bflc_flash_carry": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, ctypes.c_float, _I, _P],
 }
@@ -191,6 +192,10 @@ def _check_inputs(q, k, v, kv_mask, *more) -> None:
 
 
 def _check_bwd(q, do, lse, delta) -> None:
+    """dO, lse and delta of a backward call.  The dK/dV kernel stages lse
+    and delta by cp.async only where a tile's slice is 16-byte aligned
+    and takes plain loads elsewhere, so only dO's storage has to be
+    aligned."""
     b, sq, h, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"dO must match q: {do.dtype} {tuple(do.shape)}")
@@ -198,6 +203,9 @@ def _check_bwd(q, do, lse, delta) -> None:
         if tuple(t.shape) != (b * h, 1, sq) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 (B*H, 1, S_q), got "
                              f"{t.dtype} {tuple(t.shape)}")
+    if do.is_cuda and do.data_ptr() % 16:
+        raise ValueError("the kernels copy dO in 16-byte pieces: its "
+                         "storage must start 16-byte aligned")
 
 
 def _check_carry(q, acc, m, l) -> None:
@@ -222,16 +230,25 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def fwd_warps(batch_heads: int, s_q: int, sms: int) -> int:
-    """Warps a block (each owning WARP_ROWS query rows) of the forward
-    and carry kernels: the most of 4, 2, 1 whose grid, batch_heads x
-    ceil(s_q / (16 x warps)) blocks, still gives each of the card's `sms`
-    multiprocessors a block; 1 where none does.  More warps share each
-    staged K/V tile; fewer give a small batch more blocks."""
+def block_warps(batch_heads: int, rows: int, sms: int) -> int:
+    """Warps a block of the kernels, each warp owning WARP_ROWS of the
+    `rows` output rows of every (batch, head): the most of 4, 2, 1 whose
+    grid, batch_heads x ceil(rows / (16 x warps)) blocks, still gives
+    each of the card's `sms` multiprocessors a block; 1 where none does.
+    More warps share each staged tile; fewer give a small batch more
+    blocks."""
     for warps in (4, 2):
-        if batch_heads * -(-s_q // (WARP_ROWS * warps)) >= sms:
+        if batch_heads * -(-rows // (WARP_ROWS * warps)) >= sms:
             return warps
     return 1
+
+
+def launch_warps(kernel: str, q_shape, s_kv: int, sms: int) -> int:
+    """`block_warps` of `kernel` (a LAUNCHES key) for q of `q_shape`
+    (B, S_q, H, D) and S_kv keys: the dK/dV kernel's warps own keys,
+    the others' own queries."""
+    b, s_q, h, _ = q_shape
+    return block_warps(b * h, s_kv if kernel == "flash_dkdv" else s_q, sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -239,12 +256,11 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _warps(q: torch.Tensor) -> int:
-    b, sq, h, _ = q.shape
+def _warps(kernel: str, q: torch.Tensor, s_kv: int) -> int:
     index = q.device.index
     if index is None:
         index = torch.cuda.current_device()
-    return fwd_warps(b * h, sq, _sm_count(index))
+    return launch_warps(kernel, q.shape, s_kv, _sm_count(index))
 
 
 def flash_fwd(q, k, v, kv_mask) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -258,7 +274,7 @@ def flash_fwd(q, k, v, kv_mask) -> Tuple[torch.Tensor, torch.Tensor]:
     _launch("bflc_flash_fwd", "flash_fwd", _DTYPE_CODE[q.dtype], d,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b, sq, k.shape[1], h,
-            _scale(d), _warps(q), _stream(q))
+            _scale(d), _warps("flash_fwd", q, k.shape[1]), _stream(q))
     return out, lse
 
 
@@ -273,7 +289,8 @@ def flash_dkdv(q, k, v, kv_mask, do, lse, delta):
     _launch("bflc_flash_dkdv", "flash_dkdv", _DTYPE_CODE[q.dtype], d,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, sq, k.shape[1], h, _scale(d), _stream(q))
+            dv.data_ptr(), b, sq, k.shape[1], h, _scale(d),
+            _warps("flash_dkdv", q, k.shape[1]), _stream(q))
     return dk, dv
 
 
@@ -288,7 +305,8 @@ def flash_dq(q, k, v, kv_mask, do, lse, delta):
     _launch("bflc_flash_dq", "flash_dq", _DTYPE_CODE[q.dtype], d,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, sq, k.shape[1], h, _scale(d), _stream(q))
+            b, sq, k.shape[1], h, _scale(d),
+            _warps("flash_dq", q, k.shape[1]), _stream(q))
     return dq
 
 
@@ -310,7 +328,7 @@ def flash_carry(q, k, v, kv_mask, acc, m, l):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(),
             acc.data_ptr(), m.data_ptr(), l.data_ptr(), acc_out.data_ptr(),
             m_out.data_ptr(), l_out.data_ptr(), b, sq, skv, h, _scale(d),
-            _warps(q), _stream(q))
+            _warps("flash_carry", q, skv), _stream(q))
     return acc_out, m_out, l_out
 
 
@@ -348,7 +366,7 @@ def flash_attention(q, k, v, kv_mask, block_q: int = 128,
     """Masked flash attention.  q/k/v: (B, S, H, D); kv_mask: (B, S_kv)
     bool (False = PAD).  Returns (B, S_q, H, D).  The blocks must divide
     the sequence lengths (ValueError otherwise), as in the reference; the
-    CUDA kernels keep their own tiles (64 keys; 16-64 query rows in the
-    forward, 64 in the backward) whatever they are, since the blocks do
-    not change the function."""
+    CUDA kernels keep their own tiles (64 streamed rows; 16-64 output rows
+    a block) whatever they are, since the blocks do not change the
+    function."""
     return FlashAttention.apply(q, k, v, kv_mask, block_q, block_k)

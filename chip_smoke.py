@@ -15,8 +15,8 @@ each; any failure raises and exits non-zero:
              card tensors, float32 and bfloat16, at the transformer's
              training and scoring shapes, at a multi-tile shape (S = 256)
              with ragged padding and one fully masked 64-key tile, and at
-             a batch of 32 — between them the forward's 1-, 2- and 4-warp
-             blocks;
+             a batch of 32 — between them the 1-, 2- and 4-warp blocks of
+             the forward, dK/dV and dQ kernels;
 4. timing  — each kernel, its plain version and one PyTorch call as the
              yardstick (the forward: scaled_dot_product_attention; the
              dK/dV + dQ pair: SDPA's backward, which computes all three),
@@ -40,7 +40,9 @@ each; any failure raises and exits non-zero:
 7. timing  — `flash_carry` and its plain version at that shard; beside
              it, on the same (4, 8192, 4, 32) sequence, the 8-hop ring
              forward, the flash forward unsharded (a timing row of its
-             own) and PyTorch's SDPA;
+             own) and PyTorch's SDPA; and on that sequence the dK/dV and
+             dQ kernels, their plain versions and the pair beside SDPA's
+             backward (the sp path's dense oracle runs them there);
 8. sp      — the sequence-parallel transformer at config 5's width on
              the folded axis (8 shards), launch counts reset just before
              and read just after: 3 SGD steps at seq 8192 (batch 4) and a
@@ -52,11 +54,18 @@ each; any failure raises and exits non-zero:
 Then the `kernels` line and, last, {"ok": true, "device": {...}}.
 Without a card, or without the package beside it, it exits non-zero and
 prints no result.
+
+    python3 chip_smoke.py --backward-timing DIR
+
+runs only the dK/dV and dQ timing rows (phase 4's and phase 7's) for the
+package of the checkout at DIR — another version's, unpacked beside this
+one, so that two versions are timed on one card in one call.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -79,12 +88,14 @@ TRAIN_SHAPE = (16, 64, 4, 32)        # config-5 trainer batch: B, S, H, D
 SCORE_SHAPE = (160, 64, 4, 32)       # config-5 committee scoring batch
 MULTI_SHAPE = (4, 256, 4, 32)        # several 64-tiles each way
 PAIR_SHAPE = (32, 64, 4, 32)         # the forward's two-warp blocks
-# the forward's block geometry follows the shape (fwd_warps): on an H100
-# the training batch and MULTI_SHAPE take one-warp blocks, PAIR_SHAPE two
-# and the score (and sponsor) batch four; the compare phase covers each
+# every kernel's block geometry follows the shape (launch_warps): on an
+# H100 the training batch and MULTI_SHAPE take one-warp blocks, PAIR_SHAPE
+# two and the score (and sponsor) batch four, for the forward, dK/dV and
+# dQ alike (S_kv = S_q); the compare phase covers each
 DENSE_SHAPES = (TRAIN_SHAPE, MULTI_SHAPE, PAIR_SHAPE, SCORE_SHAPE)
 SHARD_SHAPE = (32, 1024, 4, 32)      # sp training shard: 8 shards x B 4
 RING_SHAPE = (4, 8192, 4, 32)        # the same sequence, unsharded
+RING_FEW = dict(calls=2, replays=2, repeats=3)   # device_ms at RING_SHAPE
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # x max(1, max|plain|)
 # config 5's preset runs 5 rounds (eval/configs.py).  Over 4 its best
 # accuracy sits at the 0.9 limit, above or below it by the summation
@@ -145,21 +156,23 @@ def attention_inputs(torch, shape, dtype, device, seed):
     return q, k, v, g, torch.as_tensor(mask).to(device)
 
 
-def fwd_warps(torch, fa, shape) -> int:
-    """Warps a block that the forward and carry kernels run at `shape`."""
-    b, s, h, _ = shape
-    return fa.fwd_warps(b * h, s, torch.cuda.get_device_properties(0)
-                        .multi_processor_count)
+def kernel_warps(torch, fa, name, shape) -> int:
+    """Warps a block that kernel `name` runs at `shape` (S_kv = S_q)."""
+    return fa.launch_warps(name, shape, shape[1],
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
 
 
 def compare_phase(torch, fa, device) -> dict:
     """Max abs error of each kernel vs plain on identical inputs, at
-    shapes that reach each of the forward's block geometries; the float32
-    errors at the training shape go into the kernels line."""
-    warps = {fwd_warps(torch, fa, shape) for shape in DENSE_SHAPES}
-    if warps != {1, 2, 4}:
-        raise RuntimeError(f"the compare shapes reach forward blocks of "
-                           f"{sorted(warps)} warps, not 1, 2 and 4")
+    shapes that reach each kernel's block geometries; the float32 errors
+    at the training shape go into the kernels line."""
+    for name in DENSE_KERNELS:
+        warps = {kernel_warps(torch, fa, name, shape)
+                 for shape in DENSE_SHAPES}
+        if warps != {1, 2, 4}:
+            raise RuntimeError(f"the compare shapes reach {name} blocks of "
+                               f"{sorted(warps)} warps, not 1, 2 and 4")
     train_err = {}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
@@ -188,11 +201,10 @@ def compare_phase(torch, fa, device) -> dict:
                     err = max(err, float((a - b).abs().max()))
                     scale = max(scale, float(b.abs().max()))
                 tol = TOL[dtype_name] * max(1.0, scale)
-                geometry = ({"warps": fwd_warps(torch, fa, shape)}
-                            if name == "flash_fwd" else {})
                 emit("compare", kernel=name, dtype=dtype_name,
-                     shape=list(shape), **geometry, max_abs_err=err,
-                     tol=tol, ok=err <= tol)
+                     shape=list(shape),
+                     warps=kernel_warps(torch, fa, name, shape),
+                     max_abs_err=err, tol=tol, ok=err <= tol)
                 if err > tol:
                     raise RuntimeError(f"{name} {dtype_name} {shape}: "
                                        f"max abs err {err} > {tol}")
@@ -244,7 +256,8 @@ def carry_compare_phase(torch, fa, device) -> float:
                 err, scale = carry_err(torch, got, want)
                 tol = TOL[dtype_name] * max(1.0, scale)
                 emit("compare", kernel="flash_carry", dtype=dtype_name,
-                     shape=list(shape), warps=fwd_warps(torch, fa, shape),
+                     shape=list(shape),
+                     warps=kernel_warps(torch, fa, "flash_carry", shape),
                      hop=hop + 1, max_abs_err=err, tol=tol, ok=err <= tol)
                 if err > tol:
                     raise RuntimeError(f"flash_carry {dtype_name} {shape} "
@@ -338,62 +351,72 @@ def sdpa_inputs(q, k, v, mask):
         mask[:, None, None, :],)
 
 
-def timing_phase(torch, fa, device) -> dict:
+def sdpa_backward_ms(torch, q, k, v, g, mask, **few) -> float:
+    """Device time of SDPA's backward, which computes dQ, dK and dV in
+    one call, on these inputs.  The forward's graph is kept for the
+    replays; autograd runs a backward on its forward's stream, so the
+    forward runs on the stream that the replays are captured on."""
     import torch.nn.functional as F
-    q, k, v, g, mask = attention_inputs(torch, TRAIN_SHAPE, torch.float32,
-                                        device, seed=2)
-    out, lse = fa.flash_fwd(q, k, v, mask)
-    delta = fa.attention_delta(g, out)
     qt, kt, vt, attn_mask = sdpa_inputs(q, k, v, mask)
-    # one library call for the backward pair: SDPA's backward computes
-    # dQ, dK and dV together (the graph is kept for the replays).
-    # Autograd runs a backward on its forward's stream, so the forward
-    # runs on the stream that the replays are captured on.
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
     gt = g.transpose(1, 2).contiguous()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg,
-                                                  attn_mask=attn_mask)
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask)
     torch.cuda.current_stream().wait_stream(side)
-    sdpa_bwd_ms = device_ms(torch, lambda: torch.autograd.grad(
-        sdpa_out, (qg, kg, vg), gt, retain_graph=True), stream=side)
-    calls = {
-        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, mask),
-                      lambda: fa.flash_fwd_plain(q, k, v, mask),
-                      lambda: F.scaled_dot_product_attention(
-                          qt, kt, vt, attn_mask=attn_mask)),
-        "flash_dkdv": (lambda: fa.flash_dkdv(q, k, v, mask, g, lse, delta),
-                       lambda: fa.flash_dkdv_plain(q, k, v, mask, g, lse,
-                                                   delta), None),
-        "flash_dq": (lambda: fa.flash_dq(q, k, v, mask, g, lse, delta),
-                     lambda: fa.flash_dq_plain(q, k, v, mask, g, lse, delta),
-                     None),
-    }
-    result = {}
-    for name, (kernel, plain, library) in calls.items():
-        # no one PyTorch call computes dK/dV or dQ alone: those rows have
-        # no library time, and the pair's row below holds SDPA's backward
-        row = timing_row(TRAIN_SHAPE, mask, "float32", name,
-                         device_ms(torch, kernel), device_ms(torch, plain),
-                         None if library is None
-                         else device_ms(torch, library))
-        row["library"] = (None if library is None
-                          else "scaled_dot_product_attention")
-        emit("timing", kernel=name, shape=list(TRAIN_SHAPE),
-             dtype="float32", **row)
-        result[name] = row
-    pair = {"kernels": ["flash_dkdv", "flash_dq"],
-            "ms": result["flash_dkdv"]["ms"] + result["flash_dq"]["ms"],
-            "plain_ms": (result["flash_dkdv"]["plain_ms"]
-                         + result["flash_dq"]["plain_ms"]),
-            "library_ms": sdpa_bwd_ms,
+    return device_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), gt, retain_graph=True), stream=side, **few)
+
+
+def backward_timing(torch, fa, device, shape, seed, **few) -> dict:
+    """The dK/dV and dQ kernels at `shape` (float32), each beside its
+    plain version, and the pair beside SDPA's backward.  No one PyTorch
+    call computes dK/dV or dQ alone: those rows have no library time, and
+    the pair's row (a line of its own, and `pair` on both rows) holds
+    SDPA's backward."""
+    q, k, v, g, mask = attention_inputs(torch, shape, torch.float32, device,
+                                        seed)
+    out, lse = fa.flash_fwd(q, k, v, mask)
+    args = (q, k, v, mask, g, lse, fa.attention_delta(g, out))
+    rows = {}
+    for name in ("flash_dkdv", "flash_dq"):
+        kernel, plain = getattr(fa, name), getattr(fa, name + "_plain")
+        row = timing_row(shape, mask, "float32", name,
+                         device_ms(torch, lambda: kernel(*args), **few),
+                         device_ms(torch, lambda: plain(*args), **few), None)
+        row["library"] = None
+        emit("timing", kernel=name, shape=list(shape), dtype="float32",
+             **row)
+        rows[name] = row
+    pair = {"kernels": list(rows),
+            "ms": sum(row["ms"] for row in rows.values()),
+            "plain_ms": sum(row["plain_ms"] for row in rows.values()),
+            "library_ms": sdpa_backward_ms(torch, q, k, v, g, mask, **few),
             "library": "scaled_dot_product_attention backward (dQ, dK and "
                        "dV in one call)"}
-    emit("timing", kernel="flash_dkdv+flash_dq", shape=list(TRAIN_SHAPE),
+    emit("timing", kernel="flash_dkdv+flash_dq", shape=list(shape),
          dtype="float32", **pair)
-    result["flash_dkdv"]["pair"] = result["flash_dq"]["pair"] = pair
+    for row in rows.values():
+        row["pair"] = pair
+    return rows
+
+
+def timing_phase(torch, fa, device) -> dict:
+    import torch.nn.functional as F
+    q, k, v, _, mask = attention_inputs(torch, TRAIN_SHAPE, torch.float32,
+                                        device, seed=2)
+    qt, kt, vt, attn_mask = sdpa_inputs(q, k, v, mask)
+    result = {"flash_fwd": timing_row(
+        TRAIN_SHAPE, mask, "float32", "flash_fwd",
+        device_ms(torch, lambda: fa.flash_fwd(q, k, v, mask)),
+        device_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, mask)),
+        device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=attn_mask)))}
+    result["flash_fwd"]["library"] = "scaled_dot_product_attention"
+    emit("timing", kernel="flash_fwd", shape=list(TRAIN_SHAPE),
+         dtype="float32", **result["flash_fwd"])
+    result.update(backward_timing(torch, fa, device, TRAIN_SHAPE, seed=2))
 
     # the forward at the committee's score batch (eval only, no backward)
     q, k, v, _, mask = attention_inputs(torch, SCORE_SHAPE, torch.float32,
@@ -449,18 +472,18 @@ def carry_timing_phase(torch, fa, device) -> tuple:
     ring = ring_attention(fq, fk, fv, fm, axis, impl="pallas")
     dense, _ = fa.flash_fwd(q, k, v, mask)
     err = float((fold(dense) - ring).abs().max())
-    few = dict(calls=2, replays=2, repeats=3)
     fwd_row = timing_row(
         RING_SHAPE, mask, "float32", "flash_fwd",
-        device_ms(torch, lambda: fa.flash_fwd(q, k, v, mask), **few),
-        device_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, mask), **few),
+        device_ms(torch, lambda: fa.flash_fwd(q, k, v, mask), **RING_FEW),
+        device_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, mask),
+                  **RING_FEW),
         device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=attn_mask), **few))
+            qt, kt, vt, attn_mask=attn_mask), **RING_FEW))
     emit("timing", kernel="flash_fwd", shape=list(RING_SHAPE),
          dtype="float32", **fwd_row)
     emit("ring_timing", shape=list(RING_SHAPE), n_sp=n, dtype="float32",
          ring_ms=device_ms(torch, lambda: ring_attention(
-             fq, fk, fv, fm, axis, impl="pallas"), **few),
+             fq, fk, fv, fm, axis, impl="pallas"), **RING_FEW),
          flash_fwd_ms=fwd_row["ms"], sdpa_ms=fwd_row["library_ms"],
          ring_vs_flash_fwd_max_abs_err=err)
     if err > TOL["float32"]:
@@ -658,11 +681,16 @@ def decision_check(torch, params, device, model_name: str,
                            f"({recorded})")
 
 
-def main() -> int:
+def load_port(root: str = None):
+    """(torch, the flash-attention module, the build module, the card) of
+    the package beside this script, or of the checkout at `root`; None
+    without a card or a package."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
-        return 1
+        return None
+    if root is not None:
+        sys.path.insert(0, os.path.abspath(root))
     try:
         from bflc_demo_tpu_torch.device import resolve_device
         from bflc_demo_tpu_torch.ops import build
@@ -670,8 +698,31 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: run it from a checkout of the repository "
               f"({exc})", file=sys.stderr)
+        return None
+    return torch, fa, build, resolve_device("cuda")   # also turns TF32 off
+
+
+def backward_timing_main(root: str) -> int:
+    """Only the dK/dV and dQ timing rows, at the training and the ring
+    shapes, for the package of the checkout at `root`."""
+    port = load_port(root)
+    if port is None:
         return 1
-    device = resolve_device("cuda")          # also turns TF32 off
+    torch, fa, _, device = port
+    card = card_line()
+    print(card, flush=True)
+    emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0),
+         package=os.path.dirname(os.path.dirname(fa.__file__)))
+    backward_timing(torch, fa, device, TRAIN_SHAPE, seed=2)
+    backward_timing(torch, fa, device, RING_SHAPE, seed=6, **RING_FEW)
+    return 0
+
+
+def main() -> int:
+    port = load_port()
+    if port is None:
+        return 1
+    torch, fa, build, device = port
 
     t0 = time.perf_counter()
     built = build.build_all()
@@ -695,6 +746,9 @@ def main() -> int:
     errors["flash_carry"] = carry_compare_phase(torch, fa, device)
     timings["flash_carry"], timings["flash_fwd"]["at"]["ring"] = \
         carry_timing_phase(torch, fa, device)
+    ring = backward_timing(torch, fa, device, RING_SHAPE, seed=6, **RING_FEW)
+    for name, row in ring.items():
+        timings[name]["at"] = {"ring": dict(row, shape=list(RING_SHAPE))}
     launches["flash_carry"] = sp_slice_phase(torch, fa, device)
 
     print(json.dumps({"kernels": [
@@ -709,4 +763,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--backward-timing":
+        sys.exit(backward_timing_main(sys.argv[2]))
+    if len(sys.argv) > 1:
+        print("usage: chip_smoke.py [--backward-timing DIR]", file=sys.stderr)
+        sys.exit(2)
     sys.exit(main())

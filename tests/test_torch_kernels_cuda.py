@@ -8,11 +8,13 @@ every test skips: a CUDA kernel has no CPU mode.
 Shapes: the config-5 transformer's (B=16, S=64, H=4, D=32), a
 multi-tile one (S=256) with ragged padding and one fully masked 64-key
 tile, a sequence shorter than one 64-row tile, and more keys than
-queries; the forward runs 1, 2 or 4 warps a block by the shape
-(`fwd_warps`), and the cases reach each (one (b, h) row; (2, 1024); (16,
-512)).  The carry kernel (one ring hop) runs two hops chained from a
-zero carry, at multiples of its 64-key tile, up to the sp training shard
-(folded B=32, S=1024).  Between them every head dim runs in both dtypes.
+queries (up to 64 x 4096); every kernel runs 1, 2 or 4 warps a block by
+the shape (`launch_warps`: the rows its warps own are keys for dK/dV,
+queries for the others), and the cases reach each geometry of each
+kernel (one (b, h) row; (2, 1024); (16, 512); and (2, 64) queries on
+4096 keys, where dK/dV runs four warps and dQ one).  The carry kernel
+(one ring hop) runs two hops chained from a zero carry, at multiples of
+its 64-key tile, up to the sp training shard (folded B=32, S=1024).  Between them every head dim runs in both dtypes.
 Tolerances: float32 differs only in summation order and the 3xTF32
 products (~2^-21 relative each) (1e-4); bfloat16 rounds p, dS and
 outputs at the same places in both versions, so they agree to a couple
@@ -70,6 +72,8 @@ def _close(got, want, dtype):
     ((1, 64, 1, 32), None),              # forward: 4 one-warp blocks
     ((2, 1024, 4, 32), None),            # forward: two-warp blocks
     ((16, 512, 4, 32), None),            # forward: four-warp blocks
+    ((2, 64, 2, 32), 1024),              # far more keys than queries
+    ((2, 64, 4, 32), 4096),              # dK/dV four warps, dQ one
 ])
 def test_kernels_match_plain(cuda_device, dtype, shape, s_kv):
     q, k, v, g, mask = _inputs(shape, dtype, cuda_device, s_kv)
@@ -152,6 +156,37 @@ def test_carry_kernel_rejects_misaligned_storage(cuda_device, which, match):
     with pytest.raises(ValueError, match=match):
         fa.flash_carry(q, k, v, mask, acc, m, l)
     assert fa.LAUNCHES["flash_carry"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_reject_misaligned_do(cuda_device, dtype):
+    q, k, v, g, mask = _inputs((2, 64, 2, 32), dtype, cuda_device)
+    out, lse = fa.flash_fwd(q, k, v, mask)
+    delta = fa.attention_delta(g, out)
+    g = _offset_by_one(g)
+    fa.reset_launches()
+    for fn in (fa.flash_dkdv, fa.flash_dq):
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(q, k, v, mask, g, lse, delta)
+    assert fa.LAUNCHES["flash_dkdv"] == 0 and fa.LAUNCHES["flash_dq"] == 0
+
+
+@pytest.mark.cuda
+def test_backward_kernels_take_misaligned_lse_and_delta(cuda_device):
+    """lse and delta need no alignment: a tile whose slice is not 16-byte
+    aligned is staged by plain loads."""
+    q, k, v, g, mask = _inputs((2, 128, 2, 32), torch.float32, cuda_device)
+    out, lse = fa.flash_fwd(q, k, v, mask)
+    delta = fa.attention_delta(g, out)
+    lse1, delta1 = _offset_by_one(lse), _offset_by_one(delta)
+    dk, dv = fa.flash_dkdv(q, k, v, mask, g, lse1, delta1)
+    dq = fa.flash_dq(q, k, v, mask, g, lse1, delta1)
+    want_dk, want_dv = fa.flash_dkdv_plain(q, k, v, mask, g, lse, delta)
+    want_dq = fa.flash_dq_plain(q, k, v, mask, g, lse, delta)
+    torch.cuda.synchronize()
+    for got, want in ((dk, want_dk), (dv, want_dv), (dq, want_dq)):
+        _close(got, want, torch.float32)
 
 
 @pytest.mark.cuda

@@ -1,18 +1,19 @@
-"""The accuracy argument of the forward kernels' 3xTF32 products, on the CPU.
+"""The accuracy argument of the kernels' 3xTF32 products, on the CPU.
 
-The forward and carry kernels (`bflc_demo_tpu_torch/ops/csrc/
+The four flash kernels (`bflc_demo_tpu_torch/ops/csrc/
 flash_attention.cu`) multiply float32 operands on the tensor cores as
 3xTF32: x = hi + lo with hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x -
 hi), and a . b = hi.lo + lo.hi + hi.hi, each product exact and the sums
 in float32.  Here that arithmetic is emulated with numpy bit operations
-(TF32 rounding) and float32 torch products, and attention built from it
-is held against the port's plain versions (`flash_fwd_plain`,
-`flash_carry_plain`, full float32) within the float32 tolerance
+(TF32 rounding) and float32 torch products, and attention and its
+gradients built from it are held against the port's plain versions
+(`flash_fwd_plain`, `flash_carry_plain`, `flash_dkdv_plain`,
+`flash_dq_plain`, full float32) within the float32 tolerance
 `chip_smoke.py` holds the kernels to: 1e-4 x max(1, max |plain|).  TF32
 alone (hi.hi) errs at least 10x more, on a par with that tolerance,
-which is why the kernels split every float32 operand.  The forward
-kernels' launch geometry (`fwd_warps`, a pure function of the shape) is
-checked here too.
+which is why the kernels split every float32 operand.  The kernels'
+launch geometry (`block_warps` and `launch_warps`, pure functions of the
+shape) is checked here too.
 
 Shapes: config 5's training batch (16, 64, 4, 32) and a 1024-key shard
 (2, 1024, 4, 32) with ragged keys and one fully masked 64-key tile.
@@ -81,6 +82,22 @@ def emulated_forward(q, k, v, kv_mask, passes: int):
     return out, (m + torch.log(l)).reshape(b * h, 1, sq)
 
 
+def emulated_backward(q, k, v, kv_mask, do, lse, delta, passes: int):
+    """flash_dkdv_plain's and flash_dq_plain's arithmetic with emulated
+    TF32 products, dS rounded to q's dtype before the products that take
+    it: (dK, dV, dQ)."""
+    b, sq, h, d = q.shape
+    scale = fa._scale(d)
+    s = product("bqhd,bkhd->bhqk", q, k, passes) * scale
+    p = torch.where(kv_mask[:, None, None, :],
+                    torch.exp(s - lse.reshape(b, h, sq, 1)), 0.0)
+    dp = product("bqhd,bkhd->bhqk", do, v, passes)
+    ds = (p * (dp - delta.reshape(b, h, sq, 1)) * scale).to(q.dtype)
+    return (product("bhqk,bqhd->bkhd", ds, q, passes),
+            product("bhqk,bqhd->bkhd", p.to(do.dtype), do, passes),
+            product("bhqk,bkhd->bqhd", ds, k, passes))
+
+
 def _inputs(shape, seed):
     b, s, _, _ = shape
     rng = np.random.default_rng(seed)
@@ -146,6 +163,22 @@ def test_carry_3xtf32_within_tolerance_tf32_alone_10x_worse(shape):
     assert err1 >= 10 * err3
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_3xtf32_within_tolerance_tf32_alone_10x_worse(shape):
+    q, k, v, mask = _inputs(shape, seed=24)
+    do = torch.from_numpy(np.random.default_rng(25).standard_normal(shape)
+                          .astype(np.float32))
+    out, lse = fa.flash_fwd_plain(q, k, v, mask)
+    delta = fa.attention_delta(do, out)
+    want = fa.flash_dkdv_plain(q, k, v, mask, do, lse, delta) + (
+        fa.flash_dq_plain(q, k, v, mask, do, lse, delta),)
+    args = (q, k, v, mask, do, lse, delta)
+    err3, tol = _err_and_tol(emulated_backward(*args, 3), want)
+    err1, _ = _err_and_tol(emulated_backward(*args, 1), want)
+    assert err3 <= tol
+    assert err1 >= 10 * err3
+
+
 @pytest.mark.parametrize("batch_heads,s_q,warps", [
     (64, 64, 1),                         # config-5 training: 256 blocks
     (640, 64, 4),                        # config-5 scoring (B = 160)
@@ -157,10 +190,39 @@ def test_carry_3xtf32_within_tolerance_tf32_alone_10x_worse(shape):
     (1, 64, 1),                          # too small to fill the card
 ])
 def test_fwd_warps_by_shape(batch_heads, s_q, warps):
-    assert fa.fwd_warps(batch_heads, s_q, 132) == warps
+    assert fa.block_warps(batch_heads, s_q, 132) == warps
 
 
 def test_config5_training_grid_fills_the_card():
-    warps = fa.fwd_warps(16 * 4, 64, 132)
+    warps = fa.block_warps(16 * 4, 64, 132)
     blocks = 16 * 4 * -(-64 // (fa.WARP_ROWS * warps))
     assert blocks >= 132                 # the first body's grid gave 64
+
+
+@pytest.mark.parametrize("kernel,q_shape,s_kv,warps", [
+    # config-5 training: 256 one-warp blocks each
+    ("flash_dkdv", (16, 64, 4, 32), 64, 1),
+    ("flash_dq", (16, 64, 4, 32), 64, 1),
+    # the sp dense oracle's sequence: 2048 four-warp blocks each
+    ("flash_dkdv", (4, 8192, 4, 32), 8192, 4),
+    ("flash_dq", (4, 8192, 4, 32), 8192, 4),
+    # four warps would give 128 blocks
+    ("flash_dkdv", (2, 1024, 4, 32), 1024, 2),
+    ("flash_dq", (2, 1024, 4, 32), 1024, 2),
+    # S_kv != S_q: dK/dV's warps own keys, dQ's and the forward's queries
+    ("flash_dkdv", (2, 64, 4, 32), 4096, 4),
+    ("flash_dq", (2, 64, 4, 32), 4096, 1),
+    ("flash_fwd", (2, 64, 4, 32), 4096, 1),
+    ("flash_dkdv", (2, 4096, 4, 32), 64, 1),
+    ("flash_dq", (2, 4096, 4, 32), 64, 4),
+])
+def test_backward_warps_by_shape(kernel, q_shape, s_kv, warps):
+    assert fa.launch_warps(kernel, q_shape, s_kv, 132) == warps
+
+
+@pytest.mark.parametrize("kernel", ["flash_dkdv", "flash_dq"])
+def test_config5_backward_grid_fills_the_card(kernel):
+    b, s, h, d = 16, 64, 4, 32
+    warps = fa.launch_warps(kernel, (b, s, h, d), s, 132)
+    blocks = b * h * -(-s // (fa.WARP_ROWS * warps))
+    assert blocks >= 132                 # the first design's grid gave 64
