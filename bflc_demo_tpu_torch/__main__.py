@@ -1,10 +1,11 @@
-"""CLI runner: `python -m bflc_demo_tpu_torch --config config5 --rounds 4`.
+"""CLI runner: `python -m bflc_demo_tpu_torch [--config config1] [--rounds N]`.
 
-Port of `bflc_demo_tpu/__main__.py` for the presets and runtime ported so
-far: config 5 on the in-process `host` runtime, on `cuda` unless
-`--device cpu` (the counterpart of `JAX_PLATFORMS=cpu`).  Any other
-config or runtime exits 2 naming the ROADMAP item that ports it.  Prints
-the reference CLI's final JSON keys.
+Port of `bflc_demo_tpu/__main__.py` for the presets and runtimes ported
+so far, with the reference's defaults: `--config config1 --runtime mesh
+--rounds 10`.  Configs 1 and 5 run on the `mesh` or `host` runtime, on
+`cuda` unless `--device cpu` (the counterpart of `JAX_PLATFORMS=cpu`).
+Any other config or runtime exits 2 naming the ROADMAP item that ports
+it.  Prints the reference CLI's final JSON keys.
 """
 
 from __future__ import annotations
@@ -19,15 +20,15 @@ def _parser() -> argparse.ArgumentParser:
         prog="python -m bflc_demo_tpu_torch",
         description="Committee-consensus federated learning in PyTorch on "
                     "an NVIDIA GPU (port of bflc_demo_tpu).",
-        epilog="Ported so far: --config config5 on --runtime host.  The "
-               "default runtime is 'host' (the reference CLI defaults to "
-               "'mesh', which is ROADMAP A7); other configs are ROADMAP "
-               "A4/A10.  Either exits 2 until ported.")
-    p.add_argument("--config", default="config5",
-                   help="benchmark preset (ported: config5)")
-    p.add_argument("--runtime", default="host",
-                   help="runtime (ported: host; mesh is ROADMAP A7, "
-                        "processes/executor A9)")
+        epilog="Ported so far: --config config1 and config5 on --runtime "
+               "mesh (the default) and host.  Configs 0/2/3/4 are ROADMAP "
+               "A8/A10, the threaded/processes/executor runtimes A9; "
+               "either exits 2 until ported.")
+    p.add_argument("--config", default="config1",
+                   help="benchmark preset (ported: config1, config5)")
+    p.add_argument("--runtime", default="mesh",
+                   help="runtime (ported: mesh, host; threaded/processes/"
+                        "executor are ROADMAP A9)")
     p.add_argument("--rounds", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
@@ -41,7 +42,7 @@ def main(argv=None) -> int:
     from bflc_demo_tpu_torch.eval.configs import (CONFIGS, RUNTIMES,
                                                   UNPORTED_RUNTIME)
     if opts.config not in CONFIGS:
-        print(f"config {opts.config!r} is not ported yet (ROADMAP A4/A10); "
+        print(f"config {opts.config!r} is not ported yet (ROADMAP A8/A10); "
               f"have {list(CONFIGS)}", file=sys.stderr)
         return 2
     if opts.runtime not in RUNTIMES:

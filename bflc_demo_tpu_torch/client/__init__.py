@@ -1,1 +1,2 @@
-"""Client runtimes (the in-process host runtime so far)."""
+"""Client runtimes: the in-process host runtime (`simulation`) and the
+mesh runtime (`mesh_runtime`)."""

@@ -30,6 +30,14 @@ from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
 from bflc_demo_tpu_torch.utils.serialization import hash_pytree
 
 
+def feature_tensor(x: np.ndarray, device) -> torch.Tensor:
+    """Features on `device`: token ids index the embedding, so integer
+    features become int64; everything else float32."""
+    x = np.asarray(x)
+    return torch.as_tensor(x, dtype=torch.long if np.issubdtype(
+        x.dtype, np.integer) else torch.float32, device=device)
+
+
 def _stack(trees: List[Params]) -> Params:
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 

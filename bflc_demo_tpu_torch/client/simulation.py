@@ -10,9 +10,10 @@ numpy.
 
 Added for cross-framework runs: `init_params` starts from given values
 (for example the reference's, through `Model.params_from_jax`) instead of
-the port's own seeded init.  Dropped: the mesh-only result fields
-(`n_devices`, `flops_per_round`, `attest_log`, `mfu`) and local
-optimizers other than plain SGD.
+the port's own seeded init.  `SimulationResult.n_devices` is 1: the port
+runs every runtime on one card.  Dropped: the mesh-only result fields
+`flops_per_round`, `attest_log` and `mfu` (their features are not
+ported), and local optimizers other than plain SGD.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from bflc_demo_tpu_torch.client.runtime import ComputePlane, FLNode, Sponsor
+from bflc_demo_tpu_torch.client.runtime import (ComputePlane, FLNode, Sponsor,
+                                                feature_tensor)
 from bflc_demo_tpu_torch.comm.store import UpdateStore
 from bflc_demo_tpu_torch.data.partition import one_hot
 from bflc_demo_tpu_torch.device import DeviceLike, resolve_device
@@ -45,6 +47,7 @@ class SimulationResult:
     ledger_log_head: bytes
     ledger_log_size: int
     ledger: Any = None          # the live ledger (for inspection)
+    n_devices: int = 1          # devices the data plane used
 
     @property
     def final_accuracy(self) -> float:
@@ -79,11 +82,8 @@ def run_federated(model: Model,
     model = model.to(dev)
 
     def tensors(x, y):
-        x = np.asarray(x)
-        # token ids index the embedding: integer features become int64
-        xt = torch.as_tensor(x, dtype=torch.long if np.issubdtype(
-            x.dtype, np.integer) else torch.float32, device=dev)
-        return xt, torch.as_tensor(one_hot(y, nc), device=dev)
+        return (feature_tensor(x, dev),
+                torch.as_tensor(one_hot(y, nc), device=dev))
 
     nodes = [FLNode(f"0x{i:040x}", *tensors(sx, sy), model=model, cfg=cfg,
                     trained_epoch=cfg.initial_trained_epoch)

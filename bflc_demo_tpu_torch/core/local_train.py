@@ -12,6 +12,14 @@ The reference compiles the whole loop into one XLA program (`lax.scan`);
 PyTorch runs it eagerly, one autograd step per minibatch, updating the
 working copy in place under `no_grad`.  Only `optimizer=None` (the
 reference's plain SGD) is ported; any other optimizer raises.
+
+`local_train_stacked` is the one SGD loop, the counterpart of
+`vmap(local_train_impl)` (`bflc_demo_tpu/parallel/fedavg.py:360-381`):
+all N clients step in lockstep, one autograd step per minibatch for all
+of them through `Model.apply_stacked`; `local_train` is that loop at
+N = 1.  The loss is the sum over models
+of each model's mean cross-entropy; the models share no parameter, so
+each slice of a stacked leaf receives exactly its own model's gradient.
 """
 
 from __future__ import annotations
@@ -20,8 +28,7 @@ from typing import Tuple
 
 import torch
 
-from bflc_demo_tpu_torch.core.losses import (accuracy, softmax_cross_entropy,
-                                            xla_mean)
+from bflc_demo_tpu_torch.core.losses import accuracy, xla_mean
 from bflc_demo_tpu_torch.models.base import Model, Params
 
 
@@ -44,24 +51,39 @@ def local_train(model: Model, params: Params, x: torch.Tensor,
         raise NotImplementedError(
             "only plain SGD (optimizer=None) is ported; optax-style local "
             "optimizers are still to port (ROADMAP queue A)")
-    nb = _num_batches(x.shape[0], batch_size)
-    work = {k: v.detach().clone().requires_grad_(True)
-            for k, v in params.items()}
+    deltas, costs = local_train_stacked(model, params, x[None], y[None], lr,
+                                        batch_size, local_epochs)
+    return {k: v[0] for k, v in deltas.items()}, costs[0]
+
+
+def local_train_stacked(model: Model, params: Params, xs: torch.Tensor,
+                        ys: torch.Tensor, lr: float, batch_size: int,
+                        local_epochs: int = 1) -> Tuple[Params, torch.Tensor]:
+    """(deltas with a leading axis N, avg_costs (N,)) of N clients that all
+    start from `params`.  xs: (N, S_pad, ...) padded shards, ys: (N, S_pad,
+    classes) one-hot; the minibatches are the first floor(S_pad /
+    batch_size) * batch_size rows of each shard."""
+    n = xs.shape[0]
+    nb = _num_batches(xs.shape[1], batch_size)
+    work = {k: v.detach().unsqueeze(0).repeat((n,) + (1,) * v.ndim)
+            .requires_grad_(True) for k, v in params.items()}
     leaves = list(work.values())
     epoch_costs = []
     for _ in range(local_epochs):
         costs = []
         for i in range(nb):
             sl = slice(i * batch_size, (i + 1) * batch_size)
-            loss = softmax_cross_entropy(model.apply(work, x[sl]), y[sl])
-            grads = torch.autograd.grad(loss, leaves)
+            logits = model.apply_stacked(work, xs[:, sl])
+            logp = torch.log_softmax(logits, dim=-1)
+            per_model = -xla_mean((ys[:, sl] * logp).sum(-1), dim=1)
+            grads = torch.autograd.grad(per_model.sum(), leaves)
             with torch.no_grad():
                 for w, g in zip(leaves, grads):
                     w.sub_(lr * g)
-            costs.append(loss.detach())
-        epoch_costs.append(xla_mean(torch.stack(costs)))
-    delta = {k: (params[k] - work[k].detach()) / lr for k in params}
-    return delta, xla_mean(torch.stack(epoch_costs))
+            costs.append(per_model.detach())
+        epoch_costs.append(xla_mean(torch.stack(costs), dim=0))
+    deltas = {k: (params[k][None] - work[k].detach()) / lr for k in params}
+    return deltas, xla_mean(torch.stack(epoch_costs), dim=0)
 
 
 @torch.no_grad()

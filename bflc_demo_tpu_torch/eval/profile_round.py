@@ -1,8 +1,10 @@
-"""Where a config-5 host round spends its time on the card.
+"""Where a config-5 round spends its time on the card.
 
-    python -m bflc_demo_tpu_torch.eval.profile_round [--rounds 2]
+    python -m bflc_demo_tpu_torch.eval.profile_round [--runtime host|mesh]
+        [--rounds 2]
 
-Runs config 5 on `cuda` for two rounds to warm up (kernel build, cuBLAS
+Runs config 5 on `cuda` on the chosen runtime (default host) for two
+rounds to warm up (kernel build, cuBLAS
 handles, the caching allocator; the second round's time is reported as
 `round_s_unprofiled`), then for `--rounds` rounds under
 `torch.profiler` (CPU and CUDA activities) with host-clock timers around
@@ -11,10 +13,14 @@ object:
 
 - `round_s`: wall seconds of each profiled round (the profiler adds host
   time to every op, so these run slower than `round_s_unprofiled`);
-- `phase_s_per_round`: host seconds per round in local training, payload
-  hashing (store put/get and the commit hash), candidate scoring, the
-  merge and the sponsor's eval.  A phase that ends in a device sync (every
-  hash copies its tensors to the host) includes the wait;
+- `phase_s_per_round`: host seconds per round in each protocol phase —
+  host runtime: local training, payload hashing (store put/get and the
+  commit hash), candidate scoring, the merge and the sponsor's eval; mesh
+  runtime: stacked local training, the stacked scoring pass, the decision
+  and merge, the payload fingerprints, the ledger audit and the sponsor's
+  eval.  A phase that ends in a device sync (a hash copies its tensors to
+  the host, the sponsor reads its accuracy) includes the wait; the others
+  count the time to enqueue their work;
 - `device_busy_s_per_round` and `busy_share`: the union of CUDA kernel
   and copy intervals per round, and its share of the round's wall time
   (null when the profiler records no device activity);
@@ -32,17 +38,30 @@ import time
 
 import torch
 
-from bflc_demo_tpu_torch.client import runtime
+from bflc_demo_tpu_torch.client import mesh_runtime, runtime
 from bflc_demo_tpu_torch.comm import store
 from bflc_demo_tpu_torch.eval.configs import config5_transformer_sst2
+from bflc_demo_tpu_torch.parallel import fedavg
 
-# protocol phase -> (module, function) pairs whose host time it sums
+# runtime -> protocol phase -> (module, function) pairs whose host time
+# it sums
 PHASES = {
-    "local_train": [(runtime, "local_train")],
-    "hashing": [(runtime, "hash_pytree"), (store, "hash_pytree")],
-    "scoring": [(runtime, "score_candidates")],
-    "merge": [(runtime, "apply_selection")],
-    "sponsor_eval": [(runtime, "evaluate")],
+    "host": {
+        "local_train": [(runtime, "local_train")],
+        "hashing": [(runtime, "hash_pytree"), (store, "hash_pytree")],
+        "scoring": [(runtime, "score_candidates")],
+        "merge": [(runtime, "apply_selection")],
+        "sponsor_eval": [(runtime, "evaluate")],
+    },
+    "mesh": {
+        "local_train": [(fedavg, "local_train_stacked")],
+        "scoring": [(fedavg, "committee_score_matrix")],
+        "decide_merge": [(fedavg, "decide"), (fedavg, "apply_selection")],
+        "fingerprint": [(fedavg, "fingerprint_stacked"),
+                        (fedavg, "fingerprint_pytree")],
+        "audit": [(mesh_runtime, "audit_round")],
+        "sponsor_eval": [(runtime, "evaluate")],
+    },
 }
 
 
@@ -76,17 +95,19 @@ def _union_us(intervals) -> float:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--runtime", choices=sorted(PHASES), default="host")
     p.add_argument("--rounds", type=int, default=2)
     opts = p.parse_args(argv)
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    warm = config5_transformer_sst2(rounds=2, device="cuda")
+    warm = config5_transformer_sst2(rounds=2, runtime=opts.runtime,
+                                    device="cuda")
 
     totals = collections.defaultdict(float)
     originals = []
-    for phase, sites in PHASES.items():
+    for phase, sites in PHASES[opts.runtime].items():
         for module, name in sites:
             fn = getattr(module, name)
             originals.append((module, name, fn))
@@ -96,6 +117,7 @@ def main(argv=None) -> int:
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             res = config5_transformer_sst2(rounds=opts.rounds,
+                                           runtime=opts.runtime,
                                            device="cuda")
     finally:
         for module, name, fn in originals:
@@ -110,6 +132,7 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     round_mean = sum(res.round_times_s) / n
     print(json.dumps({
+        "runtime": opts.runtime,
         "rounds": n,
         "round_s_unprofiled": warm.round_times_s[1:],
         "round_s": res.round_times_s,

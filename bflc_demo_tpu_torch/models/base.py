@@ -9,7 +9,9 @@ model is an `nn.Module` whose parameter names mirror the reference's tree
 moves are flat `{keystr: tensor}` dicts — `Params` — keyed by the
 reference's `jax.tree_util.keystr` paths, so the content hash of a port
 model equals the reference's for the same values.  `apply` runs the
-module on such a dict through `torch.func.functional_call`.
+module on such a dict through `torch.func.functional_call`;
+`apply_stacked` runs G models of the same architecture in one pass (the
+mesh round's stacked clients and candidates).
 """
 
 from __future__ import annotations
@@ -65,6 +67,14 @@ class Model(nn.Module):
         return torch.func.functional_call(
             self, {names[k]: v for k, v in params.items()}, (x,), kwargs,
             strict=True)
+
+    def apply_stacked(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Logits (G, B, classes) of G models at once: every leaf of
+        `params` carries a leading model axis G and `x` is (G, B, ...) —
+        the reference's `vmap(apply)` written out as a batch dimension
+        (`torch.func.vmap` cannot batch through the kernels' ctypes
+        launches)."""
+        raise NotImplementedError
 
     def params_from_jax(self, tree: Any,
                         device: torch.device | str = "cpu") -> Params:

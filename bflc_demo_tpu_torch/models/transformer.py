@@ -25,6 +25,15 @@ replaces the mean pool's division (the sp path sums both over the
 sequence shards first, the reference's `pool_psum_axis`).  Without hooks
 the forward is the dense path above.
 
+`apply_stacked` is the mesh round's forward of G models at once (the
+reference's `vmap(apply)`): every leaf carries a leading model axis, the
+projections and the MLP are batched products over that axis
+(`_per_model`, one bmm per weight, never an expanded copy of it), layer
+norm normalises without affine and then applies each model's scale and
+bias, the embedding lookup is `embed[g, tokens]`, and attention folds
+(G, B) into the flash kernels' batch axis, so one launch of each kernel
+serves every model.
+
 Documented divergences: the initial values come from `torch.Generator`
 with the reference's distributions (normal * 0.02 for embeddings and
 projections, ones/zeros for norms, zeros for biases and the head), which
@@ -124,6 +133,20 @@ class Block(nn.Module):
         return x + (y @ self.w2 + self.b2)
 
 
+def _per_model(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (G, B, S, a) times each model's own w (G, a, c): (G, B, S, c)."""
+    g, b, s, a = x.shape
+    return (x.reshape(g, b * s, a) @ w).reshape(g, b, s, w.shape[-1])
+
+
+def _stacked_ln(x: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """Layer norm of (G, ..., d) with each model's (G, d) scale and bias."""
+    bcast = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    y = F.layer_norm(x, (x.shape[-1],), eps=1e-6)
+    return y * scale.reshape(bcast) + bias.reshape(bcast)
+
+
 class TransformerClassifier(Model):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -173,6 +196,37 @@ class TransformerClassifier(Model):
         head then runs on B' rows.  With no hooks this is `apply`."""
         return self.apply(params, tokens, attn_fn=attn_fn,
                           pos_offset=pos_offset, pool=pool)
+
+    def apply_stacked(self, params: Params,
+                      tokens: torch.Tensor) -> torch.Tensor:
+        """Logits (G, B, classes) of G models on tokens (G, B, S)."""
+        cfg = self.cfg
+        g, b, s = tokens.shape
+        tokens = tokens.long()
+        pad = tokens != 0
+        models = torch.arange(g, device=tokens.device)[:, None, None]
+        x = params["['embed']"][models, tokens] \
+            + params["['pos']"][:, None, :s]
+        blk = attention_block(s)
+        shape = (g * b, s, cfg.heads, cfg.head_dim)
+        for i in range(cfg.depth):
+            p = {k[len(f"['blocks'][{i}]"):]: v for k, v in params.items()
+                 if k.startswith(f"['blocks'][{i}]")}
+            y = _stacked_ln(x, p["['ln1']['scale']"], p["['ln1']['bias']"])
+            q, k, v = (_per_model(y, p[f"['{n}']"]).reshape(shape)
+                       for n in ("wq", "wk", "wv"))
+            o = flash_attention(q, k, v, pad.reshape(g * b, s), blk, blk)
+            x = x + _per_model(o.reshape(g, b, s, cfg.dim), p["['wo']"])
+            y = _stacked_ln(x, p["['ln2']['scale']"], p["['ln2']['bias']"])
+            y = F.gelu(_per_model(y, p["['w1']"])
+                       + p["['b1']"][:, None, None], approximate="tanh")
+            x = x + _per_model(y, p["['w2']"]) + p["['b2']"][:, None, None]
+        x = _stacked_ln(x, params["['ln_f']['scale']"],
+                        params["['ln_f']['bias']"])
+        num = (x * pad[..., None]).sum(2)
+        den = pad.sum(-1, keepdim=True)
+        pooled = num / den.clamp_min(1).to(torch.float32)
+        return pooled @ params["['head_w']"] + params["['head_b']"][:, None]
 
     def init_params(self, seed: int = 0,
                     device: torch.device | str = "cpu") -> Params:

@@ -14,17 +14,19 @@ each; any failure raises and exits non-zero:
 3. compare — each kernel against its plain PyTorch version on the same
              card tensors, float32 and bfloat16, at the transformer's
              training and scoring shapes, at a multi-tile shape (S = 256)
-             with ragged padding and one fully masked 64-key tile, and at
-             a batch of 32 — between them the 1-, 2- and 4-warp blocks of
-             the forward, dK/dV and dQ kernels;
+             with ragged padding and one fully masked 64-key tile, at
+             a batch of 32 and at the mesh round's stacked shapes
+             (320 and 6400 rows) — between them the 1-, 2- and 4-warp
+             blocks of the forward, dK/dV and dQ kernels;
 4. timing  — each kernel, its plain version and one PyTorch call as the
              yardstick (the forward: scaled_dot_product_attention; the
              dK/dV + dQ pair: SDPA's backward, which computes all three),
              at the training shape, and the forward also at the
-             committee's score shape (B = 160); device time per call from
-             CUDA-graph replays between CUDA events (warmup, then the
-             median of several repeats), beside the bound, its share and
-             TFLOP/s;
+             committee's score shape (B = 160), and all three at the mesh
+             round's shapes (training 320, scoring 6400, sponsor 800);
+             device time per call from CUDA-graph replays between CUDA
+             events (warmup, then the median of several repeats), beside
+             the bound, its share and TFLOP/s;
 5. slice   — the config-5 federated round on the host runtime, full width,
              5 rounds (the preset's own count) on `cuda`, with the launch
              counts reset just before and read just after; then the
@@ -33,6 +35,22 @@ each; any failure raises and exits non-zero:
              (from a second, 2-round run) and of the final one
              (accuracies of the sponsor's test set and of every client's
              shard) against the CPU path's on the same params;
+   mesh    — the same preset on the mesh runtime (one device round per
+             protocol round: 20 clients in lockstep, one stacked scoring
+             pass, payload ids by the fingerprint kernel), 5 rounds, launch
+             counts reset just before and read just after and held to
+             K1 24, K2 20, K3 20 and fingerprint 2 a round; the decisions
+             of its final model against the CPU path's; then config 1 —
+             the CLI's default — for 10 rounds on the mesh runtime and 10
+             on the host runtime (round times of both), its final model
+             against the CPU path;
+   fingerprint — the fingerprint kernel against its plain version on the
+             card, bit for bit (float32, bfloat16, float16, int8, bool and
+             int32 leaves, a ragged leaf, config 5's 20 stacked deltas and
+             a config-1 model); its time at config 5's 20 deltas and one
+             model beside the bytes bound and the chain bound (the
+             measured latency of one dependent multiply-xor times the
+             steps of a lane's chain);
 6. compare — the ring's carry kernel (`flash_carry`) against its plain
              version over two chained hops, float32 and bfloat16, at
              S = 256 (ragged keys, one fully masked 64-key tile) and at
@@ -88,11 +106,16 @@ TRAIN_SHAPE = (16, 64, 4, 32)        # config-5 trainer batch: B, S, H, D
 SCORE_SHAPE = (160, 64, 4, 32)       # config-5 committee scoring batch
 MULTI_SHAPE = (4, 256, 4, 32)        # several 64-tiles each way
 PAIR_SHAPE = (32, 64, 4, 32)         # the forward's two-warp blocks
+MESH_TRAIN_SHAPE = (320, 64, 4, 32)  # mesh round: 20 clients x batch 16
+MESH_SCORE_SHAPE = (6400, 64, 4, 32)  # 4 scorers x 10 candidates x 160 rows
+SPONSOR_SHAPE = (800, 64, 4, 32)     # the sponsor's test set
 # every kernel's block geometry follows the shape (launch_warps): on an
 # H100 the training batch and MULTI_SHAPE take one-warp blocks, PAIR_SHAPE
 # two and the score (and sponsor) batch four, for the forward, dK/dV and
 # dQ alike (S_kv = S_q); the compare phase covers each
-DENSE_SHAPES = (TRAIN_SHAPE, MULTI_SHAPE, PAIR_SHAPE, SCORE_SHAPE)
+DENSE_SHAPES = (TRAIN_SHAPE, MULTI_SHAPE, PAIR_SHAPE, SCORE_SHAPE,
+                MESH_TRAIN_SHAPE, MESH_SCORE_SHAPE)
+BIG_FEW = dict(calls=5, replays=2, repeats=5)   # device_ms at 6400 rows
 SHARD_SHAPE = (32, 1024, 4, 32)      # sp training shard: 8 shards x B 4
 RING_SHAPE = (4, 8192, 4, 32)        # the same sequence, unsharded
 RING_FEW = dict(calls=2, replays=2, repeats=3)   # device_ms at RING_SHAPE
@@ -118,15 +141,29 @@ SP_LOGITS_TOL = dict(rtol=1e-4, atol=1e-5)
 # times too large) is off by O(1)
 SP_STEP_TOL = dict(rtol=5e-4, atol=5e-5)
 SP_GRAD_TOL = 1e-3
+# the mesh round's launches per round on config 5 (depth 2): 10 minibatch
+# steps of all 20 clients, each a forward (K1) and backward (K2, K3) per
+# layer; one scoring pass of 40 models (K1 per layer); the sponsor's eval
+# (K1 per layer); the ids of the 20 deltas and of the new model
+MESH_PER_ROUND = {"flash_fwd": 24, "flash_dkdv": 20, "flash_dq": 20,
+                  "flash_carry": 0, "fingerprint": 2}
+CONFIG1_ROUNDS = 10          # the CLI's default run
+CONFIG1_MIN_BEST = {"csv": 0.90, "synthetic": 0.85}  # tests/test_e2e.py
+# the fingerprint's operations are a 32-bit multiply and xor per word on
+# the CUDA cores; 67e12 (their float32 rate) is an upper bound on that
+INT_OPS = F32_CUDA_CORE_OPS
 
 KERNELS = {
     "flash_fwd": "bflc_demo_tpu/ops/pallas_attention.py:42",
     "flash_dkdv": "bflc_demo_tpu/ops/pallas_attention.py:153",
     "flash_dq": "bflc_demo_tpu/ops/pallas_attention.py:196",
     "flash_carry": "bflc_demo_tpu/ops/pallas_attention.py:300",
+    "fingerprint": "bflc_demo_tpu/ops/fingerprint.py:62",
 }
 DENSE_KERNELS = ("flash_fwd", "flash_dkdv", "flash_dq")
-SOURCE = "bflc_demo_tpu_torch/ops/csrc/flash_attention.cu"
+SOURCES = {name: "bflc_demo_tpu_torch/ops/csrc/flash_attention.cu"
+           for name in KERNELS}
+SOURCES["fingerprint"] = "bflc_demo_tpu_torch/ops/csrc/fingerprint.cu"
 
 
 def emit(phase: str, **fields) -> None:
@@ -402,35 +439,43 @@ def backward_timing(torch, fa, device, shape, seed, **few) -> dict:
     return rows
 
 
-def timing_phase(torch, fa, device) -> dict:
+def forward_timing(torch, fa, device, shape, seed, **few) -> dict:
+    """The forward kernel at `shape` (float32) beside its plain version
+    and SDPA."""
     import torch.nn.functional as F
-    q, k, v, _, mask = attention_inputs(torch, TRAIN_SHAPE, torch.float32,
-                                        device, seed=2)
-    qt, kt, vt, attn_mask = sdpa_inputs(q, k, v, mask)
-    result = {"flash_fwd": timing_row(
-        TRAIN_SHAPE, mask, "float32", "flash_fwd",
-        device_ms(torch, lambda: fa.flash_fwd(q, k, v, mask)),
-        device_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, mask)),
-        device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=attn_mask)))}
-    result["flash_fwd"]["library"] = "scaled_dot_product_attention"
-    emit("timing", kernel="flash_fwd", shape=list(TRAIN_SHAPE),
-         dtype="float32", **result["flash_fwd"])
-    result.update(backward_timing(torch, fa, device, TRAIN_SHAPE, seed=2))
-
-    # the forward at the committee's score batch (eval only, no backward)
-    q, k, v, _, mask = attention_inputs(torch, SCORE_SHAPE, torch.float32,
-                                        device, seed=8)
+    q, k, v, _, mask = attention_inputs(torch, shape, torch.float32, device,
+                                        seed)
     qt, kt, vt, attn_mask = sdpa_inputs(q, k, v, mask)
     row = timing_row(
-        SCORE_SHAPE, mask, "float32", "flash_fwd",
-        device_ms(torch, lambda: fa.flash_fwd(q, k, v, mask)),
-        device_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, mask)),
+        shape, mask, "float32", "flash_fwd",
+        device_ms(torch, lambda: fa.flash_fwd(q, k, v, mask), **few),
+        device_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, mask), **few),
         device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=attn_mask)))
-    emit("timing", kernel="flash_fwd", shape=list(SCORE_SHAPE),
-         dtype="float32", **row)
-    result["flash_fwd"]["at"] = {"score": dict(row, shape=list(SCORE_SHAPE))}
+            qt, kt, vt, attn_mask=attn_mask), **few))
+    row["library"] = "scaled_dot_product_attention"
+    emit("timing", kernel="flash_fwd", shape=list(shape), dtype="float32",
+         **row)
+    return row
+
+
+def timing_phase(torch, fa, device) -> dict:
+    result = {"flash_fwd": forward_timing(torch, fa, device, TRAIN_SHAPE,
+                                          seed=2)}
+    result.update(backward_timing(torch, fa, device, TRAIN_SHAPE, seed=2))
+    for row in result.values():
+        row["at"] = {}
+    # the forward at the host round's score batch and the mesh round's
+    # shapes (eval only, no backward, at the score and sponsor shapes)
+    for name, shape, few in (("score", SCORE_SHAPE, {}),
+                             ("mesh_train", MESH_TRAIN_SHAPE, {}),
+                             ("mesh_score", MESH_SCORE_SHAPE, BIG_FEW),
+                             ("sponsor", SPONSOR_SHAPE, {})):
+        row = forward_timing(torch, fa, device, shape, seed=8, **few)
+        result["flash_fwd"]["at"][name] = dict(row, shape=list(shape))
+    for name, row in backward_timing(torch, fa, device, MESH_TRAIN_SHAPE,
+                                     seed=8).items():
+        result[name]["at"]["mesh_train"] = dict(row,
+                                                shape=list(MESH_TRAIN_SHAPE))
     return result
 
 
@@ -573,6 +618,8 @@ def sp_slice_phase(torch, fa, device) -> int:
 
 
 def slice_phase(torch, fa, device) -> dict:
+    """Config 5 on the host runtime; returns its launches and round
+    times."""
     from bflc_demo_tpu_torch.eval.configs import config5_transformer_sst2
     from bflc_demo_tpu_torch.models.transformer import \
         make_transformer_classifier
@@ -626,7 +673,216 @@ def slice_phase(torch, fa, device) -> dict:
     decision_check(torch, early.final_params, device, "round 2",
                    early.final_accuracy)
     decision_check(torch, params, device, "final", res.final_accuracy)
-    return launches
+    return {"launches": launches, "round_s": res.round_times_s}
+
+
+def mesh_slice_phase(torch, fa, fp, device) -> dict:
+    """Config 5 on the mesh runtime between a reset and a read of the
+    launch counts; then its final model's decisions on the card against
+    the CPU path's.  Returns the launches and the round times."""
+    from bflc_demo_tpu_torch.eval.configs import config5_transformer_sst2
+
+    fa.reset_launches()
+    fp.reset_launches()
+    res = config5_transformer_sst2(rounds=ROUNDS, runtime="mesh",
+                                   device="cuda")
+    torch.cuda.synchronize()
+    launches = {**fa.LAUNCHES, **fp.LAUNCHES}
+    expected = {k: n * ROUNDS for k, n in MESH_PER_ROUND.items()}
+    best = res.best_accuracy()
+    emit("mesh_slice", config="config5", runtime="mesh", rounds=ROUNDS,
+         accuracy=[a for _, a in res.accuracy_history],
+         global_loss=[l for _, l in res.loss_history],
+         round_s=res.round_times_s, wall_s=res.wall_time_s, best_acc=best,
+         ledger_log_head=res.ledger_log_head.hex(),
+         ledger_log_size=res.ledger_log_size,
+         ledger_verified=res.ledger.verify_log(), n_devices=res.n_devices,
+         launches=launches, expected_launches=expected)
+    if res.rounds_completed != ROUNDS or not res.ledger.verify_log():
+        raise RuntimeError("the mesh slice did not complete a verified "
+                           "chain")
+    if launches != expected:
+        raise RuntimeError(f"mesh launches {launches}, expected {expected}")
+    if best < MIN_BEST_ACC:
+        raise RuntimeError(f"mesh best accuracy {best} < {MIN_BEST_ACC}")
+    decision_check(torch, res.final_params, device, "mesh final",
+                   res.final_accuracy)
+    return {"launches": launches, "round_s": res.round_times_s}
+
+
+def config1_phase(torch, fa, fp, device) -> dict:
+    """The CLI's default run — config 1 on the mesh runtime, 10 rounds —
+    between a reset and a read of the launch counts; the same 10 rounds
+    on the host runtime; the mesh run's final model on the card against
+    the CPU path on the sponsor's test set."""
+    from bflc_demo_tpu_torch.core.losses import accuracy
+    from bflc_demo_tpu_torch.data.occupancy import (load_occupancy,
+                                                    occupancy_source)
+    from bflc_demo_tpu_torch.eval.configs import config1_occupancy
+    from bflc_demo_tpu_torch.models import make_softmax_regression
+
+    fa.reset_launches()
+    fp.reset_launches()
+    mesh = config1_occupancy(rounds=CONFIG1_ROUNDS, runtime="mesh",
+                             device="cuda")
+    torch.cuda.synchronize()
+    launches = {**fa.LAUNCHES, **fp.LAUNCHES}
+    host = config1_occupancy(rounds=CONFIG1_ROUNDS, runtime="host",
+                             device="cuda")
+    source = occupancy_source()
+    bar = CONFIG1_MIN_BEST[source]
+    want_size = 20 + CONFIG1_ROUNDS * 15       # tests/test_e2e.py:46
+    emit("mesh_slice", config="config1", data=source, rounds=CONFIG1_ROUNDS,
+         accuracy=[a for _, a in mesh.accuracy_history],
+         host_accuracy=[a for _, a in host.accuracy_history],
+         round_s=mesh.round_times_s, host_round_s=host.round_times_s,
+         best_acc=mesh.best_accuracy(), host_best_acc=host.best_accuracy(),
+         min_best_acc=bar, ledger_log_head=mesh.ledger_log_head.hex(),
+         ledger_log_size=mesh.ledger_log_size,
+         host_ledger_log_size=host.ledger_log_size,
+         ledger_verified=mesh.ledger.verify_log(), launches=launches)
+    for name, res in (("mesh", mesh), ("host", host)):
+        if res.ledger_log_size != want_size or not res.ledger.verify_log():
+            raise RuntimeError(f"config 1 {name}: ledger of "
+                               f"{res.ledger_log_size} ops, expected "
+                               f"{want_size}, or unverified")
+    if mesh.best_accuracy() < bar:
+        raise RuntimeError(f"config 1 mesh best accuracy "
+                           f"{mesh.best_accuracy()} < {bar}")
+    want = {k: 0 for k in fa.LAUNCHES}
+    want["fingerprint"] = MESH_PER_ROUND["fingerprint"] * CONFIG1_ROUNDS
+    if launches != want:
+        raise RuntimeError(f"config 1 launches {launches}, expected {want}")
+
+    # the final model on the card vs on the CPU: logits within float32
+    # rounding of the raw-scale features, the same decisions but for
+    # rows whose two logits are within that tolerance of each other
+    _, _, xte, yte = load_occupancy()
+    model = make_softmax_regression()
+    x = torch.as_tensor(xte)
+    on_card = model.to(device).apply(mesh.final_params, x.to(device)).cpu()
+    on_cpu = model.cpu().apply({k: p.cpu() for k, p in
+                                mesh.final_params.items()}, x)
+    tol = 1e-5 * max(1.0, float(on_cpu.abs().max()))
+    err = float((on_card - on_cpu).abs().max())
+    gap = (on_cpu[:, 0] - on_cpu[:, 1]).abs()
+    flips = on_card.argmax(-1) != on_cpu.argmax(-1)
+    acc_card = float(accuracy(on_card, torch.nn.functional.one_hot(
+        torch.as_tensor(yte).long(), 2).float()))
+    emit("mesh_check", config="config1", max_abs_err_vs_cpu=err, tol=tol,
+         ties_flipped=int(flips.sum()), sponsor_acc_card=acc_card,
+         sponsor_acc_recorded=mesh.final_accuracy)
+    if err > tol or (flips & (gap > 2 * tol)).any():
+        raise RuntimeError(f"config 1: card logits differ from the CPU "
+                           f"path: {err} (tol {tol})")
+    if acc_card != mesh.final_accuracy:
+        raise RuntimeError(f"config 1: the sponsor's accuracy re-evaluated "
+                           f"on the card ({acc_card}) is not the run's "
+                           f"({mesh.final_accuracy})")
+    return {"launches": launches, "round_s": mesh.round_times_s,
+            "host_round_s": host.round_times_s}
+
+
+def fingerprint_trees(torch, device) -> dict:
+    """The compare cases, as CPU tensors: every leaf dtype of the mesh
+    path and more, stacked over 3 slices, with a ragged leaf (11 words);
+    config 5's 20 stacked deltas; one config-1 model."""
+    from bflc_demo_tpu_torch.models import (make_softmax_regression,
+                                            make_transformer_classifier)
+    gen = torch.Generator().manual_seed(9)
+    mixed = {
+        "['f32']": torch.randn((3, 7, 5), generator=gen),
+        "['bf16']": torch.randn((3, 13), generator=gen).to(torch.bfloat16),
+        "['f16']": torch.randn((3, 4, 3), generator=gen).to(torch.float16),
+        "['i8']": torch.randint(-128, 128, (3, 9), generator=gen,
+                                dtype=torch.int8),
+        "['bool']": torch.rand((3, 6), generator=gen) < 0.5,
+        "['i32']": torch.randint(-2**31, 2**31 - 1, (3, 3, 3),
+                                 generator=gen, dtype=torch.int32),
+        "['ragged']": torch.randn((3, 11), generator=gen)}
+    deltas = {k: torch.randn((20,) + tuple(v.shape), generator=gen)
+              for k, v in make_transformer_classifier().init_params(0)
+              .items()}
+    config1 = {k: torch.randn((1,) + tuple(v.shape), generator=gen)
+               for k, v in make_softmax_regression().init_params(0).items()}
+    return {"mixed_dtypes": mixed, "config5_deltas": deltas,
+            "config1_model": config1}
+
+
+def fingerprint_compare_phase(torch, fp, device) -> tuple:
+    """The kernel against the plain version on the same card tensors,
+    bit for bit.  Returns the card trees for the timing phase and the
+    largest difference measured."""
+    trees, worst = {}, 0
+    for name, tree in fingerprint_trees(torch, device).items():
+        tree = {k: v.to(device) for k, v in tree.items()}
+        got = fp.fingerprint_stacked(tree)
+        want = fp.fingerprint_plain(tree)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        emit("compare", kernel="fingerprint", case=name,
+             slices=int(got.shape[0]),
+             leaves={k: [str(v.dtype).replace("torch.", "")]
+                     + list(v.shape[1:]) for k, v in tree.items()},
+             max_abs_err=err, ok=err == 0)
+        if err:
+            raise RuntimeError(f"fingerprint {name}: the kernel differs "
+                               f"from the plain version")
+        trees[name] = tree
+        worst = max(worst, err)
+    return trees, worst
+
+
+def event_ms(torch, fn) -> float:
+    """One call of `fn` between CUDA events (for the plain fingerprint,
+    tens of thousands of launches a call, too many to capture)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop)
+
+
+def fingerprint_timing_phase(torch, fp, device, trees) -> dict:
+    """The kernel at config 5's 20 deltas and at one model, beside both
+    bounds: bytes (each input read once, the ids written once) and the
+    chain (one lane's dependent multiply-xor steps times the latency of
+    one step, measured by a one-thread chain kernel)."""
+    step_ms, step_cycles = fp.fnv_chain_latency(1 << 22, device)
+    deltas = trees["config5_deltas"]
+    rows = {}
+    for name, tree in (("config5_deltas", deltas),
+                       ("config5_model", {k: v[:1].contiguous()
+                                          for k, v in deltas.items()})):
+        plan = fp.KernelPlan(tree)
+        ms = device_ms(torch, plan.launch, calls=10, replays=3, repeats=5)
+        plain_ms = event_ms(torch, lambda: fp.fingerprint_plain(tree))
+        slices = plan.batch
+        moved = sum(t.numel() * t.element_size() for t in tree.values()) \
+            + slices * fp.LANES * 8
+        words = sum(fp._leaf_words(t, slices) for t in tree.values()) \
+            * slices
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * words / INT_OPS * 1e3
+        steps = fp.chain_steps(tree)
+        chain_ms = steps * step_ms
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "library": None, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "chain_bound_ms": chain_ms, "chain_steps": steps,
+               "chain_step_ns": step_ms * 1e6,
+               "chain_step_cycles": step_cycles, "slices": slices,
+               "bytes": moved}
+        row["share_of_bound"] = row["bound_ms"] / ms
+        # the chain is the floor no schedule beats
+        row["share_of_chain_bound"] = chain_ms / ms
+        emit("timing", kernel="fingerprint", case=name, **row)
+        rows[name] = row
+    main = rows["config5_deltas"]
+    main["at"] = {"config5_model": rows["config5_model"]}
+    return main
 
 
 def decision_check(torch, params, device, model_name: str,
@@ -723,6 +979,7 @@ def main() -> int:
     if port is None:
         return 1
     torch, fa, build, device = port
+    from bflc_demo_tpu_torch.ops import fingerprint as fp
 
     t0 = time.perf_counter()
     built = build.build_all()
@@ -742,19 +999,38 @@ def main() -> int:
 
     errors = compare_phase(torch, fa, device)
     timings = timing_phase(torch, fa, device)
-    launches = slice_phase(torch, fa, device)
+    # each path between a reset and a read of the launch counts
+    host5 = slice_phase(torch, fa, device)
+    mesh5 = mesh_slice_phase(torch, fa, fp, device)
+    mesh1 = config1_phase(torch, fa, fp, device)
+    emit("round_times", nvidia_smi=card,
+         config5={"host": host5["round_s"], "mesh": mesh5["round_s"]},
+         config1={"host": mesh1["host_round_s"], "mesh": mesh1["round_s"]})
+    trees, errors["fingerprint"] = fingerprint_compare_phase(torch, fp,
+                                                             device)
+    timings["fingerprint"] = fingerprint_timing_phase(torch, fp, device,
+                                                      trees)
+    del trees
     errors["flash_carry"] = carry_compare_phase(torch, fa, device)
     timings["flash_carry"], timings["flash_fwd"]["at"]["ring"] = \
         carry_timing_phase(torch, fa, device)
     ring = backward_timing(torch, fa, device, RING_SHAPE, seed=6, **RING_FEW)
     for name, row in ring.items():
-        timings[name]["at"] = {"ring": dict(row, shape=list(RING_SHAPE))}
-    launches["flash_carry"] = sp_slice_phase(torch, fa, device)
+        timings[name]["at"]["ring"] = dict(row, shape=list(RING_SHAPE))
+    paths = {"host_config5": host5["launches"],
+             "mesh_config5": mesh5["launches"],
+             "mesh_config1": mesh1["launches"],
+             "sp": {"flash_carry": sp_slice_phase(torch, fa, device)}}
+    by_path = {name: {path: counts.get(name, 0)
+                      for path, counts in paths.items()}
+               for name in KERNELS}
+    emit("done", seconds=time.perf_counter() - t0)
 
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": KERNELS[name], "launches": launches[name],
-         "max_abs_err": errors[name], **timings[name]}
+        {"name": name, "route": "cuda", "source": SOURCES[name],
+         "replaces": KERNELS[name], "launches": sum(by_path[name].values()),
+         "launches_by_path": by_path[name], "max_abs_err": errors[name],
+         **timings[name]}
         for name in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

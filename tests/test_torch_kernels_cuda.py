@@ -15,6 +15,9 @@ kernel (one (b, h) row; (2, 1024); (16, 512); and (2, 64) queries on
 4096 keys, where dK/dV runs four warps and dQ one).  The carry kernel
 (one ring hop) runs two hops chained from a zero carry, at multiples of
 its 64-key tile, up to the sp training shard (folded B=32, S=1024).  Between them every head dim runs in both dtypes.
+The payload-fingerprint kernel (B6) is held against its plain version
+bit for bit: every leaf dtype it takes, ragged word counts, empty and
+non-contiguous leaves, 64-bit leaves, and config 5's 20 stacked deltas.
 Tolerances: float32 differs only in summation order and the 3xTF32
 products (~2^-21 relative each) (1e-4); bfloat16 rounds p, dS and
 outputs at the same places in both versions, so they agree to a couple
@@ -25,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+from bflc_demo_tpu_torch.models import make_transformer_classifier
+from bflc_demo_tpu_torch.ops import fingerprint as fp
 from bflc_demo_tpu_torch.ops import flash_attention as fa
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
@@ -196,3 +201,56 @@ def test_carry_kernel_rejects_ragged_tiles(cuda_device):
     with pytest.raises(ValueError, match="multiples of 64"):
         fa.flash_carry(q, k, v, mask, *_zero_carry(q.shape, cuda_device))
     assert fa.LAUNCHES["flash_carry"] == 0
+
+
+def _fingerprint_tree(device):
+    """A tree of every dtype the kernel takes, ragged and empty leaves,
+    a 64-bit leaf and a non-contiguous view, stacked over 3 slices."""
+    gen = torch.Generator().manual_seed(5)
+    f32 = torch.randn((3, 7, 5), generator=gen)
+    return {
+        "['a']": f32.to(device),
+        "['b']['bf16']": torch.randn((3, 13), generator=gen)
+        .to(torch.bfloat16).to(device),
+        "['b']['f16']": torch.randn((3, 4, 3), generator=gen)
+        .to(torch.float16).to(device),
+        "['c'][0]": torch.randint(-128, 128, (3, 9), generator=gen,
+                                  dtype=torch.int8).to(device),
+        "['c'][1]": (torch.rand((3, 6), generator=gen) < 0.5).to(device),
+        "['c'][2]": torch.randint(-2**31, 2**31 - 1, (3, 3, 3),
+                                  generator=gen, dtype=torch.int32)
+        .to(device),
+        "['c'][10]": torch.randn((3, 5), generator=gen,
+                                 dtype=torch.float64).to(device),
+        "['d']": torch.zeros((3, 0), device=device),
+        "['e']": f32.transpose(1, 2).to(device),      # not contiguous
+    }
+
+
+@pytest.mark.cuda
+def test_fingerprint_kernel_matches_plain_bit_for_bit(cuda_device):
+    tree = _fingerprint_tree(cuda_device)
+    fp.reset_launches()
+    got = fp.fingerprint_stacked(tree)
+    one = fp.fingerprint_pytree({k: v[1] for k, v in tree.items()})
+    assert fp.LAUNCHES["fingerprint"] == 2
+    want = fp.fingerprint_plain({k: v.cpu() for k, v in tree.items()})
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(one.cpu(), want[1])
+
+
+@pytest.mark.cuda
+def test_fingerprint_kernel_on_config5_deltas(cuda_device):
+    """The mesh round's call: 20 stacked deltas of config 5's model."""
+    model = make_transformer_classifier()
+    gen = torch.Generator().manual_seed(6)
+    deltas = {k: torch.randn((20,) + tuple(v.shape), generator=gen)
+              for k, v in model.init_params(0).items()}
+    got = fp.fingerprint_stacked({k: v.to(cuda_device)
+                                  for k, v in deltas.items()})
+    plain = fp.fingerprint_plain({k: v[:2] for k, v in deltas.items()})
+    torch.cuda.synchronize()
+    assert got.shape == (20, 8)
+    assert torch.equal(got[:2].cpu(), plain)
+    assert len({tuple(r) for r in got.cpu().tolist()}) == 20

@@ -150,14 +150,14 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
         cli(["--rounds", "1"])
 
 
-@pytest.mark.parametrize("argv", [["--runtime", "mesh"],
+@pytest.mark.parametrize("argv", [["--runtime", "threaded"],
                                   ["--runtime", "processes"],
-                                  ["--config", "config1"]])
+                                  ["--config", "config2"]])
 def test_cli_rejects_unported_with_exit_2(argv, capsys):
     assert cli(argv) == 2
     assert "ROADMAP" in capsys.readouterr().err
 
 
 def test_preset_rejects_unported_runtime():
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        config5_transformer_sst2(runtime="mesh", device="cpu")
+    with pytest.raises(ValueError, match="ROADMAP A9"):
+        config5_transformer_sst2(runtime="threaded", device="cpu")
