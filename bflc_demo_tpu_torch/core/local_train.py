@@ -20,6 +20,12 @@ of them through `Model.apply_stacked`; `local_train` is that loop at
 N = 1.  The loss is the sum over models
 of each model's mean cross-entropy; the models share no parameter, so
 each slice of a stacked leaf receives exactly its own model's gradient.
+
+Where XLA:CPU's program rounds differently from the straight PyTorch
+transcription, the loop takes XLA's rounding (ROADMAP C2): the mean loss
+sums the batch in XLA's order (`losses.xla_mean_ordered`), and the delta
+multiplies by the float32 reciprocal of lr, which is what XLA makes of
+the division by a constant.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ from typing import Tuple
 
 import torch
 
-from bflc_demo_tpu_torch.core.losses import accuracy, xla_mean
+from bflc_demo_tpu_torch.core.losses import (accuracy, f32_reciprocal,
+                                             xla_mean, xla_mean_ordered)
 from bflc_demo_tpu_torch.models.base import Model, Params
 
 
@@ -75,14 +82,16 @@ def local_train_stacked(model: Model, params: Params, xs: torch.Tensor,
             sl = slice(i * batch_size, (i + 1) * batch_size)
             logits = model.apply_stacked(work, xs[:, sl])
             logp = torch.log_softmax(logits, dim=-1)
-            per_model = -xla_mean((ys[:, sl] * logp).sum(-1), dim=1)
+            per_model = -xla_mean_ordered((ys[:, sl] * logp).sum(-1), 1)
             grads = torch.autograd.grad(per_model.sum(), leaves)
             with torch.no_grad():
                 for w, g in zip(leaves, grads):
                     w.sub_(lr * g)
             costs.append(per_model.detach())
         epoch_costs.append(xla_mean(torch.stack(costs), dim=0))
-    deltas = {k: (params[k][None] - work[k].detach()) / lr for k in params}
+    inv_lr = f32_reciprocal(lr)
+    deltas = {k: (params[k][None] - work[k].detach()) * inv_lr
+              for k in params}
     return deltas, xla_mean(torch.stack(epoch_costs), dim=0)
 
 

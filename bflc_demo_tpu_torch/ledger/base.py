@@ -2,7 +2,9 @@
 
 Copy of `bflc_demo_tpu/ledger/base.py`, synchronous subset: the status
 codes, the record views and the register/upload/scores encoders, byte for
-byte (the encoders define the op bytes the hash chain covers).  Dropped:
+byte (the encoders define the op bytes the hash chain covers), and
+`staleness_weight`, the FedBuff merge weight the certified merge's
+checker draws (`meshagg/check.py`).  Dropped:
 the async (`OP_AUPLOAD`/`OP_ASCORES`/`OP_ACOMMIT`) and genome (`OP_GENOME`)
 encoders and the legacy/arming switches of the modes this port has not
 reached.
@@ -12,12 +14,18 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 import struct
 from typing import List, Sequence
 
 import numpy as np
 
 OP_REGISTER, OP_UPLOAD, OP_SCORES, OP_COMMIT = 1, 2, 3, 4
+
+
+def staleness_weight(staleness: int) -> float:
+    """FedBuff's staleness discount 1/sqrt(1+s) (reference :100-105)."""
+    return 1.0 / math.sqrt(1.0 + max(int(staleness), 0))
 
 
 def _put_str(b: bytearray, s: str) -> None:

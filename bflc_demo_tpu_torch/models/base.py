@@ -56,7 +56,8 @@ class Model(nn.Module):
 
     def init_params(self, seed: int = 0,
                     device: torch.device | str = "cpu") -> Params:
-        """Fresh parameter values drawn from `torch.Generator(seed)`."""
+        """Fresh parameter values from `seed`: the values the reference's
+        `init(PRNGKey(seed))` draws."""
         raise NotImplementedError
 
     def apply(self, params: Params, x: torch.Tensor,

@@ -34,13 +34,11 @@ bias, the embedding lookup is `embed[g, tokens]`, and attention folds
 (G, B) into the flash kernels' batch axis, so one launch of each kernel
 serves every model.
 
-Documented divergences: the initial values come from `torch.Generator`
-with the reference's distributions (normal * 0.02 for embeddings and
-projections, ones/zeros for norms, zeros for biases and the head), which
-cannot reproduce `jax.random` seed for seed — `params_from_jax` loads the
-reference's values where a run must match it.  Not ported: the `dtype`
-knob (the port computes in float32, as config 5 does) and the mixture-of-
-experts MLP.
+`init_params(seed)` draws the reference's initial model from the same
+seed: `jax.random`'s key splits and normal draws, reproduced by
+`utils/prng.py` (normal within a few float32 ulp).  Not ported: the
+`dtype` knob (the port computes in float32, as config 5 does) and the
+mixture-of-experts MLP.
 """
 
 from __future__ import annotations
@@ -48,12 +46,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from bflc_demo_tpu_torch.models.base import Model, Params, keystr
 from bflc_demo_tpu_torch.ops.flash_attention import flash_attention
+from bflc_demo_tpu_torch.utils import prng
 
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
                   torch.Tensor]
@@ -230,17 +230,28 @@ class TransformerClassifier(Model):
 
     def init_params(self, seed: int = 0,
                     device: torch.device | str = "cpu") -> Params:
-        gen = torch.Generator().manual_seed(seed)
+        """The reference's `init_transformer_params(cfg, PRNGKey(seed))`
+        (:67-107): its key splits and normal draws (`utils/prng.py`),
+        times 0.02, for the embeddings and projections; ones for the norm
+        scales; zeros for the biases and the head."""
+        keys = prng.split(prng.PRNGKey(seed), 4 + self.cfg.depth)
+        drawn = {"['embed']": keys[0], "['pos']": keys[1]}
+        for i in range(self.cfg.depth):
+            ks = prng.split(keys[2 + i], 6)
+            for j, name in enumerate(("wq", "wk", "wv", "wo", "w1", "w2")):
+                drawn[f"['blocks'][{i}]['{name}']"] = ks[j]
         params = {}
         for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "scale":
+            key = keystr(name)
+            if key in drawn:
+                value = torch.from_numpy(prng.normal(drawn[key],
+                                                     tuple(p.shape))
+                                         * np.float32(0.02))
+            elif name.endswith(".scale"):
                 value = torch.ones(p.shape)
-            elif leaf in ("bias", "b1", "b2", "head_w", "head_b"):
-                value = torch.zeros(p.shape)
             else:
-                value = torch.randn(p.shape, generator=gen) * 0.02
-            params[keystr(name)] = value.to(device)
+                value = torch.zeros(p.shape)
+            params[key] = value.to(device)
         return params
 
 

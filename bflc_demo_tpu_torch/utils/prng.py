@@ -1,0 +1,152 @@
+"""`jax.random`'s draws without jax: Threefry-2x32 in numpy.
+
+Port of the parts of `jax.random` (JAX 0.9, `jax._src.prng` and
+`jax._src.random`) that the reference's initialisers and draws use, in
+the partitionable Threefry mode it runs (`jax_threefry_partitionable`,
+the default since JAX 0.5):
+
+- `PRNGKey(seed)` is the key ``(0, seed)`` for a 32-bit seed;
+- `split(key, n)` hashes the counters ``(0, i)``, i < n, under `key`:
+  each output pair is a new key;
+- `fold_in(key, data)` hashes the one counter ``(0, data)``;
+- `bits(key, shape)` hashes the counters ``(hi, lo)`` of the flattened
+  iota over `shape` (a 64-bit index split into two words) and returns
+  ``x0 ^ x1``;
+- `uniform` keeps the top 23 bits as the mantissa of a float in [1, 2),
+  subtracts 1, then scales to [minval, maxval) and clamps at minval;
+- `normal` is ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``.
+
+The integer draws (`PRNGKey`, `split`, `fold_in`, `bits`) and `uniform`
+equal jax's bit for bit: they are uint32 arithmetic and exact float32
+steps.  `normal` computes `erfinv` with Giles' single-precision
+polynomial in ``w = -log1p(-x*x)``, the one XLA's `ErfInv32` evaluates,
+with its steps fused as XLA:CPU fuses them; XLA's own `log1p` is not
+numpy's, so `normal` matches jax within a few float32 ulp, not bit for
+bit (`tests/test_torch_prng.py` states the tolerance).  `torch.erfinv`
+would differ by up to tens of ulp.
+
+Dropped: jax's typed key arrays, the non-partitionable mode, 64-bit
+seeds and the other distributions.  Everything returns numpy arrays;
+callers convert.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple, Union
+
+import numpy as np
+
+Shape = Union[int, Sequence[int]]
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = np.uint32(0x1BD11BDA)
+_SQRT2 = np.float32(np.sqrt(2.0))
+# Giles, "Approximating the erfinv function" (GPU Computing Gems), single
+# precision, highest degree first — XLA's ErfInv32 constants
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                  -0.00367342844, 0.00573950773, -0.0076224613,
+                  0.00943887047, 1.00167406, 2.83297682)
+
+
+def _shape(shape: Shape) -> Tuple[int, ...]:
+    return (int(shape),) if np.ndim(shape) == 0 else tuple(map(int, shape))
+
+
+def _rotl(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def threefry2x32(key: np.ndarray, x0: np.ndarray,
+                 x1: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Threefry-2x32, 20 rounds, of the counter pairs (x0, x1) under `key`
+    — jax's `threefry2x32_p`.  uint32 arithmetic wraps mod 2**32."""
+    k0, k1 = (np.uint32(k) for k in np.asarray(key, np.uint32))
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = np.asarray(x0, np.uint32) + ks[0]
+    x1 = np.asarray(x1, np.uint32) + ks[1]
+    with np.errstate(over="ignore"):
+        for i in range(5):
+            for r in _ROTATIONS[i % 2]:
+                x0 = x0 + x1
+                x1 = _rotl(x1, r) ^ x0
+            x0 = x0 + ks[(i + 1) % 3]
+            x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+def _iota_2x32(shape: Tuple[int, ...]) -> Tuple[np.ndarray, np.ndarray]:
+    """The flattened iota over `shape`, as (high word, low word)."""
+    idx = np.arange(int(np.prod(shape, dtype=np.int64)),
+                    dtype=np.uint64).reshape(shape)
+    return ((idx >> np.uint64(32)).astype(np.uint32),
+            (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+def PRNGKey(seed: int) -> np.ndarray:          # noqa: N802 — jax's name
+    """The raw (2,) uint32 key of an integer seed (jax's x32 mode)."""
+    seed = int(seed)
+    if not -2**31 <= seed < 2**31:
+        raise ValueError(f"seed {seed} does not fit a 32-bit integer")
+    return np.array([0, seed & 0xFFFFFFFF], np.uint32)
+
+
+def split(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """(num, 2) new keys."""
+    hi, lo = _iota_2x32((int(num),))
+    return np.stack(threefry2x32(key, hi, lo), axis=-1)
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """The key `key` with the integer `data` folded in."""
+    y0, y1 = threefry2x32(key, np.zeros(1, np.uint32),
+                          np.array([int(data) & 0xFFFFFFFF], np.uint32))
+    return np.array([y0[0], y1[0]], np.uint32)
+
+
+def bits(key: np.ndarray, shape: Shape = ()) -> np.ndarray:
+    """32-bit uniform random words of `shape`."""
+    x0, x1 = threefry2x32(key, *_iota_2x32(_shape(shape)))
+    return x0 ^ x1
+
+
+def uniform(key: np.ndarray, shape: Shape = (), minval: float = 0.0,
+            maxval: float = 1.0) -> np.ndarray:
+    """float32 uniform draws in [minval, maxval).  The scaling
+    ``floats * (hi - lo) + lo`` is one fused multiply-add, as XLA:CPU
+    computes it."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    mant = (bits(key, shape) >> np.uint32(9)) | np.uint32(0x3F800000)
+    floats = mant.view(np.float32) - np.float32(1.0)
+    scaled = (floats.astype(np.float64) * np.float64(hi - lo)
+              + np.float64(lo)).astype(np.float32)
+    return np.maximum(lo, scaled)
+
+
+def erfinv(x: np.ndarray) -> np.ndarray:
+    """float32 erfinv by XLA's ErfInv32 polynomial; ±1 give ±inf.  Each
+    Horner step ``c + p*w`` is one fused multiply-add, as XLA:CPU
+    contracts it: computed in float64 (where the product of two float32
+    is exact), then rounded to float32."""
+    x = np.asarray(x, np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w = -np.log1p(-x * x)
+        small = w < np.float32(5.0)
+        w = np.where(small, w - np.float32(2.5),
+                     np.sqrt(w) - np.float32(3.0)).astype(np.float64)
+        p = np.where(small, np.float32(_ERFINV_W_LT_5[0]),
+                     np.float32(_ERFINV_W_GE_5[0]))
+        for a, b in zip(_ERFINV_W_LT_5[1:], _ERFINV_W_GE_5[1:]):
+            c = np.where(small, np.float32(a), np.float32(b))
+            p = (c.astype(np.float64) + p * w).astype(np.float32)
+        out = p * x
+        return np.where(np.abs(x) == np.float32(1.0), x * np.float32(np.inf),
+                        out).astype(np.float32)
+
+
+def normal(key: np.ndarray, shape: Shape = ()) -> np.ndarray:
+    """float32 standard normal draws."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    return _SQRT2 * erfinv(uniform(key, shape, lo, 1.0))

@@ -18,6 +18,11 @@ its 64-key tile, up to the sp training shard (folded B=32, S=1024).  Between the
 The payload-fingerprint kernel (B6) is held against its plain version
 bit for bit: every leaf dtype it takes, ragged word counts, empty and
 non-contiguous leaves, 64-bit leaves, and config 5's 20 stacked deltas.
+The certified reduction (B5) is held against its plain version and the
+spec's numpy host leg byte for byte: subnormal products and deltas, a -0
+accumulator, NaN/inf in unselected slots, +-inf meeting in selected
+ones, random magnitudes, and column blocks of a resident matrix (blocks
+1, 2, 5, 8 and 64).
 Tolerances: float32 differs only in summation order and the 3xTF32
 products (~2^-21 relative each) (1e-4); bfloat16 rounds p, dS and
 outputs at the same places in both versions, so they agree to a couple
@@ -28,7 +33,9 @@ import numpy as np
 import pytest
 import torch
 
+from bflc_demo_tpu_torch.meshagg import spec
 from bflc_demo_tpu_torch.models import make_transformer_classifier
+from bflc_demo_tpu_torch.ops import certified_reduce as cr
 from bflc_demo_tpu_torch.ops import fingerprint as fp
 from bflc_demo_tpu_torch.ops import flash_attention as fa
 
@@ -254,3 +261,59 @@ def test_fingerprint_kernel_on_config5_deltas(cuda_device):
     assert got.shape == (20, 8)
     assert torch.equal(got[:2].cpu(), plain)
     assert len({tuple(r) for r in got.cpu().tolist()}) == 20
+
+
+def _reduce_case(seed):
+    """(N, P) deltas with the spec's corners, and weights with zeros."""
+    rng = np.random.default_rng(seed)
+    n, p = int(rng.integers(3, 40)), int(rng.integers(64, 5000))
+    mat = (rng.standard_normal((n, p))
+           * 10.0 ** rng.integers(-40, 38, (n, 1))).astype(np.float32)
+    w = (rng.random(n) * 40).astype(np.float32)
+    w[rng.random(n) < 0.3] = 0.0
+    w[0], w[1] = 0.0, 3.0
+    mat[0, :6] = np.float32([np.nan, np.inf, -np.inf, 1e-42, -0.0, 5.0])
+    mat[1, :4] = np.float32([1e-42, -1e-42, 1e-38, -1e-38])
+    mat[1, 4], mat[-1, 4] = np.inf, -np.inf       # selected +-inf
+    if w[-1] == 0.0:
+        w[-1] = 1.0
+    return mat, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(6))
+def test_certified_reduce_matches_plain_and_spec_bytes(cuda_device, seed):
+    mat, w = _reduce_case(seed)
+    wsum = max(float(w.sum()), 1e-12)
+    with np.errstate(all="ignore"):
+        want = spec.host_weighted_sum(["x"], [{"x": r} for r in mat], w,
+                                      wsum)["x"]
+    m = torch.from_numpy(mat).to(cuda_device)
+    c = torch.from_numpy(spec.merge_coefficients(w, wsum)).to(cuda_device)
+    g = torch.from_numpy(w > 0).to(cuda_device)
+    cr.reset_launches()
+    got = cr.certified_reduce(m, c, g)
+    plain = cr.certified_reduce_plain(m, c, g)
+    torch.cuda.synchronize()
+    assert cr.LAUNCHES["certified_reduce"] == 1
+    assert got.cpu().numpy().tobytes() == want.tobytes()
+    assert plain.cpu().numpy().tobytes() == want.tobytes()
+    assert got.cpu().numpy().view(np.uint32)[4] == 0xFFC00000
+    p = mat.shape[1]
+    for blocks in (2, 5, 8, 64):
+        for lo, hi in spec.block_bounds(p, blocks):
+            part = cr.certified_reduce(m[:, lo:hi], c, g)   # row stride p
+            assert part.cpu().numpy().tobytes() == want[lo:hi].tobytes()
+
+
+@pytest.mark.cuda
+def test_certified_reduce_rejects_what_it_cannot_take(cuda_device):
+    m = torch.zeros((3, 8), device=cuda_device)
+    c = torch.ones(3, device=cuda_device)
+    g = torch.ones(3, dtype=torch.bool, device=cuda_device)
+    cr.reset_launches()
+    for args in ((m[:, ::2], c, g), (m.double(), c, g), (m, c[:2], g),
+                 (m, c, g.float()), (m, c.cpu(), g)):
+        with pytest.raises(ValueError):
+            cr.certified_reduce(*args)
+    assert cr.LAUNCHES["certified_reduce"] == 0

@@ -85,8 +85,9 @@ def test_loss_gradient_matches_jax_grad():
 
 
 def test_own_init_follows_reference_distributions():
-    """The port's torch.Generator init: the reference's shapes, ones and
-    zeros where it has them, N(0, 0.02) elsewhere (not seed-identical)."""
+    """The port's own init: the reference's shapes, ones and zeros where
+    it has them, N(0, 0.02) elsewhere; its values are the reference's
+    (tests/test_torch_prng.py)."""
     ref, port, params, flat = _pair()
     mine = port.init_params(0)
     assert {k: v.shape for k, v in mine.items()} == \
