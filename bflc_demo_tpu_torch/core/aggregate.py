@@ -12,7 +12,8 @@ the reference's:
   from a stable sort; invalid entries take -inf and sort last;
 - the top-k mask is `rank < k & valid`.
 `apply_selection` is float arithmetic: weights `n_samples * sel` in
-float32 with their sum clamped at 1e-12.
+float32 with their sum clamped at 1e-12; given the trained models, on
+CPU tensors it takes the order of the reference's round program.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from bflc_demo_tpu_torch.core.losses import (f32_reciprocal, fma32_,
+                                             xla_cpu_order)
 from bflc_demo_tpu_torch.models.base import Params
 
 
@@ -72,17 +75,40 @@ class AggregateResult(NamedTuple):
 @torch.no_grad()
 def apply_selection(global_params: Params, deltas: Params,
                     n_samples: torch.Tensor, sel_mask: torch.Tensor,
-                    lr: float) -> Params:
+                    lr: float, trained: Params = None) -> Params:
     """global -= lr * wmean(selected deltas).  deltas: stacked leading
-    axis K; n_samples (K,) int; sel_mask (K,) bool."""
+    axis K; n_samples (K,) int; sel_mask (K,) bool.
+
+    `trained`, the stacked trained models the deltas were made from in
+    the same program (the mesh round, `_psum_fedavg_body` in the
+    reference's round), lets the merge take the order XLA:CPU compiles
+    there (`losses.xla_cpu_order`): the algebraic simplifier folds each
+    delta's 1/lr into its weight, so every client adds (global -
+    trained) * (w * f32(1/lr)) by one FMA, in slot order; the sum is
+    divided by the weights' sum; `global - lr * mean` is one FMA."""
     w = n_samples.to(torch.float32) * sel_mask.to(torch.float32)
     wsum = w.sum().clamp_min(1e-12)
+    if trained is not None and xla_cpu_order(w):
+        return _folded_merge(global_params, trained, w, wsum, lr)
     out = {}
     for k, g in global_params.items():
         d = deltas[k]
         wb = w.reshape((-1,) + (1,) * (d.ndim - 1)).to(d.dtype)
         mean = (d * wb).sum(0) / wsum.to(d.dtype)
         out[k] = g - lr * mean
+    return out
+
+
+def _folded_merge(global_params: Params, trained: Params, w: torch.Tensor,
+                  wsum: torch.Tensor, lr: float) -> Params:
+    scaled = w * f32_reciprocal(lr)
+    out = {}
+    for k, g in global_params.items():
+        diff = g[None] - trained[k]
+        acc = torch.zeros_like(g)
+        for i in range(diff.shape[0]):
+            fma32_(acc, diff[i], scaled[i])
+        out[k] = fma32_(g.clone(), -lr, acc / wsum)
     return out
 
 

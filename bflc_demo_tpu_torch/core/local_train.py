@@ -23,9 +23,11 @@ each slice of a stacked leaf receives exactly its own model's gradient.
 
 Where XLA:CPU's program rounds differently from the straight PyTorch
 transcription, the loop takes XLA's rounding (ROADMAP C2): the mean loss
-sums the batch in XLA's order (`losses.xla_mean_ordered`), and the delta
-multiplies by the float32 reciprocal of lr, which is what XLA makes of
-the division by a constant.
+sums the batch in XLA's order (`losses.xla_mean_ordered`), the
+log-softmax is XLA:CPU's with its backward (`losses.log_softmax`), the
+SGD step is one FMA (`losses.fma32_`; on the card torch's in-place
+`w -= lr * g`), and the delta multiplies by the float32 reciprocal of
+lr, which is what XLA makes of the division by a constant.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from typing import Tuple
 import torch
 
 from bflc_demo_tpu_torch.core.losses import (accuracy, f32_reciprocal,
-                                             xla_mean, xla_mean_ordered)
+                                             fma32_, log_softmax, xla_mean,
+                                             xla_mean_ordered)
 from bflc_demo_tpu_torch.models.base import Model, Params
 
 
@@ -70,6 +73,23 @@ def local_train_stacked(model: Model, params: Params, xs: torch.Tensor,
     start from `params`.  xs: (N, S_pad, ...) padded shards, ys: (N, S_pad,
     classes) one-hot; the minibatches are the first floor(S_pad /
     batch_size) * batch_size rows of each shard."""
+    trained, costs = sgd_stacked(model, params, xs, ys, lr, batch_size,
+                                 local_epochs)
+    return wire_deltas(params, trained, lr), costs
+
+
+def wire_deltas(params: Params, trained: Params, lr: float) -> Params:
+    """(params - trained) / lr of stacked trained models, as XLA computes
+    it: times the float32 reciprocal of lr."""
+    inv_lr = f32_reciprocal(lr)
+    return {k: (params[k][None] - trained[k]) * inv_lr for k in params}
+
+
+def sgd_stacked(model: Model, params: Params, xs: torch.Tensor,
+                ys: torch.Tensor, lr: float, batch_size: int,
+                local_epochs: int = 1) -> Tuple[Params, torch.Tensor]:
+    """(trained params with a leading axis N, avg_costs (N,)): the SGD
+    loop of `local_train_stacked`."""
     n = xs.shape[0]
     nb = _num_batches(xs.shape[1], batch_size)
     work = {k: v.detach().unsqueeze(0).repeat((n,) + (1,) * v.ndim)
@@ -81,18 +101,16 @@ def local_train_stacked(model: Model, params: Params, xs: torch.Tensor,
         for i in range(nb):
             sl = slice(i * batch_size, (i + 1) * batch_size)
             logits = model.apply_stacked(work, xs[:, sl])
-            logp = torch.log_softmax(logits, dim=-1)
+            logp = log_softmax(logits)
             per_model = -xla_mean_ordered((ys[:, sl] * logp).sum(-1), 1)
             grads = torch.autograd.grad(per_model.sum(), leaves)
             with torch.no_grad():
                 for w, g in zip(leaves, grads):
-                    w.sub_(lr * g)
+                    fma32_(w, -lr, g)            # w -= lr * g
             costs.append(per_model.detach())
         epoch_costs.append(xla_mean(torch.stack(costs), dim=0))
-    inv_lr = f32_reciprocal(lr)
-    deltas = {k: (params[k][None] - work[k].detach()) * inv_lr
-              for k in params}
-    return deltas, xla_mean(torch.stack(epoch_costs), dim=0)
+    return ({k: v.detach() for k, v in work.items()},
+            xla_mean(torch.stack(epoch_costs), dim=0))
 
 
 @torch.no_grad()

@@ -12,8 +12,9 @@ Port of `bflc_demo_tpu/parallel/fedavg.py:make_sharded_protocol_round`
    column);
 3. the decision — medians over the committee rows, the specified total
    order, top-k under the uploader mask — is `core.aggregate.decide`;
-4. FedAvg is `_psum_fedavg_body` (:59-78) over one shard, which is
-   `core.aggregate.apply_selection`;
+4. FedAvg is `_psum_fedavg_body` (:59-78) over one shard,
+   `core.aggregate.apply_selection` given the trained models (on CPU
+   tensors it takes the order XLA:CPU compiles into the round program);
 5. the payload ids of all N deltas and of the new model come from the
    fingerprint kernel (`ops/fingerprint.py`, two launches).
 
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from bflc_demo_tpu_torch.core.aggregate import apply_selection, decide
-from bflc_demo_tpu_torch.core.local_train import local_train_stacked
+from bflc_demo_tpu_torch.core.local_train import sgd_stacked, wire_deltas
 from bflc_demo_tpu_torch.core.losses import xla_mean
 from bflc_demo_tpu_torch.models.base import Model, Params
 from bflc_demo_tpu_torch.ops.fingerprint import (fingerprint_pytree,
@@ -195,9 +196,10 @@ def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
         comm = torch.as_tensor(comm_np, device=dev)
 
         # 1. local training, every client in lockstep
-        deltas, costs = local_train_stacked(
-            model, params, xs, ys, lr=lr, batch_size=batch_size,
-            local_epochs=local_epochs)
+        trained, costs = sgd_stacked(model, params, xs, ys, lr=lr,
+                                     batch_size=batch_size,
+                                     local_epochs=local_epochs)
+        deltas = wire_deltas(params, trained, lr)
         with torch.no_grad():
             # 2. C x K committee scoring -> sparse (N, N) matrix
             score = committee_score_matrix(
@@ -206,7 +208,8 @@ def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
             # 3. the decision, as the reference takes it replicated
             med, order, sel, g_loss = decide(score, comm, up, costs, k)
             # 4. masked sample-weighted FedAvg (one shard: no psum)
-            new_params = apply_selection(params, deltas, n_samples, sel, lr)
+            new_params = apply_selection(params, deltas, n_samples, sel,
+                                         lr, trained=trained)
             # 5. payload ids of every delta and of the new model
             delta_fps = fingerprint_stacked(deltas)
             params_fp = fingerprint_pytree(new_params)

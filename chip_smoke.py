@@ -80,9 +80,11 @@ each; any failure raises and exits non-zero:
              bytes against the host leg's) and
              `python -m bflc_demo_tpu_torch.meshagg.check --device cuda`
              in-process; then B5's time per call beside its bytes bound,
-             its plain version and `c @ mat` (one PyTorch call for the
-             same weighted sum, not bit-exact), and `aggregate_rows` end
-             to end with its host-to-device staging.
+             its chain bound (N times one slot's dependent step, timed
+             by a one-thread chain kernel), its plain version and
+             `c @ mat` (one PyTorch call for the same weighted sum, not
+             bit-exact), and `aggregate_rows` end to end with its
+             host-to-device staging.
 
 Then the `kernels` line and, last, {"ok": true, "device": {...}}.
 Without a card, or without the package beside it, it exits non-zero and
@@ -93,6 +95,13 @@ prints no result.
 runs only the dK/dV and dQ timing rows (phase 4's and phase 7's) for the
 package of the checkout at DIR — another version's, unpacked beside this
 one, so that two versions are timed on one card in one call.
+
+    python3 chip_smoke.py --merge-timing DIR
+
+runs only B5's timing rows (phase 9's: every merge geometry at blocks 1
+and 8, beside the bytes bound, the chain bound where DIR's package has
+the chain kernel, and `c @ mat`) for the package of the checkout at DIR,
+the same way.
 """
 
 from __future__ import annotations
@@ -1034,17 +1043,42 @@ def merge_path_phase(torch, cr, device, cases) -> dict:
     return {"meshagg_merge": merge, "meshagg_check": checker}
 
 
-def merge_timing_phase(torch, cr, device, cases) -> dict:
+def b5_route_pair(torch, cr, device, m, c, g, bounds, few) -> dict:
+    """The routes B5 takes over the blocks `bounds` of `m` ("columns a
+    CTA/floats a copy"; 0 is the column kernel) and, where a strip takes
+    16-byte copies, the same strips timed with 4-byte copies
+    (`vec1_ms`), where the package at hand has both."""
+    if not hasattr(cr, "aligned16"):
+        return {}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    shapes = [cr.launch_shape(m.shape[0], hi - lo,
+                              cr.aligned16(m[:, lo:hi]), sms)
+              for lo, hi in bounds]
+    out = {"routes": sorted({f"{cols}/{vec}" for cols, vec in shapes})}
+    if any(vec == 4 for _, vec in shapes):
+        out["vec1_ms"] = device_ms(torch, lambda: [
+            cr._launch(m[:, lo:hi], c, g, cols, 1)
+            for (lo, hi), (cols, _) in zip(bounds, shapes)], **few)
+    return out
+
+
+def merge_timing_rows(torch, cr, device, cases, full: bool = True) -> dict:
     """B5 at every geometry and block count (one launch per block) beside
-    its bytes bound (N·P·4 read, P·4 written, the coefficients and gates),
-    its plain version and `c @ mat`; and the engine's `aggregate_rows`
-    end to end on the host clock (stack, host-to-device copy, launches,
-    copy back, the host's model update), median of 3."""
+    its bytes bound (N·P·4 read, P·4 written, the coefficients and
+    gates), its chain bound (N slots times one slot's dependent step,
+    measured by a one-thread chain kernel, where the package has one)
+    and `c @ mat`; with `full`, also its plain version and the engine's
+    `aggregate_rows` end to end on the host clock (stack, host-to-device
+    copy, launches, copy back, the host's model update), median of 3."""
     from bflc_demo_tpu_torch.meshagg import spec
     from bflc_demo_tpu_torch.meshagg.engine import MeshAggEngine
 
-    engine = MeshAggEngine(device=device)
-    engine.run_selfcheck()
+    step_ms = step_cycles = None
+    if hasattr(cr, "chain_latency"):
+        step_ms, step_cycles = cr.chain_latency(1 << 22, device)
+    if full:
+        engine = MeshAggEngine(device=device)
+        engine.run_selfcheck()
     rows_out = {}
     few = dict(calls=20, replays=3, repeats=5)
     for name, (g_, rows, weights, selected, lr) in cases.items():
@@ -1055,32 +1089,49 @@ def merge_timing_phase(torch, cr, device, cases) -> dict:
         moved = n * p * 4 + p * 4 + n * 5
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
         t_ops = 2 * n * p / F32_CUDA_CORE_OPS * 1e3
+        chain_ms = None if step_ms is None else n * step_ms
         library_ms = device_ms(torch, lambda: c @ m, **few)
         for b in MERGE_BLOCKS:
             bounds = spec.block_bounds(p, b)
             ms = device_ms(torch, lambda: [cr.certified_reduce(
                 m[:, lo:hi], c, g) for lo, hi in bounds], **few)
-            plain_ms = event_ms(torch, lambda: [cr.certified_reduce_plain(
-                m[:, lo:hi], c, g) for lo, hi in bounds])
-            e2e = []
-            for _ in range(4):
-                t0 = time.perf_counter()
-                engine.aggregate_rows(g_, rows, weights, selected, lr,
-                                      force_leg="mesh", blocks=b)
-                e2e.append(time.perf_counter() - t0)
-            row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            row = {"ms": ms, "library_ms": library_ms,
+                   **b5_route_pair(torch, cr, device, m, c, g, bounds,
+                                   few),
                    "library": "torch.matmul(c, mat) (c @ mat; not "
                               "bit-exact: another order, FMA)",
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else
                    "operations", "share_of_bound": max(t_bytes, t_ops) / ms,
+                   "chain_bound_ms": chain_ms, "chain_step_ns":
+                   None if step_ms is None else step_ms * 1e6,
+                   "chain_step_cycles": step_cycles,
+                   "share_of_larger_bound": None if chain_ms is None else
+                   max(t_bytes, t_ops, chain_ms) / ms,
                    "bytes": moved, "n": n, "p": p, "blocks": b,
-                   "launches_per_call": len(bounds),
-                   "aggregate_rows_s": statistics.median(e2e[1:]),
-                   "aggregate_rows_first_s": e2e[0]}
+                   "launches_per_call": len(bounds)}
+            if full:
+                row["plain_ms"] = event_ms(torch, lambda: [
+                    cr.certified_reduce_plain(m[:, lo:hi], c, g)
+                    for lo, hi in bounds])
+                e2e = []
+                for _ in range(4):
+                    t0 = time.perf_counter()
+                    engine.aggregate_rows(g_, rows, weights, selected, lr,
+                                          force_leg="mesh", blocks=b)
+                    e2e.append(time.perf_counter() - t0)
+                row["aggregate_rows_s"] = statistics.median(e2e[1:])
+                row["aggregate_rows_first_s"] = e2e[0]
             emit("timing", kernel="certified_reduce", case=name, **row)
             rows_out[(name, b)] = row
         del m, c, g
+    return rows_out
+
+
+def merge_timing_phase(torch, cr, device, cases) -> dict:
+    """The timing row of the kernels line: config 5's writer merge at one
+    block, with every other geometry and block count under "at"."""
+    rows_out = merge_timing_rows(torch, cr, device, cases)
     main = dict(rows_out[(MERGE_MAIN, 1)])
     main["at"] = {f"{name}/{b}": row for (name, b), row in rows_out.items()
                   if (name, b) != (MERGE_MAIN, 1)}
@@ -1176,6 +1227,24 @@ def backward_timing_main(root: str) -> int:
     return 0
 
 
+def merge_timing_main(root: str) -> int:
+    """Only B5's timing rows, at every merge geometry and block count,
+    for the package of the checkout at `root`."""
+    port = load_port(root)
+    if port is None:
+        return 1
+    torch, fa, _, device = port
+    from bflc_demo_tpu_torch.meshagg import check
+    from bflc_demo_tpu_torch.ops import certified_reduce as cr
+    card = card_line()
+    print(card, flush=True)
+    emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0),
+         package=os.path.dirname(os.path.dirname(fa.__file__)))
+    cases = {name: check.geometry_case(name) for name in check.GEOMETRIES}
+    merge_timing_rows(torch, cr, device, cases, full=False)
+    return 0
+
+
 def main() -> int:
     port = load_port()
     if port is None:
@@ -1251,7 +1320,10 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--backward-timing":
         sys.exit(backward_timing_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--merge-timing":
+        sys.exit(merge_timing_main(sys.argv[2]))
     if len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--backward-timing DIR]", file=sys.stderr)
+        print("usage: chip_smoke.py [--backward-timing DIR | "
+              "--merge-timing DIR]", file=sys.stderr)
         sys.exit(2)
     sys.exit(main())

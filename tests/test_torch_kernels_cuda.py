@@ -22,7 +22,14 @@ The certified reduction (B5) is held against its plain version and the
 spec's numpy host leg byte for byte: subnormal products and deltas, a -0
 accumulator, NaN/inf in unselected slots, +-inf meeting in selected
 ones, random magnitudes, and column blocks of a resident matrix (blocks
-1, 2, 5, 8 and 64).
+1, 2, 5, 8 and 64); then the redesigned kernel's routes: N from 1 to
+1025 around each route's tile height, narrow, middle and wide P (the
+strips or the column kernel, as the wrapper picks), row strides and
+column offsets
+0-3 mod 4 (4- and 16-byte copies), NaN, inf and subnormal deltas and a
+subnormal sum at tile, stage, batch and strip boundaries, NaN/inf in
+unselected slots, and every route (each strip width and copy width, and
+the column kernel) forced on the same inputs.
 Tolerances: float32 differs only in summation order and the 3xTF32
 products (~2^-21 relative each) (1e-4); bfloat16 rounds p, dS and
 outputs at the same places in both versions, so they agree to a couple
@@ -317,3 +324,94 @@ def test_certified_reduce_rejects_what_it_cannot_take(cuda_device):
         with pytest.raises(ValueError):
             cr.certified_reduce(*args)
     assert cr.LAUNCHES["certified_reduce"] == 0
+
+
+def _strip_case(n, p, seed, cols):
+    """(n, p + 3) deltas and weights whose specials sit at the tile,
+    stage and strip boundaries of a `cols`-column strip route (or at the
+    8-slot batches and 256-column CTAs of the column kernel)."""
+    rng = np.random.default_rng(seed)
+    mat = (rng.standard_normal((n, p + 3))
+           * 10.0 ** rng.integers(-30, 30, (n, 1))).astype(np.float32)
+    w = (rng.random(n) * 10).astype(np.float32)
+    w[rng.random(n) < 0.3] = 0.0
+    w[0] = 1.0
+    width = cols or cr.COLUMN_THREADS
+    tile = cr.TILE_FLOATS // cols if cols else 8
+    rows = sorted({r % n for r in (tile - 1, tile, 4 * tile - 1, 4 * tile,
+                                   n - 1)})
+    edges = sorted({c % p for c in (0, width - 1, width, width + 1, p - 1)})
+    for j, c in enumerate(edges):
+        r = rows[j % len(rows)]
+        mat[r, c + 3 - j % 4] = (np.nan, np.inf, -np.inf, 1e-42)[j % 4]
+    # NaN and inf where the gate is off
+    if n > 2:
+        w[1] = 0.0
+        mat[1, :8] = np.float32([np.nan, np.inf, -np.inf, np.nan,
+                                 np.inf, 1e-42, -np.nan, 3.0])
+    # a subnormal sum in the last column of every window: two selected
+    # normal terms, 1.5e-38 and -1.4e-38, that nearly cancel
+    if n > 1:
+        w[-1] = w[0]
+        coeff = spec.merge_coefficients(w, max(float(w.sum()), 1e-12))
+        mat[:, p - 1] = 0.0
+        mat[0, p - 1] = 1.5e-38 / coeff[0]
+        mat[-1, p - 1] = -1.4e-38 / coeff[-1]
+    return mat, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1203, 9601, 70001])
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 8, 9, 63, 64, 65, 1024, 1025])
+def test_certified_reduce_strips_give_the_spec_bytes(cuda_device, n, p):
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    cols, _ = cr.launch_shape(n, p, True, sms)
+    mat, w = _strip_case(n, p, n * 7 + p, cols)
+    wsum = max(float(w.sum()), 1e-12)
+    m = torch.from_numpy(mat).to(cuda_device)          # row stride p + 3
+    c = torch.from_numpy(spec.merge_coefficients(w, wsum)).to(cuda_device)
+    g = torch.from_numpy(w > 0).to(cuda_device)
+    for off in range(4):                               # 0-3 mod 4
+        with np.errstate(all="ignore"):
+            want = spec.host_weighted_sum(
+                ["x"], [{"x": r[off:off + p]} for r in mat], w, wsum)["x"]
+        got = cr.certified_reduce(m[:, off:off + p], c, g)
+        assert got.cpu().numpy().tobytes() == want.tobytes(), (off, cols)
+    odd = torch.from_numpy(np.ascontiguousarray(mat[:, :p])).to(cuda_device)
+    with np.errstate(all="ignore"):
+        want = spec.host_weighted_sum(["x"], [{"x": r[:p]} for r in mat], w,
+                                      wsum)["x"]
+    assert cr.certified_reduce(odd, c, g).cpu().numpy().tobytes() == \
+        want.tobytes()                                 # ld = p, odd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p", [(10, 4099), (64, 1200), (300, 9600),
+                                 (1025, 257)])
+def test_certified_reduce_every_route_gives_the_spec_bytes(cuda_device, n,
+                                                           p):
+    mat, w = _strip_case(n, p, n + p, 32)
+    wsum = max(float(w.sum()), 1e-12)
+    m = torch.from_numpy(mat).to(cuda_device)
+    c = torch.from_numpy(spec.merge_coefficients(w, wsum)).to(cuda_device)
+    g = torch.from_numpy(w > 0).to(cuda_device)
+    aligned = torch.from_numpy(np.ascontiguousarray(mat[:, 4:4 + p - 3])) \
+        .to(cuda_device)
+    with np.errstate(all="ignore"):
+        want = spec.host_weighted_sum(["x"], [{"x": r[1:1 + p]}
+                                              for r in mat], w, wsum)["x"]
+        want_aligned = spec.host_weighted_sum(
+            ["x"], [{"x": r[4:4 + p - 3]} for r in mat], w, wsum)["x"]
+    for cols in (0,) + cr.STRIP_COLUMNS:
+        got = cr._launch(m[:, 1:1 + p], c, g, cols, 1)
+        assert got.cpu().numpy().tobytes() == want.tobytes(), cols
+        if aligned.stride(0) % 4 == 0:
+            got = cr._launch(aligned, c, g, cols, 4)
+            assert got.cpu().numpy().tobytes() == want_aligned.tobytes(), \
+                cols
+
+
+@pytest.mark.cuda
+def test_certified_chain_latency_is_measured(cuda_device):
+    ms, cycles = cr.chain_latency(1 << 16, cuda_device)
+    assert 0 < ms < 1e-3 and 1 <= cycles < 100

@@ -417,3 +417,16 @@ def test_merge_geometries():
     g, rows, weights, selected, lr = check.geometry_case("drain_64")
     assert len(rows) == 64 and rows[0].shape == (9600,)
     assert selected == list(range(64)) and len(g) == 24
+
+
+def test_b5_sixteen_byte_copies_refuse_an_unaligned_view():
+    """The strips' 16-byte copies need every row on 16 bytes; a forced
+    launch on another view raises before the kernel is touched."""
+    m = torch.zeros(3, 44)
+    assert cr.aligned16(m[:, :8]) and cr.aligned16(m[:, 4:12])
+    assert not cr.aligned16(m[:, 1:9])
+    assert not cr.aligned16(torch.zeros(3, 41)[:, :8])      # row stride
+    c, g = torch.ones(3), torch.ones(3, dtype=torch.bool)
+    for view in (m[:, 1:9], torch.zeros(3, 41)[:, :8]):
+        with pytest.raises(ValueError, match="16-byte"):
+            cr._launch(view, c, g, 8, 4)
