@@ -1,23 +1,35 @@
 """The mesh runtime: the protocol with a device-resident data plane.
 
 Port of `bflc_demo_tpu/client/mesh_runtime.py:run_federated_mesh`
-(:271-561) for `participation="full"` and one round per dispatch, on one
-card: each round is one call of `parallel.fedavg`'s round (every client
-trains, the committee scores the K uploaders, the decision, the FedAvg
-and the payload ids, all on the device), and the host exchanges only the
-committee's score rows, the 32-byte ids and the commit hash.  The ledger
-stays the authority: `client.staging.audit_round` replays every round
-into it and raises if its decision differs from the device's.
+(:271-561) for one round per dispatch, on one card: each round is one
+call of `parallel.fedavg`'s round (the slots train, the committee scores
+the K uploaders, the decision, the FedAvg and the payload ids, all on
+the device), and the host exchanges only the committee's score rows, the
+32-byte ids and the commit hash.  The ledger stays the authority:
+`client.staging.audit_round` replays every round into it and raises if
+its decision differs from the device's.
+
+participation (:309-313):
+- 'full': every registered client trains each round; device slots are
+  client ids, and the shards go to the card once;
+- 'active': only the round's K uploaders and C committee members hold
+  slots, uploaders first, each group in ascending client order, so the
+  round's masks are static (`[True]*K + [False]*C` and the reverse).
+  Every client is staged once (the padding is the largest shard of ALL
+  clients, so it does not depend on the round, :495-499) and each round
+  copies its participants' padded shards and true sizes to the card.
+  The audit maps slot rows back to client ids (`up_slots`,
+  `comm_slots`).
 
 Uploader choice keeps the reference's numpy draw — a seeded permutation
 of the round's trainers, first K, in ascending client order — so ledger
 slot order equals the device's index-ascending tiebreak.
 
-Not ported, and refused with the ROADMAP item rather than ignored:
-`participation="active"` and `rounds_per_dispatch > 1` (A7), secure
-aggregation (A12), score attestation with wallets (A9), checkpoints and
-resume (A11), `estimate_flops` (A11), client chunks and remat (A7),
-local optimizers (A11).
+`client_chunk` and `remat` go to the round (`parallel/fedavg.py`).  Not
+ported, and refused with the ROADMAP item rather than ignored:
+`rounds_per_dispatch > 1` (A7), secure aggregation (A12), score
+attestation with wallets (A9), checkpoints and resume (A11),
+`estimate_flops` (A11), local optimizers (A11).
 """
 
 from __future__ import annotations
@@ -81,7 +93,6 @@ def run_federated_mesh(model: Model,
         raise ValueError(f"participation must be 'full'|'active', "
                          f"got {participation!r}")
     unported = [
-        (participation == "active", "participation='active'", "A7"),
         (rounds_per_dispatch > 1, "rounds_per_dispatch > 1", "A7"),
         (secure_aggregation or secure_wallets is not None,
          "secure aggregation", "A12"),
@@ -94,23 +105,33 @@ def run_federated_mesh(model: Model,
         if asked:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                       f"{item}); the port's mesh runtime "
-                                      f"runs full participation, one round "
-                                      f"per dispatch")
+                                      f"runs one round per dispatch")
     dev = resolve_device(device)
     n = cfg.client_num
     if len(shards) != n:
         raise ValueError(f"need {n} shards, got {len(shards)}")
     k, c = cfg.needed_update_count, cfg.comm_count
+    n_slots = n if participation == "full" else k + c
 
     nc = model.num_classes
     model = model.to(dev)
     xs_np, ys_np, sizes_np = stage_padded_arrays(
         [sx for sx, _ in shards], [sy for _, sy in shards], nc)
-    xs = feature_tensor(xs_np, dev)
-    ys = torch.as_tensor(ys_np, device=dev)
-    ns = torch.as_tensor(sizes_np, dtype=torch.int32, device=dev)
+
+    def to_card(slots):
+        """The slots' padded shards, one-hot labels and true sizes."""
+        return (feature_tensor(xs_np[slots], dev),
+                torch.as_tensor(ys_np[slots], device=dev),
+                torch.as_tensor(sizes_np[slots], dtype=torch.int32,
+                                device=dev))
+
+    if participation == "full":
+        xs, ys, ns = to_card(slice(None))
+    else:
+        static_uploader = np.array([True] * k + [False] * c)
+        static_committee = ~static_uploader
     round_fn = make_sharded_protocol_round(
-        model, client_num=n, lr=cfg.learning_rate,
+        model, client_num=n_slots, lr=cfg.learning_rate,
         batch_size=cfg.batch_size, local_epochs=cfg.local_epochs,
         aggregate_count=cfg.aggregate_count, client_chunk=client_chunk,
         remat=remat, local_optimizer=local_optimizer, comm_count=c,
@@ -138,17 +159,23 @@ def run_federated_mesh(model: Model,
         trainer_ids = [i for i in range(n) if i not in committee_ids]
         pick = rng.permutation(len(trainer_ids))[:k]
         uploader_ids = sorted(trainer_ids[int(j)] for j in pick)
-        uploader_mask = np.zeros(n, bool)
-        uploader_mask[uploader_ids] = True
-        committee_mask = np.zeros(n, bool)
-        committee_mask[committee_ids] = True
-
-        res = round_fn(params, xs, ys, ns, uploader_mask, committee_mask)
+        if participation == "full":
+            uploader_mask = np.zeros(n, bool)
+            uploader_mask[uploader_ids] = True
+            committee_mask = np.zeros(n, bool)
+            committee_mask[committee_ids] = True
+            res = round_fn(params, xs, ys, ns, uploader_mask, committee_mask)
+            up_slots, comm_slots = uploader_ids, committee_ids
+        else:
+            # this round's participants onto the card; slots [uploaders
+            # asc | committee asc], so the masks stay static
+            res = round_fn(params, *to_card(uploader_ids + committee_ids),
+                           static_uploader, static_committee)
+            up_slots, comm_slots = list(range(k)), list(range(k, k + c))
         params = res.params
-        # host side: the tiny artifacts only
+        # host side: the tiny artifacts only; slot rows map to client ids
         audit_round(ledger, _addr, epoch, uploader_ids, committee_ids,
-                    uploader_ids, committee_ids,
-                    res.delta_fps.cpu().numpy(),
+                    up_slots, comm_slots, res.delta_fps.cpu().numpy(),
                     lambda cid: sizes_np[cid], res.avg_costs.cpu().numpy(),
                     res.score_matrix.cpu().numpy(),
                     np.flatnonzero(res.selected.cpu().numpy()),

@@ -21,9 +21,20 @@ N = 1.  The loss is the sum over models
 of each model's mean cross-entropy; the models share no parameter, so
 each slice of a stacked leaf receives exactly its own model's gradient.
 
+`client_chunk` and `remat` are the mesh round's memory controls
+(`bflc_demo_tpu/parallel/fedavg.py:294-297`, `:344-358`): the N clients
+train in sequential chunks of `client_chunk` (peak activations scale
+with the chunk, not N), and `remat` recomputes each step's forward in
+its backward (`torch.utils.checkpoint`, non-reentrant) instead of
+keeping its activations.  The models share no parameter and a chunk's
+arithmetic is its slots' own, so neither changes a result.
+
 Where XLA:CPU's program rounds differently from the straight PyTorch
 transcription, the loop takes XLA's rounding (ROADMAP C2): the mean loss
-sums the batch in XLA's order (`losses.xla_mean_ordered`), the
+sums the batch in XLA's order (`losses.xla_mean_ordered`), and so do
+the means over an epoch's batches and over the epochs (torch's own sum
+over the minibatch axis of an (nb, N) stack depends on N, so a chunk of
+slots would round otherwise than the whole), the
 log-softmax is XLA:CPU's with its backward (`losses.log_softmax`), the
 SGD step is one FMA (`losses.fma32_`; on the card torch's in-place
 `w -= lr * g`), and the delta multiplies by the float32 reciprocal of
@@ -35,9 +46,10 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from bflc_demo_tpu_torch.core.losses import (accuracy, f32_reciprocal,
-                                             fma32_, log_softmax, xla_mean,
+                                             fma32_, log_softmax,
                                              xla_mean_ordered)
 from bflc_demo_tpu_torch.models.base import Model, Params
 
@@ -87,9 +99,32 @@ def wire_deltas(params: Params, trained: Params, lr: float) -> Params:
 
 def sgd_stacked(model: Model, params: Params, xs: torch.Tensor,
                 ys: torch.Tensor, lr: float, batch_size: int,
-                local_epochs: int = 1) -> Tuple[Params, torch.Tensor]:
+                local_epochs: int = 1, client_chunk: int = 0,
+                remat: bool = False) -> Tuple[Params, torch.Tensor]:
     """(trained params with a leading axis N, avg_costs (N,)): the SGD
-    loop of `local_train_stacked`."""
+    loop of `local_train_stacked`, over all N clients at once or, with
+    0 < client_chunk < N (a divisor of N), over consecutive chunks of
+    `client_chunk` clients one after another."""
+    n = xs.shape[0]
+    if not client_chunk or client_chunk >= n:
+        return _sgd_lockstep(model, params, xs, ys, lr, batch_size,
+                             local_epochs, remat)
+    if n % client_chunk:
+        raise ValueError(f"{n} clients not divisible by client_chunk "
+                         f"{client_chunk}")
+    parts = [_sgd_lockstep(model, params, xs[i:i + client_chunk],
+                           ys[i:i + client_chunk], lr, batch_size,
+                           local_epochs, remat)
+             for i in range(0, n, client_chunk)]
+    return ({k: torch.cat([t[k] for t, _ in parts]) for k in params},
+            torch.cat([c for _, c in parts]))
+
+
+def _sgd_lockstep(model: Model, params: Params, xs: torch.Tensor,
+                  ys: torch.Tensor, lr: float, batch_size: int,
+                  local_epochs: int, remat: bool
+                  ) -> Tuple[Params, torch.Tensor]:
+    """The SGD loop of `xs.shape[0]` clients in lockstep."""
     n = xs.shape[0]
     nb = _num_batches(xs.shape[1], batch_size)
     work = {k: v.detach().unsqueeze(0).repeat((n,) + (1,) * v.ndim)
@@ -100,7 +135,11 @@ def sgd_stacked(model: Model, params: Params, xs: torch.Tensor,
         costs = []
         for i in range(nb):
             sl = slice(i * batch_size, (i + 1) * batch_size)
-            logits = model.apply_stacked(work, xs[:, sl])
+            if remat:
+                logits = checkpoint(model.apply_stacked, work, xs[:, sl],
+                                    use_reentrant=False)
+            else:
+                logits = model.apply_stacked(work, xs[:, sl])
             logp = log_softmax(logits)
             per_model = -xla_mean_ordered((ys[:, sl] * logp).sum(-1), 1)
             grads = torch.autograd.grad(per_model.sum(), leaves)
@@ -108,9 +147,9 @@ def sgd_stacked(model: Model, params: Params, xs: torch.Tensor,
                 for w, g in zip(leaves, grads):
                     fma32_(w, -lr, g)            # w -= lr * g
             costs.append(per_model.detach())
-        epoch_costs.append(xla_mean(torch.stack(costs), dim=0))
+        epoch_costs.append(xla_mean_ordered(torch.stack(costs), 0))
     return ({k: v.detach() for k, v in work.items()},
-            xla_mean(torch.stack(epoch_costs), dim=0))
+            xla_mean_ordered(torch.stack(epoch_costs), 0))
 
 
 @torch.no_grad()

@@ -20,7 +20,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
     On `cuda` this also pins float32 matrix products and convolutions to
     full float32 (TF32 off): the port's configurations are float32 and
-    the card's tolerances must not hide TF32 rounding.
+    the card's tolerances must not hide TF32 rounding; and it asks cuDNN
+    for deterministic convolution algorithms, so two runs on the card
+    take the same decisions.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cpu":
@@ -33,4 +35,5 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "--device cpu) to run on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     return dev

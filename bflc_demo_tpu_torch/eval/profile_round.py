@@ -1,11 +1,12 @@
-"""Where a config-5 round spends its time on the card.
+"""Where a preset's round spends its time on the card.
 
-    python -m bflc_demo_tpu_torch.eval.profile_round [--runtime host|mesh]
-        [--rounds 2]
+    python -m bflc_demo_tpu_torch.eval.profile_round [--config config5]
+        [--runtime host|mesh] [--rounds 2]
 
-Runs config 5 on `cuda` on the chosen runtime (default host) for two
-rounds to warm up (kernel build, cuBLAS
-handles, the caching allocator; the second round's time is reported as
+Runs the preset (default config 5, at the preset's own geometry) on
+`cuda` on the chosen runtime (default host) for two rounds to warm up
+(kernel build, cuBLAS handles, the caching allocator; the second
+round's time is reported as
 `round_s_unprofiled`), then for `--rounds` rounds under
 `torch.profiler` (CPU and CUDA activities) with host-clock timers around
 each protocol phase.  Prints the card's nvidia-smi line, then one JSON
@@ -40,7 +41,7 @@ import torch
 
 from bflc_demo_tpu_torch.client import mesh_runtime, runtime
 from bflc_demo_tpu_torch.comm import store
-from bflc_demo_tpu_torch.eval.configs import config5_transformer_sst2
+from bflc_demo_tpu_torch.eval.configs import CONFIGS
 from bflc_demo_tpu_torch.parallel import fedavg
 
 # runtime -> protocol phase -> (module, function) pairs whose host time
@@ -54,7 +55,7 @@ PHASES = {
         "sponsor_eval": [(runtime, "evaluate")],
     },
     "mesh": {
-        "local_train": [(fedavg, "local_train_stacked")],
+        "local_train": [(fedavg, "sgd_stacked")],
         "scoring": [(fedavg, "committee_score_matrix")],
         "decide_merge": [(fedavg, "decide"), (fedavg, "apply_selection")],
         "fingerprint": [(fedavg, "fingerprint_stacked"),
@@ -95,15 +96,16 @@ def _union_us(intervals) -> float:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", choices=sorted(CONFIGS), default="config5")
     p.add_argument("--runtime", choices=sorted(PHASES), default="host")
     p.add_argument("--rounds", type=int, default=2)
     opts = p.parse_args(argv)
+    preset = CONFIGS[opts.config].build
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    warm = config5_transformer_sst2(rounds=2, runtime=opts.runtime,
-                                    device="cuda")
+    warm = preset(rounds=2, runtime=opts.runtime, device="cuda")
 
     totals = collections.defaultdict(float)
     originals = []
@@ -116,9 +118,8 @@ def main(argv=None) -> int:
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            res = config5_transformer_sst2(rounds=opts.rounds,
-                                           runtime=opts.runtime,
-                                           device="cuda")
+            res = preset(rounds=opts.rounds, runtime=opts.runtime,
+                         device="cuda")
     finally:
         for module, name, fn in originals:
             setattr(module, name, fn)
@@ -132,6 +133,7 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     round_mean = sum(res.round_times_s) / n
     print(json.dumps({
+        "config": opts.config,
         "runtime": opts.runtime,
         "rounds": n,
         "round_s_unprofiled": warm.round_times_s[1:],

@@ -143,6 +143,23 @@ def _words(leaf: torch.Tensor, batch: int) -> torch.Tensor:
     return x.view(torch.int32).to(torch.int64) & MASK   # 4 or 8 bytes
 
 
+def _chain(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h <- (h * FNV_PRIME mod 2**32) ^ w[r] for every row r of w (rows,
+    K, 8), in order.  On the CPU the loop runs in numpy's uint32, which
+    wraps: two ufuncs a row instead of three torch ops."""
+    if h.device.type != "cpu":
+        for r in range(w.shape[0]):
+            h.mul_(FNV_PRIME).bitwise_and_(MASK).bitwise_xor_(w[r])
+        return h
+    hn = h.numpy().astype(np.uint32)
+    wn = w.numpy().astype(np.uint32)
+    prime = np.uint32(FNV_PRIME)
+    for row in wn:
+        np.multiply(hn, prime, out=hn)
+        np.bitwise_xor(hn, row, out=hn)
+    return torch.from_numpy(hn.astype(np.int64))
+
+
 def fingerprint_plain(stacked: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """(K, 8) fingerprints of a tree whose leaves carry a leading axis K —
     the reference's arithmetic, one row of every lane at a time."""
@@ -160,9 +177,8 @@ def fingerprint_plain(stacked: Mapping[str, torch.Tensor]) -> torch.Tensor:
         w = torch.zeros((batch, rows * LANES), dtype=torch.int64,
                         device=h.device)
         w[:, :n_words] = _words(leaf, batch)
-        w = w.reshape(batch, rows, LANES).transpose(0, 1).contiguous()
-        for r in range(rows):
-            h.mul_(FNV_PRIME).bitwise_and_(MASK).bitwise_xor_(w[r])
+        h = _chain(h, w.reshape(batch, rows, LANES).transpose(0, 1)
+                   .contiguous())
     for _ in range(2):
         h = ((h * FNV_PRIME) & MASK) ^ torch.roll(h, 1, dims=1)
     return h

@@ -22,8 +22,11 @@ Port of `bflc_demo_tpu/parallel/fedavg.py:make_sharded_protocol_round`
 scoring schedule, the static committee geometry, client_chunk
 divisibility) and raises
 `NotImplementedError`, naming the ROADMAP item, for what is not ported:
-ring scoring, secure aggregation, client chunks, remat, local optimizers
-and exposed candidates.  The returned function checks the masks'
+ring scoring, secure aggregation, local optimizers and exposed
+candidates.  The memory controls are ported: `client_chunk` trains the
+slots, and scores the committee, in sequential chunks, and `remat`
+recomputes each training step's forward in its backward
+(`core.local_train.sgd_stacked`).  The returned function checks the masks'
 popcounts against the static counts, as the reference's `_check_masks`
 (:448-472) does.
 """
@@ -63,11 +66,18 @@ def _first_k_indices(mask: torch.Tensor, k: int) -> torch.Tensor:
 
 @torch.no_grad()
 def score_block(model: Model, params: Params, block: Params, lr: float,
-                xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+                xs: torch.Tensor, ys: torch.Tensor,
+                chunk: int = 0) -> torch.Tensor:
     """(n_scorers, n_block) accuracies of the candidates `params - lr *
     delta_k` on each scorer's shard, as one stacked apply of
-    n_scorers * n_block models (model c * n_block + k)."""
+    n_scorers * n_block models (model c * n_block + k); with 0 < chunk <
+    n_scorers dividing n_scorers, as one such apply per chunk of
+    scorers, one after another (`_score_block` :102-125)."""
     n_scorers = xs.shape[0]
+    if chunk and chunk < n_scorers and n_scorers % chunk == 0:
+        return torch.cat([score_block(model, params, block, lr,
+                                      xs[i:i + chunk], ys[i:i + chunk])
+                          for i in range(0, n_scorers, chunk)])
     n_block = next(iter(block.values())).shape[0]
     reps = lambda t: t.repeat((n_scorers,) + (1,) * (t.ndim - 1))  # noqa
     cands = {k: reps(params[k][None] - lr * block[k]) for k in params}
@@ -82,7 +92,7 @@ def committee_score_matrix(model: Model, params: Params, deltas: Params,
                            lr: float, xs: torch.Tensor, ys: torch.Tensor,
                            committee_mask: torch.Tensor,
                            uploader_mask: torch.Tensor, comm_count: int,
-                           k_up: int) -> torch.Tensor:
+                           k_up: int, chunk: int = 0) -> torch.Tensor:
     """The reference's C x K scoring: only committee shards evaluate, only
     the K uploaded candidates are evaluated; returns the (N, N) matrix,
     nonzero exactly at (committee row, uploader column)."""
@@ -91,7 +101,7 @@ def committee_score_matrix(model: Model, params: Params, deltas: Params,
     comm_idx = _first_k_indices(committee_mask, comm_count)
     part = score_block(model, params, {k: d[up_idx] for k, d in
                                        deltas.items()}, lr,
-                       xs[comm_idx], ys[comm_idx])
+                       xs[comm_idx], ys[comm_idx], chunk)
     mat = torch.zeros((n, n), dtype=torch.float32, device=xs.device)
     mat[comm_idx[:, None], up_idx[None, :]] = part
     return mat
@@ -150,8 +160,6 @@ def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
     for asked, what, item in (
             (scoring == "ring", "scoring='ring'", "ROADMAP A7"),
             (secure, "secure aggregation", "ROADMAP A12"),
-            (client_chunk, "client_chunk", "ROADMAP A7"),
-            (remat, "remat", "ROADMAP A7"),
             (local_optimizer is not None, "local_optimizer", "ROADMAP A11"),
             (expose_candidates, "expose_candidates", "ROADMAP A9")):
         if asked:
@@ -195,16 +203,19 @@ def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
         up = torch.as_tensor(up_np, device=dev)
         comm = torch.as_tensor(comm_np, device=dev)
 
-        # 1. local training, every client in lockstep
+        # 1. local training, every client in lockstep (or in sequential
+        #    chunks of client_chunk, each step's forward recomputed in the
+        #    backward under remat)
         trained, costs = sgd_stacked(model, params, xs, ys, lr=lr,
                                      batch_size=batch_size,
-                                     local_epochs=local_epochs)
+                                     local_epochs=local_epochs,
+                                     client_chunk=client_chunk, remat=remat)
         deltas = wire_deltas(params, trained, lr)
         with torch.no_grad():
             # 2. C x K committee scoring -> sparse (N, N) matrix
             score = committee_score_matrix(
                 model, params, deltas, lr, xs, ys, comm, up, comm_count,
-                needed_update_count)
+                needed_update_count, client_chunk)
             # 3. the decision, as the reference takes it replicated
             med, order, sel, g_loss = decide(score, comm, up, costs, k)
             # 4. masked sample-weighted FedAvg (one shard: no psum)

@@ -1,0 +1,102 @@
+"""Protocol overrides from the environment and the command line.
+
+Port of the protocol part of `bflc_demo_tpu/utils/flags.py` (:96-150,
+:196-209): `protocol_from_env` reads `BFLC_<FIELD>=value` for every
+`ProtocolConfig` field, each field has a `--field-name` flag, a flag
+beats the environment, and when neither changes anything the preset
+keeps its own protocol (`parse_protocol` returns None).  As in the
+reference, an override starts from `ProtocolConfig()`'s defaults, not
+from the preset's.
+
+The reference's other run options belong to parts not ported yet.  Each
+such flag is accepted by the parser so that the CLI can refuse it by
+name (exit 2 with the ROADMAP item) rather than fail on an unknown
+argument or drop it: the process fleet's and the codecs' flags (A9),
+checkpoints and the device profiler (A11), secure aggregation (A12),
+and traces, plots and telemetry (A14).  So are the
+reference's protocol fields that the port's `ProtocolConfig` does not
+have yet (its data-plane encodings, asynchronous aggregation and blocked
+reduction, A9), as flags and as `BFLC_*` variables.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+from typing import Dict, Optional
+
+from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
+
+_ENV_PREFIX = "BFLC_"
+
+# the reference's ProtocolConfig fields the port's does not carry yet
+UNPORTED_FIELDS = ("delta_dtype", "delta_density", "delta_codec",
+                   "async_buffer", "max_staleness", "async_reseat_every",
+                   "adapt_every", "density_floor", "reduce_blocks")
+
+# reference run options -> the ROADMAP item that ports them
+UNPORTED_OPTIONS: Dict[str, str] = {
+    **{name: "A9" for name in (
+        "ledger_backend", "standbys", "tls_dir", "quorum", "bft_validators",
+        "cells", "cell_size", "attest_scores", "chaos_seed", "chaos_profile",
+        "rederive", "snapshot_interval", "snapshot_dir", "error_feedback",
+        *UNPORTED_FIELDS)},
+    **{name: "A11" for name in ("checkpoint_dir", "checkpoint_every",
+                                "xprof_window")},
+    **{name: "A14" for name in ("trace_path", "plot_path", "telemetry_dir",
+                                "trace_sample")},
+    "secure": "A12",
+}
+
+
+def protocol_from_env(base: Optional[ProtocolConfig] = None
+                      ) -> ProtocolConfig:
+    """`base` (default `ProtocolConfig()`) with every field that has a
+    `BFLC_<FIELD>` variable set to its value, validated."""
+    for name in UNPORTED_FIELDS:
+        if os.environ.get(_ENV_PREFIX + name.upper()) is not None:
+            raise ValueError(f"{_ENV_PREFIX + name.upper()}: protocol field "
+                             f"{name!r} is not ported yet (ROADMAP A9)")
+    values = dataclasses.asdict(base or ProtocolConfig())
+    for name in values:
+        raw = os.environ.get(_ENV_PREFIX + name.upper())
+        if raw is None:
+            continue
+        current = values[name]
+        values[name] = type(current)(
+            float(raw) if isinstance(current, float) else int(raw))
+    return ProtocolConfig(**values).validate()
+
+
+def add_flags(p: argparse.ArgumentParser) -> None:
+    """One `--field-name` flag per protocol field (default None: not
+    given), and the unported run options, each recorded if given."""
+    for name, default in dataclasses.asdict(ProtocolConfig()).items():
+        p.add_argument("--" + name.replace("_", "-"), type=type(default),
+                       default=None,
+                       help=f"protocol: {name} (default {default})")
+    for name, item in UNPORTED_OPTIONS.items():
+        p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True,
+                       default=None, help=f"not ported yet (ROADMAP {item})")
+
+
+def unported_given(ns: argparse.Namespace) -> Dict[str, str]:
+    """{flag: ROADMAP item} of the unported options the command line
+    set."""
+    return {"--" + name.replace("_", "-"): item
+            for name, item in UNPORTED_OPTIONS.items()
+            if getattr(ns, name) is not None}
+
+
+def parse_protocol(ns: argparse.Namespace) -> Optional[ProtocolConfig]:
+    """The run's protocol: the flags over the `BFLC_*` variables over
+    `ProtocolConfig()`; None when neither overrides anything (the
+    preset's own protocol)."""
+    overrides = {name: getattr(ns, name)
+                 for name in dataclasses.asdict(ProtocolConfig())
+                 if getattr(ns, name) is not None}
+    env_base = protocol_from_env()
+    if overrides or env_base != ProtocolConfig():
+        return dataclasses.replace(env_base, **overrides).validate()
+    return None

@@ -14,7 +14,10 @@ the default since JAX 0.5):
   ``x0 ^ x1``;
 - `uniform` keeps the top 23 bits as the mantissa of a float in [1, 2),
   subtracts 1, then scales to [minval, maxval) and clamps at minval;
-- `normal` is ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``.
+- `normal` is ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``;
+- `truncated_normal(key, lower, upper)` is ``sqrt(2) * erfinv(uniform(
+  erf(lower / sqrt(2)), erf(upper / sqrt(2))))``, clamped to the open
+  interval (lower, upper) (`jax._src.random._truncated_normal`).
 
 The integer draws (`PRNGKey`, `split`, `fold_in`, `bits`) and `uniform`
 equal jax's bit for bit: they are uint32 arithmetic and exact float32
@@ -22,7 +25,11 @@ steps.  `normal` computes `erfinv` with Giles' single-precision
 polynomial in ``w = -log1p(-x*x)``, the one XLA's `ErfInv32` evaluates,
 with its steps fused as XLA:CPU fuses them; XLA's own `log1p` is not
 numpy's, so `normal` matches jax within a few float32 ulp, not bit for
-bit (`tests/test_torch_prng.py` states the tolerance).  `torch.erfinv`
+bit (`tests/test_torch_prng.py` states the tolerance), and so does
+`truncated_normal`.  Its `erf` is XLA:CPU's float32 rational
+approximation (odd degree-9 numerator over even degree-12 denominator,
+FMA Horner steps), equal to jax's for |x| < 3, which holds the bounds
+flax's initialisers use (±2/sqrt(2)).  `torch.erfinv`
 would differ by up to tens of ulp.
 
 Dropped: jax's typed key arrays, the non-partitionable mode, 64-bit
@@ -49,6 +56,16 @@ _ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
 _ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                   -0.00367342844, 0.00573950773, -0.0076224613,
                   0.00943887047, 1.00167406, 2.83297682)
+
+
+# XLA:CPU's float32 erf: x * P(x^2) / Q(x^2), highest degree first;
+# +-1 beyond erf^-1(1 - ulp/2)
+_ERF_ALPHA = (0.00022905065861350646, 0.0034082910107109506,
+              0.050955695062380861, 0.18520832239976145, 1.128379143519084)
+_ERF_BETA = (-1.1791602954361697e-7, 0.000023547966471313185,
+             0.0010179625278914885, 0.014070470171167667,
+             0.11098505178285362, 0.49746925110067538, 1.0)
+_ERF_ONE = np.float32(3.832506856900711)
 
 
 def _shape(shape: Shape) -> Tuple[int, ...]:
@@ -150,3 +167,33 @@ def normal(key: np.ndarray, shape: Shape = ()) -> np.ndarray:
     """float32 standard normal draws."""
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     return _SQRT2 * erfinv(uniform(key, shape, lo, 1.0))
+
+
+def _fma_horner(w: np.ndarray, coeffs) -> np.ndarray:
+    """Horner steps ``c + p*w``, each one float32 fused multiply-add
+    (float64 product and sum, one rounding), highest degree first."""
+    p = np.full(np.shape(w), np.float32(coeffs[0]), np.float32)
+    w64 = np.asarray(w, np.float64)
+    for c in coeffs[1:]:
+        p = (p * w64 + np.float64(np.float32(c))).astype(np.float32)
+    return p
+
+
+def erf(x: np.ndarray) -> np.ndarray:
+    """float32 erf by XLA:CPU's rational approximation."""
+    x = np.asarray(x, np.float32)
+    x2 = x * x
+    p = x * _fma_horner(x2, _ERF_ALPHA)
+    out = p / _fma_horner(x2, _ERF_BETA)
+    return np.where(np.abs(x) <= _ERF_ONE, out,
+                    np.copysign(np.float32(1.0), x)).astype(np.float32)
+
+
+def truncated_normal(key: np.ndarray, lower: float, upper: float,
+                     shape: Shape = ()) -> np.ndarray:
+    """float32 standard normal draws truncated to (lower, upper)."""
+    lo, hi = np.float32(lower), np.float32(upper)
+    a, b = erf(lo / _SQRT2), erf(hi / _SQRT2)
+    out = _SQRT2 * erfinv(uniform(key, shape, a, b))
+    return np.clip(out, np.nextafter(lo, np.float32(np.inf)),
+                   np.nextafter(hi, np.float32(-np.inf))).astype(np.float32)

@@ -44,13 +44,33 @@ each; any failure raises and exits non-zero:
              the CLI's default — for 10 rounds on the mesh runtime and 10
              on the host runtime (round times of both), its final model
              against the CPU path;
+   presets — configs 0, 2, 3 and 4 (`PRESET_RUNS`), each run between a
+             reset and a read of the launch counts (fingerprint 2 a mesh
+             round, nothing else) and held to the reference tests' bar:
+             config 0 at its preset on the mesh and host runtimes, 3
+             rounds, the ledger's size; config 2 on the mesh runtime at
+             the heavy test's geometry (n_data 2400, 20 clients,
+             Dirichlet 0.5), 12 rounds, best accuracy above 0.5; config 3
+             with active participation at the heavy test's geometry (30
+             clients, committee 3, 5 uploaders, n_data 3000), 8 rounds,
+             above 0.4, and at the full preset (100 clients, n_data
+             20000), 2 rounds, the ledger's size; config 4 at the full
+             preset (ResNet-18, CIFAR-100 shapes, 32 clients, active,
+             client_chunk 4, remat), 2 rounds, the ledger's size.  Round
+             times, accuracies, launches and peak device memory per run,
+             beside the card's name and power limit; then the trained
+             config-2 model's logits and decisions on the card against
+             the CPU path's on all of config 2's rows;
    fingerprint — the fingerprint kernel against its plain version on the
              card, bit for bit (float32, bfloat16, float16, int8, bool and
-             int32 leaves, a ragged leaf, config 5's 20 stacked deltas and
-             a config-1 model); its time at config 5's 20 deltas and one
-             model beside the bytes bound and the chain bound (the
-             measured latency of one dependent multiply-xor times the
-             steps of a lane's chain);
+             int32 leaves, a ragged leaf, config 5's 20 stacked deltas, a
+             config-1 model, and the active slots' deltas of configs 3
+             and 4 — 14 FEMNIST CNNs and 16 ResNet-18s, whose plain chain
+             runs on CPU copies of the same values); its time at config
+             5's 20 deltas, one config-5 model and the config-3 and
+             config-4 deltas beside the bytes bound and the chain bound
+             (the measured latency of one dependent multiply-xor times
+             the steps of a lane's chain);
 6. compare — the ring's carry kernel (`flash_carry`) against its plain
              version over two chained hops, float32 and bfloat16, at
              S = 256 (ragged keys, one fully masked 64-key tile) and at
@@ -174,6 +194,26 @@ MESH_PER_ROUND = {"flash_fwd": 24, "flash_dkdv": 20, "flash_dq": 20,
                   "flash_carry": 0, "fingerprint": 2, "certified_reduce": 0}
 CONFIG1_ROUNDS = 10          # the CLI's default run
 CONFIG1_MIN_BEST = {"csv": 0.90, "synthetic": 0.85}  # tests/test_e2e.py
+# the presets phase: (path, config, rounds, bar, arguments), each at the
+# reference's own bar (tests/test_configs.py): configs 0 at the preset on
+# both runtimes; 2 and 3 at the heavy tests' geometries (:192-213); 3 and
+# 4 at the full preset
+CONFIG2_HEAVY_N_DATA = 2400
+PRESET_RUNS = (
+    ("mesh_config0", "config0", 3, ("log", 4, 2, 2), dict(runtime="mesh")),
+    ("host_config0", "config0", 3, ("log", 4, 2, 2), dict(runtime="host")),
+    ("mesh_config2", "config2", 12, ("best", 0.5),
+     dict(n_data=CONFIG2_HEAVY_N_DATA)),
+    ("mesh_config3_heavy", "config3", 8, ("best", 0.4),
+     dict(n_data=3000, cfg=dict(client_num=30, comm_count=3,
+                                aggregate_count=3, needed_update_count=5,
+                                learning_rate=0.05, batch_size=20,
+                                local_epochs=4))),
+    ("mesh_config3", "config3", 2, ("log", 100, 10, 4), dict()),
+    ("mesh_config4", "config4", 2, ("log", 32, 12, 4), dict()),
+)
+# fingerprint compare cases whose plain chain runs on CPU copies
+FP_PLAIN_ON_CPU = ("config3_deltas", "config4_deltas")
 # the fingerprint's operations are a 32-bit multiply and xor per word on
 # the CUDA cores; 67e12 (their float32 rate) is an upper bound on that
 INT_OPS = F32_CUDA_CORE_OPS
@@ -830,11 +870,86 @@ def config1_phase(torch, fa, fp, device) -> dict:
             "host_round_s": host.round_times_s}
 
 
+def preset_run(torch, name: str, label: str, rounds: int, bar, **kw):
+    """One preset run between a reset and a read of the launch counts,
+    with its bar: `bar` = ("best", x) for best accuracy above x, or
+    ("log", clients, uploads, scores) for the ledger's size after
+    `rounds` rounds (tests/test_configs.py:22-26).  Emits the run;
+    returns (result, launches, peak bytes)."""
+    from bflc_demo_tpu_torch.eval.configs import CONFIGS
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig
+
+    args = dict(kw, cfg=ProtocolConfig(**kw["cfg"])) if "cfg" in kw else kw
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = CONFIGS[name].build(rounds=rounds, device="cuda", **args)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    runtime = kw.get("runtime", "mesh")
+    acc = [a for _, a in res.accuracy_history]
+    emit("preset", path=label, config=name, runtime=runtime, rounds=rounds,
+         geometry={k: v for k, v in kw.items() if k != "runtime"},
+         accuracy=acc, best_acc=res.best_accuracy(),
+         round_s=res.round_times_s, wall_s=res.wall_time_s,
+         ledger_log_size=res.ledger_log_size,
+         ledger_verified=res.ledger.verify_log(), launches=launches,
+         peak_mem_bytes=peak)
+    if (res.rounds_completed != rounds or not res.ledger.verify_log()
+            or not all(np.isfinite(acc))):
+        raise RuntimeError(f"{label}: {res.rounds_completed} rounds, "
+                           f"accuracies {acc}, or an unverified chain")
+    if bar[0] == "best" and not res.best_accuracy() > bar[1]:
+        raise RuntimeError(f"{label}: best accuracy {res.best_accuracy()} "
+                           f"is not above {bar[1]}")
+    if bar[0] == "log":
+        want = bar[1] + rounds * (bar[2] + bar[3] + 1)
+        if res.ledger_log_size != want:
+            raise RuntimeError(f"{label}: ledger of {res.ledger_log_size} "
+                               f"ops, expected {want}")
+    want = {k: 0 for k in launches}
+    if runtime == "mesh":
+        want["fingerprint"] = MESH_PER_ROUND["fingerprint"] * rounds
+    if launches != want:
+        raise RuntimeError(f"{label}: launches {launches}, expected {want}")
+    return res, launches, peak
+
+
+def presets_phase(torch, device, card: str) -> dict:
+    """Configs 0, 2, 3 and 4 on the card (PRESET_RUNS), each run between
+    a reset and a read of the launch counts and held to the reference
+    tests' bar; then the trained config-2 model's decisions on the card
+    against the CPU path's.  Returns {path: launches}."""
+    from bflc_demo_tpu_torch.eval.configs import config2_data
+    from bflc_demo_tpu_torch.models import make_lenet5
+
+    paths, times, peaks, results = {}, {}, {}, {}
+    for label, name, rounds, bar, kw in PRESET_RUNS:
+        res, paths[label], peaks[label] = preset_run(
+            torch, name, label, rounds, bar, **kw)
+        times[label] = res.round_times_s
+        results[label] = res
+    emit("preset_round_times", nvidia_smi=card, round_s=times,
+         warm_round_s={k: v[1:] for k, v in times.items()},
+         peak_mem_bytes=peaks,
+         fingerprint_launches={k: v["fingerprint"] for k, v in paths.items()})
+    c2 = results["mesh_config2"]
+    decision_check(torch, c2.final_params, device, "config 2 (LeNet-5)",
+                   c2.final_accuracy, model=make_lenet5,
+                   data=config2_data(n_data=CONFIG2_HEAVY_N_DATA),
+                   rel_tol=True)
+    return paths
+
+
 def fingerprint_trees(torch, device) -> dict:
     """The compare cases, as CPU tensors: every leaf dtype of the mesh
     path and more, stacked over 3 slices, with a ragged leaf (11 words);
-    config 5's 20 stacked deltas; one config-1 model."""
-    from bflc_demo_tpu_torch.models import (make_softmax_regression,
+    config 5's 20 stacked deltas; one config-1 model; the 14 active
+    slots' deltas of config 3 and the 16 of config 4 (its 62 leaves in
+    `tree_leaves` order, 718 MB)."""
+    from bflc_demo_tpu_torch.models import (canonical_params,
+                                            make_femnist_cnn, make_resnet18,
+                                            make_softmax_regression,
                                             make_transformer_classifier)
     gen = torch.Generator().manual_seed(9)
     mixed = {
@@ -852,8 +967,16 @@ def fingerprint_trees(torch, device) -> dict:
               .items()}
     config1 = {k: torch.randn((1,) + tuple(v.shape), generator=gen)
                for k, v in make_softmax_regression().init_params(0).items()}
-    return {"mixed_dtypes": mixed, "config5_deltas": deltas,
-            "config1_model": config1}
+    trees = {"mixed_dtypes": mixed, "config5_deltas": deltas,
+             "config1_model": config1}
+    # the active slots' deltas of configs 3 and 4 (K + C = 14 and 16):
+    # the FEMNIST CNN's 8 leaves and ResNet-18's 62
+    for name, make, slots in (("config3_deltas", make_femnist_cnn, 14),
+                              ("config4_deltas", make_resnet18, 16)):
+        trees[name] = {k: torch.randn((slots,) + tuple(v.shape),
+                                      generator=gen)
+                       for k, v in canonical_params(make()).items()}
+    return trees
 
 
 def fingerprint_compare_phase(torch, fp, device) -> tuple:
@@ -861,10 +984,15 @@ def fingerprint_compare_phase(torch, fp, device) -> tuple:
     bit for bit.  Returns the card trees for the timing phase and the
     largest difference measured."""
     trees, worst = {}, 0
-    for name, tree in fingerprint_trees(torch, device).items():
-        tree = {k: v.to(device) for k, v in tree.items()}
+    for name, cpu_tree in fingerprint_trees(torch, device).items():
+        tree = {k: v.to(device) for k, v in cpu_tree.items()}
         got = fp.fingerprint_stacked(tree)
-        want = fp.fingerprint_plain(tree)
+        # the plain chain at the config-3/4 trees (0.8-1.4 M rows) on the
+        # card's copies, one launch a row, would take minutes: there it
+        # runs on the same values on the CPU
+        want = fp.fingerprint_plain(
+            cpu_tree if name in FP_PLAIN_ON_CPU else tree).to(device)
+        del cpu_tree
         torch.cuda.synchronize()
         err = int((got - want).abs().max())
         emit("compare", kernel="fingerprint", case=name,
@@ -902,10 +1030,13 @@ def fingerprint_timing_phase(torch, fp, device, trees) -> dict:
     rows = {}
     for name, tree in (("config5_deltas", deltas),
                        ("config5_model", {k: v[:1].contiguous()
-                                          for k, v in deltas.items()})):
+                                          for k, v in deltas.items()}),
+                       ("config3_deltas", trees["config3_deltas"]),
+                       ("config4_deltas", trees["config4_deltas"])):
         plan = fp.KernelPlan(tree)
         ms = device_ms(torch, plan.launch, calls=10, replays=3, repeats=5)
-        plain_ms = event_ms(torch, lambda: fp.fingerprint_plain(tree))
+        plain_ms = (None if name in FP_PLAIN_ON_CPU else
+                    event_ms(torch, lambda: fp.fingerprint_plain(tree)))
         slices = plan.batch
         moved = sum(t.numel() * t.element_size() for t in tree.values()) \
             + slices * fp.LANES * 8
@@ -928,7 +1059,8 @@ def fingerprint_timing_phase(torch, fp, device, trees) -> dict:
         emit("timing", kernel="fingerprint", case=name, **row)
         rows[name] = row
     main = rows["config5_deltas"]
-    main["at"] = {"config5_model": rows["config5_model"]}
+    main["at"] = {name: rows[name] for name in
+                  ("config5_model", "config3_deltas", "config4_deltas")}
     return main
 
 
@@ -1139,51 +1271,63 @@ def merge_timing_phase(torch, cr, device, cases) -> dict:
 
 
 def decision_check(torch, params, device, model_name: str,
-                   recorded: float = None) -> None:
-    """A model's decisions on the card (kernels at the sponsor's and the
-    committee's batch shapes) against the CPU path's on the same params:
-    logits within 1e-4 on every row of config 5's data, and the
-    accuracies — the sponsor's and the score op of every client's shard —
-    equal, but for a row whose two CPU logits are within 2e-4 of each
-    other (a tie inside the tolerance).  `recorded`: the sponsor accuracy
-    the run recorded for these params, which the card's must equal."""
+                   recorded: float = None, model=None, data=None,
+                   rel_tol: bool = False) -> None:
+    """A model's decisions on the card (the sponsor's and the committee's
+    batch shapes) against the CPU path's on the same params: logits
+    within TOL on every row, and the accuracies — the sponsor's and the
+    score op of every client's shard — equal, but for a row whose two
+    top CPU logits are within 2 TOL of each other (a tie inside the
+    tolerance).  By default config 5's transformer on config 5's data,
+    TOL 1e-4; else `model` (a factory) on `data` = (shards, test set),
+    with TOL = 1e-4 * max(1, max |CPU logit|) where `rel_tol` (float32
+    convolutions summed in other orders, cuDNN against the CPU's).
+    `recorded`: the sponsor accuracy the run recorded for these params,
+    which the card's must equal."""
+    from bflc_demo_tpu_torch.client.runtime import feature_tensor
     from bflc_demo_tpu_torch.eval.configs import config5_data
     from bflc_demo_tpu_torch.models.transformer import \
         make_transformer_classifier
 
-    shards, test_set = config5_data()
+    shards, test_set = data or config5_data()
+    model = model or make_transformer_classifier
     sets = {"sponsor": test_set,
             **{f"client{i}": shard for i, shard in enumerate(shards)}}
     cpu_params = {k: p.cpu() for k, p in params.items()}
-    card_model = make_transformer_classifier().to(device)
-    cpu_model = make_transformer_classifier()
-    acc, err, ties = {}, 0.0, 0
+    card_model = model().to(device)
+    cpu_model = model()
+    logits = {}
     with torch.no_grad():
-        for name, (x, y) in sets.items():
-            tokens = torch.as_tensor(x, dtype=torch.long)
-            labels = torch.as_tensor(y)
-            on_card = card_model.apply(params, tokens.to(device)).cpu()
-            on_cpu = cpu_model.apply(cpu_params, tokens)
-            err = max(err, float((on_card - on_cpu).abs().max()))
-            flips = on_card.argmax(-1) != on_cpu.argmax(-1)
-            top2 = on_cpu.topk(2, dim=-1).values
-            ties += int((flips & (top2[:, 0] - top2[:, 1] <= 2e-4)).sum())
-            if (flips & (top2[:, 0] - top2[:, 1] > 2e-4)).any():
-                raise RuntimeError(f"{model_name} model, {name}: the card "
-                                   f"decides rows that the CPU path decides "
-                                   f"otherwise")
-            acc[name] = [float((m.argmax(-1) == labels).float().mean())
-                         for m in (on_card, on_cpu)]
+        for name, (x, _) in sets.items():
+            feats = feature_tensor(x, "cpu")
+            logits[name] = (card_model.apply(params, feats.to(device)).cpu(),
+                            cpu_model.apply(cpu_params, feats))
+    scale = max(float(c.abs().max()) for _, c in logits.values())
+    tol = 1e-4 * max(1.0, scale) if rel_tol else 1e-4
+    acc, err, ties = {}, 0.0, 0
+    for name, (on_card, on_cpu) in logits.items():
+        labels = torch.as_tensor(sets[name][1]).long()
+        err = max(err, float((on_card - on_cpu).abs().max()))
+        flips = on_card.argmax(-1) != on_cpu.argmax(-1)
+        top2 = on_cpu.topk(2, dim=-1).values
+        ties += int((flips & (top2[:, 0] - top2[:, 1] <= 2 * tol)).sum())
+        if (flips & (top2[:, 0] - top2[:, 1] > 2 * tol)).any():
+            raise RuntimeError(f"{model_name} model, {name}: the card "
+                               f"decides rows that the CPU path decides "
+                               f"otherwise")
+        acc[name] = [float((m.argmax(-1) == labels).float().mean())
+                     for m in (on_card, on_cpu)]
     emit("decision_check", model=model_name, sets=len(sets),
          rows=sum(len(y) for _, y in sets.values()),
-         max_abs_err_vs_cpu=err, tol=1e-4, ties_flipped=ties,
+         max_abs_err_vs_cpu=err, tol=tol, max_abs_logit=scale,
+         ties_flipped=ties,
          sponsor_acc_card=acc["sponsor"][0], sponsor_acc_cpu=acc["sponsor"][1],
          sponsor_acc_recorded=recorded,
          score_ops_card=[acc[f"client{i}"][0] for i in range(len(shards))],
          score_ops_equal=all(a == b for a, b in acc.values()))
-    if err > 1e-4:
+    if err > tol:
         raise RuntimeError(f"{model_name} model: card logits differ from the "
-                           f"CPU path on the config-5 data: {err}")
+                           f"CPU path: {err} (tol {tol})")
     if recorded is not None and abs(acc["sponsor"][0] - recorded) > 1e-6:
         raise RuntimeError(f"the sponsor's accuracy re-evaluated on the card "
                            f"({acc['sponsor'][0]}) is not the run's "
@@ -1278,6 +1422,7 @@ def main() -> int:
     emit("round_times", nvidia_smi=card,
          config5={"host": host5["round_s"], "mesh": mesh5["round_s"]},
          config1={"host": mesh1["host_round_s"], "mesh": mesh1["round_s"]})
+    presets = presets_phase(torch, device, card)
     trees, errors["fingerprint"] = fingerprint_compare_phase(torch, fp,
                                                              device)
     timings["fingerprint"] = fingerprint_timing_phase(torch, fp, device,
@@ -1298,6 +1443,7 @@ def main() -> int:
     paths = {"host_config5": host5["launches"],
              "mesh_config5": mesh5["launches"],
              "mesh_config1": mesh1["launches"],
+             **presets,
              "sp": {"flash_carry": sp_slice_phase(torch, fa, device)},
              **merge_paths}
     by_path = {name: {path: counts.get(name, 0)

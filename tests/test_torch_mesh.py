@@ -424,14 +424,16 @@ def test_tiny_mesh_run_completes():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(participation="active"), "A7"),
+    # active participation, client_chunk and remat are ported: each is
+    # held here beside an option that is not, which still raises
+    (dict(participation="active", rounds_per_dispatch=2), "A7"),
     (dict(rounds_per_dispatch=2), "A7"),
     (dict(secure_aggregation=True), "A12"),
     (dict(attest_scores=True), "A9"),
     (dict(checkpoint_dir="ckpt", checkpoint_every=1), "A11"),
     (dict(estimate_flops=True), "A11"),
-    (dict(client_chunk=2), "A7"),
-    (dict(remat=True), "A7"),
+    (dict(client_chunk=2, rounds_per_dispatch=3), "A7"),
+    (dict(remat=True, rounds_per_dispatch=2), "A7"),
     (dict(local_optimizer=object()), "A11"),
 ])
 def test_unported_mesh_options_raise(kw, item):

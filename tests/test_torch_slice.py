@@ -11,7 +11,7 @@
 - The port's CPU slice runs in a subprocess that never loads JAX or the
   reference package.
 - Without a card the entry points raise unless given the CPU; the CLI
-  rejects unported runtimes and configs with exit 2.
+  rejects unported runtimes and the process fleet's flags with exit 2.
 """
 
 import ast
@@ -152,7 +152,8 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
 
 @pytest.mark.parametrize("argv", [["--runtime", "threaded"],
                                   ["--runtime", "processes"],
-                                  ["--config", "config2"]])
+                                  ["--config", "config2", "--standbys",
+                                   "1"]])
 def test_cli_rejects_unported_with_exit_2(argv, capsys):
     assert cli(argv) == 2
     assert "ROADMAP" in capsys.readouterr().err
