@@ -2,13 +2,20 @@
 
 Port of `bflc_demo_tpu/__main__.py` with the reference's defaults
 (`--config config1 --runtime mesh --rounds 10`): configs 0-5 on the
-`mesh` or `host` runtime, on `cuda` unless `--device cpu` (the
-counterpart of `JAX_PLATFORMS=cpu`), with the protocol overridable by
-`--field-name` flags and `BFLC_*` variables (`utils/flags.py`).  An
-unknown config, an unported runtime or a flag of a part not ported yet
-(the process fleet and codecs A9, checkpoints A11, secure aggregation
-A12, traces and telemetry A14) exits 2 naming the ROADMAP item.  Prints
-the reference CLI's final JSON keys.
+`mesh`, `host`, `threaded` or `processes` runtime (the process fleet:
+writer, clients and a replica as OS processes; run it from the shell or
+a real file, as spawned children re-import `__main__`), on `cuda`
+unless `--device cpu` (the counterpart of `JAX_PLATFORMS=cpu`), with
+the protocol overridable by `--field-name` flags and `BFLC_*` variables
+(`utils/flags.py`) and the ledger by `--ledger-backend auto|python`.  An
+unknown config, an unported runtime (the executor), the native ledger
+or a flag of a part not ported yet (the fleet's standbys, TLS, quorum,
+BFT, chaos, cells, snapshots, rederive and the codecs A9, checkpoints
+A11, secure aggregation A12, traces and telemetry A14) exits 2 naming
+the ROADMAP item.  Prints the reference CLI's final JSON keys, and on
+`processes` a `fleet` key besides: the round times, the spawn time, the
+writer's phase split, every role's kernel launches and the writer's
+merge-engine report.
 """
 
 from __future__ import annotations
@@ -25,14 +32,14 @@ def _parser() -> argparse.ArgumentParser:
         description="Committee-consensus federated learning in PyTorch on "
                     "an NVIDIA GPU (port of bflc_demo_tpu).",
         epilog="Ported: --config config0..config5 on --runtime mesh (the "
-               "default) and host.  The threaded/processes/executor "
-               "runtimes and the fleet and codec flags are ROADMAP A9; "
-               "they exit 2 until ported.")
+               "default), host, threaded and processes.  The executor "
+               "runtime, the native ledger and the fleet's other flags "
+               "and the codecs are ROADMAP A9; they exit 2 until ported.")
     p.add_argument("--config", default="config1",
                    help="benchmark preset, config0 ... config5")
     p.add_argument("--runtime", default="mesh",
-                   help="runtime (ported: mesh, host; threaded/processes/"
-                        "executor are ROADMAP A9)")
+                   help="runtime (ported: mesh, host, threaded, processes; "
+                        "executor is ROADMAP A9)")
     p.add_argument("--rounds", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
@@ -55,6 +62,8 @@ def main(argv=None) -> int:
         print(UNPORTED_RUNTIME.format(runtime=opts.runtime), file=sys.stderr)
         return 2
     unported = unported_given(opts)
+    if opts.ledger_backend == "native":
+        unported["--ledger-backend native"] = "A9: the native ledger"
     if unported:
         print("not ported yet: " + ", ".join(
             f"{flag} (ROADMAP {item})" for flag, item in unported.items()),
@@ -66,19 +75,37 @@ def main(argv=None) -> int:
         print(f"protocol: {exc}", file=sys.stderr)
         return 2
     kw = dict(rounds=opts.rounds, seed=opts.seed, runtime=opts.runtime,
-              device=opts.device, verbose=opts.verbose)
+              device=opts.device, verbose=opts.verbose,
+              ledger_backend=opts.ledger_backend)
     if cfg is not None:
         kw["cfg"] = cfg
     res = CONFIGS[opts.config].build(**kw)
-    print(json.dumps({
+    out = {
         "config": opts.config,
         "rounds": res.rounds_completed,
         "final_acc": res.final_accuracy,
         "best_acc": res.best_accuracy(),
         "wall_time_s": round(res.wall_time_s, 3),
         "ledger_log_size": res.ledger_log_size,
-        "ledger_log_head": res.ledger_log_head.hex(),
-    }))
+        # bytes from in-process ledgers, already hex from the fleet
+        "ledger_log_head": (res.ledger_log_head.hex()
+                            if isinstance(res.ledger_log_head, bytes)
+                            else res.ledger_log_head),
+    }
+    if opts.runtime == "processes":
+        # the fleet's own account: round times, spawn time, the writer's
+        # phase split (BFLC_PROC_TRACE=1), every role's kernel launches
+        out["fleet"] = {"epoch_times": res.epoch_times,
+                        "spawn_s": res.spawn_s,
+                        "perf": (res.final_info or {}).get("perf"),
+                        "kernel_launches": res.kernel_launches,
+                        "writer_engine": res.writer_engine,
+                        "writer_merges": res.writer_merges,
+                        "ed25519_backend": res.ed25519_backend,
+                        "replica_head_ok": bool(
+                            res.replica_report and res.replica_report["head"]
+                            == res.ledger_log_head)}
+    print(json.dumps(out))
     return 0
 
 

@@ -1,0 +1,761 @@
+"""The networked coordinator: the ledger behind a real socket boundary.
+
+Port of the synchronous `LedgerServer` of
+`bflc_demo_tpu/comm/ledger_service.py` (:288-2563), with `chain_head_at`
+(:167), `_aggregate_flat` (:262), `CoordinatorClient` (:2564) and
+`replicate` (:2592).  The writer owns the ledger, verifies every
+client's Ed25519 tag against its public directory (trust on first use
+unless a directory is given), meters storage ops with per-epoch gas,
+stores the payload blobs, merges the round through the certified merge
+engine when the committee's scores complete the round, streams the op
+log to replicas, and runs the failure detector whose recovery ops
+(close_round -> reseat_committee -> force_aggregate) carry a round past
+dead clients.  Its frames, methods, replies, op bytes and chain are the
+reference's, so a reference client can drive it and a reference replica
+can follow it, and back.
+
+The merge runs through `meshagg` on the server's `device` (`cuda`
+unless the caller asks for the CPU): the reference's leg policy picks
+the mesh leg — kernel B5 on the card, after its one-time self-check —
+for rounds of at least `BFLC_MESH_AGG_MIN` admitted deltas, staged as
+flattened rows at admission.  On the card a failure there raises; it
+never falls back to the host leg.  With `BFLC_PROC_TRACE=1` the merge
+charges `aggregate_s` (and the engine call alone `aggregate.engine_s`)
+to `utils/tracing.PROC`, and `info` returns the tracer's summary as
+`perf`.  The `kernels` method (the port's own) answers the process's
+kernel launch counts, the engine's report and `merge_log`, one record a
+commit (its epoch, the writer's clock, the merge's seconds and leg).
+
+Not ported, each raising or refusing with its ROADMAP item when asked
+for: writer fencing and standbys (the server reads as generation 0,
+writer index 0; `sb` subscribers stream without quorum eligibility),
+quorum-ack and the WAL, BFT certificates, TLS, snapshots and `log_base`
+(always 0), the hier root, rederive, the async FedBuff and genome paths,
+sparse/quantized uploads (A9); telemetry, health and causal traces
+(A14).  The op stream sends op bytes without the reference's blob
+piggyback, which only standbys read.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import socket
+import struct
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from bflc_demo_tpu_torch.comm.dataplane import handle_read
+from bflc_demo_tpu_torch.comm.identity import (PublicDirectory, ReplayGuard,
+                                               _op_bytes, address_of)
+from bflc_demo_tpu_torch.comm.wire import (WireError, blob_bytes, recv_msg,
+                                           send_msg)
+from bflc_demo_tpu_torch.device import DeviceLike
+from bflc_demo_tpu_torch.ledger import LedgerStatus, make_ledger
+from bflc_demo_tpu_torch.meshagg.engine import (ENGINE, MeshAggEngine,
+                                                engine_for, flatten_delta)
+from bflc_demo_tpu_torch.ops import launch_counts
+from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
+from bflc_demo_tpu_torch.utils import tracing
+from bflc_demo_tpu_torch.utils.serialization import (dequantize_entries,
+                                                     pack_entries,
+                                                     unpack_pytree)
+
+# admission-control gas (the reference's per-sender per-epoch budget)
+GAS_REGISTER = 1_000
+GAS_UPLOAD_BASE = 1_000
+GAS_SCORES = 500
+
+# the reference's server options this port has not reached, each with
+# the ROADMAP item that brings it; a truthy value raises
+UNPORTED_SERVER_OPTIONS = {
+    "wal_path": "A9 (quorum-ack and the WAL)",
+    "quorum": "A9 (quorum-ack and the WAL)",
+    "quorum_timeout_s": "A9 (quorum-ack and the WAL)",
+    "resume_ledger": "A9 (standbys and failover)",
+    "resume_blobs": "A9 (standbys and failover)",
+    "sock": "A9 (standbys and failover)",
+    "standby_keys": "A9 (standbys and failover)",
+    "promotion_evidence": "A9 (standbys and failover)",
+    "bft_validators": "A9 (BFT validators)",
+    "bft_keys": "A9 (BFT validators)",
+    "bft_quorum": "A9 (BFT validators)",
+    "bft_timeout_s": "A9 (BFT validators)",
+    "resume_certs": "A9 (BFT validators)",
+    "tls": "A9 (TLS)",
+    "snapshot_interval": "A9 (snapshots)",
+    "snapshot_dir": "A9 (snapshots)",
+    "snapshot_keep": "A9 (snapshots)",
+    "resume_snapshot": "A9 (snapshots)",
+    "cell_registry": "A9 (hier cells)",
+}
+
+# wire methods of unported paths: refused by name, never "unknown"
+_UNPORTED_METHODS = {
+    "aupload": "A9 (async FedBuff)", "aupdates": "A9 (async FedBuff)",
+    "ascores": "A9 (async FedBuff)", "snapshot": "A9 (snapshots)",
+    "telemetry": "A14 (telemetry)",
+}
+
+
+def refuse_unported(options: Dict[str, object],
+                    table: Dict[str, str]) -> None:
+    """Raise naming the ROADMAP item of every option that was asked for
+    (truthy) and is not ported; unknown names are a TypeError."""
+    unknown = sorted(set(options) - set(table))
+    if unknown:
+        raise TypeError(f"unexpected options {unknown}")
+    asked = {k: table[k] for k, v in options.items() if v}
+    if asked:
+        raise NotImplementedError("not ported yet: " + ", ".join(
+            f"{k} (ROADMAP {item})" for k, item in sorted(asked.items())))
+
+
+def chain_head_at(ledger, upto: int) -> bytes:
+    """Digest of the op hash chain after ops[0..upto-1] (b"" at 0)."""
+    head_at = getattr(ledger, "head_at", None)
+    if head_at is not None:
+        return head_at(upto)
+    h = b""
+    for i in range(upto):
+        d = hashlib.sha256()
+        if h:
+            d.update(h)
+        d.update(ledger.log_op(i))
+        h = d.digest()
+    return h
+
+
+def _aggregate_flat(global_flat: Dict[str, np.ndarray],
+                    delta_flats: List[Dict[str, np.ndarray]],
+                    weights: List[float], selected: List[int],
+                    lr: float, blocks: int = 1,
+                    engine: Optional[MeshAggEngine] = None
+                    ) -> Dict[str, np.ndarray]:
+    """Server-side FedAvg on flat entries: global -= lr * the weighted
+    mean of the selected deltas, through the certified merge engine
+    (REDUCTION SPEC v2; both legs give the same bytes)."""
+    return (engine or ENGINE).aggregate_flat(
+        global_flat, delta_flats, weights, selected, lr, blocks=blocks)
+
+
+class LedgerServer:
+    """Coordinator process body: socket server + aggregator + stall
+    monitor.  `serve_forever()` blocks (a dedicated process);
+    `start()` serves from background threads (tests)."""
+
+    def __init__(self, cfg: ProtocolConfig, initial_model_blob: bytes,
+                 host: str = "127.0.0.1", port: int = 0, *,
+                 directory: Optional[PublicDirectory] = None,
+                 ledger_backend: str = "auto",
+                 require_auth: bool = True,
+                 stall_timeout_s: float = 10.0,
+                 gas_budget_per_epoch: Optional[int] = None,
+                 device: DeviceLike = None,
+                 verbose: bool = False,
+                 **unported):
+        refuse_unported(unported, UNPORTED_SERVER_OPTIONS)
+        cfg.validate()
+        self.cfg = cfg
+        self.verbose = verbose
+        self.require_auth = require_auth
+        self.stall_timeout_s = stall_timeout_s
+        self._open_enrollment = directory is None
+        self.directory = directory if directory is not None \
+            else PublicDirectory()
+        # one lock serializes ledger + blob + model state (the consensus
+        # point); subscribers and `wait` callers sleep on the condition
+        self._lock = threading.RLock()
+        self._cv = threading.Condition(self._lock)
+        self.ledger = make_ledger(cfg, backend=ledger_backend)
+        # the merge engine on the server's device (B5 on the card)
+        self.engine = engine_for(device)
+        self._blobs: Dict[bytes, bytes] = {}
+        # payload hash -> the admitted delta's flattened row, staged at
+        # admission for the mesh leg (re-derived from the blob if absent)
+        self._staged: Dict[bytes, np.ndarray] = {}
+        self._model_blob = initial_model_blob
+        self._model_hash = hashlib.sha256(initial_model_blob).digest()
+        self._model_schema = {k: (a.shape, a.dtype) for k, a in
+                              unpack_pytree(initial_model_blob).items()}
+        self._gas_budget = (50 * (GAS_UPLOAD_BASE + len(initial_model_blob))
+                            if gas_budget_per_epoch is None
+                            else gas_budget_per_epoch)
+        self._gas: Dict[str, Tuple[int, int]] = {}
+        self._last_seen: Dict[str, float] = {}
+        self._replay = ReplayGuard()
+        self._last_progress = time.monotonic()
+        self._rounds_completed = 0
+        # one record a commit: epoch, seconds since start, the merge's
+        # seconds and leg — the writer's own clock of a round
+        self._t0 = time.monotonic()
+        self.merge_log: List[dict] = []
+        self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, port))
+        self._sock.listen(64)
+        self.host, self.port = self._sock.getsockname()
+
+    # ------------------------------------------------------------------ run
+    def start(self) -> None:
+        """Accept + monitor threads in the background."""
+        for target in (self._accept_loop, self._monitor_loop):
+            t = threading.Thread(target=target, daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def serve_forever(self) -> None:
+        self.start()
+        try:
+            while not self._stop.is_set():
+                time.sleep(0.1)
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        self._stop.set()
+        with self._cv:
+            self._cv.notify_all()
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return
+            threading.Thread(target=self._serve_conn, args=(conn,),
+                             daemon=True).start()
+
+    # ----------------------------------------------------------- connection
+    def _serve_conn(self, conn: socket.socket) -> None:
+        try:
+            while not self._stop.is_set():
+                msg = recv_msg(conn)
+                if msg is None:
+                    return
+                method = msg.get("method", "")
+                if method == "subscribe":
+                    self._stream_ops(conn, int(msg.get("from", 0)))
+                    return
+                try:
+                    reply = self._dispatch(method, msg)
+                except Exception as e:      # noqa: BLE001 — any dispatch
+                    # failure (an aggregation error inside a scores call
+                    # included) answers an error frame, so the caller is
+                    # never left blocked on a dead connection thread
+                    reply = {"ok": False, "error": f"{type(e).__name__}: {e}"}
+                reply.setdefault("gen", self.ledger.generation)
+                send_msg(conn, reply)
+        except (WireError, OSError):
+            pass
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _stream_ops(self, conn: socket.socket, start: int) -> None:
+        """Push canonical op bytes from `start` on until the peer leaves.
+        A reader thread drains the subscriber's ack frames so an acking
+        follower never wedges on a full send buffer (acks count toward
+        nothing here: quorum-ack is not ported)."""
+        with self._cv:
+            next_i = max(0, min(start, self.ledger.log_size()))
+        threading.Thread(target=self._ack_reader, args=(conn,),
+                         daemon=True).start()
+        try:
+            while not self._stop.is_set():
+                with self._cv:
+                    size = self.ledger.log_size()
+                    ops = [self.ledger.log_op(i)
+                           for i in range(next_i, min(size, next_i + 256))]
+                    if not ops:
+                        self._cv.wait(timeout=0.5)
+                        continue
+                for i, op in enumerate(ops):
+                    send_msg(conn, {"i": next_i + i, "op": op.hex()})
+                next_i += len(ops)
+        except (WireError, OSError):
+            pass
+
+    def _ack_reader(self, conn: socket.socket) -> None:
+        try:
+            while not self._stop.is_set():
+                if recv_msg(conn) is None:
+                    return
+        except (WireError, OSError):
+            return
+
+    # ------------------------------------------------------------- dispatch
+    def _touch(self, addr: str) -> None:
+        self._last_seen[addr] = time.monotonic()
+
+    def _verify(self, kind: str, addr: str, epoch: int, payload: bytes,
+                tag_hex: str) -> LedgerStatus:
+        """OK = a fresh valid tag; DUPLICATE = valid but consumed (an
+        honest retry or a replay: the op is in either way); BAD_ARG = a
+        signature failure."""
+        if not self.require_auth:
+            return LedgerStatus.OK
+        tag = bytes.fromhex(tag_hex)
+        if not self.directory.verify(
+                addr, _op_bytes(kind, addr, epoch, payload), tag):
+            return LedgerStatus.BAD_ARG
+        if self._replay.seen(epoch, tag):
+            return LedgerStatus.DUPLICATE
+        return LedgerStatus.OK
+
+    def _consume_tag(self, epoch: int, tag_hex: str) -> None:
+        if self.require_auth:
+            self._replay.consume(self.ledger.epoch, epoch,
+                                 bytes.fromhex(tag_hex))
+
+    def _charge_gas(self, addr: str, cost: int) -> bool:
+        """Debit `cost` from addr's budget for the current epoch; False =
+        out of gas.  Called with the lock held and only after the
+        request's signature verified, so gas binds to a proven identity;
+        the table is bounded against address-rotation spam."""
+        if not self._gas_budget:
+            return True
+        ep = self.ledger.epoch
+        last_ep, used = self._gas.get(addr, (ep, 0))
+        if last_ep != ep:
+            used = 0
+        if used + cost > self._gas_budget:
+            if addr in self._gas:
+                self._gas[addr] = (ep, used)
+            return False
+        if addr not in self._gas and len(self._gas) >= 8192:
+            self._gas = {a: (e, u) for a, (e, u) in self._gas.items()
+                         if e == ep}
+            while len(self._gas) >= 8192:
+                self._gas.pop(next(iter(self._gas)))
+        self._gas[addr] = (ep, used + cost)
+        return True
+
+    _OUT_OF_GAS = {"ok": False, "status": "OUT_OF_GAS",
+                   "error": "per-epoch storage budget exhausted"}
+
+    @staticmethod
+    def _auth_error(v: LedgerStatus) -> dict:
+        return {"ok": False, "status": v.name,
+                "error": ("bad signature" if v == LedgerStatus.BAD_ARG
+                          else "replayed tag")}
+
+    def _dispatch(self, method: str, m: dict) -> dict:
+        with self._lock:
+            read = handle_read(
+                method, m, blob_lookup=self._blobs.get,
+                model_state=lambda: (self.ledger.epoch, self._model_hash,
+                                     self._model_blob))
+            if read is not None:
+                return read
+            handler = getattr(self, "_m_" + method, None)
+            if handler is not None:
+                return handler(m)
+            if method in _UNPORTED_METHODS:
+                return {"ok": False, "status": "BAD_ARG",
+                        "error": f"{method!r} is not ported yet (ROADMAP "
+                                 f"{_UNPORTED_METHODS[method]})"}
+            return {"ok": False, "error": f"unknown method {method!r}"}
+
+    def _m_register(self, m: dict) -> dict:
+        addr = m["addr"]
+        if self.require_auth:
+            pub = bytes.fromhex(m.get("pubkey", ""))
+            if self._open_enrollment:
+                # trust on first use: the address must BE the key
+                if address_of(pub) != addr:
+                    return {"ok": False, "status": "BAD_ARG",
+                            "error": "address/pubkey mismatch"}
+                if not self.directory.knows(addr):
+                    self.directory.enroll(pub)
+            elif not self.directory.knows(addr):
+                return {"ok": False, "status": "BAD_ARG",
+                        "error": "unknown identity"}
+            v = self._verify("register", addr, 0, b"", m.get("tag", ""))
+            if v != LedgerStatus.OK:
+                return self._auth_error(v)
+        if not self._charge_gas(addr, GAS_REGISTER):
+            return dict(self._OUT_OF_GAS)
+        st = self.ledger.register_node(addr)
+        if st == LedgerStatus.OK:
+            self._consume_tag(0, m.get("tag", ""))
+        self._touch(addr)
+        self._note_progress(st)
+        return {"ok": st == LedgerStatus.OK, "status": st.name,
+                "epoch": self.ledger.epoch}
+
+    def _m_state(self, m: dict) -> dict:
+        addr = m["addr"]
+        self._touch(addr)
+        role, epoch = self.ledger.query_state(addr)
+        return {"ok": True, "role": role, "epoch": epoch,
+                "round_closed": self.ledger.round_closed}
+
+    def _m_upload(self, m: dict) -> dict:
+        addr = m["addr"]
+        blob = blob_bytes(m["blob"])
+        digest = hashlib.sha256(blob).digest()
+        if digest.hex() != m["hash"]:
+            return {"ok": False, "status": "BAD_ARG",
+                    "error": "blob/hash mismatch"}
+        payload = digest + struct.pack("<qd", int(m["n"]), float(m["cost"]))
+        v = self._verify("upload", addr, int(m["epoch"]), payload,
+                         m.get("tag", ""))
+        if v != LedgerStatus.OK:
+            if v == LedgerStatus.DUPLICATE:
+                self._resupply_blob(digest, blob)
+            return self._auth_error(v)
+        # post-auth: base + payload bytes, so one identity cannot stream
+        # unbounded blob traffic within an epoch's allowance
+        if not self._charge_gas(addr, GAS_UPLOAD_BASE + len(blob)):
+            return dict(self._OUT_OF_GAS)
+        # structural admission check (post-auth, so unsigned spam buys no
+        # decodes): a delta unlike the model dies here, not in the merge
+        err, flat = self._decode_delta(blob)
+        if err:
+            return {"ok": False, "status": "BAD_ARG", "error": err}
+        st = self.ledger.upload_local_update(
+            addr, digest, int(m["n"]), float(m["cost"]), int(m["epoch"]))
+        if st == LedgerStatus.OK:
+            self._stage_delta(digest, flat)
+            self._blobs[digest] = blob
+            self._consume_tag(int(m["epoch"]), m.get("tag", ""))
+        elif st == LedgerStatus.DUPLICATE:
+            self._resupply_blob(digest, blob)
+        self._touch(addr)
+        self._note_progress(st)
+        return {"ok": st == LedgerStatus.OK, "status": st.name}
+
+    def _m_updates(self, m: dict) -> dict:
+        return {"ok": True, "updates": [
+            {"sender": u.sender, "hash": u.payload_hash.hex(),
+             "n": u.n_samples, "cost": u.avg_cost}
+            for u in self.ledger.query_all_updates()]}
+
+    def _m_scores(self, m: dict) -> dict:
+        addr = m["addr"]
+        scores = [float(s) for s in m["scores"]]
+        payload = struct.pack(f"<{len(scores)}d", *scores)
+        v = self._verify("scores", addr, int(m["epoch"]), payload,
+                         m.get("tag", ""))
+        if v != LedgerStatus.OK:
+            return self._auth_error(v)
+        if not self._charge_gas(addr, GAS_SCORES):
+            return dict(self._OUT_OF_GAS)
+        st = self.ledger.upload_scores(addr, int(m["epoch"]), scores)
+        if st == LedgerStatus.OK:
+            self._consume_tag(int(m["epoch"]), m.get("tag", ""))
+        self._touch(addr)
+        self._note_progress(st)
+        if st == LedgerStatus.OK and self.ledger.aggregate_ready():
+            self._aggregate_and_commit()
+        return {"ok": st == LedgerStatus.OK, "status": st.name}
+
+    def _m_committee(self, m: dict) -> dict:
+        return {"ok": True, "committee": self.ledger.committee()}
+
+    def _m_directory(self, m: dict) -> dict:
+        return {"ok": True, "keys": {
+            a: p.hex() for a, p in self.directory.export_raw().items()}}
+
+    def _m_info(self, m: dict) -> dict:
+        led = self.ledger
+        reply = {"ok": True, "epoch": led.epoch,
+                 "num_registered": led.num_registered,
+                 "update_count": led.update_count,
+                 "score_count": led.score_count,
+                 "round_closed": led.round_closed,
+                 "last_global_loss": led.last_global_loss,
+                 "rounds_completed": self._rounds_completed,
+                 "log_size": led.log_size(),
+                 "log_head": led.log_head().hex(),
+                 "gen": led.generation, "writer_index": led.writer_index,
+                 "log_base": 0, "certified_size": None,
+                 "committee": led.committee()}
+        if tracing.PROC.enabled:
+            reply["perf"] = tracing.PROC.summary()
+        return reply
+
+    def _m_kernels(self, m: dict) -> dict:
+        """This process's kernel launch counts, the merge engine's report
+        (leg, self-check, launches the self-check made), every commit's
+        merge record and the Ed25519 backend."""
+        from bflc_demo_tpu_torch.comm.identity import ED25519_BACKEND
+        return {"ok": True, "launches": launch_counts(),
+                "engine": self.engine.report(), "merges": self.merge_log,
+                "ed25519_backend": ED25519_BACKEND}
+
+    def _m_log_range(self, m: dict) -> dict:
+        start, end = int(m["start"]), int(m["end"])
+        end = min(end, self.ledger.log_size())
+        if not 0 <= start <= end:
+            return {"ok": False, "error": "bad range"}
+        return {"ok": True, "ops": [self.ledger.log_op(i).hex()
+                                    for i in range(start, end)]}
+
+    def _m_wait(self, m: dict) -> dict:
+        """Block until the log grows past the caller's view (or the
+        timeout, at most 60 s) — the event-driven poll."""
+        known = int(m["log_size"])
+        deadline = time.monotonic() + min(float(m.get("timeout_s", 5.0)),
+                                          60.0)
+        while self.ledger.log_size() == known and not self._stop.is_set():
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            self._cv.wait(timeout=remaining)
+        return {"ok": True, "log_size": self.ledger.log_size()}
+
+    # ------------------------------------------------------------ admission
+    def _resupply_blob(self, digest: bytes, blob: bytes) -> None:
+        """Keep a hash-verified payload the ledger records but this writer
+        lacks (an honest retry whose first reply was lost)."""
+        if digest not in self._blobs and any(
+                u.payload_hash == digest
+                for u in self.ledger.query_all_updates()):
+            self._blobs[digest] = blob
+
+    def _decode_delta(self, blob: bytes):
+        """(reason, decoded entries or None): '' iff the delta's entries
+        mirror the current model's keys, shapes and dtypes."""
+        try:
+            delta = dequantize_entries(unpack_pytree(blob))
+        except (ValueError, TypeError, struct.error) as e:
+            return f"undecodable delta blob: {e}", None
+        err = self._schema_error(delta)
+        return err, (None if err else delta)
+
+    def _schema_error(self, delta: Dict[str, np.ndarray]) -> str:
+        schema = self._model_schema
+        if delta.keys() != schema.keys():
+            missing = sorted(schema.keys() - delta.keys())[:3]
+            extra = sorted(delta.keys() - schema.keys())[:3]
+            return (f"delta structure mismatch (missing={missing}, "
+                    f"extra={extra})")
+        for key, arr in delta.items():
+            want_shape, want_dtype = schema[key]
+            if arr.shape != want_shape:
+                return f"delta leaf {key}: shape {arr.shape} != {want_shape}"
+            if arr.dtype != want_dtype:
+                return f"delta leaf {key}: dtype {arr.dtype} != {want_dtype}"
+        return ""
+
+    def _stage_delta(self, digest: bytes,
+                     flat: Optional[Dict[str, np.ndarray]]) -> None:
+        """Stage an admitted delta's flattened row for the mesh leg —
+        only where that leg could ever take the round."""
+        if flat is not None and self.engine.staging_worthwhile(
+                self.cfg.needed_update_count):
+            self._staged[digest] = flatten_delta(flat, sorted(flat.keys()))
+
+    def _staged_row(self, digest: bytes) -> np.ndarray:
+        row = self._staged.pop(digest, None)
+        if row is not None:
+            return row
+        flat = dequantize_entries(unpack_pytree(self._blobs[digest]))
+        return flatten_delta(flat, sorted(flat.keys()))
+
+    def _note_progress(self, st: LedgerStatus) -> None:
+        if st == LedgerStatus.OK:
+            self._last_progress = time.monotonic()
+            self._cv.notify_all()
+
+    # ---------------------------------------------------- coordinator logic
+    def _aggregate_and_commit(self) -> None:
+        """The on-coordinator merge: FedAvg the ledger-selected deltas
+        into the model, commit its content hash, publish the blob.
+        Called with the lock held."""
+        tr = tracing.PROC
+        t0 = time.perf_counter()
+        pending = self.ledger.pending()
+        updates = self.ledger.query_all_updates()
+        epoch = self.ledger.epoch
+        global_flat = unpack_pytree(self._model_blob)
+        weights = [u.n_samples for u in updates]
+        t1 = time.perf_counter() if tr.enabled else 0.0
+        if self.engine.choose_leg(len(updates)) == "mesh":
+            rows = [self._staged_row(u.payload_hash) for u in updates]
+            new_flat = self.engine.aggregate_rows(
+                global_flat, rows, weights, list(pending.selected),
+                self.cfg.learning_rate)
+        else:
+            delta_flats = [dequantize_entries(unpack_pytree(
+                self._blobs[u.payload_hash])) for u in updates]
+            new_flat = _aggregate_flat(global_flat, delta_flats, weights,
+                                       list(pending.selected),
+                                       self.cfg.learning_rate,
+                                       engine=self.engine)
+        if tr.enabled:
+            tr.charge("aggregate.engine_s", time.perf_counter() - t1)
+        blob = pack_entries(new_flat)
+        digest = hashlib.sha256(blob).digest()
+        st = self.ledger.commit_model(digest, epoch)
+        if st != LedgerStatus.OK:
+            raise RuntimeError(f"commit rejected: {st.name}")
+        for u in updates:
+            self._blobs.pop(u.payload_hash, None)
+            self._staged.pop(u.payload_hash, None)
+        self._model_blob = blob
+        self._model_hash = digest
+        self._model_schema = {k: (a.shape, a.dtype)
+                              for k, a in new_flat.items()}
+        self._rounds_completed += 1
+        self._last_progress = time.monotonic()
+        self._cv.notify_all()
+        merge_s = time.perf_counter() - t0
+        self.merge_log.append({"epoch": epoch, "leg": self.engine.last_leg,
+                               "t": self._last_progress - self._t0,
+                               "merge_s": merge_s})
+        if tr.enabled:
+            tr.charge("aggregate_s", merge_s)
+            tr.charge("aggregate_n")
+        if self.verbose:
+            print(f"[coordinator] epoch {epoch} aggregated "
+                  f"({self.engine.last_leg} leg): "
+                  f"loss={self.ledger.last_global_loss:.5f}", flush=True)
+
+    def _monitor_loop(self) -> None:
+        """Failure detector: when a round stalls (dead client processes),
+        drive the recovery ops; liveness comes from request recency."""
+        while not self._stop.is_set():
+            time.sleep(min(self.stall_timeout_s / 4, 1.0))
+            with self._lock:
+                if self.ledger.epoch < 0:
+                    continue
+                if time.monotonic() - self._last_progress \
+                        <= self.stall_timeout_s:
+                    continue
+                try:
+                    self._recover()
+                except Exception as e:      # noqa: BLE001 — the detector
+                    # must outlive whatever recovery throws
+                    if self.verbose:
+                        print(f"[coordinator] recovery failed: "
+                              f"{type(e).__name__}: {e}", flush=True)
+                self._last_progress = time.monotonic()
+
+    def _recover(self) -> None:
+        led = self.ledger
+        if led.aggregate_ready():
+            self._aggregate_and_commit()
+            return
+        if 0 < led.update_count < self.cfg.needed_update_count \
+                and not led.round_closed:
+            if led.close_round() == LedgerStatus.OK:
+                self._say(f"recovery: close_round@{led.epoch}")
+                self._cv.notify_all()
+                return
+        # scoring stuck with the committee presumed dead: seat recently
+        # seen clients, non-uploaders first (nobody scores their own)
+        if led.update_count > 0 and led.score_count < self.cfg.comm_count:
+            uploaders = {u.sender for u in led.query_all_updates()}
+            fresh_cut = time.monotonic() - self.stall_timeout_s
+            live = [a for a, t in sorted(self._last_seen.items(),
+                                         key=lambda kv: -kv[1])
+                    if t >= fresh_cut]
+            committee = set(led.committee())
+            if not any(a in committee for a in live):
+                pool = [a for a in live if a not in uploaders] or live
+                seats = pool[: self.cfg.comm_count]
+                if seats and \
+                        led.reseat_committee(seats) == LedgerStatus.OK:
+                    self._say(f"recovery: reseat@{led.epoch}")
+                    self._cv.notify_all()
+                    return
+        if led.score_count > 0 and \
+                led.force_aggregate() == LedgerStatus.OK:
+            self._say(f"recovery: force_aggregate@{led.epoch}")
+            if led.aggregate_ready():
+                self._aggregate_and_commit()
+
+    def _say(self, line: str) -> None:
+        if self.verbose:
+            print(f"[coordinator] {line}", flush=True)
+
+
+# --------------------------------------------------------------- client side
+class CoordinatorClient:
+    """Client-side proxy: one socket, blocking request/reply.  Signing
+    and the tensor codec live in the caller."""
+
+    def __init__(self, host: str, port: int, timeout_s: float = 30.0,
+                 tls=None):
+        if tls is not None:
+            raise NotImplementedError("TLS is not ported yet (ROADMAP A9: "
+                                      "TLS)")
+        self.sock = socket.create_connection((host, port),
+                                             timeout=timeout_s)
+
+    def request(self, method: str, **fields) -> dict:
+        send_msg(self.sock, {"method": method, **fields})
+        reply = recv_msg(self.sock)
+        if reply is None:
+            raise ConnectionError("coordinator closed the connection")
+        return reply
+
+    def close(self) -> None:
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+
+
+def replicate(host: str, port: int, cfg: ProtocolConfig,
+              ledger_backend: str = "auto", until_ops: int = 0,
+              timeout_s: float = 60.0, tls=None):
+    """Live replica: subscribe to the writer's op stream, replay every op
+    into a fresh ledger, and check the chained head against the writer's
+    at the end.  Returns the replica ledger once it holds `until_ops` ops;
+    raises on divergence or timeout.  A writer whose prefix was compacted
+    behind a snapshot (`log_base` > 0) needs the snapshot state-sync,
+    which is not ported (ROADMAP A9: snapshots)."""
+    probe = CoordinatorClient(host, port, timeout_s=timeout_s, tls=tls)
+    try:
+        if int(probe.request("info").get("log_base", 0) or 0) > 0:
+            raise NotImplementedError(
+                "the writer compacted its log behind a snapshot; the "
+                "snapshot state-sync is not ported yet (ROADMAP A9: "
+                "snapshots)")
+    finally:
+        probe.close()
+    replica = make_ledger(cfg, backend=ledger_backend)
+    deadline = time.monotonic() + timeout_s
+    sub = CoordinatorClient(host, port, timeout_s=timeout_s, tls=tls)
+    try:
+        send_msg(sub.sock, {"method": "subscribe", "from": 0})
+        while replica.log_size() < until_ops:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"replica saw {replica.log_size()}/"
+                                   f"{until_ops} ops in {timeout_s}s")
+            msg = recv_msg(sub.sock)
+            if msg is None:
+                raise ConnectionError("writer closed the op stream")
+            if "op" not in msg:
+                raise RuntimeError(f"unexpected stream frame: {msg}")
+            st = replica.apply_op(bytes.fromhex(msg["op"]))
+            if st != LedgerStatus.OK:
+                raise RuntimeError(f"replica rejected op {msg['i']}: "
+                                   f"{st.name}")
+    finally:
+        sub.close()
+    if not replica.verify_log():
+        raise RuntimeError("replica chain verification failed")
+    probe = CoordinatorClient(host, port, timeout_s=timeout_s, tls=tls)
+    try:
+        info = probe.request("info")
+        if info["log_size"] == replica.log_size() and \
+                info["log_head"] != replica.log_head().hex():
+            raise RuntimeError("replica/writer head digest divergence")
+    finally:
+        probe.close()
+    return replica

@@ -38,13 +38,18 @@ slots would round otherwise than the whole), the
 log-softmax is XLA:CPU's with its backward (`losses.log_softmax`), the
 SGD step is one FMA (`losses.fma32_`; on the card torch's in-place
 `w -= lr * g`), and the delta multiplies by the float32 reciprocal of
-lr, which is what XLA makes of the division by a constant.
+lr, which is what XLA makes of the division by a constant in the
+vmapped program.  The per-client program (`local_train`, the reference's
+`jax.jit(local_train)` for one client: the host, threaded and process
+runtimes) keeps the true float32 division by lr (ROADMAP C6), and with
+it config 1's per-client steps are the reference's bit for bit too.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -73,9 +78,13 @@ def local_train(model: Model, params: Params, x: torch.Tensor,
         raise NotImplementedError(
             "only plain SGD (optimizer=None) is ported; optax-style local "
             "optimizers are still to port (ROADMAP queue A)")
-    deltas, costs = local_train_stacked(model, params, x[None], y[None], lr,
-                                        batch_size, local_epochs)
-    return {k: v[0] for k, v in deltas.items()}, costs[0]
+    trained, costs = sgd_stacked(model, params, x[None], y[None], lr,
+                                 batch_size, local_epochs)
+    # the reference's per-client program divides by lr where its vmapped
+    # one multiplies by the reciprocal (ROADMAP C6): a true float32 division
+    lr32 = torch.tensor(np.float32(lr))
+    return ({k: (params[k] - trained[k][0]) / lr32 for k in params},
+            costs[0])
 
 
 def local_train_stacked(model: Model, params: Params, xs: torch.Tensor,

@@ -1,8 +1,11 @@
 """Benchmark presets (port of `bflc_demo_tpu/eval/configs.py`).
 
 Ported: `run_with_runtime` (:36-180) for the `mesh` (the default, as in
-the reference) and `host` runtimes, refusing the mesh-only options on
-`host`; and all six presets (:191-330) with the reference's defaults:
+the reference), `host`, `threaded` and `processes` runtimes, refusing
+the mesh-only options elsewhere and a preset without a process factory
+on `processes`; and all six presets (:191-330) with the reference's
+defaults, each with its `process_factory` and `factory_kw` (the
+`models` entry every fleet process builds its model with):
 config 0 (MLP, MNIST shapes), config 1 (softmax regression on
 occupancy), config 2 (LeNet-5, CIFAR-10 shapes, Dirichlet 0.5), config
 3 (FEMNIST CNN, 100 clients, active participation on the mesh runtime),
@@ -10,8 +13,10 @@ config 4 (ResNet-18, CIFAR-100 shapes, 32 clients; on the mesh runtime
 active participation, `client_chunk` 4 and `remat`) and config 5 (the
 transformer on SST-2-shaped text).  The image sets are the seeded
 stand-ins of `data/synthetic.py` unless `$BFLC_DATA_DIR` holds the real
-arrays.  Still to port, and raising with the item: the threaded /
-processes / executor runtimes (A9) and config 4's `secure=True` (A12).
+arrays.  Still to port, and raising with the item: the executor runtime
+and the fleet's other options (standbys, TLS, quorum, BFT validators,
+chaos, cells, snapshots, telemetry, rederive: A9/A14, unexpected
+keywords here) and config 4's `secure=True` (A12).
 """
 
 from __future__ import annotations
@@ -32,16 +37,17 @@ from bflc_demo_tpu_torch.data.synthetic import (synthetic_cifar10,
                                                 synthetic_mnist,
                                                 synthetic_text_classification)
 from bflc_demo_tpu_torch.device import DeviceLike
+from bflc_demo_tpu_torch.ledger import check_backend
 from bflc_demo_tpu_torch.models import (make_femnist_cnn, make_lenet5,
                                         make_mlp, make_resnet18,
                                         make_softmax_regression,
                                         make_transformer_classifier)
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
 
-RUNTIMES = ("mesh", "host")
+RUNTIMES = ("mesh", "host", "threaded", "processes")
 UNPORTED_RUNTIME = ("the {runtime!r} runtime is not ported yet (ROADMAP A9: "
-                    "threaded/processes/executor); the port runs 'mesh' "
-                    "and 'host'")
+                    "the executor); the port runs 'mesh', 'host', "
+                    "'threaded' and 'processes'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,21 +61,32 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
                      runtime: str = "mesh", rounds: int = 10, seed: int = 0,
                      device: DeviceLike = None, verbose: bool = False,
                      attest_scores: Optional[bool] = None,
+                     ledger_backend: str = "auto",
+                     process_factory: str = "",
+                     factory_kw: Optional[dict] = None,
                      **mesh_kw) -> SimulationResult:
     """Dispatch a federated run to the chosen runtime.
 
     mesh: one device round per protocol round (the default);
-    host: per-client calls, the reference-shaped event loop.
+    host: per-client calls, the reference-shaped event loop;
+    threaded: a thread per client against one locked ledger, with the
+    failure detector's recovery ops;
+    processes: the writer, the clients and a replica as OS processes
+    over the socket ledger (`process_factory`/`factory_kw` name the
+    model each process builds), the parent as sponsor.
     attest_scores and mesh_kw (participation, client_chunk, ...) apply
-    only to 'mesh'; asking 'host' for them raises, never silently drops.
-    The reference's process-fleet options (standbys ... rederive, tls_dir)
-    come with the runtimes that give them a meaning (ROADMAP A9/A10).
+    only to 'mesh'; asking another runtime for them raises, never
+    silently drops.  `ledger_backend` is the reference's: "auto" and
+    "python" run the python ledger, "native" raises (ROADMAP A9).
+    The fleet's other options (standbys ... rederive, tls_dir) come with
+    the items that give them a meaning (ROADMAP A9/A14).
     """
     if runtime not in RUNTIMES:
         raise ValueError(UNPORTED_RUNTIME.format(runtime=runtime))
     if runtime != "mesh" and attest_scores:
         raise ValueError(f"option 'attest_scores' does not apply to the "
                          f"{runtime!r} runtime")
+    check_backend(ledger_backend)
     if runtime == "mesh":
         return run_federated_mesh(model, shards, test_set, cfg,
                                   rounds=rounds, seed=seed,
@@ -78,8 +95,22 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
     if mesh_kw:
         raise ValueError(f"options {list(mesh_kw)} only apply to the mesh "
                          f"runtime, not {runtime!r}")
-    return run_federated(model, shards, test_set, cfg, rounds=rounds,
-                         seed=seed, device=device, verbose=verbose)
+    if runtime == "host":
+        return run_federated(model, shards, test_set, cfg, rounds=rounds,
+                             seed=seed, device=device, verbose=verbose)
+    if runtime == "threaded":
+        from bflc_demo_tpu_torch.client.threaded import ThreadedFederation
+        return ThreadedFederation(model, shards, test_set, cfg,
+                                  ledger_backend=ledger_backend,
+                                  device=device).run(rounds=rounds)
+    if not process_factory:
+        raise ValueError("this preset does not support the 'processes' "
+                         "runtime (no model factory registered)")
+    from bflc_demo_tpu_torch.client.process_runtime import \
+        run_federated_processes
+    return run_federated_processes(process_factory, shards, test_set, cfg,
+                                   rounds=rounds, factory_kw=factory_kw or {},
+                                   device=device, verbose=verbose)
 
 
 def _split(x, y, test_frac=0.2, seed=0):
@@ -103,6 +134,7 @@ def config0_mlp_mnist(rounds: int = 10, seed: int = 0, n_data: int = 6000,
     x, y = synthetic_mnist(n_data, seed)
     xtr, ytr, xte, yte = _split(x, y)
     shards = iid_shards(xtr, ytr, cfg.client_num)
+    kw.setdefault("process_factory", "make_mlp")
     return run_with_runtime(make_mlp(), shards, (xte, yte), cfg,
                             rounds=rounds, seed=seed, **kw)
 
@@ -116,6 +148,7 @@ def config1_occupancy(rounds: int = 10, seed: int = 0,
     cfg = (cfg or ProtocolConfig()).validate()
     xtr, ytr, xte, yte = load_occupancy()
     shards = iid_shards(xtr, ytr, cfg.client_num)
+    kw.setdefault("process_factory", "make_softmax_regression")
     return run_with_runtime(make_softmax_regression(), shards, (xte, yte),
                             cfg, rounds=rounds, seed=seed, **kw)
 
@@ -131,6 +164,7 @@ def config2_lenet_cifar10(rounds: int = 10, seed: int = 0,
                                  local_epochs=4)).validate()
     shards, test_set = config2_data(seed, n_data, cfg.client_num, alpha,
                                     cfg.batch_size)
+    kw.setdefault("process_factory", "make_lenet5")
     return run_with_runtime(make_lenet5(), shards, test_set, cfg,
                             rounds=rounds, seed=seed, **kw)
 
@@ -162,6 +196,7 @@ def config3_femnist_sampled(rounds: int = 10, seed: int = 0,
                               seed=seed, min_size=cfg.batch_size)
     if kw.get("runtime", "mesh") == "mesh":
         kw.setdefault("participation", "active")
+    kw.setdefault("process_factory", "make_femnist_cnn")
     return run_with_runtime(make_femnist_cnn(), shards, (xte, yte), cfg,
                             rounds=rounds, seed=seed, **kw)
 
@@ -191,6 +226,7 @@ def config4_resnet_cifar100(rounds: int = 5, seed: int = 0,
         kw.setdefault("participation", "active")
         kw.setdefault("client_chunk", 4)
         kw.setdefault("remat", True)
+    kw.setdefault("process_factory", "make_resnet18")
     return run_with_runtime(make_resnet18(), shards, (xte, yte), cfg,
                             rounds=rounds, seed=seed, **kw)
 
@@ -216,9 +252,11 @@ def config5_transformer_sst2(rounds: int = 5, seed: int = 0,
         needed_update_count=10, learning_rate=0.05,
         batch_size=16, local_epochs=1)).validate()
     shards, (xte, yte) = config5_data(seed, n_data, cfg.client_num)
-    model = make_transformer_classifier(vocab_size=1000, seq_len=64,
-                                        num_classes=2, dim=128, depth=2,
-                                        heads=4)
+    arch = dict(vocab_size=1000, seq_len=64, num_classes=2, dim=128,
+                depth=2, heads=4)
+    model = make_transformer_classifier(**arch)
+    kw.setdefault("process_factory", "make_transformer_classifier")
+    kw.setdefault("factory_kw", arch)
     return run_with_runtime(model, shards, (xte, yte), cfg, rounds=rounds,
                             seed=seed, **kw)
 

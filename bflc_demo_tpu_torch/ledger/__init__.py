@@ -1,8 +1,9 @@
 """The committee ledger (port of `bflc_demo_tpu/ledger`, python backend).
 
 `make_ledger` builds the pure-Python `PyLedger`, whose op log matches the
-reference ledger's bit for bit on the same ops.  The reference's native
-`.so` backend is not bound by the port.
+reference ledger's bit for bit on the same ops.  `backend` is the
+reference's: "auto" and "python" give the python ledger; "native", the
+reference's C++ `.so`, raises (ROADMAP A9: the native ledger).
 """
 
 from __future__ import annotations
@@ -14,7 +15,23 @@ from bflc_demo_tpu_torch.protocol.constants import (DEFAULT_PROTOCOL,
                                                     ProtocolConfig)
 
 
-def make_ledger(cfg: ProtocolConfig = DEFAULT_PROTOCOL) -> PyLedger:
+LEDGER_BACKENDS = ("auto", "python")
+
+
+def check_backend(backend: str) -> None:
+    """Raise unless `backend` names a ledger the port has."""
+    if backend == "native":
+        raise NotImplementedError(
+            "the native C++ ledger backend is not ported yet (ROADMAP A9: "
+            "the native ledger); use backend 'auto' or 'python'")
+    if backend not in LEDGER_BACKENDS:
+        raise ValueError(f"ledger backend must be one of "
+                         f"{LEDGER_BACKENDS + ('native',)}, got {backend!r}")
+
+
+def make_ledger(cfg: ProtocolConfig = DEFAULT_PROTOCOL, *,
+                backend: str = "auto") -> PyLedger:
+    check_backend(backend)
     cfg.validate()
     return PyLedger(cfg.client_num, cfg.comm_count, cfg.aggregate_count,
                     cfg.needed_update_count, cfg.genesis_epoch)

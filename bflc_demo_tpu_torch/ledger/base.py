@@ -1,8 +1,11 @@
 """Shared ledger types and the canonical client-op encoders.
 
 Copy of `bflc_demo_tpu/ledger/base.py`, synchronous subset: the status
-codes, the record views and the register/upload/scores encoders, byte for
-byte (the encoders define the op bytes the hash chain covers), and
+codes, the record views and the register/upload/scores/commit encoders,
+byte for byte (the encoders define the op bytes the hash chain covers),
+the encoders of the stall detector's recovery ops (close_round,
+force_aggregate, reseat_committee), which the reference writes inline
+in `ledger/pyledger.py:404-460`, and
 `staleness_weight`, the FedBuff merge weight the certified merge's
 checker draws (`meshagg/check.py`).  Dropped:
 the async (`OP_AUPLOAD`/`OP_ASCORES`/`OP_ACOMMIT`) and genome (`OP_GENOME`)
@@ -21,6 +24,7 @@ from typing import List, Sequence
 import numpy as np
 
 OP_REGISTER, OP_UPLOAD, OP_SCORES, OP_COMMIT = 1, 2, 3, 4
+OP_CLOSE, OP_FORCE, OP_RESEAT = 5, 6, 7
 
 
 def staleness_weight(staleness: int) -> float:
@@ -64,6 +68,23 @@ def encode_scores_op(sender: str, epoch: int,
 def encode_commit_op(model_hash: bytes, epoch: int) -> bytes:
     """REDUCTION SPEC v1 commit body (no block-geometry tail)."""
     return bytes([OP_COMMIT]) + bytes(model_hash) + struct.pack("<q", epoch)
+
+
+def encode_close_op(epoch: int) -> bytes:
+    return bytes([OP_CLOSE]) + struct.pack("<q", epoch)
+
+
+def encode_force_op(epoch: int) -> bytes:
+    return bytes([OP_FORCE]) + struct.pack("<q", epoch)
+
+
+def encode_reseat_op(epoch: int, addrs: Sequence[str]) -> bytes:
+    op = bytearray([OP_RESEAT])
+    op += struct.pack("<q", epoch)
+    op += struct.pack("<q", len(addrs))
+    for a in addrs:
+        _put_str(op, a)
+    return bytes(op)
 
 
 class LedgerStatus(enum.IntEnum):

@@ -1,35 +1,42 @@
 """Pure-Python committee ledger — the synchronous subset.
 
-Copy of `bflc_demo_tpu/ledger/pyledger.py:PyLedger`, cut to the ops the
-host round (`client.simulation.run_federated`) drives: `register_node`,
+Copy of `bflc_demo_tpu/ledger/pyledger.py:PyLedger`, cut to what the
+host, threaded and process runtimes drive: `register_node`,
 `query_state`, `upload_local_update`, `upload_scores`,
-`query_all_updates`, `aggregate_ready`, `pending`, `commit_model`, the
-read-only inspection properties the round uses, and the
-SHA-256 op-log chain (`_append_log`, `log_head`, `log_size`,
-`verify_log`, `log_op`).  Same op bytes, same statuses, same median /
-rank / election order, so the same op sequence gives the same chain head
-as the reference ledger, bit for bit.
+`query_all_updates`, `aggregate_ready`, `pending`, `commit_model`; the
+stall detector's recovery ops `close_round` (:404), `force_aggregate`
+(:422) and `reseat_committee` (:437) with `round_closed` (:462); the
+inspection properties (`num_registered` :945, `last_disagreement` :922,
+which stays 0.0 without the closed compression loop); the SHA-256 op-log
+chain (`_append_log`, `log_head`, `log_size`, `verify_log`, `log_op`,
+`head_at`); and `apply_op` (:1207), the replica's replay, for opcodes 1-7.
+Same op bytes, same statuses, same median / rank / election order, so
+the same op sequence gives the same chain head as the reference ledger,
+bit for bit.
 
-Not ported (calling them raises `AttributeError`): the recovery ops
-(`close_round`, `force_aggregate`, `reseat_committee`), writer fencing,
-the asynchronous buffered family, genome updates, the blocked commit
-tail, WAL, snapshots/compaction and op replay (`apply_op`).  The native
-`.so` is not bound either.
+Writer fencing is not ported (ROADMAP A9, standbys): `generation` and
+`writer_index` read 0, a writer without standbys, and `promote_writer`
+and its opcode 8 are absent.  Not ported either, each with its own A9
+item: the asynchronous buffered family (10-12), genome updates (13),
+the blocked commit tail, the WAL, snapshots and compaction (opcode 9).
+`apply_op` refuses those opcodes with BAD_ARG, as the reference does an
+unknown one.  The native `.so` is not bound.
 """
 
 from __future__ import annotations
 
 import hashlib
 import math
+import struct
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from bflc_demo_tpu_torch.ledger.base import (LedgerStatus, PendingInfo,
-                                             UpdateInfo, encode_commit_op,
-                                             encode_register_op,
-                                             encode_scores_op,
-                                             encode_upload_op)
+from bflc_demo_tpu_torch.ledger.base import (
+    OP_CLOSE, OP_COMMIT, OP_FORCE, OP_REGISTER, OP_RESEAT, OP_SCORES,
+    OP_UPLOAD, LedgerStatus, PendingInfo, UpdateInfo, encode_close_op,
+    encode_commit_op, encode_force_op, encode_register_op, encode_reseat_op,
+    encode_scores_op, encode_upload_op)
 
 
 class PyLedger:
@@ -49,6 +56,7 @@ class PyLedger:
         self._update_slot: Dict[str, int] = {}
         self._scores: Dict[str, List[float]] = {}
         self._pending: Optional[PendingInfo] = None
+        self._closed = False
         self._ops: List[bytes] = []
         self._log: List[bytes] = []
 
@@ -92,7 +100,7 @@ class PyLedger:
         if sender in self._update_slot:
             return LedgerStatus.DUPLICATE
         # the update set freezes once scoring can begin
-        if self._scores:
+        if self._closed or self._scores:
             return LedgerStatus.CAP_REACHED
         if len(self._updates) >= self.needed_update_count:
             return LedgerStatus.CAP_REACHED
@@ -121,7 +129,8 @@ class PyLedger:
             vals = [float(np.float32(s)) for s in scores]
         if any(not math.isfinite(v) for v in vals):
             return LedgerStatus.BAD_ARG
-        if len(self._updates) < self.needed_update_count:
+        if len(self._updates) < self.needed_update_count and \
+                not self._closed:
             return LedgerStatus.NOT_READY
         if self._pending is not None:
             return LedgerStatus.NOT_READY
@@ -137,6 +146,63 @@ class PyLedger:
                       if self._roles.get(a) == "comm")
         if present == comm_now and comm_now > 0:
             self._finish_scoring()
+
+    # --- stall recovery (no reference-protocol equivalent: it stalls) ---
+    def close_round(self) -> LedgerStatus:
+        """Close an under-filled round so scoring proceeds with the
+        updates present (dead trainers)."""
+        if self._epoch == self.genesis_epoch:
+            return LedgerStatus.NOT_STARTED
+        if self._closed or self._pending is not None:
+            return LedgerStatus.NOT_READY
+        if not self._updates or \
+                len(self._updates) >= self.needed_update_count:
+            return LedgerStatus.NOT_READY
+        self._closed = True
+        self._append_log(encode_close_op(self._epoch))
+        return LedgerStatus.OK
+
+    def force_aggregate(self) -> LedgerStatus:
+        """Finish scoring with the committee rows present (a dead
+        committee member)."""
+        if self._epoch == self.genesis_epoch:
+            return LedgerStatus.NOT_STARTED
+        if self._pending is not None or not self._scores:
+            return LedgerStatus.NOT_READY
+        self._append_log(encode_force_op(self._epoch))
+        self._finish_scoring()
+        return LedgerStatus.OK
+
+    def reseat_committee(self, addrs: Sequence[str]) -> LedgerStatus:
+        """Mid-round committee re-election (a dead committee)."""
+        if self._epoch == self.genesis_epoch:
+            return LedgerStatus.NOT_STARTED
+        if self._pending is not None:
+            return LedgerStatus.NOT_READY
+        if not addrs or len(addrs) > self.comm_count:
+            return LedgerStatus.BAD_ARG
+        if any(a not in self._roles for a in addrs):
+            return LedgerStatus.BAD_ARG
+        for a in self._roles:
+            self._roles[a] = "trainer"
+        for a in addrs:
+            self._roles[a] = "comm"
+        self._append_log(encode_reseat_op(self._epoch, addrs))
+        self._maybe_fire()
+        return LedgerStatus.OK
+
+    @property
+    def round_closed(self) -> bool:
+        return self._closed
+
+    # writer fencing is the standby item's: a writer without standbys
+    @property
+    def generation(self) -> int:
+        return 0
+
+    @property
+    def writer_index(self) -> int:
+        return 0
 
     def _finish_scoring(self) -> None:
         k = len(self._updates)
@@ -160,7 +226,8 @@ class PyLedger:
                                     global_loss=float(np.float32(loss)))
 
     def query_all_updates(self) -> List[UpdateInfo]:
-        if len(self._updates) < self.needed_update_count:
+        if len(self._updates) < self.needed_update_count and \
+                not self._closed:
             return []
         return list(self._updates)
 
@@ -185,6 +252,7 @@ class PyLedger:
         self._update_slot = {}
         self._scores = {}
         self._pending = None
+        self._closed = False
         self._epoch += 1
         self._append_log(encode_commit_op(new_model_hash, epoch))
         return LedgerStatus.OK
@@ -193,6 +261,14 @@ class PyLedger:
     @property
     def epoch(self) -> int:
         return self._epoch
+
+    @property
+    def num_registered(self) -> int:
+        return len(self._roles)
+
+    @property
+    def last_disagreement(self) -> float:
+        return 0.0
 
     @property
     def update_count(self) -> int:
@@ -230,3 +306,72 @@ class PyLedger:
 
     def log_op(self, i: int) -> bytes:
         return self._ops[i]
+
+    def head_at(self, upto: int) -> bytes:
+        """Chain head after ops[0..upto) — b"" at upto == 0."""
+        return self._log[upto - 1] if upto else b""
+
+    # --- replay (the replica path) ---
+    def apply_op(self, op: bytes) -> LedgerStatus:
+        """Deterministic replay of a serialized op, opcodes 1-7; every
+        other opcode (and a malformed body) is BAD_ARG."""
+        if not op:
+            return LedgerStatus.BAD_ARG
+        code, body = op[0], op[1:]
+
+        def _str_at(off: int):
+            # bounds-checked, as the reference's (a length past the
+            # buffer is a malformed op, never a truncated slice)
+            (n,) = struct.unpack_from("<q", body, off)
+            if n < 0 or off + 8 + n > len(body):
+                raise IndexError("string past end of op")
+            return body[off + 8:off + 8 + n].decode(), off + 8 + n
+
+        try:
+            if code == OP_REGISTER:
+                addr, _ = _str_at(0)
+                return self.register_node(addr)
+            if code == OP_UPLOAD:
+                sender, off = _str_at(0)
+                payload = body[off:off + 32]
+                ns, = struct.unpack_from("<q", body, off + 32)
+                cost, = struct.unpack_from("<f", body, off + 40)
+                ep, = struct.unpack_from("<q", body, off + 44)
+                return self.upload_local_update(sender, payload, ns, cost,
+                                                ep)
+            if code == OP_SCORES:
+                sender, off = _str_at(0)
+                ep, = struct.unpack_from("<q", body, off)
+                cnt, = struct.unpack_from("<q", body, off + 8)
+                if cnt < 0 or off + 16 + 4 * cnt > len(body):
+                    return LedgerStatus.BAD_ARG
+                scores = list(struct.unpack_from(f"<{cnt}f", body, off + 16))
+                return self.upload_scores(sender, ep, scores)
+            if code == OP_COMMIT:
+                # spec v1's 40-byte body only: the blocked geometry tail
+                # comes with reduce_blocks (ROADMAP A9)
+                if len(body) != 40:
+                    return LedgerStatus.BAD_ARG
+                ep, = struct.unpack_from("<q", body, 32)
+                return self.commit_model(body[:32], ep)
+            if code in (OP_CLOSE, OP_FORCE):
+                ep, = struct.unpack_from("<q", body, 0)
+                if ep != self._epoch:
+                    return LedgerStatus.BAD_ARG
+                return (self.close_round() if code == OP_CLOSE
+                        else self.force_aggregate())
+            if code == OP_RESEAT:
+                ep, = struct.unpack_from("<q", body, 0)
+                n, = struct.unpack_from("<q", body, 8)
+                if ep != self._epoch or n <= 0 or \
+                        n > (len(body) - 16) // 8:
+                    return LedgerStatus.BAD_ARG
+                off = 16
+                addrs = []
+                for _ in range(n):
+                    a, off = _str_at(off)
+                    addrs.append(a)
+                return self.reseat_committee(addrs)
+        except (struct.error, UnicodeDecodeError, IndexError):
+            return LedgerStatus.BAD_ARG
+        return LedgerStatus.BAD_ARG

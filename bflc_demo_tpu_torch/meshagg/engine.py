@@ -4,7 +4,8 @@ Port of `bflc_demo_tpu/meshagg/engine.py` — `flatten_delta` (:116),
 `_leaf_layout` (:128), `MeshAggEngine` (:138-548) with its leg policy,
 self-check, `weighted_sum`, `aggregate_flat` and `aggregate_rows`, the
 `ENGINE` singleton, `stacked_tree_from_rows` (:554) and
-`score_candidates_batched` (:572).  Every certified aggregation path
+`score_candidates_batched` (:572); `engine_for(device)` hands a
+process's writer `ENGINE` on the card and one CPU engine otherwise.  Every certified aggregation path
 (writer merge, FedBuff drain, hier cell partial) reduces through it, and
 its bytes are REDUCTION SPEC v2's (`meshagg/spec.py`):
 
@@ -31,6 +32,8 @@ What differs from the reference:
 - no fallback hides the kernel: on a `cuda` engine a failed launch or a
   failed self-check RAISES.  A `cpu` engine runs B5's plain version and
   keeps the reference's policy (warn, then the host loop);
+- the report adds `selfcheck_launches`, the B5 launches the self-check
+  made, so a caller can tell the merges' launches from the check's;
 - `compile_total` counts the distinct ``(N, Pb)`` geometries the kernel
   was first launched at (at most `_CACHE_CAP` remembered, as the
   reference caches programs), so the steady-state gate keeps its meaning;
@@ -54,7 +57,8 @@ import torch
 
 from bflc_demo_tpu_torch.device import DeviceLike, resolve_device
 from bflc_demo_tpu_torch.meshagg import spec
-from bflc_demo_tpu_torch.ops.certified_reduce import certified_reduce
+from bflc_demo_tpu_torch.ops.certified_reduce import (LAUNCHES,
+                                                     certified_reduce)
 
 _CACHE_CAP = 64         # distinct (N, Pb) geometries remembered per engine
 
@@ -136,6 +140,7 @@ class MeshAggEngine:
         self.last_leg = "unused"
         self.last_blocks = 1
         self._selfcheck: Optional[bool] = None     # None = not yet run
+        self.selfcheck_launches = 0
 
     @property
     def device(self) -> torch.device:
@@ -156,6 +161,7 @@ class MeshAggEngine:
             "calls": dict(self.calls),
             "selfcheck": ("untested" if self._selfcheck is None
                           else "ok" if self._selfcheck else "FAILED"),
+            "selfcheck_launches": self.selfcheck_launches,
             "compile_total": self.compile_total,
             "cached_programs": len(self._geometries),
             "device": str(self._device) if self._device else None,
@@ -191,7 +197,9 @@ class MeshAggEngine:
         """Run the one-time differential self-check (idempotent) and
         return its verdict."""
         if self._selfcheck is None:
+            before = LAUNCHES["certified_reduce"]
             self._selfcheck = self._run_selfcheck()
+            self.selfcheck_launches = LAUNCHES["certified_reduce"] - before
         return bool(self._selfcheck)
 
     def _fail(self, message: str) -> None:
@@ -353,6 +361,18 @@ class MeshAggEngine:
 
 
 ENGINE = MeshAggEngine()
+_CPU_ENGINE: Optional[MeshAggEngine] = None
+
+
+def engine_for(device: DeviceLike = None) -> MeshAggEngine:
+    """The engine a process merges with on `device`: `ENGINE` on the card
+    (None means `cuda`), one shared CPU engine on the CPU."""
+    global _CPU_ENGINE
+    if torch.device("cuda" if device is None else device).type == "cuda":
+        return ENGINE
+    if _CPU_ENGINE is None:
+        _CPU_ENGINE = MeshAggEngine("cpu")
+    return _CPU_ENGINE
 
 
 def stacked_tree_from_rows(rows: List[np.ndarray],

@@ -11,7 +11,8 @@ from the preset's.
 The reference's other run options belong to parts not ported yet.  Each
 such flag is accepted by the parser so that the CLI can refuse it by
 name (exit 2 with the ROADMAP item) rather than fail on an unknown
-argument or drop it: the process fleet's and the codecs' flags (A9),
+argument or drop it: the process fleet's other flags and the codecs'
+(A9; `--ledger-backend` is ported: auto and python, native exits 2),
 checkpoints and the device profiler (A11), secure aggregation (A12),
 and traces, plots and telemetry (A14).  So are the
 reference's protocol fields that the port's `ProtocolConfig` does not
@@ -38,7 +39,7 @@ UNPORTED_FIELDS = ("delta_dtype", "delta_density", "delta_codec",
 # reference run options -> the ROADMAP item that ports them
 UNPORTED_OPTIONS: Dict[str, str] = {
     **{name: "A9" for name in (
-        "ledger_backend", "standbys", "tls_dir", "quorum", "bft_validators",
+        "standbys", "tls_dir", "quorum", "bft_validators",
         "cells", "cell_size", "attest_scores", "chaos_seed", "chaos_profile",
         "rederive", "snapshot_interval", "snapshot_dir", "error_feedback",
         *UNPORTED_FIELDS)},
@@ -76,6 +77,10 @@ def add_flags(p: argparse.ArgumentParser) -> None:
         p.add_argument("--" + name.replace("_", "-"), type=type(default),
                        default=None,
                        help=f"protocol: {name} (default {default})")
+    p.add_argument("--ledger-backend", default="auto",
+                   choices=("auto", "python", "native"),
+                   help="ledger backend (auto/python: the python ledger; "
+                        "native is ROADMAP A9)")
     for name, item in UNPORTED_OPTIONS.items():
         p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True,
                        default=None, help=f"not ported yet (ROADMAP {item})")

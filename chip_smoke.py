@@ -106,6 +106,33 @@ each; any failure raises and exits non-zero:
              bit-exact), and `aggregate_rows` end to end with its
              host-to-device staging.
 
+10. processes — the process fleet on the card (`client/process_runtime`:
+             a writer process with the socket ledger, client processes
+             over the wire frames, replica processes, this process as
+             the sponsor; every role on `cuda`), each writer merging
+             through B5 (`BFLC_MESH_AGG_MIN=1`: the engine's mesh leg
+             every round, after its self-check) and every process tracing
+             (`BFLC_PROC_TRACE=1`), launch counts reset just before each
+             run and read from every role just after: the reference's own
+             process test (tests/test_netledger.py:29-31, :319-331: 6
+             clients, committee 2, 3 admitted, top-2, lr 0.05, batch 16,
+             250-row occupancy shards, 3 replicas, 4 rounds, best above
+             0.85); config 1 at its preset (20 clients) through
+             `python -m bflc_demo_tpu_torch --config config1 --runtime
+             processes` as a subprocess, 10 rounds, at config 1's bar;
+             config 5 at full width, 5 rounds, best 0.9, K1-K3 launched
+             in the clients; and the crash case (:333-357: clients 0 and
+             5 die at epoch 1), `recovered_clients == [0, 5]`.  Each run
+             holds every replica at the writer's head, the writer's engine
+             on the mesh leg with its self-check passed and B5 launched
+             past the self-check's launches; it prints the round times
+             from `epoch_times` and from the writer's commit record
+             (`merge_log`), each merge's seconds, the spawn time, the
+             writer's phase split
+             (`aggregate_s`, `aggregate.engine_s`, signature checks) and
+             the clients' (train, score, signing), beside the card's name
+             and power limit.
+
 Then the `kernels` line and, last, {"ok": true, "device": {...}}.
 Without a card, or without the package beside it, it exits non-zero and
 prints no result.
@@ -122,6 +149,10 @@ runs only B5's timing rows (phase 9's: every merge geometry at blocks 1
 and 8, beside the bytes bound, the chain bound where DIR's package has
 the chain kernel, and `c @ mat`) for the package of the checkout at DIR,
 the same way.
+
+    python3 chip_smoke.py --processes
+
+runs only the build and phase 10, the process fleet.
 """
 
 from __future__ import annotations
@@ -237,6 +268,16 @@ SOURCES["certified_reduce"] = \
 # config 5's writer merge at one block
 MERGE_BLOCKS = (1, 8)
 MERGE_MAIN = "config5_merge"
+# the processes phase: every writer merges on B5 (the engine's mesh leg
+# at every batch) and every process traces its phases
+FLEET_ENV = {"BFLC_MESH_AGG_MIN": "1", "BFLC_PROC_TRACE": "1"}
+# the reference's own process test (tests/test_netledger.py:29-31,
+# :319-357): its protocol, 250-row occupancy shards, 500 test rows
+FLEET_PROTO = dict(client_num=6, comm_count=2, aggregate_count=2,
+                   needed_update_count=3, learning_rate=0.05, batch_size=16)
+FLEET_SHARD, FLEET_ROUNDS, FLEET_REPLICAS, FLEET_MIN_BEST = 250, 4, 3, 0.85
+FLEET_CRASH = {0: 1, 5: 1}
+FLEET_TIMEOUT_S = 300.0
 
 
 def reset_counts() -> None:
@@ -1334,6 +1375,183 @@ def decision_check(torch, params, device, model_name: str,
                            f"({recorded})")
 
 
+class fleet_env:
+    """FLEET_ENV in os.environ while a fleet spawns (its children inherit
+    it), restored after."""
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in FLEET_ENV}
+        os.environ.update(FLEET_ENV)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def round_seconds(epoch_times) -> list:
+    """Seconds a round between successive sponsor-observed commits (the
+    sponsor polls every 0.2 s and can see several commits at once: a gap
+    spanning k rounds counts k times at 1/k)."""
+    out = []
+    for (e0, t0), (e1, t1) in zip(epoch_times, epoch_times[1:]):
+        out += [(t1 - t0) / (e1 - e0)] * (e1 - e0)
+    return out
+
+
+def fleet_account(label: str, card: str, kernel_launches: dict,
+                  engine: dict, perf: dict, epoch_times, spawn_s: float,
+                  merges: list, accuracy, replicas_ok: bool,
+                  **extra) -> dict:
+    """Emit one fleet run's account and hold the merge to B5; return the
+    main path's launches (every role's, the self-check's B5 launches
+    taken out: they compare B5 with the host leg)."""
+    writer = kernel_launches.get("writer", {})
+    roles = {r: c for r, c in kernel_launches.items()}
+    check = (engine or {}).get("selfcheck_launches", 0)
+    total = {}
+    for counts in roles.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    total["certified_reduce"] = total.get("certified_reduce", 0) - check
+    clients = {}
+    for r, counts in roles.items():
+        if r.startswith("client-"):
+            for k, v in counts.items():
+                clients[k] = clients.get(k, 0) + v
+    costs = (perf or {}).get("costs", {})
+    rounds = len(merges)
+    commit_t = [m["t"] for m in merges]
+    emit("processes", path=label, nvidia_smi=card, accuracy=accuracy,
+         spawn_s=spawn_s, epoch_times=epoch_times,
+         sponsor_round_s=round_seconds(epoch_times),
+         # the writer's clock: round r's seconds from commit r-1 to r
+         writer_round_s=[b - a for a, b in zip(commit_t, commit_t[1:])],
+         merge_s=[m["merge_s"] for m in merges],
+         merge_legs=[m["leg"] for m in merges],
+         replicas_at_writer_head=replicas_ok,
+         writer_perf=costs, writer_engine=engine,
+         launches=total, client_launches=clients,
+         writer_launches=writer, selfcheck_b5_launches=check,
+         per_round={k: v / max(rounds, 1) for k, v in clients.items()},
+         **extra)
+    b5 = writer.get("certified_reduce", 0) - check
+    if not replicas_ok or (engine or {}).get("last_leg") != "mesh" or \
+            (engine or {}).get("selfcheck") != "ok" or b5 <= 0:
+        raise RuntimeError(f"{label}: replicas at the writer head "
+                           f"{replicas_ok}, engine {engine}, B5 launches "
+                           f"in the writer past the self-check {b5}")
+    return total
+
+
+def fleet_run(torch, label: str, card: str, run) -> tuple:
+    """`run()` between a reset and a read of the launch counts, with the
+    fleet's environment; returns (result, main-path launches)."""
+    reset_counts()
+    with fleet_env():
+        res = run()
+    torch.cuda.synchronize()
+    ok = bool(res.replica_reports) and all(
+        r["ok"] and r["head"] == res.ledger_log_head
+        for r in res.replica_reports)
+    total = fleet_account(
+        label, card, res.kernel_launches, res.writer_engine,
+        (res.final_info or {}).get("perf"), res.epoch_times, res.spawn_s,
+        res.writer_merges, [a for _, a in res.accuracy_history], ok,
+        client_perf=res.client_perf, wall_s=res.wall_time_s,
+        ed25519_backend=res.ed25519_backend,
+        ledger_log_size=res.ledger_log_size,
+        recovered_clients=res.recovered_clients)
+    return res, total
+
+
+def processes_phase(torch, card: str) -> dict:
+    """The process fleet on the card: the reference's process test, config
+    1 through the CLI, config 5 at full width and the crash case.
+    Returns {path: launches}."""
+    from bflc_demo_tpu_torch.client.process_runtime import \
+        run_federated_processes
+    from bflc_demo_tpu_torch.data import iid_shards, load_occupancy
+    from bflc_demo_tpu_torch.data.occupancy import occupancy_source
+    from bflc_demo_tpu_torch.eval.configs import config5_transformer_sst2
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig
+
+    xtr, ytr, xte, yte = load_occupancy()
+    n = FLEET_PROTO["client_num"] * FLEET_SHARD
+    shards = iid_shards(xtr[:n], ytr[:n], FLEET_PROTO["client_num"])
+    cfg = ProtocolConfig(**FLEET_PROTO)
+    paths = {}
+
+    def reference_test(**kw):
+        return run_federated_processes(
+            "make_softmax_regression", shards, (xte[:500], yte[:500]), cfg,
+            device="cuda", timeout_s=FLEET_TIMEOUT_S, **kw)
+
+    res, paths["processes_reference"] = fleet_run(
+        torch, "processes_reference", card,
+        lambda: reference_test(rounds=FLEET_ROUNDS, stall_timeout_s=20.0,
+                               replicas=FLEET_REPLICAS))
+    if len(res.replica_reports) != FLEET_REPLICAS or \
+            not res.best_accuracy() > FLEET_MIN_BEST:
+        raise RuntimeError(f"processes_reference: best "
+                           f"{res.best_accuracy()}, replicas "
+                           f"{res.replica_reports}")
+
+    # config 1 at its preset through the CLI, as a user runs it
+    env = dict(os.environ, **FLEET_ENV)
+    t0 = time.perf_counter()
+    reset_counts()
+    out = subprocess.run(
+        [sys.executable, "-m", "bflc_demo_tpu_torch", "--config",
+         "config1", "--runtime", "processes", "--rounds",
+         str(CONFIG1_ROUNDS)], capture_output=True, text=True, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        timeout=FLEET_TIMEOUT_S + 60)
+    if out.returncode != 0:
+        raise RuntimeError(f"config 1 through the CLI: exit "
+                           f"{out.returncode}\n{out.stderr[-4000:]}")
+    cli = json.loads(out.stdout.strip().splitlines()[-1])
+    fleet = cli["fleet"]
+    bar = CONFIG1_MIN_BEST[occupancy_source()]
+    paths["processes_config1"] = fleet_account(
+        "processes_config1", card, fleet["kernel_launches"],
+        fleet["writer_engine"], fleet["perf"], fleet["epoch_times"],
+        fleet["spawn_s"], fleet["writer_merges"], None,
+        fleet["replica_head_ok"], ed25519_backend=fleet["ed25519_backend"],
+        cli_wall_s=time.perf_counter() - t0, best_acc=cli["best_acc"],
+        ledger_log_size=cli["ledger_log_size"], bar=bar)
+    if cli["rounds"] != CONFIG1_ROUNDS or not cli["best_acc"] >= bar:
+        raise RuntimeError(f"processes_config1: {cli['rounds']} rounds, "
+                           f"best {cli['best_acc']} (bar {bar})")
+
+    res, paths["processes_config5"] = fleet_run(
+        torch, "processes_config5", card,
+        lambda: config5_transformer_sst2(rounds=ROUNDS, runtime="processes",
+                                         device="cuda"))
+    clients = {}
+    for role, counts in res.kernel_launches.items():
+        if role.startswith("client-"):
+            for k in DENSE_KERNELS:
+                clients[k] = clients.get(k, 0) + counts.get(k, 0)
+    if res.rounds_completed != ROUNDS or \
+            not res.best_accuracy() >= MIN_BEST_ACC or \
+            not all(clients[k] > 0 for k in DENSE_KERNELS):
+        raise RuntimeError(f"processes_config5: {res.rounds_completed} "
+                           f"rounds, best {res.best_accuracy()}, client "
+                           f"launches {clients}")
+
+    res, paths["processes_crash"] = fleet_run(
+        torch, "processes_crash", card,
+        lambda: reference_test(rounds=3, crash_at=FLEET_CRASH,
+                               stall_timeout_s=4.0))
+    if sorted(res.recovered_clients) != sorted(FLEET_CRASH):
+        raise RuntimeError(f"processes_crash: recovered "
+                           f"{res.recovered_clients}")
+    return paths
+
+
 def load_port(root: str = None):
     """(torch, the flash-attention module, the build module, the card) of
     the package beside this script, or of the checkout at `root`; None
@@ -1389,6 +1607,22 @@ def merge_timing_main(root: str) -> int:
     return 0
 
 
+def processes_main() -> int:
+    """Only the build and the processes phase."""
+    port = load_port()
+    if port is None:
+        return 1
+    torch, _, build, _ = port
+    t0 = time.perf_counter()
+    build.build_all()
+    emit("build", seconds=time.perf_counter() - t0)
+    card = card_line()
+    print(card, flush=True)
+    emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
+    emit("fleet", paths=processes_phase(torch, card))
+    return 0
+
+
 def main() -> int:
     port = load_port()
     if port is None:
@@ -1440,12 +1674,13 @@ def main() -> int:
     timings["certified_reduce"] = merge_timing_phase(torch, cr, device,
                                                      cases)
     del cases
+    fleet = processes_phase(torch, card)
     paths = {"host_config5": host5["launches"],
              "mesh_config5": mesh5["launches"],
              "mesh_config1": mesh1["launches"],
              **presets,
              "sp": {"flash_carry": sp_slice_phase(torch, fa, device)},
-             **merge_paths}
+             **merge_paths, **fleet}
     by_path = {name: {path: counts.get(name, 0)
                       for path, counts in paths.items()}
                for name in KERNELS}
@@ -1468,8 +1703,10 @@ if __name__ == "__main__":
         sys.exit(backward_timing_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--merge-timing":
         sys.exit(merge_timing_main(sys.argv[2]))
+    if sys.argv[1:] == ["--processes"]:
+        sys.exit(processes_main())
     if len(sys.argv) > 1:
         print("usage: chip_smoke.py [--backward-timing DIR | "
-              "--merge-timing DIR]", file=sys.stderr)
+              "--merge-timing DIR | --processes]", file=sys.stderr)
         sys.exit(2)
     sys.exit(main())

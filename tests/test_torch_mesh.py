@@ -468,7 +468,8 @@ def test_round_factory_guards():
 @pytest.mark.parametrize("runtime,kw", [
     ("mesh", dict(standbys=1)), ("mesh", dict(bft_validators=4)),
     ("mesh", dict(tls_dir="certs")), ("host", dict(attest_scores=True)),
-    ("host", dict(participation="full")), ("threaded", dict()),
+    ("host", dict(participation="full")),
+    ("threaded", dict(participation="full")),
 ])
 def test_run_with_runtime_refuses_what_does_not_apply(runtime, kw):
     # options of runtimes not ported yet are unexpected keywords of the

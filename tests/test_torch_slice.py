@@ -11,7 +11,8 @@
 - The port's CPU slice runs in a subprocess that never loads JAX or the
   reference package.
 - Without a card the entry points raise unless given the CPU; the CLI
-  rejects unported runtimes and the process fleet's flags with exit 2.
+  rejects the unported runtime (the executor), the native ledger and
+  the process fleet's unported flags with exit 2.
 """
 
 import ast
@@ -150,8 +151,9 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
         cli(["--rounds", "1"])
 
 
-@pytest.mark.parametrize("argv", [["--runtime", "threaded"],
-                                  ["--runtime", "processes"],
+@pytest.mark.parametrize("argv", [["--runtime", "executor"],
+                                  ["--runtime", "processes",
+                                   "--ledger-backend", "native"],
                                   ["--config", "config2", "--standbys",
                                    "1"]])
 def test_cli_rejects_unported_with_exit_2(argv, capsys):
@@ -161,4 +163,4 @@ def test_cli_rejects_unported_with_exit_2(argv, capsys):
 
 def test_preset_rejects_unported_runtime():
     with pytest.raises(ValueError, match="ROADMAP A9"):
-        config5_transformer_sst2(runtime="threaded", device="cpu")
+        config5_transformer_sst2(runtime="executor", device="cpu")
