@@ -3,14 +3,17 @@
 Port of `bflc_demo_tpu/__main__.py` with the reference's defaults
 (`--config config1 --runtime mesh --rounds 10`): configs 0-5 on the
 `mesh`, `host`, `threaded` or `processes` runtime (the process fleet:
-writer, clients and a replica as OS processes; run it from the shell or
-a real file, as spawned children re-import `__main__`), on `cuda`
+writer, clients and a replica as OS processes, with `--standbys N` hot
+standbys and `--quorum Q` quorum-ack, which needs `--standbys >= Q+1`
+and exits 2 otherwise, as in the reference; run it from the shell or a
+real file, as spawned children re-import `__main__`), on `cuda`
 unless `--device cpu` (the counterpart of `JAX_PLATFORMS=cpu`), with
 the protocol overridable by `--field-name` flags and `BFLC_*` variables
 (`utils/flags.py`) and the ledger by `--ledger-backend auto|python`.  An
-unknown config, an unported runtime (the executor), the native ledger
-or a flag of a part not ported yet (the fleet's standbys, TLS, quorum,
-BFT, chaos, cells, snapshots, rederive and the codecs A9, checkpoints
+unknown config, an unported runtime (the executor), the native ledger,
+`--standbys`/`--quorum` on another runtime than `processes`, or a flag
+of a part not ported yet (the fleet's TLS, BFT, chaos, cells,
+snapshots, rederive and the codecs A9, checkpoints
 A11, secure aggregation A12, traces and telemetry A14) exits 2 naming
 the ROADMAP item.  Prints the reference CLI's final JSON keys, and on
 `processes` a `fleet` key besides: the round times, the spawn time, the
@@ -32,9 +35,10 @@ def _parser() -> argparse.ArgumentParser:
         description="Committee-consensus federated learning in PyTorch on "
                     "an NVIDIA GPU (port of bflc_demo_tpu).",
         epilog="Ported: --config config0..config5 on --runtime mesh (the "
-               "default), host, threaded and processes.  The executor "
-               "runtime, the native ledger and the fleet's other flags "
-               "and the codecs are ROADMAP A9; they exit 2 until ported.")
+               "default), host, threaded and processes (with --standbys "
+               "and --quorum).  The executor runtime, the native ledger, "
+               "the fleet's other flags and the codecs are ROADMAP A9; "
+               "they exit 2 until ported.")
     p.add_argument("--config", default="config1",
                    help="benchmark preset, config0 ... config5")
     p.add_argument("--runtime", default="mesh",
@@ -74,9 +78,22 @@ def main(argv=None) -> int:
     except ValueError as exc:
         print(f"protocol: {exc}", file=sys.stderr)
         return 2
+    if (opts.standbys or opts.quorum) and opts.runtime != "processes":
+        print("--standbys and --quorum apply only to --runtime processes",
+              file=sys.stderr)
+        return 2
+    if opts.quorum and opts.standbys < opts.quorum + 1:
+        print("--quorum Q needs --standbys >= Q+1 (the promoted writer "
+              "must retain Q followers to keep acknowledging after a "
+              "failover)", file=sys.stderr)
+        return 2
     kw = dict(rounds=opts.rounds, seed=opts.seed, runtime=opts.runtime,
               device=opts.device, verbose=opts.verbose,
               ledger_backend=opts.ledger_backend)
+    if opts.standbys:
+        kw["standbys"] = opts.standbys
+    if opts.quorum:
+        kw["quorum"] = opts.quorum
     if cfg is not None:
         kw["cfg"] = cfg
     res = CONFIGS[opts.config].build(**kw)
@@ -101,6 +118,8 @@ def main(argv=None) -> int:
                         "kernel_launches": res.kernel_launches,
                         "writer_engine": res.writer_engine,
                         "writer_merges": res.writer_merges,
+                        "client_reads": res.client_reads,
+                        "failover": res.failover,
                         "ed25519_backend": res.ed25519_backend,
                         "replica_head_ok": bool(
                             res.replica_report and res.replica_report["head"]

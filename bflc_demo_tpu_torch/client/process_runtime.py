@@ -3,8 +3,9 @@
 Port of the synchronous fleet of
 `bflc_demo_tpu/client/process_runtime.py`: `_server_proc` (:228),
 `_client_proc` with its synchronous loop (:468, :557-705),
-`_replica_proc` (:709), `ProcessFederationResult` (:771) and
-`run_federated_processes` (:807).
+`_replica_proc` (:709), `_standby_proc` (:723), `ProcessFederationResult`
+(:771) and `run_federated_processes` (:807) with its standbys, the
+writer-kill drill, quorum-ack and the WAL.
 
 - one **writer process** runs `comm/ledger_service.LedgerServer`: the
   ledger, Ed25519 verification, the blob store, the merge through the
@@ -21,19 +22,23 @@ Port of the synchronous fleet of
 Every role that computes runs on the run's device, `cuda` unless the
 caller asks for the CPU: the clients' training (kernels K1-K3 in the
 transformer) and scoring (K1), the writer's merge (B5 on the engine's
-mesh leg) and the sponsor's evaluation (K1).  The reference pins its
+mesh leg; after a failover, the promoted standby's) and the sponsor's
+evaluation (K1).  The reference pins its
 children to the CPU because one process owns a TPU; one H100 takes many
 processes.  Children are spawned, never forked; each resolves its own
 device, only numpy arrays, bytes and plain dicts cross the spawn
 boundary, and on the CPU each child runs one torch thread.  On `cuda`
 the parent builds every kernel library before it spawns, so the
 children only load them.  Before the parent stops its children it
-collects every role's kernel launch counts (and the writer's engine
-report), which `ProcessFederationResult.kernel_launches` holds.
+collects every role's kernel launch counts (and the final writer's
+engine report), which `ProcessFederationResult.kernel_launches` holds;
+on a drill it asks the primary for its `info` and `kernels` just before
+the kill, and `failover` holds the kill's time, the promoted writer's
+start and first commit on the host's monotonic clock.
 
-Not ported, raising with their ROADMAP item when asked for: standbys and
-the writer-kill drill, quorum-ack and the WAL, BFT validators, TLS, the
-chaos campaign, telemetry and traces, snapshots, rederive (A9, A14); the
+Not ported, raising with their ROADMAP item when asked for: BFT
+validators, TLS, the chaos campaign, telemetry and traces, snapshots,
+rederive (A9, A14); the
 async FedBuff loop and the delta codecs (A9: a `state` reply carries no
 effective density here); the mesh-executor deployment (A9).
 """
@@ -58,10 +63,6 @@ from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
 # the reference's run_federated_processes options this port has not
 # reached; a value other than the reference's default raises
 UNPORTED_FLEET_OPTIONS = {
-    "wal_path": "A9 (quorum-ack and the WAL)",
-    "quorum": "A9 (quorum-ack and the WAL)",
-    "standbys": "A9 (standbys and failover)",
-    "kill_writer_at_epoch": "A9 (standbys and failover)",
     "tls_dir": "A9 (TLS)",
     "bft_validators": "A9 (BFT validators)",
     "chaos_seed": "A14 (chaos)", "chaos_profile": "A14 (chaos)",
@@ -96,14 +97,39 @@ def _child_device(device: str):
 
 def _server_proc(cfg_kw: dict, initial_blob: bytes, port_q,
                  stall_timeout_s: float, device: str,
-                 verbose: bool) -> None:
+                 verbose: bool, wal_path: str = "",
+                 standby_keys: Optional[dict] = None,
+                 quorum: int = 0) -> None:
     _child_device(device)
     from bflc_demo_tpu_torch.comm.ledger_service import LedgerServer
     server = LedgerServer(ProtocolConfig(**cfg_kw), initial_blob,
                           stall_timeout_s=stall_timeout_s, device=device,
-                          verbose=verbose)
+                          wal_path=wal_path, standby_keys=standby_keys,
+                          quorum=quorum, verbose=verbose)
     port_q.put(server.port)
     server.serve_forever()
+
+
+def _standby_proc(cfg_kw: dict, endpoints: List[Tuple[str, int]],
+                  index: int, port_q, stall_timeout_s: float,
+                  wallet_seed: bytes, standby_keys: dict, quorum: int,
+                  device: str, verbose: bool) -> None:
+    """Hot standby: follow the writer's op stream, promote on its death
+    (`comm/failover.Standby`).  Reports its serving port, then blocks;
+    once promoted it is the writer and merges on `device`."""
+    _child_device(device)
+    from bflc_demo_tpu_torch.comm.failover import Standby
+    from bflc_demo_tpu_torch.comm.identity import Wallet
+    standby = Standby(ProtocolConfig(**cfg_kw),
+                      endpoints + [("127.0.0.1", 0)], index,
+                      stall_timeout_s=stall_timeout_s,
+                      wallet=Wallet.from_seed(wallet_seed),
+                      standby_keys=standby_keys, quorum=quorum,
+                      device=device, verbose=verbose)
+    # the placeholder self-endpoint gets the real bound port
+    standby.endpoints[index] = (standby.host, standby.port)
+    port_q.put(standby.port)
+    standby.run()
 
 
 def _sign(wallet, kind: str, epoch: int, payload: bytes) -> str:
@@ -117,13 +143,16 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
                  x: np.ndarray, y_onehot: np.ndarray, cfg_kw: dict,
                  rounds: int, crash_at_epoch: Optional[int], device: str,
                  report_q=None, role: str = "client",
-                 request_timeout_s: float = 120.0) -> None:
+                 request_timeout_s: float = 120.0,
+                 standby_keys: Optional[dict] = None) -> None:
     """One federated client: register -> role loop -> train/score ->
     report -> exit.  The state machine of `client/runtime.FLNode.step`,
     with every ledger interaction a signed socket request and every
-    tensor a canonical blob.  `report_q` receives, at exit, the
-    process's kernel launches, its tracer summary and the foreign
-    modules it loaded (none: the check that it never touched JAX)."""
+    tensor a canonical blob; with several endpoints a dead writer is
+    failed over.  `report_q` receives, at exit, the process's kernel
+    launches, its tracer summary, where its reads were served and the
+    foreign modules it loaded (none: the check that it never touched
+    JAX)."""
     dev = _child_device(device)
     import torch
 
@@ -149,8 +178,9 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
     yj = torch.as_tensor(np.asarray(y_onehot, np.float32), device=dev)
     tr = tracing.PROC
 
-    client = FailoverClient(endpoints, timeout_s=request_timeout_s)
-    router = ReadRouter(client)
+    client = FailoverClient(endpoints, timeout_s=request_timeout_s,
+                            standby_keys=standby_keys)
+    router = ReadRouter(client, timeout_s=request_timeout_s)
 
     def register():
         return client.request("register", addr=wallet.address,
@@ -236,10 +266,13 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
         if not acted:
             known_log = client.request("wait", log_size=known_log,
                                        timeout_s=2.0)["log_size"]
+    router.close()
     client.close()
     if report_q is not None:
         report_q.put({"role": role, "launches": launch_counts(),
                       "perf": tr.summary() if tr.enabled else None,
+                      "reads": {f"{k}/{s}": n
+                                for (k, s), n in router.reads.items()},
                       "foreign_modules": foreign_modules()})
 
 
@@ -289,6 +322,13 @@ class ProcessFederationResult:
         # role -> JAX or reference modules that child loaded (none)
         self.child_foreign_modules: Dict[str, List[str]] = {}
         self.replica_reports: List[dict] = []
+        # role -> where that client's reads were served ("model/replica":
+        # n, ...): the read fan-out's share
+        self.client_reads: Dict[str, Dict[str, int]] = {}
+        # the writer-kill drill (None without one): the kill's epoch and
+        # time, the primary's last `info` and `kernels` replies, the final
+        # writer's index, start and first commit (host monotonic clock)
+        self.failover: Optional[dict] = None
 
     @property
     def final_accuracy(self) -> float:
@@ -316,14 +356,15 @@ def _drain_reports(q, procs, wait_s: float) -> List[dict]:
 def client_args(endpoints, master_seed: bytes, i: int, model_factory: str,
                 factory_kw: dict, x, y, num_classes: int, cfg_kw: dict,
                 rounds: int, crash_at_epoch: Optional[int], device: str,
-                report_q) -> tuple:
+                report_q, standby_keys: Optional[dict] = None) -> tuple:
     """`_client_proc`'s arguments for client i (its wallet seed is the
     reference's derivation from the run's master seed)."""
     from bflc_demo_tpu_torch.data.partition import one_hot
     return (list(endpoints), master_seed + struct.pack("<q", i),
             model_factory, factory_kw, np.asarray(x),
             one_hot(np.asarray(y), num_classes), cfg_kw, rounds,
-            crash_at_epoch, device, report_q, f"client-{i}")
+            crash_at_epoch, device, report_q, f"client-{i}", 120.0,
+            standby_keys)
 
 
 def run_federated_processes(
@@ -336,21 +377,31 @@ def run_federated_processes(
         master_seed: bytes = b"process-federation-master-0001",
         crash_at: Optional[Dict[int, int]] = None,
         stall_timeout_s: float = 5.0,
+        wal_path: str = "",
         replicas: int = 1,
+        standbys: int = 0,
+        kill_writer_at_epoch: Optional[int] = None,
+        quorum: int = 0,
         timeout_s: float = 600.0,
         init_seed: int = 0,
         device: Optional[str] = None,
         verbose: bool = False,
         **unported) -> ProcessFederationResult:
-    """Run a federation as (1 writer + N clients [+ replicas]) OS
-    processes; the parent is the sponsor.
+    """Run a federation as (1 writer + N clients [+ standbys] [+
+    replicas]) OS processes; the parent is the sponsor.
 
     model_factory/factory_kw: the `bflc_demo_tpu_torch.models` entry each
     process builds its model with.  crash_at: {client index: epoch} —
     that client's process hard-exits at that epoch and the writer's
-    recovery ops must carry the round.  replicas: replica processes that
-    replay the writer's op stream after the run; each must reproduce its
-    head.  device: where every role computes, `cuda` (None) or `cpu`.
+    recovery ops must carry the round.  standbys: hot standbys following
+    the writer and promoting on its death.  kill_writer_at_epoch: SIGKILL
+    the primary once the federation reaches this epoch (needs standbys >=
+    1); the promoted standby finishes the run.  quorum: acknowledge a
+    mutation only after this many standbys applied it (needs standbys >=
+    quorum + 1, so a promoted writer keeps quorum followers).  wal_path:
+    the primary's journal.  replicas: replica processes that replay the
+    final writer's op stream after the run; each must reproduce its head.
+    device: where every role computes, `cuda` (None) or `cpu`.
     """
     for name, default in _FLEET_DEFAULTS.items():
         if unported.get(name) == default:
@@ -360,6 +411,13 @@ def run_federated_processes(
     cfg.validate()
     if len(shards) != cfg.client_num:
         raise ValueError(f"need {cfg.client_num} shards, got {len(shards)}")
+    if kill_writer_at_epoch is not None and standbys < 1:
+        raise ValueError("kill_writer_at_epoch requires standbys >= 1")
+    if quorum and standbys < quorum + 1:
+        raise ValueError(
+            f"quorum={quorum} requires standbys >= {quorum + 1}: a "
+            f"promoted writer must retain {quorum} followers to keep "
+            f"acknowledging mutations after a failover")
     crash_at = crash_at or {}
     factory_kw = factory_kw or {}
     t_start = time.monotonic()
@@ -370,6 +428,7 @@ def run_federated_processes(
     from bflc_demo_tpu_torch.client.runtime import feature_tensor
     from bflc_demo_tpu_torch.comm.dataplane import ReadRouter
     from bflc_demo_tpu_torch.comm.failover import FailoverClient
+    from bflc_demo_tpu_torch.comm.identity import Wallet
     from bflc_demo_tpu_torch.core.local_train import evaluate
     from bflc_demo_tpu_torch.data.partition import one_hot
     from bflc_demo_tpu_torch.device import resolve_device
@@ -389,18 +448,27 @@ def run_federated_processes(
     initial_blob = pack_pytree(model.init_params(init_seed, "cpu"))
     nc = model.num_classes
     cfg_kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    # standby identities, the reference's derivation from the master
+    # seed: only their public keys reach the writer (the demotion
+    # allowlist), the clients and the sponsor
+    standby_seeds = {s: master_seed + b"|standby|" + struct.pack("<q", s)
+                     for s in range(1, standbys + 1)}
+    standby_keys = {i: Wallet.from_seed(sd).public_bytes
+                    for i, sd in standby_seeds.items()}
 
     ctx = mp.get_context("spawn")
     host = "127.0.0.1"
     port_q = ctx.Queue()
     server = ctx.Process(target=_server_proc,
                          args=(cfg_kw, initial_blob, port_q,
-                               stall_timeout_s, device_name, verbose),
+                               stall_timeout_s, device_name, verbose,
+                               wal_path, standby_keys, quorum),
                          daemon=True)
     server.start()
+    standby_procs: List = []
     clients: List = []
     report_q = ctx.Queue()
-    sponsor = None
+    sponsor = router = None
     history: List[Tuple[int, float]] = []
     epoch_times: List[Tuple[int, float]] = []
     spawn_s = 0.0
@@ -409,28 +477,58 @@ def run_federated_processes(
     writer_merges: List[dict] = []
     ed25519_backend = None
     final = None
+    failover: Optional[dict] = None
     replica_reports: List[dict] = []
     client_reports: List[dict] = []
     try:
         port = port_q.get(timeout=120)
         endpoints = [(host, port)]
+        # standbys spawn in priority order; each knows the endpoints
+        # above it
+        for s in range(1, standbys + 1):
+            q = ctx.Queue()
+            sp = ctx.Process(target=_standby_proc,
+                             args=(cfg_kw, list(endpoints), s, q,
+                                   stall_timeout_s, standby_seeds[s],
+                                   standby_keys, quorum, device_name,
+                                   verbose), daemon=True)
+            sp.start()
+            standby_procs.append(sp)
+            endpoints.append((host, q.get(timeout=120)))
         for i, (sx, sy) in enumerate(shards):
             p = ctx.Process(target=_client_proc, args=client_args(
                 endpoints, master_seed, i, model_factory, factory_kw, sx,
                 sy, nc, cfg_kw, rounds, crash_at.get(i), device_name,
-                report_q), daemon=True)
+                report_q, standby_keys), daemon=True)
             p.start()
             clients.append(p)
 
         xte, yte = test_set
         xte_t = feature_tensor(xte, dev)
         yte_t = torch.as_tensor(one_hot(np.asarray(yte), nc), device=dev)
-        sponsor = FailoverClient(endpoints, timeout_s=120.0)
-        router = ReadRouter(sponsor)
+        sponsor = FailoverClient(endpoints, timeout_s=120.0,
+                                 standby_keys=standby_keys)
+        router = ReadRouter(sponsor, timeout_s=120.0)
         seen_epoch = 0          # the model at epoch 0 is the initial one
         deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline:
-            info = sponsor.request("info")
+            try:
+                info = sponsor.request("info")
+            except ConnectionError:
+                # every endpoint dark for a moment (mid-promotion): the
+                # deadline, not one poll, decides the run failed
+                time.sleep(0.5)
+                continue
+            if kill_writer_at_epoch is not None and failover is None \
+                    and info["epoch"] >= kill_writer_at_epoch:
+                # the drill: SIGKILL the primary as soon as it committed
+                # the epoch (before the sponsor's evaluation), so the
+                # promoted standby takes the next round
+                failover = _kill_primary(server, (host, port), info)
+                if verbose:
+                    print(f"[drill] primary coordinator killed at epoch "
+                          f"{info['epoch']}", flush=True)
+                continue
             if not spawn_s and info["epoch"] >= 0:
                 spawn_s = time.monotonic() - t_start
             if info["epoch"] > seen_epoch:
@@ -446,19 +544,26 @@ def run_federated_processes(
                     if verbose:
                         print(f"Epoch: {mr['epoch'] - 1:03d}, "
                               f"test_acc: {acc:.4f}", flush=True)
+            # epoch counts committed rounds across a failover
             if info["epoch"] >= rounds:
                 break
-            time.sleep(0.2)
+            try:
+                # wake on the log's next op, or after 0.2 s
+                sponsor.request("wait", log_size=info["log_size"],
+                                timeout_s=0.2)
+            except ConnectionError:
+                pass
         else:
             raise TimeoutError(f"process federation incomplete after "
                                f"{timeout_s}s ({len(history)}/{rounds} "
                                f"rounds)")
         final = sponsor.request("info")
+        final_ep = sponsor.current_endpoint
         if replicas > 0:
             rep_q = ctx.Queue()
             rps = [ctx.Process(target=_replica_proc,
-                               args=(host, port, cfg_kw, final["log_size"],
-                                     rep_q), daemon=True)
+                               args=(final_ep[0], final_ep[1], cfg_kw,
+                                     final["log_size"], rep_q), daemon=True)
                    for _ in range(replicas)]
             for rp in rps:
                 rp.start()
@@ -478,15 +583,20 @@ def run_federated_processes(
             writer_engine = kr["engine"]
             writer_merges = kr["merges"]
             ed25519_backend = kr["ed25519_backend"]
+            if failover is not None:
+                failover.update(_promotion_account(failover, kr))
     finally:
+        if router is not None:
+            router.close()
         if sponsor is not None:
             sponsor.close()
         for p in clients:
             p.join(timeout=15)
             if p.is_alive():
                 p.terminate()
-        server.terminate()
-        server.join(timeout=10)
+        for p in [server] + standby_procs:
+            p.terminate()
+            p.join(timeout=10)
 
     result = ProcessFederationResult(
         accuracy_history=history,
@@ -503,6 +613,7 @@ def run_federated_processes(
     for rep in client_reports:
         launches[rep["role"]] = rep["launches"]
         result.client_perf[rep["role"]] = rep["perf"]
+        result.client_reads[rep["role"]] = rep["reads"]
         result.child_foreign_modules[rep["role"]] = rep["foreign_modules"]
     for i, rep in enumerate(replica_reports):
         result.child_foreign_modules[f"replica-{i}"] = \
@@ -513,4 +624,42 @@ def run_federated_processes(
     result.writer_merges = writer_merges
     result.ed25519_backend = ed25519_backend
     result.replica_reports = replica_reports
+    if failover is not None:
+        failover["kill_t"] = failover["kill_mono"] - t_start
+    result.failover = failover
     return result
+
+
+def _kill_primary(server, endpoint, info: dict) -> dict:
+    """The writer-kill drill: the primary's `info` and `kernels` replies,
+    then SIGKILL.  Returns the drill's record."""
+    from bflc_demo_tpu_torch.comm.ledger_service import CoordinatorClient
+    record = {"killed_at_epoch": info["epoch"], "primary_info": None,
+              "primary_kernels": None}
+    try:
+        probe = CoordinatorClient(*endpoint, timeout_s=30.0)
+        try:
+            record["primary_info"] = probe.request("info")
+            record["primary_kernels"] = probe.request("kernels")
+        finally:
+            probe.close()
+    except (ConnectionError, OSError):
+        pass
+    record["kill_mono"] = time.monotonic()
+    server.kill()
+    server.join(timeout=10)
+    return record
+
+
+def _promotion_account(failover: dict, kernels: dict) -> dict:
+    """The promoted writer's side of the drill from its `kernels` reply:
+    its index, start and first commit after the kill on the monotonic
+    clock, that commit's merge seconds."""
+    kill = failover["kill_mono"]
+    after = [m for m in kernels.get("merges", []) if m.get("mono", 0) > kill]
+    return {"writer_index": kernels.get("writer_index"),
+            "gen": kernels.get("gen"),
+            "promote_s": kernels.get("started_mono", kill) - kill,
+            "gap_s": after[0]["mono"] - kill if after else None,
+            "first_merge_s": after[0]["merge_s"] if after else None,
+            "warm_merge_s": [m["merge_s"] for m in after[1:]]}

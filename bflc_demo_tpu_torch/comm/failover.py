@@ -1,52 +1,132 @@
-"""Request, retry and rotation over an ordered list of writer endpoints.
+"""Writer failover: hot standbys that promote when the writer dies.
 
-Port of `FailoverClient` (`bflc_demo_tpu/comm/failover.py:129-319`): a
-`CoordinatorClient` over an endpoint list.  On a connection-level failure
-the socket is dropped and the next endpoint tried, with a short backoff
-after each full silent cycle; retrying is safe because every mutation is
-signed and idempotent at the ledger (DUPLICATE = already in).  The
-process fleet's clients and its sponsor use it as the reference does,
-here with the one writer's endpoint.  Every request carries the
-reference's `fence` field (the highest writer generation seen, 0 for a
-writer without standbys), a `STALE_WRITER` reply rotates like a dead
-endpoint, and a reply whose `gen` is behind the fence is refused.
+Port of `bflc_demo_tpu/comm/failover.py`: `FailoverClient` (:129-319),
+`WriterDead`, `PromotionSuperseded` and `Standby` (:320-1410).
 
-Not ported yet: learning a higher fence from signed promotion evidence,
-the standby keys that verify it, and the BFT certificate check on acks
-(ROADMAP A9: standbys and failover, BFT validators); `Standby` (:320)
-itself waits for the standby item.  TLS waits for its own (A9).
+- A `Standby` follows the writer live: it subscribes to the op stream
+  (proving its provisioned identity by the challenge handshake when it
+  holds a `wallet`, so its acks count toward the writer's quorum and its
+  read endpoint joins the read set), applies every op to its own ledger,
+  and mirrors what the ops only reference by hash — payload blobs, the
+  model blob, the public-key directory — each checked against the
+  replayed ledger.  An upload op binds only once its payload blob is
+  here (mirror before apply: the frame's piggybacked blob, else a fetch);
+  when the writer answers "unknown blob" the op applies as a historical
+  record and the acks stay clamped below it until the chain's epoch
+  moves past it.
+- It serves its mirrored blobs and model read-only on a side port
+  (`comm/dataplane.ReadFanoutServer`) until it promotes.
+- Death is seen on the stream and confirmed by an `info` probe.  The
+  election is lease-free over the endpoint priority list: standby k
+  promotes only when the writer and every higher-priority standby refuse
+  a connection; a lower one re-follows the winner.
+- Promotion is fenced: the standby appends `promote_writer` (generation
+  N+1) to its chain, signs the promotion evidence with its wallet, and
+  becomes a `LedgerServer` over its ledger, blobs and the socket it bound
+  at construction (failed-over clients wait in its backlog), with the
+  deployment's `wal_path`, `quorum` and `standby_keys`.  From then on it
+  is the writer: it merges every later round through `meshagg` on its
+  `device` (kernel B5 on the card), with no warm-up before the first.
+- `FailoverClient` rotates through the endpoints on a connection failure
+  (signed mutations are idempotent: DUPLICATE = already in), raises its
+  fence only on replies carrying promotion evidence for that generation
+  (signature-checked when `standby_keys` are provisioned), sends the
+  fence and its proof on every request, and refuses a reply from behind
+  its fence.
+
+Every entry point that computes runs on `device`, `cuda` unless the
+caller asks for the CPU; without a card `Standby` raises.  Not ported,
+each raising with its item: the BFT legs (`_require_certificate`,
+`_certify_promotion`: A9, BFT validators), snapshot state-sync
+(`_state_sync`, `_fetch_snapshot_body`, `_note_snapshot_op`,
+`_read_snapshot_state`: A9, snapshots) and TLS (A9); the obs metrics,
+flight recorder and trace spans (A14).  With `BFLC_PROC_TRACE=1` a
+standby charges its mirror time (`standby.mirror_s`), the blobs that
+rode the op stream or were fetched (`standby.piggyback`,
+`standby.fetch`) and each op's whole follow step (`standby.op_s`,
+`standby.ops`) to `utils/tracing.PROC`.
 """
 
 from __future__ import annotations
 
+import hashlib
+import socket
+import struct
+import threading
 import time
-from typing import List, Optional, Tuple
+import warnings
+from typing import Dict, List, Optional, Tuple
 
-from bflc_demo_tpu_torch.comm.ledger_service import (CoordinatorClient,
-                                                     refuse_unported)
-from bflc_demo_tpu_torch.comm.wire import WireError
+from bflc_demo_tpu_torch.comm.dataplane import (ReadFanoutServer,
+                                                data_plane_legacy)
+from bflc_demo_tpu_torch.comm.identity import PublicDirectory, address_of
+from bflc_demo_tpu_torch.comm.ledger_service import (
+    CoordinatorClient, LedgerServer, make_promotion_evidence,
+    refuse_unported, verify_promotion_signature)
+from bflc_demo_tpu_torch.comm.wire import (WireError, blob_bytes, recv_msg,
+                                           send_msg, split_blob_parts)
+from bflc_demo_tpu_torch.device import DeviceLike, resolve_device
+from bflc_demo_tpu_torch.ledger import LedgerStatus, clone_prefix, make_ledger
+from bflc_demo_tpu_torch.ledger.base import OP_COMMIT, OP_UPLOAD, decode_op
+from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
+from bflc_demo_tpu_torch.utils import tracing
 
 Endpoint = Tuple[str, int]
 
+# the reference's Standby options this port has not reached
+UNPORTED_STANDBY_OPTIONS = {
+    "tls_client": "A9 (TLS)", "tls_server": "A9 (TLS)",
+    "bft_validators": "A9 (BFT validators)",
+    "bft_keys": "A9 (BFT validators)",
+    "bft_quorum": "A9 (BFT validators)",
+    "bft_timeout_s": "A9 (BFT validators)",
+    "snapshot_interval": "A9 (snapshots)",
+    "snapshot_dir": "A9 (snapshots)",
+}
+
+
+class WriterDead(Exception):
+    """The followed writer is unreachable."""
+
+
+class PromotionSuperseded(Exception):
+    """This standby's fence op lost the promotion race to another
+    proposer (a BFT quorum's verdict: with BFT validators, A9)."""
+
 
 class FailoverClient:
-    """CoordinatorClient over an ordered endpoint list."""
+    """CoordinatorClient over an ordered endpoint list.
+
+    Without `standby_keys` the client accepts promotion evidence on its
+    structure alone, so one hostile endpoint could poison its fence; with
+    more than one endpoint that configuration warns."""
 
     def __init__(self, endpoints: List[Endpoint], timeout_s: float = 30.0,
-                 max_cycles: int = 6, **unported):
-        refuse_unported(unported, {
-            "tls": "A9 (TLS)",
-            "standby_keys": "A9 (standbys and failover)",
-            "bft_keys": "A9 (BFT validators)",
-            "bft_quorum": "A9 (BFT validators)"})
+                 max_cycles: int = 6,
+                 standby_keys: Optional[Dict[int, bytes]] = None,
+                 **unported):
+        refuse_unported(unported, {"tls": "A9 (TLS)",
+                                   "bft_keys": "A9 (BFT validators)",
+                                   "bft_quorum": "A9 (BFT validators)"})
         if not endpoints:
             raise ValueError("need at least one endpoint")
+        if len(endpoints) > 1 and not standby_keys:
+            warnings.warn(
+                "FailoverClient with multiple endpoints but no "
+                "standby_keys: promotion evidence is accepted on "
+                "structural match alone, so one hostile endpoint can "
+                "poison this client's fence (one-message DoS) — provision "
+                "the standby public keys", RuntimeWarning, stacklevel=2)
         self._eps = list(endpoints)
         self._timeout_s = timeout_s
         self._max_cycles = max_cycles
         self._cur = 0
         self._client: Optional[CoordinatorClient] = None
+        self._standby_keys = dict(standby_keys or {})
+        # the highest writer generation seen with its proof, sent back as
+        # `fence` / `fence_ev` on every request
         self.gen = 0
+        self.gen_ev: Optional[dict] = None
 
     @property
     def current_endpoint(self) -> Endpoint:
@@ -56,10 +136,32 @@ class FailoverClient:
         self.close()
         self._cur = (self._cur + 1) % len(self._eps)
 
+    def _learn_fence(self, reply: dict, fields: dict) -> None:
+        """Raise the fence on a reply carrying evidence for its `gen`, or
+        learn the proof of the current fence retroactively."""
+        g, ev = reply.get("gen"), reply.get("gen_ev")
+        if not isinstance(ev, dict):
+            return
+        try:
+            ev_gen = int(ev.get("gen", -1))
+        except (TypeError, ValueError):
+            return                      # malformed evidence: ignore it
+        if self._standby_keys and \
+                not verify_promotion_signature(ev, self._standby_keys):
+            return                      # forged or unsigned: never moves us
+        if isinstance(g, int) and g > self.gen and ev_gen == g:
+            self.gen, self.gen_ev = g, ev
+            fields["fence"], fields["fence_ev"] = g, ev
+        elif self.gen_ev is None and ev_gen == self.gen:
+            self.gen_ev = ev
+            fields.setdefault("fence_ev", ev)
+
     def request(self, method: str, **fields) -> dict:
         last: Optional[Exception] = None
         attempts = self._max_cycles * len(self._eps)
         fields.setdefault("fence", self.gen)
+        if self.gen_ev is not None:
+            fields.setdefault("fence_ev", self.gen_ev)
         for attempt in range(attempts):
             try:
                 if self._client is None:
@@ -67,11 +169,12 @@ class FailoverClient:
                     self._client = CoordinatorClient(
                         host, port, timeout_s=self._timeout_s)
                 reply = self._client.request(method, **fields)
+                self._learn_fence(reply, fields)
                 g = reply.get("gen")
                 if reply.get("status") == "STALE_WRITER" or \
                         (isinstance(g, int) and g < self.gen):
-                    # not the writer (it demoted itself, or it is behind
-                    # our fence): never accept its reply
+                    # the endpoint demoted itself on our fence, or it is a
+                    # writer behind the fence: never accept its reply
                     last = ConnectionError(f"stale writer (gen {g})")
                     self._rotate()
                     continue
@@ -89,3 +192,506 @@ class FailoverClient:
         if self._client is not None:
             self._client.close()
             self._client = None
+
+
+class Standby:
+    """A promotable live replica (see the module docstring).
+
+    endpoints[0] is the initial writer; this standby is endpoints[index].
+    The serving socket binds in __init__: advertise `port` before
+    starting.  `run()` blocks: it follows the writer until the writer
+    dies, promotes (or re-follows the winner) and, once promoted, serves
+    until `stop()`.  `device` is where the promoted writer merges."""
+
+    def __init__(self, cfg: ProtocolConfig, endpoints: List[Endpoint],
+                 index: int, *, host: str = "127.0.0.1", port: int = 0,
+                 ledger_backend: str = "auto",
+                 heartbeat_s: float = 1.0,
+                 require_auth: bool = True,
+                 stall_timeout_s: float = 10.0,
+                 wal_path: str = "",
+                 wallet=None,
+                 standby_keys: Optional[Dict[int, bytes]] = None,
+                 quorum: int = 0,
+                 quorum_timeout_s: float = 5.0,
+                 device: DeviceLike = None,
+                 verbose: bool = False,
+                 **unported):
+        refuse_unported(unported, UNPORTED_STANDBY_OPTIONS)
+        if not 1 <= index < len(endpoints):
+            raise ValueError(f"standby index {index} out of range for "
+                             f"{len(endpoints)} endpoints")
+        cfg.validate()
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.endpoints = list(endpoints)
+        self.index = index
+        self.heartbeat_s = heartbeat_s
+        self.require_auth = require_auth
+        self.stall_timeout_s = stall_timeout_s
+        # attached at promotion: the journal then holds the whole chain
+        self.wal_path = wal_path
+        self.wallet = wallet
+        if wallet is None:
+            warnings.warn(
+                f"Standby(index={index}) constructed WITHOUT a wallet: "
+                f"promotions will carry no signed evidence, so a healed "
+                f"pre-partition writer is never fenced and client-side "
+                f"reply-gen fencing never activates — this deployment "
+                f"has no split-brain protection", RuntimeWarning,
+                stacklevel=2)
+        # every provisioned standby's key and the deployment's quorum,
+        # handed to the server this standby becomes
+        self.standby_keys: Dict[int, bytes] = dict(standby_keys or {})
+        self.quorum = quorum
+        self.quorum_timeout_s = quorum_timeout_s
+        self.verbose = verbose
+        self._ledger_backend = ledger_backend
+        self.ledger = make_ledger(cfg, backend=ledger_backend)
+        self._blobs: Dict[bytes, bytes] = {}
+        # upload ops applied without their blob, by chain index: only
+        # when the writer answered "unknown blob"; acks stay below them
+        self._pending_payload: Dict[int, bytes] = {}
+        self._blob_unknown = False
+        self._model_blob: Optional[bytes] = None
+        self._directory = PublicDirectory() if require_auth else None
+        self._synced_registered = -1
+        self._synced_update_count = -1
+        self._stop = threading.Event()
+        self.promoted = threading.Event()
+        self.server: Optional[LedgerServer] = None
+        # bind now: failed-over clients queue in the backlog until serving
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, port))
+        self._sock.listen(64)
+        self.host, self.port = self._sock.getsockname()
+        self.read_server: Optional[ReadFanoutServer] = None
+        if not data_plane_legacy():
+            self.read_server = ReadFanoutServer(
+                self._blobs.get, self._read_model_state, host=host)
+            self.read_server.start()
+
+    def _read_model_state(self):
+        """(epoch, hash, blob) of the mirrored model, or None before the
+        first mirror."""
+        blob = self._model_blob
+        if blob is None:
+            return None
+        return (self.ledger.epoch, hashlib.sha256(blob).digest(), blob)
+
+    # ------------------------------------------------------------------ api
+    def stop(self) -> None:
+        self._stop.set()
+        if self.server is not None:
+            self.server.close()
+        if self.read_server is not None:
+            self.read_server.close()
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+    def run(self) -> None:
+        """Follow -> (writer dies) -> promote or re-follow -> serve."""
+        writer = 0
+        while not self._stop.is_set():
+            if 0 <= writer < len(self.endpoints):
+                try:
+                    self._follow(self.endpoints[writer])
+                except WriterDead as e:
+                    self._say(f"writer {self.endpoints[writer]} dead: {e}")
+            if self._stop.is_set():
+                return
+            winner = self._elect()
+            if winner == self.index:
+                if self._model_blob is None:
+                    # nothing mirrored yet: rebuild from any serving peer
+                    writer = self._any_serving_peer()
+                    time.sleep(self.heartbeat_s)
+                    continue
+                try:
+                    self._promote_and_serve()
+                    return
+                except Exception:
+                    # a failed promotion must not leave the bound socket
+                    # accepting connects while nothing serves
+                    try:
+                        self._sock.close()
+                    except OSError:
+                        pass
+                    raise
+            elif winner < 0:
+                time.sleep(self.heartbeat_s)   # nobody promotable yet
+            else:
+                writer = winner
+                time.sleep(self.heartbeat_s)   # let the winner promote
+
+    def _say(self, line: str) -> None:
+        if self.verbose:
+            print(f"[standby {self.index}] {line}", flush=True)
+
+    # ------------------------------------------------------------ following
+    def _follow(self, writer: Endpoint) -> None:
+        """Apply the writer's op stream live and mirror the blobs, model
+        and directory.  Raises WriterDead when the stream breaks and a
+        probe fails."""
+        host, port = writer
+        try:
+            ctl = CoordinatorClient(host, port, timeout_s=10.0)
+        except (ConnectionError, WireError, OSError) as e:
+            raise WriterDead(str(e))
+        try:
+            # never follow a writer whose generation is behind our chain
+            inf = ctl.request("info")
+            if int(inf.get("gen", 0)) < self.ledger.generation:
+                raise WriterDead(f"stale writer: gen {inf.get('gen')} < "
+                                 f"ours {self.ledger.generation}")
+            if int(inf.get("log_base", 0) or 0) > self.ledger.log_size():
+                raise NotImplementedError(
+                    "the writer compacted its log behind a snapshot; the "
+                    "snapshot state-sync is not ported yet (ROADMAP A9: "
+                    "snapshots)")
+            sub = self._open_subscription(writer)
+        except (ConnectionError, WireError, OSError) as e:
+            ctl.close()
+            raise WriterDead(str(e))
+        except BaseException:
+            ctl.close()
+            raise
+        tr = tracing.PROC
+        try:
+            self._sync_state(ctl)
+            last_applied = self.ledger.log_size() - 1
+            while not self._stop.is_set():
+                try:
+                    msg = recv_msg(sub.sock)
+                except (TimeoutError, socket.timeout):
+                    if not self._writer_alive(writer):
+                        raise WriterDead("probe failed")
+                    if self._pending_payload:
+                        self._retry_pending_payloads(ctl)
+                        self._send_ack(sub, last_applied)
+                    continue
+                except (WireError, OSError) as e:
+                    raise WriterDead(str(e))
+                if msg is None:
+                    raise WriterDead("op stream closed")
+                if "op" not in msg:
+                    if msg.get("state_sync"):
+                        raise NotImplementedError(
+                            "the writer asks for a snapshot state-sync, "
+                            "not ported yet (ROADMAP A9: snapshots)")
+                    continue            # unknown control frame: ignore
+                t0 = time.perf_counter() if tr.enabled else 0.0
+                op_bytes = bytes.fromhex(msg["op"])
+                op_index = self.ledger.log_size()
+                self._harvest_pushed_blob(msg, op_bytes)
+                if not self._await_upload_payload(op_bytes, ctl, writer):
+                    self._pending_payload[op_index] = op_bytes
+                if tr.enabled:
+                    tr.charge("standby.mirror_s", time.perf_counter() - t0)
+                st = self.ledger.apply_op(op_bytes)
+                if st != LedgerStatus.OK:
+                    raise RuntimeError(
+                        f"standby rejected op {msg['i']}: {st.name} — "
+                        f"writer/replica divergence, refusing to continue")
+                last_applied = op_index
+                self._drop_moot_payloads()
+                try:
+                    self._sync_state(ctl)
+                except (ConnectionError, WireError, OSError):
+                    if not self._writer_alive(writer):
+                        raise WriterDead("state sync failed")
+                    continue            # sideband incomplete: no ack yet
+                self._send_ack(sub, last_applied)
+                if tr.enabled:
+                    tr.charge("standby.op_s", time.perf_counter() - t0)
+                    tr.charge("standby.ops")
+        finally:
+            sub.close()
+            ctl.close()
+
+    def _open_subscription(self, writer: Endpoint) -> CoordinatorClient:
+        """Subscribe at our resume point; with a wallet, prove the
+        provisioned identity by the challenge handshake and advertise
+        the read endpoint."""
+        sub = CoordinatorClient(writer[0], writer[1],
+                                timeout_s=self.heartbeat_s)
+        sub_msg = {"method": "subscribe", "from": self.ledger.log_size()}
+        if self.wallet is not None:
+            sub_msg["sb"] = self.index
+            if self.read_server is not None:
+                sub_msg["read_ep"] = list(self.read_server.endpoint)
+        try:
+            send_msg(sub.sock, sub_msg)
+            if self.wallet is not None:
+                sub.sock.settimeout(10.0)  # handshake, not heartbeat
+                ch = recv_msg(sub.sock)
+                sub.sock.settimeout(self.heartbeat_s)
+                if not isinstance(ch, dict) or "challenge" not in ch:
+                    raise WriterDead("subscriber handshake: no challenge")
+                sig = self.wallet.sign(
+                    LedgerServer._SUB_MAGIC + bytes.fromhex(ch["challenge"])
+                    + struct.pack("<Iq", self.index, sub_msg["from"]))
+                send_msg(sub.sock, {"tag": sig.hex()})
+        except BaseException:
+            sub.close()
+            raise
+        return sub
+
+    def _await_upload_payload(self, op_bytes: bytes, ctl: CoordinatorClient,
+                              writer: Endpoint) -> bool:
+        """Block until the op's payload blob is mirrored (True), the
+        writer reports it unknown (False: apply with a clamped ack), or
+        the writer dies (WriterDead: the op must not apply)."""
+        if not op_bytes or op_bytes[0] != OP_UPLOAD:
+            return True
+        while not self._stop.is_set():
+            self._blob_unknown = False
+            if self._mirror_upload_payload(op_bytes, ctl):
+                return True
+            if self._blob_unknown:
+                return False
+            if not self._writer_alive(writer):
+                raise WriterDead("writer died before the payload of a "
+                                 "streamed upload could be mirrored")
+            time.sleep(min(self.heartbeat_s, 0.25))
+        raise WriterDead("standby stopping")
+
+    def _drop_moot_payloads(self) -> None:
+        """Lift the ack clamp for blob-less records the chain has moved
+        past (their round is settled)."""
+        for i in list(self._pending_payload):
+            ep = decode_op(self._pending_payload[i]).get("epoch")
+            if ep is None or ep < self.ledger.epoch:
+                del self._pending_payload[i]
+
+    def _retry_pending_payloads(self, ctl: CoordinatorClient) -> None:
+        self._drop_moot_payloads()
+        for i in sorted(self._pending_payload):
+            if self._mirror_upload_payload(self._pending_payload[i], ctl):
+                del self._pending_payload[i]
+            else:
+                break
+
+    def _send_ack(self, sub: CoordinatorClient, last_applied: int) -> None:
+        """Ack the highest op held durably: the latest applied, clamped
+        below any upload whose blob is still missing."""
+        ack = last_applied
+        if self._pending_payload:
+            ack = min(ack, min(self._pending_payload) - 1)
+        if ack < 0:
+            return
+        try:
+            send_msg(sub.sock, {"ack": int(ack)})
+        except (WireError, OSError):
+            pass
+
+    @staticmethod
+    def _op_hash(op_bytes: bytes, field: str) -> Optional[bytes]:
+        try:
+            return bytes.fromhex(decode_op(op_bytes)[field])
+        except (KeyError, ValueError):
+            return None
+
+    def _harvest_pushed_blob(self, msg: dict, op_bytes: bytes) -> None:
+        """Keep a frame's piggybacked blob iff it hashes to the digest its
+        op records: an upload's payload or a commit's new model."""
+        if msg.get("blob") is None or not op_bytes or \
+                op_bytes[0] not in (OP_UPLOAD, OP_COMMIT):
+            return
+        try:
+            blob = blob_bytes(msg["blob"])
+        except ValueError:
+            return
+        if op_bytes[0] == OP_COMMIT:
+            if hashlib.sha256(blob).digest() == \
+                    self._op_hash(op_bytes, "model_hash"):
+                self._model_blob = blob
+            return
+        ph = self._op_hash(op_bytes, "payload_hash")
+        if ph not in self._blobs and hashlib.sha256(blob).digest() == ph:
+            self._blobs[ph] = blob
+            tracing.PROC.charge("standby.piggyback")
+
+    def _mirror_upload_payload(self, op_bytes: bytes,
+                               ctl: CoordinatorClient) -> bool:
+        """Fetch an upload op's payload by hash.  True = nothing to do or
+        mirrored; False = still missing.  A writer answering with bytes of
+        another hash is refused outright."""
+        if not op_bytes or op_bytes[0] != OP_UPLOAD:
+            return True
+        ph = self._op_hash(op_bytes, "payload_hash")
+        if ph is None or ph in self._blobs:
+            return True
+        try:
+            r = ctl.request("blob", hash=ph.hex())
+        except (ConnectionError, WireError, OSError):
+            return False
+        tracing.PROC.charge("standby.fetch")
+        if r.get("ok"):
+            try:
+                blob = blob_bytes(r.get("blob", ""))
+            except ValueError:
+                blob = b""
+            if hashlib.sha256(blob).digest() == ph:
+                self._blobs[ph] = blob
+                return True
+            raise RuntimeError(
+                f"standby {self.index}: writer served a corrupt payload "
+                f"blob for {ph.hex()[:12]} — Byzantine or corrupt writer, "
+                f"refusing to replicate")
+        # an authoritative negative: the round already merged it away
+        self._blob_unknown = True
+        return False
+
+    def _sync_state(self, ctl: CoordinatorClient) -> None:
+        """Mirror the hash-referenced state, each fetch gated on the
+        replayed ledger's own counters and checked against it."""
+        if self.ledger.update_count != self._synced_update_count:
+            missing = [u.payload_hash
+                       for u in self.ledger.query_all_updates()
+                       if u.payload_hash not in self._blobs]
+            if len(missing) > 1:
+                r = ctl.request("blobs", hashes=[h.hex() for h in missing])
+                if r.get("ok"):
+                    for h, part in split_blob_parts(r).items():
+                        self._blobs[bytes.fromhex(h)] = part
+            all_stored = True
+            for u in self.ledger.query_all_updates():
+                if u.payload_hash not in self._blobs:
+                    r = ctl.request("blob", hash=u.payload_hash.hex())
+                    if r.get("ok"):
+                        blob = blob_bytes(r["blob"])
+                        if hashlib.sha256(blob).digest() == u.payload_hash:
+                            self._blobs[u.payload_hash] = blob
+                    if u.payload_hash not in self._blobs:
+                        all_stored = False
+            if all_stored:
+                self._synced_update_count = self.ledger.update_count
+        want_hash, _ = self.ledger.query_global_model()
+        have = (hashlib.sha256(self._model_blob).digest()
+                if self._model_blob is not None else b"")
+        if want_hash != have and want_hash != b"\0" * 32:
+            r = ctl.request("model")
+            if r.get("ok"):
+                blob = blob_bytes(r["blob"])
+                if hashlib.sha256(blob).digest() == want_hash:
+                    self._model_blob = blob
+        elif self._model_blob is None:
+            # genesis: the chain commits no model hash before round 0, but
+            # the writer holds the initial model — mirror it now
+            r = ctl.request("model")
+            if r.get("ok"):
+                self._model_blob = blob_bytes(r["blob"])
+        if self._directory is not None and \
+                self.ledger.num_registered != self._synced_registered:
+            r = ctl.request("directory")
+            if r.get("ok"):
+                for addr, pub_hex in r["keys"].items():
+                    pub = bytes.fromhex(pub_hex)
+                    if address_of(pub) == addr and \
+                            not self._directory.knows(addr):
+                        self._directory.enroll(pub)
+                self._synced_registered = self.ledger.num_registered
+
+    def _writer_info(self, ep: Endpoint) -> Optional[dict]:
+        """The endpoint's `info` reply, or None when unreachable."""
+        try:
+            probe = CoordinatorClient(ep[0], ep[1], timeout_s=2.0)
+            try:
+                inf = probe.request("info")
+                return inf if inf.get("ok") else None
+            finally:
+                probe.close()
+        except (ConnectionError, WireError, OSError):
+            return None
+
+    def _writer_alive(self, ep: Endpoint) -> bool:
+        return self._writer_info(ep) is not None
+
+    def _any_serving_peer(self) -> int:
+        """Index of any endpoint serving at a generation not behind ours,
+        priority ignored, or -1."""
+        for j, ep in enumerate(self.endpoints):
+            if j == self.index:
+                continue
+            inf = self._writer_info(ep)
+            if inf is not None and \
+                    int(inf.get("gen", 0)) >= self.ledger.generation:
+                return j
+        return -1
+
+    # ------------------------------------------------------------- election
+    def _elect(self) -> int:
+        """The live endpoint of highest priority (lowest index): a writer
+        counts if it serves at our fence, a peer standby if its port
+        accepts a connection.  self.index = promote; -1 = nobody."""
+        for j, ep in enumerate(self.endpoints):
+            if j == self.index:
+                return self.index
+            if j == 0:
+                inf = self._writer_info(ep)
+                if inf is not None and \
+                        int(inf.get("gen", 0)) >= self.ledger.generation:
+                    return 0
+                continue
+            try:
+                socket.create_connection(ep, timeout=1.0).close()
+                return j
+            except OSError:
+                continue
+        return -1
+
+    # ------------------------------------------------------------ promotion
+    def _rollback_last_op(self) -> None:
+        """Drop the chain's final op (a failed fence) by replaying the
+        prefix into a fresh ledger."""
+        self.ledger = clone_prefix(self.ledger, self.ledger.log_size() - 1,
+                                   self.cfg, backend=self._ledger_backend)
+
+    def _promote_and_serve(self) -> None:
+        if self._model_blob is None:
+            raise RuntimeError("cannot promote: no model blob mirrored yet")
+        if self.read_server is not None:
+            # the promoted server serves everything on the real port
+            self.read_server.close()
+            self.read_server = None
+        st = self.ledger.promote_writer(self.ledger.generation + 1,
+                                        self.index)
+        if st != LedgerStatus.OK:
+            raise RuntimeError(f"promotion fence rejected: {st.name}")
+        evidence = None
+        if self.wallet is not None:
+            evidence = make_promotion_evidence(self.ledger, self.wallet,
+                                               self.index)
+        missing = [u.payload_hash.hex()[:12]
+                   for u in self.ledger.query_all_updates()
+                   if u.payload_hash not in self._blobs]
+        if missing:
+            self._say(f"promoting with {len(missing)} unmirrored update "
+                      f"blobs {missing} — relying on uploader retries / "
+                      f"stall recovery")
+        self.server = LedgerServer(
+            self.cfg, self._model_blob,
+            directory=self._directory,
+            require_auth=self.require_auth,
+            stall_timeout_s=self.stall_timeout_s,
+            resume_ledger=self.ledger,
+            resume_blobs=self._blobs,
+            sock=self._sock,
+            wal_path=self.wal_path,
+            standby_keys=self.standby_keys,
+            promotion_evidence=evidence,
+            quorum=self.quorum,
+            quorum_timeout_s=self.quorum_timeout_s,
+            device=self.device,
+            verbose=self.verbose)
+        # a client the mirrored directory missed re-presents its
+        # (self-authenticating) key on register
+        self.server._open_enrollment = True
+        self.promoted.set()
+        self._say(f"promoted: serving on {self.host}:{self.port} at epoch "
+                  f"{self.ledger.epoch}")
+        self.server.serve_forever()

@@ -2,43 +2,69 @@
 
 Port of the synchronous `LedgerServer` of
 `bflc_demo_tpu/comm/ledger_service.py` (:288-2563), with `chain_head_at`
-(:167), `_aggregate_flat` (:262), `CoordinatorClient` (:2564) and
-`replicate` (:2592).  The writer owns the ledger, verifies every
-client's Ed25519 tag against its public directory (trust on first use
-unless a directory is given), meters storage ops with per-epoch gas,
-stores the payload blobs, merges the round through the certified merge
-engine when the committee's scores complete the round, streams the op
-log to replicas, and runs the failure detector whose recovery ops
-(close_round -> reseat_committee -> force_aggregate) carry a round past
-dead clients.  Its frames, methods, replies, op bytes and chain are the
-reference's, so a reference client can drive it and a reference replica
+(:167), the promotion evidence (:189-260), `_aggregate_flat` (:262),
+`CoordinatorClient` (:2564) and `replicate` (:2592).  The writer owns
+the ledger, verifies every client's Ed25519 tag against its public
+directory (trust on first use unless a directory is given), meters
+storage ops with per-epoch gas, stores the payload blobs, merges the
+round through the certified merge engine when the committee's scores
+complete the round, streams the op log to replicas and standbys, and
+runs the failure detector whose recovery ops (close_round ->
+reseat_committee -> force_aggregate) carry a round past dead clients.
+Its frames, methods, replies, op bytes and chain are the reference's,
+so a reference client can drive it and a reference replica or standby
 can follow it, and back.
+
+Failover and durability (`comm/failover.Standby` builds this server at
+promotion over its replayed ledger, mirrored blobs and bound socket:
+`resume_ledger`, `resume_blobs`, `sock`):
+- every reply carries the writer generation `gen` and, on a promoted
+  writer, its signed `promotion_evidence` as `gen_ev`;
+- a request whose `fence` is above this writer's generation demotes it
+  (one `STALE_WRITER` reply, then `fenced` is set and the server
+  closes) only when its `fence_ev` verifies: signed by a provisioned
+  standby (`standby_keys`) and bound to this writer's own chain prefix.
+  A bare integer is served as usual;
+- `wal_path` journals the whole chain (`ledger.attach_wal`);
+- with `quorum` Q > 0 a storage mutation is acknowledged only once Q
+  subscribers acked every op through it, else the reply is
+  `REPLICATION_TIMEOUT` after `quorum_timeout_s`.  With standby keys
+  provisioned only subscribers that passed the challenge handshake
+  (`_SUB_MAGIC || challenge || <Iq index, start>`, signed) count, and
+  a subscriber's acks are clamped to the ops it was sent;
+- the op stream piggybacks an upload op's payload blob and a commit
+  op's new model blob on the frame, so a follower's mirror-before-apply
+  needs no fetch; an authenticated standby's read endpoint (`read_ep`)
+  joins the read set that `model` replies advertise.
 
 The merge runs through `meshagg` on the server's `device` (`cuda`
 unless the caller asks for the CPU): the reference's leg policy picks
 the mesh leg — kernel B5 on the card, after its one-time self-check —
 for rounds of at least `BFLC_MESH_AGG_MIN` admitted deltas, staged as
-flattened rows at admission.  On the card a failure there raises; it
-never falls back to the host leg.  With `BFLC_PROC_TRACE=1` the merge
-charges `aggregate_s` (and the engine call alone `aggregate.engine_s`)
-to `utils/tracing.PROC`, and `info` returns the tracer's summary as
+flattened rows at admission (a promoted writer re-derives the rows of
+the blobs it mirrored).  On the card a failure there raises; it never
+falls back to the host leg.  With `BFLC_PROC_TRACE=1` the merge charges
+`aggregate_s` (and the engine call alone `aggregate.engine_s`) to
+`utils/tracing.PROC`, and `info` returns the tracer's summary as
 `perf`.  The `kernels` method (the port's own) answers the process's
 kernel launch counts, the engine's report and `merge_log`, one record a
-commit (its epoch, the writer's clock, the merge's seconds and leg).
+commit (its epoch, the writer's clock and the host's monotonic clock,
+the merge's seconds and leg), with the writer's generation, index and
+start on the monotonic clock: a failover's gap is read from them.
 
 Not ported, each raising or refusing with its ROADMAP item when asked
-for: writer fencing and standbys (the server reads as generation 0,
-writer index 0; `sb` subscribers stream without quorum eligibility),
-quorum-ack and the WAL, BFT certificates, TLS, snapshots and `log_base`
-(always 0), the hier root, rederive, the async FedBuff and genome paths,
-sparse/quantized uploads (A9); telemetry, health and causal traces
-(A14).  The op stream sends op bytes without the reference's blob
-piggyback, which only standbys read.
+for: BFT certificates, TLS, snapshots and `log_base` (always 0), the
+hier root, rederive, the async FedBuff and genome paths, sparse/
+quantized uploads (A9); telemetry, health and causal traces (A14); the
+`BFLC_CONTROL_PLANE_LEGACY` benchmark switch (the piggyback is always
+on; `BFLC_DATA_PLANE_LEGACY=1` drops the model piggyback and the read
+set, as in the reference).
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import socket
 import struct
 import threading
@@ -47,13 +73,15 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from bflc_demo_tpu_torch.comm.dataplane import handle_read
+from bflc_demo_tpu_torch.comm.dataplane import data_plane_legacy, handle_read
 from bflc_demo_tpu_torch.comm.identity import (PublicDirectory, ReplayGuard,
-                                               _op_bytes, address_of)
+                                               _op_bytes, address_of,
+                                               verify_signature)
 from bflc_demo_tpu_torch.comm.wire import (WireError, blob_bytes, recv_msg,
                                            send_msg)
 from bflc_demo_tpu_torch.device import DeviceLike
 from bflc_demo_tpu_torch.ledger import LedgerStatus, make_ledger
+from bflc_demo_tpu_torch.ledger.base import OP_COMMIT, OP_UPLOAD, decode_op
 from bflc_demo_tpu_torch.meshagg.engine import (ENGINE, MeshAggEngine,
                                                 engine_for, flatten_delta)
 from bflc_demo_tpu_torch.ops import launch_counts
@@ -71,14 +99,6 @@ GAS_SCORES = 500
 # the reference's server options this port has not reached, each with
 # the ROADMAP item that brings it; a truthy value raises
 UNPORTED_SERVER_OPTIONS = {
-    "wal_path": "A9 (quorum-ack and the WAL)",
-    "quorum": "A9 (quorum-ack and the WAL)",
-    "quorum_timeout_s": "A9 (quorum-ack and the WAL)",
-    "resume_ledger": "A9 (standbys and failover)",
-    "resume_blobs": "A9 (standbys and failover)",
-    "sock": "A9 (standbys and failover)",
-    "standby_keys": "A9 (standbys and failover)",
-    "promotion_evidence": "A9 (standbys and failover)",
     "bft_validators": "A9 (BFT validators)",
     "bft_keys": "A9 (BFT validators)",
     "bft_quorum": "A9 (BFT validators)",
@@ -128,6 +148,60 @@ def chain_head_at(ledger, upto: int) -> bytes:
     return h
 
 
+_PROMO_MAGIC = b"BFLCPROM1"
+
+
+def _promotion_evidence_bytes(gen: int, ix: int, prev_head: bytes,
+                              standby_index: int) -> bytes:
+    return (_PROMO_MAGIC + struct.pack("<qqI", gen, ix, standby_index)
+            + prev_head)
+
+
+def make_promotion_evidence(ledger, wallet, standby_index: int) -> dict:
+    """Signed, chain-bound proof of the promotion this standby just
+    fenced.  Call after `promote_writer` appended its op (at log_size-1):
+    binds (generation, op position, the chain head just before the
+    promote op, the standby's index) under the standby's Ed25519 key.
+    Ed25519 is deterministic, so this dict equals the reference's for
+    the same wallet and chain."""
+    ix = ledger.log_size() - 1
+    prev = chain_head_at(ledger, ix)
+    gen = ledger.generation
+    sig = wallet.sign(_promotion_evidence_bytes(gen, ix, prev,
+                                                standby_index))
+    return {"gen": gen, "ix": ix, "prev": prev.hex(),
+            "sb": standby_index, "sig": sig.hex()}
+
+
+def verify_promotion_signature(ev, standby_keys) -> bool:
+    """True iff the evidence parses and is signed by the provisioned
+    standby it names — what a client can check without the chain."""
+    try:
+        gen, ix, sb = int(ev["gen"]), int(ev["ix"]), int(ev["sb"])
+        prev = bytes.fromhex(ev["prev"])
+        sig = bytes.fromhex(ev["sig"])
+    except (KeyError, TypeError, ValueError):
+        return False
+    pub = (standby_keys or {}).get(sb)
+    if pub is None:
+        return False
+    return verify_signature(pub, _promotion_evidence_bytes(gen, ix, prev,
+                                                           sb), sig)
+
+
+def verify_promotion_evidence(ev, ledger, standby_keys) -> bool:
+    """True iff `ev` proves a promotion past `ledger`'s generation on a
+    chain sharing this ledger's prefix, signed by a provisioned standby:
+    the signature, a generation above ours, and the chain binding (the
+    claimed head equals ours at the claimed position)."""
+    if not verify_promotion_signature(ev, standby_keys):
+        return False
+    gen, ix = int(ev["gen"]), int(ev["ix"])
+    if gen <= ledger.generation or not 0 <= ix <= ledger.log_size():
+        return False
+    return chain_head_at(ledger, ix) == bytes.fromhex(ev["prev"])
+
+
 def _aggregate_flat(global_flat: Dict[str, np.ndarray],
                     delta_flats: List[Dict[str, np.ndarray]],
                     weights: List[float], selected: List[int],
@@ -150,12 +224,24 @@ class LedgerServer:
                  host: str = "127.0.0.1", port: int = 0, *,
                  directory: Optional[PublicDirectory] = None,
                  ledger_backend: str = "auto",
+                 wal_path: str = "",
                  require_auth: bool = True,
                  stall_timeout_s: float = 10.0,
+                 resume_ledger=None,
+                 resume_blobs: Optional[Dict[bytes, bytes]] = None,
+                 sock: Optional[socket.socket] = None,
+                 standby_keys: Optional[Dict[int, bytes]] = None,
+                 promotion_evidence: Optional[dict] = None,
                  gas_budget_per_epoch: Optional[int] = None,
+                 quorum: int = 0,
+                 quorum_timeout_s: float = 5.0,
                  device: DeviceLike = None,
                  verbose: bool = False,
                  **unported):
+        """resume_ledger/resume_blobs/sock: the promotion surface — a
+        server over a standby's replayed ledger, its mirrored blobs, the
+        current model blob as `initial_model_blob`, and the socket it
+        bound at start, whose backlog holds the failed-over clients."""
         refuse_unported(unported, UNPORTED_SERVER_OPTIONS)
         cfg.validate()
         self.cfg = cfg
@@ -169,10 +255,13 @@ class LedgerServer:
         # point); subscribers and `wait` callers sleep on the condition
         self._lock = threading.RLock()
         self._cv = threading.Condition(self._lock)
-        self.ledger = make_ledger(cfg, backend=ledger_backend)
+        self.ledger = (resume_ledger if resume_ledger is not None
+                       else make_ledger(cfg, backend=ledger_backend))
+        if wal_path and not self.ledger.attach_wal(wal_path):
+            raise RuntimeError(f"cannot attach WAL at {wal_path}")
         # the merge engine on the server's device (B5 on the card)
         self.engine = engine_for(device)
-        self._blobs: Dict[bytes, bytes] = {}
+        self._blobs: Dict[bytes, bytes] = dict(resume_blobs or {})
         # payload hash -> the admitted delta's flattened row, staged at
         # admission for the mesh leg (re-derived from the blob if absent)
         self._staged: Dict[bytes, np.ndarray] = {}
@@ -184,6 +273,14 @@ class LedgerServer:
                             if gas_budget_per_epoch is None
                             else gas_budget_per_epoch)
         self._gas: Dict[str, Tuple[int, int]] = {}
+        # quorum-ack: per subscriber, the highest op it acked, the highest
+        # it was sent, whether its acks count, and its read endpoint
+        self._quorum = quorum
+        self._quorum_timeout_s = quorum_timeout_s
+        self._sub_acked: Dict[object, int] = {}
+        self._sub_sent: Dict[object, int] = {}
+        self._sub_eligible: Dict[object, bool] = {}
+        self._sub_read_ep: Dict[object, Tuple[str, int]] = {}
         self._last_seen: Dict[str, float] = {}
         self._replay = ReplayGuard()
         self._last_progress = time.monotonic()
@@ -193,11 +290,23 @@ class LedgerServer:
         self._t0 = time.monotonic()
         self.merge_log: List[dict] = []
         self._stop = threading.Event()
+        # accepted connections, shut down by close(): a closed writer is a
+        # dead one to every peer, as a killed process is
+        self._conns: set = set()
+        # set when verified promotion evidence shows a newer writer
+        self.fenced = threading.Event()
+        # index -> Ed25519 public bytes of the provisioned standbys: the
+        # only identities whose evidence can demote this writer
+        self._standby_keys: Dict[int, bytes] = dict(standby_keys or {})
+        self._promotion_evidence = promotion_evidence
         self._threads: List[threading.Thread] = []
-        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._sock.bind((host, port))
-        self._sock.listen(64)
+        if sock is not None:
+            self._sock = sock
+        else:
+            self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            self._sock.bind((host, port))
+            self._sock.listen(64)
         self.host, self.port = self._sock.getsockname()
 
     # ------------------------------------------------------------------ run
@@ -220,10 +329,16 @@ class LedgerServer:
         self._stop.set()
         with self._cv:
             self._cv.notify_all()
+            conns = list(self._conns)
         try:
             self._sock.close()
         except OSError:
             pass
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RD)   # replies in flight still go
+            except OSError:
+                pass
 
     def _accept_loop(self) -> None:
         while not self._stop.is_set():
@@ -231,6 +346,11 @@ class LedgerServer:
                 conn, _ = self._sock.accept()
             except OSError:
                 return
+            with self._cv:
+                if self._stop.is_set():
+                    conn.close()
+                    return
+                self._conns.add(conn)
             threading.Thread(target=self._serve_conn, args=(conn,),
                              daemon=True).start()
 
@@ -243,35 +363,99 @@ class LedgerServer:
                     return
                 method = msg.get("method", "")
                 if method == "subscribe":
-                    self._stream_ops(conn, int(msg.get("from", 0)))
+                    self._subscribe(conn, msg)
+                    return
+                if self._fenced_by(conn, msg):
                     return
                 try:
                     reply = self._dispatch(method, msg)
+                    post_size = reply.pop("_post_size", None)
+                    if self._quorum and post_size is not None and \
+                            not self._await_quorum(post_size):
+                        # the op is in the local chain but not provably on
+                        # quorum replicas: a signed retry is safe once the
+                        # followers catch up (DUPLICATE = progress)
+                        reply = {"ok": False,
+                                 "status": "REPLICATION_TIMEOUT",
+                                 "error": "op not yet on quorum replicas"}
                 except Exception as e:      # noqa: BLE001 — any dispatch
                     # failure (an aggregation error inside a scores call
                     # included) answers an error frame, so the caller is
                     # never left blocked on a dead connection thread
                     reply = {"ok": False, "error": f"{type(e).__name__}: {e}"}
                 reply.setdefault("gen", self.ledger.generation)
+                if self._promotion_evidence is not None:
+                    reply.setdefault("gen_ev", self._promotion_evidence)
                 send_msg(conn, reply)
         except (WireError, OSError):
             pass
         finally:
+            with self._cv:
+                self._conns.discard(conn)
             try:
                 conn.close()
             except OSError:
                 pass
 
-    def _stream_ops(self, conn: socket.socket, start: int) -> None:
-        """Push canonical op bytes from `start` on until the peer leaves.
-        A reader thread drains the subscriber's ack frames so an acking
-        follower never wedges on a full send buffer (acks count toward
-        nothing here: quorum-ack is not ported)."""
+    def _fenced_by(self, conn: socket.socket, msg: dict) -> bool:
+        """Demote on a fence above our generation that carries verified
+        promotion evidence: answer STALE_WRITER once, then close."""
+        try:
+            fence = int(msg.get("fence", -1))
+        except (TypeError, ValueError):
+            return False
+        ev = msg.get("fence_ev")
+        if fence <= self.ledger.generation or not isinstance(ev, dict):
+            return False
+        with self._lock:
+            verified = verify_promotion_evidence(ev, self.ledger,
+                                                 self._standby_keys)
+        if not verified:
+            return False
+        try:
+            send_msg(conn, {"ok": False, "status": "STALE_WRITER",
+                            "gen": self.ledger.generation,
+                            "observed_fence": fence})
+        finally:
+            self.fenced.set()
+            self.close()
+        return True
+
+    def _subscribe(self, conn: socket.socket, msg: dict) -> None:
+        start = int(msg.get("from", 0))
+        eligible = "sb" in msg and self._subscriber_handshake(conn, msg,
+                                                              start)
+        read_ep = None
+        if eligible and isinstance(msg.get("read_ep"), (list, tuple)):
+            # only an authenticated standby enters the read set
+            try:
+                read_ep = (str(msg["read_ep"][0]), int(msg["read_ep"][1]))
+            except (TypeError, ValueError, IndexError):
+                read_ep = None
+        self._stream_ops(conn, start, eligible, read_ep)
+
+    def _stream_ops(self, conn: socket.socket, start: int,
+                    quorum_eligible: bool,
+                    read_ep: Optional[Tuple[str, int]] = None) -> None:
+        """Push canonical op bytes from `start` on until the peer leaves,
+        an upload's payload blob or a commit's model blob riding its op's
+        frame.  A reader thread drains the subscriber's `{"ack": i}`
+        frames (unconditionally, so an acking follower never wedges on a
+        full send buffer) and wakes the quorum waiters."""
+        sub_id = object()
         with self._cv:
-            next_i = max(0, min(start, self.ledger.log_size()))
-        threading.Thread(target=self._ack_reader, args=(conn,),
+            # clamp the claimed start to the real log: a subscriber cannot
+            # ack (and fake durability for) ops it was never sent
+            start = max(0, min(start, self.ledger.log_size()))
+            self._sub_acked[sub_id] = -1
+            self._sub_sent[sub_id] = start - 1
+            self._sub_eligible[sub_id] = quorum_eligible
+            if read_ep is not None:
+                self._sub_read_ep[sub_id] = read_ep
+        threading.Thread(target=self._ack_reader, args=(conn, sub_id),
                          daemon=True).start()
         try:
+            next_i = start
             while not self._stop.is_set():
                 with self._cv:
                     size = self.ledger.log_size()
@@ -280,19 +464,127 @@ class LedgerServer:
                     if not ops:
                         self._cv.wait(timeout=0.5)
                         continue
+                    # the sent watermark moves before the lock-free send,
+                    # or an ack racing it would be clamped down and lost
+                    self._sub_sent[sub_id] = next_i + len(ops) - 1
                 for i, op in enumerate(ops):
-                    send_msg(conn, {"i": next_i + i, "op": op.hex()})
+                    frame = {"i": next_i + i, "op": op.hex()}
+                    blob = self._op_payload_blob(op)
+                    if blob is not None:
+                        frame["blob"] = blob
+                    send_msg(conn, frame)
                 next_i += len(ops)
         except (WireError, OSError):
             pass
+        finally:
+            with self._cv:
+                for table in (self._sub_acked, self._sub_sent,
+                              self._sub_eligible, self._sub_read_ep):
+                    table.pop(sub_id, None)
+                self._cv.notify_all()
 
-    def _ack_reader(self, conn: socket.socket) -> None:
+    def _op_payload_blob(self, op: bytes) -> Optional[bytes]:
+        """The blob a streamed op references, while this writer holds it:
+        an upload's payload, or a commit's new model (unless the data
+        plane's fast path is pinned off)."""
+        if not op or op[0] not in (OP_UPLOAD, OP_COMMIT):
+            return None
+        fields = decode_op(op)
+        with self._lock:
+            if op[0] == OP_COMMIT:
+                if data_plane_legacy() or \
+                        fields.get("model_hash") != self._model_hash.hex():
+                    return None
+                return self._model_blob
+            try:
+                return self._blobs.get(bytes.fromhex(
+                    fields.get("payload_hash", "")))
+            except ValueError:
+                return None
+
+    def _ack_reader(self, conn: socket.socket, sub_id: object) -> None:
         try:
             while not self._stop.is_set():
-                if recv_msg(conn) is None:
+                msg = recv_msg(conn)
+                if msg is None:
                     return
+                try:
+                    i = int(msg.get("ack", -1))
+                except (TypeError, ValueError):
+                    continue
+                with self._cv:
+                    if sub_id not in self._sub_acked:
+                        return
+                    i = min(i, self._sub_sent.get(sub_id, -1))
+                    if i > self._sub_acked[sub_id]:
+                        self._sub_acked[sub_id] = i
+                        self._cv.notify_all()
         except (WireError, OSError):
             return
+
+    def _await_quorum(self, post_size: int) -> bool:
+        """Block until `quorum` eligible subscribers acked through op
+        post_size - 1 (the requester's own op), or the timeout.  With no
+        standby keys provisioned every subscriber counts."""
+        tr = tracing.PROC
+        t0 = time.monotonic()
+        target = post_size - 1
+        deadline = t0 + self._quorum_timeout_s
+        held = False
+        with self._cv:
+            while not self._stop.is_set():
+                n = sum(1 for s, a in self._sub_acked.items()
+                        if a >= target and
+                        (self._sub_eligible.get(s, False)
+                         or not self._standby_keys))
+                if n >= self._quorum:
+                    held = True
+                    break
+                rem = deadline - time.monotonic()
+                if rem <= 0:
+                    break
+                self._cv.wait(rem)
+        if tr.enabled:
+            tr.charge("quorum.wait_s", time.monotonic() - t0)
+            tr.charge("quorum.waits")
+        return held
+
+    _SUB_MAGIC = b"BFLCSUB1"
+
+    def _subscriber_handshake(self, conn: socket.socket, msg: dict,
+                              start: int) -> bool:
+        """Challenge-response proof of a provisioned standby identity: the
+        subscriber signs (magic || fresh challenge || <Iq index, start>).
+        On any failure the peer still streams, without quorum
+        eligibility."""
+        try:
+            sb = int(msg.get("sb", -1))
+        except (TypeError, ValueError):
+            return False
+        pub = self._standby_keys.get(sb)
+        challenge = os.urandom(16)
+        try:
+            send_msg(conn, {"challenge": challenge.hex()})
+            conn.settimeout(10.0)
+            reply = recv_msg(conn)
+            conn.settimeout(None)
+        except (WireError, OSError):
+            return False
+        if pub is None or not isinstance(reply, dict):
+            return False
+        try:
+            sig = bytes.fromhex(reply.get("tag", ""))
+        except (TypeError, ValueError):
+            return False
+        return verify_signature(pub, self._SUB_MAGIC + challenge
+                                + struct.pack("<Iq", sb, start), sig)
+
+    def _read_set(self) -> List[Tuple[str, int]]:
+        """The read endpoints authenticated standbys advertised."""
+        if data_plane_legacy():
+            return []
+        with self._cv:
+            return sorted(set(self._sub_read_ep.values()))
 
     # ------------------------------------------------------------- dispatch
     def _touch(self, addr: str) -> None:
@@ -350,17 +642,28 @@ class LedgerServer:
                 "error": ("bad signature" if v == LedgerStatus.BAD_ARG
                           else "replayed tag")}
 
+    _MUTATING = ("register", "upload", "scores")
+
     def _dispatch(self, method: str, m: dict) -> dict:
         with self._lock:
             read = handle_read(
                 method, m, blob_lookup=self._blobs.get,
                 model_state=lambda: (self.ledger.epoch, self._model_hash,
-                                     self._model_blob))
+                                     self._model_blob),
+                read_set=self._read_set)
             if read is not None:
                 return read
             handler = getattr(self, "_m_" + method, None)
             if handler is not None:
-                return handler(m)
+                reply = handler(m)
+                if method in self._MUTATING and (
+                        reply.get("ok") or reply.get("status") in
+                        ("DUPLICATE", "ALREADY_REGISTERED")):
+                    # this op's chain position, taken under the lock: the
+                    # quorum wait targets the requester's own op, and an
+                    # "already in" retry waits too
+                    reply["_post_size"] = self.ledger.log_size()
+                return reply
             if method in _UNPORTED_METHODS:
                 return {"ok": False, "status": "BAD_ARG",
                         "error": f"{method!r} is not ported yet (ROADMAP "
@@ -493,7 +796,10 @@ class LedgerServer:
         from bflc_demo_tpu_torch.comm.identity import ED25519_BACKEND
         return {"ok": True, "launches": launch_counts(),
                 "engine": self.engine.report(), "merges": self.merge_log,
-                "ed25519_backend": ED25519_BACKEND}
+                "ed25519_backend": ED25519_BACKEND,
+                "gen": self.ledger.generation,
+                "writer_index": self.ledger.writer_index,
+                "started_mono": self._t0}
 
     def _m_log_range(self, m: dict) -> dict:
         start, end = int(m["start"]), int(m["end"])
@@ -615,6 +921,7 @@ class LedgerServer:
         merge_s = time.perf_counter() - t0
         self.merge_log.append({"epoch": epoch, "leg": self.engine.last_leg,
                                "t": self._last_progress - self._t0,
+                               "mono": self._last_progress,
                                "merge_s": merge_s})
         if tr.enabled:
             tr.charge("aggregate_s", merge_s)

@@ -4,6 +4,9 @@
 reference ledger's bit for bit on the same ops.  `backend` is the
 reference's: "auto" and "python" give the python ledger; "native", the
 reference's C++ `.so`, raises (ROADMAP A9: the native ledger).
+`clone_prefix` (reference :66-) is the rollback-to-prefix primitive a
+standby's promotion uses; a source compacted behind a snapshot does not
+exist here (ROADMAP A9: snapshots).
 """
 
 from __future__ import annotations
@@ -35,3 +38,16 @@ def make_ledger(cfg: ProtocolConfig = DEFAULT_PROTOCOL, *,
     cfg.validate()
     return PyLedger(cfg.client_num, cfg.comm_count, cfg.aggregate_count,
                     cfg.needed_update_count, cfg.genesis_epoch)
+
+
+def clone_prefix(src, upto: int, cfg: ProtocolConfig, *,
+                 backend: str = "auto") -> PyLedger:
+    """A fresh ledger that replayed ops[0..upto) of `src`.  Raises
+    RuntimeError if the prefix does not replay, which cannot happen on a
+    chain the source ledger itself accepted."""
+    fresh = make_ledger(cfg, backend=backend)
+    for j in range(upto):
+        st = fresh.apply_op(src.log_op(j))
+        if st != LedgerStatus.OK:
+            raise RuntimeError(f"prefix replay rejected op {j}: {st.name}")
+    return fresh

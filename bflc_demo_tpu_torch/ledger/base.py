@@ -5,7 +5,10 @@ codes, the record views and the register/upload/scores/commit encoders,
 byte for byte (the encoders define the op bytes the hash chain covers),
 the encoders of the stall detector's recovery ops (close_round,
 force_aggregate, reseat_committee), which the reference writes inline
-in `ledger/pyledger.py:404-460`, and
+in `ledger/pyledger.py:404-460`, the writer promotion fence (opcode 8,
+written inline at `ledger/pyledger.py:466-488`), `decode_op`, the op
+decoder of `ledger/tool.py:85-168` for opcodes 1-8 (the standby reads an
+upload's payload hash and a commit's model hash with it), and
 `staleness_weight`, the FedBuff merge weight the certified merge's
 checker draws (`meshagg/check.py`).  Dropped:
 the async (`OP_AUPLOAD`/`OP_ASCORES`/`OP_ACOMMIT`) and genome (`OP_GENOME`)
@@ -24,7 +27,11 @@ from typing import List, Sequence
 import numpy as np
 
 OP_REGISTER, OP_UPLOAD, OP_SCORES, OP_COMMIT = 1, 2, 3, 4
-OP_CLOSE, OP_FORCE, OP_RESEAT = 5, 6, 7
+OP_CLOSE, OP_FORCE, OP_RESEAT, OP_PROMOTE = 5, 6, 7, 8
+OP_NAMES = {OP_REGISTER: "register", OP_UPLOAD: "upload",
+            OP_SCORES: "scores", OP_COMMIT: "commit",
+            OP_CLOSE: "close_round", OP_FORCE: "force_aggregate",
+            OP_RESEAT: "reseat_committee", OP_PROMOTE: "promote_writer"}
 
 
 def staleness_weight(staleness: int) -> float:
@@ -85,6 +92,62 @@ def encode_reseat_op(epoch: int, addrs: Sequence[str]) -> bytes:
     for a in addrs:
         _put_str(op, a)
     return bytes(op)
+
+
+def encode_promote_op(generation: int, writer_index: int) -> bytes:
+    return bytes([OP_PROMOTE]) + struct.pack("<qq", generation, writer_index)
+
+
+def decode_op(op: bytes) -> dict:
+    """One op's fields, rendered as the reference's `ledger/tool.py`
+    does; no state rules applied.  Opcodes 1-8; others are named
+    unknown, and a malformed body adds `malformed`."""
+    if not op:
+        return {"op": "empty"}
+    code, body = op[0], op[1:]
+    out = {"op": OP_NAMES.get(code, f"unknown({code})"), "bytes": len(op)}
+
+    def s_at(off):
+        (n,) = struct.unpack_from("<q", body, off)
+        if n < 0 or off + 8 + n > len(body):
+            raise ValueError("string past end of op")
+        return body[off + 8:off + 8 + n].decode(), off + 8 + n
+
+    try:
+        if code == OP_REGISTER:
+            out["addr"], _ = s_at(0)
+        elif code == OP_UPLOAD:
+            out["sender"], off = s_at(0)
+            out["payload_hash"] = body[off:off + 32].hex()
+            out["n_samples"], = struct.unpack_from("<q", body, off + 32)
+            out["avg_cost"] = round(
+                struct.unpack_from("<f", body, off + 40)[0], 6)
+            out["epoch"], = struct.unpack_from("<q", body, off + 44)
+        elif code == OP_SCORES:
+            out["sender"], off = s_at(0)
+            out["epoch"], = struct.unpack_from("<q", body, off)
+            cnt, = struct.unpack_from("<q", body, off + 8)
+            out["scores"] = [round(v, 4) for v in
+                             struct.unpack_from(f"<{cnt}f", body, off + 16)]
+        elif code == OP_COMMIT:
+            out["model_hash"] = body[:32].hex()
+            out["epoch"], = struct.unpack_from("<q", body, 32)
+        elif code in (OP_CLOSE, OP_FORCE):
+            out["epoch"], = struct.unpack_from("<q", body, 0)
+        elif code == OP_RESEAT:
+            out["epoch"], = struct.unpack_from("<q", body, 0)
+            n, = struct.unpack_from("<q", body, 8)
+            off, addrs = 16, []
+            for _ in range(max(0, min(n, (len(body) - 16) // 8))):
+                a, off = s_at(off)
+                addrs.append(a)
+            out["committee"] = addrs
+        elif code == OP_PROMOTE:
+            out["generation"], = struct.unpack_from("<q", body, 0)
+            out["writer_index"], = struct.unpack_from("<q", body, 8)
+    except (struct.error, ValueError, UnicodeDecodeError) as e:
+        out["malformed"] = f"{type(e).__name__}: {e}"
+    return out
 
 
 class LedgerStatus(enum.IntEnum):

@@ -1,42 +1,51 @@
 """Pure-Python committee ledger — the synchronous subset.
 
 Copy of `bflc_demo_tpu/ledger/pyledger.py:PyLedger`, cut to what the
-host, threaded and process runtimes drive: `register_node`,
-`query_state`, `upload_local_update`, `upload_scores`,
-`query_all_updates`, `aggregate_ready`, `pending`, `commit_model`; the
-stall detector's recovery ops `close_round` (:404), `force_aggregate`
-(:422) and `reseat_committee` (:437) with `round_closed` (:462); the
-inspection properties (`num_registered` :945, `last_disagreement` :922,
-which stays 0.0 without the closed compression loop); the SHA-256 op-log
-chain (`_append_log`, `log_head`, `log_size`, `verify_log`, `log_op`,
-`head_at`); and `apply_op` (:1207), the replica's replay, for opcodes 1-7.
-Same op bytes, same statuses, same median / rank / election order, so
-the same op sequence gives the same chain head as the reference ledger,
-bit for bit.
+host, threaded and process runtimes and the fleet's standbys drive:
+`register_node`, `query_state`, `query_global_model`,
+`upload_local_update`, `upload_scores`, `query_all_updates`,
+`aggregate_ready`, `pending`, `commit_model`; the stall detector's
+recovery ops `close_round` (:404), `force_aggregate` (:422) and
+`reseat_committee` (:437) with `round_closed` (:462); the writer fence
+`promote_writer` (opcode 8, :466-488) with `generation` and
+`writer_index` read from the chain; the inspection properties
+(`num_registered` :945, `last_disagreement` :922, which stays 0.0
+without the closed compression loop); the SHA-256 op-log chain
+(`_append_log`, `log_head`, `log_size`, `verify_log`, `log_op`,
+`head_at`); the write-ahead log in the `BFLCWAL1` format byte for byte
+(`attach_wal`, `save_wal`, `detach_wal`, `replay_wal`, :148-253: a
+failed journal write detaches the WAL and the ledger keeps serving);
+and `apply_op` (:1207), the replica's replay, for opcodes 1-8.  Same op
+bytes, same statuses, same median / rank / election order, so the same
+op sequence gives the same chain head as the reference ledger, bit for
+bit.
 
-Writer fencing is not ported (ROADMAP A9, standbys): `generation` and
-`writer_index` read 0, a writer without standbys, and `promote_writer`
-and its opcode 8 are absent.  Not ported either, each with its own A9
-item: the asynchronous buffered family (10-12), genome updates (13),
-the blocked commit tail, the WAL, snapshots and compaction (opcode 9).
-`apply_op` refuses those opcodes with BAD_ARG, as the reference does an
-unknown one.  The native `.so` is not bound.
+Not ported, each with its own A9 item: the asynchronous buffered family
+(10-12), genome updates (13), the blocked commit tail, snapshots and
+compaction (opcode 9, the compacted `BFLCWAL2` journal and
+`compact_wal`, which raise naming "A9 (snapshots)").  `apply_op` refuses
+those opcodes with BAD_ARG, as the reference does an unknown one.  The
+native `.so` is not bound.
 """
 
 from __future__ import annotations
 
 import hashlib
 import math
+import os
 import struct
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from bflc_demo_tpu_torch.ledger.base import (
-    OP_CLOSE, OP_COMMIT, OP_FORCE, OP_REGISTER, OP_RESEAT, OP_SCORES,
-    OP_UPLOAD, LedgerStatus, PendingInfo, UpdateInfo, encode_close_op,
-    encode_commit_op, encode_force_op, encode_register_op, encode_reseat_op,
-    encode_scores_op, encode_upload_op)
+    OP_CLOSE, OP_COMMIT, OP_FORCE, OP_PROMOTE, OP_REGISTER, OP_RESEAT,
+    OP_SCORES, OP_UPLOAD, LedgerStatus, PendingInfo, UpdateInfo,
+    encode_close_op, encode_commit_op, encode_force_op, encode_promote_op,
+    encode_register_op, encode_reseat_op, encode_scores_op, encode_upload_op)
+
+_SNAPSHOTS = ("the compacted journal (BFLCWAL2) is not ported yet "
+              "(ROADMAP A9 (snapshots))")
 
 
 class PyLedger:
@@ -49,6 +58,7 @@ class PyLedger:
         self.genesis_epoch = genesis_epoch
 
         self._epoch = genesis_epoch
+        self._model_hash = b"\0" * 32
         self._last_loss = 0.0
         self._reg_order: List[str] = []
         self._roles: Dict[str, str] = {}
@@ -57,8 +67,12 @@ class PyLedger:
         self._scores: Dict[str, List[float]] = {}
         self._pending: Optional[PendingInfo] = None
         self._closed = False
+        self._generation = 0
+        self._writer_index = 0
         self._ops: List[bytes] = []
         self._log: List[bytes] = []
+        self._wal = None
+        self._wal_path = ""
 
     # --- log plumbing (matches the reference's append_log) ---
     def _append_log(self, op: bytes) -> None:
@@ -68,6 +82,81 @@ class PyLedger:
         h.update(op)
         self._ops.append(op)
         self._log.append(h.digest())
+        if self._wal is not None:
+            # a failed write detaches the journal: the state machine keeps
+            # serving, observably un-journaled
+            try:
+                self._wal.write(struct.pack("<Q", len(op)) + op)
+                self._wal.flush()
+            except OSError:
+                self.detach_wal()
+
+    # --- write-ahead log (the reference's BFLCWAL1 format) ---
+    _WAL_MAGIC = b"BFLCWAL1"
+    _WAL2_MAGIC = b"BFLCWAL2"
+
+    def attach_wal(self, path: str) -> bool:
+        """Journal to `path`: the ops so far, then every later one."""
+        self.detach_wal()
+        try:
+            f = open(path, "wb")
+        except OSError:
+            return False
+        self._write_wal_body(f)
+        self._wal = f
+        self._wal_path = path
+        return True
+
+    def _write_wal_body(self, f) -> None:
+        f.write(self._WAL_MAGIC)
+        for op in self._ops:
+            f.write(struct.pack("<Q", len(op)) + op)
+        f.flush()
+
+    def save_wal(self, path: str) -> None:
+        """One-shot journal write to `path`, tmp-then-rename, without
+        attaching.  Raises OSError with `path` untouched."""
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            self._write_wal_body(f)
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    def detach_wal(self) -> None:
+        if self._wal is not None:
+            self._wal.close()
+            self._wal = None
+            self._wal_path = ""
+
+    def compact_wal(self) -> bool:
+        raise NotImplementedError(_SNAPSHOTS)
+
+    def replay_wal(self, path: str) -> int:
+        """Apply every record of the journal at `path`; returns how many.
+        A torn trailing record ends the replay; an op the state machine
+        refuses raises ValueError."""
+        try:
+            with open(path, "rb") as f:
+                blob = f.read()
+        except OSError as e:
+            raise ValueError(
+                f"not a bflc WAL (or unreadable): {path}") from e
+        if blob.startswith(self._WAL2_MAGIC):
+            raise NotImplementedError(f"{path}: {_SNAPSHOTS}")
+        if not blob.startswith(self._WAL_MAGIC):
+            raise ValueError(f"not a bflc WAL (or unreadable): {path}")
+        off = len(self._WAL_MAGIC)
+        applied = 0
+        while off + 8 <= len(blob):
+            (n,) = struct.unpack_from("<Q", blob, off)
+            if n > (1 << 26) or off + 8 + n > len(blob):
+                break                      # torn/corrupt trailing record
+            op = blob[off + 8:off + 8 + n]
+            off += 8 + n
+            if self.apply_op(op) != LedgerStatus.OK:
+                raise ValueError(f"WAL replay rejected op {applied}: {path}")
+            applied += 1
+        return applied
 
     # --- protocol surface ---
     def register_node(self, addr: str) -> LedgerStatus:
@@ -87,6 +176,9 @@ class PyLedger:
 
     def query_state(self, addr: str) -> Tuple[str, int]:
         return self._roles.get(addr, "trainer"), self._epoch
+
+    def query_global_model(self) -> Tuple[bytes, int]:
+        return self._model_hash, self._epoch
 
     def upload_local_update(self, sender: str, payload_hash: bytes,
                             n_samples: int, avg_cost: float,
@@ -195,14 +287,25 @@ class PyLedger:
     def round_closed(self) -> bool:
         return self._closed
 
-    # writer fencing is the standby item's: a writer without standbys
+    # --- writer fencing (the split-brain defense) ---
+    def promote_writer(self, generation: int,
+                       writer_index: int) -> LedgerStatus:
+        """Record a writer promotion in the chain.  The fence advances by
+        exactly one per promotion; valid at any epoch, genesis included."""
+        if generation != self._generation + 1 or writer_index < 0:
+            return LedgerStatus.BAD_ARG
+        self._generation = generation
+        self._writer_index = writer_index
+        self._append_log(encode_promote_op(generation, writer_index))
+        return LedgerStatus.OK
+
     @property
     def generation(self) -> int:
-        return 0
+        return self._generation
 
     @property
     def writer_index(self) -> int:
-        return 0
+        return self._writer_index
 
     def _finish_scoring(self) -> None:
         k = len(self._updates)
@@ -243,6 +346,7 @@ class PyLedger:
             return LedgerStatus.NOT_READY
         if epoch != self._epoch:
             return LedgerStatus.WRONG_EPOCH
+        self._model_hash = bytes(new_model_hash)
         self._last_loss = self._pending.global_loss
         for a in self._roles:
             self._roles[a] = "trainer"
@@ -313,7 +417,7 @@ class PyLedger:
 
     # --- replay (the replica path) ---
     def apply_op(self, op: bytes) -> LedgerStatus:
-        """Deterministic replay of a serialized op, opcodes 1-7; every
+        """Deterministic replay of a serialized op, opcodes 1-8; every
         other opcode (and a malformed body) is BAD_ARG."""
         if not op:
             return LedgerStatus.BAD_ARG
@@ -372,6 +476,9 @@ class PyLedger:
                     a, off = _str_at(off)
                     addrs.append(a)
                 return self.reseat_committee(addrs)
+            if code == OP_PROMOTE:
+                gen, idx = struct.unpack_from("<qq", body, 0)
+                return self.promote_writer(gen, idx)
         except (struct.error, UnicodeDecodeError, IndexError):
             return LedgerStatus.BAD_ARG
         return LedgerStatus.BAD_ARG

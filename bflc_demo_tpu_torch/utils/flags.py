@@ -8,11 +8,13 @@ keeps its own protocol (`parse_protocol` returns None).  As in the
 reference, an override starts from `ProtocolConfig()`'s defaults, not
 from the preset's.
 
-The reference's other run options belong to parts not ported yet.  Each
-such flag is accepted by the parser so that the CLI can refuse it by
-name (exit 2 with the ROADMAP item) rather than fail on an unknown
-argument or drop it: the process fleet's other flags and the codecs'
-(A9; `--ledger-backend` is ported: auto and python, native exits 2),
+The process fleet's `--standbys N` and `--quorum Q` are ported (the
+processes runtime's hot standbys and quorum-ack).  The reference's
+other run options belong to parts not ported yet.  Each such flag is
+accepted by the parser so that the CLI can refuse it by name (exit 2
+with the ROADMAP item) rather than fail on an unknown argument or drop
+it: the process fleet's other flags and the codecs' (A9;
+`--ledger-backend` is ported: auto and python, native exits 2),
 checkpoints and the device profiler (A11), secure aggregation (A12),
 and traces, plots and telemetry (A14).  So are the
 reference's protocol fields that the port's `ProtocolConfig` does not
@@ -39,7 +41,7 @@ UNPORTED_FIELDS = ("delta_dtype", "delta_density", "delta_codec",
 # reference run options -> the ROADMAP item that ports them
 UNPORTED_OPTIONS: Dict[str, str] = {
     **{name: "A9" for name in (
-        "standbys", "tls_dir", "quorum", "bft_validators",
+        "tls_dir", "bft_validators",
         "cells", "cell_size", "attest_scores", "chaos_seed", "chaos_profile",
         "rederive", "snapshot_interval", "snapshot_dir", "error_feedback",
         *UNPORTED_FIELDS)},
@@ -81,6 +83,12 @@ def add_flags(p: argparse.ArgumentParser) -> None:
                    choices=("auto", "python", "native"),
                    help="ledger backend (auto/python: the python ledger; "
                         "native is ROADMAP A9)")
+    p.add_argument("--standbys", type=int, default=0,
+                   help="processes runtime: hot standbys that promote "
+                        "when the writer dies")
+    p.add_argument("--quorum", type=int, default=0,
+                   help="processes runtime: acknowledge a mutation once "
+                        "Q standbys applied it (needs --standbys >= Q+1)")
     for name, item in UNPORTED_OPTIONS.items():
         p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True,
                        default=None, help=f"not ported yet (ROADMAP {item})")

@@ -131,7 +131,28 @@ each; any failure raises and exits non-zero:
              writer's phase split
              (`aggregate_s`, `aggregate.engine_s`, signature checks) and
              the clients' (train, score, signing), beside the card's name
-             and power limit.
+             and power limit.  Then writer failover: (a) in threads, a
+             writer and a standby on `cuda` at config 5's protocol and
+             width (P = 535,298, 10 admitted deltas, quorum-ack 1), the
+             writer closed after the uploads, the scores committing on
+             the promoted standby through B5: its model bytes against
+             the CPU host leg's over the same signed script, its B5
+             launches (at least 1), the promotion's and the first
+             merge's seconds and each upload's reply seconds with and
+             without the standby; (b) the reference's process drill
+             (tests/test_failover.py:293-315: 1,500 rows, 1 standby, the
+             primary SIGKILLed at epoch 2 of 4, 1 replica, best above
+             0.80); (c) config 5 at full width with 2 standbys, quorum-ack
+             1 and the kill at epoch 2, 5 rounds, best 0.9, K1-K3 in the
+             clients.  Each drill holds the replica at the promoted
+             writer's head and every merge after the kill to B5, and
+             prints the kill's epoch, the promotion's seconds, the
+             failover gap (SIGKILL to the promoted writer's first
+             commit), that merge's seconds and the warm ones, the rounds
+             before and after the kill, the primary's quorum waits, the
+             standby's mirror work, both writers' send bytes and seconds
+             and where the clients' reads were served; B5's launches by
+             writer role ride the `kernels` line (`launches_by_role`).
 
 Then the `kernels` line and, last, {"ok": true, "device": {...}}.
 Without a card, or without the package beside it, it exits non-zero and
@@ -152,7 +173,8 @@ the same way.
 
     python3 chip_smoke.py --processes
 
-runs only the build and phase 10, the process fleet.
+runs only the build and phase 10, the process fleet and its failover
+runs.
 """
 
 from __future__ import annotations
@@ -278,6 +300,21 @@ FLEET_PROTO = dict(client_num=6, comm_count=2, aggregate_count=2,
 FLEET_SHARD, FLEET_ROUNDS, FLEET_REPLICAS, FLEET_MIN_BEST = 250, 4, 3, 0.85
 FLEET_CRASH = {0: 1, 5: 1}
 FLEET_TIMEOUT_S = 300.0
+# the failover runs: the reference's process drill (tests/test_failover.py
+# :293-315: the fleet's protocol, 1,500 occupancy rows, 1 standby, the
+# primary SIGKILLed at epoch 2 of 4, 1 replica, best above 0.80), and
+# config 5 at full width with 2 standbys and quorum-ack 1
+FAILOVER_ROWS, FAILOVER_ROUNDS, FAILOVER_MIN_BEST = 1500, 4, 0.80
+FAILOVER_DRILL = dict(standbys=1, kill_writer_at_epoch=2, replicas=1,
+                      stall_timeout_s=20.0)
+CONFIG5_FAILOVER = dict(standbys=2, quorum=1, kill_writer_at_epoch=2,
+                        replicas=1)
+CONFIG5_PROTO = dict(client_num=20, comm_count=4, aggregate_count=6,
+                     needed_update_count=10, learning_rate=0.05,
+                     batch_size=16, local_epochs=1)
+CONFIG5_ARCH = dict(vocab_size=1000, seq_len=64, num_classes=2, dim=128,
+                    depth=2, heads=4)
+CONFIG5_PARAMS = 535_298
 
 
 def reset_counts() -> None:
@@ -1404,18 +1441,25 @@ def round_seconds(epoch_times) -> list:
 def fleet_account(label: str, card: str, kernel_launches: dict,
                   engine: dict, perf: dict, epoch_times, spawn_s: float,
                   merges: list, accuracy, replicas_ok: bool,
-                  **extra) -> dict:
+                  primary: dict = None, **extra) -> tuple:
     """Emit one fleet run's account and hold the merge to B5; return the
-    main path's launches (every role's, the self-check's B5 launches
-    taken out: they compare B5 with the host leg)."""
+    main path's launches (every role's, the self-checks' B5 launches
+    taken out: they compare B5 with the host leg) and its B5 launches by
+    writer role.  `primary` is a failover drill's primary writer's
+    `kernels` reply from just before its kill: `kernel_launches`'
+    "writer" is then the promoted one."""
     writer = kernel_launches.get("writer", {})
-    roles = {r: c for r, c in kernel_launches.items()}
     check = (engine or {}).get("selfcheck_launches", 0)
+    roles = dict(kernel_launches)
+    checks = check
+    if primary is not None:
+        roles["primary"] = primary["launches"]
+        checks += primary["engine"].get("selfcheck_launches", 0)
     total = {}
     for counts in roles.values():
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
-    total["certified_reduce"] = total.get("certified_reduce", 0) - check
+    total["certified_reduce"] = total.get("certified_reduce", 0) - checks
     clients = {}
     for r, counts in roles.items():
         if r.startswith("client-"):
@@ -1424,6 +1468,12 @@ def fleet_account(label: str, card: str, kernel_launches: dict,
     costs = (perf or {}).get("costs", {})
     rounds = len(merges)
     commit_t = [m["t"] for m in merges]
+    b5 = writer.get("certified_reduce", 0) - check
+    by_role = {"promoted_writer" if primary is not None else "writer": b5}
+    if primary is not None:
+        by_role["writer"] = (primary["launches"].get("certified_reduce", 0)
+                             - primary["engine"].get("selfcheck_launches",
+                                                     0))
     emit("processes", path=label, nvidia_smi=card, accuracy=accuracy,
          spawn_s=spawn_s, epoch_times=epoch_times,
          sponsor_round_s=round_seconds(epoch_times),
@@ -1435,20 +1485,49 @@ def fleet_account(label: str, card: str, kernel_launches: dict,
          writer_perf=costs, writer_engine=engine,
          launches=total, client_launches=clients,
          writer_launches=writer, selfcheck_b5_launches=check,
+         b5_by_role=by_role,
          per_round={k: v / max(rounds, 1) for k, v in clients.items()},
          **extra)
-    b5 = writer.get("certified_reduce", 0) - check
     if not replicas_ok or (engine or {}).get("last_leg") != "mesh" or \
             (engine or {}).get("selfcheck") != "ok" or b5 <= 0:
         raise RuntimeError(f"{label}: replicas at the writer head "
                            f"{replicas_ok}, engine {engine}, B5 launches "
                            f"in the writer past the self-check {b5}")
-    return total
+    return total, by_role
+
+
+def failover_account(res) -> dict:
+    """A drill's failover numbers: the kill, the promoted writer's start
+    and first commit after it, rounds before and after it, the quorum
+    waits and the standby's mirror work, and where the reads went."""
+    fo = dict(res.failover)
+    primary_info = fo.pop("primary_info") or {}
+    fo.pop("primary_kernels", None)
+    after = [m for m in res.writer_merges if m["mono"] > fo["kill_mono"]]
+    reads = {}
+    for counts in res.client_reads.values():
+        for k, n in counts.items():
+            reads[k] = reads.get(k, 0) + n
+    primary_costs = (primary_info.get("perf") or {}).get("costs", {})
+    promoted_costs = ((res.final_info or {}).get("perf") or {}).get(
+        "costs", {})
+    return dict(fo, rounds_before_kill=primary_info.get("rounds_completed"),
+        rounds_after_kill=len(after),
+        quorum_wait_s=primary_costs.get("quorum.wait_s"),
+        quorum_waits=primary_costs.get("quorum.waits"),
+        primary_bytes_out=primary_costs.get("wire.bytes_out"),
+        primary_send_s=primary_costs.get("wire.send_s"),
+        promoted_bytes_out=promoted_costs.get("wire.bytes_out"),
+        promoted_send_s=promoted_costs.get("wire.send_s"),
+        standby_costs={k: v for k, v in promoted_costs.items()
+                       if k.startswith("standby.")},
+        client_reads=reads)
 
 
 def fleet_run(torch, label: str, card: str, run) -> tuple:
     """`run()` between a reset and a read of the launch counts, with the
-    fleet's environment; returns (result, main-path launches)."""
+    fleet's environment; returns (result, main-path launches, B5 by
+    writer role)."""
     reset_counts()
     with fleet_env():
         res = run()
@@ -1456,43 +1535,210 @@ def fleet_run(torch, label: str, card: str, run) -> tuple:
     ok = bool(res.replica_reports) and all(
         r["ok"] and r["head"] == res.ledger_log_head
         for r in res.replica_reports)
-    total = fleet_account(
+    extra = {}
+    primary = None
+    if res.failover is not None:
+        extra["failover"] = failover_account(res)
+        primary = res.failover.get("primary_kernels")
+    total, by_role = fleet_account(
         label, card, res.kernel_launches, res.writer_engine,
         (res.final_info or {}).get("perf"), res.epoch_times, res.spawn_s,
         res.writer_merges, [a for _, a in res.accuracy_history], ok,
-        client_perf=res.client_perf, wall_s=res.wall_time_s,
-        ed25519_backend=res.ed25519_backend,
+        primary=primary, client_perf=res.client_perf,
+        wall_s=res.wall_time_s, ed25519_backend=res.ed25519_backend,
         ledger_log_size=res.ledger_log_size,
-        recovered_clients=res.recovered_clients)
-    return res, total
+        recovered_clients=res.recovered_clients, **extra)
+    return res, total, by_role
 
 
-def processes_phase(torch, card: str) -> dict:
+def _signed_script(cfg, wallets, init_blob: bytes, deltas, device: str,
+                   standby: bool):
+    """Round 0 of a signed config-5 script against a writer on `device`
+    (threads): every client registers, the first `needed_update_count`
+    trainers upload `deltas`, the committee scores.  With `standby` a
+    standby on the same device follows it with quorum-ack 1 and the
+    writer is closed after the uploads: the standby promotes and the
+    scores commit on it.  Returns (model blob, the committing server,
+    each upload's reply seconds, close-to-promoted seconds)."""
+    import hashlib
+    import struct
+    import threading
+
+    from bflc_demo_tpu_torch.comm.failover import FailoverClient, Standby
+    from bflc_demo_tpu_torch.comm.identity import Wallet, _op_bytes
+    from bflc_demo_tpu_torch.comm.ledger_service import LedgerServer
+    from bflc_demo_tpu_torch.comm.wire import blob_bytes
+
+    def sign(w, kind, epoch, payload):
+        return w.sign(_op_bytes(kind, w.address, epoch, payload)).hex()
+
+    sbw = Wallet.from_seed(b"chip-failover-standby-1")
+    keys = {1: sbw.public_bytes}
+    srv = LedgerServer(cfg, init_blob, stall_timeout_s=300.0, device=device,
+                       standby_keys=keys, quorum=1 if standby else 0,
+                       quorum_timeout_s=120.0)
+    srv.start()
+    eps = [(srv.host, srv.port)]
+    sb = None
+    if standby:
+        sb = Standby(cfg, [(srv.host, srv.port), ("127.0.0.1", 0)], 1,
+                     stall_timeout_s=300.0, wallet=sbw, standby_keys=keys,
+                     device=device)
+        sb.endpoints[1] = (sb.host, sb.port)
+        eps.append((sb.host, sb.port))
+        threading.Thread(target=sb.run, daemon=True).start()
+    client = FailoverClient(eps, timeout_s=300.0, standby_keys=keys)
+    try:
+        deadline = time.monotonic() + 60
+        while standby and not any(srv._sub_eligible.values()):
+            if time.monotonic() > deadline:
+                raise RuntimeError("failover_merge: the standby never "
+                                   "subscribed")
+            time.sleep(0.05)
+        for w in wallets:
+            r = client.request("register", addr=w.address,
+                               pubkey=w.public_bytes.hex(),
+                               tag=sign(w, "register", 0, b""))
+            if not r["ok"]:
+                raise RuntimeError(f"failover_merge: register {r}")
+        committee = set(client.request("committee")["committee"])
+        trainers = [w for w in wallets if w.address not in committee]
+        upload_s = []
+        for i, w in enumerate(trainers[: cfg.needed_update_count]):
+            blob = deltas[i]
+            digest = hashlib.sha256(blob).digest()
+            payload = digest + struct.pack("<qd", 100 + i, 1.0)
+            t0 = time.perf_counter()
+            r = client.request("upload", addr=w.address, blob=blob,
+                               hash=digest.hex(), n=100 + i, cost=1.0,
+                               epoch=0, tag=sign(w, "upload", 0, payload))
+            upload_s.append(time.perf_counter() - t0)
+            if not r["ok"]:
+                raise RuntimeError(f"failover_merge: upload {r}")
+        promote_s = None
+        if sb is not None:
+            # quorum 1: every acknowledged upload is on the standby
+            t0 = time.perf_counter()
+            srv.close()
+            if not sb.promoted.wait(timeout=120):
+                raise RuntimeError("failover_merge: no promotion")
+            promote_s = time.perf_counter() - t0
+        n = cfg.needed_update_count
+        for j, w in enumerate([w for w in wallets
+                               if w.address in committee]):
+            scores = [0.5 + 0.01 * ((j + u) % 7) for u in range(n)]
+            r = client.request(
+                "scores", addr=w.address, epoch=0, scores=scores,
+                tag=sign(w, "scores", 0, struct.pack(f"<{n}d", *scores)))
+            if not r["ok"]:
+                raise RuntimeError(f"failover_merge: scores {r}")
+        r = client.request("model")
+        if r.get("epoch") != 1:
+            raise RuntimeError(f"failover_merge: no commit ({r.get('epoch')})")
+        return (blob_bytes(r["blob"]), sb.server if sb else srv, upload_s,
+                promote_s)
+    finally:
+        client.close()
+        if sb is not None:
+            sb.stop()
+        srv.close()
+
+
+def failover_merge_phase(torch, card: str) -> tuple:
+    """B5 on a promoted writer, in threads on the card: a writer and a
+    standby on `cuda`, config 5's protocol and width (P = 535,298, 10
+    admitted deltas), the writer closed after the uploads, the scores
+    committing on the promoted standby through the engine's mesh leg
+    (`BFLC_MESH_AGG_MIN=1`).  Its model bytes must equal the CPU host
+    leg's over the same signed script.  Returns (launches, B5 launches
+    of the promoted writer)."""
+    from bflc_demo_tpu_torch.comm.identity import provision_wallets
+    from bflc_demo_tpu_torch.meshagg.engine import ENGINE
+    from bflc_demo_tpu_torch.models import make_transformer_classifier
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig
+    from bflc_demo_tpu_torch.utils.serialization import (pack_entries,
+                                                         pack_pytree,
+                                                         unpack_pytree)
+
+    cfg = ProtocolConfig(**CONFIG5_PROTO)
+    model = make_transformer_classifier(**CONFIG5_ARCH)
+    init = pack_pytree(model.init_params(0, "cpu"))
+    flat = unpack_pytree(init)
+    n_params = sum(int(a.size) for a in flat.values())
+    if n_params != CONFIG5_PARAMS:
+        raise RuntimeError(f"failover_merge: {n_params} params")
+    rng = np.random.default_rng(5)
+    deltas = [pack_entries({k: (rng.standard_normal(a.shape) * 0.01).astype(
+        np.float32) for k, a in flat.items()})
+        for _ in range(cfg.needed_update_count)]
+    wallets, _ = provision_wallets(cfg.client_num, b"chip-failover-merge-1")
+    # the CPU host leg (10 deltas, below the default min batch of 16)
+    want, cpu_srv, cpu_upload_s, _ = _signed_script(
+        cfg, wallets, init, deltas, "cpu", standby=False)
+    if cpu_srv.engine.last_leg != "host":
+        raise RuntimeError(f"failover_merge: CPU leg "
+                           f"{cpu_srv.engine.last_leg}")
+    check_before = ENGINE.report()["selfcheck"]
+    reset_counts()
+    with fleet_env():
+        got, promoted, upload_s, promote_s = _signed_script(
+            cfg, wallets, init, deltas, "cuda", standby=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check = (ENGINE.selfcheck_launches if check_before == "untested"
+             else 0)
+    counts["certified_reduce"] -= check
+    b5 = counts["certified_reduce"]
+    merge = promoted.merge_log[0]
+    emit("failover_merge", nvidia_smi=card, params=n_params,
+         deltas=len(deltas), bytes_equal_host_leg=got == want,
+         leg=merge["leg"], promote_s=promote_s, first_merge_s=merge["merge_s"],
+         engine_selfcheck_before=check_before, selfcheck_b5_launches=check,
+         b5_launches=b5, upload_s_quorum1=upload_s,
+         upload_s_cpu_no_standby=cpu_upload_s, launches=counts)
+    if got != want or merge["leg"] != "mesh" or b5 < 1 or \
+            promoted.ledger.generation != 1:
+        raise RuntimeError(f"failover_merge: bytes equal {got == want}, leg "
+                           f"{merge['leg']}, B5 launches {b5}, generation "
+                           f"{promoted.ledger.generation}")
+    return counts, b5
+
+
+def processes_phase(torch, card: str) -> tuple:
     """The process fleet on the card: the reference's process test, config
-    1 through the CLI, config 5 at full width and the crash case.
-    Returns {path: launches}."""
+    1 through the CLI, config 5 at full width, the crash case, B5 on a
+    promoted writer in threads, the reference's failover drill and
+    config 5's failover with quorum-ack.  Returns ({path: launches},
+    {writer role: B5 launches})."""
     from bflc_demo_tpu_torch.client.process_runtime import \
         run_federated_processes
     from bflc_demo_tpu_torch.data import iid_shards, load_occupancy
     from bflc_demo_tpu_torch.data.occupancy import occupancy_source
-    from bflc_demo_tpu_torch.eval.configs import config5_transformer_sst2
+    from bflc_demo_tpu_torch.eval.configs import (config5_data,
+                                                  config5_transformer_sst2)
     from bflc_demo_tpu_torch.protocol import ProtocolConfig
 
     xtr, ytr, xte, yte = load_occupancy()
     n = FLEET_PROTO["client_num"] * FLEET_SHARD
     shards = iid_shards(xtr[:n], ytr[:n], FLEET_PROTO["client_num"])
     cfg = ProtocolConfig(**FLEET_PROTO)
-    paths = {}
+    paths, roles = {}, {}
+
+    def note(path, launches_roles):
+        paths[path], by_role = launches_roles
+        for role, v in by_role.items():
+            roles[role] = roles.get(role, 0) + v
 
     def reference_test(**kw):
         return run_federated_processes(
             "make_softmax_regression", shards, (xte[:500], yte[:500]), cfg,
             device="cuda", timeout_s=FLEET_TIMEOUT_S, **kw)
 
-    res, paths["processes_reference"] = fleet_run(
+    res, *out = fleet_run(
         torch, "processes_reference", card,
         lambda: reference_test(rounds=FLEET_ROUNDS, stall_timeout_s=20.0,
                                replicas=FLEET_REPLICAS))
+    note("processes_reference", out)
     if len(res.replica_reports) != FLEET_REPLICAS or \
             not res.best_accuracy() > FLEET_MIN_BEST:
         raise RuntimeError(f"processes_reference: best "
@@ -1515,41 +1761,89 @@ def processes_phase(torch, card: str) -> dict:
     cli = json.loads(out.stdout.strip().splitlines()[-1])
     fleet = cli["fleet"]
     bar = CONFIG1_MIN_BEST[occupancy_source()]
-    paths["processes_config1"] = fleet_account(
+    note("processes_config1", fleet_account(
         "processes_config1", card, fleet["kernel_launches"],
         fleet["writer_engine"], fleet["perf"], fleet["epoch_times"],
         fleet["spawn_s"], fleet["writer_merges"], None,
         fleet["replica_head_ok"], ed25519_backend=fleet["ed25519_backend"],
         cli_wall_s=time.perf_counter() - t0, best_acc=cli["best_acc"],
-        ledger_log_size=cli["ledger_log_size"], bar=bar)
+        ledger_log_size=cli["ledger_log_size"], bar=bar))
     if cli["rounds"] != CONFIG1_ROUNDS or not cli["best_acc"] >= bar:
         raise RuntimeError(f"processes_config1: {cli['rounds']} rounds, "
                            f"best {cli['best_acc']} (bar {bar})")
 
-    res, paths["processes_config5"] = fleet_run(
+    def config5_check(label, res, rounds):
+        clients = {}
+        for role, counts in res.kernel_launches.items():
+            if role.startswith("client-"):
+                for k in DENSE_KERNELS:
+                    clients[k] = clients.get(k, 0) + counts.get(k, 0)
+        if res.rounds_completed != rounds or \
+                not res.best_accuracy() >= MIN_BEST_ACC or \
+                not all(clients[k] > 0 for k in DENSE_KERNELS):
+            raise RuntimeError(f"{label}: {res.rounds_completed} rounds, "
+                               f"best {res.best_accuracy()}, client "
+                               f"launches {clients}")
+
+    res, *out = fleet_run(
         torch, "processes_config5", card,
         lambda: config5_transformer_sst2(rounds=ROUNDS, runtime="processes",
                                          device="cuda"))
-    clients = {}
-    for role, counts in res.kernel_launches.items():
-        if role.startswith("client-"):
-            for k in DENSE_KERNELS:
-                clients[k] = clients.get(k, 0) + counts.get(k, 0)
-    if res.rounds_completed != ROUNDS or \
-            not res.best_accuracy() >= MIN_BEST_ACC or \
-            not all(clients[k] > 0 for k in DENSE_KERNELS):
-        raise RuntimeError(f"processes_config5: {res.rounds_completed} "
-                           f"rounds, best {res.best_accuracy()}, client "
-                           f"launches {clients}")
+    note("processes_config5", out)
+    config5_check("processes_config5", res, ROUNDS)
 
-    res, paths["processes_crash"] = fleet_run(
+    res, *out = fleet_run(
         torch, "processes_crash", card,
         lambda: reference_test(rounds=3, crash_at=FLEET_CRASH,
                                stall_timeout_s=4.0))
+    note("processes_crash", out)
     if sorted(res.recovered_clients) != sorted(FLEET_CRASH):
         raise RuntimeError(f"processes_crash: recovered "
                            f"{res.recovered_clients}")
-    return paths
+
+    counts, b5 = failover_merge_phase(torch, card)
+    paths["failover_merge"] = counts
+    roles["promoted_writer"] = roles.get("promoted_writer", 0) + b5
+
+    drill_shards = iid_shards(xtr[:FAILOVER_ROWS], ytr[:FAILOVER_ROWS],
+                              FLEET_PROTO["client_num"])
+    res, *out = fleet_run(
+        torch, "failover_drill", card,
+        lambda: run_federated_processes(
+            "make_softmax_regression", drill_shards, (xte[:500], yte[:500]),
+            cfg, rounds=FAILOVER_ROUNDS, device="cuda",
+            timeout_s=FLEET_TIMEOUT_S, **FAILOVER_DRILL))
+    note("failover_drill", out)
+    failover_check("failover_drill", res, FAILOVER_ROUNDS,
+                   FAILOVER_MIN_BEST)
+
+    c5_shards, c5_test = config5_data(0, 4000, CONFIG5_PROTO["client_num"])
+    res, *out = fleet_run(
+        torch, "failover_config5", card,
+        lambda: run_federated_processes(
+            "make_transformer_classifier", c5_shards, c5_test,
+            ProtocolConfig(**CONFIG5_PROTO), rounds=ROUNDS,
+            factory_kw=CONFIG5_ARCH, device="cuda",
+            timeout_s=FLEET_TIMEOUT_S, **CONFIG5_FAILOVER))
+    note("failover_config5", out)
+    config5_check("failover_config5", res, ROUNDS)
+    failover_check("failover_config5", res, ROUNDS, MIN_BEST_ACC)
+    return paths, roles
+
+
+def failover_check(label: str, res, rounds: int, bar: float) -> None:
+    """A drill promoted a standby that committed the rounds after the
+    kill on B5, the replica reached its head, and accuracy holds."""
+    fo = res.failover or {}
+    after = [m for m in res.writer_merges
+             if m.get("mono", 0) > fo.get("kill_mono", float("inf"))]
+    if res.rounds_completed < rounds or not res.best_accuracy() > bar or \
+            fo.get("gen") != 1 or not after or \
+            any(m["leg"] != "mesh" for m in after) or \
+            res.replica_report["head"] != res.ledger_log_head:
+        raise RuntimeError(f"{label}: rounds {res.rounds_completed}, best "
+                           f"{res.best_accuracy()}, failover {fo}, merges "
+                           f"after the kill {after}")
 
 
 def load_port(root: str = None):
@@ -1619,7 +1913,8 @@ def processes_main() -> int:
     card = card_line()
     print(card, flush=True)
     emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
-    emit("fleet", paths=processes_phase(torch, card))
+    paths, roles = processes_phase(torch, card)
+    emit("fleet", paths=paths, b5_by_role=roles)
     return 0
 
 
@@ -1674,7 +1969,7 @@ def main() -> int:
     timings["certified_reduce"] = merge_timing_phase(torch, cr, device,
                                                      cases)
     del cases
-    fleet = processes_phase(torch, card)
+    fleet, roles = processes_phase(torch, card)
     paths = {"host_config5": host5["launches"],
              "mesh_config5": mesh5["launches"],
              "mesh_config1": mesh1["launches"],
@@ -1690,6 +1985,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": KERNELS[name], "launches": sum(by_path[name].values()),
          "launches_by_path": by_path[name], "max_abs_err": errors[name],
+         **({"launches_by_role": roles} if name == "certified_reduce"
+            else {}),
          **timings[name]}
         for name in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -474,7 +474,7 @@ def test_round_factory_guards():
 def test_run_with_runtime_refuses_what_does_not_apply(runtime, kw):
     # options of runtimes not ported yet are unexpected keywords of the
     # mesh runtime; the mesh-only options are refused on 'host'
-    unported = {"standbys", "bft_validators", "tls_dir"}
+    unported = {"bft_validators", "tls_dir"}
     exc = TypeError if unported & set(kw) else ValueError
     with pytest.raises(exc):
         run_with_runtime(make_softmax_regression(), [], ([], []),

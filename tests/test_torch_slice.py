@@ -154,8 +154,8 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
 @pytest.mark.parametrize("argv", [["--runtime", "executor"],
                                   ["--runtime", "processes",
                                    "--ledger-backend", "native"],
-                                  ["--config", "config2", "--standbys",
-                                   "1"]])
+                                  ["--config", "config2",
+                                   "--bft-validators", "4"]])
 def test_cli_rejects_unported_with_exit_2(argv, capsys):
     assert cli(argv) == 2
     assert "ROADMAP" in capsys.readouterr().err
