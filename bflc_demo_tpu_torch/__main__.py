@@ -4,21 +4,23 @@ Port of `bflc_demo_tpu/__main__.py` with the reference's defaults
 (`--config config1 --runtime mesh --rounds 10`): configs 0-5 on the
 `mesh`, `host`, `threaded` or `processes` runtime (the process fleet:
 writer, clients and a replica as OS processes, with `--standbys N` hot
-standbys and `--quorum Q` quorum-ack, which needs `--standbys >= Q+1`
-and exits 2 otherwise, as in the reference; run it from the shell or a
+standbys, `--quorum Q` quorum-ack, which needs `--standbys >= Q+1`
+and exits 2 otherwise, as in the reference, and `--bft-validators N`
+validator processes that co-sign every op; run it from the shell or a
 real file, as spawned children re-import `__main__`), on `cuda`
 unless `--device cpu` (the counterpart of `JAX_PLATFORMS=cpu`), with
 the protocol overridable by `--field-name` flags and `BFLC_*` variables
 (`utils/flags.py`) and the ledger by `--ledger-backend auto|python`.  An
 unknown config, an unported runtime (the executor), the native ledger,
-`--standbys`/`--quorum` on another runtime than `processes`, or a flag
-of a part not ported yet (the fleet's TLS, BFT, chaos, cells,
+`--standbys`/`--quorum`/`--bft-validators` on another runtime than
+`processes`, a negative `--bft-validators`, or a flag of a part not
+ported yet (the fleet's TLS, chaos, cells,
 snapshots, rederive and the codecs A9, checkpoints
 A11, secure aggregation A12, traces and telemetry A14) exits 2 naming
 the ROADMAP item.  Prints the reference CLI's final JSON keys, and on
 `processes` a `fleet` key besides: the round times, the spawn time, the
 writer's phase split, every role's kernel launches and the writer's
-merge-engine report.
+merge-engine report (with `--bft-validators`, `certified_size`).
 """
 
 from __future__ import annotations
@@ -35,10 +37,11 @@ def _parser() -> argparse.ArgumentParser:
         description="Committee-consensus federated learning in PyTorch on "
                     "an NVIDIA GPU (port of bflc_demo_tpu).",
         epilog="Ported: --config config0..config5 on --runtime mesh (the "
-               "default), host, threaded and processes (with --standbys "
-               "and --quorum).  The executor runtime, the native ledger, "
-               "the fleet's other flags and the codecs are ROADMAP A9; "
-               "they exit 2 until ported.")
+               "default), host, threaded and processes (with --standbys, "
+               "--quorum and --bft-validators), --reduce-blocks.  The "
+               "executor runtime, the native ledger, the fleet's other "
+               "flags and the codecs are ROADMAP A9; they exit 2 until "
+               "ported.")
     p.add_argument("--config", default="config1",
                    help="benchmark preset, config0 ... config5")
     p.add_argument("--runtime", default="mesh",
@@ -78,9 +81,10 @@ def main(argv=None) -> int:
     except ValueError as exc:
         print(f"protocol: {exc}", file=sys.stderr)
         return 2
-    if (opts.standbys or opts.quorum) and opts.runtime != "processes":
-        print("--standbys and --quorum apply only to --runtime processes",
-              file=sys.stderr)
+    if (opts.standbys or opts.quorum or opts.bft_validators) and \
+            opts.runtime != "processes":
+        print("--standbys, --quorum and --bft-validators apply only to "
+              "--runtime processes", file=sys.stderr)
         return 2
     if opts.quorum and opts.standbys < opts.quorum + 1:
         print("--quorum Q needs --standbys >= Q+1 (the promoted writer "
@@ -94,6 +98,20 @@ def main(argv=None) -> int:
         kw["standbys"] = opts.standbys
     if opts.quorum:
         kw["quorum"] = opts.quorum
+    if opts.bft_validators:
+        if opts.bft_validators < 1:
+            print(f"--bft-validators must be positive, got "
+                  f"{opts.bft_validators}", file=sys.stderr)
+            return 2
+        # the reference geometry is 4 (f=1); fewer than 4 still binds
+        # ops to independent re-execution but tolerates no liar
+        from bflc_demo_tpu_torch.protocol.constants import \
+            bft_fault_tolerance
+        if bft_fault_tolerance(opts.bft_validators) < 1:
+            print(f"note: --bft-validators {opts.bft_validators} gives "
+                  f"f=0 (no Byzantine tolerance); the reference geometry "
+                  f"is 4", file=sys.stderr)
+        kw["bft_validators"] = opts.bft_validators
     if cfg is not None:
         kw["cfg"] = cfg
     res = CONFIGS[opts.config].build(**kw)
@@ -120,6 +138,8 @@ def main(argv=None) -> int:
                         "writer_merges": res.writer_merges,
                         "client_reads": res.client_reads,
                         "failover": res.failover,
+                        "certified_size": res.certified_size,
+                        "validator_spawn_s": res.validator_spawn_s,
                         "ed25519_backend": res.ed25519_backend,
                         "replica_head_ok": bool(
                             res.replica_report and res.replica_report["head"]

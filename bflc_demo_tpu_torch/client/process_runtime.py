@@ -2,10 +2,11 @@
 
 Port of the synchronous fleet of
 `bflc_demo_tpu/client/process_runtime.py`: `_server_proc` (:228),
-`_client_proc` with its synchronous loop (:468, :557-705),
-`_replica_proc` (:709), `_standby_proc` (:723), `ProcessFederationResult`
-(:771) and `run_federated_processes` (:807) with its standbys, the
-writer-kill drill, quorum-ack and the WAL.
+`_validator_proc` (:260), `_client_proc` with its synchronous loop
+(:468, :557-705), `_replica_proc` (:709), `_standby_proc` (:723),
+`ProcessFederationResult` (:771) and `run_federated_processes` (:807)
+with its standbys, the writer-kill drill, quorum-ack, the WAL and the
+BFT validator fleet.
 
 - one **writer process** runs `comm/ledger_service.LedgerServer`: the
   ledger, Ed25519 verification, the blob store, the merge through the
@@ -17,7 +18,14 @@ writer-kill drill, quorum-ack and the WAL.
 - the parent is the **sponsor**: it polls the published model and
   records held-out accuracy after every commit;
 - **replica processes** replay the writer's op stream after the run and
-  must reproduce its chained head.
+  must reproduce its chained head;
+- with `bft_validators` N, N **validator processes** (`comm/bft.py`),
+  their identities drawn from the run's master seed
+  (`provision_validators`), re-execute and co-sign every op: the writer
+  acknowledges only certified ops, the clients, the sponsor and the
+  standbys check every certificate, and a promoted standby certifies its
+  fence op.  A validator is ledger and crypto only: its process imports
+  no torch (each reports what it imported at start, `validator_reports`).
 
 Every role that computes runs on the run's device, `cuda` unless the
 caller asks for the CPU: the clients' training (kernels K1-K3 in the
@@ -34,11 +42,13 @@ collects every role's kernel launch counts (and the final writer's
 engine report), which `ProcessFederationResult.kernel_launches` holds;
 on a drill it asks the primary for its `info` and `kernels` just before
 the kill, and `failover` holds the kill's time, the promoted writer's
-start and first commit on the host's monotonic clock.
+start and first commit on the host's monotonic clock.  Under BFT the
+kill waits until the primary certified its whole chain and a follower
+acked it: a standby follows certified ops only and cannot promote past
+certified ops it never received.
 
-Not ported, raising with their ROADMAP item when asked for: BFT
-validators, TLS, the chaos campaign, telemetry and traces, snapshots,
-rederive (A9, A14); the
+Not ported, raising with their ROADMAP item when asked for: TLS, the
+chaos campaign, telemetry and traces, snapshots, rederive (A9, A14); the
 async FedBuff loop and the delta codecs (A9: a `state` reply carries no
 effective density here); the mesh-executor deployment (A9).
 """
@@ -64,7 +74,6 @@ from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
 # reached; a value other than the reference's default raises
 UNPORTED_FLEET_OPTIONS = {
     "tls_dir": "A9 (TLS)",
-    "bft_validators": "A9 (BFT validators)",
     "chaos_seed": "A14 (chaos)", "chaos_profile": "A14 (chaos)",
     "chaos_duration_s": "A14 (chaos)", "chaos_schedule": "A14 (chaos)",
     "chaos_dir": "A14 (chaos)",
@@ -99,21 +108,46 @@ def _server_proc(cfg_kw: dict, initial_blob: bytes, port_q,
                  stall_timeout_s: float, device: str,
                  verbose: bool, wal_path: str = "",
                  standby_keys: Optional[dict] = None,
-                 quorum: int = 0) -> None:
+                 quorum: int = 0, bft_endpoints: Sequence = (),
+                 bft_keys: Optional[dict] = None) -> None:
     _child_device(device)
     from bflc_demo_tpu_torch.comm.ledger_service import LedgerServer
     server = LedgerServer(ProtocolConfig(**cfg_kw), initial_blob,
                           stall_timeout_s=stall_timeout_s, device=device,
                           wal_path=wal_path, standby_keys=standby_keys,
-                          quorum=quorum, verbose=verbose)
+                          quorum=quorum,
+                          bft_validators=[tuple(e) for e in bft_endpoints]
+                          or None,
+                          bft_keys=bft_keys or None, verbose=verbose)
     port_q.put(server.port)
     server.serve_forever()
+
+
+def _validator_proc(cfg_kw: dict, wallet_seed: bytes, index: int,
+                    port_q, validator_keys: dict, verbose: bool) -> None:
+    """One BFT commit-quorum member (`comm/bft.ValidatorNode`): a replica
+    and a wallet that re-execute and co-sign every op, with the peers'
+    keys to admit certified backlog when it lags.  Pure ledger and
+    crypto: it resolves no device and imports no torch.  Reports its
+    port and what it imported, then blocks."""
+    from bflc_demo_tpu_torch.comm.bft import ValidatorNode
+    from bflc_demo_tpu_torch.comm.identity import Wallet
+    node = ValidatorNode(ProtocolConfig(**cfg_kw),
+                         Wallet.from_seed(wallet_seed), index,
+                         validator_keys=validator_keys, verbose=verbose)
+    torch = sys.modules.get("torch")
+    port_q.put({"port": node.port, "torch_imported": torch is not None,
+                "cuda_initialized": bool(
+                    torch is not None and torch.cuda.is_initialized()),
+                "foreign_modules": foreign_modules()})
+    node.serve_forever()
 
 
 def _standby_proc(cfg_kw: dict, endpoints: List[Tuple[str, int]],
                   index: int, port_q, stall_timeout_s: float,
                   wallet_seed: bytes, standby_keys: dict, quorum: int,
-                  device: str, verbose: bool) -> None:
+                  device: str, verbose: bool, bft_endpoints: Sequence = (),
+                  bft_keys: Optional[dict] = None) -> None:
     """Hot standby: follow the writer's op stream, promote on its death
     (`comm/failover.Standby`).  Reports its serving port, then blocks;
     once promoted it is the writer and merges on `device`."""
@@ -125,6 +159,9 @@ def _standby_proc(cfg_kw: dict, endpoints: List[Tuple[str, int]],
                       stall_timeout_s=stall_timeout_s,
                       wallet=Wallet.from_seed(wallet_seed),
                       standby_keys=standby_keys, quorum=quorum,
+                      bft_validators=[tuple(e) for e in bft_endpoints]
+                      or None,
+                      bft_keys=bft_keys or None,
                       device=device, verbose=verbose)
     # the placeholder self-endpoint gets the real bound port
     standby.endpoints[index] = (standby.host, standby.port)
@@ -144,7 +181,8 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
                  rounds: int, crash_at_epoch: Optional[int], device: str,
                  report_q=None, role: str = "client",
                  request_timeout_s: float = 120.0,
-                 standby_keys: Optional[dict] = None) -> None:
+                 standby_keys: Optional[dict] = None,
+                 bft_keys: Optional[dict] = None) -> None:
     """One federated client: register -> role loop -> train/score ->
     report -> exit.  The state machine of `client/runtime.FLNode.step`,
     with every ledger interaction a signed socket request and every
@@ -179,7 +217,8 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
     tr = tracing.PROC
 
     client = FailoverClient(endpoints, timeout_s=request_timeout_s,
-                            standby_keys=standby_keys)
+                            standby_keys=standby_keys,
+                            bft_keys=bft_keys or None)
     router = ReadRouter(client, timeout_s=request_timeout_s)
 
     def register():
@@ -329,6 +368,14 @@ class ProcessFederationResult:
         # time, the primary's last `info` and `kernels` replies, the final
         # writer's index, start and first commit (host monotonic clock)
         self.failover: Optional[dict] = None
+        # BFT: the final writer's certified prefix (== log_size when every
+        # op bound; None without validators), each validator's start
+        # report (torch imported, CUDA initialised, foreign modules) and
+        # the seconds the validators took to come up
+        self.certified_size: Optional[int] = (
+            (final_info or {}).get("certified_size"))
+        self.validator_reports: Dict[str, dict] = {}
+        self.validator_spawn_s = 0.0
 
     @property
     def final_accuracy(self) -> float:
@@ -356,7 +403,8 @@ def _drain_reports(q, procs, wait_s: float) -> List[dict]:
 def client_args(endpoints, master_seed: bytes, i: int, model_factory: str,
                 factory_kw: dict, x, y, num_classes: int, cfg_kw: dict,
                 rounds: int, crash_at_epoch: Optional[int], device: str,
-                report_q, standby_keys: Optional[dict] = None) -> tuple:
+                report_q, standby_keys: Optional[dict] = None,
+                bft_keys: Optional[dict] = None) -> tuple:
     """`_client_proc`'s arguments for client i (its wallet seed is the
     reference's derivation from the run's master seed)."""
     from bflc_demo_tpu_torch.data.partition import one_hot
@@ -364,7 +412,7 @@ def client_args(endpoints, master_seed: bytes, i: int, model_factory: str,
             model_factory, factory_kw, np.asarray(x),
             one_hot(np.asarray(y), num_classes), cfg_kw, rounds,
             crash_at_epoch, device, report_q, f"client-{i}", 120.0,
-            standby_keys)
+            standby_keys, bft_keys)
 
 
 def run_federated_processes(
@@ -382,6 +430,7 @@ def run_federated_processes(
         standbys: int = 0,
         kill_writer_at_epoch: Optional[int] = None,
         quorum: int = 0,
+        bft_validators: int = 0,
         timeout_s: float = 600.0,
         init_seed: int = 0,
         device: Optional[str] = None,
@@ -401,7 +450,11 @@ def run_federated_processes(
     quorum + 1, so a promoted writer keeps quorum followers).  wal_path:
     the primary's journal.  replicas: replica processes that replay the
     final writer's op stream after the run; each must reproduce its head.
-    device: where every role computes, `cuda` (None) or `cpu`.
+    bft_validators: spawn this many BFT commit-quorum validator processes
+    (`comm/bft.py`; 4 is the reference's f=1 geometry): every op must
+    gather `bft_quorum(n)` co-signatures before it binds.
+    device: where every role computes, `cuda` (None) or `cpu`; the
+    validators compute nothing on it.
     """
     for name, default in _FLEET_DEFAULTS.items():
         if unported.get(name) == default:
@@ -413,6 +466,9 @@ def run_federated_processes(
         raise ValueError(f"need {cfg.client_num} shards, got {len(shards)}")
     if kill_writer_at_epoch is not None and standbys < 1:
         raise ValueError("kill_writer_at_epoch requires standbys >= 1")
+    if bft_validators < 0:
+        raise ValueError(f"bft_validators must be >= 0, got "
+                         f"{bft_validators}")
     if quorum and standbys < quorum + 1:
         raise ValueError(
             f"quorum={quorum} requires standbys >= {quorum + 1}: a "
@@ -455,14 +511,42 @@ def run_federated_processes(
                      for s in range(1, standbys + 1)}
     standby_keys = {i: Wallet.from_seed(sd).public_bytes
                     for i, sd in standby_seeds.items()}
+    # BFT validators: identities from the master seed (the reference's
+    # derivation, `provision_validators`); only public keys travel
+    bft_keys: Dict[int, bytes] = {}
+    if bft_validators:
+        from bflc_demo_tpu_torch.comm.bft import provision_validators
+        _, bft_keys = provision_validators(bft_validators, master_seed)
 
     ctx = mp.get_context("spawn")
     host = "127.0.0.1"
+    validator_procs: List = []
+    validator_reports: Dict[str, dict] = {}
+    bft_endpoints: List[Tuple[str, int]] = []
+    t_val = time.monotonic()
+    try:
+        for v in range(bft_validators):
+            q = ctx.Queue()
+            vp = ctx.Process(target=_validator_proc,
+                             args=(cfg_kw, master_seed + b"|bft-validator|"
+                                   + struct.pack("<q", v), v, q, bft_keys,
+                                   verbose), daemon=True)
+            vp.start()
+            validator_procs.append(vp)
+            rep_v = q.get(timeout=120)
+            validator_reports[f"validator-{v}"] = rep_v
+            bft_endpoints.append((host, rep_v["port"]))
+    except BaseException:
+        for vp in validator_procs:
+            vp.terminate()
+        raise
+    validator_spawn_s = time.monotonic() - t_val
     port_q = ctx.Queue()
     server = ctx.Process(target=_server_proc,
                          args=(cfg_kw, initial_blob, port_q,
                                stall_timeout_s, device_name, verbose,
-                               wal_path, standby_keys, quorum),
+                               wal_path, standby_keys, quorum,
+                               bft_endpoints, bft_keys),
                          daemon=True)
     server.start()
     standby_procs: List = []
@@ -491,7 +575,8 @@ def run_federated_processes(
                              args=(cfg_kw, list(endpoints), s, q,
                                    stall_timeout_s, standby_seeds[s],
                                    standby_keys, quorum, device_name,
-                                   verbose), daemon=True)
+                                   verbose, bft_endpoints, bft_keys),
+                             daemon=True)
             sp.start()
             standby_procs.append(sp)
             endpoints.append((host, q.get(timeout=120)))
@@ -499,7 +584,7 @@ def run_federated_processes(
             p = ctx.Process(target=_client_proc, args=client_args(
                 endpoints, master_seed, i, model_factory, factory_kw, sx,
                 sy, nc, cfg_kw, rounds, crash_at.get(i), device_name,
-                report_q, standby_keys), daemon=True)
+                report_q, standby_keys, bft_keys), daemon=True)
             p.start()
             clients.append(p)
 
@@ -507,7 +592,8 @@ def run_federated_processes(
         xte_t = feature_tensor(xte, dev)
         yte_t = torch.as_tensor(one_hot(np.asarray(yte), nc), device=dev)
         sponsor = FailoverClient(endpoints, timeout_s=120.0,
-                                 standby_keys=standby_keys)
+                                 standby_keys=standby_keys,
+                                 bft_keys=bft_keys or None)
         router = ReadRouter(sponsor, timeout_s=120.0)
         seen_epoch = 0          # the model at epoch 0 is the initial one
         deadline = time.monotonic() + timeout_s
@@ -523,7 +609,15 @@ def run_federated_processes(
                     and info["epoch"] >= kill_writer_at_epoch:
                 # the drill: SIGKILL the primary as soon as it committed
                 # the epoch (before the sponsor's evaluation), so the
-                # promoted standby takes the next round
+                # promoted standby takes the next round.  Under BFT a
+                # standby follows certified ops only and cannot promote
+                # past certified ops it never received, so the kill waits
+                # until the primary certified its chain and a subscriber
+                # acked all of it (the reference's 0.2 s poll gives them
+                # that time)
+                if bft_validators and not _primary_settled((host, port)):
+                    time.sleep(0.005)
+                    continue
                 failover = _kill_primary(server, (host, port), info)
                 if verbose:
                     print(f"[drill] primary coordinator killed at epoch "
@@ -558,6 +652,18 @@ def run_federated_processes(
                                f"{timeout_s}s ({len(history)}/{rounds} "
                                f"rounds)")
         final = sponsor.request("info")
+        while bft_validators and \
+                final["certified_size"] != final["log_size"]:
+            # the sponsor saw the last commit before its certificate (a
+            # read is not certified): wait for the certify loop to catch
+            # up, so `certified_size` reports the finished chain
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{final['log_size']} ops, "
+                                   f"{final['certified_size']} certified "
+                                   f"after {timeout_s}s")
+            sponsor.request("wait", log_size=final["log_size"],
+                            timeout_s=0.2)
+            final = sponsor.request("info")
         final_ep = sponsor.current_endpoint
         if replicas > 0:
             rep_q = ctx.Queue()
@@ -594,7 +700,7 @@ def run_federated_processes(
             p.join(timeout=15)
             if p.is_alive():
                 p.terminate()
-        for p in [server] + standby_procs:
+        for p in [server] + standby_procs + validator_procs:
             p.terminate()
             p.join(timeout=10)
 
@@ -624,10 +730,28 @@ def run_federated_processes(
     result.writer_merges = writer_merges
     result.ed25519_backend = ed25519_backend
     result.replica_reports = replica_reports
+    result.validator_reports = validator_reports
+    result.validator_spawn_s = validator_spawn_s
     if failover is not None:
         failover["kill_t"] = failover["kill_mono"] - t_start
     result.failover = failover
     return result
+
+
+def _primary_settled(endpoint) -> bool:
+    """True when the primary's chain is fully certified and a follower
+    acked its last op (or the primary no longer answers)."""
+    from bflc_demo_tpu_torch.comm.ledger_service import CoordinatorClient
+    try:
+        probe = CoordinatorClient(*endpoint, timeout_s=30.0)
+        try:
+            k = probe.request("kernels")
+        finally:
+            probe.close()
+    except (ConnectionError, OSError):
+        return True
+    return (k.get("certified_size") == k.get("log_size")
+            and k.get("stream_acked", -1) >= k.get("log_size", 0) - 1)
 
 
 def _kill_primary(server, endpoint, info: dict) -> dict:

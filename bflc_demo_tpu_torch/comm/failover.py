@@ -33,13 +33,22 @@ Port of `bflc_demo_tpu/comm/failover.py`: `FailoverClient` (:129-319),
   (signature-checked when `standby_keys` are provisioned), sends the
   fence and its proof on every request, and refuses a reply from behind
   its fence.
+- BFT (`comm/bft.py`): with the validators' `bft_keys` a client refuses
+  a mutation's ack (OK or DUPLICATE-class) unless it carries a
+  certificate with a quorum of authentic signatures binding the op its
+  own request implies, and a standby refuses any streamed op without a
+  certificate over its own chain prefix (`_require_certificate`: a
+  Byzantine writer cannot make it replicate forged state).  On promotion
+  the standby certifies its fence op with the same quorum
+  (`_certify_promotion`); losing that position to a rival's fence raises
+  `PromotionSuperseded` and the standby re-follows the winner, while a
+  dead proposer's stranded op is adopted under a new fence.
 
 Every entry point that computes runs on `device`, `cuda` unless the
 caller asks for the CPU; without a card `Standby` raises.  Not ported,
-each raising with its item: the BFT legs (`_require_certificate`,
-`_certify_promotion`: A9, BFT validators), snapshot state-sync
-(`_state_sync`, `_fetch_snapshot_body`, `_note_snapshot_op`,
-`_read_snapshot_state`: A9, snapshots) and TLS (A9); the obs metrics,
+each raising with its item: snapshot state-sync (`_state_sync`,
+`_fetch_snapshot_body`, `_note_snapshot_op`, `_read_snapshot_state`:
+A9, snapshots) and TLS (A9); the obs metrics,
 flight recorder and trace spans (A14).  With `BFLC_PROC_TRACE=1` a
 standby charges its mirror time (`standby.mirror_s`), the blobs that
 rode the op stream or were fetched (`standby.piggyback`,
@@ -61,14 +70,17 @@ from bflc_demo_tpu_torch.comm.dataplane import (ReadFanoutServer,
                                                 data_plane_legacy)
 from bflc_demo_tpu_torch.comm.identity import PublicDirectory, address_of
 from bflc_demo_tpu_torch.comm.ledger_service import (
-    CoordinatorClient, LedgerServer, make_promotion_evidence,
+    CoordinatorClient, LedgerServer, chain_head_at, make_promotion_evidence,
     refuse_unported, verify_promotion_signature)
 from bflc_demo_tpu_torch.comm.wire import (WireError, blob_bytes, recv_msg,
                                            send_msg, split_blob_parts)
 from bflc_demo_tpu_torch.device import DeviceLike, resolve_device
 from bflc_demo_tpu_torch.ledger import LedgerStatus, clone_prefix, make_ledger
-from bflc_demo_tpu_torch.ledger.base import OP_COMMIT, OP_UPLOAD, decode_op
+from bflc_demo_tpu_torch.ledger.base import (OP_COMMIT, OP_PROMOTE,
+                                             OP_UPLOAD, decode_op)
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
+from bflc_demo_tpu_torch.protocol.constants import bft_quorum as _bft_quorum
+from bflc_demo_tpu_torch.protocol.types import CommitCertificate
 from bflc_demo_tpu_torch.utils import tracing
 
 Endpoint = Tuple[str, int]
@@ -76,10 +88,6 @@ Endpoint = Tuple[str, int]
 # the reference's Standby options this port has not reached
 UNPORTED_STANDBY_OPTIONS = {
     "tls_client": "A9 (TLS)", "tls_server": "A9 (TLS)",
-    "bft_validators": "A9 (BFT validators)",
-    "bft_keys": "A9 (BFT validators)",
-    "bft_quorum": "A9 (BFT validators)",
-    "bft_timeout_s": "A9 (BFT validators)",
     "snapshot_interval": "A9 (snapshots)",
     "snapshot_dir": "A9 (snapshots)",
 }
@@ -91,7 +99,7 @@ class WriterDead(Exception):
 
 class PromotionSuperseded(Exception):
     """This standby's fence op lost the promotion race to another
-    proposer (a BFT quorum's verdict: with BFT validators, A9)."""
+    proposer (the BFT quorum's verdict)."""
 
 
 class FailoverClient:
@@ -99,15 +107,19 @@ class FailoverClient:
 
     Without `standby_keys` the client accepts promotion evidence on its
     structure alone, so one hostile endpoint could poison its fence; with
-    more than one endpoint that configuration warns."""
+    more than one endpoint that configuration warns.  With `bft_keys` a
+    mutation's ack without a valid certificate for its op is treated as
+    a dead endpoint."""
+
+    _BFT_ACKED = ("register", "upload", "scores", "aupload", "ascores")
 
     def __init__(self, endpoints: List[Endpoint], timeout_s: float = 30.0,
                  max_cycles: int = 6,
                  standby_keys: Optional[Dict[int, bytes]] = None,
+                 bft_keys: Optional[Dict[int, bytes]] = None,
+                 bft_quorum: Optional[int] = None,
                  **unported):
-        refuse_unported(unported, {"tls": "A9 (TLS)",
-                                   "bft_keys": "A9 (BFT validators)",
-                                   "bft_quorum": "A9 (BFT validators)"})
+        refuse_unported(unported, {"tls": "A9 (TLS)"})
         if not endpoints:
             raise ValueError("need at least one endpoint")
         if len(endpoints) > 1 and not standby_keys:
@@ -123,6 +135,10 @@ class FailoverClient:
         self._cur = 0
         self._client: Optional[CoordinatorClient] = None
         self._standby_keys = dict(standby_keys or {})
+        self._bft_keys = dict(bft_keys or {})
+        if self._bft_keys and bft_quorum is None:
+            bft_quorum = _bft_quorum(len(self._bft_keys))
+        self._bft_quorum = bft_quorum or 0
         # the highest writer generation seen with its proof, sent back as
         # `fence` / `fence_ev` on every request
         self.gen = 0
@@ -178,6 +194,15 @@ class FailoverClient:
                     last = ConnectionError(f"stale writer (gen {g})")
                     self._rotate()
                     continue
+                if not self._certified_ack(method, fields, reply):
+                    # no quorum bound this op: a writer that dropped,
+                    # forged or forked it cannot mint the certificate
+                    last = ConnectionError(
+                        f"{method}: ack without a valid commit "
+                        f"certificate for this op (uncertified or "
+                        f"replayed-certificate state rejected)")
+                    self._rotate()
+                    continue
                 return reply
             except (ConnectionError, WireError, OSError) as e:
                 last = e
@@ -187,6 +212,20 @@ class FailoverClient:
         raise ConnectionError(
             f"all coordinator endpoints failed after {attempts} attempts: "
             f"{type(last).__name__}: {last}")
+
+    def _certified_ack(self, method: str, fields: dict, reply: dict) -> bool:
+        """False for a mutation's ack (DUPLICATE-class replies too: they
+        count as progress) without a certificate quorum-signed over the
+        op its request implies."""
+        if not (self._bft_keys and method in self._BFT_ACKED
+                and (reply.get("ok") or reply.get("status") in
+                     ("DUPLICATE", "ALREADY_REGISTERED"))):
+            return True
+        from bflc_demo_tpu_torch.comm.bft import (expected_op_hash,
+                                                  verify_certificate_sigs)
+        return verify_certificate_sigs(
+            reply.get("cert"), self._bft_quorum, self._bft_keys,
+            op_hash=expected_op_hash(method, fields))
 
     def close(self) -> None:
         if self._client is not None:
@@ -214,6 +253,10 @@ class Standby:
                  standby_keys: Optional[Dict[int, bytes]] = None,
                  quorum: int = 0,
                  quorum_timeout_s: float = 5.0,
+                 bft_validators: Optional[List[Endpoint]] = None,
+                 bft_keys: Optional[Dict[int, bytes]] = None,
+                 bft_quorum: Optional[int] = None,
+                 bft_timeout_s: float = 10.0,
                  device: DeviceLike = None,
                  verbose: bool = False,
                  **unported):
@@ -245,6 +288,16 @@ class Standby:
         self.standby_keys: Dict[int, bytes] = dict(standby_keys or {})
         self.quorum = quorum
         self.quorum_timeout_s = quorum_timeout_s
+        # BFT: with the validators' keys every streamed op must carry a
+        # certificate over our own prefix; the certificates are mirrored
+        # and handed to the server this standby becomes
+        self.bft_validators = list(bft_validators or [])
+        self.bft_keys: Dict[int, bytes] = dict(bft_keys or {})
+        if self.bft_keys and bft_quorum is None:
+            bft_quorum = _bft_quorum(len(self.bft_keys))
+        self.bft_quorum = bft_quorum or 0
+        self.bft_timeout_s = bft_timeout_s
+        self._certs: Dict[int, dict] = {}
         self.verbose = verbose
         self._ledger_backend = ledger_backend
         self.ledger = make_ledger(cfg, backend=ledger_backend)
@@ -313,6 +366,13 @@ class Standby:
                 try:
                     self._promote_and_serve()
                     return
+                except PromotionSuperseded as e:
+                    # a rival's fence is bound at our position (our fence
+                    # op is rolled back): follow the winner
+                    self._say(f"{e}; re-following")
+                    writer = self._any_serving_peer()
+                    time.sleep(self.heartbeat_s)
+                    continue
                 except Exception:
                     # a failed promotion must not leave the bound socket
                     # accepting connects while nothing serves
@@ -386,6 +446,10 @@ class Standby:
                 t0 = time.perf_counter() if tr.enabled else 0.0
                 op_bytes = bytes.fromhex(msg["op"])
                 op_index = self.ledger.log_size()
+                if self.bft_keys:
+                    # an append binds here only with a certificate over
+                    # our own chain prefix
+                    self._require_certificate(msg, op_index, op_bytes)
                 self._harvest_pushed_blob(msg, op_bytes)
                 if not self._await_upload_payload(op_bytes, ctl, writer):
                     self._pending_payload[op_index] = op_bytes
@@ -487,6 +551,29 @@ class Standby:
             send_msg(sub.sock, {"ack": int(ack)})
         except (WireError, OSError):
             pass
+
+    def _require_certificate(self, msg: dict, op_index: int,
+                             op_bytes: bytes) -> None:
+        """Verify and mirror the streamed op's certificate; RuntimeError
+        (a refusal, not a failover) when it is absent or invalid."""
+        from bflc_demo_tpu_torch.comm.bft import verify_certificate
+        cert_wire = msg.get("cert")
+        cert = None
+        if isinstance(cert_wire, dict):
+            try:
+                cert = CommitCertificate.from_wire(cert_wire)
+            except ValueError:
+                cert = None
+        prev = (self.ledger.log_head() if self.ledger.log_size()
+                else b"\0" * 32)
+        if cert is None or not verify_certificate(
+                cert, index=op_index, prev_head=prev, op=op_bytes,
+                quorum=self.bft_quorum, validator_keys=self.bft_keys):
+            raise RuntimeError(
+                f"standby {self.index}: op {msg.get('i')} arrived without "
+                f"a valid commit certificate — Byzantine or misconfigured "
+                f"writer, refusing to replicate uncertified state")
+        self._certs[op_index] = cert_wire
 
     @staticmethod
     def _op_hash(op_bytes: bytes, field: str) -> Optional[bytes]:
@@ -648,8 +735,73 @@ class Standby:
     def _rollback_last_op(self) -> None:
         """Drop the chain's final op (a failed fence) by replaying the
         prefix into a fresh ledger."""
-        self.ledger = clone_prefix(self.ledger, self.ledger.log_size() - 1,
-                                   self.cfg, backend=self._ledger_backend)
+        upto = self.ledger.log_size() - 1
+        self.ledger = clone_prefix(self.ledger, upto, self.cfg,
+                                   backend=self._ledger_backend)
+        self._certs.pop(upto, None)
+
+    def _certify_promotion(self) -> None:
+        """Certify the just-appended fence op with the validator quorum;
+        a promotion that cannot certify must not serve.  Validators sign
+        one op a position, so two standbys racing to promote cannot both
+        win: the loser's repair round mandates the winner's fence and
+        this raises PromotionSuperseded (fence rolled back).  A mandated
+        op that is no fence belongs to a dead proposer (the old writer's
+        stranded last op): it is adopted — certified at this position,
+        spliced under the fence — and the standby re-fences at the next
+        position.  An unreachable quorum is retried until it heals or
+        the standby stops."""
+        from bflc_demo_tpu_torch.comm.bft import CertificateAssembler
+
+        def backlog(j: int):
+            # a validator that lagged the dead writer resyncs from the
+            # mirrored certificates (the auth evidence died with it)
+            return self.ledger.log_op(j), None, self._certs.get(j)
+
+        assembler = CertificateAssembler(
+            self.bft_validators, self.bft_keys, self.bft_quorum,
+            timeout_s=self.bft_timeout_s, backlog_fn=backlog)
+        try:
+            while not self._stop.is_set():
+                ix = self.ledger.log_size() - 1
+                op = self.ledger.log_op(ix)
+                prev = chain_head_at(self.ledger, ix) or b"\0" * 32
+                cert = assembler.certify(ix, op, None, prev)
+                if cert is not None:
+                    self._certs[ix] = cert.to_wire()
+                    return
+                mop = assembler.superseded_op
+                if mop is not None:
+                    if mop[:1] == bytes([OP_PROMOTE]):
+                        # a live rival's fence won the position
+                        self._rollback_last_op()
+                        raise PromotionSuperseded(
+                            f"standby {self.index}: a foreign fence op "
+                            f"is bound at position {ix}")
+                    mcert = assembler.certify(ix, mop, None, prev)
+                    if mcert is not None:
+                        self._rollback_last_op()    # drop our fence
+                        st = self.ledger.apply_op(mop)
+                        if st != LedgerStatus.OK:
+                            raise RuntimeError(
+                                f"standby {self.index}: mandated op at "
+                                f"{ix} does not apply: {st.name}")
+                        self._certs[ix] = mcert.to_wire()
+                        st = self.ledger.promote_writer(
+                            self.ledger.generation + 1, self.index)
+                        if st != LedgerStatus.OK:
+                            raise RuntimeError(
+                                f"re-fence rejected: {st.name}")
+                        self._say(f"adopted the dead writer's stranded op "
+                                  f"at {ix}; re-fencing at {ix + 1}")
+                        continue
+                self._say("promotion fence op gathered no validator "
+                          "quorum yet; retrying")
+                time.sleep(max(self.heartbeat_s, 0.5))
+        finally:
+            assembler.close()
+        raise RuntimeError(f"standby {self.index}: stopped before the "
+                           f"promotion fence op certified")
 
     def _promote_and_serve(self) -> None:
         if self._model_blob is None:
@@ -662,10 +814,16 @@ class Standby:
                                         self.index)
         if st != LedgerStatus.OK:
             raise RuntimeError(f"promotion fence rejected: {st.name}")
+        if self.bft_keys:
+            self._certify_promotion()
         evidence = None
         if self.wallet is not None:
             evidence = make_promotion_evidence(self.ledger, self.wallet,
                                                self.index)
+            if self.bft_keys:
+                # the evidence cites the highest certified op: the
+                # promote op itself
+                evidence["cert_ix"] = self.ledger.log_size() - 1
         missing = [u.payload_hash.hex()[:12]
                    for u in self.ledger.query_all_updates()
                    if u.payload_hash not in self._blobs]
@@ -686,6 +844,11 @@ class Standby:
             promotion_evidence=evidence,
             quorum=self.quorum,
             quorum_timeout_s=self.quorum_timeout_s,
+            bft_validators=self.bft_validators or None,
+            bft_keys=self.bft_keys or None,
+            bft_quorum=self.bft_quorum or None,
+            bft_timeout_s=self.bft_timeout_s,
+            resume_certs=dict(self._certs) if self.bft_keys else None,
             device=self.device,
             verbose=self.verbose)
         # a client the mirrored directory missed re-presents its

@@ -3,11 +3,14 @@
 Port of the synchronous subset of `bflc_demo_tpu/comm/identity.py`:
 `address_of` (:200), `Wallet` (:207) without its X25519 pair secret,
 `PublicDirectory` (:280), `provision_wallets` (:312), `ReplayGuard`
-(:324), `_op_bytes` (:350) and `verify_signature` with its bounded
-verification memo (:75-138).  Every client op the process fleet sends is
-signed by its wallet and verified by the writer against the directory:
-the writer can check a tag but cannot forge one, and an address is the
-hash of the key that signs for it.
+(:324), `_op_bytes` (:350), `verify_signature` with its bounded
+verification memo (:75-138) and `verify_signatures_batch` (:140-178),
+the certificate paths' batch check (one shared multiscalar mul under the
+pure-Python backend, a loop under the `cryptography` wheel).  Every
+client op the process fleet sends is signed by its wallet and verified
+by the writer against the directory: the writer can check a tag but
+cannot forge one, and an address is the hash of the key that signs for
+it.
 
 The backend is the reference's choice: the `cryptography` wheel when it
 imports, else the pure-Python `comm/pure25519.py`.  Ed25519 is
@@ -17,9 +20,9 @@ back.  Signing and verification charge `crypto.sign_s` /
 `crypto.verify_s` (and their counts) to `utils/tracing.PROC`.
 
 Not ported yet: the HMAC `KeyRing`, `AuthenticatedLedger` and its
-`sign_*` helpers, `verify_signatures_batch` and the X25519 half of the
-wallet (`pair_secret`, `dh_public_bytes`).  They come with the BFT
-validators, TLS and secure aggregation (ROADMAP A9, A12).
+`sign_*` helpers and the X25519 half of the wallet (`pair_secret`,
+`dh_public_bytes`).  They come with TLS and secure aggregation (ROADMAP
+A9, A12).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import hashlib
 import os
 import struct
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 from bflc_demo_tpu_torch.comm import pure25519 as _pure
 from bflc_demo_tpu_torch.utils import tracing
@@ -50,10 +53,12 @@ _VERIFY_MEMO: Dict[bytes, bool] = {}
 _VERIFY_MEMO_MAX = 8192
 
 
-def _memo_key(public_bytes: bytes, message: bytes, signature: bytes
-              ) -> bytes:
+def _memo_key(public_bytes: bytes, message: bytes, signature: bytes,
+              domain: bytes = b"1") -> bytes:
+    # the domain byte keeps per-item (cofactorless, b"1") verdicts apart
+    # from batch (cofactored, b"8") ones: they differ on torsion defects
     h = hashlib.sha256()
-    h.update(b"1")          # the reference's per-item (cofactorless) domain
+    h.update(domain)
     h.update(struct.pack("<qq", len(public_bytes), len(signature)))
     h.update(public_bytes)
     h.update(signature)
@@ -96,12 +101,49 @@ def verify_signature(public_bytes: bytes, message: bytes,
     if hit is not None:
         return hit
     ok = _verify_signature_timed(public_bytes, message, signature)
+    _memo_store(key, ok)
+    return ok
+
+
+def _memo_store(key: bytes, ok: bool) -> None:
     if len(_VERIFY_MEMO) >= _VERIFY_MEMO_MAX:
         try:
             _VERIFY_MEMO.pop(next(iter(_VERIFY_MEMO)))
         except KeyError:                # racing evictors: already gone
             pass
     _VERIFY_MEMO[key] = ok
+
+
+def verify_signatures_batch(items: Sequence[Tuple[bytes, bytes, bytes]]
+                            ) -> bool:
+    """True iff every (pubkey, message, signature) triple verifies
+    (cofactored semantics for the items that reach the batch).  False
+    only says that one failed: a caller that needs to know which falls
+    back to `verify_signature` per item.  Under the pure-Python backend
+    this is Ed25519 batch verification fed through the memo; under the
+    `cryptography` wheel, which has no batch API, a loop."""
+    if ED25519_BACKEND == "cryptography" or not _MEMO_ENABLED:
+        return all(verify_signature(p, m, s) for p, m, s in items)
+    pending = []
+    for it in items:
+        key = _memo_key(it[0], it[1], it[2], domain=b"8")
+        hit = _VERIFY_MEMO.get(key)
+        if hit is False:
+            return False
+        if hit is None:
+            pending.append((key, it))
+    if not pending:
+        return True
+    tr = tracing.PROC
+    t0 = time.perf_counter() if tr.enabled else 0.0
+    ok = _pure.ed25519_verify_batch([it for _, it in pending])
+    if tr.enabled:
+        tr.charge("crypto.verify_s", time.perf_counter() - t0)
+        tr.charge("crypto.verify_n", len(pending))
+    if ok:
+        # only positives memoize: a failed batch does not say which item
+        for key, _ in pending:
+            _memo_store(key, True)
     return ok
 
 

@@ -37,28 +37,49 @@ promotion over its replayed ledger, mirrored blobs and bound socket:
   needs no fetch; an authenticated standby's read endpoint (`read_ep`)
   joins the read set that `model` replies advertise.
 
+BFT commit certificates (`comm/bft.py`): with `bft_validators`
+endpoints (and their `bft_keys`) an op binds only once `bft_quorum`
+validators re-executed and co-signed it.  A mutation's ack carries the
+certificate of the op its request implies (`DUPLICATE`-class replies the
+original op's), an op no quorum signs answers `CERT_TIMEOUT`, the op
+stream publishes only certified ops with their certificates, `info`
+reports `certified_size`, and validators get each client op's auth
+evidence (tag, pubkey, f64 values).  Certification drains the whole
+uncertified backlog in one `certify_range` round trip per validator, at
+most 128 ops a window, and falls back to the single-op `certify` (with
+its repair rounds) where the batch stops; a writer whose op loses the
+repair mandate to a foreign proposer fences itself.  A promoted standby
+passes its mirrored certificates as `resume_certs`.
+`BFLC_CONTROL_PLANE_LEGACY=1`, the reference's baseline switch, pins the
+window to one op a round trip and streams no piggybacked blob.
+
 The merge runs through `meshagg` on the server's `device` (`cuda`
-unless the caller asks for the CPU): the reference's leg policy picks
-the mesh leg — kernel B5 on the card, after its one-time self-check —
-for rounds of at least `BFLC_MESH_AGG_MIN` admitted deltas, staged as
-flattened rows at admission (a promoted writer re-derives the rows of
-the blobs it mirrored).  On the card a failure there raises; it never
-falls back to the host leg.  With `BFLC_PROC_TRACE=1` the merge charges
+unless the caller asks for the CPU) at the genome's block count
+(`ledger/base.reduce_blocks`, REDUCTION SPEC v2): the reference's leg
+policy picks the mesh leg — kernel B5 on the card, one launch a block,
+after its one-time self-check — for rounds of at least
+`BFLC_MESH_AGG_MIN` admitted deltas, staged as flattened rows at
+admission (a promoted writer re-derives the rows of the blobs it
+mirrored).  On the card a failure there raises; it never falls back to
+the host leg.  With `BFLC_PROC_TRACE=1` the merge charges
 `aggregate_s` (and the engine call alone `aggregate.engine_s`) to
-`utils/tracing.PROC`, and `info` returns the tracer's summary as
-`perf`.  The `kernels` method (the port's own) answers the process's
-kernel launch counts, the engine's report and `merge_log`, one record a
-commit (its epoch, the writer's clock and the host's monotonic clock,
-the merge's seconds and leg), with the writer's generation, index and
-start on the monotonic clock: a failover's gap is read from them.
+`utils/tracing.PROC` (certification `bft.certify_s`, split into
+`bft.certify_batch_s` and `bft.certify_single_s`, with the ops each
+certified, `bft.certify_batched_ops` / `bft.certify_single_ops`), and
+`info` returns the tracer's summary as `perf`.  The `kernels` method
+(the port's own) answers the process's kernel launch counts, the
+engine's report and `merge_log`, one record a commit (its epoch, the
+writer's clock and the host's monotonic clock, the merge's seconds, leg
+and blocks), with the writer's generation, index and start on the
+monotonic clock (a failover's gap is read from them), and the chain's
+size, certified prefix and highest subscriber ack.
 
 Not ported, each raising or refusing with its ROADMAP item when asked
-for: BFT certificates, TLS, snapshots and `log_base` (always 0), the
-hier root, rederive, the async FedBuff and genome paths, sparse/
-quantized uploads (A9); telemetry, health and causal traces (A14); the
-`BFLC_CONTROL_PLANE_LEGACY` benchmark switch (the piggyback is always
-on; `BFLC_DATA_PLANE_LEGACY=1` drops the model piggyback and the read
-set, as in the reference).
+for: TLS, snapshots and `log_base` (always 0), the hier root, rederive
+and its commit evidence, the async FedBuff and genome paths, sparse/
+quantized uploads (A9); telemetry, health and causal traces (A14).
+`BFLC_DATA_PLANE_LEGACY=1` drops the model piggyback and the read set,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -81,11 +102,14 @@ from bflc_demo_tpu_torch.comm.wire import (WireError, blob_bytes, recv_msg,
                                            send_msg)
 from bflc_demo_tpu_torch.device import DeviceLike
 from bflc_demo_tpu_torch.ledger import LedgerStatus, make_ledger
-from bflc_demo_tpu_torch.ledger.base import OP_COMMIT, OP_UPLOAD, decode_op
+from bflc_demo_tpu_torch.ledger.base import (OP_COMMIT, OP_REGISTER,
+                                             OP_UPLOAD, decode_op,
+                                             reduce_blocks)
 from bflc_demo_tpu_torch.meshagg.engine import (ENGINE, MeshAggEngine,
                                                 engine_for, flatten_delta)
 from bflc_demo_tpu_torch.ops import launch_counts
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
+from bflc_demo_tpu_torch.protocol.constants import bft_quorum as _bft_quorum
 from bflc_demo_tpu_torch.utils import tracing
 from bflc_demo_tpu_torch.utils.serialization import (dequantize_entries,
                                                      pack_entries,
@@ -99,11 +123,6 @@ GAS_SCORES = 500
 # the reference's server options this port has not reached, each with
 # the ROADMAP item that brings it; a truthy value raises
 UNPORTED_SERVER_OPTIONS = {
-    "bft_validators": "A9 (BFT validators)",
-    "bft_keys": "A9 (BFT validators)",
-    "bft_quorum": "A9 (BFT validators)",
-    "bft_timeout_s": "A9 (BFT validators)",
-    "resume_certs": "A9 (BFT validators)",
     "tls": "A9 (TLS)",
     "snapshot_interval": "A9 (snapshots)",
     "snapshot_dir": "A9 (snapshots)",
@@ -235,13 +254,19 @@ class LedgerServer:
                  gas_budget_per_epoch: Optional[int] = None,
                  quorum: int = 0,
                  quorum_timeout_s: float = 5.0,
+                 bft_validators: Optional[List[Tuple[str, int]]] = None,
+                 bft_keys: Optional[Dict[int, bytes]] = None,
+                 bft_quorum: Optional[int] = None,
+                 bft_timeout_s: float = 10.0,
+                 resume_certs: Optional[Dict[int, dict]] = None,
                  device: DeviceLike = None,
                  verbose: bool = False,
                  **unported):
-        """resume_ledger/resume_blobs/sock: the promotion surface — a
-        server over a standby's replayed ledger, its mirrored blobs, the
-        current model blob as `initial_model_blob`, and the socket it
-        bound at start, whose backlog holds the failed-over clients."""
+        """resume_ledger/resume_blobs/sock/resume_certs: the promotion
+        surface — a server over a standby's replayed ledger, its
+        mirrored blobs and certificates, the current model blob as
+        `initial_model_blob`, and the socket it bound at start, whose
+        backlog holds the failed-over clients."""
         refuse_unported(unported, UNPORTED_SERVER_OPTIONS)
         cfg.validate()
         self.cfg = cfg
@@ -299,6 +324,42 @@ class LedgerServer:
         # only identities whose evidence can demote this writer
         self._standby_keys: Dict[int, bytes] = dict(standby_keys or {})
         self._promotion_evidence = promotion_evidence
+        # the reference's control-plane baseline switch: one op a
+        # certification round trip and no op-stream blob piggyback
+        self._legacy = bool(os.environ.get("BFLC_CONTROL_PLANE_LEGACY"))
+        self._cert_batch = 1 if self._legacy else 128
+        # BFT commit certificates: chain position -> wire certificate,
+        # and by op hash (an ack carries the certificate of the op its
+        # request implies); certification is strictly sequential under
+        # _cert_lock; _op_auth is the client evidence validators check
+        self._bft = None
+        self._certs: Dict[int, dict] = dict(resume_certs or {})
+        self._certs_by_ophash: Dict[str, dict] = {
+            c["op_hash"]: c for c in self._certs.values()
+            if isinstance(c, dict) and "op_hash" in c}
+        self._cert_lock = threading.Lock()
+        self._op_auth: Dict[int, dict] = {}
+        self._certified_size = 0
+        self._cert_head = b"\0" * 32
+        if bft_validators:
+            from bflc_demo_tpu_torch.comm.bft import CertificateAssembler
+            q = bft_quorum if bft_quorum is not None \
+                else _bft_quorum(len(bft_validators))
+            if not 0 < q <= len(bft_validators):
+                raise ValueError(f"bft_quorum {q} out of range for "
+                                 f"{len(bft_validators)} validators")
+            self._bft = CertificateAssembler(
+                bft_validators, bft_keys or {}, q,
+                timeout_s=bft_timeout_s, backlog_fn=self._bft_backlog)
+            # a promoted chain arrives fully certified: the standby
+            # refused uncertified appends and certified its fence op
+            self._certified_size = self.ledger.log_size()
+            if self._certified_size:
+                self._cert_head = self.ledger.log_head()
+            if len(self._certs) < self._certified_size:
+                raise ValueError(
+                    f"BFT resume: {self._certified_size} chain ops but "
+                    f"only {len(self._certs)} certificates")
         self._threads: List[threading.Thread] = []
         if sock is not None:
             self._sock = sock
@@ -327,6 +388,8 @@ class LedgerServer:
 
     def close(self) -> None:
         self._stop.set()
+        if self._bft is not None:
+            self._bft.close()
         with self._cv:
             self._cv.notify_all()
             conns = list(self._conns)
@@ -370,6 +433,13 @@ class LedgerServer:
                 try:
                     reply = self._dispatch(method, msg)
                     post_size = reply.pop("_post_size", None)
+                    if self._bft is not None and post_size is not None:
+                        # the ack carries only co-signed state: certify
+                        # the ops this request appended (and before)
+                        reply = self._certified_reply(method, msg, reply,
+                                                      post_size)
+                        if reply.get("status") == "CERT_TIMEOUT":
+                            post_size = None
                     if self._quorum and post_size is not None and \
                             not self._await_quorum(post_size):
                         # the op is in the local chain but not provably on
@@ -396,6 +466,131 @@ class LedgerServer:
                 conn.close()
             except OSError:
                 pass
+
+    def _certified_reply(self, method: str, msg: dict, reply: dict,
+                         post_size: int) -> dict:
+        """`reply` with the certificate of the op the request implies
+        (its own fields rebuild the op: a DUPLICATE-class retry gets the
+        original op's), or CERT_TIMEOUT when no quorum co-signed."""
+        from bflc_demo_tpu_torch.comm.bft import expected_op_hash
+        cert = self._ensure_certified(post_size)
+        if cert is None:
+            return {"ok": False, "status": "CERT_TIMEOUT",
+                    "error": "no validator quorum co-signed the op"}
+        oh = expected_op_hash(method, msg)
+        if oh is not None:
+            cert = self._certs_by_ophash.get(oh.hex())
+        reply["cert"] = cert
+        return reply
+
+    # ------------------------------------------------- commit certificates
+    def _bft_backlog(self, j: int):
+        """(op, auth evidence, certificate) of chain position j: what a
+        lagging or rejoining validator replays.  The evidence lives in
+        this process only (after a promotion it is gone for earlier ops,
+        and the certificate admits them); a register op's pubkey is
+        recovered from the directory so the rejoined validator's mirror
+        stays complete."""
+        with self._lock:
+            op = self.ledger.log_op(j)
+            auth = self._op_auth.get(j)
+            if auth is None and op and op[0] == OP_REGISTER:
+                try:
+                    (n,) = struct.unpack_from("<q", op, 1)
+                    pub = self.directory.export_raw().get(
+                        op[9:9 + n].decode())
+                    if pub is not None:
+                        auth = {"pubkey": pub.hex()}
+                except (struct.error, UnicodeDecodeError):
+                    pass
+            return op, auth, self._certs.get(j)
+
+    def _ensure_certified(self, upto: int,
+                          timeout_s: Optional[float] = None
+                          ) -> Optional[dict]:
+        """Certify ops [certified_size, upto); the wire certificate of op
+        upto-1, or None when no quorum signs within the timeout.
+
+        Strictly sequential under _cert_lock (each certificate chains on
+        the previous head); votes are gathered without the ledger lock.
+        Each pass drains the whole uncertified backlog, at most
+        `_cert_batch` ops, in one `certify_range` round trip per
+        validator; a position the batch cannot certify goes through the
+        single-op `certify` and its repair rounds."""
+        if self._bft is None:
+            return None
+        deadline = time.monotonic() + (timeout_s if timeout_s is not None
+                                       else self._bft.timeout_s)
+        tr = tracing.PROC
+        with self._cert_lock:
+            while self._certified_size < upto:
+                if self._stop.is_set():
+                    return None
+                i = self._certified_size
+                prev = self._cert_head
+                with self._lock:
+                    hi = min(max(upto, self.ledger.log_size()),
+                             i + self._cert_batch)
+                    entries = [(self.ledger.log_op(j), self._op_auth.get(j))
+                               for j in range(i, hi)]
+                if len(entries) > 1:
+                    t0 = time.perf_counter()
+                    certs = self._bft.certify_range(i, entries, prev)
+                    installed = 0
+                    for k, cert in enumerate(certs):
+                        if cert is None:
+                            break
+                        self._install_certificate(i + k, entries[k][0],
+                                                  cert.to_wire())
+                        installed += 1
+                    if tr.enabled:
+                        dt = time.perf_counter() - t0
+                        tr.charge("bft.certify_s", dt)
+                        tr.charge("bft.certify_batch_s", dt)
+                        if installed:
+                            tr.charge("bft.certify_batched_ops", installed)
+                    if installed:
+                        with self._cv:
+                            self._cv.notify_all()
+                        continue
+                op, auth = entries[0]
+                t0 = time.perf_counter()
+                cert = self._bft.certify(i, op, auth, prev)
+                if tr.enabled:
+                    dt = time.perf_counter() - t0
+                    tr.charge("bft.certify_s", dt)
+                    tr.charge("bft.certify_single_s", dt)
+                if cert is None:
+                    if self._bft.superseded_op is not None:
+                        # the quorum mandated a foreign op at our position:
+                        # another proposer writes the canonical chain and
+                        # our suffix cannot certify — fence ourselves
+                        self._say("certification superseded by a foreign "
+                                  "proposer: self-demoting")
+                        self.fenced.set()
+                        self.close()
+                        return None
+                    if time.monotonic() > deadline:
+                        return None
+                    # a transient quorum failure: retry within the budget,
+                    # never hot-spinning on refused connects
+                    time.sleep(0.2)
+                    continue
+                self._install_certificate(i, op, cert.to_wire())
+                if tr.enabled:
+                    tr.charge("bft.certify_single_ops")
+                with self._cv:
+                    self._cv.notify_all()   # wake the op-stream pushers
+            return self._certs.get(upto - 1)
+
+    def _install_certificate(self, i: int, op: bytes, wire: dict) -> None:
+        """Record op i's certificate and advance the watermark (the
+        caller holds _cert_lock)."""
+        from bflc_demo_tpu_torch.comm.bft import next_head
+        self._certs[i] = wire
+        self._certs_by_ophash[wire["op_hash"]] = wire
+        self._cert_head = next_head(self._cert_head, op)
+        self._certified_size = i + 1
 
     def _fenced_by(self, conn: socket.socket, msg: dict) -> bool:
         """Demote on a fence above our generation that carries verified
@@ -439,9 +634,11 @@ class LedgerServer:
                     read_ep: Optional[Tuple[str, int]] = None) -> None:
         """Push canonical op bytes from `start` on until the peer leaves,
         an upload's payload blob or a commit's model blob riding its op's
-        frame.  A reader thread drains the subscriber's `{"ack": i}`
-        frames (unconditionally, so an acking follower never wedges on a
-        full send buffer) and wakes the quorum waiters."""
+        frame (not under the legacy switch); with BFT only certified ops,
+        each with its certificate.  A reader thread drains the
+        subscriber's `{"ack": i}` frames (unconditionally, so an acking
+        follower never wedges on a full send buffer) and wakes the
+        quorum waiters."""
         sub_id = object()
         with self._cv:
             # clamp the claimed start to the real log: a subscriber cannot
@@ -459,6 +656,10 @@ class LedgerServer:
             while not self._stop.is_set():
                 with self._cv:
                     size = self.ledger.log_size()
+                    if self._bft is not None:
+                        # a standby never replicates (or acks) state no
+                        # validator quorum co-signed
+                        size = min(size, self._certified_size)
                     ops = [self.ledger.log_op(i)
                            for i in range(next_i, min(size, next_i + 256))]
                     if not ops:
@@ -469,7 +670,10 @@ class LedgerServer:
                     self._sub_sent[sub_id] = next_i + len(ops) - 1
                 for i, op in enumerate(ops):
                     frame = {"i": next_i + i, "op": op.hex()}
-                    blob = self._op_payload_blob(op)
+                    if self._bft is not None:
+                        frame["cert"] = self._certs.get(next_i + i)
+                    blob = (None if self._legacy
+                            else self._op_payload_blob(op))
                     if blob is not None:
                         frame["blob"] = blob
                     send_msg(conn, frame)
@@ -692,6 +896,10 @@ class LedgerServer:
         st = self.ledger.register_node(addr)
         if st == LedgerStatus.OK:
             self._consume_tag(0, m.get("tag", ""))
+            # the validators re-verify the client's tag against their
+            # own directory mirror, or a writer could fabricate the op
+            self._op_auth[self.ledger.log_size() - 1] = {
+                "tag": m.get("tag", ""), "pubkey": m.get("pubkey", "")}
         self._touch(addr)
         self._note_progress(st)
         return {"ok": st == LedgerStatus.OK, "status": st.name,
@@ -733,6 +941,13 @@ class LedgerServer:
             self._stage_delta(digest, flat)
             self._blobs[digest] = blob
             self._consume_tag(int(m["epoch"]), m.get("tag", ""))
+            # the f64 originals ride along (the op stores f32, the tag
+            # signs f64), and the sender's pubkey heals a validator's
+            # directory hole
+            self._op_auth[self.ledger.log_size() - 1] = {
+                "tag": m.get("tag", ""), "n": int(m["n"]),
+                "cost": float(m["cost"]),
+                "pubkey": self._sender_pubkey_hex(addr)}
         elif st == LedgerStatus.DUPLICATE:
             self._resupply_blob(digest, blob)
         self._touch(addr)
@@ -758,6 +973,9 @@ class LedgerServer:
         st = self.ledger.upload_scores(addr, int(m["epoch"]), scores)
         if st == LedgerStatus.OK:
             self._consume_tag(int(m["epoch"]), m.get("tag", ""))
+            self._op_auth[self.ledger.log_size() - 1] = {
+                "tag": m.get("tag", ""), "scores": scores,
+                "pubkey": self._sender_pubkey_hex(addr)}
         self._touch(addr)
         self._note_progress(st)
         if st == LedgerStatus.OK and self.ledger.aggregate_ready():
@@ -783,7 +1001,9 @@ class LedgerServer:
                  "log_size": led.log_size(),
                  "log_head": led.log_head().hex(),
                  "gen": led.generation, "writer_index": led.writer_index,
-                 "log_base": 0, "certified_size": None,
+                 "log_base": 0,
+                 "certified_size": (self._certified_size
+                                    if self._bft is not None else None),
                  "committee": led.committee()}
         if tracing.PROC.enabled:
             reply["perf"] = tracing.PROC.summary()
@@ -792,14 +1012,20 @@ class LedgerServer:
     def _m_kernels(self, m: dict) -> dict:
         """This process's kernel launch counts, the merge engine's report
         (leg, self-check, launches the self-check made), every commit's
-        merge record and the Ed25519 backend."""
+        merge record and the Ed25519 backend; the chain's size, its
+        certified prefix and the highest op a subscriber acked (a drill
+        reads when its standby holds the whole certified chain)."""
         from bflc_demo_tpu_torch.comm.identity import ED25519_BACKEND
         return {"ok": True, "launches": launch_counts(),
                 "engine": self.engine.report(), "merges": self.merge_log,
                 "ed25519_backend": ED25519_BACKEND,
                 "gen": self.ledger.generation,
                 "writer_index": self.ledger.writer_index,
-                "started_mono": self._t0}
+                "started_mono": self._t0,
+                "log_size": self.ledger.log_size(),
+                "certified_size": (self._certified_size
+                                   if self._bft is not None else None),
+                "stream_acked": max(self._sub_acked.values(), default=-1)}
 
     def _m_log_range(self, m: dict) -> dict:
         start, end = int(m["start"]), int(m["end"])
@@ -823,6 +1049,12 @@ class LedgerServer:
         return {"ok": True, "log_size": self.ledger.log_size()}
 
     # ------------------------------------------------------------ admission
+    def _sender_pubkey_hex(self, addr: str) -> str:
+        """The sender's enrolled key (hex, '' when unknown): the
+        self-authenticating evidence a validator's directory heals on."""
+        pub = self.directory.export_raw().get(addr)
+        return pub.hex() if pub is not None else ""
+
     def _resupply_blob(self, digest: bytes, blob: bytes) -> None:
         """Keep a hash-verified payload the ledger records but this writer
         lacks (an honest retry whose first reply was lost)."""
@@ -888,19 +1120,22 @@ class LedgerServer:
         epoch = self.ledger.epoch
         global_flat = unpack_pytree(self._model_blob)
         weights = [u.n_samples for u in updates]
+        # the genome's block geometry (REDUCTION SPEC v2): on the card
+        # one B5 launch a block; the commit op claims the same count
+        blocks = reduce_blocks(self.cfg)
         t1 = time.perf_counter() if tr.enabled else 0.0
         if self.engine.choose_leg(len(updates)) == "mesh":
             rows = [self._staged_row(u.payload_hash) for u in updates]
             new_flat = self.engine.aggregate_rows(
                 global_flat, rows, weights, list(pending.selected),
-                self.cfg.learning_rate)
+                self.cfg.learning_rate, blocks=blocks)
         else:
             delta_flats = [dequantize_entries(unpack_pytree(
                 self._blobs[u.payload_hash])) for u in updates]
             new_flat = _aggregate_flat(global_flat, delta_flats, weights,
                                        list(pending.selected),
                                        self.cfg.learning_rate,
-                                       engine=self.engine)
+                                       blocks=blocks, engine=self.engine)
         if tr.enabled:
             tr.charge("aggregate.engine_s", time.perf_counter() - t1)
         blob = pack_entries(new_flat)
@@ -920,6 +1155,7 @@ class LedgerServer:
         self._cv.notify_all()
         merge_s = time.perf_counter() - t0
         self.merge_log.append({"epoch": epoch, "leg": self.engine.last_leg,
+                               "blocks": blocks,
                                "t": self._last_progress - self._t0,
                                "mono": self._last_progress,
                                "merge_s": merge_s})
@@ -936,6 +1172,15 @@ class LedgerServer:
         drive the recovery ops; liveness comes from request recency."""
         while not self._stop.is_set():
             time.sleep(min(self.stall_timeout_s / 4, 1.0))
+            if self._bft is not None and \
+                    self._certified_size < self.ledger.log_size():
+                # certify ops appended outside a request (recovery ops, a
+                # request thread that died mid-certify) within a
+                # tick-sized budget, so an unreachable quorum cannot
+                # starve the stall recovery below
+                self._ensure_certified(
+                    self.ledger.log_size(),
+                    timeout_s=min(self.stall_timeout_s / 4, 1.0))
             with self._lock:
                 if self.ledger.epoch < 0:
                     continue

@@ -1,9 +1,11 @@
 """The committee ledger (port of `bflc_demo_tpu/ledger`, python backend).
 
 `make_ledger` builds the pure-Python `PyLedger`, whose op log matches the
-reference ledger's bit for bit on the same ops.  `backend` is the
-reference's: "auto" and "python" give the python ledger; "native", the
-reference's C++ `.so`, raises (ROADMAP A9: the native ledger).
+reference ledger's bit for bit on the same ops, at the genome's block
+geometry (`base.reduce_blocks`: a blocked genome's commit ops carry the
+REDUCTION SPEC v2 claim).  `backend` is the reference's: "auto" and
+"python" give the python ledger; "native", the reference's C++ `.so`,
+raises (ROADMAP A9: the native ledger), blocked genome or not.
 `clone_prefix` (reference :66-) is the rollback-to-prefix primitive a
 standby's promotion uses; a source compacted behind a snapshot does not
 exist here (ROADMAP A9: snapshots).
@@ -12,7 +14,8 @@ exist here (ROADMAP A9: snapshots).
 from __future__ import annotations
 
 from bflc_demo_tpu_torch.ledger.base import (  # noqa: F401
-    LedgerStatus, PendingInfo, UpdateInfo)
+    LedgerStatus, PendingInfo, UpdateInfo, blocked_enabled, blocked_legacy,
+    reduce_blocks)
 from bflc_demo_tpu_torch.ledger.pyledger import PyLedger
 from bflc_demo_tpu_torch.protocol.constants import (DEFAULT_PROTOCOL,
                                                     ProtocolConfig)
@@ -37,7 +40,8 @@ def make_ledger(cfg: ProtocolConfig = DEFAULT_PROTOCOL, *,
     check_backend(backend)
     cfg.validate()
     return PyLedger(cfg.client_num, cfg.comm_count, cfg.aggregate_count,
-                    cfg.needed_update_count, cfg.genesis_epoch)
+                    cfg.needed_update_count, cfg.genesis_epoch,
+                    reduce_blocks=reduce_blocks(cfg))
 
 
 def clone_prefix(src, upto: int, cfg: ProtocolConfig, *,

@@ -10,7 +10,9 @@ written inline at `ledger/pyledger.py:466-488`), `decode_op`, the op
 decoder of `ledger/tool.py:85-168` for opcodes 1-8 (the standby reads an
 upload's payload hash and a commit's model hash with it), and
 `staleness_weight`, the FedBuff merge weight the certified merge's
-checker draws (`meshagg/check.py`).  Dropped:
+checker draws (`meshagg/check.py`), and REDUCTION SPEC v2's switches
+(`blocked_legacy`, `reduce_blocks`, `blocked_enabled`, :57-81).
+Dropped:
 the async (`OP_AUPLOAD`/`OP_ASCORES`/`OP_ACOMMIT`) and genome (`OP_GENOME`)
 encoders and the legacy/arming switches of the modes this port has not
 reached.
@@ -21,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
+import os
 import struct
 from typing import List, Sequence
 
@@ -32,6 +35,31 @@ OP_NAMES = {OP_REGISTER: "register", OP_UPLOAD: "upload",
             OP_SCORES: "scores", OP_COMMIT: "commit",
             OP_CLOSE: "close_round", OP_FORCE: "force_aggregate",
             OP_RESEAT: "reseat_committee", OP_PROMOTE: "promote_writer"}
+
+
+def blocked_legacy() -> bool:
+    """True when BFLC_BLOCKED_LEGACY pins REDUCTION SPEC v1's
+    single-block wire format whatever ProtocolConfig.reduce_blocks says."""
+    return bool(os.environ.get("BFLC_BLOCKED_LEGACY"))
+
+
+def reduce_blocks(cfg) -> int:
+    """The one decision point for the block geometry (REDUCTION SPEC
+    v2): the genome's reduce_blocks unless the legacy pin flattens it to
+    1.  The ledger, the writer's merge and the CLI all read it here, so
+    no layer can disagree about the geometry a commit op must claim."""
+    if blocked_legacy():
+        return 1
+    try:
+        return max(int(getattr(cfg, "reduce_blocks", 1) or 1), 1)
+    except (TypeError, ValueError):
+        return 1
+
+
+def blocked_enabled(cfg) -> bool:
+    """True when commit ops carry (and replicas enforce) a geometry
+    claim: the chain speaks the v2 wire format."""
+    return reduce_blocks(cfg) > 1
 
 
 def staleness_weight(staleness: int) -> float:

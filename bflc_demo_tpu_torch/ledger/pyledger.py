@@ -15,14 +15,19 @@ without the closed compression loop); the SHA-256 op-log chain
 `head_at`); the write-ahead log in the `BFLCWAL1` format byte for byte
 (`attach_wal`, `save_wal`, `detach_wal`, `replay_wal`, :148-253: a
 failed journal write detaches the WAL and the ledger keeps serving);
-and `apply_op` (:1207), the replica's replay, for opcodes 1-8.  Same op
-bytes, same statuses, same median / rank / election order, so the same
-op sequence gives the same chain head as the reference ledger, bit for
-bit.
+REDUCTION SPEC v2's block geometry on the chain (`reduce_blocks`, the
+`BLK1` claim tail of a blocked genome's commit op, `commit_model`'s
+`blocks` claim, :56-97, :545-590); `apply_op` (:1207), the replica's
+replay, for opcodes 1-8, the commit's 40-byte v1 and 52-byte v2 bodies
+included (:1242-1255); and the BFT validator's probe `validate_op` with
+`_snapshot`/`_restore` (:1161-1205), which leaves the state and the WAL
+untouched.  Same op bytes, same statuses, same median / rank / election
+order, so the same op sequence gives the same chain head as the
+reference ledger, bit for bit.
 
 Not ported, each with its own A9 item: the asynchronous buffered family
-(10-12), genome updates (13), the blocked commit tail, snapshots and
-compaction (opcode 9, the compacted `BFLCWAL2` journal and
+(10-12, with the async commit's geometry tail), genome updates (13),
+snapshots and compaction (opcode 9, the compacted `BFLCWAL2` journal and
 `compact_wal`, which raise naming "A9 (snapshots)").  `apply_op` refuses
 those opcodes with BAD_ARG, as the reference does an unknown one.  The
 native `.so` is not bound.
@@ -47,15 +52,29 @@ from bflc_demo_tpu_torch.ledger.base import (
 _SNAPSHOTS = ("the compacted journal (BFLCWAL2) is not ported yet "
               "(ROADMAP A9 (snapshots))")
 
+# commit_model's `blocks` default: "derive the claim from this replica's
+# genome" (the writer path).  Distinct from None, which means "the op
+# carried no geometry claim" (a v1 body on the replay path).
+_DERIVE_BLOCKS = object()
+
+# magic tag introducing the block-geometry claim tail on commit ops
+_BLOCKS_MAGIC = b"BLK1"
+
 
 class PyLedger:
     def __init__(self, client_num: int, comm_count: int, aggregate_count: int,
-                 needed_update_count: int, genesis_epoch: int = -999):
+                 needed_update_count: int, genesis_epoch: int = -999,
+                 reduce_blocks: int = 1):
         self.client_num = client_num
         self.comm_count = comm_count
         self.aggregate_count = aggregate_count
         self.needed_update_count = needed_update_count
         self.genesis_epoch = genesis_epoch
+        # REDUCTION SPEC v2's block count (ledger.base.reduce_blocks): a
+        # genome constant, never state.  With B > 1 every commit op
+        # carries the claim, and a claim that disagrees is BAD_ARG, so a
+        # writer lying about its geometry dies at every honest replica.
+        self.reduce_blocks = max(int(reduce_blocks), 1)
 
         self._epoch = genesis_epoch
         self._model_hash = b"\0" * 32
@@ -341,11 +360,21 @@ class PyLedger:
     def pending(self) -> Optional[PendingInfo]:
         return self._pending
 
-    def commit_model(self, new_model_hash: bytes, epoch: int) -> LedgerStatus:
+    def commit_model(self, new_model_hash: bytes, epoch: int,
+                     blocks=_DERIVE_BLOCKS) -> LedgerStatus:
+        """Commit the aggregated model.  `blocks` is the geometry claim:
+        the writer leaves the default ("derive it from the genome"), the
+        replay passes the op's claim (None for a v1 40-byte body).  A
+        claim that disagrees with this replica's genome is BAD_ARG
+        before any state changes."""
         if self._pending is None:
             return LedgerStatus.NOT_READY
         if epoch != self._epoch:
             return LedgerStatus.WRONG_EPOCH
+        derived_blocks = (self.reduce_blocks
+                          if self.reduce_blocks > 1 else None)
+        if blocks is not _DERIVE_BLOCKS and blocks != derived_blocks:
+            return LedgerStatus.BAD_ARG
         self._model_hash = bytes(new_model_hash)
         self._last_loss = self._pending.global_loss
         for a in self._roles:
@@ -358,7 +387,11 @@ class PyLedger:
         self._pending = None
         self._closed = False
         self._epoch += 1
-        self._append_log(encode_commit_op(new_model_hash, epoch))
+        op = encode_commit_op(new_model_hash, epoch)
+        if derived_blocks is not None:
+            # the claim rides the certified op (v1 chains: no tail)
+            op += _BLOCKS_MAGIC + struct.pack("<q", derived_blocks)
+        self._append_log(op)
         return LedgerStatus.OK
 
     # --- inspection ---
@@ -415,6 +448,36 @@ class PyLedger:
         """Chain head after ops[0..upto) — b"" at upto == 0."""
         return self._log[upto - 1] if upto else b""
 
+    # --- validate-without-apply (the BFT validator's probe) ---
+    def _snapshot(self):
+        """A cheap copy of every mutable field apply_op can touch."""
+        return (self._epoch, self._model_hash, self._last_loss,
+                list(self._reg_order), dict(self._roles),
+                list(self._updates), dict(self._update_slot),
+                {k: list(v) for k, v in self._scores.items()},
+                self._pending, self._closed, self._generation,
+                self._writer_index, len(self._ops))
+
+    def _restore(self, snap) -> None:
+        (self._epoch, self._model_hash, self._last_loss, self._reg_order,
+         self._roles, self._updates, self._update_slot, self._scores,
+         self._pending, self._closed, self._generation,
+         self._writer_index, n_ops) = snap
+        del self._ops[n_ops:]
+        del self._log[n_ops:]
+
+    def validate_op(self, op: bytes) -> LedgerStatus:
+        """Would `apply_op(op)` succeed here?  Runs it and restores the
+        state, with the WAL detached for the probe, so nothing changes
+        and nothing is journaled either way."""
+        snap = self._snapshot()
+        wal, self._wal = self._wal, None
+        try:
+            return self.apply_op(op)
+        finally:
+            self._restore(snap)
+            self._wal = wal
+
     # --- replay (the replica path) ---
     def apply_op(self, op: bytes) -> LedgerStatus:
         """Deterministic replay of a serialized op, opcodes 1-8; every
@@ -452,12 +515,16 @@ class PyLedger:
                 scores = list(struct.unpack_from(f"<{cnt}f", body, off + 16))
                 return self.upload_scores(sender, ep, scores)
             if code == OP_COMMIT:
-                # spec v1's 40-byte body only: the blocked geometry tail
-                # comes with reduce_blocks (ROADMAP A9)
-                if len(body) != 40:
+                # 40 bytes (v1), or 40 + the tagged 12-byte geometry
+                # claim (v2); anything else is malformed
+                if len(body) == 40:
+                    claim = None
+                elif len(body) == 52 and body[40:44] == _BLOCKS_MAGIC:
+                    claim, = struct.unpack_from("<q", body, 44)
+                else:
                     return LedgerStatus.BAD_ARG
                 ep, = struct.unpack_from("<q", body, 32)
-                return self.commit_model(body[:32], ep)
+                return self.commit_model(body[:32], ep, blocks=claim)
             if code in (OP_CLOSE, OP_FORCE):
                 ep, = struct.unpack_from("<q", body, 0)
                 if ep != self._epoch:

@@ -1,14 +1,16 @@
 """The protocol genome — every constant client and coordinator agree on.
 
 Copy of `bflc_demo_tpu/protocol/constants.py` (`ProtocolConfig` and its
-`validate()`), cut to the fields the synchronous host round reads.
-Dropped, with their checks: the data-plane encodings (`delta_dtype`,
-`delta_density`, `delta_codec`), asynchronous aggregation
-(`async_buffer`, `max_staleness`, `async_reseat_every`), the closed
-compression loop (`adapt_every`, `density_floor`), the blocked reduction
-(`reduce_blocks`) and the BFT quorum helpers.  Each belongs to a runtime
-this port has not reached yet (ROADMAP queue A).  The values and the
-checks kept are the reference's, unchanged.
+`validate()`), cut to the fields the synchronous rounds read, with
+REDUCTION SPEC v2's `reduce_blocks` (:128-140, checked at :210-216) and
+the BFT quorum algebra (`BFT_REFERENCE_VALIDATORS`,
+`bft_fault_tolerance`, `bft_quorum`, :236-261).  Dropped, with their
+checks: the data-plane encodings (`delta_dtype`, `delta_density`,
+`delta_codec`), asynchronous aggregation (`async_buffer`,
+`max_staleness`, `async_reseat_every`) and the closed compression loop
+(`adapt_every`, `density_floor`).  Each belongs to a runtime this port
+has not reached yet (ROADMAP queue A).  The values and the checks kept
+are the reference's, unchanged.
 """
 
 from __future__ import annotations
@@ -36,6 +38,14 @@ class ProtocolConfig:
     genesis_epoch: int = -999     # epoch value before CLIENT_NUM registrations
     initial_trained_epoch: int = -1
 
+    # REDUCTION SPEC v2: the flattened (P,) param axis is cut into
+    # reduce_blocks fixed contiguous blocks (meshagg.spec.block_bounds);
+    # the committed bytes are v1's for every value.  Blocked commit ops
+    # carry the claim and replicas refuse a claim that disagrees with
+    # this field.  1 (the default) or BFLC_BLOCKED_LEGACY=1 keeps the v1
+    # single-block wire format.
+    reduce_blocks: int = 1
+
     def validate(self) -> "ProtocolConfig":
         if not (0 < self.comm_count < self.client_num):
             raise ValueError(
@@ -52,7 +62,39 @@ class ProtocolConfig:
                 f"{self.client_num - self.comm_count})")
         if self.learning_rate <= 0 or self.batch_size <= 0:
             raise ValueError("learning_rate and batch_size must be positive")
+        if self.reduce_blocks < 1:
+            raise ValueError(
+                f"reduce_blocks must be >= 1 (1 = REDUCTION SPEC v1 "
+                f"single block), got {self.reduce_blocks}")
+        if self.reduce_blocks > 65536:
+            raise ValueError(
+                f"reduce_blocks = {self.reduce_blocks} is degenerate "
+                f"(> 65536): blocks beyond the param count P reduce "
+                f"nothing, and P-scale geometries are rejected per "
+                f"model by meshagg.spec.block_bounds")
         return self
 
 
 DEFAULT_PROTOCOL = ProtocolConfig().validate()
+
+
+# --- BFT commit-certificate geometry (the reference's 4-node PBFT chain):
+# the one place the quorum arithmetic lives, which the writer, the
+# validators, the standbys and the clients must agree on exactly.
+
+BFT_REFERENCE_VALIDATORS = 4    # the reference chain's node count (f=1)
+
+
+def bft_fault_tolerance(n_validators: int) -> int:
+    """f: how many arbitrarily faulty validators n tolerate (PBFT
+    n >= 3f+1, so f = floor((n-1)/3); n=4 -> f=1).  n < 4 gives f=0."""
+    if n_validators < 1:
+        raise ValueError(f"need at least 1 validator, got {n_validators}")
+    return (n_validators - 1) // 3
+
+
+def bft_quorum(n_validators: int) -> int:
+    """Signatures a commit certificate needs: n - f (2f+1 at n = 3f+1).
+    Any two quorums intersect in >= f+1 validators, one of them honest,
+    so two conflicting ops at one position never both certify."""
+    return n_validators - bft_fault_tolerance(n_validators)

@@ -8,9 +8,13 @@ keeps its own protocol (`parse_protocol` returns None).  As in the
 reference, an override starts from `ProtocolConfig()`'s defaults, not
 from the preset's.
 
-The process fleet's `--standbys N` and `--quorum Q` are ported (the
-processes runtime's hot standbys and quorum-ack).  The reference's
-other run options belong to parts not ported yet.  Each such flag is
+The process fleet's `--standbys N`, `--quorum Q` and
+`--bft-validators N` are ported (the processes runtime's hot standbys,
+quorum-ack and BFT commit quorum), and so is the genome's
+`--reduce-blocks B` (`BFLC_REDUCE_BLOCKS`, REDUCTION SPEC v2; the
+flag's help is the reference's, :174-181, and `BFLC_BLOCKED_LEGACY=1`
+pins one block, `ledger/base.reduce_blocks`).  The reference's other
+run options belong to parts not ported yet.  Each such flag is
 accepted by the parser so that the CLI can refuse it by name (exit 2
 with the ROADMAP item) rather than fail on an unknown argument or drop
 it: the process fleet's other flags and the codecs' (A9;
@@ -18,8 +22,8 @@ it: the process fleet's other flags and the codecs' (A9;
 checkpoints and the device profiler (A11), secure aggregation (A12),
 and traces, plots and telemetry (A14).  So are the
 reference's protocol fields that the port's `ProtocolConfig` does not
-have yet (its data-plane encodings, asynchronous aggregation and blocked
-reduction, A9), as flags and as `BFLC_*` variables.
+have yet (its data-plane encodings and asynchronous aggregation, A9), as
+flags and as `BFLC_*` variables.
 """
 
 from __future__ import annotations
@@ -36,12 +40,12 @@ _ENV_PREFIX = "BFLC_"
 # the reference's ProtocolConfig fields the port's does not carry yet
 UNPORTED_FIELDS = ("delta_dtype", "delta_density", "delta_codec",
                    "async_buffer", "max_staleness", "async_reseat_every",
-                   "adapt_every", "density_floor", "reduce_blocks")
+                   "adapt_every", "density_floor")
 
 # reference run options -> the ROADMAP item that ports them
 UNPORTED_OPTIONS: Dict[str, str] = {
     **{name: "A9" for name in (
-        "tls_dir", "bft_validators",
+        "tls_dir",
         "cells", "cell_size", "attest_scores", "chaos_seed", "chaos_profile",
         "rederive", "snapshot_interval", "snapshot_dir", "error_feedback",
         *UNPORTED_FIELDS)},
@@ -76,9 +80,17 @@ def add_flags(p: argparse.ArgumentParser) -> None:
     """One `--field-name` flag per protocol field (default None: not
     given), and the unported run options, each recorded if given."""
     for name, default in dataclasses.asdict(ProtocolConfig()).items():
+        help_ = f"protocol: {name} (default {default})"
+        if name == "reduce_blocks":
+            help_ = ("protocol: partition the flattened param axis into "
+                     "this many contiguous blocks for aggregation "
+                     "(REDUCTION SPEC v2; default 1 = v1 single block; "
+                     "result bytes are identical for any value — this is "
+                     "an execution-shape knob the quorum certifies, needs "
+                     "the python ledger backend; BFLC_BLOCKED_LEGACY=1 "
+                     "pins v1)")
         p.add_argument("--" + name.replace("_", "-"), type=type(default),
-                       default=None,
-                       help=f"protocol: {name} (default {default})")
+                       default=None, help=help_)
     p.add_argument("--ledger-backend", default="auto",
                    choices=("auto", "python", "native"),
                    help="ledger backend (auto/python: the python ledger; "
@@ -89,6 +101,9 @@ def add_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--quorum", type=int, default=0,
                    help="processes runtime: acknowledge a mutation once "
                         "Q standbys applied it (needs --standbys >= Q+1)")
+    p.add_argument("--bft-validators", type=int, default=0,
+                   help="processes runtime: BFT commit-quorum validator "
+                        "processes (4 = the reference's f=1 geometry)")
     for name, item in UNPORTED_OPTIONS.items():
         p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True,
                        default=None, help=f"not ported yet (ROADMAP {item})")

@@ -26,7 +26,7 @@ fleet, against the reference.
   geometry) on the CPU: 6 clients, the primary SIGKILLed at epoch 2 of
   4, the standby promotes and a replica reaches the promoted writer's
   head, with `timeout_s` so a hang fails.
-- The refusals (BFT, TLS, snapshots) and the CLI's quorum check.
+- The refusals (TLS, snapshots, rederive) and the CLI's quorum check.
 Every wait is bounded; no assertion depends on a sub-second race.
 """
 
@@ -1101,7 +1101,7 @@ def test_process_drill_kills_the_writer_and_the_standby_finishes():
 # ---------------------------------------------------------- refusals
 @pytest.mark.parametrize("kw,item", [
     (dict(tls_client=object()), "A9 (TLS)"),
-    (dict(bft_keys={1: b"k"}), "A9 (BFT validators)"),
+    (dict(tls_server=object()), "A9 (TLS)"),
     (dict(snapshot_interval=2), "A9 (snapshots)")])
 def test_standby_refuses_unported_options(kw, item):
     with pytest.raises(NotImplementedError, match=item.replace(
@@ -1111,7 +1111,7 @@ def test_standby_refuses_unported_options(kw, item):
 
 
 @pytest.mark.parametrize("kw", [dict(tls_dir="certs"),
-                                dict(bft_validators=4),
+                                dict(rederive="shard"),
                                 dict(snapshot_interval=2)])
 def test_fleet_refuses_unported_options(kw):
     shards = [(np.zeros((2, 5), np.float32), np.zeros(2, np.int64))] * 6

@@ -473,8 +473,9 @@ def test_round_factory_guards():
 ])
 def test_run_with_runtime_refuses_what_does_not_apply(runtime, kw):
     # options of runtimes not ported yet are unexpected keywords of the
-    # mesh runtime; the mesh-only options are refused on 'host'
-    unported = {"bft_validators", "tls_dir"}
+    # mesh runtime; the fleet's options (standbys, bft_validators) are
+    # refused on the mesh runtime and the mesh-only ones on 'host'
+    unported = {"tls_dir"}
     exc = TypeError if unported & set(kw) else ValueError
     with pytest.raises(exc):
         run_with_runtime(make_softmax_regression(), [], ([], []),

@@ -340,7 +340,7 @@ def test_spoofed_address_cannot_drain_victim_budget():
 
 
 def test_unported_server_options_raise_naming_the_item():
-    for kw in (dict(bft_quorum=3), dict(bft_validators=[("h", 1)]),
+    for kw in (dict(cell_registry={"0x": (1, 1)}), dict(snapshot_dir="d"),
                dict(tls=object()), dict(snapshot_interval=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP A9"):
             ledger_service.LedgerServer(CFG, _init_blob(), device="cpu",

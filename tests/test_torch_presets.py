@@ -186,7 +186,11 @@ def test_protocol_overrides_match_the_reference(monkeypatch):
     assert cfg.client_num == ref_cfg.client_num == 40
     for name, value in vars(cfg).items():
         assert getattr(ref_cfg, name) == value, name
+    # the blocked geometry is ported; asynchronous aggregation is not
     monkeypatch.setenv("BFLC_REDUCE_BLOCKS", "4")
+    assert flags.protocol_from_env().reduce_blocks == \
+        ref_flags.protocol_from_env().reduce_blocks == 4
+    monkeypatch.setenv("BFLC_ASYNC_BUFFER", "4")
     with pytest.raises(ValueError, match="ROADMAP A9"):
         flags.protocol_from_env()
 
@@ -201,7 +205,7 @@ def test_no_preset_override_keeps_the_preset_protocol():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--bft-validators", "4"], "A9"), (["--tls-dir", "certs"], "A9"),
+    (["--rederive", "shard"], "A9"), (["--tls-dir", "certs"], "A9"),
     (["--delta-dtype", "i8"], "A9"), (["--error-feedback"], "A9"),
     (["--checkpoint-dir", "ckpt"], "A11"),
     (["--config", "config4", "--secure"], "A12"),

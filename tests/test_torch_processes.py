@@ -255,7 +255,7 @@ def test_threaded_whole_committee_dead_reseated(small_data):
 
 def test_unported_fleet_options_raise_naming_the_item():
     shards, test_set = _occupancy_shards(CFG.client_num)
-    for kw in (dict(snapshot_interval=2), dict(bft_validators=4),
+    for kw in (dict(snapshot_interval=2), dict(snapshot_dir="d"),
                dict(tls_dir="certs"), dict(chaos_seed=7),
                dict(rederive="shard")):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):

@@ -120,6 +120,51 @@ def test_port_sources_import_no_jax():
                 f"{path.relative_to(REPO)} imports {name}"
 
 
+def test_scan_covers_the_bft_modules():
+    """The scan above reaches the BFT layer and its types, and neither
+    imports torch: a validator process is ledger and crypto only."""
+    for rel in ("comm/bft.py", "protocol/types.py", "comm/identity.py",
+                "comm/wire.py", "ledger/pyledger.py"):
+        names = {n.split(".")[0] for n in
+                 _imports(REPO / "bflc_demo_tpu_torch" / rel)}
+        assert names, rel
+        assert not names & {"jax", "jaxlib", "flax", "bflc_demo_tpu",
+                            "torch"}, (rel, names)
+
+
+def test_validator_child_holds_no_cuda_context():
+    """A spawned validator child (the fleet's `_validator_proc`) starts,
+    serves, and never imports torch, so it can hold no CUDA context."""
+    import multiprocessing as mp
+
+    from bflc_demo_tpu_torch.client import process_runtime as pr
+    from bflc_demo_tpu_torch.comm.bft import (ValidatorClient,
+                                              provision_validators)
+    _, keys = provision_validators(1, b"slice-validator")
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    proc = ctx.Process(target=pr._validator_proc,
+                       args=(PROTO, b"slice-validator|bft-validator|"
+                             + (0).to_bytes(8, "little"), 0, q, keys,
+                             False), daemon=True)
+    proc.start()
+    try:
+        rep = q.get(timeout=120)
+        assert rep["torch_imported"] is False
+        assert rep["cuda_initialized"] is False
+        assert rep["foreign_modules"] == []
+        vc = ValidatorClient(("127.0.0.1", rep["port"]), timeout_s=30.0)
+        try:
+            info = vc.request("info")
+        finally:
+            vc.close()
+        assert info["ok"] and info["log_size"] == 0
+    finally:
+        proc.terminate()
+        proc.join(timeout=10)
+    assert not proc.is_alive()
+
+
 def test_cpu_slice_runs_without_jax():
     code = (
         "import sys\n"
@@ -155,7 +200,7 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
                                   ["--runtime", "processes",
                                    "--ledger-backend", "native"],
                                   ["--config", "config2",
-                                   "--bft-validators", "4"]])
+                                   "--rederive", "shard"]])
 def test_cli_rejects_unported_with_exit_2(argv, capsys):
     assert cli(argv) == 2
     assert "ROADMAP" in capsys.readouterr().err
