@@ -5,20 +5,22 @@ Port of `bflc_demo_tpu/__main__.py` with the reference's defaults
 `mesh`, `host`, `threaded` or `processes` runtime (the process fleet:
 writer, clients and a replica as OS processes, with `--standbys N` hot
 standbys, `--quorum Q` quorum-ack, which needs `--standbys >= Q+1`
-and exits 2 otherwise, as in the reference, and `--bft-validators N`
-validator processes that co-sign every op; run it from the shell or a
-real file, as spawned children re-import `__main__`), on `cuda`
+and exits 2 otherwise, as in the reference, `--bft-validators N`
+validator processes that co-sign every op, `--tls-dir D` TLS between
+the roles and `--snapshot-interval K [--snapshot-dir S]` certified
+snapshots; run it from the shell or a real file, as spawned children
+re-import `__main__`), on `cuda`
 unless `--device cpu` (the counterpart of `JAX_PLATFORMS=cpu`), with
 the protocol overridable by `--field-name` flags and `BFLC_*` variables
 (`utils/flags.py`) and the ledger by `--ledger-backend auto|python`.  An
 unknown config, an unported runtime (the executor), the native ledger,
-`--standbys`/`--quorum`/`--bft-validators` on another runtime than
-`processes`, a negative `--bft-validators`, or a flag of a part not
-ported yet (the fleet's TLS, chaos, cells,
-snapshots, rederive and the codecs A9, checkpoints
-A11, secure aggregation A12, traces and telemetry A14) exits 2 naming
-the ROADMAP item.  Prints the reference CLI's final JSON keys, and on
-`processes` a `fleet` key besides: the round times, the spawn time, the
+the fleet's flags on another runtime than `processes`, a negative
+`--bft-validators` or `--snapshot-interval`, `--snapshot-dir` without
+an interval, or a flag of a part not ported yet (the fleet's chaos,
+cells, rederive and the codecs A9, checkpoints A11, secure aggregation
+A12, traces and telemetry A14) exits 2 naming the ROADMAP item.
+Prints the reference CLI's final JSON keys, and on `processes` a
+`fleet` key besides: the round times, the spawn time, the
 writer's phase split, every role's kernel launches and the writer's
 merge-engine report (with `--bft-validators`, `certified_size`).
 """
@@ -38,7 +40,8 @@ def _parser() -> argparse.ArgumentParser:
                     "an NVIDIA GPU (port of bflc_demo_tpu).",
         epilog="Ported: --config config0..config5 on --runtime mesh (the "
                "default), host, threaded and processes (with --standbys, "
-               "--quorum and --bft-validators), --reduce-blocks.  The "
+               "--quorum, --bft-validators, --tls-dir, --snapshot-interval "
+               "and --snapshot-dir), --reduce-blocks.  The "
                "executor runtime, the native ledger, the fleet's other "
                "flags and the codecs are ROADMAP A9; they exit 2 until "
                "ported.")
@@ -81,10 +84,20 @@ def main(argv=None) -> int:
     except ValueError as exc:
         print(f"protocol: {exc}", file=sys.stderr)
         return 2
-    if (opts.standbys or opts.quorum or opts.bft_validators) and \
-            opts.runtime != "processes":
-        print("--standbys, --quorum and --bft-validators apply only to "
+    if (opts.standbys or opts.quorum or opts.bft_validators
+            or opts.tls_dir or opts.snapshot_interval
+            or opts.snapshot_dir) and opts.runtime != "processes":
+        print("--standbys, --quorum, --bft-validators, --tls-dir, "
+              "--snapshot-interval and --snapshot-dir apply only to "
               "--runtime processes", file=sys.stderr)
+        return 2
+    if opts.snapshot_interval < 0:
+        print(f"--snapshot-interval must be >= 0, got "
+              f"{opts.snapshot_interval}", file=sys.stderr)
+        return 2
+    if opts.snapshot_dir and not opts.snapshot_interval:
+        print("--snapshot-dir needs --snapshot-interval K > 0 (no "
+              "snapshots are emitted at interval 0)", file=sys.stderr)
         return 2
     if opts.quorum and opts.standbys < opts.quorum + 1:
         print("--quorum Q needs --standbys >= Q+1 (the promoted writer "
@@ -98,6 +111,11 @@ def main(argv=None) -> int:
         kw["standbys"] = opts.standbys
     if opts.quorum:
         kw["quorum"] = opts.quorum
+    if opts.tls_dir:
+        kw["tls_dir"] = opts.tls_dir
+    if opts.snapshot_interval:
+        kw["snapshot_interval"] = opts.snapshot_interval
+        kw["snapshot_dir"] = opts.snapshot_dir
     if opts.bft_validators:
         if opts.bft_validators < 1:
             print(f"--bft-validators must be positive, got "

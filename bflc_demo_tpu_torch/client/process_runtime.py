@@ -5,8 +5,9 @@ Port of the synchronous fleet of
 `_validator_proc` (:260), `_client_proc` with its synchronous loop
 (:468, :557-705), `_replica_proc` (:709), `_standby_proc` (:723),
 `ProcessFederationResult` (:771) and `run_federated_processes` (:807)
-with its standbys, the writer-kill drill, quorum-ack, the WAL and the
-BFT validator fleet.
+with its standbys, the writer-kill drill, quorum-ack, the WAL, the
+BFT validator fleet, TLS (`_client_tls`, `_server_tls`, :212-225) and
+certified snapshots (per-role snapshot directories, :1045-1072).
 
 - one **writer process** runs `comm/ledger_service.LedgerServer`: the
   ledger, Ed25519 verification, the blob store, the merge through the
@@ -47,10 +48,21 @@ kill waits until the primary certified its whole chain and a follower
 acked it: a standby follows certified ops only and cannot promote past
 certified ops it never received.
 
-Not ported, raising with their ROADMAP item when asked for: TLS, the
-chaos campaign, telemetry and traces, snapshots, rederive (A9, A14); the
-async FedBuff loop and the delta codecs (A9: a `state` reply carries no
-effective density here); the mesh-executor deployment (A9).
+With `tls_dir` the parent provisions the certificates once
+(`comm/tls.provision_tls`) and every role speaks TLS: the writer and the
+standbys' read fan-out serve it, the clients, the sponsor, the standbys
+and the replicas dial with it; validators stay plaintext, as in the
+reference.  With `snapshot_interval` K the writer and the standbys
+emit, mirror and GC behind a certified snapshot every K rounds, their
+artifacts under `snapshot_dir`/writer and `snapshot_dir`/standby-s.  A
+standby journals to `wal_path`.standby-s once it promotes (the
+reference's standbys journal nothing), so the final writer's chain is on
+disk after a failover too.
+
+Not ported, raising with their ROADMAP item when asked for: the chaos
+campaign, telemetry and traces, rederive (A9, A14); the async FedBuff
+loop and the delta codecs (A9: a `state` reply carries no effective
+density here); the mesh-executor deployment (A9).
 """
 
 from __future__ import annotations
@@ -62,6 +74,7 @@ import os
 import queue
 import struct
 import sys
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -73,13 +86,11 @@ from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
 # the reference's run_federated_processes options this port has not
 # reached; a value other than the reference's default raises
 UNPORTED_FLEET_OPTIONS = {
-    "tls_dir": "A9 (TLS)",
     "chaos_seed": "A14 (chaos)", "chaos_profile": "A14 (chaos)",
     "chaos_duration_s": "A14 (chaos)", "chaos_schedule": "A14 (chaos)",
     "chaos_dir": "A14 (chaos)",
     "telemetry_dir": "A14 (telemetry)", "trace_sample": "A14 (telemetry)",
     "xprof_window": "A11 (the device profiler)",
-    "snapshot_interval": "A9 (snapshots)", "snapshot_dir": "A9 (snapshots)",
     "rederive": "A9 (rederive)",
 }
 _FLEET_DEFAULTS = {"chaos_profile": "standard", "rederive": "off"}
@@ -104,12 +115,30 @@ def _child_device(device: str):
     return dev
 
 
+def _client_tls(tls_dir: str):
+    """The context for dialling the writer and the read set, or None when
+    TLS is off: the one construction point of client-side contexts."""
+    if not tls_dir:
+        return None
+    from bflc_demo_tpu_torch.comm.tls import client_context
+    return client_context(tls_dir)
+
+
+def _server_tls(tls_dir: str):
+    if not tls_dir:
+        return None
+    from bflc_demo_tpu_torch.comm.tls import server_context
+    return server_context(tls_dir)
+
+
 def _server_proc(cfg_kw: dict, initial_blob: bytes, port_q,
                  stall_timeout_s: float, device: str,
                  verbose: bool, wal_path: str = "",
                  standby_keys: Optional[dict] = None,
                  quorum: int = 0, bft_endpoints: Sequence = (),
-                 bft_keys: Optional[dict] = None) -> None:
+                 bft_keys: Optional[dict] = None, tls_dir: str = "",
+                 snapshot_interval: int = 0,
+                 snapshot_dir: str = "") -> None:
     _child_device(device)
     from bflc_demo_tpu_torch.comm.ledger_service import LedgerServer
     server = LedgerServer(ProtocolConfig(**cfg_kw), initial_blob,
@@ -118,13 +147,17 @@ def _server_proc(cfg_kw: dict, initial_blob: bytes, port_q,
                           quorum=quorum,
                           bft_validators=[tuple(e) for e in bft_endpoints]
                           or None,
-                          bft_keys=bft_keys or None, verbose=verbose)
+                          bft_keys=bft_keys or None,
+                          tls=_server_tls(tls_dir),
+                          snapshot_interval=snapshot_interval,
+                          snapshot_dir=snapshot_dir, verbose=verbose)
     port_q.put(server.port)
     server.serve_forever()
 
 
 def _validator_proc(cfg_kw: dict, wallet_seed: bytes, index: int,
-                    port_q, validator_keys: dict, verbose: bool) -> None:
+                    port_q, validator_keys: dict, verbose: bool,
+                    port: int = 0) -> None:
     """One BFT commit-quorum member (`comm/bft.ValidatorNode`): a replica
     and a wallet that re-execute and co-sign every op, with the peers'
     keys to admit certified backlog when it lags.  Pure ledger and
@@ -133,7 +166,7 @@ def _validator_proc(cfg_kw: dict, wallet_seed: bytes, index: int,
     from bflc_demo_tpu_torch.comm.bft import ValidatorNode
     from bflc_demo_tpu_torch.comm.identity import Wallet
     node = ValidatorNode(ProtocolConfig(**cfg_kw),
-                         Wallet.from_seed(wallet_seed), index,
+                         Wallet.from_seed(wallet_seed), index, port=port,
                          validator_keys=validator_keys, verbose=verbose)
     torch = sys.modules.get("torch")
     port_q.put({"port": node.port, "torch_imported": torch is not None,
@@ -147,26 +180,53 @@ def _standby_proc(cfg_kw: dict, endpoints: List[Tuple[str, int]],
                   index: int, port_q, stall_timeout_s: float,
                   wallet_seed: bytes, standby_keys: dict, quorum: int,
                   device: str, verbose: bool, bft_endpoints: Sequence = (),
-                  bft_keys: Optional[dict] = None) -> None:
+                  bft_keys: Optional[dict] = None, tls_dir: str = "",
+                  snapshot_interval: int = 0, snapshot_dir: str = "",
+                  wal_path: str = "", port: int = 0) -> None:
     """Hot standby: follow the writer's op stream, promote on its death
-    (`comm/failover.Standby`).  Reports its serving port, then blocks;
-    once promoted it is the writer and merges on `device`."""
+    (`comm/failover.Standby`).  Reports its serving port (`port`, or a
+    free one), then blocks; once promoted it is the writer, merges on
+    `device` and journals to `wal_path`."""
     _child_device(device)
     from bflc_demo_tpu_torch.comm.failover import Standby
     from bflc_demo_tpu_torch.comm.identity import Wallet
     standby = Standby(ProtocolConfig(**cfg_kw),
-                      endpoints + [("127.0.0.1", 0)], index,
+                      endpoints + [("127.0.0.1", 0)], index, port=port,
                       stall_timeout_s=stall_timeout_s,
                       wallet=Wallet.from_seed(wallet_seed),
                       standby_keys=standby_keys, quorum=quorum,
                       bft_validators=[tuple(e) for e in bft_endpoints]
                       or None,
                       bft_keys=bft_keys or None,
+                      tls_client=_client_tls(tls_dir),
+                      tls_server=_server_tls(tls_dir),
+                      snapshot_interval=snapshot_interval,
+                      snapshot_dir=snapshot_dir, wal_path=wal_path,
                       device=device, verbose=verbose)
     # the placeholder self-endpoint gets the real bound port
     standby.endpoints[index] = (standby.host, standby.port)
     port_q.put(standby.port)
+    threading.Thread(target=_report_follow, args=(standby, port_q),
+                     daemon=True).start()
     standby.run()
+
+
+def _report_follow(standby, q) -> None:
+    """Forward a standby's state-syncs and GCs to the parent as they
+    happen ({"state_sync": record} / {"gc": record}), and its log base
+    when it promotes ({"promoted": {"log_base", "log_size"}})."""
+    sent = {"state_sync": 0, "gc": 0}
+    while True:
+        for kind, log in (("state_sync", standby.state_syncs),
+                          ("gc", standby.gc_log)):
+            for rec in log[sent[kind]:]:
+                q.put({kind: rec})
+                sent[kind] += 1
+        if standby.promoted.is_set():
+            q.put({"promoted": {"log_base": standby.ledger.log_base,
+                                "log_size": standby.ledger.log_size()}})
+            return
+        time.sleep(0.05)
 
 
 def _sign(wallet, kind: str, epoch: int, payload: bytes) -> str:
@@ -182,7 +242,8 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
                  report_q=None, role: str = "client",
                  request_timeout_s: float = 120.0,
                  standby_keys: Optional[dict] = None,
-                 bft_keys: Optional[dict] = None) -> None:
+                 bft_keys: Optional[dict] = None,
+                 tls_dir: str = "") -> None:
     """One federated client: register -> role loop -> train/score ->
     report -> exit.  The state machine of `client/runtime.FLNode.step`,
     with every ledger interaction a signed socket request and every
@@ -216,10 +277,11 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
     yj = torch.as_tensor(np.asarray(y_onehot, np.float32), device=dev)
     tr = tracing.PROC
 
+    tls = _client_tls(tls_dir)
     client = FailoverClient(endpoints, timeout_s=request_timeout_s,
                             standby_keys=standby_keys,
-                            bft_keys=bft_keys or None)
-    router = ReadRouter(client, timeout_s=request_timeout_s)
+                            bft_keys=bft_keys or None, tls=tls)
+    router = ReadRouter(client, timeout_s=request_timeout_s, tls=tls)
 
     def register():
         return client.request("register", addr=wallet.address,
@@ -316,11 +378,12 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
 
 
 def _replica_proc(host: str, port: int, cfg_kw: dict, until_ops: int,
-                  out_q) -> None:
+                  out_q, tls_dir: str = "") -> None:
     from bflc_demo_tpu_torch.comm.ledger_service import replicate
     try:
         replica = replicate(host, port, ProtocolConfig(**cfg_kw),
-                            until_ops=until_ops, timeout_s=120.0)
+                            until_ops=until_ops, timeout_s=120.0,
+                            tls=_client_tls(tls_dir))
         out_q.put({"ok": True, "head": replica.log_head().hex(),
                    "size": replica.log_size(), "epoch": replica.epoch,
                    "foreign_modules": foreign_modules()})
@@ -376,6 +439,15 @@ class ProcessFederationResult:
             (final_info or {}).get("certified_size"))
         self.validator_reports: Dict[str, dict] = {}
         self.validator_spawn_s = 0.0
+        # role -> that standby's follow events in order: {"state_sync":
+        # {i, epoch, seconds}}, {"gc": {i, dropped}}, {"promoted":
+        # {log_base, log_size}}
+        self.standby_events: Dict[str, List[dict]] = {}
+        # the final writer's snapshot ops {i, epoch, state_bytes,
+        # model_bytes, artifact_bytes, write_s, gc_dropped}, and under
+        # TLS whether it refused a plaintext client at the handshake
+        self.writer_snapshots: List[dict] = []
+        self.plaintext_refused: Optional[bool] = None
 
     @property
     def final_accuracy(self) -> float:
@@ -400,11 +472,21 @@ def _drain_reports(q, procs, wait_s: float) -> List[dict]:
     return reports
 
 
+def _drain_now(q) -> List[dict]:
+    """Whatever `q` holds now."""
+    out: List[dict] = []
+    while True:
+        try:
+            out.append(q.get(timeout=0.05))
+        except queue.Empty:
+            return out
+
+
 def client_args(endpoints, master_seed: bytes, i: int, model_factory: str,
                 factory_kw: dict, x, y, num_classes: int, cfg_kw: dict,
                 rounds: int, crash_at_epoch: Optional[int], device: str,
                 report_q, standby_keys: Optional[dict] = None,
-                bft_keys: Optional[dict] = None) -> tuple:
+                bft_keys: Optional[dict] = None, tls_dir: str = "") -> tuple:
     """`_client_proc`'s arguments for client i (its wallet seed is the
     reference's derivation from the run's master seed)."""
     from bflc_demo_tpu_torch.data.partition import one_hot
@@ -412,7 +494,7 @@ def client_args(endpoints, master_seed: bytes, i: int, model_factory: str,
             model_factory, factory_kw, np.asarray(x),
             one_hot(np.asarray(y), num_classes), cfg_kw, rounds,
             crash_at_epoch, device, report_q, f"client-{i}", 120.0,
-            standby_keys, bft_keys)
+            standby_keys, bft_keys, tls_dir)
 
 
 def run_federated_processes(
@@ -431,6 +513,9 @@ def run_federated_processes(
         kill_writer_at_epoch: Optional[int] = None,
         quorum: int = 0,
         bft_validators: int = 0,
+        tls_dir: str = "",
+        snapshot_interval: int = 0,
+        snapshot_dir: str = "",
         timeout_s: float = 600.0,
         init_seed: int = 0,
         device: Optional[str] = None,
@@ -453,6 +538,12 @@ def run_federated_processes(
     bft_validators: spawn this many BFT commit-quorum validator processes
     (`comm/bft.py`; 4 is the reference's f=1 geometry): every op must
     gather `bft_quorum(n)` co-signatures before it binds.
+    tls_dir: provision (or reuse) the TLS certificates there and run
+    every role's connections over TLS (validators excepted).
+    snapshot_interval: a certified snapshot op every K rounds; the writer
+    and the standbys GC their logs and WALs behind it, and a standby whose
+    resume point was GC'd state-syncs.  snapshot_dir: the artifacts, in
+    a directory per role (writer/, standby-s/).
     device: where every role computes, `cuda` (None) or `cpu`; the
     validators compute nothing on it.
     """
@@ -477,6 +568,13 @@ def run_federated_processes(
     crash_at = crash_at or {}
     factory_kw = factory_kw or {}
     t_start = time.monotonic()
+    if tls_dir:
+        from bflc_demo_tpu_torch.comm.tls import provision_tls
+        provision_tls(tls_dir)
+    tls = _client_tls(tls_dir)
+
+    def snap_dir(role: str) -> str:
+        return os.path.join(snapshot_dir, role) if snapshot_dir else ""
 
     import torch
 
@@ -546,10 +644,13 @@ def run_federated_processes(
                          args=(cfg_kw, initial_blob, port_q,
                                stall_timeout_s, device_name, verbose,
                                wal_path, standby_keys, quorum,
-                               bft_endpoints, bft_keys),
+                               bft_endpoints, bft_keys, tls_dir,
+                               snapshot_interval, snap_dir("writer")),
                          daemon=True)
     server.start()
     standby_procs: List = []
+    standby_qs: Dict[str, object] = {}
+    standby_events: Dict[str, List[dict]] = {}
     clients: List = []
     report_q = ctx.Queue()
     sponsor = router = None
@@ -559,6 +660,8 @@ def run_federated_processes(
     launches: Dict[str, Dict[str, int]] = {}
     writer_engine = None
     writer_merges: List[dict] = []
+    writer_snapshots: List[dict] = []
+    plaintext_refused = None
     ed25519_backend = None
     final = None
     failover: Optional[dict] = None
@@ -575,16 +678,21 @@ def run_federated_processes(
                              args=(cfg_kw, list(endpoints), s, q,
                                    stall_timeout_s, standby_seeds[s],
                                    standby_keys, quorum, device_name,
-                                   verbose, bft_endpoints, bft_keys),
+                                   verbose, bft_endpoints, bft_keys,
+                                   tls_dir, snapshot_interval,
+                                   snap_dir(f"standby-{s}"),
+                                   f"{wal_path}.standby-{s}"
+                                   if wal_path else ""),
                              daemon=True)
             sp.start()
             standby_procs.append(sp)
+            standby_qs[f"standby-{s}"] = q
             endpoints.append((host, q.get(timeout=120)))
         for i, (sx, sy) in enumerate(shards):
             p = ctx.Process(target=_client_proc, args=client_args(
                 endpoints, master_seed, i, model_factory, factory_kw, sx,
                 sy, nc, cfg_kw, rounds, crash_at.get(i), device_name,
-                report_q, standby_keys, bft_keys), daemon=True)
+                report_q, standby_keys, bft_keys, tls_dir), daemon=True)
             p.start()
             clients.append(p)
 
@@ -593,8 +701,8 @@ def run_federated_processes(
         yte_t = torch.as_tensor(one_hot(np.asarray(yte), nc), device=dev)
         sponsor = FailoverClient(endpoints, timeout_s=120.0,
                                  standby_keys=standby_keys,
-                                 bft_keys=bft_keys or None)
-        router = ReadRouter(sponsor, timeout_s=120.0)
+                                 bft_keys=bft_keys or None, tls=tls)
+        router = ReadRouter(sponsor, timeout_s=120.0, tls=tls)
         seen_epoch = 0          # the model at epoch 0 is the initial one
         deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline:
@@ -615,10 +723,11 @@ def run_federated_processes(
                 # until the primary certified its chain and a subscriber
                 # acked all of it (the reference's 0.2 s poll gives them
                 # that time)
-                if bft_validators and not _primary_settled((host, port)):
+                if bft_validators and not _primary_settled((host, port),
+                                                           tls):
                     time.sleep(0.005)
                     continue
-                failover = _kill_primary(server, (host, port), info)
+                failover = _kill_primary(server, (host, port), info, tls)
                 if verbose:
                     print(f"[drill] primary coordinator killed at epoch "
                           f"{info['epoch']}", flush=True)
@@ -669,7 +778,8 @@ def run_federated_processes(
             rep_q = ctx.Queue()
             rps = [ctx.Process(target=_replica_proc,
                                args=(final_ep[0], final_ep[1], cfg_kw,
-                                     final["log_size"], rep_q), daemon=True)
+                                     final["log_size"], rep_q, tls_dir),
+                               daemon=True)
                    for _ in range(replicas)]
             for rp in rps:
                 rp.start()
@@ -683,11 +793,14 @@ def run_federated_processes(
                         rep["head"] != final["log_head"]:
                     raise RuntimeError("replica/writer head divergence")
         client_reports = _drain_reports(report_q, clients, wait_s=60.0)
+        if tls_dir:
+            plaintext_refused = _plaintext_refused(final_ep)
         kr = sponsor.request("kernels")
         if kr.get("ok"):
             launches["writer"] = kr["launches"]
             writer_engine = kr["engine"]
             writer_merges = kr["merges"]
+            writer_snapshots = kr.get("snapshots", [])
             ed25519_backend = kr["ed25519_backend"]
             if failover is not None:
                 failover.update(_promotion_account(failover, kr))
@@ -700,6 +813,8 @@ def run_federated_processes(
             p.join(timeout=15)
             if p.is_alive():
                 p.terminate()
+        for role, q in standby_qs.items():
+            standby_events[role] = _drain_now(q)
         for p in [server] + standby_procs + validator_procs:
             p.terminate()
             p.join(timeout=10)
@@ -732,18 +847,36 @@ def run_federated_processes(
     result.replica_reports = replica_reports
     result.validator_reports = validator_reports
     result.validator_spawn_s = validator_spawn_s
+    result.standby_events = standby_events
+    result.writer_snapshots = writer_snapshots
+    result.plaintext_refused = plaintext_refused
     if failover is not None:
         failover["kill_t"] = failover["kill_mono"] - t_start
     result.failover = failover
     return result
 
 
-def _primary_settled(endpoint) -> bool:
+def _plaintext_refused(endpoint) -> bool:
+    """True when a plaintext client gets no reply from a TLS writer."""
+    from bflc_demo_tpu_torch.comm.ledger_service import CoordinatorClient
+    from bflc_demo_tpu_torch.comm.wire import WireError
+    try:
+        probe = CoordinatorClient(*endpoint, timeout_s=15.0)
+        try:
+            probe.request("info")
+        finally:
+            probe.close()
+    except (ConnectionError, WireError, OSError):
+        return True
+    return False
+
+
+def _primary_settled(endpoint, tls=None) -> bool:
     """True when the primary's chain is fully certified and a follower
     acked its last op (or the primary no longer answers)."""
     from bflc_demo_tpu_torch.comm.ledger_service import CoordinatorClient
     try:
-        probe = CoordinatorClient(*endpoint, timeout_s=30.0)
+        probe = CoordinatorClient(*endpoint, timeout_s=30.0, tls=tls)
         try:
             k = probe.request("kernels")
         finally:
@@ -754,14 +887,14 @@ def _primary_settled(endpoint) -> bool:
             and k.get("stream_acked", -1) >= k.get("log_size", 0) - 1)
 
 
-def _kill_primary(server, endpoint, info: dict) -> dict:
+def _kill_primary(server, endpoint, info: dict, tls=None) -> dict:
     """The writer-kill drill: the primary's `info` and `kernels` replies,
     then SIGKILL.  Returns the drill's record."""
     from bflc_demo_tpu_torch.comm.ledger_service import CoordinatorClient
     record = {"killed_at_epoch": info["epoch"], "primary_info": None,
               "primary_kernels": None}
     try:
-        probe = CoordinatorClient(*endpoint, timeout_s=30.0)
+        probe = CoordinatorClient(*endpoint, timeout_s=30.0, tls=tls)
         try:
             record["primary_info"] = probe.request("info")
             record["primary_kernels"] = probe.request("kernels")

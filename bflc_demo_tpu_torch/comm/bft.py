@@ -35,17 +35,22 @@ certificates and the wire frames are the reference's byte for byte
 (Ed25519 is deterministic), so port and reference validators, writers
 and clients certify each other's op streams.
 
+Snapshots: a writer's backlog below its GC base raises
+`PrefixCompacted` with the certified snapshot offer, and the assembler
+installs it on the lagging validator (`bft_snapshot`, which checks the
+quorum certificate and the state digest itself); a state-synced replica
+counts its heads from that base (`_head_base`).  `ValidatorClient` and
+`CertificateAssembler` take `tls=` (a client context); the fleet dials
+its validators in plaintext, as the reference does.
+
 Dropped: the obs metrics, flight recorder and trace spans (ROADMAP A14;
 `utils/tracing.PROC` still charges `bft.validate_s` / `bft.validate_n`
 on the validator).  Not ported, each raising or refusing with its item:
 the sparse-upload re-execution (`check_sparse_upload_op`: an upload
 whose evidence carries a blob is refused, `SPARSE`, A9 (codecs)), the
 rederive plane and its vote cross-check (A9 (rederive)), the cell
-registry (A9 (hier cells)), snapshot state-sync (a `bft_snapshot`
-request is refused, A9 (snapshots); nothing in the port compacts a log,
-so no backlog raises the reference's `PrefixCompacted`), `tls=` (A9
-(TLS)), the async ops (A9 (async FedBuff)) and the native ledger (A9
-(native ledger), refused by `make_ledger`).
+registry (A9 (hier cells)), the async ops (A9 (async FedBuff)) and the
+native ledger (A9 (native ledger), refused by `make_ledger`).
 """
 
 from __future__ import annotations
@@ -77,6 +82,17 @@ Endpoint = Tuple[str, int]
 
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+class PrefixCompacted(Exception):
+    """A backlog position below the writer's GC base was asked for: the
+    op bytes are gone.  Carries the snapshot offer, which the assembler
+    installs on the lagging validator (`bft_snapshot`)."""
+
+    def __init__(self, offer, base: int):
+        super().__init__(f"log prefix compacted below {base}")
+        self.offer = offer              # snapshot meta dict or None
+        self.base = base
 
 
 _CERT_MAGIC = b"BFLCCERT1"
@@ -379,7 +395,10 @@ class ValidatorNode:
       refusal with the votes minted so far.
     - `bft_abandon {i, t}`: a signed abandon statement for the position,
       and a promise to refuse votes below attempt t.
-    - `info`: log size / head / epoch (`at` gives an earlier head).
+    - `bft_snapshot {i, op, prev_head, state, cert}`: install a
+      certified snapshot in place of a GC'd prefix this replica lags
+      below (refused when it already holds position i).
+    - `info`: log size / head / base / epoch (`at` gives an earlier head).
 
     A vote applies the op: the vote promises that this op is position i
     of the validator's chain, which is what makes a second op there
@@ -430,6 +449,11 @@ class ValidatorNode:
         # index -> lowest attempt we will still vote at (abandon promises)
         self._promised: Dict[int, int] = {}
         self._heads: List[bytes] = []           # head after each op
+        # a state-synced replica: _heads[k] is the head after position
+        # _head_base + k, _base_head the head at _head_base (after the
+        # snapshot op it installed)
+        self._head_base = 0
+        self._base_head = _EMPTY_HEAD
         self._stop = threading.Event()
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -477,9 +501,7 @@ class ValidatorNode:
                 elif method == "bft_abandon":
                     reply = self._abandon(msg)
                 elif method == "bft_snapshot":
-                    reply = self._refuse(
-                        "SNAPSHOT", "bft_snapshot is not ported yet "
-                                    "(ROADMAP A9 (snapshots))")
+                    reply = self._snapshot_install(msg)
                 elif method == "telemetry":
                     reply = {"ok": False, "error": "telemetry is not "
                              "ported yet (ROADMAP A14 (telemetry))"}
@@ -500,15 +522,17 @@ class ValidatorNode:
             reply = {"ok": True, "validator": self.index,
                      "log_size": self.ledger.log_size(),
                      "log_head": self.ledger.log_head().hex(),
-                     "log_base": 0, "epoch": self.ledger.epoch}
+                     "log_base": self._head_base,
+                     "epoch": self.ledger.epoch}
             try:
                 at = int(msg.get("at", -1))
             except (TypeError, ValueError):
                 at = -1
+            # heads below a state-synced base went with the prefix
             if at == 0:
                 reply["head_at"] = _EMPTY_HEAD.hex()
-            elif 0 < at <= len(self._heads):
-                reply["head_at"] = self._heads[at - 1].hex()
+            elif self._head_base <= at <= self._head_base + len(self._heads):
+                reply["head_at"] = self._prev_head(at).hex()
             return reply
 
     # --------------------------------------------------------------- vote
@@ -520,11 +544,16 @@ class ValidatorNode:
                 "log_size": self.ledger.log_size(), **extra}
 
     def _prev_head(self, i: int) -> bytes:
-        """Chain head before position i on this replica."""
-        return _EMPTY_HEAD if i <= 0 else self._heads[i - 1]
+        """Chain head before position i on this replica (the base head at
+        a state-synced replica's base)."""
+        if i <= 0:
+            return _EMPTY_HEAD
+        if i == self._head_base:
+            return self._base_head
+        return self._heads[i - self._head_base - 1]
 
     def _sign_position(self, i: int, op: bytes, attempt: int) -> dict:
-        head = self._heads[i]
+        head = self._heads[i - self._head_base]
         sig = self.wallet.sign(cert_payload(i, self._prev_head(i), op, head,
                                             attempt))
         return {"ok": True, "i": i, "validator": self.index, "t": attempt,
@@ -559,6 +588,10 @@ class ValidatorNode:
             cert = CommitCertificate.from_wire(cert_wire)
         except ValueError:
             return None
+        if i < self._head_base:
+            # below a state-synced base the heads are gone: the binding
+            # cannot be checked, so the certificate proves nothing here
+            return None
         if not verify_certificate(cert, index=i,
                                   prev_head=self._prev_head(i), op=op,
                                   quorum=self.quorum,
@@ -572,9 +605,60 @@ class ValidatorNode:
         from bflc_demo_tpu_torch.ledger import clone_prefix
         self.ledger = clone_prefix(self.ledger, i, self.cfg,
                                    backend=self._ledger_backend)
-        del self._heads[i:]
+        del self._heads[i - self._head_base:]
         for j in [k for k in self._voted if k >= i]:
             del self._voted[j]
+
+    def _snapshot_install(self, msg: dict) -> dict:
+        """State-sync a replica that lags below the writer's GC base:
+        install the certified snapshot instead of replaying ops that no
+        longer exist.  The certificate must quorum-bind exactly (i,
+        prev_head, op) under this validator's provisioned peer keys and
+        the state must hash to the op's digest; a replica that already
+        holds position i refuses (an offer never rolls it back)."""
+        from bflc_demo_tpu_torch.comm.wire import blob_bytes
+        from bflc_demo_tpu_torch.ledger.snapshot import (restore_snapshot,
+                                                         verify_snapshot_meta)
+        try:
+            i = int(msg["i"])
+            op = bytes.fromhex(msg["op"])
+            prev = bytes.fromhex(msg["prev_head"])
+            state = blob_bytes(msg["state"])
+        except (KeyError, TypeError, ValueError):
+            return self._refuse("BAD_REQUEST")
+        tr = tracing.PROC
+        t0 = time.perf_counter()
+        with self._lock:
+            if self.ledger.log_size() >= i + 1:
+                return self._refuse(
+                    "CONFLICT", f"replica at {self.ledger.log_size()} "
+                                f"already holds position {i}")
+            meta = {"i": i, "op": op, "prev_head": prev, "state": state,
+                    "cert": msg.get("cert"), "gen": 0}
+            err = verify_snapshot_meta(meta, bft_quorum=self.quorum,
+                                       bft_keys=self.validator_keys or None)
+            if err:
+                return self._refuse("SNAPSHOT", err)
+            if not self.validator_keys:
+                # an unverifiable install would let any peer rewrite us
+                return self._refuse(
+                    "SNAPSHOT", "no provisioned peer keys to verify the "
+                                "snapshot certificate against")
+            base_head = next_head(prev, op)
+            self.ledger = restore_snapshot(state, self.cfg, i + 1,
+                                           base_head)
+            self._heads = []
+            self._head_base = i + 1
+            self._base_head = base_head
+            self._voted = {k: v for k, v in self._voted.items() if k > i}
+            if tr.enabled:
+                tr.charge("bft.snapshot_install_s", time.perf_counter() - t0)
+                tr.charge("bft.snapshot_installs")
+            if self.verbose:
+                print(f"[validator {self.index}] state-synced from "
+                      f"snapshot@{i} (epoch {self.ledger.epoch})",
+                      flush=True)
+            return {"ok": True, "log_size": self.ledger.log_size()}
 
     def _apply_and_sign(self, i: int, op: bytes, op_hash: bytes,
                         attempt: int) -> dict:
@@ -765,16 +849,19 @@ class ValidatorClient:
 
     def __init__(self, endpoint: Endpoint, timeout_s: float = 10.0,
                  tls=None):
-        if tls is not None:
-            raise _unported("TLS to a validator", "A9 (TLS)")
         self.endpoint = endpoint
         self.timeout_s = timeout_s
+        self._tls = tls
         self._sock: Optional[socket.socket] = None
 
     def _connect(self) -> socket.socket:
         if self._sock is None:
-            self._sock = socket.create_connection(self.endpoint,
-                                                  timeout=self.timeout_s)
+            s = socket.create_connection(self.endpoint,
+                                         timeout=self.timeout_s)
+            if self._tls is not None:
+                s = self._tls.wrap_socket(s,
+                                          server_hostname=self.endpoint[0])
+            self._sock = s
         return self._sock
 
     def request(self, method: str, **fields) -> dict:
@@ -812,8 +899,6 @@ class CertificateAssembler:
                  validator_keys: Dict[int, bytes], quorum: int, *,
                  timeout_s: float = 10.0, tls=None, backlog_fn=None,
                  max_repair_rounds: int = 3):
-        if tls is not None:
-            raise _unported("TLS to the validators", "A9 (TLS)")
         self.endpoints = list(endpoints)
         self.keys = dict(validator_keys)
         self.quorum = quorum
@@ -823,7 +908,9 @@ class CertificateAssembler:
         # set instead of a certificate when a repair round proved a
         # foreign op the only safely bindable one at the position
         self.superseded_op: Optional[bytes] = None
-        self._clients = [ValidatorClient(ep, timeout_s=timeout_s)
+        # one record a `bft_snapshot` offer {validator, i, seconds, ok}
+        self.snapshot_offers: List[dict] = []
+        self._clients = [ValidatorClient(ep, timeout_s=timeout_s, tls=tls)
                          for ep in endpoints]
 
     def close(self) -> None:
@@ -864,7 +951,14 @@ class CertificateAssembler:
                     if not 0 <= behind < i:
                         break
                     for j in range(behind, i):
-                        bop, bauth, bcert = self._backlog(j)
+                        try:
+                            bop, bauth, bcert = self._backlog(j)
+                        except PrefixCompacted as e:
+                            # below the GC base: install the snapshot,
+                            # then re-ask from the replica's new position
+                            if not self._offer_snapshot(client, e):
+                                return None
+                            break
                         rj = client.request("bft_validate", i=j,
                                             op=bop.hex(), auth=bauth,
                                             cert=bcert)
@@ -894,7 +988,15 @@ class CertificateAssembler:
         resyncs = 0
         j = behind
         while j < upto:
-            bop, bauth, bcert = self._backlog(j)
+            try:
+                bop, bauth, bcert = self._backlog(j)
+            except PrefixCompacted as e:
+                # below the GC base: install the snapshot and go on from
+                # the position after it
+                if not self._offer_snapshot(client, e) or e.base <= j:
+                    return False
+                j = e.base
+                continue
             try:
                 rj = client.request("bft_validate", i=j, op=bop.hex(),
                                     auth=bauth, cert=bcert)
@@ -1092,26 +1194,42 @@ class CertificateAssembler:
                 ValueError):
             client.close()
             return False
-        ops = [self._backlog(j) for j in range(size)]
+        # our heads over the certified backlog; on a compacted writer the
+        # fold starts at the snapshot's base (a replica at or below the
+        # snapshot heals only by installing it)
+        base, base_head = 0, _EMPTY_HEAD
+        try:
+            ops = [self._backlog(j) for j in range(size)]
+        except PrefixCompacted as e:
+            if e.offer is None or size <= int(e.offer["i"]) + 1:
+                return self._offer_snapshot(client, e)
+            from bflc_demo_tpu_torch.ledger.snapshot import (
+                snapshot_base_head)
+            base = int(e.offer["i"]) + 1
+            base_head = snapshot_base_head(e.offer)
+            try:
+                ops = [self._backlog(j) for j in range(base, size)]
+            except PrefixCompacted:
+                return False            # GC moved on: the retry syncs
         heads = []
-        h = _EMPTY_HEAD
+        h = base_head
         for entry in ops:
             heads.append(next_head(h, entry[0]))
             h = heads[-1]
         d = size                        # first divergent index
-        for j in range(size, 0, -1):
+        for j in range(size, base, -1):
             try:
                 r = client.request("info", at=j)
             except (ConnectionError, WireError, OSError):
                 client.close()
                 return False
             if r.get("head_at") and \
-                    bytes.fromhex(r["head_at"]) == heads[j - 1]:
+                    bytes.fromhex(r["head_at"]) == heads[j - base - 1]:
                 break
             d = j - 1
         if d >= size:
             return False                # no divergence below i after all
-        op, auth, cert = ops[d]
+        op, auth, cert = ops[d - base]
         if cert is None:
             return False
         try:
@@ -1121,6 +1239,30 @@ class CertificateAssembler:
         except (ConnectionError, WireError, OSError):
             client.close()
             return False
+
+    def _offer_snapshot(self, client: ValidatorClient,
+                        exc: PrefixCompacted) -> bool:
+        """Hand a lagging replica the certified snapshot (`bft_snapshot`);
+        True when it installed.  The validator checks everything itself,
+        so a corrupt offer costs a refusal, never a poisoned replica."""
+        offer = exc.offer
+        if offer is None:
+            return False
+        op, prev = offer["op"], offer["prev_head"]
+        t0 = time.perf_counter()
+        try:
+            r = client.request(
+                "bft_snapshot", i=int(offer["i"]),
+                op=op if isinstance(op, str) else op.hex(),
+                prev_head=prev if isinstance(prev, str) else prev.hex(),
+                state=bytes(offer["state"]), cert=offer.get("cert"))
+        except (ConnectionError, WireError, OSError):
+            client.close()
+            return False
+        self.snapshot_offers.append({
+            "validator": list(client.endpoint), "i": int(offer["i"]),
+            "seconds": time.perf_counter() - t0, "ok": bool(r.get("ok"))})
+        return bool(r.get("ok"))
 
     def _abandon_round(self, i: int, attempt: int):
         """Signed abandon statements at (i, attempt) from every

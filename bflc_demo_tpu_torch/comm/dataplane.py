@@ -7,7 +7,10 @@ Port of `bflc_demo_tpu/comm/dataplane.py`:
   `blobs` and `model` wire methods — the writer and the standbys' read
   servers answer every read through it (`model` with `meta` is the cheap
   epoch + hash probe, `want` names the exact model asked for, and the
-  writer's reply carries the advertised `read_set`);
+  writer's reply carries the advertised `read_set`) — and, on a replica,
+  of `snapshot` (:197-208): the snapshot it mirrored, so a joiner's
+  state-sync bytes come off the writer (`want_i` names the checkpoint
+  the joiner verified against the writer; another one declines);
 - `ReadFanoutServer` (:219-319) is a standby's read-only socket over the
   state it already mirrored (every payload blob before its op's ack, the
   model blob checked against the replayed ledger); it refuses every
@@ -21,8 +24,9 @@ Port of `bflc_demo_tpu/comm/dataplane.py`:
   back to the writer, a dead one is dropped.
 
 `BFLC_DATA_PLANE_LEGACY=1` pins the fast path off (no cache, no read
-set, no meta probe), as in the reference.  Not ported: the snapshot
-read (A9, snapshots), TLS (A9), the obs metrics and spans (A14).
+set, no meta probe), as in the reference.  `ReadFanoutServer` and
+`ReadRouter` take `tls` (a server and a client context, `comm/tls.py`).
+Not ported: the obs metrics and spans (A14).
 """
 
 from __future__ import annotations
@@ -85,8 +89,11 @@ def handle_read(method: str, m: dict, *,
                 blob_lookup: Callable[[bytes], Optional[bytes]],
                 model_state: Callable[[], Optional[Tuple[int, bytes,
                                                          bytes]]],
-                read_set: object = ()) -> Optional[dict]:
-    """Serve one `blob`/`blobs`/`model` read; None for any other method.
+                read_set: object = (),
+                snapshot_state: Optional[Callable[[], Optional[dict]]]
+                = None) -> Optional[dict]:
+    """Serve one `blob`/`blobs`/`model` read (and `snapshot` where
+    `snapshot_state` gives the mirrored meta); None for any other method.
     `read_set` is a sequence of endpoints or a callable giving one,
     evaluated only for `model`."""
     if method == "blob":
@@ -124,6 +131,17 @@ def handle_read(method: str, m: dict, *,
         if not m.get("meta"):
             reply["blob"] = model_blob
         return reply
+    if method == "snapshot" and snapshot_state is not None:
+        # the joiner checks the writer-asserted binding and the hashes
+        # before installing: a stale or lying replica costs a round trip
+        from bflc_demo_tpu_torch.ledger.snapshot import offer_to_wire
+        snap = snapshot_state()
+        if snap is None:
+            return {"ok": False, "error": "no snapshot mirrored"}
+        want = m.get("want_i")
+        if want is not None and int(want) != int(snap["i"]):
+            return {"ok": False, "status": "STALE", "i": int(snap["i"])}
+        return offer_to_wire(snap)
     return None
 
 
@@ -138,9 +156,13 @@ class ReadFanoutServer:
                  blob_lookup: Callable[[bytes], Optional[bytes]],
                  model_state: Callable[[], Optional[Tuple[int, bytes,
                                                           bytes]]],
-                 host: str = "127.0.0.1", port: int = 0):
+                 host: str = "127.0.0.1", port: int = 0, tls=None,
+                 snapshot_state: Optional[Callable[[], Optional[dict]]]
+                 = None):
         self._blob_lookup = blob_lookup
         self._model_state = model_state
+        self._snapshot_state = snapshot_state
+        self._tls = tls                 # ssl.SSLContext or None
         self._stop = threading.Event()
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -172,6 +194,18 @@ class ReadFanoutServer:
                              daemon=True).start()
 
     def _serve_conn(self, conn: socket.socket) -> None:
+        if self._tls is not None:
+            import ssl
+            try:
+                conn.settimeout(10.0)   # bound the handshake
+                conn = self._tls.wrap_socket(conn, server_side=True)
+                conn.settimeout(None)
+            except (ssl.SSLError, OSError):
+                try:
+                    conn.close()
+                except OSError:
+                    pass
+                return
         try:
             while not self._stop.is_set():
                 msg = recv_msg(conn)
@@ -179,9 +213,10 @@ class ReadFanoutServer:
                     return
                 method = msg.get("method", "")
                 try:
-                    reply = handle_read(method, msg,
-                                        blob_lookup=self._blob_lookup,
-                                        model_state=self._model_state)
+                    reply = handle_read(
+                        method, msg, blob_lookup=self._blob_lookup,
+                        model_state=self._model_state,
+                        snapshot_state=self._snapshot_state)
                     if reply is None:
                         reply = {"ok": False,
                                  "error": f"read replica: unknown method "
@@ -207,8 +242,9 @@ class ReadRouter:
     read set fresh) and is the always-correct fallback for the bytes."""
 
     def __init__(self, control, cache: Optional[BlobCache] = None,
-                 timeout_s: float = 30.0):
+                 timeout_s: float = 30.0, tls=None):
         self.control = control
+        self._tls = tls                 # for dialling TLS read replicas
         self.cache = cache if cache is not None else BlobCache()
         self.legacy = data_plane_legacy()
         self._timeout_s = timeout_s
@@ -255,7 +291,8 @@ class ReadRouter:
                 c = self._conns.get(ep)
                 if c is None:
                     c = CoordinatorClient(ep[0], ep[1],
-                                          timeout_s=self._timeout_s)
+                                          timeout_s=self._timeout_s,
+                                          tls=self._tls)
                     self._conns[ep] = c
                 reply = c.request(method, **fields)
             except (ConnectionError, WireError, OSError):

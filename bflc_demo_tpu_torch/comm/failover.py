@@ -44,16 +44,28 @@ Port of `bflc_demo_tpu/comm/failover.py`: `FailoverClient` (:129-319),
   `PromotionSuperseded` and the standby re-follows the winner, while a
   dead proposer's stranded op is adopted under a new fence.
 
+- Certified snapshots (`ledger/snapshot.py`): a standby whose resume
+  point lies below the writer's GC base (`info`'s `log_base`, or a
+  `state_sync` stream frame) installs the writer's newest certified
+  snapshot instead of replaying (`_state_sync`: the bytes from the read
+  set first and the writer last, `_fetch_snapshot_body`; every binding
+  checked by `verify_snapshot_meta` under the validators' keys, a forged
+  or stale offer refused).  A streamed snapshot op is mirrored with its
+  meta and the standby GCs its own replica behind it
+  (`_note_snapshot_op`); its read fan-out serves that snapshot, and the
+  server it becomes at promotion resumes from it.
+- TLS (`comm/tls.py`): `tls_client` dials the writer and the read set,
+  `tls_server` serves the read fan-out and the promoted writer;
+  `FailoverClient(tls=)`.  Validators are dialled in plaintext.
+
 Every entry point that computes runs on `device`, `cuda` unless the
-caller asks for the CPU; without a card `Standby` raises.  Not ported,
-each raising with its item: snapshot state-sync (`_state_sync`,
-`_fetch_snapshot_body`, `_note_snapshot_op`, `_read_snapshot_state`:
-A9, snapshots) and TLS (A9); the obs metrics,
-flight recorder and trace spans (A14).  With `BFLC_PROC_TRACE=1` a
-standby charges its mirror time (`standby.mirror_s`), the blobs that
-rode the op stream or were fetched (`standby.piggyback`,
-`standby.fetch`) and each op's whole follow step (`standby.op_s`,
-`standby.ops`) to `utils/tracing.PROC`.
+caller asks for the CPU; without a card `Standby` raises.  Not ported:
+the obs metrics, flight recorder and trace spans (A14).  With
+`BFLC_PROC_TRACE=1` a standby charges its mirror time
+(`standby.mirror_s`), the blobs that rode the op stream or were fetched
+(`standby.piggyback`, `standby.fetch`), each op's whole follow step
+(`standby.op_s`, `standby.ops`) and each state-sync
+(`standby.state_sync_s`, `standby.state_syncs`) to `utils/tracing.PROC`.
 """
 
 from __future__ import annotations
@@ -71,26 +83,20 @@ from bflc_demo_tpu_torch.comm.dataplane import (ReadFanoutServer,
 from bflc_demo_tpu_torch.comm.identity import PublicDirectory, address_of
 from bflc_demo_tpu_torch.comm.ledger_service import (
     CoordinatorClient, LedgerServer, chain_head_at, make_promotion_evidence,
-    refuse_unported, verify_promotion_signature)
+    verify_promotion_signature)
 from bflc_demo_tpu_torch.comm.wire import (WireError, blob_bytes, recv_msg,
                                            send_msg, split_blob_parts)
 from bflc_demo_tpu_torch.device import DeviceLike, resolve_device
 from bflc_demo_tpu_torch.ledger import LedgerStatus, clone_prefix, make_ledger
 from bflc_demo_tpu_torch.ledger.base import (OP_COMMIT, OP_PROMOTE,
-                                             OP_UPLOAD, decode_op)
+                                             OP_SNAPSHOT, OP_UPLOAD,
+                                             decode_op)
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
 from bflc_demo_tpu_torch.protocol.constants import bft_quorum as _bft_quorum
 from bflc_demo_tpu_torch.protocol.types import CommitCertificate
 from bflc_demo_tpu_torch.utils import tracing
 
 Endpoint = Tuple[str, int]
-
-# the reference's Standby options this port has not reached
-UNPORTED_STANDBY_OPTIONS = {
-    "tls_client": "A9 (TLS)", "tls_server": "A9 (TLS)",
-    "snapshot_interval": "A9 (snapshots)",
-    "snapshot_dir": "A9 (snapshots)",
-}
 
 
 class WriterDead(Exception):
@@ -118,8 +124,7 @@ class FailoverClient:
                  standby_keys: Optional[Dict[int, bytes]] = None,
                  bft_keys: Optional[Dict[int, bytes]] = None,
                  bft_quorum: Optional[int] = None,
-                 **unported):
-        refuse_unported(unported, {"tls": "A9 (TLS)"})
+                 tls=None):
         if not endpoints:
             raise ValueError("need at least one endpoint")
         if len(endpoints) > 1 and not standby_keys:
@@ -130,6 +135,7 @@ class FailoverClient:
                 "poison this client's fence (one-message DoS) — provision "
                 "the standby public keys", RuntimeWarning, stacklevel=2)
         self._eps = list(endpoints)
+        self._tls = tls
         self._timeout_s = timeout_s
         self._max_cycles = max_cycles
         self._cur = 0
@@ -183,7 +189,8 @@ class FailoverClient:
                 if self._client is None:
                     host, port = self._eps[self._cur]
                     self._client = CoordinatorClient(
-                        host, port, timeout_s=self._timeout_s)
+                        host, port, timeout_s=self._timeout_s,
+                        tls=self._tls)
                 reply = self._client.request(method, **fields)
                 self._learn_fence(reply, fields)
                 g = reply.get("gen")
@@ -257,16 +264,26 @@ class Standby:
                  bft_keys: Optional[Dict[int, bytes]] = None,
                  bft_quorum: Optional[int] = None,
                  bft_timeout_s: float = 10.0,
+                 tls_client=None, tls_server=None,
+                 snapshot_interval: int = 0,
+                 snapshot_dir: str = "",
                  device: DeviceLike = None,
-                 verbose: bool = False,
-                 **unported):
-        refuse_unported(unported, UNPORTED_STANDBY_OPTIONS)
+                 verbose: bool = False):
+        from bflc_demo_tpu_torch.ledger.snapshot import snapshot_legacy
         if not 1 <= index < len(endpoints):
             raise ValueError(f"standby index {index} out of range for "
                              f"{len(endpoints)} endpoints")
         cfg.validate()
         self.device = resolve_device(device)
         self.cfg = cfg
+        # snapshots: handed to the server this standby becomes; the meta
+        # of the newest snapshot op it mirrored or installed
+        self.snapshot_interval = (0 if snapshot_legacy()
+                                  else max(int(snapshot_interval), 0))
+        self.snapshot_dir = snapshot_dir
+        self._latest_snapshot: Optional[dict] = None
+        self.tls_client = tls_client        # following the writer
+        self.tls_server = tls_server        # read fan-out, then writer
         self.endpoints = list(endpoints)
         self.index = index
         self.heartbeat_s = heartbeat_s
@@ -310,6 +327,9 @@ class Standby:
         self._directory = PublicDirectory() if require_auth else None
         self._synced_registered = -1
         self._synced_update_count = -1
+        # one record a state-sync {i, epoch, seconds} and a GC {i, dropped}
+        self.state_syncs: List[dict] = []
+        self.gc_log: List[dict] = []
         self._stop = threading.Event()
         self.promoted = threading.Event()
         self.server: Optional[LedgerServer] = None
@@ -322,8 +342,17 @@ class Standby:
         self.read_server: Optional[ReadFanoutServer] = None
         if not data_plane_legacy():
             self.read_server = ReadFanoutServer(
-                self._blobs.get, self._read_model_state, host=host)
+                self._blobs.get, self._read_model_state, host=host,
+                tls=tls_server, snapshot_state=self._read_snapshot_state)
             self.read_server.start()
+
+    def _read_snapshot_state(self) -> Optional[dict]:
+        """The mirrored snapshot the read fan-out may serve, or None: only
+        one whose model blob is held (a joiner refuses anything less)."""
+        meta = self._latest_snapshot
+        if meta is None or meta.get("model") is None:
+            return None
+        return meta
 
     def _read_model_state(self):
         """(epoch, hash, blob) of the mirrored model, or None before the
@@ -398,7 +427,8 @@ class Standby:
         probe fails."""
         host, port = writer
         try:
-            ctl = CoordinatorClient(host, port, timeout_s=10.0)
+            ctl = CoordinatorClient(host, port, timeout_s=10.0,
+                                    tls=self.tls_client)
         except (ConnectionError, WireError, OSError) as e:
             raise WriterDead(str(e))
         try:
@@ -407,11 +437,10 @@ class Standby:
             if int(inf.get("gen", 0)) < self.ledger.generation:
                 raise WriterDead(f"stale writer: gen {inf.get('gen')} < "
                                  f"ours {self.ledger.generation}")
-            if int(inf.get("log_base", 0) or 0) > self.ledger.log_size():
-                raise NotImplementedError(
-                    "the writer compacted its log behind a snapshot; the "
-                    "snapshot state-sync is not ported yet (ROADMAP A9: "
-                    "snapshots)")
+            # the writer GC'd past our resume point: replay is impossible,
+            # install its certified snapshot and follow the tail
+            if self.ledger.log_size() < int(inf.get("log_base", 0) or 0):
+                self._state_sync(ctl)
             sub = self._open_subscription(writer)
         except (ConnectionError, WireError, OSError) as e:
             ctl.close()
@@ -438,11 +467,18 @@ class Standby:
                 if msg is None:
                     raise WriterDead("op stream closed")
                 if "op" not in msg:
-                    if msg.get("state_sync"):
-                        raise NotImplementedError(
-                            "the writer asks for a snapshot state-sync, "
-                            "not ported yet (ROADMAP A9: snapshots)")
-                    continue            # unknown control frame: ignore
+                    if not msg.get("state_sync"):
+                        continue        # unknown control frame: ignore
+                    # the GC passed our resume point between the info
+                    # probe and the subscribe: install and resubscribe
+                    sub.close()
+                    try:
+                        self._state_sync(ctl)
+                        sub = self._open_subscription(writer)
+                    except (ConnectionError, WireError, OSError) as e:
+                        raise WriterDead(str(e))
+                    last_applied = self.ledger.log_size() - 1
+                    continue
                 t0 = time.perf_counter() if tr.enabled else 0.0
                 op_bytes = bytes.fromhex(msg["op"])
                 op_index = self.ledger.log_size()
@@ -461,6 +497,10 @@ class Standby:
                         f"standby rejected op {msg['i']}: {st.name} — "
                         f"writer/replica divergence, refusing to continue")
                 last_applied = op_index
+                if op_bytes[0] == OP_SNAPSHOT:
+                    # the apply re-derived its digest from our replica
+                    self._note_snapshot_op(op_index, op_bytes,
+                                           msg.get("cert"))
                 self._drop_moot_payloads()
                 try:
                     self._sync_state(ctl)
@@ -481,7 +521,8 @@ class Standby:
         provisioned identity by the challenge handshake and advertise
         the read endpoint."""
         sub = CoordinatorClient(writer[0], writer[1],
-                                timeout_s=self.heartbeat_s)
+                                timeout_s=self.heartbeat_s,
+                                tls=self.tls_client)
         sub_msg = {"method": "subscribe", "from": self.ledger.log_size()}
         if self.wallet is not None:
             sub_msg["sb"] = self.index
@@ -503,6 +544,139 @@ class Standby:
             sub.close()
             raise
         return sub
+
+    # ------------------------------------------------- certified snapshots
+    def _state_sync(self, ctl: CoordinatorClient) -> None:
+        """Install the writer's newest certified snapshot in place of a GC'd
+        prefix this replica can no longer replay.  `verify_snapshot_meta`
+        checks every binding (state digest, model hash, the certificate
+        under our validator keys, no generation regression); a refused
+        offer raises RuntimeError and installs nothing, a transport
+        failure raises WriterDead."""
+        from bflc_demo_tpu_torch.ledger.snapshot import (
+            restore_snapshot, snapshot_base_head, verify_snapshot_meta)
+        t0 = time.perf_counter()
+        try:
+            offer = ctl.request("snapshot", meta=1)
+        except (ConnectionError, WireError, OSError) as e:
+            raise WriterDead(str(e))
+        if not offer.get("ok"):
+            raise WriterDead(f"writer GC'd past our resume point but "
+                             f"serves no snapshot: {offer.get('error')}")
+        try:
+            meta = {"i": int(offer["i"]), "epoch": int(offer["epoch"]),
+                    "gen": int(offer.get("gen", 0)), "op": offer["op"],
+                    "prev_head": offer["prev_head"],
+                    "cert": offer.get("cert")}
+        except (KeyError, TypeError, ValueError) as e:
+            raise RuntimeError(
+                f"standby {self.index}: malformed snapshot offer: {e}")
+        meta["state"], meta["model"] = self._fetch_snapshot_body(ctl, offer)
+        err = verify_snapshot_meta(meta, bft_quorum=self.bft_quorum,
+                                   bft_keys=self.bft_keys or None,
+                                   min_generation=self.ledger.generation)
+        if err:
+            raise RuntimeError(f"standby {self.index}: refusing offered "
+                               f"snapshot: {err}")
+        self.ledger = restore_snapshot(meta["state"], self.cfg,
+                                       int(meta["i"]) + 1,
+                                       snapshot_base_head(meta))
+        self._model_blob = bytes(meta["model"])
+        self._certs = ({int(meta["i"]): meta["cert"]}
+                       if meta.get("cert") else {})
+        self._pending_payload.clear()
+        self._blob_unknown = False
+        self._synced_registered = -1        # a full sideband resync
+        self._synced_update_count = -1
+        self._latest_snapshot = {**meta, "final": True}
+        dt = time.perf_counter() - t0
+        self.state_syncs.append({"i": int(meta["i"]),
+                                 "epoch": int(meta["epoch"]),
+                                 "seconds": dt})
+        tracing.PROC.charge("standby.state_sync_s", dt)
+        tracing.PROC.charge("standby.state_syncs")
+        self._say(f"state-synced from certified snapshot@{meta['i']} "
+                  f"(epoch {meta['epoch']}, {dt * 1e3:.0f} ms)")
+
+    def _fetch_snapshot_body(self, ctl: CoordinatorClient,
+                             offer: dict) -> Tuple[bytes, bytes]:
+        """(state, model) of the writer's offer: the advertised read set
+        first (each reply checked against the offer's digests, so a stale
+        or lying replica costs a round trip), the writer last."""
+        from bflc_demo_tpu_torch.ledger.snapshot import (decode_state,
+                                                         parse_snapshot_op)
+        op = offer.get("op", "")
+        try:
+            parsed = parse_snapshot_op(bytes.fromhex(op)
+                                       if isinstance(op, str) else bytes(op))
+        except ValueError:
+            parsed = None
+        want_digest = parsed[1] if parsed else None
+        for ep in offer.get("read_set") or []:
+            try:
+                c = CoordinatorClient(str(ep[0]), int(ep[1]), timeout_s=10.0,
+                                      tls=self.tls_client)
+            except (ConnectionError, OSError, TypeError, ValueError,
+                    IndexError):
+                continue
+            try:
+                r = c.request("snapshot", want_i=int(offer["i"]))
+            except (ConnectionError, WireError, OSError):
+                continue
+            finally:
+                c.close()
+            if not r.get("ok"):
+                continue
+            try:
+                state = blob_bytes(r.get("state", b""))
+                model = blob_bytes(r.get("model", b""))
+                mh = bytes(decode_state(state)["model_hash"])
+            except ValueError:
+                continue
+            if want_digest is not None \
+                    and hashlib.sha256(state).digest() == want_digest \
+                    and hashlib.sha256(model).digest() == mh:
+                return state, model
+        try:
+            r = ctl.request("snapshot")
+        except (ConnectionError, WireError, OSError) as e:
+            raise WriterDead(str(e))
+        if not r.get("ok"):
+            raise WriterDead(f"snapshot body fetch failed: {r.get('error')}")
+        return blob_bytes(r["state"]), blob_bytes(r["model"])
+
+    def _note_snapshot_op(self, i: int, op: bytes, cert_wire) -> None:
+        """Mirror a streamed (and just applied, so re-derived) snapshot
+        op's meta, write its artifact under `snapshot_dir`, and GC this
+        replica and its certificates behind it (the snapshot op's own
+        certificate stays: it is the offer's evidence)."""
+        from bflc_demo_tpu_torch.ledger.snapshot import (
+            parse_snapshot_op, prune_snapshots, write_snapshot_file)
+        parsed = parse_snapshot_op(op)
+        if parsed is None:
+            return
+        state = self.ledger.encode_state()
+        model = self._model_blob
+        want_mh, _ = self.ledger.query_global_model()
+        if model is None or hashlib.sha256(model).digest() != want_mh:
+            model = None                # a stale mirror is never served
+        meta = {"i": i, "epoch": parsed[0], "gen": self.ledger.generation,
+                "op": op, "prev_head": self.ledger.head_at(i) or b"\0" * 32,
+                "cert": cert_wire, "state": state, "model": model,
+                "final": True}
+        self._latest_snapshot = meta
+        if self.snapshot_dir and model is not None:
+            try:
+                write_snapshot_file(self.snapshot_dir, meta)
+                prune_snapshots(self.snapshot_dir, 2)
+            except OSError:
+                pass                    # a full disk must not stop following
+        dropped = self.ledger.gc_prefix(i + 1, state)
+        if dropped:
+            self._certs = {k: v for k, v in self._certs.items() if k >= i}
+            self.gc_log.append({"i": i, "dropped": dropped})
+            self._say(f"GC: dropped {dropped} mirrored ops behind "
+                      f"snapshot@{i}")
 
     def _await_upload_payload(self, op_bytes: bytes, ctl: CoordinatorClient,
                               writer: Endpoint) -> bool:
@@ -686,7 +860,8 @@ class Standby:
     def _writer_info(self, ep: Endpoint) -> Optional[dict]:
         """The endpoint's `info` reply, or None when unreachable."""
         try:
-            probe = CoordinatorClient(ep[0], ep[1], timeout_s=2.0)
+            probe = CoordinatorClient(ep[0], ep[1], timeout_s=2.0,
+                                      tls=self.tls_client)
             try:
                 inf = probe.request("info")
                 return inf if inf.get("ok") else None
@@ -751,11 +926,16 @@ class Standby:
         spliced under the fence — and the standby re-fences at the next
         position.  An unreachable quorum is retried until it heals or
         the standby stops."""
-        from bflc_demo_tpu_torch.comm.bft import CertificateAssembler
+        from bflc_demo_tpu_torch.comm.bft import (CertificateAssembler,
+                                                  PrefixCompacted)
 
         def backlog(j: int):
             # a validator that lagged the dead writer resyncs from the
-            # mirrored certificates (the auth evidence died with it)
+            # mirrored certificates (the auth evidence died with it);
+            # below our GC base it installs the mirrored snapshot
+            if j < self.ledger.log_base:
+                raise PrefixCompacted(self._latest_snapshot,
+                                      self.ledger.log_base)
             return self.ledger.log_op(j), None, self._certs.get(j)
 
         assembler = CertificateAssembler(
@@ -849,6 +1029,10 @@ class Standby:
             bft_quorum=self.bft_quorum or None,
             bft_timeout_s=self.bft_timeout_s,
             resume_certs=dict(self._certs) if self.bft_keys else None,
+            tls=self.tls_server,
+            snapshot_interval=self.snapshot_interval,
+            snapshot_dir=self.snapshot_dir,
+            resume_snapshot=self._latest_snapshot,
             device=self.device,
             verbose=self.verbose)
         # a client the mirrored directory missed re-presents its

@@ -173,6 +173,11 @@ class Wallet:
         self.address = address_of(self.public_bytes)
 
     @classmethod
+    def generate(cls) -> "Wallet":
+        """A fresh random identity (`os.urandom`, the reference's)."""
+        return cls(os.urandom(32), os.urandom(32))
+
+    @classmethod
     def from_seed(cls, seed: bytes) -> "Wallet":
         sk = hashlib.sha256(b"bflc-ed25519|" + seed).digest()
         dk = hashlib.sha256(b"bflc-x25519|" + seed).digest()

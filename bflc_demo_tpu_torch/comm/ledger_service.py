@@ -74,10 +74,28 @@ and blocks), with the writer's generation, index and start on the
 monotonic clock (a failover's gap is read from them), and the chain's
 size, certified prefix and highest subscriber ack.
 
+TLS (`comm/tls.py`): with `tls` (a server context) every connection is
+wrapped in its own thread, the handshake bounded to 10 s, so a plaintext
+or stalled peer is closed and never blocks the accept loop.  Validators
+are dialled in plaintext, as in the reference.
+
+Certified snapshots (`ledger/snapshot.py`): with `snapshot_interval` K
+the writer appends a snapshot op (opcode 9) after every commit whose new
+epoch is a multiple of K; once it is certified (at once without BFT) the
+monitor loop writes the artifact under `snapshot_dir` (the newest
+`snapshot_keep` kept) outside the lock, then garbage-collects the log,
+the WAL (to `BFLCWAL2`), the op auth evidence and the certificates below
+it, never past the slowest live subscriber's send watermark.  `info`
+reports `log_base`, the `snapshot` method serves the newest finalized
+offer, a subscriber asking from below the base gets a `state_sync` frame
+and a lagging validator installs the snapshot through `bft_snapshot`.  A
+promoted standby passes the snapshot it mirrored as `resume_snapshot`.
+`BFLC_SNAPSHOT_LEGACY=1` keeps every snapshot op off the chain.
+
 Not ported, each raising or refusing with its ROADMAP item when asked
-for: TLS, snapshots and `log_base` (always 0), the hier root, rederive
-and its commit evidence, the async FedBuff and genome paths, sparse/
-quantized uploads (A9); telemetry, health and causal traces (A14).
+for: the hier root, rederive and its commit evidence, the async FedBuff
+and genome paths, sparse/quantized uploads (A9); telemetry, health and
+causal traces (A14).
 `BFLC_DATA_PLANE_LEGACY=1` drops the model piggyback and the read set,
 as in the reference.
 """
@@ -123,20 +141,28 @@ GAS_SCORES = 500
 # the reference's server options this port has not reached, each with
 # the ROADMAP item that brings it; a truthy value raises
 UNPORTED_SERVER_OPTIONS = {
-    "tls": "A9 (TLS)",
-    "snapshot_interval": "A9 (snapshots)",
-    "snapshot_dir": "A9 (snapshots)",
-    "snapshot_keep": "A9 (snapshots)",
-    "resume_snapshot": "A9 (snapshots)",
     "cell_registry": "A9 (hier cells)",
 }
 
 # wire methods of unported paths: refused by name, never "unknown"
 _UNPORTED_METHODS = {
     "aupload": "A9 (async FedBuff)", "aupdates": "A9 (async FedBuff)",
-    "ascores": "A9 (async FedBuff)", "snapshot": "A9 (snapshots)",
-    "telemetry": "A14 (telemetry)",
+    "ascores": "A9 (async FedBuff)", "telemetry": "A14 (telemetry)",
 }
+
+# the TLS handshake's bound, in the connection's own thread
+_HANDSHAKE_TIMEOUT_S = 10.0
+
+
+def shutdown_read(conn: socket.socket) -> None:
+    """Shut the read side of `conn` so its serving thread sees EOF while
+    replies in flight still go out.  On a TLS socket this goes to the raw
+    socket: `SSLSocket.shutdown` drops the TLS session first, and every
+    later reply would leave in plaintext."""
+    try:
+        socket.socket.shutdown(conn, socket.SHUT_RD)
+    except OSError:
+        pass
 
 
 def refuse_unported(options: Dict[str, object],
@@ -218,7 +244,12 @@ def verify_promotion_evidence(ev, ledger, standby_keys) -> bool:
     gen, ix = int(ev["gen"]), int(ev["ix"])
     if gen <= ledger.generation or not 0 <= ix <= ledger.log_size():
         return False
-    return chain_head_at(ledger, ix) == bytes.fromhex(ev["prev"])
+    try:
+        return chain_head_at(ledger, ix) == bytes.fromhex(ev["prev"])
+    except ValueError:
+        # the claimed position lies below our GC base: the binding cannot
+        # be proven, and unverifiable evidence never demotes a writer
+        return False
 
 
 def _aggregate_flat(global_flat: Dict[str, np.ndarray],
@@ -259,18 +290,42 @@ class LedgerServer:
                  bft_quorum: Optional[int] = None,
                  bft_timeout_s: float = 10.0,
                  resume_certs: Optional[Dict[int, dict]] = None,
+                 tls=None,
+                 snapshot_interval: int = 0,
+                 snapshot_dir: str = "",
+                 snapshot_keep: int = 2,
+                 resume_snapshot: Optional[dict] = None,
                  device: DeviceLike = None,
                  verbose: bool = False,
                  **unported):
-        """resume_ledger/resume_blobs/sock/resume_certs: the promotion
-        surface — a server over a standby's replayed ledger, its
-        mirrored blobs and certificates, the current model blob as
-        `initial_model_blob`, and the socket it bound at start, whose
-        backlog holds the failed-over clients."""
+        """resume_ledger/resume_blobs/sock/resume_certs/resume_snapshot:
+        the promotion surface — a server over a standby's replayed (and
+        possibly compacted) ledger, its mirrored blobs, certificates and
+        snapshot, the current model blob as `initial_model_blob`, and the
+        socket it bound at start, whose backlog holds the failed-over
+        clients."""
         refuse_unported(unported, UNPORTED_SERVER_OPTIONS)
+        from bflc_demo_tpu_torch.ledger.snapshot import snapshot_legacy
         cfg.validate()
         self.cfg = cfg
         self.verbose = verbose
+        # ssl.SSLContext (comm/tls.server_context) or None for plaintext
+        self._tls = tls
+        # certified snapshots: 0 or BFLC_SNAPSHOT_LEGACY keeps every
+        # snapshot op off the chain
+        self._snap_interval = (0 if snapshot_legacy()
+                               else max(int(snapshot_interval), 0))
+        self._snap_dir = snapshot_dir
+        self._snap_keep = max(int(snapshot_keep), 1)
+        # the newest snapshot meta {i, epoch, gen, op, prev_head, cert,
+        # state, model, final} and the last finalized one, which stays
+        # servable while the next is being certified
+        self._latest_snapshot: Optional[dict] = (
+            dict(resume_snapshot) if resume_snapshot else None)
+        self._served_snapshot: Optional[dict] = None
+        # one record a snapshot op: position, epoch, the artifact's bytes
+        # and write seconds, the ops its GC dropped
+        self.snapshot_log: List[dict] = []
         self.require_auth = require_auth
         self.stall_timeout_s = stall_timeout_s
         self._open_enrollment = directory is None
@@ -313,6 +368,7 @@ class LedgerServer:
         # one record a commit: epoch, seconds since start, the merge's
         # seconds and leg — the writer's own clock of a round
         self._t0 = time.monotonic()
+        self._t0_base = self.ledger.log_base    # a compacted resume: > 0
         self.merge_log: List[dict] = []
         self._stop = threading.Event()
         # accepted connections, shut down by close(): a closed writer is a
@@ -352,14 +408,19 @@ class LedgerServer:
                 bft_validators, bft_keys or {}, q,
                 timeout_s=bft_timeout_s, backlog_fn=self._bft_backlog)
             # a promoted chain arrives fully certified: the standby
-            # refused uncertified appends and certified its fence op
+            # refused uncertified appends and certified its fence op.
+            # Positions count from 0 whatever was GC'd: below the base
+            # the certificates went with the prefix
             self._certified_size = self.ledger.log_size()
             if self._certified_size:
                 self._cert_head = self.ledger.log_head()
-            if len(self._certs) < self._certified_size:
+            missing = [j for j in range(self.ledger.log_base,
+                                        self._certified_size)
+                       if j not in self._certs]
+            if missing:
                 raise ValueError(
                     f"BFT resume: {self._certified_size} chain ops but "
-                    f"only {len(self._certs)} certificates")
+                    f"no certificate for {len(missing)} of them")
         self._threads: List[threading.Thread] = []
         if sock is not None:
             self._sock = sock
@@ -398,10 +459,7 @@ class LedgerServer:
         except OSError:
             pass
         for conn in conns:
-            try:
-                conn.shutdown(socket.SHUT_RD)   # replies in flight still go
-            except OSError:
-                pass
+            shutdown_read(conn)             # replies in flight still go
 
     def _accept_loop(self) -> None:
         while not self._stop.is_set():
@@ -418,7 +476,40 @@ class LedgerServer:
                              daemon=True).start()
 
     # ----------------------------------------------------------- connection
+    def _handshake(self, raw: socket.socket) -> Optional[socket.socket]:
+        """The TLS server handshake, bounded; None (the peer closed) for a
+        plaintext or broken peer."""
+        import ssl
+        tr = tracing.PROC
+        t0 = time.perf_counter()
+        try:
+            raw.settimeout(_HANDSHAKE_TIMEOUT_S)
+            conn = self._tls.wrap_socket(raw, server_side=True)
+            conn.settimeout(None)
+        except (ssl.SSLError, OSError):
+            with self._cv:
+                self._conns.discard(raw)
+            try:
+                raw.close()
+            except OSError:
+                pass
+            tr.charge("tls.refused")
+            return None
+        if tr.enabled:
+            tr.charge("tls.handshake_s", time.perf_counter() - t0)
+            tr.charge("tls.handshakes")
+        with self._cv:
+            self._conns.discard(raw)
+            if self._stop.is_set():
+                shutdown_read(conn)
+            self._conns.add(conn)
+        return conn
+
     def _serve_conn(self, conn: socket.socket) -> None:
+        if self._tls is not None:
+            conn = self._handshake(conn)
+            if conn is None:
+                return
         try:
             while not self._stop.is_set():
                 msg = recv_msg(conn)
@@ -490,8 +581,15 @@ class LedgerServer:
         this process only (after a promotion it is gone for earlier ops,
         and the certificate admits them); a register op's pubkey is
         recovered from the directory so the rejoined validator's mirror
-        stays complete."""
+        stays complete.  Below the GC base the ops are gone: it raises
+        `PrefixCompacted` with the snapshot offer, which the assembler
+        installs on the validator (`bft_snapshot`)."""
         with self._lock:
+            base = self.ledger.log_base
+            if j < base:
+                from bflc_demo_tpu_torch.comm.bft import PrefixCompacted
+                raise PrefixCompacted(
+                    self._snapshot_offer(require_model=False), base)
             op = self.ledger.log_op(j)
             auth = self._op_auth.get(j)
             if auth is None and op and op[0] == OP_REGISTER:
@@ -644,11 +742,23 @@ class LedgerServer:
             # clamp the claimed start to the real log: a subscriber cannot
             # ack (and fake durability for) ops it was never sent
             start = max(0, min(start, self.ledger.log_size()))
-            self._sub_acked[sub_id] = -1
-            self._sub_sent[sub_id] = start - 1
-            self._sub_eligible[sub_id] = quorum_eligible
-            if read_ep is not None:
-                self._sub_read_ep[sub_id] = read_ep
+            base = self.ledger.log_base
+            if start >= base:
+                # registered under the lock of the base check, so the
+                # snapshot GC's subscriber clamp sees this stream at once
+                self._sub_acked[sub_id] = -1
+                self._sub_sent[sub_id] = start - 1
+                self._sub_eligible[sub_id] = quorum_eligible
+                if read_ep is not None:
+                    self._sub_read_ep[sub_id] = read_ep
+        if start < base:
+            # the resume point was GC'd behind a certified snapshot: the
+            # subscriber must install the snapshot and resume at its tail
+            try:
+                send_msg(conn, {"state_sync": 1, "base": base})
+            except (WireError, OSError):
+                pass
+            return
         threading.Thread(target=self._ack_reader, args=(conn, sub_id),
                          daemon=True).start()
         try:
@@ -1001,10 +1111,14 @@ class LedgerServer:
                  "log_size": led.log_size(),
                  "log_head": led.log_head().hex(),
                  "gen": led.generation, "writer_index": led.writer_index,
-                 "log_base": 0,
+                 "log_base": led.log_base,
                  "certified_size": (self._certified_size
                                     if self._bft is not None else None),
                  "committee": led.committee()}
+        snap = self._snapshot_offer()
+        if snap is not None:
+            reply["snapshot_epoch"] = snap["epoch"]
+            reply["snapshot_i"] = snap["i"]
         if tracing.PROC.enabled:
             reply["perf"] = tracing.PROC.summary()
         return reply
@@ -1012,9 +1126,11 @@ class LedgerServer:
     def _m_kernels(self, m: dict) -> dict:
         """This process's kernel launch counts, the merge engine's report
         (leg, self-check, launches the self-check made), every commit's
-        merge record and the Ed25519 backend; the chain's size, its
+        merge record and the Ed25519 backend; the chain's size, base,
         certified prefix and the highest op a subscriber acked (a drill
-        reads when its standby holds the whole certified chain)."""
+        reads when its standby holds the whole certified chain); every
+        snapshot op's record and every snapshot offered to a lagging
+        validator, with the seconds its install took."""
         from bflc_demo_tpu_torch.comm.identity import ED25519_BACKEND
         return {"ok": True, "launches": launch_counts(),
                 "engine": self.engine.report(), "merges": self.merge_log,
@@ -1022,18 +1138,46 @@ class LedgerServer:
                 "gen": self.ledger.generation,
                 "writer_index": self.ledger.writer_index,
                 "started_mono": self._t0,
+                "started_log_base": self._t0_base,
                 "log_size": self.ledger.log_size(),
+                "log_base": self.ledger.log_base,
                 "certified_size": (self._certified_size
                                    if self._bft is not None else None),
-                "stream_acked": max(self._sub_acked.values(), default=-1)}
+                "stream_acked": max(self._sub_acked.values(), default=-1),
+                "snapshots": self.snapshot_log,
+                "snapshot_offers": (self._bft.snapshot_offers
+                                    if self._bft is not None else [])}
 
     def _m_log_range(self, m: dict) -> dict:
         start, end = int(m["start"]), int(m["end"])
         end = min(end, self.ledger.log_size())
+        if start < self.ledger.log_base:
+            # the prefix was GC'd behind a certified snapshot: the caller
+            # state-syncs (`snapshot`) instead of replaying it
+            return {"ok": False, "error": "PREFIX_GC",
+                    "base": self.ledger.log_base}
         if not 0 <= start <= end:
             return {"ok": False, "error": "bad range"}
         return {"ok": True, "ops": [self.ledger.log_op(i).hex()
                                     for i in range(start, end)]}
+
+    def _m_snapshot(self, m: dict) -> dict:
+        """The newest finalized snapshot offer: op, certificate, chain
+        position, canonical state and model blob, each verifiable by the
+        joiner.  With `meta` only the bindings and the read set go out,
+        and the joiner pulls the bytes from a read fan-out replica."""
+        from bflc_demo_tpu_torch.ledger.snapshot import offer_to_wire
+        snap = self._snapshot_offer()
+        if snap is None:
+            return {"ok": False, "error": "no certified snapshot yet"}
+        reply = offer_to_wire(snap)
+        rs = self._read_set()
+        if rs:
+            reply["read_set"] = [list(ep) for ep in rs]
+        if m.get("meta"):
+            reply.pop("state")
+            reply.pop("model")
+        return reply
 
     def _m_wait(self, m: dict) -> dict:
         """Block until the log grows past the caller's view (or the
@@ -1152,10 +1296,14 @@ class LedgerServer:
                               for k, a in new_flat.items()}
         self._rounds_completed += 1
         self._last_progress = time.monotonic()
+        if self._snap_interval and \
+                self.ledger.epoch % self._snap_interval == 0:
+            self._emit_snapshot()
         self._cv.notify_all()
         merge_s = time.perf_counter() - t0
         self.merge_log.append({"epoch": epoch, "leg": self.engine.last_leg,
                                "blocks": blocks,
+                               "log_base": self.ledger.log_base,
                                "t": self._last_progress - self._t0,
                                "mono": self._last_progress,
                                "merge_s": merge_s})
@@ -1166,6 +1314,104 @@ class LedgerServer:
             print(f"[coordinator] epoch {epoch} aggregated "
                   f"({self.engine.last_leg} leg): "
                   f"loss={self.ledger.last_global_loss:.5f}", flush=True)
+
+    # --------------------------------------------------- certified snapshots
+    def _emit_snapshot(self) -> None:
+        """Append a snapshot op over the current (post-commit) state and
+        stage its meta (lock held, from the commit path).  It is
+        certified like any op; the artifact and the GC wait for that in
+        the monitor loop."""
+        from bflc_demo_tpu_torch.ledger.snapshot import make_snapshot_op
+        state = self.ledger.encode_state()
+        pos = self.ledger.log_size()
+        prev = self.ledger.log_head() if pos else b"\0" * 32
+        op = make_snapshot_op(self.ledger)
+        st = self.ledger.apply_op(op)
+        if st != LedgerStatus.OK:
+            # self-application re-derives the digest just computed: only
+            # a concurrent-mutation bug trips this; never wedge the commit
+            self._say(f"snapshot op rejected: {st.name}")
+            return
+        self._latest_snapshot = {
+            "i": pos, "epoch": self.ledger.epoch,
+            "gen": self.ledger.generation, "op": op, "prev_head": prev,
+            "cert": None, "state": state, "model": self._model_blob,
+            "final": False}
+        self.snapshot_log.append({"i": pos, "epoch": self.ledger.epoch,
+                                  "state_bytes": len(state),
+                                  "model_bytes": len(self._model_blob)})
+
+    def _maybe_finalize_snapshot(self) -> None:
+        """Once the snapshot op is certified: write the artifact (outside
+        the lock) and GC the log, the WAL and the per-op sideband behind
+        it, never past the slowest live subscriber's send watermark (a
+        dead one holds nothing back: its rejoin is the state-sync)."""
+        meta = self._latest_snapshot
+        if meta is None or meta.get("final"):
+            return
+        i = int(meta["i"])
+        if self._bft is not None:
+            cert = self._certs.get(i)
+            if cert is None:
+                return                  # not certified yet
+            meta["cert"] = cert
+        self._served_snapshot = meta
+        rec = next((r for r in reversed(self.snapshot_log)
+                    if r["i"] == i), {})
+        if not meta.get("artifact_written"):
+            if self._snap_dir:
+                from bflc_demo_tpu_torch.ledger.snapshot import (
+                    prune_snapshots, write_snapshot_file)
+                t0 = time.perf_counter()
+                try:
+                    path = write_snapshot_file(self._snap_dir, meta)
+                    prune_snapshots(self._snap_dir, self._snap_keep)
+                except OSError as e:
+                    # a full disk must not kill the writer: retried next tick
+                    self._say(f"snapshot artifact write failed: {e}")
+                    return
+                rec["write_s"] = time.perf_counter() - t0
+                rec["artifact_bytes"] = os.path.getsize(path)
+                tracing.PROC.charge("snapshot.write_s", rec["write_s"])
+            meta["artifact_written"] = True
+        with self._lock:
+            base = self.ledger.log_base
+            if base >= i + 1:
+                meta["final"] = True    # nothing more to reclaim
+                return
+            floor = min([i + 1] + [sent + 1
+                                   for sent in self._sub_sent.values()])
+            if floor < i + 1:
+                return                  # a live stream is behind: retry
+            dropped = self.ledger.gc_prefix(i + 1, meta["state"])
+            meta["final"] = True
+            # the sideband below the base goes with the prefix; the
+            # snapshot op's own certificate stays (the offer's evidence)
+            self._op_auth = {k: v for k, v in self._op_auth.items()
+                             if k >= i}
+            self._certs = {k: v for k, v in self._certs.items() if k >= i}
+            kept = {w.get("op_hash") for w in self._certs.values()}
+            self._certs_by_ophash = {h: w for h, w in
+                                     self._certs_by_ophash.items()
+                                     if h in kept}
+        rec["gc_dropped"] = dropped
+        tracing.PROC.charge("snapshot.gc_ops", dropped)
+        if dropped:
+            self._say(f"GC: dropped {dropped} log ops behind snapshot@{i}")
+
+    def _snapshot_offer(self, require_model: bool = True
+                        ) -> Optional[dict]:
+        """The newest finalized (certified, under BFT) snapshot meta, or
+        None.  `require_model=False` serves a meta without the model too:
+        a validator installs ledger state only."""
+        for meta in (self._latest_snapshot, self._served_snapshot):
+            if meta is None or \
+                    (require_model and meta.get("model") is None):
+                continue
+            if self._bft is not None and meta.get("cert") is None:
+                continue                # mid-certification: the older one
+            return meta
+        return None
 
     def _monitor_loop(self) -> None:
         """Failure detector: when a round stalls (dead client processes),
@@ -1181,6 +1427,13 @@ class LedgerServer:
                 self._ensure_certified(
                     self.ledger.log_size(),
                     timeout_s=min(self.stall_timeout_s / 4, 1.0))
+            if self._snap_interval or self._latest_snapshot is not None:
+                try:
+                    self._maybe_finalize_snapshot()
+                except Exception as e:      # noqa: BLE001 — must never
+                    # kill the failure detector
+                    self._say(f"snapshot finalize failed: "
+                              f"{type(e).__name__}: {e}")
             with self._lock:
                 if self.ledger.epoch < 0:
                     continue
@@ -1242,11 +1495,15 @@ class CoordinatorClient:
 
     def __init__(self, host: str, port: int, timeout_s: float = 30.0,
                  tls=None):
-        if tls is not None:
-            raise NotImplementedError("TLS is not ported yet (ROADMAP A9: "
-                                      "TLS)")
         self.sock = socket.create_connection((host, port),
                                              timeout=timeout_s)
+        if tls is not None:                 # comm/tls.client_context
+            try:
+                self.sock = tls.wrap_socket(self.sock, server_hostname=host)
+            except BaseException:
+                self.sock.close()
+                raise
+            tracing.PROC.charge("tls.handshakes")
 
     def request(self, method: str, **fields) -> dict:
         send_msg(self.sock, {"method": method, **fields})
@@ -1268,38 +1525,69 @@ def replicate(host: str, port: int, cfg: ProtocolConfig,
     """Live replica: subscribe to the writer's op stream, replay every op
     into a fresh ledger, and check the chained head against the writer's
     at the end.  Returns the replica ledger once it holds `until_ops` ops;
-    raises on divergence or timeout.  A writer whose prefix was compacted
-    behind a snapshot (`log_base` > 0) needs the snapshot state-sync,
-    which is not ported (ROADMAP A9: snapshots)."""
+    raises on divergence or timeout.  Against a writer whose prefix was
+    GC'd behind a certified snapshot the replica state-syncs first: it
+    installs the hash-checked snapshot and replays only the tail (again
+    when the GC passes its resume point between probe and subscribe)."""
+    def _install_from(probe):
+        from bflc_demo_tpu_torch.ledger.snapshot import (
+            restore_snapshot, snapshot_base_head, verify_snapshot_meta)
+        offer = probe.request("snapshot")
+        if not offer.get("ok"):
+            raise RuntimeError(f"writer GC'd its prefix but serves no "
+                               f"snapshot: {offer.get('error')}")
+        meta = {"i": offer["i"], "op": offer["op"],
+                "prev_head": offer["prev_head"],
+                "state": blob_bytes(offer["state"]),
+                "model": blob_bytes(offer["model"]),
+                "cert": offer.get("cert"), "gen": offer.get("gen", 0)}
+        err = verify_snapshot_meta(meta)
+        if err:
+            raise RuntimeError(f"refusing offered snapshot: {err}")
+        return restore_snapshot(meta["state"], cfg, int(meta["i"]) + 1,
+                                snapshot_base_head(meta))
+
     probe = CoordinatorClient(host, port, timeout_s=timeout_s, tls=tls)
     try:
-        if int(probe.request("info").get("log_base", 0) or 0) > 0:
-            raise NotImplementedError(
-                "the writer compacted its log behind a snapshot; the "
-                "snapshot state-sync is not ported yet (ROADMAP A9: "
-                "snapshots)")
+        base = int(probe.request("info").get("log_base", 0) or 0)
+        replica = (_install_from(probe) if base > 0
+                   else make_ledger(cfg, backend=ledger_backend))
     finally:
         probe.close()
-    replica = make_ledger(cfg, backend=ledger_backend)
     deadline = time.monotonic() + timeout_s
-    sub = CoordinatorClient(host, port, timeout_s=timeout_s, tls=tls)
-    try:
-        send_msg(sub.sock, {"method": "subscribe", "from": 0})
-        while replica.log_size() < until_ops:
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"replica saw {replica.log_size()}/"
-                                   f"{until_ops} ops in {timeout_s}s")
-            msg = recv_msg(sub.sock)
-            if msg is None:
-                raise ConnectionError("writer closed the op stream")
-            if "op" not in msg:
-                raise RuntimeError(f"unexpected stream frame: {msg}")
-            st = replica.apply_op(bytes.fromhex(msg["op"]))
-            if st != LedgerStatus.OK:
-                raise RuntimeError(f"replica rejected op {msg['i']}: "
-                                   f"{st.name}")
-    finally:
-        sub.close()
+    for _ in range(3):
+        resync = False
+        sub = CoordinatorClient(host, port, timeout_s=timeout_s, tls=tls)
+        try:
+            send_msg(sub.sock, {"method": "subscribe",
+                                "from": replica.log_size()})
+            while replica.log_size() < until_ops:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"replica saw {replica.log_size()}/"
+                                       f"{until_ops} ops in {timeout_s}s")
+                msg = recv_msg(sub.sock)
+                if msg is None:
+                    raise ConnectionError("writer closed the op stream")
+                if msg.get("state_sync"):
+                    resync = True       # GC passed our resume point
+                    break
+                if "op" not in msg:
+                    raise RuntimeError(f"unexpected stream frame: {msg}")
+                st = replica.apply_op(bytes.fromhex(msg["op"]))
+                if st != LedgerStatus.OK:
+                    raise RuntimeError(f"replica rejected op {msg['i']}: "
+                                       f"{st.name}")
+        finally:
+            sub.close()
+        if not resync:
+            break
+        probe = CoordinatorClient(host, port, timeout_s=timeout_s, tls=tls)
+        try:
+            replica = _install_from(probe)
+        finally:
+            probe.close()
+    else:
+        raise RuntimeError("subscribe kept racing snapshot GC")
     if not replica.verify_log():
         raise RuntimeError("replica chain verification failed")
     probe = CoordinatorClient(host, port, timeout_s=timeout_s, tls=tls)

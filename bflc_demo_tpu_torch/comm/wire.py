@@ -195,15 +195,20 @@ def send_msg(sock: socket.socket, msg: Dict[str, Any]) -> None:
 
 
 def recv_exact(sock: socket.socket, n: int) -> Optional[bytes]:
-    """Exactly n bytes; None on clean EOF at a frame boundary."""
-    buf = bytearray()
-    while len(buf) < n:
-        chunk = sock.recv(min(n - len(buf), 1 << 20))
-        if not chunk:
-            if not buf:
+    """Exactly n bytes; None on clean EOF at a frame boundary.  Reads
+    into one preallocated buffer (`recv_into`, no flags, which a TLS
+    socket refuses): a TLS socket returns at most one record (<= 16 KiB)
+    a call, so a model-sized frame takes thousands of reads."""
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        k = sock.recv_into(view[got:], min(n - got, 1 << 20))
+        if not k:
+            if not got:
                 return None
-            raise WireError(f"EOF mid-frame ({len(buf)}/{n} bytes)")
-        buf += chunk
+            raise WireError(f"EOF mid-frame ({got}/{n} bytes)")
+        got += k
     return bytes(buf)
 
 

@@ -14,10 +14,10 @@ active participation, `client_chunk` 4 and `remat`) and config 5 (the
 transformer on SST-2-shaped text).  The image sets are the seeded
 stand-ins of `data/synthetic.py` unless `$BFLC_DATA_DIR` holds the real
 arrays.  Still to port, and raising with the item: the executor runtime
-and the fleet's other options (TLS, chaos, cells, snapshots,
-telemetry, rederive: A9/A14, unexpected keywords here) and config 4's
-`secure=True` (A12).  `standbys`, `quorum` and `bft_validators` reach
-the fleet; another runtime refuses them.
+and the fleet's other options (chaos, cells, telemetry, rederive:
+A9/A14, unexpected keywords here) and config 4's `secure=True` (A12).
+`standbys`, `quorum`, `bft_validators`, `tls_dir`, `snapshot_interval`
+and `snapshot_dir` reach the fleet; another runtime refuses them.
 """
 
 from __future__ import annotations
@@ -66,7 +66,8 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
                      process_factory: str = "",
                      factory_kw: Optional[dict] = None,
                      standbys: int = 0, quorum: int = 0,
-                     bft_validators: int = 0,
+                     bft_validators: int = 0, tls_dir: str = "",
+                     snapshot_interval: int = 0, snapshot_dir: str = "",
                      **mesh_kw) -> SimulationResult:
     """Dispatch a federated run to the chosen runtime.
 
@@ -77,19 +78,24 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
     processes: the writer, the clients and a replica as OS processes
     over the socket ledger (`process_factory`/`factory_kw` name the
     model each process builds), the parent as sponsor, with `standbys`
-    hot standbys, `quorum`-ack and `bft_validators` validator processes.
+    hot standbys, `quorum`-ack, `bft_validators` validator processes,
+    TLS (`tls_dir`) and certified snapshots (`snapshot_interval`,
+    `snapshot_dir`).
     attest_scores and mesh_kw (participation, client_chunk, ...) apply
     only to 'mesh'; asking another runtime for them raises, never
     silently drops.  `ledger_backend` is the reference's: "auto" and
     "python" run the python ledger, "native" raises (ROADMAP A9).
-    The fleet's other options (rederive, tls_dir, ...)
-    come with the items that give them a meaning (ROADMAP A9/A14).
+    The fleet's other options (rederive, chaos, ...) come with the items
+    that give them a meaning (ROADMAP A9/A14).
     """
     if runtime not in RUNTIMES:
         raise ValueError(UNPORTED_RUNTIME.format(runtime=runtime))
-    if runtime != "processes" and (standbys or quorum or bft_validators):
-        bad = [n for n, v in (("standbys", standbys), ("quorum", quorum),
-                              ("bft_validators", bft_validators)) if v]
+    fleet = (("standbys", standbys), ("quorum", quorum),
+             ("bft_validators", bft_validators), ("tls_dir", tls_dir),
+             ("snapshot_interval", snapshot_interval),
+             ("snapshot_dir", snapshot_dir))
+    if runtime != "processes" and any(v for _, v in fleet):
+        bad = [n for n, v in fleet if v]
         raise ValueError(f"options {bad} do not apply to the {runtime!r} "
                          f"runtime")
     if runtime != "mesh" and attest_scores:
@@ -121,6 +127,9 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
                                    rounds=rounds, factory_kw=factory_kw or {},
                                    standbys=standbys, quorum=quorum,
                                    bft_validators=bft_validators,
+                                   tls_dir=tls_dir,
+                                   snapshot_interval=snapshot_interval,
+                                   snapshot_dir=snapshot_dir,
                                    device=device, verbose=verbose)
 
 

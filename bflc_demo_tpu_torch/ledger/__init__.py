@@ -6,9 +6,10 @@ geometry (`base.reduce_blocks`: a blocked genome's commit ops carry the
 REDUCTION SPEC v2 claim).  `backend` is the reference's: "auto" and
 "python" give the python ledger; "native", the reference's C++ `.so`,
 raises (ROADMAP A9: the native ledger), blocked genome or not.
-`clone_prefix` (reference :66-) is the rollback-to-prefix primitive a
-standby's promotion uses; a source compacted behind a snapshot does not
-exist here (ROADMAP A9: snapshots).
+`clone_prefix` (reference :66-92) is the rollback-to-prefix primitive a
+standby's promotion and a validator's repair use; a source compacted
+behind a certified snapshot clones from its base state and replays only
+the retained tail.
 """
 
 from __future__ import annotations
@@ -48,9 +49,20 @@ def clone_prefix(src, upto: int, cfg: ProtocolConfig, *,
                  backend: str = "auto") -> PyLedger:
     """A fresh ledger that replayed ops[0..upto) of `src`.  Raises
     RuntimeError if the prefix does not replay, which cannot happen on a
-    chain the source ledger itself accepted."""
-    fresh = make_ledger(cfg, backend=backend)
-    for j in range(upto):
+    chain the source ledger itself accepted, and below a compacted
+    source's GC base (certified history is never rolled back past a
+    certified snapshot)."""
+    base = src.log_base
+    if base:
+        if upto < base:
+            raise RuntimeError(
+                f"clone_prefix({upto}) below GC base {base}: the prefix "
+                f"was compacted behind a certified snapshot")
+        from bflc_demo_tpu_torch.ledger.snapshot import restore_snapshot
+        fresh = restore_snapshot(src._base_state, cfg, base, src._base_head)
+    else:
+        fresh = make_ledger(cfg, backend=backend)
+    for j in range(base, upto):
         st = fresh.apply_op(src.log_op(j))
         if st != LedgerStatus.OK:
             raise RuntimeError(f"prefix replay rejected op {j}: {st.name}")

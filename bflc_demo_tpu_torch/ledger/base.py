@@ -7,7 +7,7 @@ the encoders of the stall detector's recovery ops (close_round,
 force_aggregate, reseat_committee), which the reference writes inline
 in `ledger/pyledger.py:404-460`, the writer promotion fence (opcode 8,
 written inline at `ledger/pyledger.py:466-488`), `decode_op`, the op
-decoder of `ledger/tool.py:85-168` for opcodes 1-8 (the standby reads an
+decoder of `ledger/tool.py:85-168` for opcodes 1-9 (the standby reads an
 upload's payload hash and a commit's model hash with it), and
 `staleness_weight`, the FedBuff merge weight the certified merge's
 checker draws (`meshagg/check.py`), and REDUCTION SPEC v2's switches
@@ -31,10 +31,12 @@ import numpy as np
 
 OP_REGISTER, OP_UPLOAD, OP_SCORES, OP_COMMIT = 1, 2, 3, 4
 OP_CLOSE, OP_FORCE, OP_RESEAT, OP_PROMOTE = 5, 6, 7, 8
+OP_SNAPSHOT = 9
 OP_NAMES = {OP_REGISTER: "register", OP_UPLOAD: "upload",
             OP_SCORES: "scores", OP_COMMIT: "commit",
             OP_CLOSE: "close_round", OP_FORCE: "force_aggregate",
-            OP_RESEAT: "reseat_committee", OP_PROMOTE: "promote_writer"}
+            OP_RESEAT: "reseat_committee", OP_PROMOTE: "promote_writer",
+            OP_SNAPSHOT: "snapshot"}
 
 
 def blocked_legacy() -> bool:
@@ -128,7 +130,7 @@ def encode_promote_op(generation: int, writer_index: int) -> bytes:
 
 def decode_op(op: bytes) -> dict:
     """One op's fields, rendered as the reference's `ledger/tool.py`
-    does; no state rules applied.  Opcodes 1-8; others are named
+    does; no state rules applied.  Opcodes 1-9; others are named
     unknown, and a malformed body adds `malformed`."""
     if not op:
         return {"op": "empty"}
@@ -173,6 +175,9 @@ def decode_op(op: bytes) -> dict:
         elif code == OP_PROMOTE:
             out["generation"], = struct.unpack_from("<q", body, 0)
             out["writer_index"], = struct.unpack_from("<q", body, 8)
+        elif code == OP_SNAPSHOT:
+            out["epoch"], = struct.unpack_from("<q", body, 0)
+            out["state_digest"] = body[8:40].hex()
     except (struct.error, ValueError, UnicodeDecodeError) as e:
         out["malformed"] = f"{type(e).__name__}: {e}"
     return out

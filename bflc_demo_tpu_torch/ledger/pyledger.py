@@ -15,22 +15,25 @@ without the closed compression loop); the SHA-256 op-log chain
 `head_at`); the write-ahead log in the `BFLCWAL1` format byte for byte
 (`attach_wal`, `save_wal`, `detach_wal`, `replay_wal`, :148-253: a
 failed journal write detaches the WAL and the ledger keeps serving);
+certified snapshots and compaction (:176-300, :993-1160): `log_base`,
+`encode_state`, `state_digest`, `_install_state`, `gc_prefix` (chain
+positions stay absolute: every accessor counts from the base) and the
+compacted `BFLCWAL2` journal with `compact_wal` and its replay;
 REDUCTION SPEC v2's block geometry on the chain (`reduce_blocks`, the
 `BLK1` claim tail of a blocked genome's commit op, `commit_model`'s
 `blocks` claim, :56-97, :545-590); `apply_op` (:1207), the replica's
-replay, for opcodes 1-8, the commit's 40-byte v1 and 52-byte v2 bodies
-included (:1242-1255); and the BFT validator's probe `validate_op` with
+replay, for opcodes 1-9, the commit's 40-byte v1 and 52-byte v2 bodies
+included (:1242-1255), the snapshot op re-deriving its digest; and the
+BFT validator's probe `validate_op` with
 `_snapshot`/`_restore` (:1161-1205), which leaves the state and the WAL
 untouched.  Same op bytes, same statuses, same median / rank / election
 order, so the same op sequence gives the same chain head as the
 reference ledger, bit for bit.
 
 Not ported, each with its own A9 item: the asynchronous buffered family
-(10-12, with the async commit's geometry tail), genome updates (13),
-snapshots and compaction (opcode 9, the compacted `BFLCWAL2` journal and
-`compact_wal`, which raise naming "A9 (snapshots)").  `apply_op` refuses
-those opcodes with BAD_ARG, as the reference does an unknown one.  The
-native `.so` is not bound.
+(10-12, with the async commit's geometry tail) and genome updates (13),
+with their state tails.  `apply_op` refuses those opcodes with BAD_ARG,
+as the reference does an unknown one.  The native `.so` is not bound.
 """
 
 from __future__ import annotations
@@ -45,12 +48,10 @@ import numpy as np
 
 from bflc_demo_tpu_torch.ledger.base import (
     OP_CLOSE, OP_COMMIT, OP_FORCE, OP_PROMOTE, OP_REGISTER, OP_RESEAT,
-    OP_SCORES, OP_UPLOAD, LedgerStatus, PendingInfo, UpdateInfo,
-    encode_close_op, encode_commit_op, encode_force_op, encode_promote_op,
-    encode_register_op, encode_reseat_op, encode_scores_op, encode_upload_op)
-
-_SNAPSHOTS = ("the compacted journal (BFLCWAL2) is not ported yet "
-              "(ROADMAP A9 (snapshots))")
+    OP_SCORES, OP_SNAPSHOT, OP_UPLOAD, LedgerStatus, PendingInfo,
+    UpdateInfo, encode_close_op, encode_commit_op, encode_force_op,
+    encode_promote_op, encode_register_op, encode_reseat_op,
+    encode_scores_op, encode_upload_op)
 
 # commit_model's `blocks` default: "derive the claim from this replica's
 # genome" (the writer path).  Distinct from None, which means "the op
@@ -92,12 +93,21 @@ class PyLedger:
         self._log: List[bytes] = []
         self._wal = None
         self._wal_path = ""
+        # compaction: ops[0.._base) were garbage-collected behind a
+        # certified snapshot; _base_head is the chain head at that offset
+        # (after the snapshot op) and _base_state the canonical state the
+        # prefix reduced to, kept for clone_prefix and the BFLCWAL2 header
+        self._base = 0
+        self._base_head = b""
+        self._base_state: Optional[bytes] = None
 
     # --- log plumbing (matches the reference's append_log) ---
     def _append_log(self, op: bytes) -> None:
         h = hashlib.sha256()
         if self._log:
             h.update(self._log[-1])
+        elif self._base:
+            h.update(self._base_head)
         h.update(op)
         self._ops.append(op)
         self._log.append(h.digest())
@@ -112,6 +122,9 @@ class PyLedger:
 
     # --- write-ahead log (the reference's BFLCWAL1 format) ---
     _WAL_MAGIC = b"BFLCWAL1"
+    # the compacted journal: magic, <q> base, the 32-byte base head, <q>
+    # state length and the canonical state bytes, then the tail records
+    # in BFLCWAL1 framing — replayable without the GC'd prefix
     _WAL2_MAGIC = b"BFLCWAL2"
 
     def attach_wal(self, path: str) -> bool:
@@ -127,7 +140,9 @@ class PyLedger:
         return True
 
     def _write_wal_body(self, f) -> None:
-        f.write(self._WAL_MAGIC)
+        """The journal's bytes: the header (BFLCWAL1, or BFLCWAL2 with
+        the snapshot base once compacted), then the retained records."""
+        self._write_wal_head(f)
         for op in self._ops:
             f.write(struct.pack("<Q", len(op)) + op)
         f.flush()
@@ -141,6 +156,19 @@ class PyLedger:
             os.fsync(f.fileno())
         os.replace(tmp, path)
 
+    def _write_wal_head(self, f) -> None:
+        if not self._base:
+            f.write(self._WAL_MAGIC)
+            return
+        if self._base_state is None:
+            raise RuntimeError("compacted ledger without base state bytes "
+                               "cannot journal a self-contained WAL")
+        f.write(self._WAL2_MAGIC)
+        f.write(struct.pack("<q", self._base))
+        f.write(self._base_head)
+        f.write(struct.pack("<q", len(self._base_state)))
+        f.write(self._base_state)
+
     def detach_wal(self) -> None:
         if self._wal is not None:
             self._wal.close()
@@ -148,7 +176,35 @@ class PyLedger:
             self._wal_path = ""
 
     def compact_wal(self) -> bool:
-        raise NotImplementedError(_SNAPSHOTS)
+        """Rewrite the attached WAL as a BFLCWAL2 file (snapshot header
+        and tail records), tmp-then-rename, so a crash leaves the whole
+        old journal or the whole compacted one.  False, with the journal
+        unchanged, when no WAL is attached or the rewrite failed."""
+        if self._wal is None or not self._wal_path:
+            return False
+        path, tmp = self._wal_path, self._wal_path + ".tmp"
+        new = None
+        try:
+            with open(tmp, "wb") as f:
+                self._write_wal_body(f)
+                os.fsync(f.fileno())
+            # reopen before the rename: the append handle follows the
+            # inode, so once the rename lands later appends go to the
+            # compacted file (a reopen failing after it would journal to
+            # the old, unlinked inode)
+            new = open(tmp, "ab")
+            os.replace(tmp, path)
+        except OSError:
+            if new is not None:
+                new.close()
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            return False
+        self._wal.close()
+        self._wal = new
+        return True
 
     def replay_wal(self, path: str) -> int:
         """Apply every record of the journal at `path`; returns how many.
@@ -161,10 +217,11 @@ class PyLedger:
             raise ValueError(
                 f"not a bflc WAL (or unreadable): {path}") from e
         if blob.startswith(self._WAL2_MAGIC):
-            raise NotImplementedError(f"{path}: {_SNAPSHOTS}")
-        if not blob.startswith(self._WAL_MAGIC):
+            off = self._replay_wal2_head(blob, path)
+        elif blob.startswith(self._WAL_MAGIC):
+            off = len(self._WAL_MAGIC)
+        else:
             raise ValueError(f"not a bflc WAL (or unreadable): {path}")
-        off = len(self._WAL_MAGIC)
         applied = 0
         while off + 8 <= len(blob):
             (n,) = struct.unpack_from("<Q", blob, off)
@@ -176,6 +233,29 @@ class PyLedger:
                 raise ValueError(f"WAL replay rejected op {applied}: {path}")
             applied += 1
         return applied
+
+    def _replay_wal2_head(self, blob: bytes, path: str) -> int:
+        """Install a compacted WAL's snapshot header into this fresh
+        ledger; the offset of the first tail record.  A torn header
+        refuses the whole file."""
+        if self.log_size() or self._epoch != self.genesis_epoch:
+            raise ValueError(
+                f"compacted WAL replays only into a fresh ledger: {path}")
+        off = len(self._WAL2_MAGIC)
+        if off + 8 + 32 + 8 > len(blob):
+            raise ValueError(f"torn compacted-WAL header: {path}")
+        (base,) = struct.unpack_from("<q", blob, off)
+        base_head = blob[off + 8:off + 40]
+        (n_state,) = struct.unpack_from("<q", blob, off + 40)
+        off += 48
+        if base < 0 or n_state < 0 or off + n_state > len(blob):
+            raise ValueError(f"torn compacted-WAL header: {path}")
+        try:
+            self._install_state(blob[off:off + n_state], base, base_head)
+        except ValueError as e:
+            raise ValueError(f"corrupt compacted-WAL snapshot state: "
+                             f"{path}: {e}") from e
+        return off + n_state
 
     # --- protocol surface ---
     def register_node(self, addr: str) -> LedgerStatus:
@@ -422,15 +502,17 @@ class PyLedger:
     def committee(self) -> List[str]:
         return [a for a in self._reg_order if self._roles.get(a) == "comm"]
 
-    # --- op log ---
+    # --- op log (positions are absolute; the GC'd prefix counts) ---
     def log_size(self) -> int:
-        return len(self._log)
+        return self._base + len(self._log)
 
     def log_head(self) -> bytes:
-        return self._log[-1] if self._log else b"\0" * 32
+        if self._log:
+            return self._log[-1]
+        return self._base_head if self._base else b"\0" * 32
 
     def verify_log(self) -> bool:
-        prev = b""
+        prev = self._base_head if self._base else b""
         for op, dig in zip(self._ops, self._log):
             h = hashlib.sha256()
             if prev:
@@ -442,11 +524,116 @@ class PyLedger:
         return True
 
     def log_op(self, i: int) -> bytes:
-        return self._ops[i]
+        j = i - self._base
+        if j < 0:
+            raise IndexError(
+                f"op {i} was garbage-collected (log base {self._base})")
+        return self._ops[j]
 
     def head_at(self, upto: int) -> bytes:
-        """Chain head after ops[0..upto) — b"" at upto == 0."""
-        return self._log[upto - 1] if upto else b""
+        """Chain head after ops[0..upto) — b"" at upto == 0.  Raises
+        ValueError below the GC base: those heads went with the prefix."""
+        if upto < self._base:
+            raise ValueError(f"chain head at {upto} was garbage-collected "
+                             f"(log base {self._base})")
+        if upto == self._base:
+            return self._base_head if self._base else b""
+        return self._log[upto - self._base - 1]
+
+    # --- compaction (ledger/snapshot.py) ---
+    @property
+    def log_base(self) -> int:
+        """The first chain position whose op bytes this ledger holds."""
+        return self._base
+
+    def encode_state(self) -> bytes:
+        """Canonical bytes of the current protocol state (the snapshot
+        payload, `ledger/snapshot.py`'s layout)."""
+        from bflc_demo_tpu_torch.ledger.snapshot import encode_state_dict
+        pend = None
+        if self._pending is not None:
+            pend = ([float(v) for v in self._pending.medians],
+                    list(self._pending.order),
+                    list(self._pending.selected),
+                    self._pending.global_loss)
+        return encode_state_dict({
+            "epoch": self._epoch, "model_hash": self._model_hash,
+            "last_loss": self._last_loss,
+            "generation": self._generation,
+            "writer_index": self._writer_index, "closed": self._closed,
+            "reg_order": self._reg_order, "roles": self._roles,
+            "updates": [(u.sender, u.payload_hash, u.n_samples,
+                         u.avg_cost) for u in self._updates],
+            "scores": self._scores, "pending": pend})
+
+    def state_digest(self) -> bytes:
+        """SHA-256 of the canonical state: what a snapshot op embeds and
+        every replica re-derives."""
+        return hashlib.sha256(self.encode_state()).digest()
+
+    def _install_state(self, state_bytes: bytes, base: int,
+                       base_head: bytes) -> None:
+        """Install canonical state at chain offset `base` (snapshot
+        restore and BFLCWAL2 replay; the caller verified the bytes)."""
+        from bflc_demo_tpu_torch.ledger.snapshot import (
+            decode_state, refuse_unported_tails)
+        d = decode_state(state_bytes)
+        refuse_unported_tails(d)
+        self._epoch = int(d["epoch"])
+        self._model_hash = bytes(d["model_hash"])
+        self._last_loss = float(d["last_loss"])
+        self._generation = int(d["generation"])
+        self._writer_index = int(d["writer_index"])
+        self._closed = bool(d["closed"])
+        self._reg_order = list(d["reg_order"])
+        self._roles = dict(d["roles"])
+        self._updates = [UpdateInfo(s, bytes(ph), int(n), float(c))
+                         for s, ph, n, c in d["updates"]]
+        self._update_slot = {u.sender: i
+                             for i, u in enumerate(self._updates)}
+        self._scores = {k: list(v) for k, v in d["scores"].items()}
+        pend = d.get("pending")
+        if pend is None:
+            self._pending = None
+        else:
+            medians, order, selected, loss = pend
+            self._pending = PendingInfo(
+                medians=np.asarray(medians, np.float32),
+                order=list(order), selected=list(selected),
+                global_loss=float(np.float32(loss)))
+        self._ops = []
+        self._log = []
+        self._base = int(base)
+        self._base_head = bytes(base_head)
+        self._base_state = bytes(state_bytes)
+
+    def gc_prefix(self, upto: int,
+                  state_bytes: Optional[bytes] = None) -> int:
+        """Drop ops[_base..upto): garbage behind a certified snapshot at
+        `upto` (the position after the snapshot op).  `state_bytes` is
+        the snapshot's canonical state; omitted, upto must be log_size
+        and the current state is encoded.  Compacts the attached WAL in
+        the same step.  Returns the number of ops dropped."""
+        if not self._base <= upto <= self.log_size():
+            raise ValueError(f"gc_prefix({upto}) outside [{self._base}, "
+                             f"{self.log_size()}]")
+        if state_bytes is None:
+            if upto != self.log_size():
+                raise ValueError("gc_prefix mid-chain needs the snapshot's "
+                                 "state bytes at that position")
+            state_bytes = self.encode_state()
+        dropped = upto - self._base
+        if dropped == 0:
+            return 0
+        new_head = self.head_at(upto)
+        del self._ops[:dropped]
+        del self._log[:dropped]
+        self._base = upto
+        self._base_head = new_head
+        self._base_state = bytes(state_bytes)
+        if self._wal is not None:
+            self.compact_wal()
+        return dropped
 
     # --- validate-without-apply (the BFT validator's probe) ---
     def _snapshot(self):
@@ -480,7 +667,7 @@ class PyLedger:
 
     # --- replay (the replica path) ---
     def apply_op(self, op: bytes) -> LedgerStatus:
-        """Deterministic replay of a serialized op, opcodes 1-8; every
+        """Deterministic replay of a serialized op, opcodes 1-9; every
         other opcode (and a malformed body) is BAD_ARG."""
         if not op:
             return LedgerStatus.BAD_ARG
@@ -546,6 +733,17 @@ class PyLedger:
             if code == OP_PROMOTE:
                 gen, idx = struct.unpack_from("<qq", body, 0)
                 return self.promote_writer(gen, idx)
+            if code == OP_SNAPSHOT:
+                # the replica re-derives the digest from its own state: a
+                # validator's co-signature is its independent proof, and a
+                # lying writer's snapshot binds on no honest replica
+                if len(body) != 40:
+                    return LedgerStatus.BAD_ARG
+                ep, = struct.unpack_from("<q", body, 0)
+                if ep != self._epoch or body[8:40] != self.state_digest():
+                    return LedgerStatus.BAD_ARG
+                self._append_log(op)
+                return LedgerStatus.OK
         except (struct.error, UnicodeDecodeError, IndexError):
             return LedgerStatus.BAD_ARG
         return LedgerStatus.BAD_ARG

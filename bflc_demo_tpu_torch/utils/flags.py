@@ -8,9 +8,10 @@ keeps its own protocol (`parse_protocol` returns None).  As in the
 reference, an override starts from `ProtocolConfig()`'s defaults, not
 from the preset's.
 
-The process fleet's `--standbys N`, `--quorum Q` and
-`--bft-validators N` are ported (the processes runtime's hot standbys,
-quorum-ack and BFT commit quorum), and so is the genome's
+The process fleet's `--standbys N`, `--quorum Q`, `--bft-validators N`,
+`--tls-dir D`, `--snapshot-interval K` and `--snapshot-dir S` are ported
+(the processes runtime's hot standbys, quorum-ack, BFT commit quorum,
+TLS and certified snapshots), and so is the genome's
 `--reduce-blocks B` (`BFLC_REDUCE_BLOCKS`, REDUCTION SPEC v2; the
 flag's help is the reference's, :174-181, and `BFLC_BLOCKED_LEGACY=1`
 pins one block, `ledger/base.reduce_blocks`).  The reference's other
@@ -45,10 +46,8 @@ UNPORTED_FIELDS = ("delta_dtype", "delta_density", "delta_codec",
 # reference run options -> the ROADMAP item that ports them
 UNPORTED_OPTIONS: Dict[str, str] = {
     **{name: "A9" for name in (
-        "tls_dir",
         "cells", "cell_size", "attest_scores", "chaos_seed", "chaos_profile",
-        "rederive", "snapshot_interval", "snapshot_dir", "error_feedback",
-        *UNPORTED_FIELDS)},
+        "rederive", "error_feedback", *UNPORTED_FIELDS)},
     **{name: "A11" for name in ("checkpoint_dir", "checkpoint_every",
                                 "xprof_window")},
     **{name: "A14" for name in ("trace_path", "plot_path", "telemetry_dir",
@@ -104,6 +103,15 @@ def add_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--bft-validators", type=int, default=0,
                    help="processes runtime: BFT commit-quorum validator "
                         "processes (4 = the reference's f=1 geometry)")
+    p.add_argument("--tls-dir", default="",
+                   help="processes runtime: TLS certificate directory "
+                        "(provisioned when empty)")
+    p.add_argument("--snapshot-interval", type=int, default=0,
+                   help="processes runtime: a certified snapshot op every "
+                        "K rounds, with log and WAL GC behind it (0 = off)")
+    p.add_argument("--snapshot-dir", default="",
+                   help="processes runtime: snapshot artifacts, a "
+                        "directory per role")
     for name, item in UNPORTED_OPTIONS.items():
         p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True,
                        default=None, help=f"not ported yet (ROADMAP {item})")

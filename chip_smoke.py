@@ -166,6 +166,23 @@ each; any failure raises and exits non-zero:
              round times, the writer's certify seconds a round (batched
              and single-op) and the ops it certified a round, the warm
              merge's milliseconds and the clients' K1-K3 a round.
+             Then TLS and certified snapshots: (f) `tls_snapshot_config5`,
+             config 5 over TLS with 4 validators at 8 blocks, a standby,
+             a certified snapshot every 2 rounds and the primary
+             SIGKILLed after epoch 4 of 7 — best 0.9,
+             `certified_size == log_size`, the final writer's log base
+             above 0, the promoted standby GC'd before it promoted and
+             merges on B5 from its compacted ledger, every artifact
+             verifies under the validators' keys, both WALs start with
+             BFLCWAL2 and the promoted writer's replays to the final
+             head, a plaintext client is refused; it prints the TLS
+             handshakes and `wire.*` a round beside `bft_config5`'s, the
+             snapshot ops, GC'd ops and the artifacts' bytes and write
+             seconds; (g) `snapshot_rejoin` (`eval/snapshot_drill.py`):
+             a SIGKILLed standby and an empty validator rejoin past the
+             GC base by state-sync, the standby promotes and merges the
+             next round on B5 with the CPU leg's bytes, the validators
+             at its head, a forged offer refused.
 
 Then the `kernels` line and, last, {"ok": true, "device": {...}}.
 Without a card, or without the package beside it, it exits non-zero and
@@ -188,6 +205,11 @@ the same way.
 
 runs only the build and phase 10, the process fleet and its failover
 runs.
+
+    python3 chip_smoke.py --snapshots
+
+runs only the build, the BFT legs (d, e) and the TLS and snapshot legs
+(f, g).
 """
 
 from __future__ import annotations
@@ -342,6 +364,19 @@ BFT_DRILL_BLOCKS, BFT_CONFIG5_BLOCKS = 2, 8
 # blocks or more
 B5_LEGS = ("mesh", "blocked")
 CONFIG5_PARAMS = 535_298
+# TLS and certified snapshots: config 5 over TLS with the BFT
+# run's validators and blocks, one standby (the CLI line `--standbys 1`;
+# quorum-ack would need a second, the reference's Q + 1 rule, and
+# `failover_config5` holds quorum-ack on the card already), a certified
+# snapshot every 2 rounds, the primary SIGKILLed after epoch 4 of 7,
+# artifacts and WALs under WORK_DIR (inside the checkout, gitignored);
+# then the snapshot rejoin drill (`eval/snapshot_drill.py`)
+TLS_SNAPSHOT = dict(bft_validators=BFT_VALIDATORS, standbys=1,
+                    kill_writer_at_epoch=4, snapshot_interval=2,
+                    replicas=1)
+TLS_SNAPSHOT_EPOCHS = [2, 4, 6]      # the snapshot ops' epochs in 7 rounds
+WORK_DIR = os.path.join("build", "chip_smoke")
+FLEET_MASTER_SEED = b"process-federation-master-0001"   # the fleet's default
 
 
 def reset_counts() -> None:
@@ -1860,16 +1895,19 @@ def processes_phase(torch, card: str) -> tuple:
     config5_check("failover_config5", res, FLEET_C5_ROUNDS)
     failover_check("failover_config5", res, FLEET_C5_ROUNDS, MIN_BEST_ACC)
 
-    bft_phase(torch, card, note, drill_shards, (xte[:500], yte[:500]),
-              c5_shards, c5_test)
+    bft5 = bft_phase(torch, card, note, drill_shards, (xte[:500], yte[:500]),
+                     c5_shards, c5_test)
+    snapshot_phase(torch, card, note, c5_shards, c5_test, bft5)
     return paths, roles
 
 
 def bft_phase(torch, card: str, note, drill_shards, drill_test, c5_shards,
-              c5_test) -> None:
+              c5_test):
     """BFT commit certificates: the drill and config 5, every op co-signed
     by 4 validator processes, the writers merging at B blocks; `note`
-    records each run's launches and B5 by writer role."""
+    records each run's launches and B5 by writer role.  Returns the
+    config-5 run's result (its wire numbers are the plaintext twin of
+    the TLS leg's)."""
     from bflc_demo_tpu_torch.client.process_runtime import \
         run_federated_processes
     from bflc_demo_tpu_torch.protocol import ProtocolConfig
@@ -1900,6 +1938,192 @@ def bft_phase(torch, card: str, note, drill_shards, drill_test, c5_shards,
     note("bft_config5", (total, bft_account("bft_config5", card, res,
                                             BFT_CONFIG5_BLOCKS)))
     config5_check("bft_config5", res, FLEET_C5_ROUNDS)
+    return res
+
+
+def _costs(info) -> dict:
+    return ((info or {}).get("perf") or {}).get("costs", {})
+
+
+def _per_round(costs: dict, prefix: str, rounds: int) -> dict:
+    return {k: v / max(rounds, 1) for k, v in sorted(costs.items())
+            if k.startswith(prefix)}
+
+
+def snapshot_artifacts(root: str, keys: dict, quorum: int) -> dict:
+    """Every artifact under `root`/<role>/ read back and held to
+    `verify_snapshot_meta` under the validators' keys: {role: [(file,
+    bytes, reason)]}, reason '' when installable."""
+    from bflc_demo_tpu_torch.ledger.snapshot import (list_snapshot_files,
+                                                     read_snapshot_file,
+                                                     verify_snapshot_meta)
+    out = {}
+    for role in sorted(os.listdir(root)):
+        out[role] = []
+        for path in list_snapshot_files(os.path.join(root, role)):
+            try:
+                why = verify_snapshot_meta(read_snapshot_file(path),
+                                           bft_quorum=quorum, bft_keys=keys)
+            except ValueError as e:
+                why = f"unreadable: {e}"
+            out[role].append((os.path.basename(path),
+                              os.path.getsize(path), why))
+    return out
+
+
+def wal_account(path: str, cfg) -> dict:
+    """A journal's magic and what replaying it into a fresh ledger
+    gives."""
+    from bflc_demo_tpu_torch.ledger import make_ledger
+    with open(path, "rb") as f:
+        magic = f.read(8).decode()
+    led = make_ledger(cfg)
+    led.replay_wal(path)
+    return {"magic": magic, "log_size": led.log_size(),
+            "log_base": led.log_base, "log_head": led.log_head().hex(),
+            "bytes": os.path.getsize(path)}
+
+
+def snapshot_phase(torch, card: str, note, c5_shards, c5_test,
+                   bft5) -> None:
+    """TLS and certified snapshots on the card: (f) `tls_snapshot_config5`,
+    config 5 at full width over TLS with 4 validators at 8 blocks, a
+    standby, a snapshot every 2 rounds and the primary SIGKILLed after
+    epoch 4; (g) `snapshot_rejoin`, the drill of
+    `eval/snapshot_drill.py`.  `bft5` is `bft_config5`'s result, the
+    plaintext twin whose wire numbers the TLS leg's print beside."""
+    import shutil
+
+    from bflc_demo_tpu_torch.client.process_runtime import \
+        run_federated_processes
+    from bflc_demo_tpu_torch.comm.bft import provision_validators
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig, bft_quorum
+    work = os.path.join(WORK_DIR, "tls_snapshot")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = ProtocolConfig(**CONFIG5_PROTO, reduce_blocks=BFT_CONFIG5_BLOCKS)
+    wal = os.path.join(work, "writer.wal")
+    res, total, _ = fleet_run(
+        torch, "tls_snapshot_config5", card,
+        lambda: run_federated_processes(
+            "make_transformer_classifier", c5_shards, c5_test, cfg,
+            rounds=FLEET_C5_ROUNDS, factory_kw=CONFIG5_ARCH, device="cuda",
+            timeout_s=FLEET_TIMEOUT_S, tls_dir=os.path.join(work, "certs"),
+            snapshot_dir=os.path.join(work, "snaps"), wal_path=wal,
+            **TLS_SNAPSHOT))
+    note("tls_snapshot_config5", (total, bft_account(
+        "tls_snapshot_config5", card, res, BFT_CONFIG5_BLOCKS)))
+    config5_check("tls_snapshot_config5", res, FLEET_C5_ROUNDS)
+    fo = res.failover or {}
+    primary_k = fo.get("primary_kernels") or {}
+    primary_info = fo.get("primary_info") or {}
+    snaps = (primary_k.get("snapshots") or []) + res.writer_snapshots
+    rounds = len(res.writer_merges) + len(primary_k.get("merges") or [])
+    writer_costs = {}
+    for costs in (_costs(primary_info), _costs(res.final_info)):
+        for k, v in costs.items():
+            writer_costs[k] = writer_costs.get(k, 0) + v
+    client_hs = sum(((perf or {}).get("costs") or {}).get(
+        "tls.handshakes", 0) for perf in res.client_perf.values())
+    _, keys = provision_validators(BFT_VALIDATORS, FLEET_MASTER_SEED)
+    artifacts = snapshot_artifacts(os.path.join(work, "snaps"), keys,
+                                   bft_quorum(BFT_VALIDATORS))
+    promoted = f"standby-{res.final_info.get('writer_index')}"
+    wals = {"writer": wal_account(wal, cfg),
+            promoted: wal_account(f"{wal}.{promoted}", cfg)}
+    events = res.standby_events.get(promoted, [])
+    kinds = [next(iter(e)) for e in events]
+    after = [m for m in res.writer_merges
+             if m.get("mono", 0) > fo.get("kill_mono", float("inf"))]
+    bft5_rounds = max(len(bft5.writer_merges), 1)
+    emit("tls_snapshot", path="tls_snapshot_config5", nvidia_smi=card,
+         spawn_s=res.spawn_s, validator_spawn_s=res.validator_spawn_s,
+         round_s=round_seconds(res.epoch_times),
+         failover_gap_s=fo.get("gap_s"), promote_s=fo.get("promote_s"),
+         rounds=rounds,
+         tls_handshakes_per_round={
+             "writers": writer_costs.get("tls.handshakes", 0) / rounds,
+             "clients": client_hs / rounds},
+         tls_handshake_s=writer_costs.get("tls.handshake_s"),
+         wire_per_round={"tls": _per_round(writer_costs, "wire.", rounds),
+                         "bft_config5_plaintext": _per_round(
+                             _costs(bft5.final_info), "wire.",
+                             bft5_rounds)},
+         certify_per_round=_per_round(writer_costs, "bft.certify", rounds),
+         snapshot_ops=snaps, snapshot_epochs=[r["epoch"] for r in snaps],
+         gc_ops=sum(r.get("gc_dropped", 0) for r in snaps),
+         artifacts=artifacts, wals=wals, standby_events=events,
+         final_log_base=res.final_info.get("log_base"),
+         certified_size=res.certified_size, log_size=res.ledger_log_size,
+         first_merge_after_kill=after[:1],
+         plaintext_refused=res.plaintext_refused)
+    bad = []
+    if [r["epoch"] for r in snaps] != TLS_SNAPSHOT_EPOCHS:
+        bad.append(f"snapshot ops at epochs {[r['epoch'] for r in snaps]}")
+    if not res.final_info.get("log_base", 0) > 0:
+        bad.append("the final writer never GC'd")
+    if "gc" not in kinds or "promoted" not in kinds or \
+            kinds.index("gc") > kinds.index("promoted") or \
+            not events[kinds.index("promoted")]["promoted"]["log_base"] > 0:
+        bad.append(f"the promoted standby's events {events}")
+    if not after or after[0]["leg"] not in B5_LEGS or \
+            not after[0]["log_base"] > 0:
+        bad.append(f"the promoted writer's first merge {after[:1]}")
+    files = [f for rows in artifacts.values() for f in rows]
+    if not files or any(why for _, _, why in files):
+        bad.append(f"artifacts {artifacts}")
+    w = wals[promoted]
+    if wals["writer"]["magic"] != "BFLCWAL2" or w["magic"] != "BFLCWAL2" or \
+            (w["log_size"], w["log_head"]) != (res.ledger_log_size,
+                                               res.ledger_log_head):
+        bad.append(f"WALs {wals}")
+    if res.plaintext_refused is not True:
+        bad.append("a plaintext client reached the final writer")
+    if bad:
+        raise RuntimeError("tls_snapshot_config5: " + "; ".join(bad))
+
+    from bflc_demo_tpu_torch.eval.snapshot_drill import run_snapshot_rejoin
+    from bflc_demo_tpu_torch.meshagg.engine import ENGINE
+    work = os.path.join(WORK_DIR, "snapshot_rejoin")
+    shutil.rmtree(work, ignore_errors=True)
+    checks0 = ENGINE.selfcheck_launches
+    reset_counts()
+    with fleet_env():
+        acc = run_snapshot_rejoin("cuda", work)
+    torch.cuda.synchronize()
+    here = read_counts()
+    checks = ENGINE.selfcheck_launches - checks0
+    promoted = acc["promoted_launches"]
+    b5 = {"writer": here["certified_reduce"] - checks,
+          "promoted_writer": promoted.get("certified_reduce", 0)
+          - acc["promoted_engine"].get("selfcheck_launches", 0)}
+    launches = dict(here)
+    launches["certified_reduce"] = sum(b5.values())
+    emit("snapshot_rejoin", nvidia_smi=card,
+         state_sync_s=acc["state_sync_s"],
+         validator_install_s=[r["seconds"]
+                              for r in acc["validator_installs"]],
+         promote_s=acc["promote_s"],
+         validator_spawn_s=acc["validator_spawn_s"],
+         kernel_launches_by_role={"writer": here, "promoted_writer":
+                                  promoted},
+         b5_by_role=b5, selfcheck_b5_launches={
+             "writer": checks, "promoted_writer":
+             acc["promoted_engine"].get("selfcheck_launches", 0)},
+         promoted_merges=acc["promoted_merges"],
+         promoted_info=acc["promoted_info"],
+         validator_heads=acc["validator_heads"],
+         model_bytes_equal_plain=acc["model_bytes_equal_plain"],
+         writer_snapshots=acc["writer_snapshots"],
+         writer_wal=acc["writer_wal_replayed"],
+         forged_offer_refused=acc["forged_offer_refused"])
+    if b5["promoted_writer"] <= 0 or acc["promoted_merges"][0]["leg"] \
+            not in B5_LEGS:
+        raise RuntimeError(f"snapshot_rejoin: B5 by role {b5}, merges "
+                           f"{acc['promoted_merges']}")
+    note("snapshot_rejoin", (launches, {"promoted_writer":
+                                        b5["promoted_writer"],
+                                        "writer": b5["writer"]}))
 
 
 def bft_account(label: str, card: str, res, blocks: int) -> dict:
@@ -2020,6 +2244,40 @@ def merge_timing_main(root: str) -> int:
     return 0
 
 
+def snapshots_main() -> int:
+    """Only the build and the TLS and snapshot legs (with `bft_config5`,
+    their plaintext twin)."""
+    port = load_port()
+    if port is None:
+        return 1
+    torch, _, build, _ = port
+    from bflc_demo_tpu_torch.data import iid_shards, load_occupancy
+    from bflc_demo_tpu_torch.eval.configs import config5_data
+    t0 = time.perf_counter()
+    build.build_all()
+    emit("build", seconds=time.perf_counter() - t0)
+    card = card_line()
+    print(card, flush=True)
+    emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
+    paths, roles = {}, {}
+
+    def note(path, launches_roles):
+        paths[path], by_role = launches_roles
+        for role, v in by_role.items():
+            roles[role] = roles.get(role, 0) + v
+
+    xtr, ytr, xte, yte = load_occupancy()
+    drill_shards = iid_shards(xtr[:FAILOVER_ROWS], ytr[:FAILOVER_ROWS],
+                              FLEET_PROTO["client_num"])
+    c5_shards, c5_test = config5_data(0, 4000, CONFIG5_PROTO["client_num"])
+    bft5 = bft_phase(torch, card, note, drill_shards, (xte[:500], yte[:500]),
+                     c5_shards, c5_test)
+    snapshot_phase(torch, card, note, c5_shards, c5_test, bft5)
+    emit("fleet", paths=paths, b5_by_role=roles,
+         seconds=time.perf_counter() - t0)
+    return 0
+
+
 def processes_main() -> int:
     """Only the build and the processes phase."""
     port = load_port()
@@ -2121,8 +2379,11 @@ if __name__ == "__main__":
         sys.exit(merge_timing_main(sys.argv[2]))
     if sys.argv[1:] == ["--processes"]:
         sys.exit(processes_main())
+    if sys.argv[1:] == ["--snapshots"]:
+        sys.exit(snapshots_main())
     if len(sys.argv) > 1:
         print("usage: chip_smoke.py [--backward-timing DIR | "
-              "--merge-timing DIR | --processes]", file=sys.stderr)
+              "--merge-timing DIR | --processes | --snapshots]",
+              file=sys.stderr)
         sys.exit(2)
     sys.exit(main())

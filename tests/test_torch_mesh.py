@@ -470,12 +470,14 @@ def test_round_factory_guards():
     ("mesh", dict(tls_dir="certs")), ("host", dict(attest_scores=True)),
     ("host", dict(participation="full")),
     ("threaded", dict(participation="full")),
+    ("mesh", dict(snapshot_interval=2)), ("mesh", dict(rederive="shard")),
 ])
 def test_run_with_runtime_refuses_what_does_not_apply(runtime, kw):
-    # options of runtimes not ported yet are unexpected keywords of the
-    # mesh runtime; the fleet's options (standbys, bft_validators) are
-    # refused on the mesh runtime and the mesh-only ones on 'host'
-    unported = {"tls_dir"}
+    # options of parts not ported yet (rederive) are unexpected keywords
+    # of the mesh runtime; the fleet's options (standbys, bft_validators,
+    # tls_dir, snapshot_interval) are refused on the mesh runtime and the
+    # mesh-only ones on 'host'
+    unported = {"rederive"}
     exc = TypeError if unported & set(kw) else ValueError
     with pytest.raises(exc):
         run_with_runtime(make_softmax_regression(), [], ([], []),

@@ -205,7 +205,7 @@ def test_no_preset_override_keeps_the_preset_protocol():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--rederive", "shard"], "A9"), (["--tls-dir", "certs"], "A9"),
+    (["--rederive", "shard"], "A9"), (["--chaos-seed", "7"], "A9"),
     (["--delta-dtype", "i8"], "A9"), (["--error-feedback"], "A9"),
     (["--checkpoint-dir", "ckpt"], "A11"),
     (["--config", "config4", "--secure"], "A12"),

@@ -255,8 +255,8 @@ def test_threaded_whole_committee_dead_reseated(small_data):
 
 def test_unported_fleet_options_raise_naming_the_item():
     shards, test_set = _occupancy_shards(CFG.client_num)
-    for kw in (dict(snapshot_interval=2), dict(snapshot_dir="d"),
-               dict(tls_dir="certs"), dict(chaos_seed=7),
+    for kw in (dict(telemetry_dir="t"), dict(chaos_dir="d"),
+               dict(trace_sample=0.5), dict(chaos_seed=7),
                dict(rederive="shard")):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             pr.run_federated_processes("make_softmax_regression", shards,

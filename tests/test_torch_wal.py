@@ -9,9 +9,11 @@ reference's python ledger.
   reference's byte for byte (attached at genesis and mid-stream, and
   `save_wal`); each package replays the other's file to head equality;
   a torn trailing record is skipped as the reference skips it, a file
-  that is not a WAL is rejected, and a `BFLCWAL2` file (the reference's
-  compacted journal) or `compact_wal` raise naming "A9 (snapshots)"; a
-  failed journal write detaches the WAL and the ledger keeps serving.
+  that is not a WAL is rejected, a `BFLCWAL2` file (the compacted
+  journal, `tests/test_torch_snapshot.py`) with a torn header is refused
+  by both, and `compact_wal` before any GC rewrites the reference's
+  `BFLCWAL1` bytes; a failed journal write detaches the WAL and the
+  ledger keeps serving.
 - `clone_prefix` and `decode_op` against the reference's.
 All on the CPU.
 """
@@ -179,15 +181,29 @@ def test_a_file_that_is_not_a_wal_is_rejected(tmp_path, content):
 
 
 def test_wal2_and_compaction_raise_naming_snapshots(tmp_path):
+    # snapshots are ported (A9.5): a BFLCWAL2 file whose snapshot state
+    # does not decode is refused by both packages, and compact_wal on a
+    # ledger with nothing GC'd rewrites the reference's BFLCWAL1 bytes
     path = str(tmp_path / "compact.wal")
     with open(path, "wb") as f:
         f.write(b"BFLCWAL2" + b"\0" * 48)
-    port, _ = _ledgers()
-    with pytest.raises(NotImplementedError, match=r"A9 \(snapshots\)"):
-        port.replay_wal(path)
-    port.attach_wal(str(tmp_path / "live.wal"))
-    with pytest.raises(NotImplementedError, match=r"A9 \(snapshots\)"):
-        port.compact_wal()
+    port, ref = _ledgers()
+    for led in (port, ref):
+        with pytest.raises(ValueError, match="compacted-WAL"):
+            led.replay_wal(path)
+    port, ref = _ledgers()
+    files = []
+    for led, name in ((port, "port.wal"), (ref, "ref.wal")):
+        assert not led.compact_wal()            # nothing attached
+        files.append(str(tmp_path / name))
+        led.attach_wal(files[-1])
+        for a in ADDRS:
+            led.register_node(a)
+        assert led.compact_wal()
+        led.register_node("0x" + "ab" * 20)
+        led.detach_wal()
+    blobs = [open(f, "rb").read() for f in files]
+    assert blobs[0] == blobs[1] and blobs[0].startswith(b"BFLCWAL1")
 
 
 def test_replay_refusing_an_op_raises(tmp_path):
