@@ -7,9 +7,11 @@ writer, clients and a replica as OS processes, with `--standbys N` hot
 standbys, `--quorum Q` quorum-ack, which needs `--standbys >= Q+1`
 and exits 2 otherwise, as in the reference, `--bft-validators N`
 validator processes that co-sign every op, `--tls-dir D` TLS between
-the roles and `--snapshot-interval K [--snapshot-dir S]` certified
-snapshots; run it from the shell or a real file, as spawned children
-re-import `__main__`), on `cuda`
+the roles, `--snapshot-interval K [--snapshot-dir S]` certified
+snapshots and the genome's `--async-buffer K [--max-staleness S]
+[--async-reseat-every R]`, asynchronous buffered aggregation, which
+another runtime refuses with exit 2; run it from the shell or a real
+file, as spawned children re-import `__main__`), on `cuda`
 unless `--device cpu` (the counterpart of `JAX_PLATFORMS=cpu`), with
 the protocol overridable by `--field-name` flags and `BFLC_*` variables
 (`utils/flags.py`) and the ledger by `--ledger-backend auto|python`.  An
@@ -41,7 +43,8 @@ def _parser() -> argparse.ArgumentParser:
         epilog="Ported: --config config0..config5 on --runtime mesh (the "
                "default), host, threaded and processes (with --standbys, "
                "--quorum, --bft-validators, --tls-dir, --snapshot-interval "
-               "and --snapshot-dir), --reduce-blocks.  The "
+               "and --snapshot-dir; --async-buffer runs FedBuff there), "
+               "--reduce-blocks.  The "
                "executor runtime, the native ledger, the fleet's other "
                "flags and the codecs are ROADMAP A9; they exit 2 until "
                "ported.")
@@ -83,6 +86,12 @@ def main(argv=None) -> int:
         cfg = parse_protocol(opts)
     except ValueError as exc:
         print(f"protocol: {exc}", file=sys.stderr)
+        return 2
+    from bflc_demo_tpu_torch.ledger.base import async_enabled
+    if cfg is not None and async_enabled(cfg) and \
+            opts.runtime != "processes":
+        print("--async-buffer (async FedBuff) applies only to --runtime "
+              "processes", file=sys.stderr)
         return 2
     if (opts.standbys or opts.quorum or opts.bft_validators
             or opts.tls_dir or opts.snapshot_interval
@@ -155,6 +164,7 @@ def main(argv=None) -> int:
                         "writer_engine": res.writer_engine,
                         "writer_merges": res.writer_merges,
                         "client_reads": res.client_reads,
+                        "client_counts": res.client_counts,
                         "failover": res.failover,
                         "certified_size": res.certified_size,
                         "validator_spawn_s": res.validator_spawn_s,

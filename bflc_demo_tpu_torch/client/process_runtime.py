@@ -59,10 +59,22 @@ standby journals to `wal_path`.standby-s once it promotes (the
 reference's standbys journal nothing), so the final writer's chain is on
 disk after a failover too.
 
+Async FedBuff (`cfg.async_buffer` K > 0, `ledger/base.async_enabled`;
+reference :303-458, :544-556, :919-925) switches every role from the
+genome alone: the writer admits staleness-tagged deltas and drains every
+K on B5, validators re-execute opcodes 10-12, standbys mirror the
+buffer's blobs, and the clients run `_client_async_loop`: a trainer
+fetches, trains and `aupload`s against the base epoch it fetched, a
+committee member scores the buffered entries it has not scored in one
+`score_candidates_batched` call and sends `ascores`.  The sponsor
+evaluates each committed epoch as in sync mode.  Each client reports
+its trainings, its scored entries and its aupload and ascores replies
+by status.
+
 Not ported, raising with their ROADMAP item when asked for: the chaos
-campaign, telemetry and traces, rederive (A9, A14); the async FedBuff
-loop and the delta codecs (A9: a `state` reply carries no effective
-density here); the mesh-executor deployment (A9).
+campaign, telemetry and traces, rederive (A9, A14); the delta codecs
+(A9: a `state` reply carries no effective density here); the
+mesh-executor deployment (A9).
 """
 
 from __future__ import annotations
@@ -80,6 +92,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from bflc_demo_tpu_torch.ledger.base import async_enabled
 from bflc_demo_tpu_torch.ops import launch_counts
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
 
@@ -235,6 +248,120 @@ def _sign(wallet, kind: str, epoch: int, payload: bytes) -> str:
                                  payload)).hex()
 
 
+def _client_async_loop(client, router, wallet, model, template, cfg,
+                       xj, yj, n: int, rounds: int,
+                       crash_at_epoch: Optional[int], decode,
+                       counts: dict, register) -> None:
+    """The async-mode client body (FedBuff).  Trainer: fetch -> train ->
+    aupload(base epoch), one delta a fetched model version; DUPLICATE
+    counts as uploaded, CAP_REACHED / WRONG_EPOCH refetch and retrain.
+    Committee: aupdates -> score the entries not scored yet in one
+    batched call -> ascores (aseq, score) pairs.  `counts` gathers the
+    trainings, the scored entries and the aupload and ascores replies by
+    status."""
+    from bflc_demo_tpu_torch.comm.identity import _op_bytes
+    from bflc_demo_tpu_torch.core.local_train import local_train
+    from bflc_demo_tpu_torch.ledger.base import ascores_sign_payload
+    from bflc_demo_tpu_torch.meshagg.engine import score_candidates_batched
+    from bflc_demo_tpu_torch.utils import tracing
+    from bflc_demo_tpu_torch.utils.serialization import (pack_pytree,
+                                                         restore_pytree,
+                                                         unpack_pytree)
+    tr = tracing.PROC
+    uploaded_base = cfg.initial_trained_epoch
+    scored_aseqs: set = set()
+    known_log = 0
+    while True:
+        st = client.request("state", addr=wallet.address)
+        epoch = st["epoch"]
+        if epoch >= rounds or epoch > cfg.max_epoch:
+            break
+        if crash_at_epoch is not None and 0 <= crash_at_epoch <= epoch:
+            os._exit(17)        # simulated hard crash
+        if epoch < 0:           # registration phase
+            known_log = client.request("wait", log_size=known_log,
+                                       timeout_s=2.0)["log_size"]
+            continue
+        acted = False
+        if st["role"] == "trainer":
+            mr = router.fetch_model()
+            if not mr.get("ok"):
+                continue
+            base_epoch = int(mr["epoch"])
+            if base_epoch <= uploaded_base:
+                # this model version's delta is in flight or admitted:
+                # wait for the chain to move
+                known_log = client.request("wait", log_size=known_log,
+                                           timeout_s=2.0)["log_size"]
+                continue
+            t0 = time.perf_counter() if tr.enabled else 0.0
+            delta, cost = local_train(
+                model, restore_pytree(template, unpack_pytree(mr["blob"])),
+                xj, yj, lr=cfg.learning_rate, batch_size=cfg.batch_size,
+                local_epochs=cfg.local_epochs)
+            counts["trainings"] += 1
+            blob = pack_pytree(delta)
+            if tr.enabled:
+                tr.charge("client.train_s", time.perf_counter() - t0)
+            digest = hashlib.sha256(blob).digest()
+            router.cache.put(digest.hex(), blob)
+            payload = digest + struct.pack("<qd", n, float(cost))
+            r = client.request(
+                "aupload", addr=wallet.address, blob=blob,
+                hash=digest.hex(), n=n, cost=float(cost),
+                base_epoch=base_epoch,
+                tag=_sign(wallet, "aupload", base_epoch, payload))
+            status = str(r.get("status", "ERROR"))
+            counts["aupload"][status] = counts["aupload"].get(status, 0) + 1
+            if status in ("OK", "DUPLICATE"):
+                uploaded_base = base_epoch
+                acted = bool(r.get("ok"))
+            if status == "BAD_ARG":
+                register()      # a directory hole: re-present and retry
+        elif st["role"] == "comm":
+            ups = [u for u in client.request("aupdates").get("updates", [])
+                   if u["aseq"] not in scored_aseqs]
+            if ups:
+                try:
+                    fetched = router.fetch_blobs([u["hash"] for u in ups])
+                except (LookupError, ConnectionError):
+                    continue    # an entry drained between the two reads
+                deltas = [decode(fetched[u["hash"]]) for u in ups]
+                mr = router.fetch_model()
+                if not mr.get("ok"):
+                    continue
+                params = restore_pytree(template, unpack_pytree(mr["blob"]))
+                t0 = time.perf_counter() if tr.enabled else 0.0
+                scores = score_candidates_batched(
+                    model, params, deltas, cfg.learning_rate, xj, yj)
+                counts["scored"] += len(ups)
+                score_list = [float(s) for s in np.nan_to_num(
+                    scores.cpu().numpy(), nan=0.0, posinf=1.0, neginf=0.0)]
+                if tr.enabled:
+                    tr.charge("client.score_s", time.perf_counter() - t0)
+                pairs = [(int(u["aseq"]), s)
+                         for u, s in zip(ups, score_list)]
+                r = client.request(
+                    "ascores", addr=wallet.address,
+                    pairs=[[a, s] for a, s in pairs],
+                    tag=wallet.sign(_op_bytes(
+                        "ascores", wallet.address, 0,
+                        ascores_sign_payload(pairs))).hex())
+                status = str(r.get("status", "ERROR"))
+                counts["ascores"][status] = \
+                    counts["ascores"].get(status, 0) + 1
+                if r.get("status") in ("OK", "NOT_READY", "DUPLICATE"):
+                    # NOT_READY: every scored entry drained first; either
+                    # way these never need scoring again
+                    scored_aseqs.update(u["aseq"] for u in ups)
+                    acted = bool(r.get("ok"))
+                if r.get("status") == "BAD_ARG":
+                    register()
+        if not acted:
+            known_log = client.request("wait", log_size=known_log,
+                                       timeout_s=2.0)["log_size"]
+
+
 def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
                  model_factory: str, factory_kw: dict,
                  x: np.ndarray, y_onehot: np.ndarray, cfg_kw: dict,
@@ -260,12 +387,9 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
     from bflc_demo_tpu_torch.comm.dataplane import ReadRouter
     from bflc_demo_tpu_torch.comm.failover import FailoverClient
     from bflc_demo_tpu_torch.comm.identity import Wallet
-    from bflc_demo_tpu_torch.core.local_train import local_train
-    from bflc_demo_tpu_torch.meshagg.engine import score_candidates_batched
     from bflc_demo_tpu_torch.utils import tracing
     from bflc_demo_tpu_torch.utils.serialization import (densify_entries,
                                                          dequantize_entries,
-                                                         pack_pytree,
                                                          restore_pytree,
                                                          unpack_pytree)
 
@@ -297,6 +421,39 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
         return restore_pytree(template, densify_entries(
             dequantize_entries(unpack_pytree(blob))))
 
+    counts = {"trainings": 0, "scored": 0, "aupload": {}, "ascores": {}}
+    if async_enabled(cfg):
+        # FedBuff: no round barrier; stragglers' deltas land late with a
+        # staleness tag and a discounted weight
+        _client_async_loop(client, router, wallet, model, template, cfg,
+                           xj, yj, int(x.shape[0]), rounds, crash_at_epoch,
+                           decode, counts, register)
+    else:
+        _client_sync_loop(client, router, wallet, model, template, cfg,
+                          xj, yj, int(x.shape[0]), rounds, crash_at_epoch,
+                          decode, counts, register)
+    router.close()
+    client.close()
+    if report_q is not None:
+        report_q.put({"role": role, "launches": launch_counts(),
+                      "perf": tr.summary() if tr.enabled else None,
+                      "reads": {f"{k}/{s}": n
+                                for (k, s), n in router.reads.items()},
+                      "foreign_modules": foreign_modules(), **counts})
+
+
+def _client_sync_loop(client, router, wallet, model, template, cfg, xj, yj,
+                      n: int, rounds: int, crash_at_epoch: Optional[int],
+                      decode, counts: dict, register) -> None:
+    """The synchronous client body: one upload a round as a trainer,
+    one score row a round on the committee."""
+    from bflc_demo_tpu_torch.core.local_train import local_train
+    from bflc_demo_tpu_torch.meshagg.engine import score_candidates_batched
+    from bflc_demo_tpu_torch.utils import tracing
+    from bflc_demo_tpu_torch.utils.serialization import (pack_pytree,
+                                                         restore_pytree,
+                                                         unpack_pytree)
+    tr = tracing.PROC
     trained_epoch = scored_epoch = cfg.initial_trained_epoch
     known_log = 0
     while True:
@@ -320,12 +477,12 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
                 model, restore_pytree(template, unpack_pytree(mr["blob"])),
                 xj, yj, lr=cfg.learning_rate, batch_size=cfg.batch_size,
                 local_epochs=cfg.local_epochs)
+            counts["trainings"] += 1
             blob = pack_pytree(delta)
             if tr.enabled:
                 tr.charge("client.train_s", time.perf_counter() - t0)
             digest = hashlib.sha256(blob).digest()
             router.cache.put(digest.hex(), blob)
-            n = int(x.shape[0])
             payload = digest + struct.pack("<qd", n, float(cost))
             r = client.request(
                 "upload", addr=wallet.address, blob=blob,
@@ -350,6 +507,7 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
                 t0 = time.perf_counter() if tr.enabled else 0.0
                 scores = score_candidates_batched(
                     model, params, deltas, cfg.learning_rate, xj, yj)
+                counts["scored"] += len(ups)
                 score_list = [float(s) for s in np.nan_to_num(
                     scores.cpu().numpy(), nan=0.0, posinf=1.0, neginf=0.0)]
                 if tr.enabled:
@@ -367,14 +525,6 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
         if not acted:
             known_log = client.request("wait", log_size=known_log,
                                        timeout_s=2.0)["log_size"]
-    router.close()
-    client.close()
-    if report_q is not None:
-        report_q.put({"role": role, "launches": launch_counts(),
-                      "perf": tr.summary() if tr.enabled else None,
-                      "reads": {f"{k}/{s}": n
-                                for (k, s), n in router.reads.items()},
-                      "foreign_modules": foreign_modules()})
 
 
 def _replica_proc(host: str, port: int, cfg_kw: dict, until_ops: int,
@@ -448,6 +598,16 @@ class ProcessFederationResult:
         # TLS whether it refused a plaintext client at the handshake
         self.writer_snapshots: List[dict] = []
         self.plaintext_refused: Optional[bool] = None
+        # role -> that client's trainings, scored entries and aupload and
+        # ascores replies by status ({"trainings", "scored", "aupload",
+        # "ascores"})
+        self.client_counts: Dict[str, dict] = {}
+        # the final writer's chain record (`LedgerServer._scan_chain`: the
+        # opcode at every position from its start and each opcode-12
+        # op's claims) and its
+        # start ({"log_base", "async_buffer": the aseqs it inherited})
+        self.writer_chain: Optional[dict] = None
+        self.writer_start: Optional[dict] = None
 
     @property
     def final_accuracy(self) -> float:
@@ -546,6 +706,9 @@ def run_federated_processes(
     a directory per role (writer/, standby-s/).
     device: where every role computes, `cuda` (None) or `cpu`; the
     validators compute nothing on it.
+    Async FedBuff rides the genome, not an option: `cfg.async_buffer`
+    K > 0 switches every role (`ledger/base.async_enabled`;
+    `BFLC_ASYNC_LEGACY=1` pins it off fleet-wide).
     """
     for name, default in _FLEET_DEFAULTS.items():
         if unported.get(name) == default:
@@ -661,6 +824,7 @@ def run_federated_processes(
     writer_engine = None
     writer_merges: List[dict] = []
     writer_snapshots: List[dict] = []
+    writer_chain = writer_start = None
     plaintext_refused = None
     ed25519_backend = None
     final = None
@@ -760,6 +924,10 @@ def run_federated_processes(
             raise TimeoutError(f"process federation incomplete after "
                                f"{timeout_s}s ({len(history)}/{rounds} "
                                f"rounds)")
+        # the clients first: an async client mid-training still uploads,
+        # and its op (a drain with it) belongs to the chain the final
+        # `info` reports
+        client_reports = _drain_reports(report_q, clients, wait_s=60.0)
         final = sponsor.request("info")
         while bft_validators and \
                 final["certified_size"] != final["log_size"]:
@@ -789,10 +957,14 @@ def run_federated_processes(
             for rep in replica_reports:
                 if not rep["ok"]:
                     raise RuntimeError(f"replica failed: {rep['error']}")
-                if rep["size"] != final["log_size"] or \
-                        rep["head"] != final["log_head"]:
+                # a replica that state-synced past the final size (the
+                # writer's stall recovery drained after it) is held to
+                # the writer's head at its own size
+                want = (final["log_head"] if rep["size"] == final["log_size"]
+                        else sponsor.request("info", at=rep["size"]).get(
+                            "head_at"))
+                if rep["head"] != want:
                     raise RuntimeError("replica/writer head divergence")
-        client_reports = _drain_reports(report_q, clients, wait_s=60.0)
         if tls_dir:
             plaintext_refused = _plaintext_refused(final_ep)
         kr = sponsor.request("kernels")
@@ -801,6 +973,9 @@ def run_federated_processes(
             writer_engine = kr["engine"]
             writer_merges = kr["merges"]
             writer_snapshots = kr.get("snapshots", [])
+            writer_chain = kr.get("chain")
+            writer_start = {"log_base": kr.get("started_log_base"),
+                            "async_buffer": kr.get("started_async_buffer")}
             ed25519_backend = kr["ed25519_backend"]
             if failover is not None:
                 failover.update(_promotion_account(failover, kr))
@@ -836,6 +1011,9 @@ def run_federated_processes(
         result.client_perf[rep["role"]] = rep["perf"]
         result.client_reads[rep["role"]] = rep["reads"]
         result.child_foreign_modules[rep["role"]] = rep["foreign_modules"]
+        result.client_counts[rep["role"]] = {
+            k: rep[k] for k in ("trainings", "scored", "aupload",
+                                "ascores")}
     for i, rep in enumerate(replica_reports):
         result.child_foreign_modules[f"replica-{i}"] = \
             rep.get("foreign_modules", [])
@@ -849,6 +1027,8 @@ def run_federated_processes(
     result.validator_spawn_s = validator_spawn_s
     result.standby_events = standby_events
     result.writer_snapshots = writer_snapshots
+    result.writer_chain = writer_chain
+    result.writer_start = writer_start
     result.plaintext_refused = plaintext_refused
     if failover is not None:
         failover["kill_t"] = failover["kill_mono"] - t_start

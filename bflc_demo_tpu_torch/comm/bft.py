@@ -49,8 +49,8 @@ on the validator).  Not ported, each raising or refusing with its item:
 the sparse-upload re-execution (`check_sparse_upload_op`: an upload
 whose evidence carries a blob is refused, `SPARSE`, A9 (codecs)), the
 rederive plane and its vote cross-check (A9 (rederive)), the cell
-registry (A9 (hier cells)), the async ops (A9 (async FedBuff)) and the
-native ledger (A9 (native ledger), refused by `make_ledger`).
+registry (A9 (hier cells)) and the native ledger (A9 (native ledger),
+refused by `make_ledger`).
 """
 
 from __future__ import annotations
@@ -70,7 +70,10 @@ from bflc_demo_tpu_torch.comm.identity import (PublicDirectory, _op_bytes,
                                                verify_signatures_batch)
 from bflc_demo_tpu_torch.comm.wire import WireError, recv_msg, send_msg
 from bflc_demo_tpu_torch.ledger import LedgerStatus, make_ledger
-from bflc_demo_tpu_torch.ledger.base import (encode_register_op,
+from bflc_demo_tpu_torch.ledger.base import (ascores_sign_payload,
+                                             encode_ascores_op,
+                                             encode_aupload_op,
+                                             encode_register_op,
                                              encode_scores_op,
                                              encode_upload_op)
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig, bft_quorum
@@ -189,9 +192,6 @@ def expected_op_hash(method: str, fields: dict) -> Optional[bytes]:
     ledger's own encoders, so the append and the binding cannot drift);
     None when the method is no client mutation or the fields are
     malformed."""
-    if method in ("aupload", "ascores"):
-        raise _unported(f"the {method!r} op's certificate binding",
-                        "A9 (async FedBuff)")
     try:
         if method == "register":
             op = encode_register_op(fields["addr"])
@@ -203,6 +203,15 @@ def expected_op_hash(method: str, fields: dict) -> Optional[bytes]:
         elif method == "scores":
             op = encode_scores_op(fields["addr"], int(fields["epoch"]),
                                   [float(s) for s in fields["scores"]])
+        elif method == "aupload":
+            op = encode_aupload_op(fields["addr"],
+                                   bytes.fromhex(fields["hash"]),
+                                   int(fields["n"]), float(fields["cost"]),
+                                   int(fields["base_epoch"]))
+        elif method == "ascores":
+            op = encode_ascores_op(
+                fields["addr"],
+                [(int(a), float(s)) for a, s in fields["pairs"]])
         else:
             return None
         return hashlib.sha256(op).digest()
@@ -214,18 +223,19 @@ def expected_op_hash(method: str, fields: dict) -> Optional[bytes]:
 def check_op_auth(op: bytes, auth: Optional[dict],
                   directory: PublicDirectory) -> str:
     """'' when `op` is admissible on origin authentication, else the
-    reason.  A client op (register/upload/scores) must carry the client's
+    reason.  A client op (register/upload/scores/aupload/ascores) must
+    carry the client's
     Ed25519 tag in `auth`, checked against the validator's own directory
     mirror: the writer cannot produce a committee member's signature.
     Tags sign the client's f64 values while ops store f32, so `auth`
     carries the f64 originals and the op bytes must be their exact f32
-    image.  Coordinator ops (commit/close/force/reseat/promote) carry no
-    tag: re-execution (`validate_op`) is their check."""
+    image; an aupload tag binds the BASE epoch, an ascores tag the f64
+    pairs at epoch 0.  Coordinator ops (commit/close/force/reseat/
+    promote/acommit) carry no tag: re-execution (`validate_op`) is their
+    check."""
     if not op or op[0] not in (_OP_REGISTER, _OP_UPLOAD, _OP_SCORES,
                                _OP_AUPLOAD, _OP_ASCORES):
         return ""
-    if op[0] in (_OP_AUPLOAD, _OP_ASCORES):
-        return ("async op: not ported yet (ROADMAP A9 (async FedBuff))")
     if not isinstance(auth, dict):
         return "client op without auth evidence"
     body = op[1:]
@@ -261,7 +271,10 @@ def check_op_auth(op: bytes, auth: Optional[dict],
                                                     b""), tag):
                 return "register: bad tag"
             return ""
-        if op[0] == _OP_UPLOAD:
+        if op[0] in (_OP_UPLOAD, _OP_AUPLOAD):
+            # the async upload shares the layout; its trailing epoch is
+            # the base epoch the tag binds (kind "aupload")
+            kind = "upload" if op[0] == _OP_UPLOAD else "aupload"
             sender, off = _str_at(0)
             payload_hash = body[off:off + 32]
             ns, = struct.unpack_from("<q", body, off + 32)
@@ -269,16 +282,40 @@ def check_op_auth(op: bytes, auth: Optional[dict],
             epoch, = struct.unpack_from("<q", body, off + 44)
             n, cost = int(auth["n"]), float(auth["cost"])
             if n != ns:
-                return "upload: n_samples mismatch"
+                return f"{kind}: n_samples mismatch"
             if struct.pack("<f", np.float32(cost)) != \
                     struct.pack("<f", cost_f32):
-                return "upload: cost not the f32 image of the signed value"
+                return f"{kind}: cost not the f32 image of the signed value"
             payload = payload_hash + struct.pack("<qd", n, cost)
             _tofu_repair(sender)
-            if not directory.verify(sender, _op_bytes("upload", sender,
+            if not directory.verify(sender, _op_bytes(kind, sender,
                                                       epoch, payload), tag):
-                return (f"upload: bad tag (sender {sender[:12]}, "
+                return (f"{kind}: bad tag (sender {sender[:12]}, "
                         f"epoch {epoch}, "
+                        f"known={directory.knows(sender)})")
+            return ""
+        if op[0] == _OP_ASCORES:
+            sender, off = _str_at(0)
+            cnt, = struct.unpack_from("<q", body, off)
+            if cnt <= 0 or off + 8 + 12 * cnt > len(body):
+                return "ascores: malformed op"
+            pairs = [(int(a), float(s)) for a, s in auth["pairs"]]
+            if len(pairs) != cnt:
+                return "ascores: pair count mismatch"
+            p = off + 8
+            for aseq, claimed in pairs:
+                got_a, got_s = struct.unpack_from("<qf", body, p)
+                if got_a != aseq or struct.pack(
+                        "<f", np.float32(claimed)) != \
+                        struct.pack("<f", got_s):
+                    return ("ascores: pairs not the f32 image of the "
+                            "signed values")
+                p += 12
+            _tofu_repair(sender)
+            if not directory.verify(
+                    sender, _op_bytes("ascores", sender, 0,
+                                      ascores_sign_payload(pairs)), tag):
+                return (f"ascores: bad tag (sender {sender[:12]}, "
                         f"known={directory.knows(sender)})")
             return ""
         # _OP_SCORES
@@ -701,9 +738,10 @@ class ValidatorNode:
         if attempt < promised:
             return self._refuse("PROMISED", f"promised attempt {promised}",
                                 promised=promised, voted_t=0)
-        if op[0] == _OP_UPLOAD and isinstance(auth, dict) and "blob" in auth:
-            # a sparse fleet's upload: its blob must pass the codecs'
-            # densify inverse before a co-signature
+        if op[0] in (_OP_UPLOAD, _OP_AUPLOAD) and isinstance(auth, dict) \
+                and "blob" in auth:
+            # a sparse fleet's upload or aupload: its blob must pass the
+            # codecs' densify inverse before a co-signature
             return self._refuse("SPARSE", "sparse upload re-execution is "
                                 "not ported yet (ROADMAP A9 (codecs))")
         if self.require_auth:

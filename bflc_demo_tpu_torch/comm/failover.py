@@ -54,6 +54,13 @@ Port of `bflc_demo_tpu/comm/failover.py`: `FailoverClient` (:129-319),
   meta and the standby GCs its own replica behind it
   (`_note_snapshot_op`); its read fan-out serves that snapshot, and the
   server it becomes at promotion resumes from it.
+- Async FedBuff (reference :940-960, :1016-1040): an aupload's payload
+  is mirrored before its op applies like an upload's, and an acommit's
+  model rides its frame like a commit's; a blob-less aupload clamps the
+  acks until its entry drains (pruned by buffer membership, never by
+  epoch).  The promoted writer inherits the buffer with its blobs and
+  drains it; a blob it lacks comes back with the uploader's retry
+  (`LedgerServer._resupply_async_blob`).
 - TLS (`comm/tls.py`): `tls_client` dials the writer and the read set,
   `tls_server` serves the read fan-out and the promoted writer;
   `FailoverClient(tls=)`.  Validators are dialled in plaintext.
@@ -88,7 +95,8 @@ from bflc_demo_tpu_torch.comm.wire import (WireError, blob_bytes, recv_msg,
                                            send_msg, split_blob_parts)
 from bflc_demo_tpu_torch.device import DeviceLike, resolve_device
 from bflc_demo_tpu_torch.ledger import LedgerStatus, clone_prefix, make_ledger
-from bflc_demo_tpu_torch.ledger.base import (OP_COMMIT, OP_PROMOTE,
+from bflc_demo_tpu_torch.ledger.base import (OP_ACOMMIT, OP_AUPLOAD,
+                                             OP_COMMIT, OP_PROMOTE,
                                              OP_SNAPSHOT, OP_UPLOAD,
                                              decode_op)
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
@@ -97,6 +105,11 @@ from bflc_demo_tpu_torch.protocol.types import CommitCertificate
 from bflc_demo_tpu_torch.utils import tracing
 
 Endpoint = Tuple[str, int]
+
+# the blob-mirroring paths treat the async twins as their sync originals:
+# an aupload references a payload blob, an acommit a new model blob
+_PAYLOAD_OPCODES = (OP_UPLOAD, OP_AUPLOAD)
+_MODEL_OPCODES = (OP_COMMIT, OP_ACOMMIT)
 
 
 class WriterDead(Exception):
@@ -683,7 +696,7 @@ class Standby:
         """Block until the op's payload blob is mirrored (True), the
         writer reports it unknown (False: apply with a clamped ack), or
         the writer dies (WriterDead: the op must not apply)."""
-        if not op_bytes or op_bytes[0] != OP_UPLOAD:
+        if not op_bytes or op_bytes[0] not in _PAYLOAD_OPCODES:
             return True
         while not self._stop.is_set():
             self._blob_unknown = False
@@ -699,9 +712,20 @@ class Standby:
 
     def _drop_moot_payloads(self) -> None:
         """Lift the ack clamp for blob-less records the chain has moved
-        past (their round is settled)."""
+        past: a sync upload once its round is settled, an aupload once
+        its entry drained from the buffer (its base epoch says nothing:
+        buffered entries outlive epochs)."""
+        buffered = None
         for i in list(self._pending_payload):
-            ep = decode_op(self._pending_payload[i]).get("epoch")
+            op = self._pending_payload[i]
+            if op[:1] == bytes([OP_AUPLOAD]):
+                if buffered is None:
+                    buffered = {e.payload_hash
+                                for e in self.ledger.async_buffer_view()}
+                if self._op_hash(op, "payload_hash") not in buffered:
+                    del self._pending_payload[i]
+                continue
+            ep = decode_op(op).get("epoch")
             if ep is None or ep < self.ledger.epoch:
                 del self._pending_payload[i]
 
@@ -758,15 +782,15 @@ class Standby:
 
     def _harvest_pushed_blob(self, msg: dict, op_bytes: bytes) -> None:
         """Keep a frame's piggybacked blob iff it hashes to the digest its
-        op records: an upload's payload or a commit's new model."""
+        op records: an (a)upload's payload or an (a)commit's new model."""
         if msg.get("blob") is None or not op_bytes or \
-                op_bytes[0] not in (OP_UPLOAD, OP_COMMIT):
+                op_bytes[0] not in _PAYLOAD_OPCODES + _MODEL_OPCODES:
             return
         try:
             blob = blob_bytes(msg["blob"])
         except ValueError:
             return
-        if op_bytes[0] == OP_COMMIT:
+        if op_bytes[0] in _MODEL_OPCODES:
             if hashlib.sha256(blob).digest() == \
                     self._op_hash(op_bytes, "model_hash"):
                 self._model_blob = blob
@@ -778,10 +802,10 @@ class Standby:
 
     def _mirror_upload_payload(self, op_bytes: bytes,
                                ctl: CoordinatorClient) -> bool:
-        """Fetch an upload op's payload by hash.  True = nothing to do or
-        mirrored; False = still missing.  A writer answering with bytes of
-        another hash is refused outright."""
-        if not op_bytes or op_bytes[0] != OP_UPLOAD:
+        """Fetch an (a)upload op's payload by hash.  True = nothing to do
+        or mirrored; False = still missing.  A writer answering with bytes
+        of another hash is refused outright."""
+        if not op_bytes or op_bytes[0] not in _PAYLOAD_OPCODES:
             return True
         ph = self._op_hash(op_bytes, "payload_hash")
         if ph is None or ph in self._blobs:
@@ -1004,9 +1028,11 @@ class Standby:
                 # the evidence cites the highest certified op: the
                 # promote op itself
                 evidence["cert_ix"] = self.ledger.log_size() - 1
-        missing = [u.payload_hash.hex()[:12]
-                   for u in self.ledger.query_all_updates()
-                   if u.payload_hash not in self._blobs]
+        missing = [h.hex()[:12] for h in
+                   [u.payload_hash for u in self.ledger.query_all_updates()]
+                   + [e.payload_hash
+                      for e in self.ledger.async_buffer_view()]
+                   if h not in self._blobs]
         if missing:
             self._say(f"promoting with {len(missing)} unmirrored update "
                       f"blobs {missing} — relying on uploader retries / "

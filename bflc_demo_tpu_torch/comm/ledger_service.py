@@ -66,13 +66,17 @@ the host leg.  With `BFLC_PROC_TRACE=1` the merge charges
 `utils/tracing.PROC` (certification `bft.certify_s`, split into
 `bft.certify_batch_s` and `bft.certify_single_s`, with the ops each
 certified, `bft.certify_batched_ops` / `bft.certify_single_ops`), and
-`info` returns the tracer's summary as `perf`.  The `kernels` method
+`info` returns the tracer's summary as `perf` (and, asked with `at`, the
+chain head after that many ops as `head_at`).  The `kernels` method
 (the port's own) answers the process's kernel launch counts, the
 engine's report and `merge_log`, one record a commit (its epoch, the
 writer's clock and the host's monotonic clock, the merge's seconds, leg
 and blocks), with the writer's generation, index and start on the
-monotonic clock (a failover's gap is read from them), and the chain's
-size, certified prefix and highest subscriber ack.
+monotonic clock (a failover's gap is read from them), the chain's
+size, certified prefix and highest subscriber ack, and the chain this
+writer held (`chain`: the opcode at every position from its start and
+each opcode-12 op's claims, recorded before a GC can drop them) with the
+async buffer it started with.
 
 TLS (`comm/tls.py`): with `tls` (a server context) every connection is
 wrapped in its own thread, the handshake bounded to 10 s, so a plaintext
@@ -92,10 +96,29 @@ and a lagging validator installs the snapshot through `bft_snapshot`.  A
 promoted standby passes the snapshot it mirrored as `resume_snapshot`.
 `BFLC_SNAPSHOT_LEGACY=1` keeps every snapshot op off the chain.
 
+Asynchronous buffered aggregation (FedBuff, reference :519-528,
+:1499-1515, :1692-1900): when `ledger/base.async_enabled(cfg)` the
+writer refuses sync `upload`/`scores` and serves `aupload` (a delta
+tagged with the base epoch it trained from), `aupdates` (the buffer, the
+committee's scoring surface) and `ascores` ((admission seq, score)
+pairs, whose replay check scans the staleness window,
+`_seen_in_window`).  The K-th admission drains the oldest K entries
+inside its own request, with the lock held: the merge runs on the
+engine at the FedBuff weights n / sqrt(1 + s) (B5 on the card at the
+genome's block count), the opcode-12 op carries the drain's seating
+every `async_reseat_every`-th drain, and a snapshot follows as after a
+sync commit.  The replay guard prunes at `epoch - max_staleness`, a
+stalled buffer drains what it holds, `info` reports
+`async_buffer_depth` and `eff_staleness`, and the op stream piggybacks
+opcode 10's blob and opcode 12's model.  The snapshot GC keeps the
+by-hash certificates of the window it drops until the next GC, so an
+ack whose GC overtook its certify loop still carries its op's
+certificate (C11; the reference prunes them at once).
+
 Not ported, each raising or refusing with its ROADMAP item when asked
-for: the hier root, rederive and its commit evidence, the async FedBuff
-and genome paths, sparse/quantized uploads (A9); telemetry, health and
-causal traces (A14).
+for: the hier root, rederive and its commit evidence, the genome path,
+sparse/quantized uploads (A9); telemetry, health and causal traces
+(A14).
 `BFLC_DATA_PLANE_LEGACY=1` drops the model piggyback and the read set,
 as in the reference.
 """
@@ -120,9 +143,11 @@ from bflc_demo_tpu_torch.comm.wire import (WireError, blob_bytes, recv_msg,
                                            send_msg)
 from bflc_demo_tpu_torch.device import DeviceLike
 from bflc_demo_tpu_torch.ledger import LedgerStatus, make_ledger
-from bflc_demo_tpu_torch.ledger.base import (OP_COMMIT, OP_REGISTER,
-                                             OP_UPLOAD, decode_op,
-                                             reduce_blocks)
+from bflc_demo_tpu_torch.ledger.base import (OP_ACOMMIT, OP_AUPLOAD,
+                                             OP_COMMIT, OP_REGISTER,
+                                             OP_UPLOAD, ascores_sign_payload,
+                                             async_enabled, decode_op,
+                                             parse_acommit, reduce_blocks)
 from bflc_demo_tpu_torch.meshagg.engine import (ENGINE, MeshAggEngine,
                                                 engine_for, flatten_delta)
 from bflc_demo_tpu_torch.ops import launch_counts
@@ -145,10 +170,7 @@ UNPORTED_SERVER_OPTIONS = {
 }
 
 # wire methods of unported paths: refused by name, never "unknown"
-_UNPORTED_METHODS = {
-    "aupload": "A9 (async FedBuff)", "aupdates": "A9 (async FedBuff)",
-    "ascores": "A9 (async FedBuff)", "telemetry": "A14 (telemetry)",
-}
+_UNPORTED_METHODS = {"telemetry": "A14 (telemetry)"}
 
 # the TLS handshake's bound, in the connection's own thread
 _HANDSHAKE_TIMEOUT_S = 10.0
@@ -309,6 +331,9 @@ class LedgerServer:
         cfg.validate()
         self.cfg = cfg
         self.verbose = verbose
+        # FedBuff on the certified op stream: one protocol per chain, so
+        # sync upload/scores are refused while it is on
+        self._async = async_enabled(cfg)
         # ssl.SSLContext (comm/tls.server_context) or None for plaintext
         self._tls = tls
         # certified snapshots: 0 or BFLC_SNAPSHOT_LEGACY keeps every
@@ -370,6 +395,13 @@ class LedgerServer:
         self._t0 = time.monotonic()
         self._t0_base = self.ledger.log_base    # a compacted resume: > 0
         self.merge_log: List[dict] = []
+        # the chain this writer held, scanned before any GC can drop it:
+        # the opcode at every position from its start and every
+        # opcode-12 op's claims
+        self._chain = {"from": self.ledger.log_base, "opcodes": [],
+                       "acommits": []}
+        self._t0_abuf = [e.aseq for e in self.ledger.async_buffer_view()]
+        self._scan_chain()
         self._stop = threading.Event()
         # accepted connections, shut down by close(): a closed writer is a
         # dead one to every peer, as a killed process is
@@ -801,11 +833,12 @@ class LedgerServer:
         """The blob a streamed op references, while this writer holds it:
         an upload's payload, or a commit's new model (unless the data
         plane's fast path is pinned off)."""
-        if not op or op[0] not in (OP_UPLOAD, OP_COMMIT):
+        if not op or op[0] not in (OP_UPLOAD, OP_AUPLOAD, OP_COMMIT,
+                                   OP_ACOMMIT):
             return None
         fields = decode_op(op)
         with self._lock:
-            if op[0] == OP_COMMIT:
+            if op[0] in (OP_COMMIT, OP_ACOMMIT):
                 if data_plane_legacy() or \
                         fields.get("model_hash") != self._model_hash.hex():
                     return None
@@ -921,8 +954,21 @@ class LedgerServer:
 
     def _consume_tag(self, epoch: int, tag_hex: str) -> None:
         if self.require_auth:
-            self._replay.consume(self.ledger.epoch, epoch,
-                                 bytes.fromhex(tag_hex))
+            # async mode prunes at the staleness floor: a tag bucket must
+            # outlive every base epoch the staleness cap still admits, or
+            # a pruned-then-replayed aupload would re-enter the buffer
+            floor = self.ledger.epoch - (self.cfg.max_staleness
+                                         if self._async else 0)
+            self._replay.consume(floor, epoch, bytes.fromhex(tag_hex))
+
+    def _seen_in_window(self, tag: bytes) -> bool:
+        """Replay check across the staleness window: an ascores tag
+        signs no epoch, so its bucket is the ledger epoch at admission
+        and a replay can hide in any live bucket."""
+        ep = self.ledger.epoch
+        return any(self._replay.seen(e, tag)
+                   for e in range(max(ep - self.cfg.max_staleness, 0),
+                                  ep + 1))
 
     def _charge_gas(self, addr: str, cost: int) -> bool:
         """Debit `cost` from addr's budget for the current epoch; False =
@@ -956,7 +1002,7 @@ class LedgerServer:
                 "error": ("bad signature" if v == LedgerStatus.BAD_ARG
                           else "replayed tag")}
 
-    _MUTATING = ("register", "upload", "scores")
+    _MUTATING = ("register", "upload", "scores", "aupload", "ascores")
 
     def _dispatch(self, method: str, m: dict) -> dict:
         with self._lock:
@@ -1023,6 +1069,11 @@ class LedgerServer:
                 "round_closed": self.ledger.round_closed}
 
     def _m_upload(self, m: dict) -> dict:
+        if self._async:
+            # a client whose BFLC_ASYNC_LEGACY disagrees with the fleet's
+            # must not interleave sync rounds into an async chain
+            return {"ok": False, "status": "BAD_ARG",
+                    "error": "async mode is on: use aupload"}
         addr = m["addr"]
         blob = blob_bytes(m["blob"])
         digest = hashlib.sha256(blob).digest()
@@ -1071,6 +1122,9 @@ class LedgerServer:
             for u in self.ledger.query_all_updates()]}
 
     def _m_scores(self, m: dict) -> dict:
+        if self._async:
+            return {"ok": False, "status": "BAD_ARG",
+                    "error": "async mode is on: use ascores"}
         addr = m["addr"]
         scores = [float(s) for s in m["scores"]]
         payload = struct.pack(f"<{len(scores)}d", *scores)
@@ -1091,6 +1145,105 @@ class LedgerServer:
         if st == LedgerStatus.OK and self.ledger.aggregate_ready():
             self._aggregate_and_commit()
         return {"ok": st == LedgerStatus.OK, "status": st.name}
+
+    # ----------------------------------------- async buffered aggregation
+    def _m_aupload(self, m: dict) -> dict:
+        """Admit a staleness-tagged delta (no epoch gate: the op carries
+        the base epoch, admission stamps the staleness); the K-th
+        admission drains the buffer inside this request, so the new
+        epoch rides its ack.  The sync upload's auth/gas/schema order."""
+        if not self._async:
+            return {"ok": False, "status": "BAD_ARG",
+                    "error": "async mode is off (--async-buffer 0 or "
+                             "BFLC_ASYNC_LEGACY=1)"}
+        addr = m["addr"]
+        base_epoch = int(m["base_epoch"])
+        blob = blob_bytes(m["blob"])
+        digest = hashlib.sha256(blob).digest()
+        if digest.hex() != m["hash"]:
+            return {"ok": False, "status": "BAD_ARG",
+                    "error": "blob/hash mismatch"}
+        payload = digest + struct.pack("<qd", int(m["n"]), float(m["cost"]))
+        v = self._verify("aupload", addr, base_epoch, payload,
+                         m.get("tag", ""))
+        if v != LedgerStatus.OK:
+            if v == LedgerStatus.DUPLICATE:
+                self._resupply_async_blob(digest, blob)
+            return self._auth_error(v)
+        if not self._charge_gas(addr, GAS_UPLOAD_BASE + len(blob)):
+            return dict(self._OUT_OF_GAS)
+        err, flat = self._decode_delta(blob)
+        if err:
+            return {"ok": False, "status": "BAD_ARG", "error": err}
+        st = self.ledger.async_upload(addr, digest, int(m["n"]),
+                                      float(m["cost"]), base_epoch)
+        if st == LedgerStatus.OK:
+            self._blobs[digest] = blob
+            self._stage_delta(digest, flat)
+            self._consume_tag(base_epoch, m.get("tag", ""))
+            self._op_auth[self.ledger.log_size() - 1] = {
+                "tag": m.get("tag", ""), "n": int(m["n"]),
+                "cost": float(m["cost"]),
+                "pubkey": self._sender_pubkey_hex(addr)}
+        elif st == LedgerStatus.DUPLICATE:
+            self._resupply_async_blob(digest, blob)
+        self._touch(addr)
+        self._note_progress(st)
+        reply = {"ok": st == LedgerStatus.OK, "status": st.name,
+                 "epoch": self.ledger.epoch}
+        if st == LedgerStatus.OK and \
+                self.ledger.async_buffer_depth >= self.cfg.async_buffer:
+            # the K-th admission: the drain's position in the op order
+            # is deterministic, and its epoch rides this ack
+            self._async_aggregate_and_commit()
+            reply["epoch"] = self.ledger.epoch
+        return reply
+
+    def _m_aupdates(self, m: dict) -> dict:
+        """The committee's scoring surface: every buffered entry with
+        its admission id and staleness."""
+        if not self._async:
+            return {"ok": False, "status": "BAD_ARG",
+                    "error": "async mode is off"}
+        return {"ok": True, "epoch": self.ledger.epoch, "updates": [
+            {"aseq": e.aseq, "sender": e.sender,
+             "hash": e.payload_hash.hex(), "n": e.n_samples,
+             "cost": e.avg_cost, "staleness": e.staleness}
+            for e in self.ledger.async_buffer_view()]}
+
+    def _m_ascores(self, m: dict) -> dict:
+        """(aseq, score) pairs over buffered entries; the admission id
+        binds, and pairs of drained entries are skipped by the ledger."""
+        if not self._async:
+            return {"ok": False, "status": "BAD_ARG",
+                    "error": "async mode is off"}
+        addr = m["addr"]
+        try:
+            pairs = [(int(a), float(s)) for a, s in m["pairs"]]
+        except (TypeError, ValueError):
+            return {"ok": False, "status": "BAD_ARG",
+                    "error": "malformed pairs"}
+        if self.require_auth:
+            tag = bytes.fromhex(m.get("tag", ""))
+            if not self.directory.verify(
+                    addr, _op_bytes("ascores", addr, 0,
+                                    ascores_sign_payload(pairs)), tag):
+                return self._auth_error(LedgerStatus.BAD_ARG)
+            if self._seen_in_window(tag):
+                return self._auth_error(LedgerStatus.DUPLICATE)
+        if not self._charge_gas(addr, GAS_SCORES):
+            return dict(self._OUT_OF_GAS)
+        st = self.ledger.async_scores(addr, pairs)
+        if st == LedgerStatus.OK:
+            self._consume_tag(self.ledger.epoch, m.get("tag", ""))
+            self._op_auth[self.ledger.log_size() - 1] = {
+                "tag": m.get("tag", ""),
+                "pairs": [[a, s] for a, s in pairs],
+                "pubkey": self._sender_pubkey_hex(addr)}
+        self._touch(addr)
+        self._note_progress(st)
+        return {"ok": st == LedgerStatus.OK, "status": st.name,
+                "epoch": self.ledger.epoch}
 
     def _m_committee(self, m: dict) -> dict:
         return {"ok": True, "committee": self.ledger.committee()}
@@ -1115,6 +1268,16 @@ class LedgerServer:
                  "certified_size": (self._certified_size
                                     if self._bft is not None else None),
                  "committee": led.committee()}
+        if self._async:
+            reply["async_buffer_depth"] = led.async_buffer_depth
+            reply["eff_staleness"] = int(led.effective_staleness)
+        if "at" in m:
+            # the chain head after ops[0..at), where this writer holds it
+            # (the port's own field: a late replica's check)
+            at = int(m["at"])
+            reply["head_at"] = (chain_head_at(led, at).hex()
+                                if led.log_base <= at <= led.log_size()
+                                else None)
         snap = self._snapshot_offer()
         if snap is not None:
             reply["snapshot_epoch"] = snap["epoch"]
@@ -1130,8 +1293,10 @@ class LedgerServer:
         certified prefix and the highest op a subscriber acked (a drill
         reads when its standby holds the whole certified chain); every
         snapshot op's record and every snapshot offered to a lagging
-        validator, with the seconds its install took."""
+        validator, with the seconds its install took; the chain this
+        writer held (`_scan_chain`) and the async buffer it started with."""
         from bflc_demo_tpu_torch.comm.identity import ED25519_BACKEND
+        self._scan_chain()
         return {"ok": True, "launches": launch_counts(),
                 "engine": self.engine.report(), "merges": self.merge_log,
                 "ed25519_backend": ED25519_BACKEND,
@@ -1146,7 +1311,8 @@ class LedgerServer:
                 "stream_acked": max(self._sub_acked.values(), default=-1),
                 "snapshots": self.snapshot_log,
                 "snapshot_offers": (self._bft.snapshot_offers
-                                    if self._bft is not None else [])}
+                                    if self._bft is not None else []),
+                "chain": self._chain, "started_async_buffer": self._t0_abuf}
 
     def _m_log_range(self, m: dict) -> dict:
         start, end = int(m["start"]), int(m["end"])
@@ -1199,6 +1365,15 @@ class LedgerServer:
         pub = self.directory.export_raw().get(addr)
         return pub.hex() if pub is not None else ""
 
+    def _resupply_async_blob(self, digest: bytes, blob: bytes) -> None:
+        """Keep a hash-verified payload of a buffered entry this writer
+        lacks (a promoted standby that inherited the entry, not its
+        blob)."""
+        if digest not in self._blobs and any(
+                e.payload_hash == digest
+                for e in self.ledger.async_buffer_view()):
+            self._blobs[digest] = blob
+
     def _resupply_blob(self, digest: bytes, blob: bytes) -> None:
         """Keep a hash-verified payload the ledger records but this writer
         lacks (an honest retry whose first reply was lost)."""
@@ -1237,7 +1412,7 @@ class LedgerServer:
         """Stage an admitted delta's flattened row for the mesh leg —
         only where that leg could ever take the round."""
         if flat is not None and self.engine.staging_worthwhile(
-                self.cfg.needed_update_count):
+                max(self.cfg.needed_update_count, self.cfg.async_buffer)):
             self._staged[digest] = flatten_delta(flat, sorted(flat.keys()))
 
     def _staged_row(self, digest: bytes) -> np.ndarray:
@@ -1257,39 +1432,87 @@ class LedgerServer:
         """The on-coordinator merge: FedAvg the ledger-selected deltas
         into the model, commit its content hash, publish the blob.
         Called with the lock held."""
-        tr = tracing.PROC
         t0 = time.perf_counter()
         pending = self.ledger.pending()
         updates = self.ledger.query_all_updates()
         epoch = self.ledger.epoch
-        global_flat = unpack_pytree(self._model_blob)
-        weights = [u.n_samples for u in updates]
-        # the genome's block geometry (REDUCTION SPEC v2): on the card
-        # one B5 launch a block; the commit op claims the same count
-        blocks = reduce_blocks(self.cfg)
-        t1 = time.perf_counter() if tr.enabled else 0.0
-        if self.engine.choose_leg(len(updates)) == "mesh":
-            rows = [self._staged_row(u.payload_hash) for u in updates]
-            new_flat = self.engine.aggregate_rows(
-                global_flat, rows, weights, list(pending.selected),
-                self.cfg.learning_rate, blocks=blocks)
-        else:
-            delta_flats = [dequantize_entries(unpack_pytree(
-                self._blobs[u.payload_hash])) for u in updates]
-            new_flat = _aggregate_flat(global_flat, delta_flats, weights,
-                                       list(pending.selected),
-                                       self.cfg.learning_rate,
-                                       blocks=blocks, engine=self.engine)
-        if tr.enabled:
-            tr.charge("aggregate.engine_s", time.perf_counter() - t1)
-        blob = pack_entries(new_flat)
+        blob, new_flat, blocks, engine_s = self._merge(
+            [u.payload_hash for u in updates],
+            [u.n_samples for u in updates], list(pending.selected))
         digest = hashlib.sha256(blob).digest()
         st = self.ledger.commit_model(digest, epoch)
         if st != LedgerStatus.OK:
             raise RuntimeError(f"commit rejected: {st.name}")
-        for u in updates:
-            self._blobs.pop(u.payload_hash, None)
-            self._staged.pop(u.payload_hash, None)
+        self._publish(epoch, [u.payload_hash for u in updates], blob,
+                      digest, new_flat, blocks, t0, engine_s=engine_s)
+        if self.verbose:
+            print(f"[coordinator] epoch {epoch} aggregated "
+                  f"({self.engine.last_leg} leg): "
+                  f"loss={self.ledger.last_global_loss:.5f}", flush=True)
+
+    def _async_aggregate_and_commit(self) -> None:
+        """Drain the oldest k buffered entries at the FedBuff weights
+        n / sqrt(1 + s) and commit (opcode 12, with the seating when a
+        reseat is due: the ledger derives and embeds it).  Called with
+        the lock held, from the K-th aupload or the stall recovery."""
+        k = min(self.ledger.async_buffer_depth, self.cfg.async_buffer)
+        if k <= 0:
+            return
+        t0 = time.perf_counter()
+        entries, selected, weights, _ = self.ledger.async_selection(k)
+        epoch = self.ledger.epoch
+        hashes = [e.payload_hash for e in entries]
+        blob, new_flat, blocks, engine_s = self._merge(hashes, weights,
+                                                       list(selected))
+        digest = hashlib.sha256(blob).digest()
+        st = self.ledger.async_commit(digest, epoch, k)
+        if st != LedgerStatus.OK:
+            raise RuntimeError(f"async commit rejected: {st.name}")
+        self._publish(epoch, hashes, blob, digest, new_flat, blocks, t0,
+                      engine_s=engine_s, drained=k,
+                      staleness=[e.staleness for e in entries])
+        if self.verbose:
+            print(f"[coordinator] epoch {epoch} async-aggregated "
+                  f"({k} deltas, stalest "
+                  f"{max((e.staleness for e in entries), default=0)}, "
+                  f"{self.engine.last_leg} leg): "
+                  f"loss={self.ledger.last_global_loss:.5f}", flush=True)
+
+    def _merge(self, hashes: List[bytes], weights, selected: List[int]):
+        """(model blob, flat model, blocks, the engine call's seconds) of
+        the certified merge of the deltas `hashes` at `weights` over
+        `selected`, at the genome's block geometry (REDUCTION SPEC v2: on
+        the card one B5 launch a block; the commit op claims the same
+        count)."""
+        tr = tracing.PROC
+        global_flat = unpack_pytree(self._model_blob)
+        blocks = reduce_blocks(self.cfg)
+        t1 = time.perf_counter()
+        if self.engine.choose_leg(len(hashes)) == "mesh":
+            rows = [self._staged_row(h) for h in hashes]
+            new_flat = self.engine.aggregate_rows(
+                global_flat, rows, weights, selected,
+                self.cfg.learning_rate, blocks=blocks)
+        else:
+            delta_flats = [dequantize_entries(unpack_pytree(self._blobs[h]))
+                           for h in hashes]
+            new_flat = _aggregate_flat(global_flat, delta_flats, weights,
+                                       selected, self.cfg.learning_rate,
+                                       blocks=blocks, engine=self.engine)
+        engine_s = time.perf_counter() - t1
+        if tr.enabled:
+            tr.charge("aggregate.engine_s", engine_s)
+        return pack_entries(new_flat), new_flat, blocks, engine_s
+
+    def _publish(self, epoch: int, hashes: List[bytes], blob: bytes,
+                 digest: bytes, new_flat, blocks: int, t0: float,
+                 **record) -> None:
+        """After a commit: drop the merged deltas, install the new model,
+        emit a snapshot when one is due, wake the waiters and record the
+        merge.  Called with the lock held."""
+        for h in hashes:
+            self._blobs.pop(h, None)
+            self._staged.pop(h, None)
         self._model_blob = blob
         self._model_hash = digest
         self._model_schema = {k: (a.shape, a.dtype)
@@ -1306,14 +1529,29 @@ class LedgerServer:
                                "log_base": self.ledger.log_base,
                                "t": self._last_progress - self._t0,
                                "mono": self._last_progress,
-                               "merge_s": merge_s})
+                               "merge_s": merge_s, **record})
+        self._scan_chain()
+        tr = tracing.PROC
         if tr.enabled:
             tr.charge("aggregate_s", merge_s)
             tr.charge("aggregate_n")
-        if self.verbose:
-            print(f"[coordinator] epoch {epoch} aggregated "
-                  f"({self.engine.last_leg} leg): "
-                  f"loss={self.ledger.last_global_loss:.5f}", flush=True)
+
+    def _scan_chain(self) -> None:
+        """Record the ops appended since the last scan (lock held; run at
+        the start and after every commit, whose snapshot op bounds the
+        next GC).  A position a GC took first records None."""
+        rec = self._chain
+        start = rec["from"] + len(rec["opcodes"])
+        rec["opcodes"] += [None] * max(self.ledger.log_base - start, 0)
+        for i in range(max(start, self.ledger.log_base),
+                       self.ledger.log_size()):
+            op = self.ledger.log_op(i)
+            rec["opcodes"].append(op[0])
+            parsed = parse_acommit(op)
+            if parsed is not None:
+                _, ep, k, seats, blocks = parsed
+                rec["acommits"].append({"i": i, "epoch": ep, "k": k,
+                                        "seats": seats, "blocks": blocks})
 
     # --------------------------------------------------- certified snapshots
     def _emit_snapshot(self) -> None:
@@ -1383,6 +1621,7 @@ class LedgerServer:
                                    for sent in self._sub_sent.values()])
             if floor < i + 1:
                 return                  # a live stream is behind: retry
+            prior_base = self.ledger.log_base
             dropped = self.ledger.gc_prefix(i + 1, meta["state"])
             meta["final"] = True
             # the sideband below the base goes with the prefix; the
@@ -1390,10 +1629,12 @@ class LedgerServer:
             self._op_auth = {k: v for k, v in self._op_auth.items()
                              if k >= i}
             self._certs = {k: v for k, v in self._certs.items() if k >= i}
-            kept = {w.get("op_hash") for w in self._certs.values()}
+            # an ack's certificate is looked up by op hash after the
+            # certify loop, which this GC can overtake: the window just
+            # dropped stays answerable until the next GC (C11)
             self._certs_by_ophash = {h: w for h, w in
                                      self._certs_by_ophash.items()
-                                     if h in kept}
+                                     if int(w.get("i", -1)) >= prior_base}
         rec["gc_dropped"] = dropped
         tracing.PROC.charge("snapshot.gc_ops", dropped)
         if dropped:
@@ -1451,6 +1692,15 @@ class LedgerServer:
 
     def _recover(self) -> None:
         led = self.ledger
+        if self._async:
+            # the buffer sat below K (the fleet's tail as clients exit):
+            # drain what it holds, so buffered work is never stranded
+            if led.async_buffer_depth > 0:
+                self._say(f"recovery: async partial aggregate of "
+                          f"{led.async_buffer_depth} buffered deltas"
+                          f"@{led.epoch}")
+                self._async_aggregate_and_commit()
+            return
         if led.aggregate_ready():
             self._aggregate_and_commit()
             return

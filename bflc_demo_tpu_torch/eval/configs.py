@@ -17,7 +17,9 @@ arrays.  Still to port, and raising with the item: the executor runtime
 and the fleet's other options (chaos, cells, telemetry, rederive:
 A9/A14, unexpected keywords here) and config 4's `secure=True` (A12).
 `standbys`, `quorum`, `bft_validators`, `tls_dir`, `snapshot_interval`
-and `snapshot_dir` reach the fleet; another runtime refuses them.
+and `snapshot_dir` reach the fleet; another runtime refuses them, and
+refuses an async genome (`cfg.async_buffer` > 0 unless
+`BFLC_ASYNC_LEGACY=1`, reference :70-76): only the fleet runs FedBuff.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from bflc_demo_tpu_torch.data.synthetic import (synthetic_cifar10,
                                                 synthetic_mnist,
                                                 synthetic_text_classification)
 from bflc_demo_tpu_torch.device import DeviceLike
-from bflc_demo_tpu_torch.ledger import check_backend
+from bflc_demo_tpu_torch.ledger import async_enabled, check_backend
 from bflc_demo_tpu_torch.models import (make_femnist_cnn, make_lenet5,
                                         make_mlp, make_resnet18,
                                         make_softmax_regression,
@@ -90,7 +92,11 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
     """
     if runtime not in RUNTIMES:
         raise ValueError(UNPORTED_RUNTIME.format(runtime=runtime))
-    fleet = (("standbys", standbys), ("quorum", quorum),
+    # async FedBuff is a process-runtime protocol mode: the other
+    # runtimes drive the synchronous round loop and would ignore it
+    fleet = (("async_buffer (protocol)",
+              cfg.async_buffer if async_enabled(cfg) else 0),
+             ("standbys", standbys), ("quorum", quorum),
              ("bft_validators", bft_validators), ("tls_dir", tls_dir),
              ("snapshot_interval", snapshot_interval),
              ("snapshot_dir", snapshot_dir))

@@ -3,9 +3,13 @@
 `make_ledger` builds the pure-Python `PyLedger`, whose op log matches the
 reference ledger's bit for bit on the same ops, at the genome's block
 geometry (`base.reduce_blocks`: a blocked genome's commit ops carry the
-REDUCTION SPEC v2 claim).  `backend` is the reference's: "auto" and
-"python" give the python ledger; "native", the reference's C++ `.so`,
-raises (ROADMAP A9: the native ledger), blocked genome or not.
+REDUCTION SPEC v2 claim) and, when `base.async_enabled(cfg)`, with the
+async buffered family armed (`async_buffer`, `max_staleness`,
+`async_reseat_every`, reference :23-52; `BFLC_ASYNC_LEGACY=1` keeps the
+synchronous ledger, byte for byte).  `backend` is the reference's:
+"auto" and "python" give the python ledger; "native", the reference's
+C++ `.so`, raises (ROADMAP A9: the native ledger), blocked genome or
+not.
 `clone_prefix` (reference :66-92) is the rollback-to-prefix primitive a
 standby's promotion and a validator's repair use; a source compacted
 behind a certified snapshot clones from its base state and replays only
@@ -15,8 +19,8 @@ the retained tail.
 from __future__ import annotations
 
 from bflc_demo_tpu_torch.ledger.base import (  # noqa: F401
-    LedgerStatus, PendingInfo, UpdateInfo, blocked_enabled, blocked_legacy,
-    reduce_blocks)
+    AsyncUpdateInfo, LedgerStatus, PendingInfo, UpdateInfo, async_enabled,
+    async_legacy, blocked_enabled, blocked_legacy, reduce_blocks)
 from bflc_demo_tpu_torch.ledger.pyledger import PyLedger
 from bflc_demo_tpu_torch.protocol.constants import (DEFAULT_PROTOCOL,
                                                     ProtocolConfig)
@@ -40,9 +44,14 @@ def make_ledger(cfg: ProtocolConfig = DEFAULT_PROTOCOL, *,
                 backend: str = "auto") -> PyLedger:
     check_backend(backend)
     cfg.validate()
+    kw = {}
+    if async_enabled(cfg):
+        kw = dict(async_buffer=cfg.async_buffer,
+                  max_staleness=cfg.max_staleness,
+                  async_reseat_every=cfg.async_reseat_every)
     return PyLedger(cfg.client_num, cfg.comm_count, cfg.aggregate_count,
                     cfg.needed_update_count, cfg.genesis_epoch,
-                    reduce_blocks=reduce_blocks(cfg))
+                    reduce_blocks=reduce_blocks(cfg), **kw)
 
 
 def clone_prefix(src, upto: int, cfg: ProtocolConfig, *,

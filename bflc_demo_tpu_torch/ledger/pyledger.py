@@ -26,14 +26,21 @@ replay, for opcodes 1-9, the commit's 40-byte v1 and 52-byte v2 bodies
 included (:1242-1255), the snapshot op re-deriving its digest; and the
 BFT validator's probe `validate_op` with
 `_snapshot`/`_restore` (:1161-1205), which leaves the state and the WAL
-untouched.  Same op bytes, same statuses, same median / rank / election
-order, so the same op sequence gives the same chain head as the
-reference ledger, bit for bit.
+untouched; asynchronous buffered aggregation (FedBuff, :592-825,
+:929-937, :529-535): the admission buffer `_abuf` with its scores
+`_ascores`, `_aseq_next` and the drain counter `_acommit_count`,
+`async_upload` (opcode 10), `async_scores` (11), `_async_rank`,
+`async_selection`, `async_reseat_due`, `derive_async_seats`,
+`async_commit` (12, with its seats and `BLK1` tails), `async_buffer_view`,
+`async_buffer_depth`, `async_score_rows`, and the `async` and
+`async_acommits` tails of the state bytes.  `effective_staleness` is
+`max_staleness`: only a genome op moves it.  Same op bytes, same
+statuses, same median / rank / election order, so the same op sequence
+gives the same chain head as the reference ledger, bit for bit.
 
-Not ported, each with its own A9 item: the asynchronous buffered family
-(10-12, with the async commit's geometry tail) and genome updates (13),
-with their state tails.  `apply_op` refuses those opcodes with BAD_ARG,
-as the reference does an unknown one.  The native `.so` is not bound.
+Not ported: genome updates (opcode 13, ROADMAP A9 item 9) with their
+state tail; `apply_op` refuses the opcode with BAD_ARG, as the reference
+does an unknown one.  The native `.so` is not bound.
 """
 
 from __future__ import annotations
@@ -47,16 +54,23 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from bflc_demo_tpu_torch.ledger.base import (
-    OP_CLOSE, OP_COMMIT, OP_FORCE, OP_PROMOTE, OP_REGISTER, OP_RESEAT,
-    OP_SCORES, OP_SNAPSHOT, OP_UPLOAD, LedgerStatus, PendingInfo,
-    UpdateInfo, encode_close_op, encode_commit_op, encode_force_op,
-    encode_promote_op, encode_register_op, encode_reseat_op,
-    encode_scores_op, encode_upload_op)
+    OP_ACOMMIT, OP_ASCORES, OP_AUPLOAD, OP_CLOSE, OP_COMMIT, OP_FORCE,
+    OP_PROMOTE, OP_REGISTER, OP_RESEAT, OP_SCORES, OP_SNAPSHOT, OP_UPLOAD,
+    AsyncUpdateInfo, LedgerStatus, PendingInfo, UpdateInfo,
+    _put_str, encode_ascores_op, encode_aupload_op, encode_close_op,
+    encode_commit_op, encode_force_op, encode_promote_op,
+    encode_register_op, encode_reseat_op, encode_scores_op,
+    encode_upload_op, parse_acommit, staleness_weight)
 
 # commit_model's `blocks` default: "derive the claim from this replica's
 # genome" (the writer path).  Distinct from None, which means "the op
 # carried no geometry claim" (a v1 body on the replay path).
 _DERIVE_BLOCKS = object()
+
+# async_commit's `seats` default: "derive the seating yourself" (the
+# writer path).  Distinct from None, which means "the op carried no
+# seating" (a plain 48-byte opcode-12 body on the replay path).
+_DERIVE_SEATS = object()
 
 # magic tag introducing the block-geometry claim tail on commit ops
 _BLOCKS_MAGIC = b"BLK1"
@@ -65,7 +79,8 @@ _BLOCKS_MAGIC = b"BLK1"
 class PyLedger:
     def __init__(self, client_num: int, comm_count: int, aggregate_count: int,
                  needed_update_count: int, genesis_epoch: int = -999,
-                 reduce_blocks: int = 1):
+                 async_buffer: int = 0, max_staleness: int = 20,
+                 async_reseat_every: int = 0, reduce_blocks: int = 1):
         self.client_num = client_num
         self.comm_count = comm_count
         self.aggregate_count = aggregate_count
@@ -76,6 +91,17 @@ class PyLedger:
         # carries the claim, and a claim that disagrees is BAD_ARG, so a
         # writer lying about its geometry dies at every honest replica.
         self.reduce_blocks = max(int(reduce_blocks), 1)
+        # FedBuff: async_buffer = K > 0 arms opcodes 10-12; 0 refuses
+        # them, so a synchronous chain can never hold one.  Every R-th
+        # drain (async_reseat_every) reseats the committee;
+        # _acommit_count decides which, so it is protocol state.
+        self.async_buffer = max(int(async_buffer), 0)
+        self.max_staleness = max(int(max_staleness), 0)
+        self.async_reseat_every = max(int(async_reseat_every), 0)
+        self._acommit_count = 0
+        self._abuf: List[AsyncUpdateInfo] = []
+        self._ascores: Dict[int, Dict[str, float]] = {}
+        self._aseq_next = 0
 
         self._epoch = genesis_epoch
         self._model_hash = b"\0" * 32
@@ -474,6 +500,215 @@ class PyLedger:
         self._append_log(op)
         return LedgerStatus.OK
 
+    # --- asynchronous buffered aggregation (FedBuff op family) ---
+    # Staleness-tagged deltas are admitted at any time into a bounded
+    # buffer, committee members score buffered entries with no epoch
+    # gate, and every K admissions the writer drains the oldest k with
+    # staleness-discounted weights.  Each transition is an op in the
+    # certified order, so every replica re-derives the same buffer,
+    # stamps, selection and seating.
+
+    def async_upload(self, sender: str, payload_hash: bytes,
+                     n_samples: int, avg_cost: float,
+                     base_epoch: int) -> LedgerStatus:
+        if not self.async_buffer:
+            return LedgerStatus.BAD_ARG     # sync chain: op family off
+        if not sender or n_samples <= 0:
+            return LedgerStatus.BAD_ARG
+        if self._epoch == self.genesis_epoch:
+            return LedgerStatus.NOT_STARTED
+        if base_epoch < 0 or base_epoch > self._epoch:
+            return LedgerStatus.BAD_ARG     # trained on the future
+        # staleness stamped at the op's chain position: deterministic
+        if self._epoch - base_epoch > self.effective_staleness:
+            return LedgerStatus.WRONG_EPOCH
+        if any(e.sender == sender for e in self._abuf):
+            return LedgerStatus.DUPLICATE   # one in-flight delta a sender
+        if len(self._abuf) >= self.async_buffer:
+            return LedgerStatus.CAP_REACHED
+        self._abuf.append(AsyncUpdateInfo(
+            aseq=self._aseq_next, sender=sender,
+            payload_hash=bytes(payload_hash), n_samples=int(n_samples),
+            avg_cost=float(np.float32(avg_cost)),
+            base_epoch=int(base_epoch),
+            staleness=int(self._epoch - base_epoch)))
+        self._aseq_next += 1
+        self._append_log(encode_aupload_op(sender, payload_hash,
+                                           n_samples, avg_cost,
+                                           base_epoch))
+        return LedgerStatus.OK
+
+    def async_scores(self, sender: str, pairs) -> LedgerStatus:
+        if not self.async_buffer:
+            return LedgerStatus.BAD_ARG
+        if not sender or not pairs:
+            return LedgerStatus.BAD_ARG
+        if self._epoch == self.genesis_epoch:
+            return LedgerStatus.NOT_STARTED
+        if self._roles.get(sender) != "comm":
+            return LedgerStatus.NOT_COMMITTEE
+        with np.errstate(over="ignore"):
+            vals = [(int(a), float(np.float32(s))) for a, s in pairs]
+        if any(not math.isfinite(v) for _, v in vals):
+            return LedgerStatus.BAD_ARG
+        live = {e.aseq for e in self._abuf}
+        if not any(a in live for a, _ in vals):
+            # every scored entry drained: nothing to bind
+            return LedgerStatus.NOT_READY
+        for a, v in vals:
+            if a in live:
+                self._ascores.setdefault(a, {})[sender] = v
+        self._append_log(encode_ascores_op(sender, pairs))
+        return LedgerStatus.OK
+
+    def _async_rank(self, k: int):
+        """(entries, medians, order) over the oldest `k` buffered
+        entries: the median committee score (0.0 unscored), ranked
+        (median desc, aseq asc).  The one ranking that async_selection
+        and derive_async_seats share."""
+        entries = list(self._abuf[:k])
+        medians = []
+        for e in entries:
+            row = sorted(np.float32(v)
+                         for v in self._ascores.get(e.aseq, {}).values())
+            if not row:
+                medians.append(0.0)
+            else:
+                n = len(row)
+                medians.append(
+                    float(np.float32(0.5 * (row[(n - 1) // 2]
+                                            + row[n // 2]))))
+        order = sorted(range(len(entries)),
+                       key=lambda i: (-medians[i], entries[i].aseq))
+        return entries, medians, order
+
+    def async_selection(self, k: int):
+        """(entries, selected indices, weights, global_loss) of a drain
+        of the oldest `k`: the top aggregate_count of the ranking, each
+        entry weighted n_samples / sqrt(1 + staleness) in f32."""
+        entries, medians, order = self._async_rank(k)
+        take = min(self.aggregate_count, len(entries))
+        selected = order[:take]
+        weights = [float(np.float32(entries[i].n_samples
+                                    * staleness_weight(
+                                        entries[i].staleness)))
+                   for i in range(len(entries))]
+        wsum = sum(weights[i] for i in selected)
+        loss = (float(np.float32(
+            sum(weights[i] * entries[i].avg_cost for i in selected)
+            / wsum)) if wsum > 0 else 0.0)
+        return entries, selected, weights, loss
+
+    def async_reseat_due(self) -> bool:
+        """Would the next successful drain reseat the committee?"""
+        return (self.async_buffer > 0 and self.async_reseat_every > 0
+                and (self._acommit_count + 1)
+                % self.async_reseat_every == 0)
+
+    def derive_async_seats(self, k: int) -> List[str]:
+        """The re-election rule: the distinct senders of the best-ranked
+        entries of the window about to drain, topped up from the
+        incumbents and then everyone, in registration order, to
+        comm_count.  Call it before async_commit changes the buffer."""
+        entries, _, order = self._async_rank(k)
+        seats: List[str] = []
+        for i in order:
+            s = entries[i].sender
+            if s in self._roles and s not in seats:
+                seats.append(s)
+            if len(seats) >= self.comm_count:
+                break
+        if len(seats) < self.comm_count:
+            for a in self._reg_order:
+                if self._roles.get(a) == "comm" and a not in seats:
+                    seats.append(a)
+                if len(seats) >= self.comm_count:
+                    break
+        if len(seats) < self.comm_count:
+            for a in self._reg_order:
+                if a not in seats:
+                    seats.append(a)
+                if len(seats) >= self.comm_count:
+                    break
+        return seats
+
+    def async_commit(self, new_model_hash: bytes, epoch: int,
+                     k: int, seats=_DERIVE_SEATS,
+                     blocks=_DERIVE_BLOCKS) -> LedgerStatus:
+        """Drain the oldest `k` buffered entries into a new model.
+        `seats` is the reseat claim (the writer leaves the default; the
+        replay passes the op's seating, None without one) and `blocks`
+        the geometry claim as in commit_model.  A claim this replica
+        does not derive is BAD_ARG before any state changes."""
+        if not self.async_buffer:
+            return LedgerStatus.BAD_ARG
+        if self._epoch == self.genesis_epoch:
+            return LedgerStatus.NOT_STARTED
+        if epoch != self._epoch:
+            return LedgerStatus.WRONG_EPOCH
+        if not 0 < k <= len(self._abuf):
+            return LedgerStatus.NOT_READY
+        derived_blocks = (self.reduce_blocks
+                          if self.reduce_blocks > 1 else None)
+        if blocks is not _DERIVE_BLOCKS and blocks != derived_blocks:
+            return LedgerStatus.BAD_ARG
+        due = self.async_reseat_due()
+        derived = self.derive_async_seats(k) if due else None
+        if seats is not _DERIVE_SEATS:
+            if due:
+                if seats is None or list(seats) != derived:
+                    return LedgerStatus.BAD_ARG
+            elif seats is not None:
+                return LedgerStatus.BAD_ARG
+        _, _, _, loss = self.async_selection(k)
+        for e in self._abuf[:k]:
+            self._ascores.pop(e.aseq, None)
+        del self._abuf[:k]
+        self._model_hash = bytes(new_model_hash)
+        self._last_loss = loss
+        self._epoch += 1
+        self._acommit_count += 1
+        if due:
+            for a in self._roles:
+                self._roles[a] = "trainer"
+            for a in derived:
+                self._roles[a] = "comm"
+        op = bytearray([OP_ACOMMIT])
+        op += bytes(new_model_hash)
+        op += struct.pack("<q", epoch)
+        op += struct.pack("<q", k)
+        if due:
+            op += struct.pack("<q", len(derived))
+            for a in derived:
+                _put_str(op, a)
+        if derived_blocks is not None:
+            # the geometry claim rides after the seats
+            op += _BLOCKS_MAGIC + struct.pack("<q", derived_blocks)
+        self._append_log(bytes(op))
+        return LedgerStatus.OK
+
+    @property
+    def effective_staleness(self) -> int:
+        """The staleness bound async_upload gates on (only the genome
+        op, not ported, moves it off max_staleness)."""
+        return self.max_staleness
+
+    def async_buffer_view(self) -> List[AsyncUpdateInfo]:
+        """The buffered entries in admission order (the committee's
+        scoring surface and the standby's blob-liveness oracle)."""
+        return list(self._abuf)
+
+    @property
+    def async_buffer_depth(self) -> int:
+        return len(self._abuf)
+
+    def async_score_rows(self, aseqs) -> List[List[float]]:
+        """Committee scores of each buffered entry by admission id, in
+        sorted scorer order (read them before the drain drops them)."""
+        return [[float(v) for _, v in
+                 sorted((self._ascores.get(int(a)) or {}).items())]
+                for a in aseqs]
+
     # --- inspection ---
     @property
     def epoch(self) -> int:
@@ -556,6 +791,18 @@ class PyLedger:
                     list(self._pending.order),
                     list(self._pending.selected),
                     self._pending.global_loss)
+        # the async tails are emitted only when their mode is armed, so
+        # a synchronous ledger keeps the legacy state bytes
+        asy = None
+        if self.async_buffer:
+            asy = (self._aseq_next,
+                   [(e.aseq, e.sender, e.payload_hash, e.n_samples,
+                     e.avg_cost, e.base_epoch, e.staleness)
+                    for e in self._abuf],
+                   {a: dict(rows) for a, rows in self._ascores.items()})
+        acommits = (self._acommit_count
+                    if self.async_buffer and self.async_reseat_every
+                    else None)
         return encode_state_dict({
             "epoch": self._epoch, "model_hash": self._model_hash,
             "last_loss": self._last_loss,
@@ -564,7 +811,8 @@ class PyLedger:
             "reg_order": self._reg_order, "roles": self._roles,
             "updates": [(u.sender, u.payload_hash, u.n_samples,
                          u.avg_cost) for u in self._updates],
-            "scores": self._scores, "pending": pend})
+            "scores": self._scores, "pending": pend, "async": asy,
+            "async_acommits": acommits})
 
     def state_digest(self) -> bytes:
         """SHA-256 of the canonical state: what a snapshot op embeds and
@@ -601,6 +849,18 @@ class PyLedger:
                 medians=np.asarray(medians, np.float32),
                 order=list(order), selected=list(selected),
                 global_loss=float(np.float32(loss)))
+        asy = d.get("async")
+        if asy is None:
+            self._abuf, self._ascores, self._aseq_next = [], {}, 0
+        else:
+            aseq_next, entries, rows = asy
+            self._aseq_next = int(aseq_next)
+            self._abuf = [AsyncUpdateInfo(int(a), s, bytes(ph), int(n),
+                                          float(c), int(be), int(st))
+                          for a, s, ph, n, c, be, st in entries]
+            self._ascores = {int(a): {k: float(v) for k, v in r.items()}
+                             for a, r in rows.items()}
+        self._acommit_count = int(d.get("async_acommits") or 0)
         self._ops = []
         self._log = []
         self._base = int(base)
@@ -643,13 +903,16 @@ class PyLedger:
                 list(self._updates), dict(self._update_slot),
                 {k: list(v) for k, v in self._scores.items()},
                 self._pending, self._closed, self._generation,
-                self._writer_index, len(self._ops))
+                self._writer_index, list(self._abuf),
+                {k: dict(v) for k, v in self._ascores.items()},
+                self._aseq_next, self._acommit_count, len(self._ops))
 
     def _restore(self, snap) -> None:
         (self._epoch, self._model_hash, self._last_loss, self._reg_order,
          self._roles, self._updates, self._update_slot, self._scores,
          self._pending, self._closed, self._generation,
-         self._writer_index, n_ops) = snap
+         self._writer_index, self._abuf, self._ascores, self._aseq_next,
+         self._acommit_count, n_ops) = snap
         del self._ops[n_ops:]
         del self._log[n_ops:]
 
@@ -667,7 +930,7 @@ class PyLedger:
 
     # --- replay (the replica path) ---
     def apply_op(self, op: bytes) -> LedgerStatus:
-        """Deterministic replay of a serialized op, opcodes 1-9; every
+        """Deterministic replay of a serialized op, opcodes 1-12; every
         other opcode (and a malformed body) is BAD_ARG."""
         if not op:
             return LedgerStatus.BAD_ARG
@@ -744,6 +1007,28 @@ class PyLedger:
                     return LedgerStatus.BAD_ARG
                 self._append_log(op)
                 return LedgerStatus.OK
+            if code == OP_AUPLOAD:
+                sender, off = _str_at(0)
+                payload = body[off:off + 32]
+                ns, = struct.unpack_from("<q", body, off + 32)
+                cost, = struct.unpack_from("<f", body, off + 40)
+                base_ep, = struct.unpack_from("<q", body, off + 44)
+                return self.async_upload(sender, payload, ns, cost,
+                                         base_ep)
+            if code == OP_ASCORES:
+                sender, off = _str_at(0)
+                cnt, = struct.unpack_from("<q", body, off)
+                if cnt <= 0 or off + 8 + 12 * cnt > len(body):
+                    return LedgerStatus.BAD_ARG
+                pairs = [struct.unpack_from("<qf", body, off + 8 + 12 * i)
+                         for i in range(cnt)]
+                return self.async_scores(sender, pairs)
+            if code == OP_ACOMMIT:
+                parsed = parse_acommit(op)
+                if parsed is None:
+                    return LedgerStatus.BAD_ARG
+                mh, ep, k, seats, claim = parsed
+                return self.async_commit(mh, ep, k, seats, blocks=claim)
         except (struct.error, UnicodeDecodeError, IndexError):
             return LedgerStatus.BAD_ARG
         return LedgerStatus.BAD_ARG

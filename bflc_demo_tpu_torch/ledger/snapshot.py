@@ -25,11 +25,16 @@ committee ledger:
 `BFLC_SNAPSHOT_LEGACY=1` (or `snapshot_interval=0`, the default) keeps
 every snapshot op off the chain.
 
-Not ported: the asynchronous buffered-aggregation tails and the
-closed-loop genome tail of the state bytes (ROADMAP A9 (async FedBuff)
-and A9 (rederive): the port's ledger runs neither mode).  `decode_state`
-reads them byte for byte; `encode_state_dict` and `restore_snapshot`
-raise naming the item for a state that carries them.
+The state bytes carry the asynchronous buffered-aggregation tails
+(reference :124-153, :296-330): `async` (the admission counter, the
+buffered entries and their committee scores), emitted only when the mode
+is armed, and `async_acommits` (the drain counter), emitted only when
+re-election is armed.  A synchronous ledger keeps the legacy bytes.
+
+Not ported: the closed-loop genome tail (ROADMAP A9 (rederive): the
+port's ledger does not run the closed loop).  `decode_state` reads it
+byte for byte; `encode_state_dict` and `restore_snapshot` raise naming
+the item for a state that carries it.
 """
 
 from __future__ import annotations
@@ -62,14 +67,12 @@ def _put_str(b: bytearray, s: str) -> None:
     b += struct.pack("<q", len(raw)) + raw
 
 
-_UNPORTED_TAILS = {"async": "A9 (async FedBuff)",
-                   "async_acommits": "A9 (async FedBuff)",
-                   "genome": "A9 (rederive)"}
+_UNPORTED_TAILS = {"genome": "A9 (rederive)"}
 
 
 def refuse_unported_tails(d: Dict) -> None:
     """Raise naming the ROADMAP item of every state tail the port's
-    ledger cannot hold (the async and genome sections)."""
+    ledger cannot hold (the genome section)."""
     asked = sorted(k for k in _UNPORTED_TAILS if d.get(k) is not None)
     if asked:
         raise NotImplementedError(
@@ -81,8 +84,9 @@ def encode_state_dict(d: Dict) -> bytes:
     """Canonical bytes of a ledger-state dict (see `decode_state` for the
     field set), the reference's layout: registration order carries the
     roles, score rows sort by sender (bytewise == sorted() for ASCII
-    addresses), floats are f32, counts are <q>, slots are <i>.  A dict
-    carrying an async or genome tail raises (not ported)."""
+    addresses), floats are f32, counts are <q>, slots are <i>; the async
+    tails follow when present.  A dict carrying a genome tail raises
+    (not ported)."""
     refuse_unported_tails(d)
     b = bytearray(STATE_MAGIC)
     b += struct.pack("<q", int(d["epoch"]))
@@ -134,6 +138,36 @@ def encode_state_dict(d: Dict) -> bytes:
         for s in selected:
             b += struct.pack("<i", int(s))
         b += struct.pack("<f", _np.float32(loss))
+    asy = d.get("async")
+    if asy is not None:
+        aseq_next, entries, rows = asy
+        b += struct.pack("<q", int(aseq_next))
+        b += struct.pack("<q", len(entries))
+        for aseq, sender, ph, n, cost, base_ep, stale in entries:
+            b += struct.pack("<q", int(aseq))
+            _put_str(b, sender)
+            ph = bytes(ph)
+            if len(ph) != 32:
+                raise ValueError("async payload_hash must be 32 bytes")
+            b += ph
+            b += struct.pack("<q", int(n))
+            b += struct.pack("<f", _np.float32(cost))
+            b += struct.pack("<q", int(base_ep))
+            b += struct.pack("<q", int(stale))
+        b += struct.pack("<q", len(rows))
+        for aseq in sorted(rows):
+            b += struct.pack("<q", int(aseq))
+            row = rows[aseq]
+            b += struct.pack("<q", len(row))
+            for scorer in sorted(row):
+                _put_str(b, scorer)
+                b += struct.pack("<f", _np.float32(row[scorer]))
+    acommits = d.get("async_acommits")
+    if acommits is not None:
+        if asy is None:
+            raise ValueError(
+                "async_acommits tail requires the async tail")
+        b += struct.pack("<q", int(acommits))
     return bytes(b)
 
 

@@ -2,15 +2,15 @@
 
 Copy of `bflc_demo_tpu/protocol/constants.py` (`ProtocolConfig` and its
 `validate()`), cut to the fields the synchronous rounds read, with
-REDUCTION SPEC v2's `reduce_blocks` (:128-140, checked at :210-216) and
-the BFT quorum algebra (`BFT_REFERENCE_VALIDATORS`,
-`bft_fault_tolerance`, `bft_quorum`, :236-261).  Dropped, with their
-checks: the data-plane encodings (`delta_dtype`, `delta_density`,
-`delta_codec`), asynchronous aggregation (`async_buffer`,
-`max_staleness`, `async_reseat_every`) and the closed compression loop
-(`adapt_every`, `density_floor`).  Each belongs to a runtime this port
-has not reached yet (ROADMAP queue A).  The values and the checks kept
-are the reference's, unchanged.
+asynchronous buffered aggregation (`async_buffer`, `max_staleness`,
+`async_reseat_every`, :74-96, checked at :166-187), REDUCTION SPEC v2's
+`reduce_blocks` (:128-140, checked at :210-216) and the BFT quorum
+algebra (`BFT_REFERENCE_VALIDATORS`, `bft_fault_tolerance`,
+`bft_quorum`, :236-261).  Dropped, with their checks: the data-plane
+encodings (`delta_dtype`, `delta_density`, `delta_codec`) and the
+closed compression loop (`adapt_every`, `density_floor`).  Each belongs
+to a runtime this port has not reached yet (ROADMAP queue A).  The
+values and the checks kept are the reference's, unchanged.
 """
 
 from __future__ import annotations
@@ -38,6 +38,18 @@ class ProtocolConfig:
     genesis_epoch: int = -999     # epoch value before CLIENT_NUM registrations
     initial_trained_epoch: int = -1
 
+    # asynchronous buffered aggregation (FedBuff): with async_buffer =
+    # K > 0 the round barrier falls.  Each async upload op carries the
+    # BASE epoch its client trained from, admission stamps staleness
+    # s = epoch_now - base_epoch (refused past max_staleness), and the
+    # writer drains every K admissions with weights n / sqrt(1 + s).
+    # Every async_reseat_every-th drain reseats the committee from the
+    # drained window's ranking.  0 (the default) or BFLC_ASYNC_LEGACY=1
+    # keeps the synchronous chain byte for byte.
+    async_buffer: int = 0
+    max_staleness: int = 20
+    async_reseat_every: int = 0
+
     # REDUCTION SPEC v2: the flattened (P,) param axis is cut into
     # reduce_blocks fixed contiguous blocks (meshagg.spec.block_bounds);
     # the committed bytes are v1's for every value.  Blocked commit ops
@@ -62,6 +74,28 @@ class ProtocolConfig:
                 f"{self.client_num - self.comm_count})")
         if self.learning_rate <= 0 or self.batch_size <= 0:
             raise ValueError("learning_rate and batch_size must be positive")
+        if self.async_buffer < 0 or self.max_staleness < 0:
+            raise ValueError(
+                f"async_buffer and max_staleness must be >= 0, got "
+                f"{self.async_buffer}/{self.max_staleness}")
+        if self.async_buffer > self.client_num - self.comm_count:
+            raise ValueError(
+                f"async_buffer ({self.async_buffer}) exceeds the "
+                f"trainer population "
+                f"({self.client_num - self.comm_count}): with one "
+                f"in-flight delta per sender the buffer could never "
+                f"fill and every aggregation would wait on stall "
+                f"recovery")
+        if self.async_reseat_every < 0:
+            raise ValueError(
+                f"async_reseat_every must be >= 0, got "
+                f"{self.async_reseat_every}")
+        if self.async_reseat_every > 0 and self.async_buffer <= 0:
+            raise ValueError(
+                "async_reseat_every requires async mode "
+                f"(async_buffer > 0), got reseat_every="
+                f"{self.async_reseat_every} with async_buffer="
+                f"{self.async_buffer}")
         if self.reduce_blocks < 1:
             raise ValueError(
                 f"reduce_blocks must be >= 1 (1 = REDUCTION SPEC v1 "

@@ -11,10 +11,14 @@ from the preset's.
 The process fleet's `--standbys N`, `--quorum Q`, `--bft-validators N`,
 `--tls-dir D`, `--snapshot-interval K` and `--snapshot-dir S` are ported
 (the processes runtime's hot standbys, quorum-ack, BFT commit quorum,
-TLS and certified snapshots), and so is the genome's
-`--reduce-blocks B` (`BFLC_REDUCE_BLOCKS`, REDUCTION SPEC v2; the
-flag's help is the reference's, :174-181, and `BFLC_BLOCKED_LEGACY=1`
-pins one block, `ledger/base.reduce_blocks`).  The reference's other
+TLS and certified snapshots), and so are the genome's asynchronous
+buffered aggregation (`--async-buffer K`, `--max-staleness S`,
+`--async-reseat-every R` and their `BFLC_*` variables, plain int flags
+as in the reference; `BFLC_ASYNC_LEGACY=1` pins the synchronous chain,
+`ledger/base.async_enabled`) and `--reduce-blocks B`
+(`BFLC_REDUCE_BLOCKS`, REDUCTION SPEC v2; the flag's help is the
+reference's, :174-181, and `BFLC_BLOCKED_LEGACY=1` pins one block,
+`ledger/base.reduce_blocks`).  The reference's other
 run options belong to parts not ported yet.  Each such flag is
 accepted by the parser so that the CLI can refuse it by name (exit 2
 with the ROADMAP item) rather than fail on an unknown argument or drop
@@ -23,8 +27,8 @@ it: the process fleet's other flags and the codecs' (A9;
 checkpoints and the device profiler (A11), secure aggregation (A12),
 and traces, plots and telemetry (A14).  So are the
 reference's protocol fields that the port's `ProtocolConfig` does not
-have yet (its data-plane encodings and asynchronous aggregation, A9), as
-flags and as `BFLC_*` variables.
+have yet (its data-plane encodings and the closed compression loop,
+A9), as flags and as `BFLC_*` variables.
 """
 
 from __future__ import annotations
@@ -40,7 +44,6 @@ _ENV_PREFIX = "BFLC_"
 
 # the reference's ProtocolConfig fields the port's does not carry yet
 UNPORTED_FIELDS = ("delta_dtype", "delta_density", "delta_codec",
-                   "async_buffer", "max_staleness", "async_reseat_every",
                    "adapt_every", "density_floor")
 
 # reference run options -> the ROADMAP item that ports them

@@ -183,6 +183,16 @@ each; any failure raises and exits non-zero:
              GC base by state-sync, the standby promotes and merges the
              next round on B5 with the CPU leg's bytes, the validators
              at its head, a forged offer refused.
+             Then async FedBuff: (h) `async_config5`, config 5 at full
+             width with `async_buffer` 10, `max_staleness` 20, a
+             committee reseat every 2nd drain, 4 validators at 8 blocks,
+             a standby, a replica, a snapshot every 2 epochs and the
+             primary SIGKILLed after epoch 3 of 7 (`async_phase`: its
+             gates, and an `async` line with the drains' depths and
+             staleness, the aupload replies by status, the certify
+             seconds an epoch, the warm drain's milliseconds beside B5's
+             own at that geometry, the failover gap and the leg's
+             seconds).
 
 Then the `kernels` line and, last, {"ok": true, "device": {...}}.
 Without a card, or without the package beside it, it exits non-zero and
@@ -210,6 +220,10 @@ runs.
 
 runs only the build, the BFT legs (d, e) and the TLS and snapshot legs
 (f, g).
+
+    python3 chip_smoke.py --async
+
+runs only the build and the async FedBuff leg (h).
 """
 
 from __future__ import annotations
@@ -375,6 +389,22 @@ TLS_SNAPSHOT = dict(bft_validators=BFT_VALIDATORS, standbys=1,
                     kill_writer_at_epoch=4, snapshot_interval=2,
                     replicas=1)
 TLS_SNAPSHOT_EPOCHS = [2, 4, 6]      # the snapshot ops' epochs in 7 rounds
+# async FedBuff (`async_config5`): config 5 at full width with the
+# reference's async headline buffer (K = 10, max staleness 20), a
+# committee reseat every 2nd drain, the BFT run's 4 validators at 8
+# blocks, a standby, a replica, a snapshot every 2 epochs and the primary
+# SIGKILLed after epoch 3 of 7, plaintext.  The stall timeout outlasts
+# every gap of the run, so no recovery drain of k < K enters the chain.
+ASYNC_PROTO = dict(async_buffer=10, max_staleness=20, async_reseat_every=2,
+                   reduce_blocks=BFT_CONFIG5_BLOCKS)
+ASYNC_FLEET = dict(bft_validators=BFT_VALIDATORS, standbys=1, replicas=1,
+                   snapshot_interval=2, kill_writer_at_epoch=3,
+                   stall_timeout_s=30.0)
+# config 5's launches a training (10 minibatches of 16 of a 160-row
+# shard, a forward and a backward per layer, depth 2) and a forward's
+# (a scored entry, a sponsor evaluation)
+ASYNC_K_TRAIN, ASYNC_K1_FORWARD = 20, 2
+B5_SELFCHECK_LAUNCHES = 6            # the engine's self-check: 1 + 5 blocks
 WORK_DIR = os.path.join("build", "chip_smoke")
 FLEET_MASTER_SEED = b"process-federation-master-0001"   # the fleet's default
 
@@ -1898,7 +1928,209 @@ def processes_phase(torch, card: str) -> tuple:
     bft5 = bft_phase(torch, card, note, drill_shards, (xte[:500], yte[:500]),
                      c5_shards, c5_test)
     snapshot_phase(torch, card, note, c5_shards, c5_test, bft5)
+    async_phase(torch, card, note, c5_shards, c5_test)
     return paths, roles
+
+
+def _spliced(primary: list, final: list, start: int) -> list:
+    """Records of one chain keyed by position `i`: the primary writer's
+    below `start` (where the promoted writer's chain record begins), the
+    promoted writer's from there (the primary may hold an uncertified
+    tail the promoted chain replaced)."""
+    return sorted([r for r in primary or [] if r["i"] < start]
+                  + list(final or []), key=lambda r: r["i"])
+
+
+def async_phase(torch, card: str, note, c5_shards, c5_test) -> None:
+    """(h) `async_config5`: config 5's async FedBuff fleet (`ASYNC_PROTO`,
+    `ASYNC_FLEET`) between a reset and a read of the launch counts.
+    Holds: every op certified and the replica at the final head; no
+    opcode 2/3/4 on the chain; every opcode-12 op drains k = 10 with the
+    BLK1 claim B = 8, the even drains (2, 4, 6, ...) seated and the odd
+    ones not; B5 8 a drain on both writers past 6 at each self-check, the
+    promoted writer's first drain on B5; K2 == K3 == 20 a training, K1
+    20 a training + 2 a scored entry in the clients and 2 an evaluation
+    in the sponsor; snapshot ops at every even epoch (2, 4, 6); the
+    promoted standby GC'd behind a snapshot whose state carries the async
+    and acommit tails before it promoted; best >= 0.9 over 7 epochs.
+    Prints one `async` line."""
+    import shutil
+
+    from bflc_demo_tpu_torch.client.process_runtime import \
+        run_federated_processes
+    from bflc_demo_tpu_torch.ledger.snapshot import (decode_state,
+                                                     list_snapshot_files,
+                                                     read_snapshot_file)
+    from bflc_demo_tpu_torch.meshagg import spec
+    from bflc_demo_tpu_torch.ops import certified_reduce as cr
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig
+    work = os.path.join(WORK_DIR, "async")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = ProtocolConfig(**CONFIG5_PROTO, **ASYNC_PROTO)
+    t0 = time.perf_counter()
+    res, total, by_role = fleet_run(
+        torch, "async_config5", card,
+        lambda: run_federated_processes(
+            "make_transformer_classifier", c5_shards, c5_test, cfg,
+            rounds=FLEET_C5_ROUNDS, factory_kw=CONFIG5_ARCH, device="cuda",
+            timeout_s=FLEET_TIMEOUT_S,
+            snapshot_dir=os.path.join(work, "snaps"), **ASYNC_FLEET))
+    leg_s = time.perf_counter() - t0
+    bft_account("async_config5", card, res, BFT_CONFIG5_BLOCKS)
+    note("async_config5", (total, by_role))
+
+    fo = res.failover or {}
+    primary_k = fo.get("primary_kernels") or {}
+    primary_chain = primary_k.get("chain") or {"from": 0, "opcodes": []}
+    chain = res.writer_chain or {"from": 0, "opcodes": []}
+    start = chain["from"]
+    codes = primary_chain["opcodes"][:start - primary_chain["from"]] + \
+        chain["opcodes"]
+    opcodes = {c: codes.count(c) for c in sorted(set(codes) - {None})}
+    drains = _spliced(primary_chain.get("acommits"), chain.get("acommits"),
+                      start)
+    seated = [d for d, r in enumerate(drains, 1) if r["seats"] is not None]
+    merges = {m["epoch"]: m for m in (primary_k.get("merges") or [])}
+    merges.update({m["epoch"]: m for m in res.writer_merges})
+    merges = [merges[e] for e in sorted(merges)]
+    snaps = _spliced(primary_k.get("snapshots"), res.writer_snapshots, start)
+    after = [m for m in res.writer_merges
+             if m.get("mono", 0) > fo.get("kill_mono", float("inf"))]
+    engines = {"writer": primary_k.get("engine") or {},
+               "promoted_writer": res.writer_engine or {}}
+
+    clients = {k: 0 for k in DENSE_KERNELS}
+    for role, counts in res.kernel_launches.items():
+        if role.startswith("client-"):
+            for k in DENSE_KERNELS:
+                clients[k] += counts.get(k, 0)
+    trainings = sum(c["trainings"] for c in res.client_counts.values())
+    scored = sum(c["scored"] for c in res.client_counts.values())
+    replies = {"aupload": {}, "ascores": {}}
+    for c in res.client_counts.values():
+        for kind, by_status in replies.items():
+            for status, n in c[kind].items():
+                by_status[status] = by_status.get(status, 0) + n
+    evaluations = len(res.accuracy_history)
+    sponsor_k1 = res.kernel_launches.get("sponsor", {}).get("flash_fwd", 0)
+    want = {"flash_dkdv": ASYNC_K_TRAIN * trainings,
+            "flash_dq": ASYNC_K_TRAIN * trainings,
+            "flash_fwd": ASYNC_K_TRAIN * trainings
+            + ASYNC_K1_FORWARD * scored}
+
+    artifacts = list_snapshot_files(os.path.join(work, "snaps",
+                                                 "standby-1"))
+    tails = None
+    if artifacts:
+        st = decode_state(read_snapshot_file(artifacts[-1])["state"])
+        tails = {"async_buffer": len(st["async"][1]) if st["async"]
+                 else None, "async_acommits": st["async_acommits"]}
+    events = res.standby_events.get("standby-1", [])
+    kinds = [next(iter(e)) for e in events]
+
+    # warm drains (each writer's first is its cold one) beside B5's own
+    # time at the drain's geometry (N = 10, P = 535,298, 8 blocks), timed
+    # here after the launch counts were read
+    warm = [m for m in merges
+            if m is not merges[0] and (not after or m is not after[0])]
+    rng = np.random.default_rng(13)
+    rows = rng.standard_normal((10, CONFIG5_PARAMS)).astype(np.float32)
+    w = spec.merge_weight_vector([1.0] * 10, list(range(6)), 10)
+    m_, c_, g_ = _b5_card(torch, spec, rows, w, float(w.sum()), "cuda")
+    bounds = spec.block_bounds(CONFIG5_PARAMS, BFT_CONFIG5_BLOCKS)
+    b5_ms = device_ms(torch, lambda: [cr.certified_reduce(
+        m_[:, lo:hi], c_, g_) for lo, hi in bounds],
+        calls=20, replays=3, repeats=5)
+    del m_, c_, g_
+    warm_ms = [m["merge_s"] * 1e3 for m in warm]
+    t_first = merges[0]["mono"] if merges else 0.0
+    costs = {}
+    for info in (fo.get("primary_info"), res.final_info):
+        for k, v in _costs(info).items():
+            costs[k] = costs.get(k, 0) + v
+    emit("async", path="async_config5", nvidia_smi=card,
+         spawn_s=res.spawn_s, validator_spawn_s=res.validator_spawn_s,
+         leg_s=leg_s, wall_s=res.wall_time_s,
+         epoch_times_writer=[[m["epoch"], m["mono"] - t_first]
+                             for m in merges],
+         epoch_times_sponsor=res.epoch_times,
+         drains=[{"epoch": m["epoch"], "depth": m.get("drained"),
+                  "staleness": {str(s): m.get("staleness", []).count(s)
+                                for s in sorted(set(m.get("staleness",
+                                                          [])))}}
+                 for m in merges],
+         chain_drains=drains, seated_drains=seated, opcodes=opcodes,
+         chain_ops=len(codes),
+         chain_from=[primary_chain["from"], start],
+         replies=replies, trainings=trainings,
+         scored_entries=scored, sponsor_evaluations=evaluations,
+         client_launches=clients, sponsor_k1=sponsor_k1,
+         expected_client_launches=want,
+         certify_s_per_epoch=costs.get("bft.certify_s", 0.0)
+         / max(len(drains), 1),
+         warm_drain_ms=warm_ms,
+         warm_drain_engine_ms=[m.get("engine_s", 0) * 1e3 for m in warm],
+         b5_ms_per_drain=b5_ms,
+         b5_share_of_warm_drain=(b5_ms / statistics.median(warm_ms)
+                                 if warm_ms else None),
+         failover_gap_s=fo.get("gap_s"), promote_s=fo.get("promote_s"),
+         killed_at_epoch=fo.get("killed_at_epoch"),
+         first_drain_after_kill=after[:1],
+         promoted_start=res.writer_start, standby_events=events,
+         standby_snapshot_tails=tails,
+         snapshot_epochs=[r["epoch"] for r in snaps],
+         b5_selfcheck={k: e.get("selfcheck_launches")
+                       for k, e in engines.items()},
+         certified_size=res.certified_size, log_size=res.ledger_log_size,
+         accuracy=[a for _, a in res.accuracy_history],
+         best=res.best_accuracy())
+
+    bad = []
+    if res.rounds_completed < FLEET_C5_ROUNDS or \
+            not res.best_accuracy() >= MIN_BEST_ACC:
+        bad.append(f"{res.rounds_completed} epochs, best "
+                   f"{res.best_accuracy()}")
+    # the chain may grow past the final `info` by a late client op
+    if primary_chain["from"] != 0 or len(codes) < res.ledger_log_size or \
+            start > len(primary_chain["opcodes"]) or None in codes:
+        bad.append(f"the writers' chain records miss ops: primary from "
+                   f"{primary_chain['from']} ({len(primary_chain['opcodes'])}"
+                   f" ops), final from {start}, {len(codes)} of "
+                   f"{res.ledger_log_size}")
+    if {2, 3, 4} & set(opcodes) or not {10, 12} <= set(opcodes):
+        bad.append(f"opcodes on the chain {opcodes}")
+    if len(drains) < FLEET_C5_ROUNDS or any(
+            r["k"] != cfg.async_buffer or r["blocks"] != BFT_CONFIG5_BLOCKS
+            or (r["seats"] is not None
+                and len(r["seats"]) != cfg.comm_count) for r in drains) or \
+            seated != [d for d in range(1, len(drains) + 1) if d % 2 == 0]:
+        bad.append(f"drains {drains}")
+    if any(e.get("selfcheck_launches") != B5_SELFCHECK_LAUNCHES
+           for e in engines.values()):
+        bad.append(f"B5 self-checks {engines}")
+    if fo.get("gen") != 1 or not after or after[0]["leg"] not in B5_LEGS:
+        bad.append(f"failover {fo.get('gen')}, first drain after the kill "
+                   f"{after[:1]}")
+    if {k: clients[k] for k in want} != want or \
+            sponsor_k1 != ASYNC_K1_FORWARD * evaluations:
+        bad.append(f"launches: clients {clients}, expected {want}; "
+                   f"sponsor K1 {sponsor_k1} for {evaluations} "
+                   f"evaluations")
+    even = list(range(2, res.rounds_completed + 1, 2))
+    epochs = [r["epoch"] for r in snaps]
+    if not set(TLS_SNAPSHOT_EPOCHS) <= set(epochs) or \
+            not set(epochs) <= set(even):
+        bad.append(f"snapshot ops at epochs {epochs}")
+    if "gc" not in kinds or "promoted" not in kinds or \
+            kinds.index("gc") > kinds.index("promoted") or \
+            not (res.writer_start or {}).get("log_base", 0) > 0 or \
+            not tails or tails["async_buffer"] is None or \
+            tails["async_acommits"] is None:
+        bad.append(f"the promoted standby's start {res.writer_start}, "
+                   f"events {events}, snapshot tails {tails}")
+    if bad:
+        raise RuntimeError("async_config5: " + "; ".join(bad))
 
 
 def bft_phase(torch, card: str, note, drill_shards, drill_test, c5_shards,
@@ -2278,6 +2510,33 @@ def snapshots_main() -> int:
     return 0
 
 
+def async_main() -> int:
+    """Only the build and the async FedBuff leg (h)."""
+    port = load_port()
+    if port is None:
+        return 1
+    torch, _, build, _ = port
+    from bflc_demo_tpu_torch.eval.configs import config5_data
+    t0 = time.perf_counter()
+    build.build_all()
+    emit("build", seconds=time.perf_counter() - t0)
+    card = card_line()
+    print(card, flush=True)
+    emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
+    paths, roles = {}, {}
+
+    def note(path, launches_roles):
+        paths[path], by_role = launches_roles
+        for role, v in by_role.items():
+            roles[role] = roles.get(role, 0) + v
+
+    c5_shards, c5_test = config5_data(0, 4000, CONFIG5_PROTO["client_num"])
+    async_phase(torch, card, note, c5_shards, c5_test)
+    emit("fleet", paths=paths, b5_by_role=roles,
+         seconds=time.perf_counter() - t0)
+    return 0
+
+
 def processes_main() -> int:
     """Only the build and the processes phase."""
     port = load_port()
@@ -2381,9 +2640,11 @@ if __name__ == "__main__":
         sys.exit(processes_main())
     if sys.argv[1:] == ["--snapshots"]:
         sys.exit(snapshots_main())
+    if sys.argv[1:] == ["--async"]:
+        sys.exit(async_main())
     if len(sys.argv) > 1:
         print("usage: chip_smoke.py [--backward-timing DIR | "
-              "--merge-timing DIR | --processes | --snapshots]",
+              "--merge-timing DIR | --processes | --snapshots | --async]",
               file=sys.stderr)
         sys.exit(2)
     sys.exit(main())

@@ -1412,8 +1412,16 @@ def test_unported_legs_raise_naming_their_items(monkeypatch):
     for kw in (dict(tls=object()),):
         assert ValidatorClient(("127.0.0.1", 1), **kw)._tls is kw["tls"]
         CertificateAssembler([], {}, 1, **kw).close()
-    with pytest.raises(NotImplementedError, match=r"A9 \(async FedBuff\)"):
-        expected_op_hash("aupload", {})
+    # the async ops' binding is ported (A9.6): the reference's hashes,
+    # None for malformed fields
+    assert expected_op_hash("aupload", {}) is None
+    for method, fields in (
+            ("aupload", dict(addr=w.address, hash="ab" * 32, n=12,
+                             cost=0.1, base_epoch=3)),
+            ("ascores", dict(addr=w.address, pairs=[[4, 0.3], [7, -1.5]]))):
+        got = expected_op_hash(method, fields)
+        assert got is not None
+        assert got == ref_bft.expected_op_hash(method, fields)
     # on the wire: a malformed snapshot install (the path is ported,
     # A9.5: the offer is checked and refused), a sparse upload's blob
     # evidence

@@ -233,8 +233,15 @@ def test_wrong_hash_and_bad_deltas_rejected(server):
         assert not r["ok"] and r["status"] == "BAD_ARG", r
     assert c.request("info")["update_count"] == 0
     assert not c.request("frobnicate")["ok"]
-    r = c.request("aupload")
-    assert not r["ok"] and "A9" in r["error"]
+    # async FedBuff is ported (A9.6): a sync writer refuses its methods
+    # by mode, as the reference's does, and telemetry stays refused
+    for method in ("aupload", "aupdates", "ascores"):
+        r = c.request(method, addr="0x" + "0" * 40, pairs=[[0, 0.5]],
+                      base_epoch=0, blob=blob, hash=digest.hex(), n=1,
+                      cost=0.0)
+        assert not r["ok"] and "async mode is off" in r["error"], r
+    r = c.request("telemetry")
+    assert not r["ok"] and "A14" in r["error"]
     c.close()
 
 

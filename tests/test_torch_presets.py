@@ -186,11 +186,11 @@ def test_protocol_overrides_match_the_reference(monkeypatch):
     assert cfg.client_num == ref_cfg.client_num == 40
     for name, value in vars(cfg).items():
         assert getattr(ref_cfg, name) == value, name
-    # the blocked geometry is ported; asynchronous aggregation is not
+    # the blocked geometry is ported; the sparse codecs are not
     monkeypatch.setenv("BFLC_REDUCE_BLOCKS", "4")
     assert flags.protocol_from_env().reduce_blocks == \
         ref_flags.protocol_from_env().reduce_blocks == 4
-    monkeypatch.setenv("BFLC_ASYNC_BUFFER", "4")
+    monkeypatch.setenv("BFLC_DELTA_DENSITY", "0.5")
     with pytest.raises(ValueError, match="ROADMAP A9"):
         flags.protocol_from_env()
 
