@@ -10,8 +10,13 @@ validator processes that co-sign every op, `--tls-dir D` TLS between
 the roles, `--snapshot-interval K [--snapshot-dir S]` certified
 snapshots and the genome's `--async-buffer K [--max-staleness S]
 [--async-reseat-every R]`, asynchronous buffered aggregation, which
-another runtime refuses with exit 2; run it from the shell or a real
-file, as spawned children re-import `__main__`), on `cuda`
+another runtime refuses with exit 2, and the upload codecs
+`--delta-dtype f16|i8`, `--delta-density D`, `--delta-codec
+topk|sketch` and `--error-feedback`: a density below 1 on another
+runtime exits 2, as `--error-feedback` does there or without a lossy
+encode (the reference's :141-157, :195-207), and `--error-feedback`
+exports `BFLC_ERROR_FEEDBACK=1` to the children; run it from the shell
+or a real file, as spawned children re-import `__main__`), on `cuda`
 unless `--device cpu` (the counterpart of `JAX_PLATFORMS=cpu`), with
 the protocol overridable by `--field-name` flags and `BFLC_*` variables
 (`utils/flags.py`) and the ledger by `--ledger-backend auto|python`.  An
@@ -19,8 +24,9 @@ unknown config, an unported runtime (the executor), the native ledger,
 the fleet's flags on another runtime than `processes`, a negative
 `--bft-validators` or `--snapshot-interval`, `--snapshot-dir` without
 an interval, or a flag of a part not ported yet (the fleet's chaos,
-cells, rederive and the codecs A9, checkpoints A11, secure aggregation
-A12, traces and telemetry A14) exits 2 naming the ROADMAP item.
+cells, rederive and the genome's `--adapt-every`/`--density-floor` A9,
+checkpoints A11, secure aggregation A12, traces and telemetry A14)
+exits 2 naming the ROADMAP item.
 Prints the reference CLI's final JSON keys, and on `processes` a
 `fleet` key besides: the round times, the spawn time, the
 writer's phase split, every role's kernel launches and the writer's
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -43,11 +50,11 @@ def _parser() -> argparse.ArgumentParser:
         epilog="Ported: --config config0..config5 on --runtime mesh (the "
                "default), host, threaded and processes (with --standbys, "
                "--quorum, --bft-validators, --tls-dir, --snapshot-interval "
-               "and --snapshot-dir; --async-buffer runs FedBuff there), "
-               "--reduce-blocks.  The "
-               "executor runtime, the native ledger, the fleet's other "
-               "flags and the codecs are ROADMAP A9; they exit 2 until "
-               "ported.")
+               "and --snapshot-dir; --async-buffer runs FedBuff there, and "
+               "--delta-density/--error-feedback the upload codecs), "
+               "--reduce-blocks, --delta-dtype, --delta-codec.  The "
+               "executor runtime, the native ledger and the fleet's "
+               "other flags are ROADMAP A9; they exit 2 until ported.")
     p.add_argument("--config", default="config1",
                    help="benchmark preset, config0 ... config5")
     p.add_argument("--runtime", default="mesh",
@@ -93,6 +100,26 @@ def main(argv=None) -> int:
         print("--async-buffer (async FedBuff) applies only to --runtime "
               "processes", file=sys.stderr)
         return 2
+    from bflc_demo_tpu_torch.utils.codecs import sparse_enabled
+    if cfg is not None and sparse_enabled(cfg) and \
+            opts.runtime != "processes":
+        # a wire-protocol mode: only the fleet packs and decodes blobs
+        print("--delta-density < 1 applies to --runtime processes "
+              "(in-memory runtimes move no upload blobs)", file=sys.stderr)
+        return 2
+    if opts.error_feedback:
+        if opts.runtime != "processes":
+            print("--error-feedback applies to the processes runtime",
+                  file=sys.stderr)
+            return 2
+        if cfg is None or not (sparse_enabled(cfg)
+                               or cfg.delta_dtype != "f32"):
+            print("--error-feedback needs a lossy encode to compensate: "
+                  "arm --delta-density < 1 and/or --delta-dtype f16|i8",
+                  file=sys.stderr)
+            return 2
+        # client-local: the spawned clients inherit the decision
+        os.environ["BFLC_ERROR_FEEDBACK"] = "1"
     if (opts.standbys or opts.quorum or opts.bft_validators
             or opts.tls_dir or opts.snapshot_interval
             or opts.snapshot_dir) and opts.runtime != "processes":

@@ -18,6 +18,11 @@ certified snapshots (per-role snapshot directories, :1045-1072).
   carries the round (close_round / reseat_committee / force_aggregate);
 - the parent is the **sponsor**: it polls the published model and
   records held-out accuracy after every commit;
+- a committee member counts a WRONG_EPOCH reply to its scores as its
+  round settled only when the writer has moved past that round
+  (`_round_passed`, C13): after a failover that lost the commit opening
+  the round, the reference's client marks it scored and the round, with
+  its committee live, never closes;
 - **replica processes** replay the writer's op stream after the run and
   must reproduce its chained head;
 - with `bft_validators` N, N **validator processes** (`comm/bft.py`),
@@ -34,9 +39,11 @@ transformer) and scoring (K1), the writer's merge (B5 on the engine's
 mesh leg; after a failover, the promoted standby's) and the sponsor's
 evaluation (K1).  The reference pins its
 children to the CPU because one process owns a TPU; one H100 takes many
-processes.  Children are spawned, never forked; each resolves its own
-device, only numpy arrays, bytes and plain dicts cross the spawn
-boundary, and on the CPU each child runs one torch thread.  On `cuda`
+processes.  Validators are spawned; every other child forks from a
+forkserver that imported torch once and never touched CUDA, under the
+parent's environment of the moment (`client/children.py`); each
+resolves its own device, only numpy arrays, bytes and plain dicts cross
+the boundary, and on the CPU each child runs one torch thread.  On `cuda`
 the parent builds every kernel library before it spawns, so the
 children only load them.  Before the parent stops its children it
 collects every role's kernel launch counts (and the final writer's
@@ -68,22 +75,35 @@ fetches, trains and `aupload`s against the base epoch it fetched, a
 committee member scores the buffered entries it has not scored in one
 `score_candidates_batched` call and sends `ascores`.  The sponsor
 evaluates each committed epoch as in sync mode.  Each client reports
-its trainings, its scored entries and its aupload and ascores replies
-by status.
+its trainings, its scored entries, the bytes of the blobs it encoded
+and its aupload and ascores replies by status.
+
+The upload codecs (reference :55-150): every upload, sync or async, is
+encoded by `_DeltaEncoder` through `_encode_delta` — the genome's sparse
+codec (`delta_density` < 1: top-k or count-sketch, then the
+`delta_dtype` quantizer) or the quantized/dense pipeline — on a float32
+host copy of the delta made once per upload (`_host_delta`).  With
+`BFLC_ERROR_FEEDBACK=1` and a lossy encode the encoder keeps, as float32
+numpy on the host, what the encode dropped (the delta minus its
+`densify_entries(dequantize_entries(...))` decode) and adds it into the
+next delta; a jump in base epoch resets it.  Every blob a client
+decodes goes through that one decode chain.  With `BFLC_PROC_TRACE=1`
+a client charges `client.encode_s` per upload beside `client.train_s`.
 
 Not ported, raising with their ROADMAP item when asked for: the chaos
-campaign, telemetry and traces, rederive (A9, A14); the delta codecs
-(A9: a `state` reply carries no effective density here); the
-mesh-executor deployment (A9).
+campaign, telemetry and traces, rederive (A9, A14); the genome's
+effective density (A9 item 9: a `state` reply carries none here, so the
+encode uses `cfg.delta_density`); the mesh-executor deployment (A9).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
-import multiprocessing as mp
 import os
 import queue
+import signal
 import struct
 import sys
 import threading
@@ -92,6 +112,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from bflc_demo_tpu_torch.client import children
 from bflc_demo_tpu_torch.ledger.base import async_enabled
 from bflc_demo_tpu_torch.ops import launch_counts
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
@@ -114,6 +135,31 @@ FOREIGN = ("jax", "jaxlib", "flax", "bflc_demo_tpu")
 def foreign_modules() -> List[str]:
     """Modules of JAX or the reference package this process imported."""
     return sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
+
+
+def process_age_s() -> float:
+    """Seconds since this process started (Linux `/proc`; 0.0 where
+    there is none): a child's boot time from its spawn on, which no
+    timestamp passed from the parent could give across hosts' clocks."""
+    try:
+        with open("/proc/self/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            uptime = float(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 0.0
+    return uptime - ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _charge_boot(tr, marks: Dict[str, float]) -> None:
+    """Charge a child's boot steps (`boot.<step>_s`, seconds between
+    successive marks of `process_age_s`) under BFLC_PROC_TRACE=1."""
+    if not tr.enabled:
+        return
+    last = 0.0
+    for step, age in marks.items():
+        tr.charge(f"boot.{step}_s", age - last)
+        last = age
 
 
 def _child_device(device: str):
@@ -152,8 +198,11 @@ def _server_proc(cfg_kw: dict, initial_blob: bytes, port_q,
                  bft_keys: Optional[dict] = None, tls_dir: str = "",
                  snapshot_interval: int = 0,
                  snapshot_dir: str = "") -> None:
+    boot = {"entry": process_age_s()}
     _child_device(device)
+    boot["device"] = process_age_s()
     from bflc_demo_tpu_torch.comm.ledger_service import LedgerServer
+    from bflc_demo_tpu_torch.utils import tracing
     server = LedgerServer(ProtocolConfig(**cfg_kw), initial_blob,
                           stall_timeout_s=stall_timeout_s, device=device,
                           wal_path=wal_path, standby_keys=standby_keys,
@@ -164,6 +213,8 @@ def _server_proc(cfg_kw: dict, initial_blob: bytes, port_q,
                           tls=_server_tls(tls_dir),
                           snapshot_interval=snapshot_interval,
                           snapshot_dir=snapshot_dir, verbose=verbose)
+    boot["server"] = process_age_s()
+    _charge_boot(tracing.PROC, boot)
     port_q.put(server.port)
     server.serve_forever()
 
@@ -242,6 +293,106 @@ def _report_follow(standby, q) -> None:
         time.sleep(0.05)
 
 
+def _host_delta(delta) -> Dict[str, np.ndarray]:
+    """The one copy of a trained delta to the host: float32 numpy, no
+    cast (what every encode reads)."""
+    return {k: v.detach().cpu().numpy() for k, v in delta.items()}
+
+
+def _encode_delta(delta, cfg) -> bytes:
+    """The one client-side delta encoder: the genome's sparse codec when
+    it arms sparsity (the certified hash over the sparse canonical
+    bytes), else the quantized or dense pipeline."""
+    from bflc_demo_tpu_torch.utils.codecs import (delta_codec, pack_pytree,
+                                                  pack_quantized,
+                                                  pack_sparse,
+                                                  sparse_enabled)
+    if sparse_enabled(cfg):
+        return pack_sparse(delta, cfg.delta_density, cfg.delta_dtype,
+                           codec=delta_codec(cfg))
+    return (pack_pytree(delta) if cfg.delta_dtype == "f32"
+            else pack_quantized(delta, cfg.delta_dtype))
+
+
+class _DeltaEncoder:
+    """Per-client encode wrapper around `_encode_delta`: the error
+    feedback of the closed compression loop.  Armed
+    (`codecs.error_feedback_enabled`), it stores what the lossy encode
+    dropped this upload, `compensated - decoded` in float32 through the
+    one decode chain, and adds it into the next delta before encoding.
+    The wire does not change, so EF and plain clients share one chain.
+    The residual holds only along one model lineage: the caller passes
+    each delta's base epoch, and any other than the last one + 1 (a
+    rejoin, an async jump past a version) resets it."""
+
+    def __init__(self, cfg):
+        from bflc_demo_tpu_torch.utils.codecs import error_feedback_enabled
+        self.cfg = cfg
+        self.armed = error_feedback_enabled(cfg)
+        self._residual: Optional[Dict[str, np.ndarray]] = None
+        self._next_base: Optional[int] = None
+
+    def encode(self, delta: Dict[str, np.ndarray], *,
+               base_epoch: int) -> bytes:
+        """`delta`: host arrays (`_host_delta`)."""
+        if not self.armed:
+            return _encode_delta(delta, self.cfg)
+        from bflc_demo_tpu_torch.utils.codecs import (densify_entries,
+                                                      dequantize_entries,
+                                                      unpack_pytree)
+        if self._next_base is not None and base_epoch != self._next_base:
+            self._residual = None       # lineage discontinuity
+        self._next_base = base_epoch + 1
+        if self._residual is not None:
+            delta = {k: (d + self._residual[k]).astype(d.dtype, copy=False)
+                     for k, d in delta.items()}
+        blob = _encode_delta(delta, self.cfg)
+        decoded = densify_entries(dequantize_entries(unpack_pytree(blob)))
+        self._residual = {k: np.asarray(d, np.float32)
+                          - np.asarray(decoded[k], np.float32)
+                          for k, d in delta.items()}
+        return blob
+
+
+def _train_and_encode(model, template, mr, xj, yj, cfg, enc: _DeltaEncoder,
+                      base_epoch: int, counts: dict):
+    """Train on the fetched model, copy the delta to the host and encode
+    it: (blob, cost).  Counts the training and the blob's bytes; charges
+    `client.train_s` (the training and the host copy, which waits for
+    it) and `client.encode_s`."""
+    from bflc_demo_tpu_torch.core.local_train import local_train
+    from bflc_demo_tpu_torch.utils import tracing
+    from bflc_demo_tpu_torch.utils.serialization import (restore_pytree,
+                                                         unpack_pytree)
+    tr = tracing.PROC
+    t0 = time.perf_counter() if tr.enabled else 0.0
+    delta, cost = local_train(
+        model, restore_pytree(template, unpack_pytree(mr["blob"])),
+        xj, yj, lr=cfg.learning_rate, batch_size=cfg.batch_size,
+        local_epochs=cfg.local_epochs)
+    counts["trainings"] += 1
+    host = _host_delta(delta)
+    t1 = time.perf_counter() if tr.enabled else 0.0
+    blob = enc.encode(host, base_epoch=base_epoch)
+    counts["blob_bytes"] += len(blob)
+    if tr.enabled:
+        tr.charge("client.train_s", t1 - t0)
+        tr.charge("client.encode_s", time.perf_counter() - t1)
+        tr.charge("client.encode_n")
+    return blob, cost
+
+
+def _round_passed(client, wallet, epoch: int) -> bool:
+    """After a WRONG_EPOCH reply to a committee member's scores: True
+    when the writer's round moved past `epoch`, so there is nothing left
+    to score.  A writer behind it lost the commit that opened `epoch`
+    (a standby promoted without the dead writer's last frames, C13) and
+    reaches `epoch` again; marking it scored would leave a live
+    committee that never scores, which the stall recovery cannot
+    reseat."""
+    return client.request("state", addr=wallet.address)["epoch"] > epoch
+
+
 def _sign(wallet, kind: str, epoch: int, payload: bytes) -> str:
     from bflc_demo_tpu_torch.comm.identity import _op_bytes
     return wallet.sign(_op_bytes(kind, wallet.address, epoch,
@@ -260,17 +411,18 @@ def _client_async_loop(client, router, wallet, model, template, cfg,
     trainings, the scored entries and the aupload and ascores replies by
     status."""
     from bflc_demo_tpu_torch.comm.identity import _op_bytes
-    from bflc_demo_tpu_torch.core.local_train import local_train
     from bflc_demo_tpu_torch.ledger.base import ascores_sign_payload
     from bflc_demo_tpu_torch.meshagg.engine import score_candidates_batched
     from bflc_demo_tpu_torch.utils import tracing
-    from bflc_demo_tpu_torch.utils.serialization import (pack_pytree,
-                                                         restore_pytree,
+    from bflc_demo_tpu_torch.utils.serialization import (restore_pytree,
                                                          unpack_pytree)
     tr = tracing.PROC
     uploaded_base = cfg.initial_trained_epoch
     scored_aseqs: set = set()
     known_log = 0
+    # the error-feedback residual; a base-epoch jump past a model
+    # version this trainer never uploaded against resets it
+    enc = _DeltaEncoder(cfg)
     while True:
         st = client.request("state", addr=wallet.address)
         epoch = st["epoch"]
@@ -294,15 +446,8 @@ def _client_async_loop(client, router, wallet, model, template, cfg,
                 known_log = client.request("wait", log_size=known_log,
                                            timeout_s=2.0)["log_size"]
                 continue
-            t0 = time.perf_counter() if tr.enabled else 0.0
-            delta, cost = local_train(
-                model, restore_pytree(template, unpack_pytree(mr["blob"])),
-                xj, yj, lr=cfg.learning_rate, batch_size=cfg.batch_size,
-                local_epochs=cfg.local_epochs)
-            counts["trainings"] += 1
-            blob = pack_pytree(delta)
-            if tr.enabled:
-                tr.charge("client.train_s", time.perf_counter() - t0)
+            blob, cost = _train_and_encode(model, template, mr, xj, yj, cfg,
+                                           enc, base_epoch, counts)
             digest = hashlib.sha256(blob).digest()
             router.cache.put(digest.hex(), blob)
             payload = digest + struct.pack("<qd", n, float(cost))
@@ -379,7 +524,9 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
     launches, its tracer summary, where its reads were served and the
     foreign modules it loaded (none: the check that it never touched
     JAX)."""
+    boot = {"entry": process_age_s()}
     dev = _child_device(device)
+    boot["device"] = process_age_s()
     import torch
 
     import bflc_demo_tpu_torch.models as models
@@ -399,6 +546,7 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
     wallet = Wallet.from_seed(wallet_seed)
     xj = feature_tensor(x, dev)
     yj = torch.as_tensor(np.asarray(y_onehot, np.float32), device=dev)
+    boot["model"] = process_age_s()
     tr = tracing.PROC
 
     tls = _client_tls(tls_dir)
@@ -416,12 +564,15 @@ def _client_proc(endpoints: List[Tuple[str, int]], wallet_seed: bytes,
     if not (reply["ok"] or reply.get("status") in ("ALREADY_REGISTERED",
                                                    "DUPLICATE")):
         raise RuntimeError(f"register failed: {reply}")
+    boot["register"] = process_age_s()
+    _charge_boot(tr, boot)
 
     def decode(blob: bytes):
         return restore_pytree(template, densify_entries(
             dequantize_entries(unpack_pytree(blob))))
 
-    counts = {"trainings": 0, "scored": 0, "aupload": {}, "ascores": {}}
+    counts = {"trainings": 0, "scored": 0, "blob_bytes": 0, "aupload": {},
+              "ascores": {}}
     if async_enabled(cfg):
         # FedBuff: no round barrier; stragglers' deltas land late with a
         # staleness tag and a discounted weight
@@ -447,15 +598,16 @@ def _client_sync_loop(client, router, wallet, model, template, cfg, xj, yj,
                       decode, counts: dict, register) -> None:
     """The synchronous client body: one upload a round as a trainer,
     one score row a round on the committee."""
-    from bflc_demo_tpu_torch.core.local_train import local_train
     from bflc_demo_tpu_torch.meshagg.engine import score_candidates_batched
     from bflc_demo_tpu_torch.utils import tracing
-    from bflc_demo_tpu_torch.utils.serialization import (pack_pytree,
-                                                         restore_pytree,
+    from bflc_demo_tpu_torch.utils.serialization import (restore_pytree,
                                                          unpack_pytree)
     tr = tracing.PROC
     trained_epoch = scored_epoch = cfg.initial_trained_epoch
     known_log = 0
+    # the error-feedback residual; any lineage break (a committee round,
+    # a rejoin) shows as an epoch gap and resets it
+    enc = _DeltaEncoder(cfg)
     while True:
         st = client.request("state", addr=wallet.address)
         epoch = st["epoch"]
@@ -472,15 +624,8 @@ def _client_sync_loop(client, router, wallet, model, template, cfg, xj, yj,
             mr = router.fetch_model()
             if not mr.get("ok") or mr["epoch"] != epoch:
                 continue        # round turned over mid-step; resync
-            t0 = time.perf_counter() if tr.enabled else 0.0
-            delta, cost = local_train(
-                model, restore_pytree(template, unpack_pytree(mr["blob"])),
-                xj, yj, lr=cfg.learning_rate, batch_size=cfg.batch_size,
-                local_epochs=cfg.local_epochs)
-            counts["trainings"] += 1
-            blob = pack_pytree(delta)
-            if tr.enabled:
-                tr.charge("client.train_s", time.perf_counter() - t0)
+            blob, cost = _train_and_encode(model, template, mr, xj, yj, cfg,
+                                           enc, epoch, counts)
             digest = hashlib.sha256(blob).digest()
             router.cache.put(digest.hex(), blob)
             payload = digest + struct.pack("<qd", n, float(cost))
@@ -517,7 +662,9 @@ def _client_sync_loop(client, router, wallet, model, template, cfg, xj, yj,
                     "scores", addr=wallet.address, epoch=epoch,
                     scores=score_list,
                     tag=_sign(wallet, "scores", epoch, payload))
-                if r.get("status") in ("OK", "WRONG_EPOCH", "DUPLICATE"):
+                if r.get("status") in ("OK", "DUPLICATE") or (
+                        r.get("status") == "WRONG_EPOCH"
+                        and _round_passed(client, wallet, epoch)):
                     scored_epoch = epoch
                     acted = r["ok"]
                 if r.get("status") == "BAD_ARG":
@@ -599,8 +746,8 @@ class ProcessFederationResult:
         self.writer_snapshots: List[dict] = []
         self.plaintext_refused: Optional[bool] = None
         # role -> that client's trainings, scored entries and aupload and
-        # ascores replies by status ({"trainings", "scored", "aupload",
-        # "ascores"})
+        # ascores replies by status ({"trainings", "scored",
+        # "blob_bytes", "aupload", "ascores"})
         self.client_counts: Dict[str, dict] = {}
         # the final writer's chain record (`LedgerServer._scan_chain`: the
         # opcode at every position from its start and each opcode-12
@@ -608,6 +755,10 @@ class ProcessFederationResult:
         # start ({"log_base", "async_buffer": the aseqs it inherited})
         self.writer_chain: Optional[dict] = None
         self.writer_start: Optional[dict] = None
+        # seconds from the start to the end of each step after the
+        # rounds: "rounds" (the sponsor saw the last commit),
+        # "client_reports", "certified", "replicas", "teardown"
+        self.phase_s: Dict[str, float] = {}
 
     @property
     def final_accuracy(self) -> float:
@@ -779,21 +930,28 @@ def run_federated_processes(
         from bflc_demo_tpu_torch.comm.bft import provision_validators
         _, bft_keys = provision_validators(bft_validators, master_seed)
 
-    ctx = mp.get_context("spawn")
+    # validators (no torch) are spawned; every other role forks from a
+    # forkserver that imported torch once (`client/children.py`)
+    vctx = children.spawn_context()
+    ctx = children.torch_context()
     host = "127.0.0.1"
     validator_procs: List = []
     validator_reports: Dict[str, dict] = {}
     bft_endpoints: List[Tuple[str, int]] = []
     t_val = time.monotonic()
     try:
+        # all start at once; each reports its port on its own queue, read
+        # in index order
+        validator_qs = []
         for v in range(bft_validators):
-            q = ctx.Queue()
-            vp = ctx.Process(target=_validator_proc,
-                             args=(cfg_kw, master_seed + b"|bft-validator|"
-                                   + struct.pack("<q", v), v, q, bft_keys,
-                                   verbose), daemon=True)
+            q = vctx.Queue()
+            vp = children.process(vctx, _validator_proc, (
+                cfg_kw, master_seed + b"|bft-validator|"
+                + struct.pack("<q", v), v, q, bft_keys, verbose))
             vp.start()
             validator_procs.append(vp)
+            validator_qs.append(q)
+        for v, q in enumerate(validator_qs):
             rep_v = q.get(timeout=120)
             validator_reports[f"validator-{v}"] = rep_v
             bft_endpoints.append((host, rep_v["port"]))
@@ -803,13 +961,10 @@ def run_federated_processes(
         raise
     validator_spawn_s = time.monotonic() - t_val
     port_q = ctx.Queue()
-    server = ctx.Process(target=_server_proc,
-                         args=(cfg_kw, initial_blob, port_q,
-                               stall_timeout_s, device_name, verbose,
-                               wal_path, standby_keys, quorum,
-                               bft_endpoints, bft_keys, tls_dir,
-                               snapshot_interval, snap_dir("writer")),
-                         daemon=True)
+    server = children.process(ctx, _server_proc, (
+        cfg_kw, initial_blob, port_q, stall_timeout_s, device_name, verbose,
+        wal_path, standby_keys, quorum, bft_endpoints, bft_keys, tls_dir,
+        snapshot_interval, snap_dir("writer")))
     server.start()
     standby_procs: List = []
     standby_qs: Dict[str, object] = {}
@@ -820,6 +975,8 @@ def run_federated_processes(
     history: List[Tuple[int, float]] = []
     epoch_times: List[Tuple[int, float]] = []
     spawn_s = 0.0
+    # seconds from the start to the end of each step after the rounds
+    marks: Dict[str, float] = {}
     launches: Dict[str, Dict[str, int]] = {}
     writer_engine = None
     writer_merges: List[dict] = []
@@ -838,25 +995,23 @@ def run_federated_processes(
         # above it
         for s in range(1, standbys + 1):
             q = ctx.Queue()
-            sp = ctx.Process(target=_standby_proc,
-                             args=(cfg_kw, list(endpoints), s, q,
-                                   stall_timeout_s, standby_seeds[s],
-                                   standby_keys, quorum, device_name,
-                                   verbose, bft_endpoints, bft_keys,
-                                   tls_dir, snapshot_interval,
-                                   snap_dir(f"standby-{s}"),
-                                   f"{wal_path}.standby-{s}"
-                                   if wal_path else ""),
-                             daemon=True)
+            sp = children.process(ctx, _standby_proc, (
+                cfg_kw, list(endpoints), s, q, stall_timeout_s,
+                standby_seeds[s], standby_keys, quorum, device_name, verbose,
+                bft_endpoints, bft_keys, tls_dir, snapshot_interval,
+                snap_dir(f"standby-{s}"),
+                f"{wal_path}.standby-{s}" if wal_path else ""))
             sp.start()
             standby_procs.append(sp)
             standby_qs[f"standby-{s}"] = q
             endpoints.append((host, q.get(timeout=120)))
+        # each client in a process group of its own: the drill may stop
+        # them (`_paused`) and kill the writer meanwhile
         for i, (sx, sy) in enumerate(shards):
-            p = ctx.Process(target=_client_proc, args=client_args(
+            p = children.process(ctx, _client_proc, client_args(
                 endpoints, master_seed, i, model_factory, factory_kw, sx,
                 sy, nc, cfg_kw, rounds, crash_at.get(i), device_name,
-                report_q, standby_keys, bft_keys, tls_dir), daemon=True)
+                report_q, standby_keys, bft_keys, tls_dir), own_group=True)
             p.start()
             clients.append(p)
 
@@ -877,8 +1032,9 @@ def run_federated_processes(
                 # deadline, not one poll, decides the run failed
                 time.sleep(0.5)
                 continue
-            if kill_writer_at_epoch is not None and failover is None \
-                    and info["epoch"] >= kill_writer_at_epoch:
+            armed = (kill_writer_at_epoch is not None and failover is None
+                     and info["epoch"] >= kill_writer_at_epoch)
+            if armed:
                 # the drill: SIGKILL the primary as soon as it committed
                 # the epoch (before the sponsor's evaluation), so the
                 # promoted standby takes the next round.  Under BFT a
@@ -886,12 +1042,20 @@ def run_federated_processes(
                 # past certified ops it never received, so the kill waits
                 # until the primary certified its chain and a subscriber
                 # acked all of it (the reference's 0.2 s poll gives them
-                # that time)
-                if bft_validators and not _primary_settled((host, port),
-                                                           tls):
-                    time.sleep(0.005)
-                    continue
-                failover = _kill_primary(server, (host, port), info, tls)
+                # that time).  Under a steady stream of appends the chain
+                # has no such moment: the clients are stopped meanwhile
+                # and continued once the primary is dead
+                with _paused(clients if bft_validators else []) as settle:
+                    while bft_validators and \
+                            not _primary_settled((host, port), tls):
+                        if time.monotonic() > deadline:
+                            raise TimeoutError(
+                                "the primary's chain never settled for "
+                                "the writer-kill drill")
+                        time.sleep(0.005)
+                    failover = _kill_primary(server, (host, port), info,
+                                             tls)
+                failover["settle"] = settle
                 if verbose:
                     print(f"[drill] primary coordinator killed at epoch "
                           f"{info['epoch']}", flush=True)
@@ -911,7 +1075,8 @@ def run_federated_processes(
                     if verbose:
                         print(f"Epoch: {mr['epoch'] - 1:03d}, "
                               f"test_acc: {acc:.4f}", flush=True)
-            # epoch counts committed rounds across a failover
+            # epoch counts committed rounds across a failover; an armed
+            # drill kills first
             if info["epoch"] >= rounds:
                 break
             try:
@@ -924,10 +1089,12 @@ def run_federated_processes(
             raise TimeoutError(f"process federation incomplete after "
                                f"{timeout_s}s ({len(history)}/{rounds} "
                                f"rounds)")
+        marks["rounds"] = time.monotonic() - t_start
         # the clients first: an async client mid-training still uploads,
         # and its op (a drain with it) belongs to the chain the final
         # `info` reports
         client_reports = _drain_reports(report_q, clients, wait_s=60.0)
+        marks["client_reports"] = time.monotonic() - t_start
         final = sponsor.request("info")
         while bft_validators and \
                 final["certified_size"] != final["log_size"]:
@@ -942,13 +1109,12 @@ def run_federated_processes(
                             timeout_s=0.2)
             final = sponsor.request("info")
         final_ep = sponsor.current_endpoint
+        marks["certified"] = time.monotonic() - t_start
         if replicas > 0:
             rep_q = ctx.Queue()
-            rps = [ctx.Process(target=_replica_proc,
-                               args=(final_ep[0], final_ep[1], cfg_kw,
-                                     final["log_size"], rep_q, tls_dir),
-                               daemon=True)
-                   for _ in range(replicas)]
+            rps = [children.process(ctx, _replica_proc, (
+                final_ep[0], final_ep[1], cfg_kw, final["log_size"], rep_q,
+                tls_dir)) for _ in range(replicas)]
             for rp in rps:
                 rp.start()
             replica_reports = [rep_q.get(timeout=180) for _ in rps]
@@ -965,6 +1131,7 @@ def run_federated_processes(
                             "head_at"))
                 if rep["head"] != want:
                     raise RuntimeError("replica/writer head divergence")
+        marks["replicas"] = time.monotonic() - t_start
         if tls_dir:
             plaintext_refused = _plaintext_refused(final_ep)
         kr = sponsor.request("kernels")
@@ -993,6 +1160,7 @@ def run_federated_processes(
         for p in [server] + standby_procs + validator_procs:
             p.terminate()
             p.join(timeout=10)
+    marks["teardown"] = time.monotonic() - t_start
 
     result = ProcessFederationResult(
         accuracy_history=history,
@@ -1006,14 +1174,15 @@ def run_federated_processes(
         final_info=final)
     result.epoch_times = epoch_times
     result.spawn_s = spawn_s
+    result.phase_s = marks
     for rep in client_reports:
         launches[rep["role"]] = rep["launches"]
         result.client_perf[rep["role"]] = rep["perf"]
         result.client_reads[rep["role"]] = rep["reads"]
         result.child_foreign_modules[rep["role"]] = rep["foreign_modules"]
         result.client_counts[rep["role"]] = {
-            k: rep[k] for k in ("trainings", "scored", "aupload",
-                                "ascores")}
+            k: rep[k] for k in ("trainings", "scored", "blob_bytes",
+                                "aupload", "ascores")}
     for i, rep in enumerate(replica_reports):
         result.child_foreign_modules[f"replica-{i}"] = \
             rep.get("foreign_modules", [])
@@ -1065,6 +1234,36 @@ def _primary_settled(endpoint, tls=None) -> bool:
         return True
     return (k.get("certified_size") == k.get("log_size")
             and k.get("stream_acked", -1) >= k.get("log_size", 0) - 1)
+
+
+@contextlib.contextmanager
+def _paused(procs):
+    """SIGSTOP the live processes of `procs` for the block and SIGCONT
+    them after it, whatever it raised.  Yields the pause's record,
+    filled in on the way out: the processes stopped and the seconds
+    they were.  Each of `procs` should lead a process group of its own
+    (`children.process(own_group=True)`), or a process that exits in
+    the block may bring SIGHUP to this one."""
+    record = {"stopped": 0, "wait_s": 0.0}
+    stopped = []
+    t0 = time.monotonic()
+    try:
+        for p in procs:
+            if p.is_alive():
+                try:
+                    os.kill(p.pid, signal.SIGSTOP)
+                    stopped.append(p)
+                except ProcessLookupError:
+                    pass
+        yield record
+    finally:
+        for p in stopped:
+            try:
+                os.kill(p.pid, signal.SIGCONT)
+            except ProcessLookupError:
+                pass
+        record.update(stopped=len(stopped),
+                      wait_s=time.monotonic() - t0)
 
 
 def _kill_primary(server, endpoint, info: dict, tls=None) -> dict:

@@ -43,12 +43,20 @@ counts its heads from that base (`_head_base`).  `ValidatorClient` and
 `CertificateAssembler` take `tls=` (a client context); the fleet dials
 its validators in plaintext, as the reference does.
 
+Sparse uploads (reference :425-470, :644-650): on a density-armed
+quorum (`codecs.sparse_enabled`) every upload and aupload op must carry
+its blob as auth evidence, hash to the op's payload hash and survive
+`densify_entries(dequantize_entries(...))` (`check_sparse_upload_op`,
+run outside the lock; a refusal is `SPARSE`), so a colluding writer
+cannot certify a malformed `#topk` or `#sketch` blob; certified backlog
+admits on its certificate, and a dense quorum ignores the gate.  The
+decode is numpy (`utils/codecs.py`): a validator still imports no
+torch.
+
 Dropped: the obs metrics, flight recorder and trace spans (ROADMAP A14;
 `utils/tracing.PROC` still charges `bft.validate_s` / `bft.validate_n`
 on the validator).  Not ported, each raising or refusing with its item:
-the sparse-upload re-execution (`check_sparse_upload_op`: an upload
-whose evidence carries a blob is refused, `SPARSE`, A9 (codecs)), the
-rederive plane and its vote cross-check (A9 (rederive)), the cell
+the rederive plane and its vote cross-check (A9 (rederive)), the cell
 registry (A9 (hier cells)) and the native ledger (A9 (native ledger),
 refused by `make_ledger`).
 """
@@ -79,6 +87,9 @@ from bflc_demo_tpu_torch.ledger.base import (ascores_sign_payload,
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig, bft_quorum
 from bflc_demo_tpu_torch.protocol.types import CommitCertificate
 from bflc_demo_tpu_torch.utils import tracing
+from bflc_demo_tpu_torch.utils.codecs import (densify_entries,
+                                              dequantize_entries,
+                                              sparse_enabled, unpack_pytree)
 
 Endpoint = Tuple[str, int]
 
@@ -344,6 +355,41 @@ def check_op_auth(op: bytes, auth: Optional[dict],
         return f"undecodable op/auth: {type(e).__name__}: {e}"
 
 
+def check_sparse_upload_op(op: bytes, auth: Optional[dict]) -> str:
+    """'' when a sparse-mode upload/aupload op's payload blob decodes
+    through the one densify inverse; a reason otherwise.  The validator
+    half of sparse admission (the writer half is the writer's
+    `_decode_delta`): the auth evidence must carry the blob, its sha256
+    must be the op's payload hash, and `densify_entries(
+    dequantize_entries(...))` must accept it.  Validators hold no model
+    schema; they pin the content binding and the records' structure.
+    Only called in sparse mode."""
+    if not op or op[0] not in (_OP_UPLOAD, _OP_AUPLOAD):
+        return ""
+    body = op[1:]
+    try:
+        (slen,) = struct.unpack_from("<q", body, 0)
+        if slen < 0 or 8 + slen + 32 > len(body):
+            return "sparse: malformed upload body"
+        payload_hash = body[8 + slen:8 + slen + 32]
+    except struct.error as e:
+        return f"sparse: undecodable op ({e})"
+    if not isinstance(auth, dict) or "blob" not in auth:
+        return ("sparse: upload op without blob evidence (density-"
+                "armed quorum requires it)")
+    try:
+        blob = bytes.fromhex(auth["blob"])
+    except (TypeError, ValueError):
+        return "sparse: unparseable blob evidence"
+    if hashlib.sha256(blob).digest() != payload_hash:
+        return "sparse: blob evidence does not match the op's payload hash"
+    try:
+        densify_entries(dequantize_entries(unpack_pytree(blob)))
+    except (ValueError, TypeError, struct.error) as e:
+        return f"sparse: blob refused by densify ({e})"
+    return ""
+
+
 # ------------------------------------------------- repair (liveness) layer
 _ABANDON_MAGIC = b"BFLCABDN1"
 
@@ -480,6 +526,9 @@ class ValidatorNode:
         self.ledger = make_ledger(cfg, backend=ledger_backend)
         self.directory = directory if directory is not None \
             else PublicDirectory()
+        # a density-armed quorum re-executes every upload's and
+        # aupload's blob evidence through the densify inverse
+        self._sparse = sparse_enabled(cfg)
         self._lock = threading.Lock()
         # index -> (attempt, op digest) of our current vote there
         self._voted: Dict[int, Tuple[int, bytes]] = {}
@@ -710,10 +759,13 @@ class ValidatorNode:
         self._heads.append(self.ledger.log_head())
         return self._sign_position(i, op, attempt)
 
-    def _vote_locked(self, i: int, op: bytes, auth, attempt: int) -> dict:
+    def _vote_locked(self, i: int, op: bytes, auth, attempt: int,
+                     sparse_err: str = "") -> dict:
         """The evidence-free voting core (lock held): re-sign of an op we
-        hold, strict ordering, abandon promises, auth, apply + sign.
-        Anything that needs quorum evidence refuses here."""
+        hold, strict ordering, abandon promises, the sparse blob, auth,
+        apply + sign.  Anything that needs quorum evidence refuses here.
+        `sparse_err` is `check_sparse_upload_op`'s verdict, computed
+        outside the lock (the decode materializes a dense model)."""
         op_hash = hashlib.sha256(op).digest()
         size = self.ledger.log_size()
         promised = self._promised.get(i, 0)
@@ -738,12 +790,8 @@ class ValidatorNode:
         if attempt < promised:
             return self._refuse("PROMISED", f"promised attempt {promised}",
                                 promised=promised, voted_t=0)
-        if op[0] in (_OP_UPLOAD, _OP_AUPLOAD) and isinstance(auth, dict) \
-                and "blob" in auth:
-            # a sparse fleet's upload or aupload: its blob must pass the
-            # codecs' densify inverse before a co-signature
-            return self._refuse("SPARSE", "sparse upload re-execution is "
-                                "not ported yet (ROADMAP A9 (codecs))")
+        if self._sparse and sparse_err:
+            return self._refuse("SPARSE", sparse_err)
         if self.require_auth:
             err = check_op_auth(op, auth, self.directory)
             if err:
@@ -770,10 +818,15 @@ class ValidatorNode:
     def _validate_inner(self, i: int, op: bytes, attempt: int,
                         msg: dict) -> dict:
         op_hash = hashlib.sha256(op).digest()
+        # the blob decode is a pure function of (op, auth): outside the
+        # lock
+        sparse_err = (check_sparse_upload_op(op, msg.get("auth"))
+                      if self._sparse else "")
         with self._lock:
-            r = self._vote_locked(i, op, msg.get("auth"), attempt)
+            r = self._vote_locked(i, op, msg.get("auth"), attempt,
+                                  sparse_err=sparse_err)
             status = r.get("status")
-            if r.get("ok") or status not in ("CONFLICT", "AUTH"):
+            if r.get("ok") or status not in ("CONFLICT", "AUTH", "SPARSE"):
                 return r
             if status == "CONFLICT":
                 # a different op at a bound position: only quorum evidence
@@ -803,13 +856,18 @@ class ValidatorNode:
                                         self.directory)
                     if err:
                         return self._refuse("AUTH", err)
+                if cert is None and self._sparse and sparse_err:
+                    # ... nor a sparse bypass: a re-proposed upload
+                    # still needs its blob evidence
+                    return self._refuse("SPARSE", sparse_err)
                 self._enroll_register_pubkey(op, msg.get("auth"))
                 self._rollback_to(i)
                 t = max(attempt, cert.attempt if cert else 0)
                 return self._apply_and_sign(i, op, op_hash, t)
-            # AUTH refusal at the fresh tip: certified backlog (the quorum
-            # already checked the tag once) admits on its certificate, so
-            # a validator rejoining after a failover stays live
+            # AUTH or SPARSE refusal at the fresh tip: certified backlog
+            # (the quorum already checked the tag and the blob once)
+            # admits on its certificate, so a validator rejoining after a
+            # failover, whose evidence is gone, stays live
             if self._peer_certificate(msg, i, op) is None:
                 return r
             self._enroll_register_pubkey(op, msg.get("auth"))
@@ -834,9 +892,14 @@ class ValidatorNode:
         stopped = None
         tr = tracing.PROC
         t0 = time.perf_counter() if tr.enabled else 0.0
+        # each op's blob decode outside the lock
+        sparse_errs = ([check_sparse_upload_op(op, auths[k])
+                        for k, op in enumerate(ops)]
+                       if self._sparse else [""] * len(ops))
         with self._lock:
             for k, op in enumerate(ops):
-                r = self._vote_locked(start + k, op, auths[k], attempt)
+                r = self._vote_locked(start + k, op, auths[k], attempt,
+                                      sparse_err=sparse_errs[k])
                 if not r.get("ok"):
                     stopped = r
                     break
@@ -1194,6 +1257,11 @@ class CertificateAssembler:
             if not r.get("ok"):
                 with lock:
                     refusals.append(r)
+                    if tracing.PROC.enabled:
+                        # each refusal by status (a SPARSE one: a blob
+                        # the validators' densify refused)
+                        tracing.PROC.charge(
+                            f"bft.refused.{r.get('status')}")
                 return
             try:
                 vidx = int(r["validator"])

@@ -19,7 +19,14 @@ Port of `bflc_demo_tpu/comm/failover.py`: `FailoverClient` (:129-319),
 - Death is seen on the stream and confirmed by an `info` probe.  The
   election is lease-free over the endpoint priority list: standby k
   promotes only when the writer and every higher-priority standby refuse
-  a connection; a lower one re-follows the winner.
+  a connection; a lower one re-follows the winner.  A follower whose
+  chain holds ops the winner's does not (the dead writer's last frames
+  reached it whole and the winner cut, which quorum-ack allows) rolls
+  back to the longest prefix the two share before it subscribes, where
+  the winner's promotion evidence puts its fence at or below the
+  divergence (`_drop_unfenced_suffix`, C12; the reference's standby
+  stops on the divergence instead, and the promoted writer loses that
+  quorum follower).  Any other divergence stops it, as the reference's.
 - Promotion is fenced: the standby appends `promote_writer` (generation
   N+1) to its chain, signs the promotion evidence with its wallet, and
   becomes a `LedgerServer` over its ledger, blobs and the socket it bound
@@ -90,7 +97,7 @@ from bflc_demo_tpu_torch.comm.dataplane import (ReadFanoutServer,
 from bflc_demo_tpu_torch.comm.identity import PublicDirectory, address_of
 from bflc_demo_tpu_torch.comm.ledger_service import (
     CoordinatorClient, LedgerServer, chain_head_at, make_promotion_evidence,
-    verify_promotion_signature)
+    verify_promotion_evidence, verify_promotion_signature)
 from bflc_demo_tpu_torch.comm.wire import (WireError, blob_bytes, recv_msg,
                                            send_msg, split_blob_parts)
 from bflc_demo_tpu_torch.device import DeviceLike, resolve_device
@@ -454,6 +461,8 @@ class Standby:
             # install its certified snapshot and follow the tail
             if self.ledger.log_size() < int(inf.get("log_base", 0) or 0):
                 self._state_sync(ctl)
+            else:
+                self._drop_unfenced_suffix(ctl, inf)
             sub = self._open_subscription(writer)
         except (ConnectionError, WireError, OSError) as e:
             ctl.close()
@@ -528,6 +537,65 @@ class Standby:
         finally:
             sub.close()
             ctl.close()
+
+    def _drop_unfenced_suffix(self, ctl: CoordinatorClient,
+                              inf: dict) -> None:
+        """Roll the chain back to its longest prefix the writer's chain
+        shares, where the ops dropped lie past a promotion fence (C12).
+        Under quorum-ack the dead writer's last frames can reach this
+        standby whole and the one that promoted cut, so this chain holds
+        ops the fenced chain does not; the writer's stream would not
+        apply on top of them.  Only such ops go: the writer's generation
+        is above ours and its promotion evidence (verified against our
+        chain when standby keys are provisioned) puts its
+        `promote_writer` op at or below the divergence.  Any other
+        divergence stops this standby, as the reference's does.  The
+        heads come from `info(at=)`; a writer that answers no `head_at`
+        (the reference's) is followed as it stands."""
+        size = self.ledger.log_size()
+        base = self.ledger.log_base
+        k = min(size, int(inf.get("log_size", 0)))
+        while k >= base:
+            r = ctl.request("info", at=k)
+            if "head_at" not in r:
+                return
+            if r["head_at"] is not None and \
+                    bytes.fromhex(r["head_at"]) == chain_head_at(self.ledger,
+                                                                 k):
+                break
+            k -= 1
+        else:
+            raise RuntimeError(
+                f"standby {self.index}: the writer's chain shares no "
+                f"prefix with ours above the GC base {base} — refusing "
+                f"to continue")
+        if k == size:
+            return
+        gen, ev = int(inf.get("gen", 0)), inf.get("gen_ev")
+        try:
+            fenced = (gen > self.ledger.generation
+                      and int(ev["gen"]) == gen
+                      and base <= int(ev["ix"]) <= k
+                      and (verify_promotion_evidence(ev, self.ledger,
+                                                     self.standby_keys)
+                           if self.standby_keys else
+                           chain_head_at(self.ledger, int(ev["ix"]))
+                           == bytes.fromhex(ev["prev"])))
+        except (KeyError, TypeError, ValueError):
+            fenced = False
+        if not fenced:
+            raise RuntimeError(
+                f"standby {self.index}: writer/replica divergence at op "
+                f"{k} of our {size}, not past a promotion fence (writer "
+                f"gen {gen}, ours {self.ledger.generation}) — refusing "
+                f"to continue")
+        self._say(f"dropping {size - k} ops past the fenced chain at {k}")
+        self.ledger = clone_prefix(self.ledger, k, self.cfg,
+                                   backend=self._ledger_backend)
+        self._certs = {j: c for j, c in self._certs.items() if j < k}
+        self._pending_payload = {j: op for j, op in
+                                 self._pending_payload.items() if j < k}
+        self._synced_update_count = -1
 
     def _open_subscription(self, writer: Endpoint) -> CoordinatorClient:
         """Subscribe at our resume point; with a wallet, prove the

@@ -35,7 +35,11 @@ promotion over its replayed ledger, mirrored blobs and bound socket:
 - the op stream piggybacks an upload op's payload blob and a commit
   op's new model blob on the frame, so a follower's mirror-before-apply
   needs no fetch; an authenticated standby's read endpoint (`read_ep`)
-  joins the read set that `model` replies advertise.
+  joins the read set that `model` replies advertise.  Unlike the
+  reference, which rides only the newest model, the writer keeps the
+  models of its last PAST_MODELS commits for that (C14): a follower
+  behind later commits otherwise fetched the newest model after every
+  op, found it the wrong one and fell further behind.
 
 BFT commit certificates (`comm/bft.py`): with `bft_validators`
 endpoints (and their `bft_keys`) an op binds only once `bft_quorum`
@@ -115,10 +119,24 @@ by-hash certificates of the window it drops until the next GC, so an
 ack whose GC overtook its certify loop still carries its op's
 certificate (C11; the reference prunes them at once).
 
+Upload codecs (reference :529-538, :1959-1990, :2010-2020): admission
+(`_decode_delta`) dequantizes only when `cfg.delta_dtype` is not f32
+and densifies only in sparse mode (`codecs.sparse_enabled`), so an
+f16 blob in an f32 fleet, or a `#topk` record in a dense one, dies as a
+schema error as in the reference; the decoded dense image is staged for
+the merge, so B5's rows and every pinned hash are those of a dense
+delta.  A row re-derived from its blob (`_staged_row`) and the host leg
+of the merge and the drain decode through `densify_entries(
+dequantize_entries(...))`.  In sparse mode the upload's and the
+aupload's blob ride their auth evidence (validators re-execute the
+decode, `comm/bft.check_sparse_upload_op`) and stay there, as in the
+reference, until the snapshot GC drops the op auth below its base.
+With `BFLC_PROC_TRACE=1` the writer charges `admit.decode_s` per
+admitted blob.
+
 Not ported, each raising or refusing with its ROADMAP item when asked
-for: the hier root, rederive and its commit evidence, the genome path,
-sparse/quantized uploads (A9); telemetry, health and causal traces
-(A14).
+for: the hier root, rederive and its commit evidence, the genome path
+(A9); telemetry, health and causal traces (A14).
 `BFLC_DATA_PLANE_LEGACY=1` drops the model piggyback and the read set,
 as in the reference.
 """
@@ -154,9 +172,15 @@ from bflc_demo_tpu_torch.ops import launch_counts
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
 from bflc_demo_tpu_torch.protocol.constants import bft_quorum as _bft_quorum
 from bflc_demo_tpu_torch.utils import tracing
-from bflc_demo_tpu_torch.utils.serialization import (dequantize_entries,
+from bflc_demo_tpu_torch.utils.serialization import (densify_entries,
+                                                     dequantize_entries,
                                                      pack_entries,
+                                                     sparse_enabled,
                                                      unpack_pytree)
+
+# the replaced models a writer keeps for the op stream's piggyback (C14):
+# a follower lagging this many commits still gets each commit's model
+PAST_MODELS = 4
 
 # admission-control gas (the reference's per-sender per-epoch budget)
 GAS_REGISTER = 1_000
@@ -334,6 +358,10 @@ class LedgerServer:
         # FedBuff on the certified op stream: one protocol per chain, so
         # sync upload/scores are refused while it is on
         self._async = async_enabled(cfg)
+        # sparse upload deltas (delta_density < 1): admission decodes
+        # through the one densify inverse and stages the dense image, and
+        # the upload ops' evidence carries the blob for the validators
+        self._sparse = sparse_enabled(cfg)
         # ssl.SSLContext (comm/tls.server_context) or None for plaintext
         self._tls = tls
         # certified snapshots: 0 or BFLC_SNAPSHOT_LEGACY keeps every
@@ -372,6 +400,10 @@ class LedgerServer:
         self._staged: Dict[bytes, np.ndarray] = {}
         self._model_blob = initial_model_blob
         self._model_hash = hashlib.sha256(initial_model_blob).digest()
+        # the models the last commits replaced, by hash (C14): the op
+        # stream piggybacks each commit's own model to a follower that
+        # lags behind later commits, as it does the newest
+        self._past_models: Dict[bytes, bytes] = {}
         self._model_schema = {k: (a.shape, a.dtype) for k, a in
                               unpack_pytree(initial_model_blob).items()}
         self._gas_budget = (50 * (GAS_UPLOAD_BASE + len(initial_model_blob))
@@ -832,17 +864,23 @@ class LedgerServer:
     def _op_payload_blob(self, op: bytes) -> Optional[bytes]:
         """The blob a streamed op references, while this writer holds it:
         an upload's payload, or a commit's new model (unless the data
-        plane's fast path is pinned off)."""
+        plane's fast path is pinned off), the newest or one of the
+        PAST_MODELS before it (C14)."""
         if not op or op[0] not in (OP_UPLOAD, OP_AUPLOAD, OP_COMMIT,
                                    OP_ACOMMIT):
             return None
         fields = decode_op(op)
         with self._lock:
             if op[0] in (OP_COMMIT, OP_ACOMMIT):
-                if data_plane_legacy() or \
-                        fields.get("model_hash") != self._model_hash.hex():
+                if data_plane_legacy():
                     return None
-                return self._model_blob
+                mh = fields.get("model_hash")
+                if mh == self._model_hash.hex():
+                    return self._model_blob
+                try:
+                    return self._past_models.get(bytes.fromhex(mh or ""))
+                except ValueError:
+                    return None
             try:
                 return self._blobs.get(bytes.fromhex(
                     fields.get("payload_hash", "")))
@@ -1105,10 +1143,8 @@ class LedgerServer:
             # the f64 originals ride along (the op stores f32, the tag
             # signs f64), and the sender's pubkey heals a validator's
             # directory hole
-            self._op_auth[self.ledger.log_size() - 1] = {
-                "tag": m.get("tag", ""), "n": int(m["n"]),
-                "cost": float(m["cost"]),
-                "pubkey": self._sender_pubkey_hex(addr)}
+            self._op_auth[self.ledger.log_size() - 1] = \
+                self._upload_auth(m, addr, blob)
         elif st == LedgerStatus.DUPLICATE:
             self._resupply_blob(digest, blob)
         self._touch(addr)
@@ -1181,10 +1217,8 @@ class LedgerServer:
             self._blobs[digest] = blob
             self._stage_delta(digest, flat)
             self._consume_tag(base_epoch, m.get("tag", ""))
-            self._op_auth[self.ledger.log_size() - 1] = {
-                "tag": m.get("tag", ""), "n": int(m["n"]),
-                "cost": float(m["cost"]),
-                "pubkey": self._sender_pubkey_hex(addr)}
+            self._op_auth[self.ledger.log_size() - 1] = \
+                self._upload_auth(m, addr, blob)
         elif st == LedgerStatus.DUPLICATE:
             self._resupply_async_blob(digest, blob)
         self._touch(addr)
@@ -1382,15 +1416,46 @@ class LedgerServer:
                 for u in self.ledger.query_all_updates()):
             self._blobs[digest] = blob
 
+    def _upload_auth(self, m: dict, addr: str, blob: bytes) -> dict:
+        """An upload's or aupload's auth evidence; in sparse mode its
+        (small) blob rides along so validators re-execute the densify
+        admission before co-signing."""
+        auth = {"tag": m.get("tag", ""), "n": int(m["n"]),
+                "cost": float(m["cost"]),
+                "pubkey": self._sender_pubkey_hex(addr)}
+        if self._sparse:
+            auth["blob"] = blob.hex()
+        return auth
+
     def _decode_delta(self, blob: bytes):
         """(reason, decoded entries or None): '' iff the delta's entries
-        mirror the current model's keys, shapes and dtypes."""
+        mirror the current model's keys, shapes and dtypes.  The check
+        runs over the dequantized image only when the genome quantizes
+        (an f16 blob in an f32 fleet is refused at the door), and over
+        the densified one only in sparse mode (a `#topk` entry in a
+        dense fleet fails the key check); a malformed record raises in
+        the decode and dies as a schema error."""
+        tr = tracing.PROC
+        t0 = time.perf_counter() if tr.enabled else 0.0
         try:
-            delta = dequantize_entries(unpack_pytree(blob))
+            delta = unpack_pytree(blob)
+            if self.cfg.delta_dtype != "f32":
+                delta = dequantize_entries(delta)
+            if self._sparse:
+                delta = densify_entries(delta)
         except (ValueError, TypeError, struct.error) as e:
             return f"undecodable delta blob: {e}", None
+        if tr.enabled:
+            tr.charge("admit.decode_s", time.perf_counter() - t0)
+            tr.charge("admit.decode_n")
         err = self._schema_error(delta)
         return err, (None if err else delta)
+
+    def _decoded(self, digest: bytes) -> Dict[str, np.ndarray]:
+        """An admitted blob's dense image through the one decode chain
+        (the identity on a dense float32 blob)."""
+        flat = dequantize_entries(unpack_pytree(self._blobs[digest]))
+        return densify_entries(flat) if self._sparse else flat
 
     def _schema_error(self, delta: Dict[str, np.ndarray]) -> str:
         schema = self._model_schema
@@ -1419,7 +1484,7 @@ class LedgerServer:
         row = self._staged.pop(digest, None)
         if row is not None:
             return row
-        flat = dequantize_entries(unpack_pytree(self._blobs[digest]))
+        flat = self._decoded(digest)
         return flatten_delta(flat, sorted(flat.keys()))
 
     def _note_progress(self, st: LedgerStatus) -> None:
@@ -1494,8 +1559,7 @@ class LedgerServer:
                 global_flat, rows, weights, selected,
                 self.cfg.learning_rate, blocks=blocks)
         else:
-            delta_flats = [dequantize_entries(unpack_pytree(self._blobs[h]))
-                           for h in hashes]
+            delta_flats = [self._decoded(h) for h in hashes]
             new_flat = _aggregate_flat(global_flat, delta_flats, weights,
                                        selected, self.cfg.learning_rate,
                                        blocks=blocks, engine=self.engine)
@@ -1513,6 +1577,9 @@ class LedgerServer:
         for h in hashes:
             self._blobs.pop(h, None)
             self._staged.pop(h, None)
+        self._past_models[self._model_hash] = self._model_blob
+        while len(self._past_models) > PAST_MODELS:
+            self._past_models.pop(next(iter(self._past_models)))
         self._model_blob = blob
         self._model_hash = digest
         self._model_schema = {k: (a.shape, a.dtype)

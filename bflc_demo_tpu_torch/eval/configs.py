@@ -19,7 +19,9 @@ A9/A14, unexpected keywords here) and config 4's `secure=True` (A12).
 `standbys`, `quorum`, `bft_validators`, `tls_dir`, `snapshot_interval`
 and `snapshot_dir` reach the fleet; another runtime refuses them, and
 refuses an async genome (`cfg.async_buffer` > 0 unless
-`BFLC_ASYNC_LEGACY=1`, reference :70-76): only the fleet runs FedBuff.
+`BFLC_ASYNC_LEGACY=1`, reference :70-76) or a sparse one
+(`cfg.delta_density` < 1 unless `BFLC_SPARSE_LEGACY=1`, :77-84): only
+the fleet runs FedBuff and moves upload blobs.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from bflc_demo_tpu_torch.models import (make_femnist_cnn, make_lenet5,
                                         make_softmax_regression,
                                         make_transformer_classifier)
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
+from bflc_demo_tpu_torch.utils.codecs import sparse_enabled
 
 RUNTIMES = ("mesh", "host", "threaded", "processes")
 UNPORTED_RUNTIME = ("the {runtime!r} runtime is not ported yet (ROADMAP A9: "
@@ -92,10 +95,13 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
     """
     if runtime not in RUNTIMES:
         raise ValueError(UNPORTED_RUNTIME.format(runtime=runtime))
-    # async FedBuff is a process-runtime protocol mode: the other
-    # runtimes drive the synchronous round loop and would ignore it
+    # async FedBuff and sparse upload deltas are process-runtime
+    # protocol modes: the other runtimes drive the synchronous round loop
+    # and move no blobs, so they would ignore them
     fleet = (("async_buffer (protocol)",
               cfg.async_buffer if async_enabled(cfg) else 0),
+             ("delta_density (protocol)",
+              cfg.delta_density if sparse_enabled(cfg) else 0),
              ("standbys", standbys), ("quorum", quorum),
              ("bft_validators", bft_validators), ("tls_dir", tls_dir),
              ("snapshot_interval", snapshot_interval),

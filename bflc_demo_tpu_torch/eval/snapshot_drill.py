@@ -39,7 +39,6 @@ import argparse
 import dataclasses
 import hashlib
 import json
-import multiprocessing as mp
 import os
 import socket
 import struct
@@ -50,6 +49,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from bflc_demo_tpu_torch.client import children
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
 
 PROTO = dict(client_num=6, comm_count=2, aggregate_count=2,
@@ -185,28 +185,25 @@ def run_snapshot_rejoin(device: str = None, workdir: str = "",
     _, vkeys = provision_validators(VALIDATORS, MASTER_SEED)
     sb_seed = MASTER_SEED + b"|standby|" + struct.pack("<q", 1)
     sb_keys = {1: Wallet.from_seed(sb_seed).public_bytes}
-    ctx = mp.get_context("spawn")
+    vctx, ctx = children.spawn_context(), children.torch_context()
     host = "127.0.0.1"
     procs: List = []
     account: Dict[str, object] = {"device": dev}
 
     def spawn_validator(v: int, port: int = 0):
-        q = ctx.Queue()
-        p = ctx.Process(target=_validator_proc,
-                        args=(cfg_kw, v_seeds[v], v, q, vkeys, verbose, port),
-                        daemon=True)
+        q = vctx.Queue()
+        p = children.process(vctx, _validator_proc,
+                             (cfg_kw, v_seeds[v], v, q, vkeys, verbose, port))
         p.start()
         procs.append(p)
         return p, q.get(timeout=120)["port"]
 
     def spawn_standby(port: int = 0):
         q = ctx.Queue()
-        p = ctx.Process(target=_standby_proc,
-                        args=(cfg_kw, [(host, writer.port)], 1, q, 30.0,
-                              sb_seed, sb_keys, 0, dev, verbose,
-                              [(host, vp) for vp in v_ports], vkeys, "", 1,
-                              os.path.join(workdir, "snaps", "standby-1"),
-                              "", port), daemon=True)
+        p = children.process(ctx, _standby_proc, (
+            cfg_kw, [(host, writer.port)], 1, q, 30.0, sb_seed, sb_keys, 0,
+            dev, verbose, [(host, vp) for vp in v_ports], vkeys, "", 1,
+            os.path.join(workdir, "snaps", "standby-1"), "", port))
         p.start()
         procs.append(p)
         return p, q, q.get(timeout=180)

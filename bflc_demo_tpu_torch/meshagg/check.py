@@ -1,14 +1,19 @@
 """Differential checker for REDUCTION SPEC v2 on the port's engine.
 
-Port of `tools/check_reduction_spec.py` — `_scenario` (:83-113),
-`run_differential` (:119-192), `run_steady_state_check` (:195-225) and
-`main` (:398-454): randomized trees (mixed leaf ranks, 0-d leaves,
-denormal and near-overflow magnitudes), sync and FedBuff weights,
-random selections (empty and full among them), each reduced by the host
-leg and by the mesh leg (kernel B5 on `--device`), plain and under
-``reduce_blocks`` in {1, 2, 8, 64}, compared byte for byte, plus the
-writer merge's canonical-bytes hash; then the steady-state gate (a
-repeated scenario launches at no new geometry).
+Port of `tools/check_reduction_spec.py` — `_sparse_image`,
+`_random_flat` and `_scenario` (:53-113), `run_differential`
+(:119-192), `run_steady_state_check` (:195-225) and `main` (:398-454):
+randomized trees (mixed leaf ranks, 0-d leaves, denormal and
+near-overflow magnitudes) in every decode image the data plane admits —
+f32, f16- and i8-decoded, crossed with densities 1, 0.1 and 0.01,
+crossed with the top-k and count-sketch codecs, each through the wire's
+sparse-encode -> quantize -> dequantize -> densify chain
+(`utils/codecs.py`) — sync and FedBuff weights, random selections
+(empty and full among them), each reduced by the host leg and by the
+mesh leg (kernel B5 on `--device`), plain and under ``reduce_blocks`` in
+{1, 2, 8, 64}, compared byte for byte, plus the writer merge's
+canonical-bytes hash (each trial's in `hashes`); then the steady-state
+gate (a repeated scenario launches at no new geometry).
 
     python -m bflc_demo_tpu_torch.meshagg.check [--trials 20] [--seed 0]
             [--max-n 64] [--device cuda|cpu]
@@ -16,12 +21,9 @@ repeated scenario launches at no new geometry).
 exit 0 = every scenario matched; exit 1 = divergence (prints it).  The
 default device is the card's; `--device cpu` holds B5's plain version.
 
-Dropped until ROADMAP A9 brings the data-plane codecs of
-`utils/serialization.py`: the f16/i8 quantized and top-k/sketch sparse
-decode images (every scenario here is the float32 dense image; the
-random draws that pick the image are still made, so a scenario the
-reference draws as float32-dense is the same scenario here), the
-rederive leg (:228-319) and the density-transition leg (:322-395).
+Still dropped: the rederive leg (:228-319) and the density-transition
+leg (:322-395), which come with rederive and the genome (ROADMAP A9
+item 9).
 
 Also here: the merge geometries `chip_smoke.py` runs B5 at — config 5's
 and config 4's writer merges and the reference benchmark's full drains
@@ -42,7 +44,12 @@ from bflc_demo_tpu_torch.ledger.base import staleness_weight
 from bflc_demo_tpu_torch.meshagg import spec
 from bflc_demo_tpu_torch.meshagg.engine import (MeshAggEngine,
                                                selfcheck_scenario)
-from bflc_demo_tpu_torch.utils.serialization import canonical_bytes
+from bflc_demo_tpu_torch.utils.codecs import (canonical_bytes,
+                                              densify_entries,
+                                              dequantize_entries,
+                                              quantize_entries,
+                                              sketch_entries,
+                                              sparsify_entries)
 
 BLOCKS_SWEEP = (1, 2, 8, 64)
 CORNER_BLOCKS = (1, 2, 5, 8, 64)
@@ -52,13 +59,26 @@ def _digest(flat: Dict[str, np.ndarray]) -> bytes:
     return hashlib.sha256(canonical_bytes(flat)).digest()
 
 
-def _random_flat(rng, shapes):
-    """One float32 delta (the dense decode image)."""
+def _sparse_image(flat, density, codec):
+    """The sparse encoder's image: `#topk` records or `#sketch` tables,
+    the two wire forms `densify_entries` inverts."""
+    if codec == "sketch":
+        return sketch_entries(flat, density)
+    return sparsify_entries(flat, density)
+
+
+def _random_flat(rng, shapes, quant, density=1.0, codec="topk"):
+    """One delta in the chosen decode image: what admission, the scorers
+    and the merge see of a sparse and/or quantized upload (sparsify or
+    sketch before quantize, densify after dequantize: the wire order)."""
     flat = {}
     for k, shp in shapes.items():
         scale = 10.0 ** float(rng.integers(-8, 8))
         flat[k] = (rng.standard_normal(shp) * scale).astype(np.float32)
-    return flat
+    if quant == "f32" and density >= 1.0:
+        return flat
+    return densify_entries(dequantize_entries(
+        quantize_entries(_sparse_image(flat, density, codec), quant)))
 
 
 def _scenario(rng, max_n):
@@ -69,10 +89,11 @@ def _scenario(rng, max_n):
         rank = int(rng.integers(0, 3))
         shapes[f"/leaf{j}"] = tuple(
             int(d) for d in rng.integers(1, 9, size=rank))
-    # the reference's image draws (quant, density, codec), kept so the
-    # random stream stays the reference's; the image is float32 dense
-    rng.integers(0, 3), rng.integers(0, 3), rng.integers(0, 2)
-    deltas = [_random_flat(rng, shapes) for _ in range(n)]
+    quant = ("f32", "f16", "i8")[int(rng.integers(0, 3))]
+    density = (1.0, 0.1, 0.01)[int(rng.integers(0, 3))]
+    codec = ("topk", "sketch")[int(rng.integers(0, 2))]
+    deltas = [_random_flat(rng, shapes, quant, density, codec)
+              for _ in range(n)]
     if deltas and "/leaf0" in deltas[0] and deltas[0]["/leaf0"].size:
         deltas[0]["/leaf0"].flat[0] = np.float32(1e-42)      # denormal
     if rng.integers(0, 2):
@@ -88,7 +109,7 @@ def _scenario(rng, max_n):
     lr = float(rng.random()) * 0.5
     g = {k: rng.standard_normal(shp).astype(np.float32)
          for k, shp in shapes.items()}
-    return g, deltas, weights, selected, lr
+    return g, deltas, weights, selected, lr, quant, density, codec
 
 
 def _p_total(deltas, keys) -> int:
@@ -103,11 +124,12 @@ def run_differential(engine: MeshAggEngine, trials: int = 20, seed: int = 0,
     reference and blocked mesh leg, both against the v1 host bytes).
     Empty `mismatches` means the spec held."""
     rng = np.random.default_rng(seed)
-    mismatches = []
+    mismatches, hashes = [], []
     engine.run_selfcheck()
     with np.errstate(over="ignore", invalid="ignore"):
         for t in range(trials):
-            g, deltas, weights, selected, lr = _scenario(rng, max_n)
+            g, deltas, weights, selected, lr, quant, density, codec = \
+                _scenario(rng, max_n)
             keys = sorted(g.keys())
             w = spec.merge_weight_vector(weights, selected, len(deltas))
             wsum = max(float(w.sum()), 1e-12)
@@ -139,10 +161,13 @@ def run_differential(engine: MeshAggEngine, trials: int = 20, seed: int = 0,
                 bad.append("#aggregate_flat-blocked-hash")
             if bad:
                 mismatches.append({"trial": t, "n": len(deltas),
+                                   "quant": quant, "density": density,
+                                   "codec": codec,
                                    "selected": len(selected),
                                    "leaves": bad})
+            hashes.append(h_hash.hex())
     return {"trials": trials, "seed": seed, "max_n": max_n,
-            "mismatches": mismatches,
+            "mismatches": mismatches, "hashes": hashes,
             "compile_total": engine.compile_total,
             "report": engine.report()}
 
@@ -153,7 +178,7 @@ def run_steady_state_check(engine: MeshAggEngine, repeats: int = 3,
     plain and blocked: after the first pass no new launch geometry may
     appear.  The gate holds iff ``fresh_after_warmup == 0``."""
     rng = np.random.default_rng(seed)
-    g, deltas, weights, selected, lr = _scenario(rng, max_n)
+    g, deltas, weights, selected, lr = _scenario(rng, max_n)[:5]
     keys = sorted(g.keys())
     w = spec.merge_weight_vector(weights, selected, len(deltas))
     wsum = max(float(w.sum()), 1e-12)

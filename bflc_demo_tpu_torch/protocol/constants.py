@@ -1,16 +1,18 @@
 """The protocol genome — every constant client and coordinator agree on.
 
 Copy of `bflc_demo_tpu/protocol/constants.py` (`ProtocolConfig` and its
-`validate()`), cut to the fields the synchronous rounds read, with
-asynchronous buffered aggregation (`async_buffer`, `max_staleness`,
-`async_reseat_every`, :74-96, checked at :166-187), REDUCTION SPEC v2's
-`reduce_blocks` (:128-140, checked at :210-216) and the BFT quorum
-algebra (`BFT_REFERENCE_VALIDATORS`, `bft_fault_tolerance`,
-`bft_quorum`, :236-261).  Dropped, with their checks: the data-plane
-encodings (`delta_dtype`, `delta_density`, `delta_codec`) and the
-closed compression loop (`adapt_every`, `density_floor`).  Each belongs
-to a runtime this port has not reached yet (ROADMAP queue A).  The
-values and the checks kept are the reference's, unchanged.
+`validate()`), with the data-plane encodings (`delta_dtype`,
+`delta_density`, `delta_codec`, :55-71, :99-110, checked at :158-165,
+:188-191), asynchronous buffered aggregation (`async_buffer`,
+`max_staleness`, `async_reseat_every`, :74-96, checked at :166-187),
+REDUCTION SPEC v2's `reduce_blocks` (:128-140, checked at :210-216) and
+the BFT quorum algebra (`BFT_REFERENCE_VALIDATORS`,
+`bft_fault_tolerance`, `bft_quorum`, :236-261).  Still dropped, with
+their checks: the closed compression loop's `adapt_every` and
+`density_floor` (the genome, ROADMAP A9 item 9); hier cells and
+rederive carry no genome field (their run options stay refused,
+`utils/flags.py`).  The values and the checks kept are the reference's,
+unchanged.
 """
 
 from __future__ import annotations
@@ -38,6 +40,20 @@ class ProtocolConfig:
     genesis_epoch: int = -999     # epoch value before CLIENT_NUM registrations
     initial_trained_epoch: int = -1
 
+    # data plane: opt-in reduced-precision upload deltas ("f32" = off).
+    # Clients pack deltas in this encoding, the writer admits and
+    # dequantizes them, and the certified payload hash is over the
+    # quantized canonical bytes (utils/codecs.py).
+    delta_dtype: str = "f32"
+
+    # data plane: opt-in deterministic sparsified upload deltas (1.0 =
+    # dense, off): each float leaf keeps ceil(density * size) slots (the
+    # top-k values, ties by ascending flat index, or a count-sketch
+    # table), the certified hash is over the sparse canonical bytes, and
+    # every consumer decodes through the one `densify_entries` inverse.
+    # BFLC_SPARSE_LEGACY=1 pins the dense protocol byte for byte.
+    delta_density: float = 1.0
+
     # asynchronous buffered aggregation (FedBuff): with async_buffer =
     # K > 0 the round barrier falls.  Each async upload op carries the
     # BASE epoch its client trained from, admission stamps staleness
@@ -49,6 +65,12 @@ class ProtocolConfig:
     async_buffer: int = 0
     max_staleness: int = 20
     async_reseat_every: int = 0
+
+    # data plane: the sparse codec a density-armed client encodes with,
+    # "topk" (scatter records) or "sketch" (a seeded count-sketch table
+    # on the same slot budget); both decode through `densify_entries`.
+    # Inert at delta_density 1.0 or under BFLC_SPARSE_LEGACY=1.
+    delta_codec: str = "topk"
 
     # REDUCTION SPEC v2: the flattened (P,) param axis is cut into
     # reduce_blocks fixed contiguous blocks (meshagg.spec.block_bounds);
@@ -74,6 +96,14 @@ class ProtocolConfig:
                 f"{self.client_num - self.comm_count})")
         if self.learning_rate <= 0 or self.batch_size <= 0:
             raise ValueError("learning_rate and batch_size must be positive")
+        if self.delta_dtype not in ("f32", "f16", "i8"):
+            raise ValueError(
+                f"delta_dtype must be one of ('f32', 'f16', 'i8'), got "
+                f"{self.delta_dtype!r}")
+        if not 0.0 < self.delta_density <= 1.0:
+            raise ValueError(
+                f"delta_density must be in (0, 1], got "
+                f"{self.delta_density}")
         if self.async_buffer < 0 or self.max_staleness < 0:
             raise ValueError(
                 f"async_buffer and max_staleness must be >= 0, got "
@@ -96,6 +126,10 @@ class ProtocolConfig:
                 f"(async_buffer > 0), got reseat_every="
                 f"{self.async_reseat_every} with async_buffer="
                 f"{self.async_buffer}")
+        if self.delta_codec not in ("topk", "sketch"):
+            raise ValueError(
+                f"delta_codec must be one of ('topk', 'sketch'), got "
+                f"{self.delta_codec!r}")
         if self.reduce_blocks < 1:
             raise ValueError(
                 f"reduce_blocks must be >= 1 (1 = REDUCTION SPEC v1 "

@@ -1,12 +1,13 @@
 """Protocol overrides from the environment and the command line.
 
-Port of the protocol part of `bflc_demo_tpu/utils/flags.py` (:96-150,
+Port of the protocol part of `bflc_demo_tpu/utils/flags.py` (:96-172,
 :196-209): `protocol_from_env` reads `BFLC_<FIELD>=value` for every
-`ProtocolConfig` field, each field has a `--field-name` flag, a flag
-beats the environment, and when neither changes anything the preset
-keeps its own protocol (`parse_protocol` returns None).  As in the
-reference, an override starts from `ProtocolConfig()`'s defaults, not
-from the preset's.
+`ProtocolConfig` field (a string field, such as `delta_dtype`, as it
+stands), each field has a `--field-name` flag, a flag beats the
+environment, and when neither changes anything the preset keeps its own
+protocol (`parse_protocol` returns None).  As in the reference, an
+override starts from `ProtocolConfig()`'s defaults, not from the
+preset's.
 
 The process fleet's `--standbys N`, `--quorum Q`, `--bft-validators N`,
 `--tls-dir D`, `--snapshot-interval K` and `--snapshot-dir S` are ported
@@ -15,20 +16,25 @@ TLS and certified snapshots), and so are the genome's asynchronous
 buffered aggregation (`--async-buffer K`, `--max-staleness S`,
 `--async-reseat-every R` and their `BFLC_*` variables, plain int flags
 as in the reference; `BFLC_ASYNC_LEGACY=1` pins the synchronous chain,
-`ledger/base.async_enabled`) and `--reduce-blocks B`
+`ledger/base.async_enabled`), `--reduce-blocks B`
 (`BFLC_REDUCE_BLOCKS`, REDUCTION SPEC v2; the flag's help is the
 reference's, :174-181, and `BFLC_BLOCKED_LEGACY=1` pins one block,
-`ledger/base.reduce_blocks`).  The reference's other
-run options belong to parts not ported yet.  Each such flag is
-accepted by the parser so that the CLI can refuse it by name (exit 2
-with the ROADMAP item) rather than fail on an unknown argument or drop
-it: the process fleet's other flags and the codecs' (A9;
+`ledger/base.reduce_blocks`) and the upload codecs: `--delta-dtype
+f32|f16|i8` (choices checked at parse time), `--delta-density`
+(a float), `--delta-codec topk|sketch` (the reference's flags and
+help, :152-172; `BFLC_SPARSE_LEGACY=1` pins the dense protocol) and the
+client-local `--error-feedback` / `--no-error-feedback`
+(`BFLC_ERROR_FEEDBACK=1` in the children).  The reference's other run
+options belong to parts not ported yet.  Each such flag is accepted by
+the parser so that the CLI can refuse it by name (exit 2 with the
+ROADMAP item) rather than fail on an unknown argument or drop it.  Still
+dropped: the process fleet's hier cells (`--cells`, `--cell-size`, A9
+item 8), rederive (`--rederive`), attested scores and chaos (A9;
 `--ledger-backend` is ported: auto and python, native exits 2),
-checkpoints and the device profiler (A11), secure aggregation (A12),
-and traces, plots and telemetry (A14).  So are the
-reference's protocol fields that the port's `ProtocolConfig` does not
-have yet (its data-plane encodings and the closed compression loop,
-A9), as flags and as `BFLC_*` variables.
+checkpoints and the device profiler (A11), secure aggregation (A12), and
+traces, plots and telemetry (A14); and the genome fields of the closed
+compression loop (`adapt_every`, `density_floor`, A9 item 9), as flags
+and as `BFLC_*` variables.
 """
 
 from __future__ import annotations
@@ -43,14 +49,13 @@ from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
 _ENV_PREFIX = "BFLC_"
 
 # the reference's ProtocolConfig fields the port's does not carry yet
-UNPORTED_FIELDS = ("delta_dtype", "delta_density", "delta_codec",
-                   "adapt_every", "density_floor")
+UNPORTED_FIELDS = ("adapt_every", "density_floor")
 
 # reference run options -> the ROADMAP item that ports them
 UNPORTED_OPTIONS: Dict[str, str] = {
     **{name: "A9" for name in (
         "cells", "cell_size", "attest_scores", "chaos_seed", "chaos_profile",
-        "rederive", "error_feedback", *UNPORTED_FIELDS)},
+        "rederive", *UNPORTED_FIELDS)},
     **{name: "A11" for name in ("checkpoint_dir", "checkpoint_every",
                                 "xprof_window")},
     **{name: "A14" for name in ("trace_path", "plot_path", "telemetry_dir",
@@ -73,8 +78,11 @@ def protocol_from_env(base: Optional[ProtocolConfig] = None
         if raw is None:
             continue
         current = values[name]
-        values[name] = type(current)(
-            float(raw) if isinstance(current, float) else int(raw))
+        if isinstance(current, str):        # e.g. delta_dtype
+            values[name] = raw
+        else:
+            values[name] = type(current)(
+                float(raw) if isinstance(current, float) else int(raw))
     return ProtocolConfig(**values).validate()
 
 
@@ -83,6 +91,21 @@ def add_flags(p: argparse.ArgumentParser) -> None:
     given), and the unported run options, each recorded if given."""
     for name, default in dataclasses.asdict(ProtocolConfig()).items():
         help_ = f"protocol: {name} (default {default})"
+        if name == "delta_dtype":
+            # a typo dies at parse time, not mid-federation
+            p.add_argument("--delta-dtype", choices=["f32", "f16", "i8"],
+                           default=None,
+                           help="protocol: upload delta encoding "
+                                "(default f32 = dense float32; f16/i8 "
+                                "quantize client uploads, certified "
+                                "hash over the quantized bytes)")
+            continue
+        if name == "delta_density":
+            help_ = ("protocol: deterministic top-k upload "
+                     "sparsification — keep this fraction of each float "
+                     "leaf's largest-|value| entries (default 1.0 = "
+                     "dense; certified hash over the sparse bytes, "
+                     "composes with --delta-dtype)")
         if name == "reduce_blocks":
             help_ = ("protocol: partition the flattened param axis into "
                      "this many contiguous blocks for aggregation "
@@ -115,6 +138,12 @@ def add_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--snapshot-dir", default="",
                    help="processes runtime: snapshot artifacts, a "
                         "directory per role")
+    p.add_argument("--error-feedback", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="processes runtime: client-local error feedback "
+                        "(fold what the lossy encode dropped into the "
+                        "next delta; needs --delta-density < 1 or "
+                        "--delta-dtype f16|i8)")
     for name, item in UNPORTED_OPTIONS.items():
         p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True,
                        default=None, help=f"not ported yet (ROADMAP {item})")

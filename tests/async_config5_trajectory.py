@@ -100,6 +100,7 @@ def main(argv=None) -> int:
         "drains": [[m.get("drained"), m.get("staleness")] for m in merges],
         "killed_at_epoch": (getattr(res, "failover", None)
                             or {}).get("killed_at_epoch"),
+        "settle": (getattr(res, "failover", None) or {}).get("settle"),
         "wall_s": round(float(res.wall_time_s), 1)}))
     return 0
 

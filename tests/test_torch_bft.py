@@ -22,6 +22,7 @@ verifies under the other's `verify_certificate`.  Every socket wait has a
 timeout.
 """
 
+import dataclasses
 import hashlib
 import struct
 import threading
@@ -1423,8 +1424,9 @@ def test_unported_legs_raise_naming_their_items(monkeypatch):
         assert got is not None
         assert got == ref_bft.expected_op_hash(method, fields)
     # on the wire: a malformed snapshot install (the path is ported,
-    # A9.5: the offer is checked and refused), a sparse upload's blob
-    # evidence
+    # A9.5: the offer is checked and refused), and a sparse upload's
+    # blob evidence (the codecs are ported, A9 item 7: a dense quorum
+    # ignores the gate, a density-armed one re-executes the blob)
     wallets, _ = provision_wallets(CFG.client_num, b"bft-unported")
     node = ValidatorNode(CFG, w, 0, require_auth=False)
     node.start()
@@ -1443,12 +1445,29 @@ def test_unported_legs_raise_naming_their_items(monkeypatch):
         trainer = next(wl for wl in wallets
                        if wl.address not in led.committee())
         led.upload_local_update(trainer.address, b"\1" * 32, 10, 1.0, 0)
-        r = vc.request("bft_validate", i=led.log_size() - 1,
-                       op=led.log_op(led.log_size() - 1).hex(),
-                       auth={"tag": "00", "n": 10, "cost": 1.0,
-                             "blob": "00"})
-        assert r["status"] == "SPARSE" and "A9 (codecs)" in r["detail"], r
-        assert node.ledger.log_size() == led.log_size() - 1
+        op = led.log_op(led.log_size() - 1)
+        auth = {"tag": "00", "n": 10, "cost": 1.0, "blob": "00"}
+        armed = ValidatorNode(dataclasses.replace(CFG, delta_density=0.05),
+                              w, 1, require_auth=False)
+        ref_armed = ref_bft.ValidatorNode(
+            RefConfig(**{**dataclasses.asdict(CFG), "delta_density": 0.05}),
+            w, 1, require_auth=False)
+        try:
+            # refused at an empty replica's tip, before its ledger guards
+            got = armed._validate({"i": 0, "op": op.hex(), "auth": auth})
+            want = ref_armed._validate({"i": 0, "op": op.hex(),
+                                        "auth": auth})
+            assert got["status"] == want["status"] == "SPARSE", got
+            assert got["detail"] == want["detail"] == (
+                "sparse: blob evidence does not match the op's payload "
+                "hash")
+        finally:
+            armed.close()
+            ref_armed.close()
+        r = vc.request("bft_validate", i=led.log_size() - 1, op=op.hex(),
+                       auth=auth)
+        assert r["ok"], r
+        assert node.ledger.log_size() == led.log_size()
     finally:
         vc.close()
         node.close()

@@ -31,6 +31,7 @@ fleet, against the reference.
 Every wait is bounded; no assertion depends on a sub-second race.
 """
 
+import contextlib
 import hashlib
 import socket as _socket
 import struct
@@ -50,7 +51,8 @@ from bflc_demo_tpu.protocol.constants import ProtocolConfig as RefConfig
 from bflc_demo_tpu_torch.__main__ import main as cli
 from bflc_demo_tpu_torch.client import process_runtime as pr
 from bflc_demo_tpu_torch.comm.dataplane import ReadFanoutServer, ReadRouter
-from bflc_demo_tpu_torch.comm.failover import FailoverClient, Standby
+from bflc_demo_tpu_torch.comm.failover import (FailoverClient, Standby,
+                                             WriterDead)
 from bflc_demo_tpu_torch.comm.identity import (Wallet, _op_bytes,
                                                provision_wallets)
 from bflc_demo_tpu_torch.comm.ledger_service import (
@@ -425,6 +427,90 @@ class TestInThreadPromotion:
             client.close()
             sb1.stop()
             sb2.stop()
+            srv.close()
+
+    def test_standby_ahead_of_the_promoted_writer_drops_its_suffix(self):
+        """C12: with quorum-ack 1 the dead writer's last ops reached the
+        second standby only (the kill cut the first one's frames).  The
+        first promotes without them; the second must roll back to the
+        fenced chain and keep acking, or the promoted writer loses its
+        one quorum follower and every mutation times out."""
+        wallets, directory = provision_wallets(CFG.client_num,
+                                               b"failover-master-0012")
+        sbw = {i: Wallet.from_seed(b"c12-sb-%d" % i) for i in (1, 2)}
+        keys = {i: w.public_bytes for i, w in sbw.items()}
+        srv = _server(directory=directory, quorum=1, quorum_timeout_s=10.0,
+                      standby_keys=keys)
+        eps = [(srv.host, srv.port), ("127.0.0.1", 0), ("127.0.0.1", 0)]
+        sb1 = _standby(eps, 1, wallet=sbw[1], standby_keys=keys, quorum=1,
+                       quorum_timeout_s=10.0)
+        eps[1] = (sb1.host, sb1.port)
+        sb2 = _standby(eps, 2, wallet=sbw[2], standby_keys=keys, quorum=1,
+                       quorum_timeout_s=10.0)
+        eps[2] = (sb2.host, sb2.port)
+        armed, cut = threading.Event(), threading.Event()
+        follow_op = sb1._await_upload_payload
+
+        def lose_frame(op_bytes, ctl, writer):
+            if armed.is_set() and not cut.is_set():
+                # the op's frame never arrives whole: the stream breaks
+                # once the writer is gone
+                assert cut.wait(timeout=30)
+                raise WriterDead("frame cut by the kill")
+            return follow_op(op_bytes, ctl, writer)
+
+        sb1._await_upload_payload = lose_frame
+        _run(sb1)
+        _run(sb2)
+        client = FailoverClient(eps, timeout_s=30.0, standby_keys=keys)
+        try:
+            _register_all(client, wallets)
+            _drive_round(client, wallets, epoch=0)
+            size = client.request("info")["log_size"]
+            _until(lambda: min(sb1.ledger.log_size(),
+                               sb2.ledger.log_size()) >= size)
+            armed.set()
+            _uploads(client, wallets, epoch=1)      # acked through sb2
+            _until(lambda: sb2.ledger.log_size() >= size + 3)
+            assert sb1.ledger.log_size() == size
+            srv.close()
+            client.close()
+            cut.set()
+            assert sb1.promoted.wait(timeout=30)
+            _drive_round(client, wallets, epoch=1)  # quorum: sb2's acks
+            info = client.request("info")
+            assert info["epoch"] == 2 and info["gen"] == 1
+            _until(lambda: sb2.ledger.log_size() >= info["log_size"], 30,
+                   "sb2 following the promoted writer")
+            assert sb2.ledger.log_head().hex() == info["log_head"]
+            assert sb2.ledger.generation == 1 and not sb2.promoted.is_set()
+        finally:
+            client.close()
+            sb1.stop()
+            sb2.stop()
+            srv.close()
+
+    def test_standby_diverging_from_an_unfenced_writer_stops(self):
+        """C12's bound: ops of ours that the writer lacks are dropped only
+        past a promotion fence.  Against a writer of our own generation
+        (no promotion between the chains) the standby stops on the
+        divergence, as the reference's does, and keeps its chain."""
+        srv = _server(require_auth=False)
+        sb = _standby([(srv.host, srv.port), ("127.0.0.1", 0)], 1)
+        c = CoordinatorClient(srv.host, srv.port, timeout_s=15.0)
+        try:
+            for i in range(2):
+                assert c.request("register", addr=f"0x{i:040x}")["ok"]
+            sb.ledger.register_node(f"0x{0:040x}")
+            sb.ledger.register_node(f"0x{7:040x}")      # not the writer's
+            head = sb.ledger.log_head()
+            with pytest.raises(RuntimeError, match="divergence at op 1"):
+                sb._follow((srv.host, srv.port))
+            assert sb.ledger.log_size() == 2
+            assert sb.ledger.log_head() == head
+        finally:
+            c.close()
+            sb.stop()
             srv.close()
 
     def test_rollback_drops_a_failed_fence(self):
@@ -1074,6 +1160,167 @@ def test_committed_model_bytes_survive_a_failover(monkeypatch):
     assert port_leg == moved_leg == "mesh"
     assert info["gen"] == 1
     assert moved == port == ref
+
+
+class _ScriptedWriter:
+    """A client's view of the writer: `state` replies from a script of
+    (epoch, role), the round's one update, and each `scores` request
+    recorded and answered WRONG_EPOCH the first time, OK after."""
+
+    def __init__(self, states):
+        self.states = list(states)
+        self.scores = []
+
+    def request(self, method, **kw):
+        if method == "state":
+            epoch, role = self.states.pop(0) if self.states else (99, "")
+            return {"ok": True, "epoch": epoch, "role": role}
+        if method == "updates":
+            return {"ok": True, "updates": [{"hash": "ab" * 32}]}
+        if method == "scores":
+            self.scores.append(kw["epoch"])
+            return ({"ok": False, "status": "WRONG_EPOCH"}
+                    if len(self.scores) == 1 else {"ok": True,
+                                                   "status": "OK"})
+        assert method == "wait", method
+        return {"ok": True, "log_size": 0}
+
+
+class _ScriptedRouter:
+    def fetch_blobs(self, hashes):
+        return {h: b"" for h in hashes}
+
+    def fetch_model(self):
+        return {"ok": True, "epoch": 0, "blob": b""}
+
+
+@pytest.mark.parametrize("states, scored", [
+    # the writer moved past the round: it is settled, nothing to score
+    ([(2, "comm"), (3, ""), (5, "")], [2]),
+    # a failover lost the commit that opened epoch 2 (the writer is back
+    # at 1), and the member must score epoch 2 when the chain reaches it
+    ([(2, "comm"), (1, ""), (2, "comm"), (5, "")], [2, 2]),
+])
+def test_c13_wrong_epoch_counts_as_scored_only_past_the_round(
+        monkeypatch, states, scored):
+    """C13: a committee member that saw epoch 2 on the dead writer and
+    sent its scores to the promoted one (still at epoch 1) got
+    WRONG_EPOCH and marked epoch 2 scored.  When the promoted chain
+    reached epoch 2 with the same committee, no member scored and the
+    stall recovery, which reseats only a silent committee, never fired:
+    the config-5 failover run stopped at 2 of 7 rounds."""
+    from bflc_demo_tpu_torch.meshagg import engine
+    from bflc_demo_tpu_torch.utils import serialization
+    monkeypatch.setattr(engine, "score_candidates_batched",
+                        lambda model, params, deltas, *a: torch.zeros(
+                            len(deltas)))
+    monkeypatch.setattr(serialization, "restore_pytree", lambda t, f: t)
+    monkeypatch.setattr(serialization, "unpack_pytree", lambda b: {})
+    writer = _ScriptedWriter(states)
+    counts = {"trainings": 0, "scored": 0, "blob_bytes": 0}
+    pr._client_sync_loop(writer, _ScriptedRouter(),
+                         Wallet.from_seed(b"c13-committee-member"), None,
+                         {}, CFG, None, None, 10, 5, None, lambda b: b,
+                         counts, lambda: None)
+    assert writer.scores == scored
+    assert not writer.states
+
+
+def test_c14_a_lagging_follower_gets_each_commits_model_on_the_stream():
+    """C14: the op stream piggybacked a commit op's model only while it
+    was the writer's newest.  A follower lagging behind the next commit
+    (async FedBuff on the card: 13-43 ops behind) got older commits bare,
+    fetched the writer's newest model on every op after them, found it
+    the wrong one, and fell further behind; its snapshot metas lost their
+    model.  Now each of the last PAST_MODELS commits' models rides."""
+    from bflc_demo_tpu_torch.comm.ledger_service import PAST_MODELS
+    from bflc_demo_tpu_torch.ledger.base import OP_COMMIT
+    wallets, directory = provision_wallets(CFG.client_num,
+                                           b"failover-master-0014")
+    srv = _server(directory=directory)
+    client = FailoverClient([(srv.host, srv.port)], timeout_s=30.0)
+    sub = None
+    try:
+        _register_all(client, wallets)
+        rounds = 3
+        assert rounds <= PAST_MODELS + 1
+        for epoch in range(rounds):
+            _drive_round(client, wallets, epoch)
+        size = client.request("info")["log_size"]
+        # a follower that subscribes from 0 lags behind every commit
+        sub = _socket.create_connection((srv.host, srv.port), timeout=30)
+        send_msg(sub, {"method": "subscribe", "from": 0})
+        commits = []
+        for _ in range(size):
+            frame = recv_msg(sub)
+            op = bytes.fromhex(frame["op"])
+            if op[0] == OP_COMMIT:
+                want = bytes.fromhex(decode_op(op)["model_hash"])
+                blob = frame.get("blob")
+                commits.append(blob is not None and hashlib.sha256(
+                    blob_bytes(blob)).digest() == want)
+        assert commits == [True] * rounds
+    finally:
+        if sub is not None:
+            sub.close()
+        client.close()
+        srv.close()
+
+
+def test_a_client_cannot_hold_the_writers_mutations():
+    """No peer pauses the writer: a `settled` request with a hold (a
+    method the writer does not have) is refused, and the next mutation
+    is served at once."""
+    wallets, directory = provision_wallets(CFG.client_num,
+                                           b"failover-master-0015")
+    srv = _server(directory=directory)
+    client = FailoverClient([(srv.host, srv.port)], timeout_s=30.0)
+    try:
+        _register_all(client, wallets[:-1])
+        r = client.request("settled", timeout_s=0.3, hold_s=60.0)
+        assert not r["ok"]
+        t0 = time.monotonic()
+        _register_all(client, wallets[-1:])
+        assert time.monotonic() - t0 < 5.0
+        assert client.request("info")["num_registered"] == CFG.client_num
+    finally:
+        client.close()
+        srv.close()
+
+
+def _proc_state(pid: int) -> str:
+    with open(f"/proc/{pid}/stat") as f:
+        return f.read().rsplit(")", 1)[1].split()[0]
+
+
+@pytest.mark.parametrize("raises", [False, True])
+def test_the_drill_pause_stops_the_clients_and_continues_them(raises):
+    """The writer-kill drill's pause: every live client is SIGSTOPped in
+    the block and SIGCONTed after it, also when the block raises."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=time.sleep, args=(60,), daemon=True)
+             for _ in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        with pytest.raises(RuntimeError) if raises else \
+                contextlib.nullcontext():
+            with pr._paused(procs) as rec:
+                for p in procs:
+                    _until(lambda: _proc_state(p.pid) == "T", 10,
+                           "the client stopped")
+                if raises:
+                    raise RuntimeError("the kill failed")
+        assert rec["stopped"] == 2 and rec["wait_s"] > 0
+        for p in procs:
+            _until(lambda: _proc_state(p.pid) != "T", 10,
+                   "the client continued")
+            assert p.is_alive()
+    finally:
+        for p in procs:
+            p.kill()
+            p.join(timeout=10)
 
 
 # --------------------------------------------------- the process drill

@@ -186,11 +186,20 @@ def test_protocol_overrides_match_the_reference(monkeypatch):
     assert cfg.client_num == ref_cfg.client_num == 40
     for name, value in vars(cfg).items():
         assert getattr(ref_cfg, name) == value, name
-    # the blocked geometry is ported; the sparse codecs are not
+    # the blocked geometry and the codecs are ported (string fields as
+    # they stand); the genome's closed-loop fields are not
     monkeypatch.setenv("BFLC_REDUCE_BLOCKS", "4")
     assert flags.protocol_from_env().reduce_blocks == \
         ref_flags.protocol_from_env().reduce_blocks == 4
     monkeypatch.setenv("BFLC_DELTA_DENSITY", "0.5")
+    monkeypatch.setenv("BFLC_DELTA_DTYPE", "i8")
+    monkeypatch.setenv("BFLC_DELTA_CODEC", "sketch")
+    got, want = flags.protocol_from_env(), ref_flags.protocol_from_env()
+    for name, value in vars(got).items():
+        assert getattr(want, name) == value, name
+    assert (got.delta_density, got.delta_dtype, got.delta_codec) == \
+        (0.5, "i8", "sketch")
+    monkeypatch.setenv("BFLC_ADAPT_EVERY", "2")
     with pytest.raises(ValueError, match="ROADMAP A9"):
         flags.protocol_from_env()
 
@@ -206,7 +215,7 @@ def test_no_preset_override_keeps_the_preset_protocol():
 
 @pytest.mark.parametrize("argv,item", [
     (["--rederive", "shard"], "A9"), (["--chaos-seed", "7"], "A9"),
-    (["--delta-dtype", "i8"], "A9"), (["--error-feedback"], "A9"),
+    (["--adapt-every", "2"], "A9"), (["--density-floor", "0.1"], "A9"),
     (["--checkpoint-dir", "ckpt"], "A11"),
     (["--config", "config4", "--secure"], "A12"),
     (["--trace-path", "t.json"], "A14")])

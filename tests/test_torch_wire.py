@@ -12,7 +12,8 @@
   forged one.
 - Serialization (`utils/serialization.py`): on reference blobs,
   `pack_entries(unpack_pytree(b)) == b`, and `restore_pytree` and the
-  decode chain give the values back; a codec-layout entry raises.
+  decode chain give the values back; codec-layout entries decode as the
+  reference decodes them, a malformed record raising its ValueError.
 - The ledger's recovery ops (`ledger/pyledger.py`): close_round,
   reseat_committee and force_aggregate give the reference's op bytes,
   statuses and chained heads on the same sequence, and each side's
@@ -182,7 +183,12 @@ def test_blob_round_trip_on_reference_blobs(i):
         assert flat[k].dtype == ref_flat[k].dtype
         assert flat[k].tobytes() == ref_flat[k].tobytes()
     assert ser.pack_entries(flat) == blob
-    assert ser.densify_entries(ser.dequantize_entries(flat)) is flat
+    # the decode chain is the identity on a dense blob's entries (a new
+    # mapping of the same arrays, as the reference's)
+    dec = ser.densify_entries(ser.dequantize_entries(flat))
+    assert list(dec) == list(flat)
+    assert all(dec[k] is flat[k] for k in flat)
+    assert ser.pack_entries(dec) == blob
 
 
 def test_restore_pytree_gives_the_model_its_values():
@@ -201,13 +207,25 @@ def test_restore_pytree_gives_the_model_its_values():
 
 
 def test_codec_layouts_raise_naming_the_item():
-    for flat in ({"['W']": np.zeros(3, np.float16)},
-                 {"['W']": np.zeros(3, np.int8),
-                  "['W']#qscale": np.ones((), np.float32)},
-                 {"['W']": np.zeros(2, np.float32),
-                  "['W']#topk": np.zeros(4, np.uint32)}):
-        with pytest.raises(ser.CodecNotPorted, match="A9"):
-            ser.densify_entries(ser.dequantize_entries(flat))
+    """The codecs are ported (ROADMAP A9 item 7): an f16 leaf and an i8
+    leaf with its scale decode as the reference's do, and a malformed
+    `#topk` record (3 indices for 2 values) raises the reference's
+    ValueError."""
+    for flat in ({"['W']": np.arange(3, dtype=np.float16)},
+                 {"['W']": np.arange(-1, 2, dtype=np.int8),
+                  "['W']#qscale": np.full((), 0.5, np.float32)}):
+        got = ser.densify_entries(ser.dequantize_entries(flat))
+        want = ref_ser.densify_entries(ref_ser.dequantize_entries(flat))
+        assert list(got) == list(want) == ["['W']"]
+        assert got["['W']"].dtype == np.float32
+        assert got["['W']"].tobytes() == want["['W']"].tobytes()
+    bad = {"['W']": np.zeros(2, np.float32),
+           "['W']#topk": np.zeros(4, np.uint32)}
+    with pytest.raises(ValueError) as want:
+        ref_ser.densify_entries(ref_ser.dequantize_entries(bad))
+    with pytest.raises(ValueError, match="3 indices for 2 values") as got:
+        ser.densify_entries(ser.dequantize_entries(bad))
+    assert str(got.value) == str(want.value)
 
 
 CFG = dict(client_num=6, comm_count=2, aggregate_count=2,
