@@ -18,13 +18,16 @@ encode (the reference's :141-157, :195-207), and `--error-feedback`
 exports `BFLC_ERROR_FEEDBACK=1` to the children; run it from the shell
 or a real file, as spawned children re-import `__main__`), on `cuda`
 unless `--device cpu` (the counterpart of `JAX_PLATFORMS=cpu`), with
+`--cells N`/`--cell-size M` the two-tier hier fleet (`hier/`; with
+`--standbys`, `--quorum`, `--tls-dir` or `--snapshot-interval`, or on
+another runtime, exit 2), with
 the protocol overridable by `--field-name` flags and `BFLC_*` variables
 (`utils/flags.py`) and the ledger by `--ledger-backend auto|python`.  An
 unknown config, an unported runtime (the executor), the native ledger,
 the fleet's flags on another runtime than `processes`, a negative
 `--bft-validators` or `--snapshot-interval`, `--snapshot-dir` without
 an interval, or a flag of a part not ported yet (the fleet's chaos,
-cells, rederive and the genome's `--adapt-every`/`--density-floor` A9,
+rederive and the genome's `--adapt-every`/`--density-floor` A9,
 checkpoints A11, secure aggregation A12, traces and telemetry A14)
 exits 2 naming the ROADMAP item.
 Prints the reference CLI's final JSON keys, and on `processes` a
@@ -50,7 +53,8 @@ def _parser() -> argparse.ArgumentParser:
         epilog="Ported: --config config0..config5 on --runtime mesh (the "
                "default), host, threaded and processes (with --standbys, "
                "--quorum, --bft-validators, --tls-dir, --snapshot-interval "
-               "and --snapshot-dir; --async-buffer runs FedBuff there, and "
+               "and --snapshot-dir; --cells/--cell-size the hier fleet; "
+               "--async-buffer runs FedBuff there, and "
                "--delta-density/--error-feedback the upload codecs), "
                "--reduce-blocks, --delta-dtype, --delta-codec.  The "
                "executor runtime, the native ledger and the fleet's "
@@ -122,11 +126,22 @@ def main(argv=None) -> int:
         os.environ["BFLC_ERROR_FEEDBACK"] = "1"
     if (opts.standbys or opts.quorum or opts.bft_validators
             or opts.tls_dir or opts.snapshot_interval
-            or opts.snapshot_dir) and opts.runtime != "processes":
+            or opts.snapshot_dir or opts.cells
+            or opts.cell_size) and opts.runtime != "processes":
         print("--standbys, --quorum, --bft-validators, --tls-dir, "
-              "--snapshot-interval and --snapshot-dir apply only to "
-              "--runtime processes", file=sys.stderr)
+              "--snapshot-interval, --snapshot-dir, --cells and "
+              "--cell-size apply only to --runtime processes",
+              file=sys.stderr)
         return 2
+    if opts.cells or opts.cell_size:
+        # hierarchical cells: one certified cell partial a cell a round
+        # reaches the root (the reference's :125-137)
+        if opts.standbys or opts.quorum or opts.tls_dir \
+                or opts.snapshot_interval:
+            print("--cells/--cell-size do not compose with "
+                  "--standbys/--quorum/--tls-dir/--snapshot-interval "
+                  "yet", file=sys.stderr)
+            return 2
     if opts.snapshot_interval < 0:
         print(f"--snapshot-interval must be >= 0, got "
               f"{opts.snapshot_interval}", file=sys.stderr)
@@ -152,6 +167,9 @@ def main(argv=None) -> int:
     if opts.snapshot_interval:
         kw["snapshot_interval"] = opts.snapshot_interval
         kw["snapshot_dir"] = opts.snapshot_dir
+    if opts.cells or opts.cell_size:
+        kw["cells"] = opts.cells
+        kw["cell_size"] = opts.cell_size
     if opts.bft_validators:
         if opts.bft_validators < 1:
             print(f"--bft-validators must be positive, got "
@@ -199,6 +217,14 @@ def main(argv=None) -> int:
                         "replica_head_ok": bool(
                             res.replica_report and res.replica_report["head"]
                             == res.ledger_log_head)}
+        if res.cell_plan is not None:
+            # the hier fleet: the plan, each member's exit code, every
+            # root op (name, sender, epoch) and each cell's partials
+            out["fleet"]["hier"] = {
+                "cells": [list(m) for m in res.cell_plan.members],
+                "client_exitcodes": res.client_exitcodes,
+                "root_ops": res.root_ops,
+                "cell_merges": res.cell_merges}
     print(json.dumps(out))
     return 0
 

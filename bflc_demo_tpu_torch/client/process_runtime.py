@@ -221,17 +221,20 @@ def _server_proc(cfg_kw: dict, initial_blob: bytes, port_q,
 
 def _validator_proc(cfg_kw: dict, wallet_seed: bytes, index: int,
                     port_q, validator_keys: dict, verbose: bool,
-                    port: int = 0) -> None:
+                    port: int = 0,
+                    cell_registry: Optional[dict] = None) -> None:
     """One BFT commit-quorum member (`comm/bft.ValidatorNode`): a replica
     and a wallet that re-execute and co-sign every op, with the peers'
-    keys to admit certified backlog when it lags.  Pure ledger and
-    crypto: it resolves no device and imports no torch.  Reports its
-    port and what it imported, then blocks."""
+    keys to admit certified backlog when it lags (and, at a hier root,
+    the cell registry).  Pure ledger and crypto: it resolves no device
+    and imports no torch.  Reports its port and what it imported, then
+    blocks."""
     from bflc_demo_tpu_torch.comm.bft import ValidatorNode
     from bflc_demo_tpu_torch.comm.identity import Wallet
     node = ValidatorNode(ProtocolConfig(**cfg_kw),
                          Wallet.from_seed(wallet_seed), index, port=port,
-                         validator_keys=validator_keys, verbose=verbose)
+                         validator_keys=validator_keys,
+                         cell_registry=cell_registry, verbose=verbose)
     torch = sys.modules.get("torch")
     port_q.put({"port": node.port, "torch_imported": torch is not None,
                 "cuda_initialized": bool(
@@ -643,7 +646,16 @@ def _client_sync_loop(client, router, wallet, model, template, cfg, xj, yj,
         elif st["role"] == "comm" and epoch > scored_epoch:
             ups = client.request("updates")["updates"]
             if ups:
-                fetched = router.fetch_blobs([u["hash"] for u in ups])
+                try:
+                    fetched = router.fetch_blobs([u["hash"] for u in ups])
+                except LookupError:
+                    # the list came from a writer that died before its
+                    # standby mirrored those uploads: the promoted writer
+                    # lists only what it holds, so wait and re-poll (C17)
+                    known_log = client.request(
+                        "wait", log_size=known_log,
+                        timeout_s=2.0)["log_size"]
+                    continue
                 deltas = [decode(fetched[u["hash"]]) for u in ups]
                 mr = router.fetch_model()
                 if not mr.get("ok"):
@@ -759,6 +771,21 @@ class ProcessFederationResult:
         # rounds: "rounds" (the sponsor saw the last commit),
         # "client_reports", "certified", "replicas", "teardown"
         self.phase_s: Dict[str, float] = {}
+        # a hier fleet (`hier/runtime.run_federated_hier`): the cell plan,
+        # each member's wallet address and exit code (spawn order), the
+        # fleet's ports by role, every root op's name, sender and epoch,
+        # the cells killed by the re-home drill, and by cell index each
+        # live aggregator's partial records (`merge_log`), merge-engine
+        # report and the root's replies to its bridge by status
+        self.cell_plan = None
+        self.member_addresses: List[str] = []
+        self.client_exitcodes: List[Optional[int]] = []
+        self.port_of: Dict[str, int] = {}
+        self.root_ops: List[dict] = []
+        self.killed_cells: List[int] = []
+        self.cell_merges: Dict[int, List[dict]] = {}
+        self.cell_engines: Dict[int, dict] = {}
+        self.cell_bridge: Dict[int, dict] = {}
 
     @property
     def final_accuracy(self) -> float:
@@ -793,19 +820,195 @@ def _drain_now(q) -> List[dict]:
             return out
 
 
+def client_seed(master_seed: bytes, i: int) -> bytes:
+    """Client i's wallet seed: the reference's derivation from the run's
+    master seed."""
+    return master_seed + struct.pack("<q", i)
+
+
+def start_validators(vctx, cfg_kw: dict, master_seed: bytes, n: int,
+                     bft_keys: dict, verbose: bool, host: str,
+                     cell_registry: Optional[dict] = None):
+    """Spawn `n` BFT validators at once (identities from the master
+    seed) and read each one's start report in index order.  Returns
+    (processes, reports by role, endpoints); a failure terminates the
+    ones started."""
+    procs: List = []
+    qs: List = []
+    reports: Dict[str, dict] = {}
+    endpoints: List[Tuple[str, int]] = []
+    try:
+        for v in range(n):
+            q = vctx.Queue()
+            vp = children.process(vctx, _validator_proc, (
+                cfg_kw, master_seed + b"|bft-validator|"
+                + struct.pack("<q", v), v, q, bft_keys, verbose, 0,
+                cell_registry))
+            vp.start()
+            procs.append(vp)
+            qs.append(q)
+        for v, q in enumerate(qs):
+            rep_v = q.get(timeout=120)
+            reports[f"validator-{v}"] = rep_v
+            endpoints.append((host, rep_v["port"]))
+    except BaseException:
+        for vp in procs:
+            vp.terminate()
+        raise
+    return procs, reports, endpoints
+
+
+def sponsor_rounds(sponsor, router, model, template, test_t, rounds: int,
+                   deadline: float, t_start: float, verbose: bool,
+                   incomplete: str, on_info=None):
+    """The sponsor's watch over the rounds: poll the writer's `info`,
+    evaluate every newly committed model on `test_t` (x, y_onehot), stop
+    once `rounds` epochs committed.  `on_info(info)` runs on each reply
+    (a drill's kill); when it returns True the sponsor polls again at
+    once.  Every endpoint dark for a moment (mid-promotion) is retried:
+    the deadline, not one poll, decides the run failed, and then raises
+    naming `incomplete`.  Returns (history, epoch_times, spawn_s): the
+    (epoch, accuracy) and (epoch, seconds since `t_start`) at each
+    commit seen, and the seconds until the first epoch opened."""
+    from bflc_demo_tpu_torch.core.local_train import evaluate
+    from bflc_demo_tpu_torch.utils.serialization import (restore_pytree,
+                                                         unpack_pytree)
+    history: List[Tuple[int, float]] = []
+    epoch_times: List[Tuple[int, float]] = []
+    spawn_s = 0.0
+    seen_epoch = 0              # the model at epoch 0 is the initial one
+    while time.monotonic() < deadline:
+        try:
+            info = sponsor.request("info")
+        except ConnectionError:
+            time.sleep(0.5)
+            continue
+        if on_info is not None and on_info(info):
+            continue
+        if not spawn_s and info["epoch"] >= 0:
+            spawn_s = time.monotonic() - t_start
+        if info["epoch"] > seen_epoch:
+            try:
+                mr = router.fetch_model()
+            except ConnectionError:
+                time.sleep(0.5)
+                continue
+            if mr.get("ok") and mr["epoch"] > seen_epoch:
+                params = restore_pytree(template, unpack_pytree(mr["blob"]))
+                acc = float(evaluate(model, params, *test_t))
+                history.append((mr["epoch"] - 1, acc))
+                epoch_times.append((mr["epoch"] - 1,
+                                    time.monotonic() - t_start))
+                seen_epoch = mr["epoch"]
+                if verbose:
+                    print(f"Epoch: {mr['epoch'] - 1:03d}, "
+                          f"test_acc: {acc:.4f}", flush=True)
+        # epoch counts committed rounds across a failover; an armed
+        # drill kills first
+        if info["epoch"] >= rounds:
+            return history, epoch_times, spawn_s
+        try:
+            # wake on the log's next op, or after 0.2 s
+            sponsor.request("wait", log_size=info["log_size"],
+                            timeout_s=0.2)
+        except ConnectionError:
+            pass
+    raise TimeoutError(f"{incomplete} ({len(history)}/{rounds} rounds)")
+
+
+def _info_with_retry(sponsor, attempts: int = 20,
+                     delay_s: float = 0.5) -> dict:
+    """The writer's `info`, retried through a transient outage."""
+    for i in range(attempts):
+        try:
+            return sponsor.request("info")
+        except ConnectionError:
+            if i == attempts - 1:
+                raise
+            time.sleep(delay_s)
+    raise ConnectionError("unreachable")
+
+
+def final_info(sponsor, certified: bool, deadline: float) -> dict:
+    """The writer's last `info`.  With `certified` (BFT) it waits until
+    every op is certified: the sponsor saw the last commit before its
+    certificate (a read is not certified), so the certify loop catches
+    up and `certified_size` reports the finished chain."""
+    final = _info_with_retry(sponsor)
+    while certified and final["certified_size"] != final["log_size"]:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{final['log_size']} ops, "
+                               f"{final['certified_size']} certified "
+                               f"at the deadline")
+        sponsor.request("wait", log_size=final["log_size"], timeout_s=0.2)
+        final = _info_with_retry(sponsor)
+    return final
+
+
+def join_clients(clients) -> List[Optional[int]]:
+    """Wait for the clients to exit, terminating any still running after
+    15 s; each one's exit code, in spawn order."""
+    for p in clients:
+        p.join(timeout=15)
+        if p.is_alive():
+            p.terminate()
+            p.join(timeout=10)
+    return [p.exitcode for p in clients]
+
+
+def stop_processes(procs) -> None:
+    """Terminate and reap the fleet's server-side processes."""
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+        p.join(timeout=10)
+
+
+def absorb_reports(result: "ProcessFederationResult",
+                   writer_kernels: Optional[dict],
+                   client_reports: List[dict],
+                   launches: Dict[str, Dict[str, int]]) -> None:
+    """Fill `result` from the final writer's `kernels` reply and the
+    clients' reports: launch counts by role (the sponsor's own last), the
+    writer's engine report, merge, snapshot and chain records, and each
+    client's tracer summary, reads, foreign modules and counts."""
+    kr = writer_kernels
+    if kr is not None and kr.get("ok"):
+        launches["writer"] = kr["launches"]
+        result.writer_engine = kr["engine"]
+        result.writer_merges = kr["merges"]
+        result.writer_snapshots = kr.get("snapshots", [])
+        result.writer_chain = kr.get("chain")
+        result.writer_start = {
+            "log_base": kr.get("started_log_base"),
+            "async_buffer": kr.get("started_async_buffer")}
+        result.ed25519_backend = kr["ed25519_backend"]
+    for rep in client_reports:
+        launches[rep["role"]] = rep["launches"]
+        result.client_perf[rep["role"]] = rep["perf"]
+        result.client_reads[rep["role"]] = rep["reads"]
+        result.child_foreign_modules[rep["role"]] = rep["foreign_modules"]
+        result.client_counts[rep["role"]] = {
+            k: rep[k] for k in ("trainings", "scored", "blob_bytes",
+                                "aupload", "ascores")}
+    launches["sponsor"] = launch_counts()
+    result.kernel_launches = launches
+
+
 def client_args(endpoints, master_seed: bytes, i: int, model_factory: str,
                 factory_kw: dict, x, y, num_classes: int, cfg_kw: dict,
                 rounds: int, crash_at_epoch: Optional[int], device: str,
                 report_q, standby_keys: Optional[dict] = None,
-                bft_keys: Optional[dict] = None, tls_dir: str = "") -> tuple:
+                bft_keys: Optional[dict] = None, tls_dir: str = "",
+                request_timeout_s: float = 120.0) -> tuple:
     """`_client_proc`'s arguments for client i (its wallet seed is the
     reference's derivation from the run's master seed)."""
     from bflc_demo_tpu_torch.data.partition import one_hot
-    return (list(endpoints), master_seed + struct.pack("<q", i),
+    return (list(endpoints), client_seed(master_seed, i),
             model_factory, factory_kw, np.asarray(x),
             one_hot(np.asarray(y), num_classes), cfg_kw, rounds,
-            crash_at_epoch, device, report_q, f"client-{i}", 120.0,
-            standby_keys, bft_keys, tls_dir)
+            crash_at_epoch, device, report_q, f"client-{i}",
+            request_timeout_s, standby_keys, bft_keys, tls_dir)
 
 
 def run_federated_processes(
@@ -897,12 +1100,9 @@ def run_federated_processes(
     from bflc_demo_tpu_torch.comm.dataplane import ReadRouter
     from bflc_demo_tpu_torch.comm.failover import FailoverClient
     from bflc_demo_tpu_torch.comm.identity import Wallet
-    from bflc_demo_tpu_torch.core.local_train import evaluate
     from bflc_demo_tpu_torch.data.partition import one_hot
     from bflc_demo_tpu_torch.device import resolve_device
-    from bflc_demo_tpu_torch.utils.serialization import (pack_pytree,
-                                                         restore_pytree,
-                                                         unpack_pytree)
+    from bflc_demo_tpu_torch.utils.serialization import pack_pytree
 
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -935,30 +1135,9 @@ def run_federated_processes(
     vctx = children.spawn_context()
     ctx = children.torch_context()
     host = "127.0.0.1"
-    validator_procs: List = []
-    validator_reports: Dict[str, dict] = {}
-    bft_endpoints: List[Tuple[str, int]] = []
     t_val = time.monotonic()
-    try:
-        # all start at once; each reports its port on its own queue, read
-        # in index order
-        validator_qs = []
-        for v in range(bft_validators):
-            q = vctx.Queue()
-            vp = children.process(vctx, _validator_proc, (
-                cfg_kw, master_seed + b"|bft-validator|"
-                + struct.pack("<q", v), v, q, bft_keys, verbose))
-            vp.start()
-            validator_procs.append(vp)
-            validator_qs.append(q)
-        for v, q in enumerate(validator_qs):
-            rep_v = q.get(timeout=120)
-            validator_reports[f"validator-{v}"] = rep_v
-            bft_endpoints.append((host, rep_v["port"]))
-    except BaseException:
-        for vp in validator_procs:
-            vp.terminate()
-        raise
+    validator_procs, validator_reports, bft_endpoints = start_validators(
+        vctx, cfg_kw, master_seed, bft_validators, bft_keys, verbose, host)
     validator_spawn_s = time.monotonic() - t_val
     port_q = ctx.Queue()
     server = children.process(ctx, _server_proc, (
@@ -972,18 +1151,10 @@ def run_federated_processes(
     clients: List = []
     report_q = ctx.Queue()
     sponsor = router = None
-    history: List[Tuple[int, float]] = []
-    epoch_times: List[Tuple[int, float]] = []
-    spawn_s = 0.0
     # seconds from the start to the end of each step after the rounds
     marks: Dict[str, float] = {}
-    launches: Dict[str, Dict[str, int]] = {}
-    writer_engine = None
-    writer_merges: List[dict] = []
-    writer_snapshots: List[dict] = []
-    writer_chain = writer_start = None
+    kr: Optional[dict] = None
     plaintext_refused = None
-    ed25519_backend = None
     final = None
     failover: Optional[dict] = None
     replica_reports: List[dict] = []
@@ -1022,92 +1193,49 @@ def run_federated_processes(
                                  standby_keys=standby_keys,
                                  bft_keys=bft_keys or None, tls=tls)
         router = ReadRouter(sponsor, timeout_s=120.0, tls=tls)
-        seen_epoch = 0          # the model at epoch 0 is the initial one
         deadline = time.monotonic() + timeout_s
-        while time.monotonic() < deadline:
-            try:
-                info = sponsor.request("info")
-            except ConnectionError:
-                # every endpoint dark for a moment (mid-promotion): the
-                # deadline, not one poll, decides the run failed
-                time.sleep(0.5)
-                continue
-            armed = (kill_writer_at_epoch is not None and failover is None
-                     and info["epoch"] >= kill_writer_at_epoch)
-            if armed:
-                # the drill: SIGKILL the primary as soon as it committed
-                # the epoch (before the sponsor's evaluation), so the
-                # promoted standby takes the next round.  Under BFT a
-                # standby follows certified ops only and cannot promote
-                # past certified ops it never received, so the kill waits
-                # until the primary certified its chain and a subscriber
-                # acked all of it (the reference's 0.2 s poll gives them
-                # that time).  Under a steady stream of appends the chain
-                # has no such moment: the clients are stopped meanwhile
-                # and continued once the primary is dead
-                with _paused(clients if bft_validators else []) as settle:
-                    while bft_validators and \
-                            not _primary_settled((host, port), tls):
-                        if time.monotonic() > deadline:
-                            raise TimeoutError(
-                                "the primary's chain never settled for "
-                                "the writer-kill drill")
-                        time.sleep(0.005)
-                    failover = _kill_primary(server, (host, port), info,
-                                             tls)
-                failover["settle"] = settle
-                if verbose:
-                    print(f"[drill] primary coordinator killed at epoch "
-                          f"{info['epoch']}", flush=True)
-                continue
-            if not spawn_s and info["epoch"] >= 0:
-                spawn_s = time.monotonic() - t_start
-            if info["epoch"] > seen_epoch:
-                mr = router.fetch_model()
-                if mr.get("ok") and mr["epoch"] > seen_epoch:
-                    params = restore_pytree(template,
-                                            unpack_pytree(mr["blob"]))
-                    acc = float(evaluate(model, params, xte_t, yte_t))
-                    history.append((mr["epoch"] - 1, acc))
-                    epoch_times.append((mr["epoch"] - 1,
-                                        time.monotonic() - t_start))
-                    seen_epoch = mr["epoch"]
-                    if verbose:
-                        print(f"Epoch: {mr['epoch'] - 1:03d}, "
-                              f"test_acc: {acc:.4f}", flush=True)
-            # epoch counts committed rounds across a failover; an armed
-            # drill kills first
-            if info["epoch"] >= rounds:
-                break
-            try:
-                # wake on the log's next op, or after 0.2 s
-                sponsor.request("wait", log_size=info["log_size"],
-                                timeout_s=0.2)
-            except ConnectionError:
-                pass
-        else:
-            raise TimeoutError(f"process federation incomplete after "
-                               f"{timeout_s}s ({len(history)}/{rounds} "
-                               f"rounds)")
+
+        def drill(info: dict) -> bool:
+            """The writer-kill drill: SIGKILL the primary as soon as it
+            committed the epoch (before the sponsor's evaluation), so the
+            promoted standby takes the next round.  Under BFT a standby
+            follows certified ops only and cannot promote past certified
+            ops it never received, so the kill waits until the primary
+            certified its chain and a subscriber acked all of it (the
+            reference's 0.2 s poll gives them that time).  Under a steady
+            stream of appends the chain has no such moment: the clients
+            are stopped meanwhile and continued once the primary is
+            dead."""
+            nonlocal failover
+            if kill_writer_at_epoch is None or failover is not None \
+                    or info["epoch"] < kill_writer_at_epoch:
+                return False
+            with _paused(clients if bft_validators else []) as settle:
+                while bft_validators and \
+                        not _primary_settled((host, port), tls):
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(
+                            "the primary's chain never settled for the "
+                            "writer-kill drill")
+                    time.sleep(0.005)
+                failover = _kill_primary(server, (host, port), info, tls)
+            failover["settle"] = settle
+            if verbose:
+                print(f"[drill] primary coordinator killed at epoch "
+                      f"{info['epoch']}", flush=True)
+            return True
+
+        history, epoch_times, spawn_s = sponsor_rounds(
+            sponsor, router, model, template, (xte_t, yte_t), rounds,
+            deadline, t_start, verbose,
+            f"process federation incomplete after {timeout_s}s", drill)
         marks["rounds"] = time.monotonic() - t_start
         # the clients first: an async client mid-training still uploads,
         # and its op (a drain with it) belongs to the chain the final
         # `info` reports
         client_reports = _drain_reports(report_q, clients, wait_s=60.0)
         marks["client_reports"] = time.monotonic() - t_start
-        final = sponsor.request("info")
-        while bft_validators and \
-                final["certified_size"] != final["log_size"]:
-            # the sponsor saw the last commit before its certificate (a
-            # read is not certified): wait for the certify loop to catch
-            # up, so `certified_size` reports the finished chain
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"{final['log_size']} ops, "
-                                   f"{final['certified_size']} certified "
-                                   f"after {timeout_s}s")
-            sponsor.request("wait", log_size=final["log_size"],
-                            timeout_s=0.2)
-            final = sponsor.request("info")
+        final = final_info(sponsor, bool(bft_validators), deadline)
         final_ep = sponsor.current_endpoint
         marks["certified"] = time.monotonic() - t_start
         if replicas > 0:
@@ -1135,31 +1263,17 @@ def run_federated_processes(
         if tls_dir:
             plaintext_refused = _plaintext_refused(final_ep)
         kr = sponsor.request("kernels")
-        if kr.get("ok"):
-            launches["writer"] = kr["launches"]
-            writer_engine = kr["engine"]
-            writer_merges = kr["merges"]
-            writer_snapshots = kr.get("snapshots", [])
-            writer_chain = kr.get("chain")
-            writer_start = {"log_base": kr.get("started_log_base"),
-                            "async_buffer": kr.get("started_async_buffer")}
-            ed25519_backend = kr["ed25519_backend"]
-            if failover is not None:
-                failover.update(_promotion_account(failover, kr))
+        if kr.get("ok") and failover is not None:
+            failover.update(_promotion_account(failover, kr))
     finally:
         if router is not None:
             router.close()
         if sponsor is not None:
             sponsor.close()
-        for p in clients:
-            p.join(timeout=15)
-            if p.is_alive():
-                p.terminate()
+        join_clients(clients)
         for role, q in standby_qs.items():
             standby_events[role] = _drain_now(q)
-        for p in [server] + standby_procs + validator_procs:
-            p.terminate()
-            p.join(timeout=10)
+        stop_processes([server] + standby_procs + validator_procs)
     marks["teardown"] = time.monotonic() - t_start
 
     result = ProcessFederationResult(
@@ -1175,29 +1289,14 @@ def run_federated_processes(
     result.epoch_times = epoch_times
     result.spawn_s = spawn_s
     result.phase_s = marks
-    for rep in client_reports:
-        launches[rep["role"]] = rep["launches"]
-        result.client_perf[rep["role"]] = rep["perf"]
-        result.client_reads[rep["role"]] = rep["reads"]
-        result.child_foreign_modules[rep["role"]] = rep["foreign_modules"]
-        result.client_counts[rep["role"]] = {
-            k: rep[k] for k in ("trainings", "scored", "blob_bytes",
-                                "aupload", "ascores")}
+    absorb_reports(result, kr, client_reports, {})
     for i, rep in enumerate(replica_reports):
         result.child_foreign_modules[f"replica-{i}"] = \
             rep.get("foreign_modules", [])
-    launches["sponsor"] = launch_counts()
-    result.kernel_launches = launches
-    result.writer_engine = writer_engine
-    result.writer_merges = writer_merges
-    result.ed25519_backend = ed25519_backend
     result.replica_reports = replica_reports
     result.validator_reports = validator_reports
     result.validator_spawn_s = validator_spawn_s
     result.standby_events = standby_events
-    result.writer_snapshots = writer_snapshots
-    result.writer_chain = writer_chain
-    result.writer_start = writer_start
     result.plaintext_refused = plaintext_refused
     if failover is not None:
         failover["kill_t"] = failover["kill_mono"] - t_start

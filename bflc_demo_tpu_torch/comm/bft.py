@@ -53,12 +53,17 @@ admits on its certificate, and a dense quorum ignores the gate.  The
 decode is numpy (`utils/codecs.py`): a validator still imports no
 torch.
 
+Hierarchical cells (reference :634-643, :924-928): a validator given
+the `cell_registry` refuses (`CELL`) a root upload op whose sender is no
+registered cell aggregator or whose client count exceeds that cell's
+registered membership (`hier/partial.check_cell_upload_op`, numpy only).
+
 Dropped: the obs metrics, flight recorder and trace spans (ROADMAP A14;
 `utils/tracing.PROC` still charges `bft.validate_s` / `bft.validate_n`
 on the validator).  Not ported, each raising or refusing with its item:
-the rederive plane and its vote cross-check (A9 (rederive)), the cell
-registry (A9 (hier cells)) and the native ledger (A9 (native ledger),
-refused by `make_ledger`).
+the rederive plane, its vote cross-check and its cell re-derivation
+(`REDERIVE` / `cell_err`, A9 (rederive), item 9) and the native ledger
+(A9 (native ledger), refused by `make_ledger`).
 """
 
 from __future__ import annotations
@@ -500,8 +505,6 @@ class ValidatorNode:
                  rederive: Optional[str] = None,
                  initial_model_blob: Optional[bytes] = None,
                  verbose: bool = False):
-        if cell_registry is not None:
-            raise _unported("a validator's cell registry", "A9 (hier cells)")
         # the reference's mode resolution: the argument, else
         # BFLC_REDERIVE; BFLC_REDERIVE_LEGACY pins the plane off.
         # `initial_model_blob` serves only an armed plane.
@@ -526,6 +529,15 @@ class ValidatorNode:
         self.ledger = make_ledger(cfg, backend=ledger_backend)
         self.directory = directory if directory is not None \
             else PublicDirectory()
+        # hierarchical cells (`hier/`): on a ROOT quorum every upload op
+        # is a cell partial whose `n` is the cell's claimed client count;
+        # holding the registry (derived from configuration, like the
+        # validator keys), this validator refuses (`CELL`) an op from an
+        # unregistered sender or one whose count exceeds that cell's
+        # registered membership, so even a colluding root writer cannot
+        # certify an inflated weight
+        self._cell_registry: Optional[Dict[str, Tuple[int, int]]] = (
+            dict(cell_registry) if cell_registry is not None else None)
         # a density-armed quorum re-executes every upload's and
         # aupload's blob evidence through the densify inverse
         self._sparse = sparse_enabled(cfg)
@@ -790,6 +802,12 @@ class ValidatorNode:
         if attempt < promised:
             return self._refuse("PROMISED", f"promised attempt {promised}",
                                 promised=promised, voted_t=0)
+        if self._cell_registry is not None:
+            from bflc_demo_tpu_torch.hier.partial import \
+                check_cell_upload_op
+            err = check_cell_upload_op(op, self._cell_registry)
+            if err:
+                return self._refuse("CELL", err)
         if self._sparse and sparse_err:
             return self._refuse("SPARSE", sparse_err)
         if self.require_auth:

@@ -134,9 +134,16 @@ reference, until the snapshot GC drops the op auth below its base.
 With `BFLC_PROC_TRACE=1` the writer charges `admit.decode_s` per
 admitted blob.
 
+Hierarchical cells (reference :509-518, :1420-1431, :2010-2064): with
+`cell_registry` the server is a root whose clients are cell aggregators
+(`hier/`); `_decode_cell_partial` admits a cell partial with every
+refusal reason of the reference's, and the merge (the staged rows and
+the host leg's `_decoded`) runs over the partials with their #cellmeta
+entry stripped, on B5 on the card.
+
 Not ported, each raising or refusing with its ROADMAP item when asked
-for: the hier root, rederive and its commit evidence, the genome path
-(A9); telemetry, health and causal traces (A14).
+for: rederive and its commit and cell evidence, the genome path (A9);
+telemetry, health and causal traces (A14).
 `BFLC_DATA_PLANE_LEGACY=1` drops the model piggyback and the read set,
 as in the reference.
 """
@@ -186,12 +193,6 @@ PAST_MODELS = 4
 GAS_REGISTER = 1_000
 GAS_UPLOAD_BASE = 1_000
 GAS_SCORES = 500
-
-# the reference's server options this port has not reached, each with
-# the ROADMAP item that brings it; a truthy value raises
-UNPORTED_SERVER_OPTIONS = {
-    "cell_registry": "A9 (hier cells)",
-}
 
 # wire methods of unported paths: refused by name, never "unknown"
 _UNPORTED_METHODS = {"telemetry": "A14 (telemetry)"}
@@ -341,16 +342,15 @@ class LedgerServer:
                  snapshot_dir: str = "",
                  snapshot_keep: int = 2,
                  resume_snapshot: Optional[dict] = None,
+                 cell_registry: Optional[Dict[str, Tuple[int, int]]] = None,
                  device: DeviceLike = None,
-                 verbose: bool = False,
-                 **unported):
+                 verbose: bool = False):
         """resume_ledger/resume_blobs/sock/resume_certs/resume_snapshot:
         the promotion surface — a server over a standby's replayed (and
         possibly compacted) ledger, its mirrored blobs, certificates and
         snapshot, the current model blob as `initial_model_blob`, and the
         socket it bound at start, whose backlog holds the failed-over
         clients."""
-        refuse_unported(unported, UNPORTED_SERVER_OPTIONS)
         from bflc_demo_tpu_torch.ledger.snapshot import snapshot_legacy
         cfg.validate()
         self.cfg = cfg
@@ -358,6 +358,13 @@ class LedgerServer:
         # FedBuff on the certified op stream: one protocol per chain, so
         # sync upload/scores are refused while it is on
         self._async = async_enabled(cfg)
+        # hierarchical cells (`hier/`): with a registry (aggregator
+        # address -> (cell index, registered membership)) this server is
+        # a ROOT — every upload is a cell partial carrying the #cellmeta
+        # evidence entry, admitted by `_decode_cell_partial` and merged
+        # with that entry stripped
+        self._cell_registry: Optional[Dict[str, Tuple[int, int]]] = (
+            dict(cell_registry) if cell_registry is not None else None)
         # sparse upload deltas (delta_density < 1): admission decodes
         # through the one densify inverse and stages the dense image, and
         # the upload ops' evidence carries the blob for the validators
@@ -1130,8 +1137,11 @@ class LedgerServer:
         if not self._charge_gas(addr, GAS_UPLOAD_BASE + len(blob)):
             return dict(self._OUT_OF_GAS)
         # structural admission check (post-auth, so unsigned spam buys no
-        # decodes): a delta unlike the model dies here, not in the merge
-        err, flat = self._decode_delta(blob)
+        # decodes): a delta unlike the model dies here, not in the merge;
+        # a root also holds the cell contract
+        err, flat = (self._decode_cell_partial(addr, blob, int(m["n"]))
+                     if self._cell_registry is not None
+                     else self._decode_delta(blob))
         if err:
             return {"ok": False, "status": "BAD_ARG", "error": err}
         st = self.ledger.upload_local_update(
@@ -1451,11 +1461,57 @@ class LedgerServer:
         err = self._schema_error(delta)
         return err, (None if err else delta)
 
+    def _decode_cell_partial(self, addr: str, blob: bytes, claimed_n: int):
+        """(reason, stripped partial entries or None): '' iff a cell
+        partial honors the cell contract (reference :2025-2064) — the
+        sender is a registered aggregator, the blob carries a well-formed
+        #cellmeta entry whose cell index is the sender's registered cell
+        and whose client count equals the op's `n` weight and stays
+        within the registered membership, and the partial's tensors
+        mirror the model schema.  In sparse mode the partial rode the
+        bridge re-sparsified (`hier/partial.partial_blob`): it densifies
+        before the #cellmeta split."""
+        from bflc_demo_tpu_torch.hier.partial import split_cellmeta
+        ent = self._cell_registry.get(addr)
+        if ent is None:
+            return (f"sender {addr[:12]} is not a registered cell "
+                    f"aggregator"), None
+        reg_index, cap = ent
+        try:
+            flat = unpack_pytree(blob)
+            if self._sparse:
+                flat = densify_entries(flat)
+            partial, meta = split_cellmeta(flat)
+        except (ValueError, TypeError, struct.error) as e:
+            return f"undecodable cell partial: {e}", None
+        if meta is None:
+            return "cell partial without a #cellmeta evidence entry", \
+                None
+        cell_index, n_clients, _evidence = meta
+        if cell_index != reg_index:
+            return (f"#cellmeta cell index {cell_index} != registered "
+                    f"cell {reg_index} for sender {addr[:12]}"), None
+        if n_clients != claimed_n:
+            return (f"#cellmeta client count {n_clients} != op weight "
+                    f"{claimed_n}"), None
+        if not 0 < n_clients <= cap:
+            return (f"claimed client count {n_clients} exceeds "
+                    f"registered membership {cap}"), None
+        err = self._schema_error(partial)
+        return err, (None if err else partial)
+
     def _decoded(self, digest: bytes) -> Dict[str, np.ndarray]:
         """An admitted blob's dense image through the one decode chain
-        (the identity on a dense float32 blob)."""
+        (the identity on a dense float32 blob); at a root the cell
+        partial without its #cellmeta entry, which rode the certified
+        hash but is not a model tensor."""
         flat = dequantize_entries(unpack_pytree(self._blobs[digest]))
-        return densify_entries(flat) if self._sparse else flat
+        if self._sparse:
+            flat = densify_entries(flat)
+        if self._cell_registry is not None:
+            from bflc_demo_tpu_torch.hier.partial import split_cellmeta
+            flat = split_cellmeta(flat)[0]
+        return flat
 
     def _schema_error(self, delta: Dict[str, np.ndarray]) -> str:
         schema = self._model_schema

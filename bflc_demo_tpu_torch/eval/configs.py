@@ -14,11 +14,12 @@ active participation, `client_chunk` 4 and `remat`) and config 5 (the
 transformer on SST-2-shaped text).  The image sets are the seeded
 stand-ins of `data/synthetic.py` unless `$BFLC_DATA_DIR` holds the real
 arrays.  Still to port, and raising with the item: the executor runtime
-and the fleet's other options (chaos, cells, telemetry, rederive:
+and the fleet's other options (chaos, telemetry, rederive:
 A9/A14, unexpected keywords here) and config 4's `secure=True` (A12).
 `standbys`, `quorum`, `bft_validators`, `tls_dir`, `snapshot_interval`
-and `snapshot_dir` reach the fleet; another runtime refuses them, and
-refuses an async genome (`cfg.async_buffer` > 0 unless
+and `snapshot_dir` reach the fleet, `cells` and `cell_size` the hier
+fleet (`BFLC_HIER_LEGACY=1` pins the single tier); another runtime
+refuses them, and refuses an async genome (`cfg.async_buffer` > 0 unless
 `BFLC_ASYNC_LEGACY=1`, reference :70-76) or a sparse one
 (`cfg.delta_density` < 1 unless `BFLC_SPARSE_LEGACY=1`, :77-84): only
 the fleet runs FedBuff and moves upload blobs.
@@ -27,6 +28,7 @@ the fleet runs FedBuff and moves upload blobs.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -73,6 +75,7 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
                      standbys: int = 0, quorum: int = 0,
                      bft_validators: int = 0, tls_dir: str = "",
                      snapshot_interval: int = 0, snapshot_dir: str = "",
+                     cells: int = 0, cell_size: int = 0,
                      **mesh_kw) -> SimulationResult:
     """Dispatch a federated run to the chosen runtime.
 
@@ -85,7 +88,11 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
     model each process builds), the parent as sponsor, with `standbys`
     hot standbys, `quorum`-ack, `bft_validators` validator processes,
     TLS (`tls_dir`) and certified snapshots (`snapshot_interval`,
-    `snapshot_dir`).
+    `snapshot_dir`); with `cells`/`cell_size` the two-tier hier fleet
+    (`hier/runtime.run_federated_hier`, reference :122-155: root, cell
+    aggregators and members, `bft_validators` at the root), which
+    refuses standbys, quorum, TLS, snapshots and an async genome, and
+    which `BFLC_HIER_LEGACY=1` pins back to the single tier.
     attest_scores and mesh_kw (participation, client_chunk, ...) apply
     only to 'mesh'; asking another runtime for them raises, never
     silently drops.  `ledger_backend` is the reference's: "auto" and
@@ -105,7 +112,8 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
              ("standbys", standbys), ("quorum", quorum),
              ("bft_validators", bft_validators), ("tls_dir", tls_dir),
              ("snapshot_interval", snapshot_interval),
-             ("snapshot_dir", snapshot_dir))
+             ("snapshot_dir", snapshot_dir), ("cells", cells),
+             ("cell_size", cell_size))
     if runtime != "processes" and any(v for _, v in fleet):
         bad = [n for n, v in fleet if v]
         raise ValueError(f"options {bad} do not apply to the {runtime!r} "
@@ -133,6 +141,28 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
     if not process_factory:
         raise ValueError("this preset does not support the 'processes' "
                          "runtime (no model factory registered)")
+    if (cells or cell_size) and os.environ.get("BFLC_HIER_LEGACY"):
+        # the reference benchmark's single-tier pin: ignore the cell tier
+        # and run the unchanged flat fleet
+        cells = cell_size = 0
+    if cells or cell_size:
+        # the two-tier fleet; the single tier's options are never
+        # silently dropped
+        dropped = [n for n, v in (("standbys", standbys),
+                                  ("quorum", quorum), ("tls_dir", tls_dir),
+                                  ("snapshot_interval", snapshot_interval),
+                                  ("async_buffer (protocol)",
+                                   async_enabled(cfg))) if v]
+        if dropped:
+            raise ValueError(f"options {dropped} are not supported with "
+                             f"--cells/--cell-size")
+        from bflc_demo_tpu_torch.hier.runtime import run_federated_hier
+        return run_federated_hier(process_factory, shards, test_set, cfg,
+                                  rounds=rounds, cells=cells,
+                                  cell_size=cell_size,
+                                  factory_kw=factory_kw or {},
+                                  bft_validators=bft_validators,
+                                  device=device, verbose=verbose)
     from bflc_demo_tpu_torch.client.process_runtime import \
         run_federated_processes
     return run_federated_processes(process_factory, shards, test_set, cfg,

@@ -26,9 +26,11 @@ leg (:322-395), which come with rederive and the genome (ROADMAP A9
 item 9).
 
 Also here: the merge geometries `chip_smoke.py` runs B5 at — config 5's
-and config 4's writer merges and the reference benchmark's full drains
-(`GEOMETRIES`), with ResNet-18/CIFAR-100's leaf shapes written out
-(`resnet18_leaf_shapes`, P = 11,220,132).
+and config 4's writer merges, the reference benchmark's full drains and
+config 5's hier merges, a cell's partial of its 3 admitted members and
+the root's merge of 2 cell partials (`GEOMETRIES`), with
+ResNet-18/CIFAR-100's leaf shapes written out (`resnet18_leaf_shapes`,
+P = 11,220,132).
 """
 
 from __future__ import annotations
@@ -332,14 +334,18 @@ def bench_leaf_shapes() -> Dict[str, tuple]:
 
 
 # name -> (N admitted, selected, leaf shapes); the writer merges of
-# `eval/configs.py` (config 5 :320-321, config 4 :286-287) and the
-# benchmark's full drains (`eval/benchmarks.py:2604-2630`)
+# `eval/configs.py` (config 5 :320-321, config 4 :286-287), the
+# benchmark's full drains (`eval/benchmarks.py:2604-2630`) and config 5
+# in 4 cells of 5 (`hier/cells.py`: a cell merges its 3 admitted deltas,
+# the root its 2 cell partials)
 GEOMETRIES = {
     "config5_merge": (10, 6, config5_leaf_shapes),
     "config4_merge": (12, 8, resnet18_leaf_shapes),
     "drain_64": (64, 64, bench_leaf_shapes),
     "drain_256": (256, 256, bench_leaf_shapes),
     "drain_1024": (1024, 1024, bench_leaf_shapes),
+    "config5_cell_partial": (3, 3, config5_leaf_shapes),
+    "config5_root_merge": (2, 2, config5_leaf_shapes),
 }
 
 

@@ -12,7 +12,9 @@ preset's.
 The process fleet's `--standbys N`, `--quorum Q`, `--bft-validators N`,
 `--tls-dir D`, `--snapshot-interval K` and `--snapshot-dir S` are ported
 (the processes runtime's hot standbys, quorum-ack, BFT commit quorum,
-TLS and certified snapshots), and so are the genome's asynchronous
+TLS and certified snapshots), the hier cells (`--cells N`,
+`--cell-size M`, the reference's int flags: `hier/`), and so are the
+genome's asynchronous
 buffered aggregation (`--async-buffer K`, `--max-staleness S`,
 `--async-reseat-every R` and their `BFLC_*` variables, plain int flags
 as in the reference; `BFLC_ASYNC_LEGACY=1` pins the synchronous chain,
@@ -28,8 +30,7 @@ client-local `--error-feedback` / `--no-error-feedback`
 options belong to parts not ported yet.  Each such flag is accepted by
 the parser so that the CLI can refuse it by name (exit 2 with the
 ROADMAP item) rather than fail on an unknown argument or drop it.  Still
-dropped: the process fleet's hier cells (`--cells`, `--cell-size`, A9
-item 8), rederive (`--rederive`), attested scores and chaos (A9;
+dropped: rederive (`--rederive`), attested scores and chaos (A9;
 `--ledger-backend` is ported: auto and python, native exits 2),
 checkpoints and the device profiler (A11), secure aggregation (A12), and
 traces, plots and telemetry (A14); and the genome fields of the closed
@@ -54,8 +55,8 @@ UNPORTED_FIELDS = ("adapt_every", "density_floor")
 # reference run options -> the ROADMAP item that ports them
 UNPORTED_OPTIONS: Dict[str, str] = {
     **{name: "A9" for name in (
-        "cells", "cell_size", "attest_scores", "chaos_seed", "chaos_profile",
-        "rederive", *UNPORTED_FIELDS)},
+        "attest_scores", "chaos_seed", "chaos_profile", "rederive",
+        *UNPORTED_FIELDS)},
     **{name: "A11" for name in ("checkpoint_dir", "checkpoint_every",
                                 "xprof_window")},
     **{name: "A14" for name in ("trace_path", "plot_path", "telemetry_dir",
@@ -138,6 +139,14 @@ def add_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--snapshot-dir", default="",
                    help="processes runtime: snapshot artifacts, a "
                         "directory per role")
+    p.add_argument("--cells", type=int, default=0,
+                   help="processes runtime: hierarchical cell federation — "
+                        "cohort the clients into N cells, each aggregator "
+                        "submitting one certified cell partial a round to "
+                        "the root (0 = the single-tier fleet)")
+    p.add_argument("--cell-size", type=int, default=0,
+                   help="processes runtime: cells of at most M members "
+                        "(with --cells the two must agree)")
     p.add_argument("--error-feedback", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="processes runtime: client-local error feedback "

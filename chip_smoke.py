@@ -217,6 +217,24 @@ first at the bar and the evaluations to spare after it.
              bytes an upload beside the dense blob's, `wire.*` a round
              beside `bft_config5`'s, the warm merges beside B5's ms at the
              leg's geometry (its share) and the leg's seconds.
+             Then hierarchical cells (`hier_phase`, every partial and root
+             merge on B5): (k) `hier_config5`, config 5 at full width in
+             4 cells of 5 through the preset's entry point (the CLI's
+             `--cells 4 --bft-validators 4 --delta-dtype i8
+             --delta-density 0.01 --delta-codec topk --error-feedback`),
+             14 root rounds — every root op certified, at most 2 x
+             (cells + 1) root ops a round and none from a member, B5 1 a
+             partial in every cell and 1 a root merge, K1 in the
+             aggregators (their score of the root's candidates) and
+             K1-K3 in the members, the root's ingress a round at least 3x
+             below a dense partial's bytes, no validator refusal and no
+             BAD_ARG reply to a bridge, best 0.9; (l) `hier_rehome_drill`,
+             6 clients in 3 cells with 4 validators, cell 1's aggregator
+             SIGKILLed at root epoch 1, 8 rounds — the same root gates,
+             its two members exit 0 through the sibling, best above 0.85.
+             Each prints a `hier` line: the root's ops and `wire.*` a
+             round, each cell's partials (ms, B5's engine ms, bytes, its
+             K1, the bridge's replies by status), the root's merges.
 
 Then the `kernels` line and, last, {"ok": true, "device": {...}}.
 Without a card, or without the package beside it, it exits non-zero and
@@ -253,6 +271,10 @@ runs only the build and the async FedBuff leg (h).
 
 runs only the build, `bft_config5` (the dense twin) and the codec legs
 (i, j).
+
+    python3 chip_smoke.py --hier
+
+runs only the build and the hier legs (k, l).
 """
 
 from __future__ import annotations
@@ -287,12 +309,13 @@ PAIR_SHAPE = (32, 64, 4, 32)         # the forward's two-warp blocks
 MESH_TRAIN_SHAPE = (320, 64, 4, 32)  # mesh round: 20 clients x batch 16
 MESH_SCORE_SHAPE = (6400, 64, 4, 32)  # 4 scorers x 10 candidates x 160 rows
 SPONSOR_SHAPE = (800, 64, 4, 32)     # the sponsor's test set
+AGG_SCORE_SHAPE = (128, 64, 4, 32)   # a cell aggregator's root score
 # every kernel's block geometry follows the shape (launch_warps): on an
 # H100 the training batch and MULTI_SHAPE take one-warp blocks, PAIR_SHAPE
 # two and the score (and sponsor) batch four, for the forward, dK/dV and
 # dQ alike (S_kv = S_q); the compare phase covers each
 DENSE_SHAPES = (TRAIN_SHAPE, MULTI_SHAPE, PAIR_SHAPE, SCORE_SHAPE,
-                MESH_TRAIN_SHAPE, MESH_SCORE_SHAPE)
+                MESH_TRAIN_SHAPE, MESH_SCORE_SHAPE, AGG_SCORE_SHAPE)
 BIG_FEW = dict(calls=5, replays=2, repeats=5)   # device_ms at 6400 rows
 SHARD_SHAPE = (32, 1024, 4, 32)      # sp training shard: 8 shards x B 4
 RING_SHAPE = (4, 8192, 4, 32)        # the same sequence, unsharded
@@ -478,6 +501,35 @@ SKETCH_EPOCHS = 6
 # certificates, and prints its accuracy
 SPARSE_MIN_BEST = MIN_BEST_ACC
 SKETCH_MIN_BEST = None
+# hierarchical cells (`hier/`): (k) `hier_config5`, the command
+# `python -m bflc_demo_tpu_torch --config config5 --runtime processes
+# --cells 4 --bft-validators 4 --delta-dtype i8 --delta-density 0.01
+# --delta-codec topk --error-feedback` with the preset's protocol
+# (CONFIG5_PROTO) — 20 members in 4 cells of 5 (each cell: committee 2,
+# 3 admitted, 3 merged; the root: 2 cells on the committee, 2 partials
+# merged, f32 over the sparse bridge), 4 validators at the root, 14
+# rounds; (l) `hier_rehome_drill`, the reference
+# process test's protocol on 1,500 occupancy rows, 6 clients in 3 cells,
+# dense, 4 validators, cell 1's aggregator SIGKILLed at root epoch 1
+# (cell stall 3 s, root stall 5 s, the reference's drill), 8 rounds.
+# The bars, from the CPU trajectories of both packages at these
+# settings (`tests/hier_trajectory.py`, PERF.md section 6): config 5
+# holds MIN_BEST_ACC, over 14 rounds, since at the sync fleets' 9 a run
+# of each package first reached 0.9 at its last evaluation (a cell
+# merges every admitted delta, the root both partials: no selection
+# damps a round's swing); the drill holds FLEET_MIN_BEST (above) over 8
+# rounds, since at 5 a run of each package first passed 0.85 at its
+# last evaluation or never (best 0.848-0.852).  A root round is the trainer
+# cells' uploads, the committee cells' scores and the commit: at most
+# 2 x (cells + 1) root ops
+HIER_CELLS, HIER_C5_ROUNDS = 4, 14
+HIER_PROTO = dict(delta_density=0.01, delta_codec="topk", delta_dtype="i8")
+HIER_MIN_BEST = MIN_BEST_ACC
+HIER_INGRESS_RATIO = 3.0
+HIER_DRILL_CELLS, HIER_DRILL_ROUNDS = 3, 8
+HIER_DRILL = dict(bft_validators=BFT_VALIDATORS, kill_cell_at_epoch={1: 1},
+                  stall_timeout_s=3.0, root_stall_timeout_s=5.0)
+HIER_DRILL_MIN_BEST = FLEET_MIN_BEST
 # config 5's launches a training (10 minibatches of 16 of a 160-row
 # shard, a forward and a backward per layer, depth 2) and a forward's
 # (a scored entry, a sponsor evaluation)
@@ -900,7 +952,8 @@ def timing_phase(torch, fa, device) -> dict:
     for name, shape, few in (("score", SCORE_SHAPE, {}),
                              ("mesh_train", MESH_TRAIN_SHAPE, {}),
                              ("mesh_score", MESH_SCORE_SHAPE, BIG_FEW),
-                             ("sponsor", SPONSOR_SHAPE, {})):
+                             ("sponsor", SPONSOR_SHAPE, {}),
+                             ("agg_score", AGG_SCORE_SHAPE, {})):
         row = forward_timing(torch, fa, device, shape, seed=8, **few)
         result["flash_fwd"]["at"][name] = dict(row, shape=list(shape))
     for name, row in backward_timing(torch, fa, device, MESH_TRAIN_SHAPE,
@@ -2148,6 +2201,8 @@ def processes_phase(torch, card: str) -> tuple:
     async_phase(torch, card, note, c5_shards, c5_test)
     codecs_phase(torch, card, note, c5_shards, c5_test, drill_shards,
                  (xte[:500], yte[:500]), bft5)
+    hier_phase(torch, card, note, c5_shards, c5_test, drill_shards,
+               (xte[:500], yte[:500]))
     return paths, roles
 
 
@@ -2511,6 +2566,164 @@ def codecs_phase(torch, card: str, note, c5_shards, c5_test, drill_shards,
         hold(leg, "aupload replies", not set(replies) - {
       "OK", "DUPLICATE", "CAP_REACHED", "WRONG_EPOCH"}, replies,
       ["OK", "DUPLICATE", "CAP_REACHED", "WRONG_EPOCH"])
+
+
+def hier_account(label: str, card: str, res, leg_s: float,
+                 dense_partial: int) -> tuple:
+    """Emit a hier fleet's `hier` line and hold what every hier leg
+    holds: every root op certified, at most 2 x (cells + 1) root ops a
+    round and none sent by a member, every live cell's partials on B5
+    (its launches past the self-check at the genome's blocks a partial)
+    and every root merge at its blocks (`bft_account`), no validator
+    refusal, no BAD_ARG reply to a bridge.  Returns (main-path launches,
+    B5 by role: `cell` and `bft_writer`)."""
+    plan = res.cell_plan
+    rounds = max(res.rounds_completed, 1)
+    blocks = (res.writer_merges or [{}])[-1].get("blocks", 1)
+    by_role = bft_account(label, card, res, blocks)
+    cells = {}
+    for c, merges in sorted(res.cell_merges.items()):
+        launches = res.kernel_launches.get(f"cell-{c}", {})
+        check = res.cell_engines[c].get("selfcheck_launches", 0)
+        cells[c] = {"b5": launches.get("certified_reduce", 0) - check,
+                    "selfcheck": check, "k1": launches.get("flash_fwd", 0),
+                    "partials": len(merges),
+                    "legs": sorted({m["leg"] for m in merges}),
+                    "blocks": sorted({m["blocks"] for m in merges}),
+                    "merge_ms": [m["merge_s"] * 1e3 for m in merges],
+                    "engine_ms": [m["engine_s"] * 1e3 for m in merges],
+                    "blob_bytes": [m["blob_bytes"] for m in merges],
+                    "bridge": res.cell_bridge.get(c, {})}
+    by_role["cell"] = sum(c["b5"] for c in cells.values())
+    total = {}
+    for counts in res.kernel_launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    total["certified_reduce"] = total.get("certified_reduce", 0) - (
+        (res.writer_engine or {}).get("selfcheck_launches", 0)
+        + sum(c["selfcheck"] for c in cells.values()))
+    members = set(res.member_addresses)
+    senders = {o["sender"] for o in res.root_ops if o["sender"]}
+    registers = sum(o["op"] == "register" for o in res.root_ops)
+    ops_per_round = (len(res.root_ops) - registers) / rounds
+    costs = _costs(res.final_info)
+    wire = _per_round(costs, "wire.", rounds)
+    ingress = wire.get("wire.bytes_in", 0.0)
+    refusals = {k: v for k, v in costs.items()
+                if k.startswith("bft.refused.")}
+    bad_arg = {c: v["bridge"] for c, v in cells.items()
+               if any("BAD_ARG" in r for r in v["bridge"].values())}
+    warm = [ms for c in cells.values() for ms in c["merge_ms"][1:]]
+    emit("hier", path=label, nvidia_smi=card, cells=plan.n_cells,
+         members=[list(m) for m in plan.members],
+         killed_cells=res.killed_cells,
+         client_exitcodes=res.client_exitcodes, spawn_s=res.spawn_s,
+         validator_spawn_s=res.validator_spawn_s, leg_s=leg_s,
+         rounds=res.rounds_completed, round_s=round_seconds(res.epoch_times),
+         root_ops_per_round=ops_per_round, root_log_size=res.ledger_log_size,
+         root_wire_per_round=wire, dense_partial_bytes=dense_partial,
+         ingress_ratio_vs_dense_partial=(dense_partial / ingress
+                                         if ingress else None),
+         root_merge_ms=[m["merge_s"] * 1e3 for m in res.writer_merges],
+         cells_detail=cells, cell_warm_merge_ms=warm,
+         cell_warm_merge_ms_median=(statistics.median(warm) if warm
+                                    else None),
+         refusals=refusals, b5_by_role=by_role, phase_s=res.phase_s,
+         accuracy=[a for _, a in res.accuracy_history])
+    leg = label
+    hold(leg, "root ops a round", ops_per_round <= 2 * (plan.n_cells + 1),
+         ops_per_round, 2 * (plan.n_cells + 1))
+    hold(leg, "member addresses known", len(members) == plan.n_clients,
+         len(members), plan.n_clients)
+    hold(leg, "member addresses among the root's senders",
+         not senders & members, sorted(senders & members), [])
+    bad = {c: v for c, v in cells.items()
+           if v["b5"] != v["partials"] * max(v["blocks"] or [1])
+           or not v["partials"] or not set(v["legs"]) <= set(B5_LEGS)}
+    hold(leg, "cell B5 launches a partial", not bad, bad,
+         "the genome's blocks a cell round on " + "/".join(B5_LEGS))
+    hold(leg, "validator refusals", not refusals, refusals, {})
+    hold(leg, "BAD_ARG replies to a bridge", not bad_arg, bad_arg, {})
+    return total, by_role
+
+
+def hier_phase(torch, card: str, note, c5_shards, c5_test, drill_shards,
+               drill_test) -> None:
+    """(k) `hier_config5` and (l) `hier_rehome_drill` (the constants
+    above), each between a reset and a read of the launch counts, every
+    process under FLEET_ENV (B5 on every partial and root merge), the
+    config-5 members with error feedback; each held by `hier_account`
+    and `hier_leg_check`."""
+    from bflc_demo_tpu_torch.eval.configs import config5_transformer_sst2
+    from bflc_demo_tpu_torch.hier.partial import partial_blob
+    from bflc_demo_tpu_torch.hier.runtime import run_federated_hier
+    from bflc_demo_tpu_torch.models import (make_softmax_regression,
+                                            make_transformer_classifier)
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig
+
+    def dense_partial(model) -> int:
+        init = {k: v.numpy() for k, v in model.init_params(0, "cpu").items()}
+        return len(partial_blob(init, 0, 1, b"\0" * 32))
+
+    legs = (
+        ("hier_config5", lambda: config5_transformer_sst2(
+            rounds=HIER_C5_ROUNDS, runtime="processes", device="cuda",
+            cells=HIER_CELLS, bft_validators=BFT_VALIDATORS,
+            cfg=ProtocolConfig(**CONFIG5_PROTO, **HIER_PROTO)),
+         dense_partial(make_transformer_classifier(**CONFIG5_ARCH)),
+         HIER_C5_ROUNDS),
+        ("hier_rehome_drill", lambda: run_federated_hier(
+            "make_softmax_regression", drill_shards, drill_test,
+            ProtocolConfig(**FLEET_PROTO), rounds=HIER_DRILL_ROUNDS,
+            cells=HIER_DRILL_CELLS, device="cuda",
+            timeout_s=FLEET_TIMEOUT_S, **HIER_DRILL),
+         dense_partial(make_softmax_regression()), HIER_DRILL_ROUNDS))
+    for label, run, dense, rounds in legs:
+        reset_counts()
+        t0 = time.perf_counter()
+        with fleet_env(CODEC_ENV if label == "hier_config5" else None):
+            res = run()
+        torch.cuda.synchronize()
+        leg_s = time.perf_counter() - t0
+        total, by_role = hier_account(label, card, res, leg_s, dense)
+        note(label, (total, by_role))
+        hier_leg_check(label, res, dense, rounds)
+
+
+def hier_leg_check(leg: str, res, dense_partial: int, rounds: int) -> None:
+    """A hier leg's own gates: its rounds; for `hier_config5` the best
+    at HIER_MIN_BEST, the root's ingress a round at least
+    HIER_INGRESS_RATIO below a dense partial's bytes, K1 in the
+    aggregators and K1-K3 in the members; for the drill the best above
+    HIER_DRILL_MIN_BEST, cell 1 killed and its members' exit 0."""
+    hold(leg, "rounds", res.rounds_completed >= rounds,
+         res.rounds_completed, rounds)
+    if leg == "hier_config5":
+        accuracy_gate(leg, res, HIER_MIN_BEST)
+        ingress = _per_round(_costs(res.final_info), "wire.",
+                             res.rounds_completed).get("wire.bytes_in")
+        ratio = dense_partial / ingress if ingress else None
+        hold(leg, "root ingress a round below a dense partial's bytes",
+             bool(ratio) and ratio >= HIER_INGRESS_RATIO, ratio,
+             HIER_INGRESS_RATIO)
+        k1 = {c: res.kernel_launches.get(f"cell-{c}", {}).get(
+            "flash_fwd", 0) for c in res.cell_merges}
+        hold(leg, "aggregator K1 launches", sum(k1.values()) > 0, k1, 1)
+        members = {k: sum(v.get(k, 0) for r, v in
+                          res.kernel_launches.items()
+                          if r.startswith("client-"))
+                   for k in DENSE_KERNELS}
+        hold(leg, "member K1-K3 launches",
+             all(v > 0 for v in members.values()), members, 1)
+        return
+    accuracy_gate(leg, res, HIER_DRILL_MIN_BEST, above=True)
+    orphans = {i: res.client_exitcodes[i] for c in res.killed_cells
+               for i in res.cell_plan.members[c]}
+    hold(leg, "killed cells", res.killed_cells == [1], res.killed_cells,
+         [1])
+    hold(leg, "orphaned members' exit codes",
+         bool(orphans) and all(v == 0 for v in orphans.values()), orphans,
+         0)
 
 
 def bft_phase(torch, card: str, note, drill_shards, drill_test, c5_shards,
@@ -2973,6 +3186,38 @@ def codecs_main() -> int:
     return 0
 
 
+def hier_main() -> int:
+    """Only the build and the hier legs (k, l)."""
+    port = load_port()
+    if port is None:
+        return 1
+    torch, _, build, _ = port
+    from bflc_demo_tpu_torch.data import iid_shards, load_occupancy
+    from bflc_demo_tpu_torch.eval.configs import config5_data
+    t0 = time.perf_counter()
+    build.build_all()
+    emit("build", seconds=time.perf_counter() - t0)
+    card = card_line()
+    print(card, flush=True)
+    emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
+    paths, roles = {}, {}
+
+    def note(path, launches_roles):
+        paths[path], by_role = launches_roles
+        for role, v in by_role.items():
+            roles[role] = roles.get(role, 0) + v
+
+    xtr, ytr, xte, yte = load_occupancy()
+    drill_shards = iid_shards(xtr[:FAILOVER_ROWS], ytr[:FAILOVER_ROWS],
+                              FLEET_PROTO["client_num"])
+    c5_shards, c5_test = config5_data(0, 4000, CONFIG5_PROTO["client_num"])
+    hier_phase(torch, card, note, c5_shards, c5_test, drill_shards,
+               (xte[:500], yte[:500]))
+    emit("fleet", paths=paths, b5_by_role=roles,
+         seconds=time.perf_counter() - t0)
+    return 0
+
+
 def processes_main() -> int:
     """Only the build and the processes phase."""
     port = load_port()
@@ -3074,7 +3319,8 @@ def dispatch(argv) -> int:
     if len(argv) == 2 and argv[0] == "--merge-timing":
         return merge_timing_main(argv[1])
     modes = {"--processes": processes_main, "--snapshots": snapshots_main,
-             "--async": async_main, "--codecs": codecs_main}
+             "--async": async_main, "--codecs": codecs_main,
+             "--hier": hier_main}
     if len(argv) == 1 and argv[0] in modes:
         rc = modes[argv[0]]()
         if rc == 0:
@@ -3083,7 +3329,7 @@ def dispatch(argv) -> int:
     if argv:
         print("usage: chip_smoke.py [--backward-timing DIR | "
               "--merge-timing DIR | --processes | --snapshots | --async | "
-              "--codecs]", file=sys.stderr)
+              "--codecs | --hier]", file=sys.stderr)
         return 2
     return main()
 

@@ -175,3 +175,130 @@ print(json.dumps({"child": child.pid, "running": cs.running_children()}))
     assert final["running"] == []
     counts = [json.loads(x)["left"] for x in lines if '"processes"' in x]
     assert counts[1] == []
+
+
+def test_hier_legs_hold_their_bars_above_the_majority_rates():
+    """`hier_config5` holds the JAX tests' 0.9 (or no bar) and the re-home
+    drill the process test's 0.85, each above its test set's majority
+    rate (config 5 0.52375, occupancy 0.768)."""
+    rates = _majority_rates()
+    assert cs.HIER_MIN_BEST is None or (
+        cs.HIER_MIN_BEST >= CONFIG5_BAR
+        and cs.HIER_MIN_BEST > rates["config5"])
+    assert cs.HIER_DRILL_MIN_BEST is None or (
+        cs.HIER_DRILL_MIN_BEST >= DRILL_BAR
+        and cs.HIER_DRILL_MIN_BEST > max(rates["occupancy"],
+                                         rates["occupancy_all"]))
+    assert cs.HIER_DRILL_ROUNDS >= 3 and cs.HIER_INGRESS_RATIO >= 3.0
+
+
+class _HierRun:
+    def __init__(self, **fields):
+        self.__dict__.update(fields)
+
+    def best_accuracy(self):
+        return max(a for _, a in self.accuracy_history)
+
+
+def _hier_result(**over):
+    """A hier run's result as `hier_account` and `hier_leg_check` read
+    it: 2 cells of 3 on the root under 4 validators, 3 rounds, every
+    gate passing unless `over` changes a field."""
+    from bflc_demo_tpu_torch.hier.cells import plan_cells
+    b5 = {"certified_reduce": 6 + 3, "flash_fwd": 4}
+    res = _HierRun(
+        cell_plan=plan_cells(6, cells=2), rounds_completed=3,
+        accuracy_history=[(0, 0.5), (1, 0.95), (2, 0.97)],
+        writer_merges=[{"blocks": 1, "merge_s": 0.01}] * 3,
+        writer_engine={"selfcheck_launches": 6},
+        kernel_launches={"writer": {"certified_reduce": 9},
+                         "cell-0": dict(b5), "cell-1": dict(b5),
+                         **{f"client-{i}": {"flash_fwd": 20,
+                                            "flash_dkdv": 20,
+                                            "flash_dq": 20}
+                            for i in range(6)}},
+        cell_merges={c: [{"leg": "mesh", "blocks": 1, "merge_s": 0.02,
+                          "engine_s": 0.01, "blob_bytes": 100}] * 3
+                     for c in (0, 1)},
+        cell_engines={c: {"selfcheck_launches": 6} for c in (0, 1)},
+        cell_bridge={c: {"upload": {"OK": 2}, "scores": {"OK": 1}}
+                     for c in (0, 1)},
+        root_ops=([{"op": "register", "sender": f"0xcell{c}",
+                    "epoch": None} for c in (0, 1)]
+                  + [{"op": op, "sender": s, "epoch": e}
+                     for e in range(3)
+                     for op, s in (("upload", "0xcell0"),
+                                   ("scores", "0xcell1"),
+                                   ("commit", None))]),
+        final_info={"perf": {"costs": {"wire.bytes_in": 3000.0}}},
+        failover=None, certified_size=11, ledger_log_size=11,
+        validator_reports={f"validator-{v}": {"torch_imported": False,
+                                              "cuda_initialized": False}
+                           for v in range(4)},
+        epoch_times=[(0, 1.0), (1, 2.0), (2, 3.0)], spawn_s=1.0,
+        validator_spawn_s=0.5, killed_cells=[], client_exitcodes=[0] * 6,
+        member_addresses=[f"0xmember{i}" for i in range(6)], phase_s={})
+    for k, v in over.items():
+        setattr(res, k, v)
+    return res
+
+
+def test_hier_account_passes_an_honest_run(capsys):
+    total, by_role = cs.hier_account("hier_config5", "card", _hier_result(),
+                                     1.0, 30000)
+    assert by_role == {"bft_writer": 3, "cell": 6}
+    assert total["certified_reduce"] == 9 and total["flash_fwd"] == 128
+    cs.hier_leg_check("hier_config5", _hier_result(), 30000, 3)
+    lines = _lines(capsys.readouterr().out)
+    assert [x["phase"] for x in lines] == ["bft", "hier", "accuracy"]
+
+
+@pytest.mark.parametrize("over, gate", [
+    (dict(certified_size=10), "certified ops"),
+    (dict(root_ops=[{"op": "upload", "sender": "0xcell0", "epoch": 0}]
+          * 40), "root ops a round"),
+    (dict(root_ops=[{"op": "upload", "sender": "0xmember0", "epoch": 0}]),
+     "member addresses among the root's senders"),
+    (dict(member_addresses=[]), "member addresses known"),
+    (dict(cell_engines={0: {"selfcheck_launches": 7},
+                        1: {"selfcheck_launches": 6}}),
+     "cell B5 launches a partial"),
+    (dict(final_info={"perf": {"costs": {"wire.bytes_in": 3000.0,
+                                         "bft.refused.SPARSE": 1}}}),
+     "validator refusals"),
+    (dict(cell_bridge={0: {"upload": {"BAD_ARG": 1}}, 1: {}}),
+     "BAD_ARG replies to a bridge"),
+])
+def test_each_hier_account_gate_raises_through_hold(capsys, over, gate):
+    with pytest.raises(RuntimeError, match=gate):
+        cs.hier_account("hier_config5", "card", _hier_result(**over), 1.0,
+                        30000)
+    failed = [x for x in _lines(capsys.readouterr().out)
+              if x["phase"] == "gate_failed"]
+    assert [x["gate"] for x in failed] == [gate]
+
+
+@pytest.mark.parametrize("leg, over, gate", [
+    ("hier_config5", dict(rounds_completed=2), "rounds"),
+    ("hier_config5", dict(accuracy_history=[(0, 0.5), (1, 0.8)]),
+     "best accuracy"),
+    ("hier_config5", dict(final_info={"perf": {"costs": {
+        "wire.bytes_in": 60000.0}}}),
+     "root ingress a round below a dense partial's bytes"),
+    ("hier_config5", dict(kernel_launches={"cell-0": {}, "cell-1": {}}),
+     "aggregator K1 launches"),
+    ("hier_rehome_drill", dict(accuracy_history=[(0, 0.85)]),
+     "best accuracy above"),
+    ("hier_rehome_drill", dict(accuracy_history=[(0, 0.87)],
+                               killed_cells=[]), "killed cells"),
+    ("hier_rehome_drill", dict(accuracy_history=[(0, 0.87)],
+                               killed_cells=[1],
+                               client_exitcodes=[0, 0, 0, -15, 0, 0]),
+     "orphaned members' exit codes"),
+])
+def test_each_hier_leg_gate_raises_through_hold(capsys, leg, over, gate):
+    with pytest.raises(RuntimeError, match=gate):
+        cs.hier_leg_check(leg, _hier_result(**over), 30000, 3)
+    failed = [x for x in _lines(capsys.readouterr().out)
+              if x["phase"] == "gate_failed"]
+    assert [x["gate"] for x in failed] == [gate]

@@ -1226,6 +1226,58 @@ def test_c13_wrong_epoch_counts_as_scored_only_past_the_round(
     assert not writer.states
 
 
+class _PromotedWriter(_ScriptedWriter):
+    """A promoted writer: it accepts every score row."""
+
+    def request(self, method, **kw):
+        if method == "scores":
+            self.scores.append(kw["epoch"])
+            return {"ok": True, "status": "OK"}
+        return super().request(method, **kw)
+
+
+class _LostBlobsRouter(_ScriptedRouter):
+    """The first fetch asks for blobs no live writer holds."""
+
+    def __init__(self):
+        self.fetches = 0
+
+    def fetch_blobs(self, hashes):
+        self.fetches += 1
+        if self.fetches == 1:
+            raise LookupError("blobs unavailable from every source")
+        return super().fetch_blobs(hashes)
+
+
+def test_c17_a_committee_member_repolls_blobs_lost_with_the_writer(
+        monkeypatch):
+    """C17: a committee member read the round's `updates` from the
+    primary, which died before its standby mirrored those uploads; the
+    promoted writer could not serve their blobs, `fetch_blobs` raised
+    LookupError and the member's process died.  With both committee
+    members gone the writer-kill drill on the card stopped at 2 of 4
+    rounds.  The member now waits and re-polls the promoted writer's
+    list."""
+    from bflc_demo_tpu_torch.meshagg import engine
+    from bflc_demo_tpu_torch.utils import serialization
+    monkeypatch.setattr(engine, "score_candidates_batched",
+                        lambda model, params, deltas, *a: torch.zeros(
+                            len(deltas)))
+    monkeypatch.setattr(serialization, "restore_pytree", lambda t, f: t)
+    monkeypatch.setattr(serialization, "unpack_pytree", lambda b: {})
+    writer = _PromotedWriter([(2, "comm"), (2, "comm"), (5, "")])
+    router = _LostBlobsRouter()
+    counts = {"trainings": 0, "scored": 0, "blob_bytes": 0}
+    pr._client_sync_loop(writer, router,
+                         Wallet.from_seed(b"c17-committee-member"), None,
+                         {}, CFG, None, None, 10, 5, None, lambda b: b,
+                         counts, lambda: None)
+    assert router.fetches == 2
+    assert writer.scores == [2]
+    assert counts["scored"] == 1
+    assert not writer.states
+
+
 def test_c14_a_lagging_follower_gets_each_commits_model_on_the_stream():
     """C14: the op stream piggybacked a commit op's model only while it
     was the writer's newest.  A follower lagging behind the next commit

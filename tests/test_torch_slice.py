@@ -132,6 +132,23 @@ def test_scan_covers_the_bft_modules():
                             "torch"}, (rel, names)
 
 
+def test_scan_covers_the_hier_modules():
+    """The scan above reaches `hier/`; its numpy modules (the cell
+    registry check and the #cellmeta codec, which the validators load)
+    import no torch, and neither does anything there import JAX or the
+    reference package."""
+    files = sorted((REPO / "bflc_demo_tpu_torch" / "hier").rglob("*.py"))
+    assert {p.name for p in files} >= {"__init__.py", "cells.py",
+                                       "partial.py", "aggregator.py",
+                                       "runtime.py"}
+    for path in files:
+        names = {n.split(".")[0] for n in _imports(path)}
+        assert not names & {"jax", "jaxlib", "flax", "bflc_demo_tpu"}, \
+            (path.name, names)
+        if path.name in ("cells.py", "partial.py", "__init__.py"):
+            assert "torch" not in names, (path.name, names)
+
+
 def test_validator_child_holds_no_cuda_context():
     """A spawned validator child (the fleet's `_validator_proc`) starts,
     serves, and never imports torch, so it can hold no CUDA context."""
