@@ -20,14 +20,16 @@ or a real file, as spawned children re-import `__main__`), on `cuda`
 unless `--device cpu` (the counterpart of `JAX_PLATFORMS=cpu`), with
 `--cells N`/`--cell-size M` the two-tier hier fleet (`hier/`; with
 `--standbys`, `--quorum`, `--tls-dir` or `--snapshot-interval`, or on
-another runtime, exit 2), with
+another runtime, exit 2), `--rederive shard|full` the validators'
+re-derivation of every commit (it needs `--bft-validators` and the
+processes runtime, else exit 2, as in the reference's :70-77), with
 the protocol overridable by `--field-name` flags and `BFLC_*` variables
-(`utils/flags.py`) and the ledger by `--ledger-backend auto|python`.  An
+(`utils/flags.py`; the closed compression loop's `--adapt-every` and
+`--density-floor` with a sparse genome) and the ledger by `--ledger-backend auto|python`.  An
 unknown config, an unported runtime (the executor), the native ledger,
 the fleet's flags on another runtime than `processes`, a negative
 `--bft-validators` or `--snapshot-interval`, `--snapshot-dir` without
-an interval, or a flag of a part not ported yet (the fleet's chaos,
-rederive and the genome's `--adapt-every`/`--density-floor` A9,
+an interval, or a flag of a part not ported yet (the fleet's chaos A9,
 checkpoints A11, secure aggregation A12, traces and telemetry A14)
 exits 2 naming the ROADMAP item.
 Prints the reference CLI's final JSON keys, and on `processes` a
@@ -54,8 +56,10 @@ def _parser() -> argparse.ArgumentParser:
                "default), host, threaded and processes (with --standbys, "
                "--quorum, --bft-validators, --tls-dir, --snapshot-interval "
                "and --snapshot-dir; --cells/--cell-size the hier fleet; "
-               "--async-buffer runs FedBuff there, and "
-               "--delta-density/--error-feedback the upload codecs), "
+               "--async-buffer runs FedBuff there, "
+               "--delta-density/--error-feedback the upload codecs, "
+               "--adapt-every/--density-floor the closed compression "
+               "loop and --rederive the validators' re-derivation), "
                "--reduce-blocks, --delta-dtype, --delta-codec.  The "
                "executor runtime, the native ledger and the fleet's "
                "other flags are ROADMAP A9; they exit 2 until ported.")
@@ -127,11 +131,12 @@ def main(argv=None) -> int:
     if (opts.standbys or opts.quorum or opts.bft_validators
             or opts.tls_dir or opts.snapshot_interval
             or opts.snapshot_dir or opts.cells
-            or opts.cell_size) and opts.runtime != "processes":
+            or opts.cell_size or opts.rederive != "off") \
+            and opts.runtime != "processes":
         print("--standbys, --quorum, --bft-validators, --tls-dir, "
-              "--snapshot-interval, --snapshot-dir, --cells and "
-              "--cell-size apply only to --runtime processes",
-              file=sys.stderr)
+              "--snapshot-interval, --snapshot-dir, --cells, "
+              "--cell-size and --rederive apply only to --runtime "
+              "processes", file=sys.stderr)
         return 2
     if opts.cells or opts.cell_size:
         # hierarchical cells: one certified cell partial a cell a round
@@ -184,6 +189,13 @@ def main(argv=None) -> int:
                   f"f=0 (no Byzantine tolerance); the reference geometry "
                   f"is 4", file=sys.stderr)
         kw["bft_validators"] = opts.bft_validators
+    if opts.rederive != "off":
+        # only meaningful with a commit quorum to refuse from
+        if not opts.bft_validators:
+            print("--rederive needs --bft-validators N (validators are "
+                  "who re-derive and refuse)", file=sys.stderr)
+            return 2
+        kw["rederive"] = opts.rederive
     if cfg is not None:
         kw["cfg"] = cfg
     res = CONFIGS[opts.config].build(**kw)
@@ -213,6 +225,8 @@ def main(argv=None) -> int:
                         "failover": res.failover,
                         "certified_size": res.certified_size,
                         "validator_spawn_s": res.validator_spawn_s,
+                        "validator_reports": res.validator_reports,
+                        "genomes": res.writer_genomes,
                         "ed25519_backend": res.ed25519_backend,
                         "replica_head_ok": bool(
                             res.replica_report and res.replica_report["head"]

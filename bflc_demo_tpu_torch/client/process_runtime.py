@@ -30,8 +30,9 @@ certified snapshots (per-role snapshot directories, :1045-1072).
   (`provision_validators`), re-execute and co-sign every op: the writer
   acknowledges only certified ops, the clients, the sponsor and the
   standbys check every certificate, and a promoted standby certifies its
-  fence op.  A validator is ledger and crypto only: its process imports
-  no torch (each reports what it imported at start, `validator_reports`).
+  fence op.  A disarmed validator is ledger and crypto only: its process
+  imports no torch (each reports what it imported at start,
+  `validator_reports`).
 
 Every role that computes runs on the run's device, `cuda` unless the
 caller asks for the CPU: the clients' training (kernels K1-K3 in the
@@ -39,7 +40,8 @@ transformer) and scoring (K1), the writer's merge (B5 on the engine's
 mesh leg; after a failover, the promoted standby's) and the sponsor's
 evaluation (K1).  The reference pins its
 children to the CPU because one process owns a TPU; one H100 takes many
-processes.  Validators are spawned; every other child forks from a
+processes.  Disarmed validators are spawned; every other child (and an
+armed validator) forks from a
 forkserver that imported torch once and never touched CUDA, under the
 parent's environment of the moment (`client/children.py`); each
 resolves its own device, only numpy arrays, bytes and plain dicts cross
@@ -90,10 +92,25 @@ next delta; a jump in base epoch resets it.  Every blob a client
 decodes goes through that one decode chain.  With `BFLC_PROC_TRACE=1`
 a client charges `client.encode_s` per upload beside `client.train_s`.
 
+The closed compression loop (`cfg.adapt_every` > 0 with a sparse genome,
+reference :55-66, :365-371, :599-605): every upload encodes at the
+effective density of the writer's `state` reply, which a certified
+genome op moved.  The validator re-derivation plane (`rederive` shard or
+full, reference :236-283, :732-748, :908-942, :1030-1073):
+`BFLC_REDERIVE` in the writer, the standbys (a promoted writer attaches
+the evidence) and the validators, which also get the initial model blob
+(the genesis input).  An armed validator forks from the forkserver, as
+the torch roles do (its torch is preloaded), and re-derives on the run's
+device (B5 on the card, at the `BFLC_MESH_AGG_MIN` of the environment it
+was started in); before the teardown the parent asks
+each validator for its `Rederiver.stats` and its kernel launches, which
+land in `validator_reports` (beside the start report, whose
+`torch_imported` is then true) and `kernel_launches` — the port's
+stand-in for the reference's telemetry scrape.  A disarmed validator is
+spawned and never imports torch.
+
 Not ported, raising with their ROADMAP item when asked for: the chaos
-campaign, telemetry and traces, rederive (A9, A14); the genome's
-effective density (A9 item 9: a `state` reply carries none here, so the
-encode uses `cfg.delta_density`); the mesh-executor deployment (A9).
+campaign, telemetry and traces (A14); the mesh-executor deployment (A9).
 """
 
 from __future__ import annotations
@@ -125,9 +142,8 @@ UNPORTED_FLEET_OPTIONS = {
     "chaos_dir": "A14 (chaos)",
     "telemetry_dir": "A14 (telemetry)", "trace_sample": "A14 (telemetry)",
     "xprof_window": "A11 (the device profiler)",
-    "rederive": "A9 (rederive)",
 }
-_FLEET_DEFAULTS = {"chaos_profile": "standard", "rederive": "off"}
+_FLEET_DEFAULTS = {"chaos_profile": "standard"}
 
 FOREIGN = ("jax", "jaxlib", "flax", "bflc_demo_tpu")
 
@@ -197,8 +213,11 @@ def _server_proc(cfg_kw: dict, initial_blob: bytes, port_q,
                  quorum: int = 0, bft_endpoints: Sequence = (),
                  bft_keys: Optional[dict] = None, tls_dir: str = "",
                  snapshot_interval: int = 0,
-                 snapshot_dir: str = "") -> None:
+                 snapshot_dir: str = "", rederive: str = "") -> None:
     boot = {"entry": process_age_s()}
+    if rederive:
+        # commit evidence and one round of blob retention
+        os.environ["BFLC_REDERIVE"] = rederive
     _child_device(device)
     boot["device"] = process_age_s()
     from bflc_demo_tpu_torch.comm.ledger_service import LedgerServer
@@ -222,19 +241,29 @@ def _server_proc(cfg_kw: dict, initial_blob: bytes, port_q,
 def _validator_proc(cfg_kw: dict, wallet_seed: bytes, index: int,
                     port_q, validator_keys: dict, verbose: bool,
                     port: int = 0,
-                    cell_registry: Optional[dict] = None) -> None:
+                    cell_registry: Optional[dict] = None,
+                    rederive: str = "", initial_blob: bytes = b"",
+                    device: str = "cuda") -> None:
     """One BFT commit-quorum member (`comm/bft.ValidatorNode`): a replica
     and a wallet that re-execute and co-sign every op, with the peers'
     keys to admit certified backlog when it lags (and, at a hier root,
-    the cell registry).  Pure ledger and crypto: it resolves no device
-    and imports no torch.  Reports its port and what it imported, then
-    blocks."""
+    the cell registry).  Disarmed it is pure ledger and crypto: it
+    resolves no device and imports no torch.  Armed (`rederive` shard or
+    full) it re-derives every commit from `initial_blob` on, merging on
+    `device`.  Reports its port and what it imported, then blocks."""
+    if rederive:
+        os.environ["BFLC_REDERIVE"] = rederive
+        _child_device(device)
     from bflc_demo_tpu_torch.comm.bft import ValidatorNode
     from bflc_demo_tpu_torch.comm.identity import Wallet
     node = ValidatorNode(ProtocolConfig(**cfg_kw),
                          Wallet.from_seed(wallet_seed), index, port=port,
                          validator_keys=validator_keys,
-                         cell_registry=cell_registry, verbose=verbose)
+                         cell_registry=cell_registry,
+                         rederive=rederive or None,
+                         initial_model_blob=initial_blob or None,
+                         device=device if rederive else None,
+                         verbose=verbose)
     torch = sys.modules.get("torch")
     port_q.put({"port": node.port, "torch_imported": torch is not None,
                 "cuda_initialized": bool(
@@ -249,11 +278,15 @@ def _standby_proc(cfg_kw: dict, endpoints: List[Tuple[str, int]],
                   device: str, verbose: bool, bft_endpoints: Sequence = (),
                   bft_keys: Optional[dict] = None, tls_dir: str = "",
                   snapshot_interval: int = 0, snapshot_dir: str = "",
-                  wal_path: str = "", port: int = 0) -> None:
+                  wal_path: str = "", port: int = 0,
+                  rederive: str = "") -> None:
     """Hot standby: follow the writer's op stream, promote on its death
     (`comm/failover.Standby`).  Reports its serving port (`port`, or a
     free one), then blocks; once promoted it is the writer, merges on
-    `device` and journals to `wal_path`."""
+    `device`, journals to `wal_path` and, with `rederive`, attaches the
+    commit evidence."""
+    if rederive:
+        os.environ["BFLC_REDERIVE"] = rederive
     _child_device(device)
     from bflc_demo_tpu_torch.comm.failover import Standby
     from bflc_demo_tpu_torch.comm.identity import Wallet
@@ -302,16 +335,21 @@ def _host_delta(delta) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in delta.items()}
 
 
-def _encode_delta(delta, cfg) -> bytes:
+def _encode_delta(delta, cfg, density: Optional[float] = None) -> bytes:
     """The one client-side delta encoder: the genome's sparse codec when
     it arms sparsity (the certified hash over the sparse canonical
-    bytes), else the quantized or dense pipeline."""
+    bytes), else the quantized or dense pipeline.  `density` is the
+    round's EFFECTIVE density when the closed loop is armed (the
+    writer's `state` reply carries it: certified chain state); None
+    uses the genome's."""
     from bflc_demo_tpu_torch.utils.codecs import (delta_codec, pack_pytree,
                                                   pack_quantized,
                                                   pack_sparse,
                                                   sparse_enabled)
     if sparse_enabled(cfg):
-        return pack_sparse(delta, cfg.delta_density, cfg.delta_dtype,
+        dens = float(density) if density is not None \
+            else cfg.delta_density
+        return pack_sparse(delta, dens, cfg.delta_dtype,
                            codec=delta_codec(cfg))
     return (pack_pytree(delta) if cfg.delta_dtype == "f32"
             else pack_quantized(delta, cfg.delta_dtype))
@@ -336,10 +374,12 @@ class _DeltaEncoder:
         self._next_base: Optional[int] = None
 
     def encode(self, delta: Dict[str, np.ndarray], *,
-               base_epoch: int) -> bytes:
-        """`delta`: host arrays (`_host_delta`)."""
+               base_epoch: int, density: Optional[float] = None) -> bytes:
+        """`delta`: host arrays (`_host_delta`); `density` the served
+        effective density (None: the genome's).  A knob change between
+        rounds changes the blob's geometry, not the residual."""
         if not self.armed:
-            return _encode_delta(delta, self.cfg)
+            return _encode_delta(delta, self.cfg, density)
         from bflc_demo_tpu_torch.utils.codecs import (densify_entries,
                                                       dequantize_entries,
                                                       unpack_pytree)
@@ -349,7 +389,7 @@ class _DeltaEncoder:
         if self._residual is not None:
             delta = {k: (d + self._residual[k]).astype(d.dtype, copy=False)
                      for k, d in delta.items()}
-        blob = _encode_delta(delta, self.cfg)
+        blob = _encode_delta(delta, self.cfg, density)
         decoded = densify_entries(dequantize_entries(unpack_pytree(blob)))
         self._residual = {k: np.asarray(d, np.float32)
                           - np.asarray(decoded[k], np.float32)
@@ -358,7 +398,8 @@ class _DeltaEncoder:
 
 
 def _train_and_encode(model, template, mr, xj, yj, cfg, enc: _DeltaEncoder,
-                      base_epoch: int, counts: dict):
+                      base_epoch: int, counts: dict,
+                      density: Optional[float] = None):
     """Train on the fetched model, copy the delta to the host and encode
     it: (blob, cost).  Counts the training and the blob's bytes; charges
     `client.train_s` (the training and the host copy, which waits for
@@ -376,7 +417,7 @@ def _train_and_encode(model, template, mr, xj, yj, cfg, enc: _DeltaEncoder,
     counts["trainings"] += 1
     host = _host_delta(delta)
     t1 = time.perf_counter() if tr.enabled else 0.0
-    blob = enc.encode(host, base_epoch=base_epoch)
+    blob = enc.encode(host, base_epoch=base_epoch, density=density)
     counts["blob_bytes"] += len(blob)
     if tr.enabled:
         tr.charge("client.train_s", t1 - t0)
@@ -450,7 +491,8 @@ def _client_async_loop(client, router, wallet, model, template, cfg,
                                            timeout_s=2.0)["log_size"]
                 continue
             blob, cost = _train_and_encode(model, template, mr, xj, yj, cfg,
-                                           enc, base_epoch, counts)
+                                           enc, base_epoch, counts,
+                                           st.get("eff_density"))
             digest = hashlib.sha256(blob).digest()
             router.cache.put(digest.hex(), blob)
             payload = digest + struct.pack("<qd", n, float(cost))
@@ -462,6 +504,9 @@ def _client_async_loop(client, router, wallet, model, template, cfg,
             status = str(r.get("status", "ERROR"))
             counts["aupload"][status] = counts["aupload"].get(status, 0) + 1
             if status in ("OK", "DUPLICATE"):
+                # a DUPLICATE without a certificate: this sender's last
+                # delta is still buffered (C16), so retry at the next
+                # model version
                 uploaded_base = base_epoch
                 acted = bool(r.get("ok"))
             if status == "BAD_ARG":
@@ -627,8 +672,12 @@ def _client_sync_loop(client, router, wallet, model, template, cfg, xj, yj,
             mr = router.fetch_model()
             if not mr.get("ok") or mr["epoch"] != epoch:
                 continue        # round turned over mid-step; resync
+            # at the round's effective density when the closed loop is
+            # armed: the genome op landed with the commit that opened
+            # this epoch, so this poll already carries it
             blob, cost = _train_and_encode(model, template, mr, xj, yj, cfg,
-                                           enc, epoch, counts)
+                                           enc, epoch, counts,
+                                           st.get("eff_density"))
             digest = hashlib.sha256(blob).digest()
             router.cache.put(digest.hex(), blob)
             payload = digest + struct.pack("<qd", n, float(cost))
@@ -695,6 +744,9 @@ def _replica_proc(host: str, port: int, cfg_kw: dict, until_ops: int,
                             tls=_client_tls(tls_dir))
         out_q.put({"ok": True, "head": replica.log_head().hex(),
                    "size": replica.log_size(), "epoch": replica.epoch,
+                   "eff_density": replica.effective_density,
+                   "eff_staleness": replica.effective_staleness,
+                   "genome_epoch": replica.genome_epoch,
                    "foreign_modules": foreign_modules()})
     except Exception as e:              # report, don't hang the parent
         out_q.put({"ok": False, "error": f"{type(e).__name__}: {e}"})
@@ -767,6 +819,9 @@ class ProcessFederationResult:
         # start ({"log_base", "async_buffer": the aseqs it inherited})
         self.writer_chain: Optional[dict] = None
         self.writer_start: Optional[dict] = None
+        # the final writer's genome-update ops (the closed loop): epoch,
+        # the knobs before and after, the telemetry
+        self.writer_genomes: List[dict] = []
         # seconds from the start to the end of each step after the
         # rounds: "rounds" (the sponsor saw the last commit),
         # "client_reports", "certified", "replicas", "teardown"
@@ -828,11 +883,15 @@ def client_seed(master_seed: bytes, i: int) -> bytes:
 
 def start_validators(vctx, cfg_kw: dict, master_seed: bytes, n: int,
                      bft_keys: dict, verbose: bool, host: str,
-                     cell_registry: Optional[dict] = None):
+                     cell_registry: Optional[dict] = None,
+                     rederive: str = "off", initial_blob: bytes = b"",
+                     device: str = "cuda"):
     """Spawn `n` BFT validators at once (identities from the master
-    seed) and read each one's start report in index order.  Returns
-    (processes, reports by role, endpoints); a failure terminates the
-    ones started."""
+    seed) and read each one's start report in index order; with
+    `rederive` armed each re-derives every commit from `initial_blob` on
+    `device`.  Returns (processes, reports by role, endpoints); a
+    failure terminates the ones started."""
+    armed = rederive if rederive != "off" else ""
     procs: List = []
     qs: List = []
     reports: Dict[str, dict] = {}
@@ -843,7 +902,8 @@ def start_validators(vctx, cfg_kw: dict, master_seed: bytes, n: int,
             vp = children.process(vctx, _validator_proc, (
                 cfg_kw, master_seed + b"|bft-validator|"
                 + struct.pack("<q", v), v, q, bft_keys, verbose, 0,
-                cell_registry))
+                cell_registry, armed, initial_blob if armed else b"",
+                device))
             vp.start()
             procs.append(vp)
             qs.append(q)
@@ -856,6 +916,33 @@ def start_validators(vctx, cfg_kw: dict, master_seed: bytes, n: int,
             vp.terminate()
         raise
     return procs, reports, endpoints
+
+
+def collect_rederive(bft_endpoints, reports: Dict[str, dict],
+                     launches: Dict[str, Dict[str, int]]) -> None:
+    """Ask each armed validator (before the teardown) for its
+    `Rederiver.stats`, its merge engine's report, its process's kernel
+    launches and, with the closed loop armed, its replica's effective
+    knobs: into its `reports` entry (`rederive`, `engine`, `genome`) and
+    `launches` (role `validator-v`).
+    A validator that does not answer reports nothing."""
+    from bflc_demo_tpu_torch.comm.bft import ValidatorClient
+    from bflc_demo_tpu_torch.comm.wire import WireError
+    for v, ep in enumerate(bft_endpoints):
+        c = ValidatorClient(tuple(ep), timeout_s=10.0)
+        try:
+            r = c.request("info")
+        except (ConnectionError, OSError, WireError):
+            continue
+        finally:
+            c.close()
+        if "rederive" in r:
+            rep = reports.setdefault(f"validator-{v}", {})
+            rep["rederive"] = r["rederive"]
+            rep["engine"] = r.get("engine")
+            launches[f"validator-{v}"] = r.get("launches", {})
+        if "genome" in r:
+            reports.setdefault(f"validator-{v}", {})["genome"] = r["genome"]
 
 
 def sponsor_rounds(sponsor, router, model, template, test_t, rounds: int,
@@ -979,6 +1066,7 @@ def absorb_reports(result: "ProcessFederationResult",
         result.writer_merges = kr["merges"]
         result.writer_snapshots = kr.get("snapshots", [])
         result.writer_chain = kr.get("chain")
+        result.writer_genomes = kr.get("genomes", [])
         result.writer_start = {
             "log_base": kr.get("started_log_base"),
             "async_buffer": kr.get("started_async_buffer")}
@@ -1030,6 +1118,7 @@ def run_federated_processes(
         tls_dir: str = "",
         snapshot_interval: int = 0,
         snapshot_dir: str = "",
+        rederive: str = "off",
         timeout_s: float = 600.0,
         init_seed: int = 0,
         device: Optional[str] = None,
@@ -1058,6 +1147,10 @@ def run_federated_processes(
     and the standbys GC their logs and WALs behind it, and a standby whose
     resume point was GC'd state-syncs.  snapshot_dir: the artifacts, in
     a directory per role (writer/, standby-s/).
+    rederive: the validators' re-derivation plane, "off" (the default),
+    "shard" or "full" (`rederive/`; needs bft_validators): every armed
+    validator re-derives each commit on the run's device before it
+    co-signs, and `validator_reports` carries its stats.
     device: where every role computes, `cuda` (None) or `cpu`; the
     validators compute nothing on it.
     Async FedBuff rides the genome, not an option: `cfg.async_buffer`
@@ -1072,6 +1165,11 @@ def run_federated_processes(
     cfg.validate()
     if len(shards) != cfg.client_num:
         raise ValueError(f"need {cfg.client_num} shards, got {len(shards)}")
+    from bflc_demo_tpu_torch.rederive import REDERIVE_MODES
+    if rederive not in REDERIVE_MODES:
+        raise ValueError(f"rederive must be one of {REDERIVE_MODES}, "
+                         f"got {rederive!r}")
+    armed = rederive if rederive != "off" else ""
     if kill_writer_at_epoch is not None and standbys < 1:
         raise ValueError("kill_writer_at_epoch requires standbys >= 1")
     if bft_validators < 0:
@@ -1130,20 +1228,22 @@ def run_federated_processes(
         from bflc_demo_tpu_torch.comm.bft import provision_validators
         _, bft_keys = provision_validators(bft_validators, master_seed)
 
-    # validators (no torch) are spawned; every other role forks from a
+    # disarmed validators (no torch) are spawned; every other role, and
+    # an armed validator (it merges on the card), forks from a
     # forkserver that imported torch once (`client/children.py`)
-    vctx = children.spawn_context()
     ctx = children.torch_context()
+    vctx = ctx if armed else children.spawn_context()
     host = "127.0.0.1"
     t_val = time.monotonic()
     validator_procs, validator_reports, bft_endpoints = start_validators(
-        vctx, cfg_kw, master_seed, bft_validators, bft_keys, verbose, host)
+        vctx, cfg_kw, master_seed, bft_validators, bft_keys, verbose, host,
+        rederive=rederive, initial_blob=initial_blob, device=device_name)
     validator_spawn_s = time.monotonic() - t_val
     port_q = ctx.Queue()
     server = children.process(ctx, _server_proc, (
         cfg_kw, initial_blob, port_q, stall_timeout_s, device_name, verbose,
         wal_path, standby_keys, quorum, bft_endpoints, bft_keys, tls_dir,
-        snapshot_interval, snap_dir("writer")))
+        snapshot_interval, snap_dir("writer"), armed))
     server.start()
     standby_procs: List = []
     standby_qs: Dict[str, object] = {}
@@ -1159,6 +1259,7 @@ def run_federated_processes(
     failover: Optional[dict] = None
     replica_reports: List[dict] = []
     client_reports: List[dict] = []
+    launches: Dict[str, Dict[str, int]] = {}
     try:
         port = port_q.get(timeout=120)
         endpoints = [(host, port)]
@@ -1171,7 +1272,7 @@ def run_federated_processes(
                 standby_seeds[s], standby_keys, quorum, device_name, verbose,
                 bft_endpoints, bft_keys, tls_dir, snapshot_interval,
                 snap_dir(f"standby-{s}"),
-                f"{wal_path}.standby-{s}" if wal_path else ""))
+                f"{wal_path}.standby-{s}" if wal_path else "", 0, armed))
             sp.start()
             standby_procs.append(sp)
             standby_qs[f"standby-{s}"] = q
@@ -1265,6 +1366,8 @@ def run_federated_processes(
         kr = sponsor.request("kernels")
         if kr.get("ok") and failover is not None:
             failover.update(_promotion_account(failover, kr))
+        if armed:
+            collect_rederive(bft_endpoints, validator_reports, launches)
     finally:
         if router is not None:
             router.close()
@@ -1289,7 +1392,7 @@ def run_federated_processes(
     result.epoch_times = epoch_times
     result.spawn_s = spawn_s
     result.phase_s = marks
-    absorb_reports(result, kr, client_reports, {})
+    absorb_reports(result, kr, client_reports, launches)
     for i, rep in enumerate(replica_reports):
         result.child_foreign_modules[f"replica-{i}"] = \
             rep.get("foreign_modules", [])

@@ -30,7 +30,7 @@ loop; a proposer whose own op loses the mandate learns the canonical op
 through `superseded_op`.
 
 Everything here is host work (SHA-256, Ed25519, the ledger's guards); a
-validator holds no tensor and never imports torch.  The votes, the
+disarmed validator holds no tensor and never imports torch.  The votes, the
 certificates and the wire frames are the reference's byte for byte
 (Ed25519 is deterministic), so port and reference validators, writers
 and clients certify each other's op streams.
@@ -58,18 +58,33 @@ the `cell_registry` refuses (`CELL`) a root upload op whose sender is no
 registered cell aggregator or whose client count exceeds that cell's
 registered membership (`hier/partial.check_cell_upload_op`, numpy only).
 
+The re-derivation plane (reference :651-675, :936-956, :1039-1085,
+:1590-1606; `rederive/`): an armed validator (`rederive` or
+`BFLC_REDERIVE` shard/full, the legacy pin aside) builds a
+`rederive.core.Rederiver` that re-derives every commit op (4, 12) from
+the admitted deltas on the validator's own merge engine (`device`,
+`cuda` unless the caller asks for the CPU: kernel B5 on the card) and
+refuses (`REDERIVE`) one it cannot reproduce; a re-proposed commit
+without a certificate is judged the same way, certified backlog admits
+on its certificate.  The per-leaf digest vector of each re-derivation
+rides the vote (`rl`, `rmode`), and the assembler cross-checks the
+vectors of a certificate's votes (`crosscheck_rl`; its counts in
+`CertificateAssembler.crosscheck`).  At a hier root each cell upload's
+partial is re-derived from its member-signed deltas outside the lock
+(`_cell_rederive_err`).  Opcode 13, the genome update, passes the same
+re-execution as every op.  Only an armed validator imports torch; its
+`info` reply carries the `Rederiver.stats` and the process's kernel
+launches (the port's own fields).
+
 Dropped: the obs metrics, flight recorder and trace spans (ROADMAP A14;
 `utils/tracing.PROC` still charges `bft.validate_s` / `bft.validate_n`
-on the validator).  Not ported, each raising or refusing with its item:
-the rederive plane, its vote cross-check and its cell re-derivation
-(`REDERIVE` / `cell_err`, A9 (rederive), item 9) and the native ledger
-(A9 (native ledger), refused by `make_ledger`).
+on the validator).  Not ported, refused by `make_ledger`: the native
+ledger (A9 (native ledger)).
 """
 
 from __future__ import annotations
 
 import hashlib
-import os
 import socket
 import struct
 import threading
@@ -99,10 +114,6 @@ from bflc_demo_tpu_torch.utils.codecs import (densify_entries,
 Endpoint = Tuple[str, int]
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 class PrefixCompacted(Exception):
     """A backlog position below the writer's GC base was asked for: the
     op bytes are gone.  Carries the snapshot offer, which the assembler
@@ -117,7 +128,9 @@ class PrefixCompacted(Exception):
 _CERT_MAGIC = b"BFLCCERT1"
 _EMPTY_HEAD = b"\0" * 32        # head digest of the empty chain
 
-# the op codec's opcodes (ledger/base)
+# the op codec's opcodes (ledger/base); 4 and 12 are the commits the
+# re-derivation plane judges
+_OP_COMMIT, _OP_ACOMMIT = 4, 12
 _OP_REGISTER, _OP_UPLOAD, _OP_SCORES = 1, 2, 3
 _OP_AUPLOAD, _OP_ASCORES = 10, 11
 
@@ -490,8 +503,9 @@ class ValidatorNode:
 
     A vote applies the op: the vote promises that this op is position i
     of the validator's chain, which is what makes a second op there
-    unsignable (`CONFLICT`) without quorum evidence.  The node holds no
-    tensor and imports no torch.
+    unsignable (`CONFLICT`) without quorum evidence.  Disarmed, the node
+    holds no tensor and imports no torch; armed (`rederive`), its
+    `Rederiver` merges on `device`.
     """
 
     def __init__(self, cfg: ProtocolConfig, wallet, index: int, *,
@@ -504,15 +518,8 @@ class ValidatorNode:
                  cell_registry: Optional[Dict[str, Tuple[int, int]]] = None,
                  rederive: Optional[str] = None,
                  initial_model_blob: Optional[bytes] = None,
+                 device=None,
                  verbose: bool = False):
-        # the reference's mode resolution: the argument, else
-        # BFLC_REDERIVE; BFLC_REDERIVE_LEGACY pins the plane off.
-        # `initial_model_blob` serves only an armed plane.
-        mode = (rederive if rederive is not None
-                else os.environ.get("BFLC_REDERIVE", "off"))
-        if str(mode).strip().lower() in ("shard", "full") and \
-                not os.environ.get("BFLC_REDERIVE_LEGACY"):
-            raise _unported("validator re-derivation", "A9 (rederive)")
         cfg.validate()
         self.cfg = cfg
         self.wallet = wallet
@@ -541,6 +548,24 @@ class ValidatorNode:
         # a density-armed quorum re-executes every upload's and
         # aupload's blob evidence through the densify inverse
         self._sparse = sparse_enabled(cfg)
+        # the re-derivation plane: the argument, else BFLC_REDERIVE; the
+        # legacy pin wins.  Python backend only (it reads the replica's
+        # pending selection and async buffer)
+        from bflc_demo_tpu_torch.rederive import (REDERIVE_MODES,
+                                                  rederive_legacy,
+                                                  rederive_mode)
+        if rederive is None:
+            mode = rederive_mode()
+        else:
+            mode = (rederive if rederive in REDERIVE_MODES
+                    and not rederive_legacy() else "off")
+        self._rederiver = None
+        if mode != "off" and ledger_backend in ("python", "auto"):
+            from bflc_demo_tpu_torch.rederive.core import Rederiver
+            self._rederiver = Rederiver(
+                mode, index, len(self.validator_keys) or 1, cfg,
+                initial_model_blob=initial_model_blob,
+                cell_registry=self._cell_registry, device=device)
         self._lock = threading.Lock()
         # index -> (attempt, op digest) of our current vote there
         self._voted: Dict[int, Tuple[int, bytes]] = {}
@@ -569,6 +594,8 @@ class ValidatorNode:
 
     def close(self) -> None:
         self._stop.set()
+        if self._rederiver is not None:
+            self._rederiver.close()
         try:
             self._sock.close()
         except OSError:
@@ -631,6 +658,21 @@ class ValidatorNode:
                 reply["head_at"] = _EMPTY_HEAD.hex()
             elif self._head_base <= at <= self._head_base + len(self._heads):
                 reply["head_at"] = self._prev_head(at).hex()
+            if self._rederiver is not None:
+                # the port's own fields: what this validator re-derived,
+                # and the kernels its process launched (B5)
+                from bflc_demo_tpu_torch.ops import launch_counts
+                reply["rederive"] = dict(self._rederiver.stats,
+                                         mode=self._rederiver.mode)
+                reply["engine"] = self._rederiver.engine.report()
+                reply["launches"] = launch_counts()
+            if getattr(self.ledger, "adapt_every", 0):
+                # the closed loop's knobs on this replica
+                ge = self.ledger.genome_epoch
+                reply["genome"] = {
+                    "eff_density": float(self.ledger.effective_density),
+                    "eff_staleness": int(self.ledger.effective_staleness),
+                    "genome_epoch": -1 if ge is None else int(ge)}
             return reply
 
     # --------------------------------------------------------------- vote
@@ -772,12 +814,15 @@ class ValidatorNode:
         return self._sign_position(i, op, attempt)
 
     def _vote_locked(self, i: int, op: bytes, auth, attempt: int,
-                     sparse_err: str = "") -> dict:
+                     sparse_err: str = "", cell_err: str = "") -> dict:
         """The evidence-free voting core (lock held): re-sign of an op we
         hold, strict ordering, abandon promises, the sparse blob, auth,
-        apply + sign.  Anything that needs quorum evidence refuses here.
-        `sparse_err` is `check_sparse_upload_op`'s verdict, computed
-        outside the lock (the decode materializes a dense model)."""
+        the re-derivation, apply + sign.  Anything that needs quorum
+        evidence refuses here.  `sparse_err` is `check_sparse_upload_op`'s
+        verdict and `cell_err` `Rederiver.check_cell`'s, both computed
+        outside the lock (each decode materializes a dense model); the
+        commit's re-derivation runs here, as it reads this replica's
+        pending selection or async buffer."""
         op_hash = hashlib.sha256(op).digest()
         size = self.ledger.log_size()
         promised = self._promised.get(i, 0)
@@ -814,7 +859,22 @@ class ValidatorNode:
             err = check_op_auth(op, auth, self.directory)
             if err:
                 return self._refuse("AUTH", err)
-        return self._apply_and_sign(i, op, op_hash, attempt)
+        rl = None
+        if self._rederiver is not None:
+            if cell_err:
+                # a root cell partial that is not the FedAvg of its
+                # member-signed deltas
+                return self._refuse("REDERIVE", cell_err)
+            if op[0] in (_OP_COMMIT, _OP_ACOMMIT):
+                err, rl = self._rederiver.check(self.ledger, op, auth)
+                if err:
+                    return self._refuse("REDERIVE", err)
+        r = self._apply_and_sign(i, op, op_hash, attempt)
+        if r.get("ok") and rl is not None:
+            # the per-leaf digest vector the assembler cross-checks
+            r["rl"] = rl["leaves"]
+            r["rmode"] = rl["mode"]
+        return r
 
     def _validate(self, msg: dict) -> dict:
         try:
@@ -840,11 +900,13 @@ class ValidatorNode:
         # lock
         sparse_err = (check_sparse_upload_op(op, msg.get("auth"))
                       if self._sparse else "")
+        cell_err = self._cell_rederive_err(op, msg.get("auth"))
         with self._lock:
             r = self._vote_locked(i, op, msg.get("auth"), attempt,
-                                  sparse_err=sparse_err)
+                                  sparse_err=sparse_err, cell_err=cell_err)
             status = r.get("status")
-            if r.get("ok") or status not in ("CONFLICT", "AUTH", "SPARSE"):
+            if r.get("ok") or status not in ("CONFLICT", "AUTH", "SPARSE",
+                                             "REDERIVE"):
                 return r
             if status == "CONFLICT":
                 # a different op at a bound position: only quorum evidence
@@ -878,18 +940,50 @@ class ValidatorNode:
                     # ... nor a sparse bypass: a re-proposed upload
                     # still needs its blob evidence
                     return self._refuse("SPARSE", sparse_err)
+                if cert is None and cell_err:
+                    # ... nor a cell re-derivation bypass
+                    return self._refuse("REDERIVE", cell_err)
                 self._enroll_register_pubkey(op, msg.get("auth"))
                 self._rollback_to(i)
+                rl = None
+                if cert is None and self._rederiver is not None \
+                        and op and op[0] in (_OP_COMMIT, _OP_ACOMMIT):
+                    # a re-proposed commit without a certificate: the
+                    # rollback restored the state before it, so it is
+                    # judged as a fresh vote
+                    err, rl = self._rederiver.check(self.ledger, op,
+                                                    msg.get("auth"))
+                    if err:
+                        return self._refuse("REDERIVE", err)
                 t = max(attempt, cert.attempt if cert else 0)
-                return self._apply_and_sign(i, op, op_hash, t)
-            # AUTH or SPARSE refusal at the fresh tip: certified backlog
-            # (the quorum already checked the tag and the blob once)
-            # admits on its certificate, so a validator rejoining after a
-            # failover, whose evidence is gone, stays live
+                r2 = self._apply_and_sign(i, op, op_hash, t)
+                if r2.get("ok") and rl is not None:
+                    r2["rl"] = rl["leaves"]
+                    r2["rmode"] = rl["mode"]
+                return r2
+            # AUTH, SPARSE or REDERIVE refusal at the fresh tip: certified
+            # backlog (the quorum already checked the tag, the blob and
+            # the re-derivation once) admits on its certificate, so a
+            # validator rejoining after a failover, whose evidence is
+            # gone, stays live
             if self._peer_certificate(msg, i, op) is None:
                 return r
             self._enroll_register_pubkey(op, msg.get("auth"))
             return self._apply_and_sign(i, op, op_hash, attempt)
+
+    def _cell_rederive_err(self, op: bytes, auth) -> str:
+        """The root cell partial's re-derivation verdict ('' = fine or
+        not applicable), outside the validator's lock.  With the closed
+        loop armed the partial re-encodes at the effective density this
+        replica holds (a plain float read: the genome op moves it only at
+        round boundaries); a static fleet passes None."""
+        if self._rederiver is None or self._cell_registry is None \
+                or not op or op[0] != _OP_UPLOAD:
+            return ""
+        from bflc_demo_tpu_torch.ledger.base import adapt_enabled
+        eff = (float(self.ledger.effective_density)
+               if adapt_enabled(self.cfg) else None)
+        return self._rederiver.check_cell(op, auth, density=eff)
 
     _VOTE_BATCH_MAX = 256
 
@@ -910,14 +1004,17 @@ class ValidatorNode:
         stopped = None
         tr = tracing.PROC
         t0 = time.perf_counter() if tr.enabled else 0.0
-        # each op's blob decode outside the lock
+        # each op's blob decode (and cell re-derivation) outside the lock
         sparse_errs = ([check_sparse_upload_op(op, auths[k])
                         for k, op in enumerate(ops)]
                        if self._sparse else [""] * len(ops))
+        cell_errs = [self._cell_rederive_err(op, auths[k])
+                     for k, op in enumerate(ops)]
         with self._lock:
             for k, op in enumerate(ops):
                 r = self._vote_locked(start + k, op, auths[k], attempt,
-                                      sparse_err=sparse_errs[k])
+                                      sparse_err=sparse_errs[k],
+                                      cell_err=cell_errs[k])
                 if not r.get("ok"):
                     stopped = r
                     break
@@ -1029,6 +1126,8 @@ class CertificateAssembler:
         self.superseded_op: Optional[bytes] = None
         # one record a `bft_snapshot` offer {validator, i, seconds, ok}
         self.snapshot_offers: List[dict] = []
+        # the rederive plane's digest cross-checks by result
+        self.crosscheck: Dict[str, int] = {"ok": 0, "disagree": 0}
         self._clients = [ValidatorClient(ep, timeout_s=timeout_s, tls=tls)
                          for ep in endpoints]
 
@@ -1188,7 +1287,9 @@ class CertificateAssembler:
             h = next_head(h, op)
             heads.append(h)
         raw: List[List[Tuple[int, int, bytes]]] = [[] for _ in range(n)]
-        rl_votes = [0] * n
+        # position -> {validator: per-leaf digest vector}, cross-checked
+        # once the certificates are minted
+        rl_by_pos: List[Dict[int, dict]] = [{} for _ in range(n)]
         lock = threading.Lock()
 
         def ask(client, _ci):
@@ -1204,11 +1305,10 @@ class CertificateAssembler:
                 if 0 <= k < n and vidx in self.keys:
                     with lock:
                         raw[k].append((vidx, vt, sig))
-                        rl_votes[k] += isinstance(v.get("rl"), dict)
+                        if isinstance(v.get("rl"), dict):
+                            rl_by_pos[k][vidx] = v["rl"]
 
         self._parallel(ask)
-        if max(rl_votes, default=0) >= 2:
-            self._crosscheck()
         items, flat = [], []
         for k, lst in enumerate(raw):
             for vidx, vt, sig in lst:
@@ -1247,13 +1347,18 @@ class CertificateAssembler:
             if got is None:
                 break
         certs += [None] * (n - len(certs))
+        for k, rls in enumerate(rl_by_pos):
+            if len(rls) >= 2:
+                self._crosscheck(rls)
         return certs
 
-    @staticmethod
-    def _crosscheck() -> None:
-        """The rederive plane's cross-check of per-leaf digest vectors
-        riding commit votes."""
-        raise _unported("the rederive vote cross-check", "A9 (rederive)")
+    def _crosscheck(self, rls: Dict[int, dict]) -> None:
+        """Cross-check the per-leaf digest vectors that rode a commit
+        op's votes.  Honest vectors never disagree, so a disagreement
+        records a lying or faulty validator (safety rests on the shard
+        coverage, not on this check)."""
+        from bflc_demo_tpu_torch.rederive.core import crosscheck_rl
+        self.crosscheck["disagree" if crosscheck_rl(rls) else "ok"] += 1
 
     def _gather_votes(self, i: int, op: bytes, auth: Optional[dict],
                       prev_head: bytes, attempt: int,
@@ -1265,7 +1370,7 @@ class CertificateAssembler:
         votes: Dict[int, Dict[int, bytes]] = {}
         refusals: List[dict] = []
         diverged: List[ValidatorClient] = []
-        rl_votes = [0]
+        rls: Dict[int, dict] = {}
         lock = threading.Lock()
 
         def ask(client, _ci):
@@ -1296,13 +1401,14 @@ class CertificateAssembler:
             with lock:
                 if verify_signature(pub, payload, sig):
                     votes.setdefault(vt, {})[vidx] = sig
-                    rl_votes[0] += isinstance(r.get("rl"), dict)
+                    if isinstance(r.get("rl"), dict):
+                        rls[vidx] = r["rl"]
                 else:
                     diverged.append(client)
 
         self._parallel(ask)
-        if rl_votes[0] >= 2:
-            self._crosscheck()
+        if len(rls) >= 2:
+            self._crosscheck(rls)
         return votes, refusals, diverged
 
     def _resync_diverged(self, client: ValidatorClient, i: int) -> bool:

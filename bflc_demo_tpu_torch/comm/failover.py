@@ -135,7 +135,8 @@ class FailoverClient:
     structure alone, so one hostile endpoint could poison its fence; with
     more than one endpoint that configuration warns.  With `bft_keys` a
     mutation's ack without a valid certificate for its op is treated as
-    a dead endpoint."""
+    a dead endpoint, except an aupload's DUPLICATE that carries no
+    certificate (a delta still buffered, C16)."""
 
     _BFT_ACKED = ("register", "upload", "scores", "aupload", "ascores")
 
@@ -243,10 +244,22 @@ class FailoverClient:
     def _certified_ack(self, method: str, fields: dict, reply: dict) -> bool:
         """False for a mutation's ack (DUPLICATE-class replies too: they
         count as progress) without a certificate quorum-signed over the
-        op its request implies."""
+        op its request implies.
+
+        A DUPLICATE to an `aupload` that carries no certificate at all is
+        accepted (C16's repair, a deliberate difference from the
+        reference's client): the ledger keeps one buffered delta a
+        sender, so a second aupload while the first is still buffered is
+        refused and no op of this request reaches the chain.  It means
+        "still buffered, retry at the next version", not a dead writer;
+        the caller counts nothing as certified from it.  A certificate
+        that is present must still verify."""
         if not (self._bft_keys and method in self._BFT_ACKED
                 and (reply.get("ok") or reply.get("status") in
                      ("DUPLICATE", "ALREADY_REGISTERED"))):
+            return True
+        if method == "aupload" and reply.get("status") == "DUPLICATE" \
+                and not reply.get("ok") and reply.get("cert") is None:
             return True
         from bflc_demo_tpu_torch.comm.bft import (expected_op_hash,
                                                   verify_certificate_sigs)

@@ -141,9 +141,30 @@ refusal reason of the reference's, and the merge (the staged rows and
 the host leg's `_decoded`) runs over the partials with their #cellmeta
 entry stripped, on B5 on the card.
 
+The validator re-derivation plane (reference :548-561, :1286-1330,
+:1471-1483; `rederive/`): armed (`BFLC_REDERIVE` shard/full), every
+commit's auth evidence carries the claimed model blob (`mblob`), the
+read set (`rs`) and this writer's endpoint (`co`), and the round's
+consumed blobs (the admitted deltas and the previous model) stay
+servable one round (`_rederive_blobs`, behind `_blob_lookup`); the
+previous commit's `mblob` and the round's cell evidence are dropped
+then.  The evidence goes on the commit op's own position: the
+reference attaches it to the last op, which on a genome round is the
+genome op, so its validators skip that round's commit.  At a hier root
+a cell upload's member-signed listing (`cell_ev`) rides its evidence,
+and stays there until the op is certified: the reference drops it at
+the round's commit, which can come while the last cell's upload is
+still being certified, and its validators then skip that partial.
+
+The closed compression loop (reference :539-547, :1569-1576,
+:2179-2240): with `ledger/base.adapt_enabled(cfg)` the writer proposes a
+genome-update op (opcode 13) right after every due commit, from
+`control/loop.model_telemetry` over the old and new model on the host
+(numpy, f64 then one f32 round), and `state` and `info` replies carry
+`eff_density` and `eff_staleness` (`info` also `genome_epoch`).
+
 Not ported, each raising or refusing with its ROADMAP item when asked
-for: rederive and its commit and cell evidence, the genome path (A9);
-telemetry, health and causal traces (A14).
+for: telemetry, health and causal traces (A14).
 `BFLC_DATA_PLANE_LEGACY=1` drops the model piggyback and the read set,
 as in the reference.
 """
@@ -170,7 +191,8 @@ from bflc_demo_tpu_torch.device import DeviceLike
 from bflc_demo_tpu_torch.ledger import LedgerStatus, make_ledger
 from bflc_demo_tpu_torch.ledger.base import (OP_ACOMMIT, OP_AUPLOAD,
                                              OP_COMMIT, OP_REGISTER,
-                                             OP_UPLOAD, ascores_sign_payload,
+                                             OP_UPLOAD, adapt_enabled,
+                                             ascores_sign_payload,
                                              async_enabled, decode_op,
                                              parse_acommit, reduce_blocks)
 from bflc_demo_tpu_torch.meshagg.engine import (ENGINE, MeshAggEngine,
@@ -178,6 +200,7 @@ from bflc_demo_tpu_torch.meshagg.engine import (ENGINE, MeshAggEngine,
 from bflc_demo_tpu_torch.ops import launch_counts
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
 from bflc_demo_tpu_torch.protocol.constants import bft_quorum as _bft_quorum
+from bflc_demo_tpu_torch.rederive import rederive_armed
 from bflc_demo_tpu_torch.utils import tracing
 from bflc_demo_tpu_torch.utils.serialization import (densify_entries,
                                                      dequantize_entries,
@@ -369,6 +392,15 @@ class LedgerServer:
         # through the one densify inverse and stages the dense image, and
         # the upload ops' evidence carries the blob for the validators
         self._sparse = sparse_enabled(cfg)
+        # the closed compression loop: a certified genome-update op
+        # after every adapt_every-th commit
+        self._adapt = adapt_enabled(cfg)
+        # the re-derivation plane: commit evidence and one round of
+        # blob retention for the validators' fetches
+        self._rederive = rederive_armed()
+        self._rederive_blobs: Dict[bytes, bytes] = {}
+        self._rederive_commit_pos: Optional[int] = None
+        self._rederive_cell_auth: List[int] = []
         # ssl.SSLContext (comm/tls.server_context) or None for plaintext
         self._tls = tls
         # certified snapshots: 0 or BFLC_SNAPSHOT_LEGACY keeps every
@@ -434,6 +466,8 @@ class LedgerServer:
         self._t0 = time.monotonic()
         self._t0_base = self.ledger.log_base    # a compacted resume: > 0
         self.merge_log: List[dict] = []
+        # one record a genome-update op this writer proposed
+        self.genome_log: List[dict] = []
         # the chain this writer held, scanned before any GC can drop it:
         # the opcode at every position from its start and every
         # opcode-12 op's claims
@@ -1052,7 +1086,7 @@ class LedgerServer:
     def _dispatch(self, method: str, m: dict) -> dict:
         with self._lock:
             read = handle_read(
-                method, m, blob_lookup=self._blobs.get,
+                method, m, blob_lookup=self._blob_lookup,
                 model_state=lambda: (self.ledger.epoch, self._model_hash,
                                      self._model_blob),
                 read_set=self._read_set)
@@ -1110,8 +1144,10 @@ class LedgerServer:
         addr = m["addr"]
         self._touch(addr)
         role, epoch = self.ledger.query_state(addr)
-        return {"ok": True, "role": role, "epoch": epoch,
-                "round_closed": self.ledger.round_closed}
+        reply = {"ok": True, "role": role, "epoch": epoch,
+                 "round_closed": self.ledger.round_closed}
+        reply.update(self._state_knobs())
+        return reply
 
     def _m_upload(self, m: dict) -> dict:
         if self._async:
@@ -1153,8 +1189,17 @@ class LedgerServer:
             # the f64 originals ride along (the op stores f32, the tag
             # signs f64), and the sender's pubkey heals a validator's
             # directory hole
-            self._op_auth[self.ledger.log_size() - 1] = \
-                self._upload_auth(m, addr, blob)
+            auth = self._upload_auth(m, addr, blob)
+            if self._cell_registry is not None and self._rederive \
+                    and isinstance(m.get("cell_ev"), dict):
+                # a hier root with the plane armed: the cell's
+                # member-signed listing and its partial ride the
+                # evidence (`Rederiver.check_cell`); the round's commit
+                # drops them again once the op certified
+                auth["cell"] = m["cell_ev"]
+                auth.setdefault("blob", blob.hex())
+                self._rederive_cell_auth.append(self.ledger.log_size() - 1)
+            self._op_auth[self.ledger.log_size() - 1] = auth
         elif st == LedgerStatus.DUPLICATE:
             self._resupply_blob(digest, blob)
         self._touch(addr)
@@ -1315,6 +1360,11 @@ class LedgerServer:
         if self._async:
             reply["async_buffer_depth"] = led.async_buffer_depth
             reply["eff_staleness"] = int(led.effective_staleness)
+        if self._adapt:
+            reply["eff_density"] = float(led.effective_density)
+            reply["eff_staleness"] = int(led.effective_staleness)
+            ge = led.genome_epoch
+            reply["genome_epoch"] = -1 if ge is None else int(ge)
         if "at" in m:
             # the chain head after ops[0..at), where this writer holds it
             # (the port's own field: a late replica's check)
@@ -1338,10 +1388,15 @@ class LedgerServer:
         reads when its standby holds the whole certified chain); every
         snapshot op's record and every snapshot offered to a lagging
         validator, with the seconds its install took; the chain this
-        writer held (`_scan_chain`) and the async buffer it started with."""
+        writer held (`_scan_chain`) and the async buffer it started with;
+        the genome ops it proposed and the rederive digest cross-checks
+        of its certificates."""
         from bflc_demo_tpu_torch.comm.identity import ED25519_BACKEND
         self._scan_chain()
         return {"ok": True, "launches": launch_counts(),
+                "genomes": self.genome_log,
+                "crosscheck": (dict(self._bft.crosscheck)
+                               if self._bft is not None else None),
                 "engine": self.engine.report(), "merges": self.merge_log,
                 "ed25519_backend": ED25519_BACKEND,
                 "gen": self.ledger.generation,
@@ -1557,15 +1612,16 @@ class LedgerServer:
         pending = self.ledger.pending()
         updates = self.ledger.query_all_updates()
         epoch = self.ledger.epoch
+        hashes = [u.payload_hash for u in updates]
         blob, new_flat, blocks, engine_s = self._merge(
-            [u.payload_hash for u in updates],
-            [u.n_samples for u in updates], list(pending.selected))
+            hashes, [u.n_samples for u in updates], list(pending.selected))
         digest = hashlib.sha256(blob).digest()
         st = self.ledger.commit_model(digest, epoch)
         if st != LedgerStatus.OK:
             raise RuntimeError(f"commit rejected: {st.name}")
-        self._publish(epoch, [u.payload_hash for u in updates], blob,
-                      digest, new_flat, blocks, t0, engine_s=engine_s)
+        self._after_commit(epoch, hashes, blob, new_flat)
+        self._publish(epoch, hashes, blob, digest, new_flat, blocks, t0,
+                      engine_s=engine_s)
         if self.verbose:
             print(f"[coordinator] epoch {epoch} aggregated "
                   f"({self.engine.last_leg} leg): "
@@ -1589,6 +1645,7 @@ class LedgerServer:
         st = self.ledger.async_commit(digest, epoch, k)
         if st != LedgerStatus.OK:
             raise RuntimeError(f"async commit rejected: {st.name}")
+        self._after_commit(epoch, hashes, blob, new_flat)
         self._publish(epoch, hashes, blob, digest, new_flat, blocks, t0,
                       engine_s=engine_s, drained=k,
                       staleness=[e.staleness for e in entries])
@@ -1623,6 +1680,109 @@ class LedgerServer:
         if tr.enabled:
             tr.charge("aggregate.engine_s", engine_s)
         return pack_entries(new_flat), new_flat, blocks, engine_s
+
+    def _after_commit(self, epoch: int, hashes: List[bytes], blob: bytes,
+                      new_flat) -> None:
+        """Right after a commit op (lock held, the old model still
+        installed): the genome op when one is due, then the commit's
+        rederive evidence on the commit's own position."""
+        pos = self.ledger.log_size() - 1
+        self._propose_genome_if_due(new_flat, epoch)
+        if self._rederive:
+            self._stash_rederive(
+                pos, blob, {h: self._blobs[h] for h in hashes
+                            if h in self._blobs})
+
+    def _blob_lookup(self, digest: bytes) -> Optional[bytes]:
+        """The read path's blob lookup: the working set, then the
+        rederive plane's one-round retention (a validator fetching the
+        committed round's inputs after the commit dropped them)."""
+        blob = self._blobs.get(digest)
+        if blob is None and self._rederive_blobs:
+            blob = self._rederive_blobs.get(digest)
+        return blob
+
+    def _stash_rederive(self, pos: int, new_blob: bytes,
+                        round_blobs: Dict[bytes, bytes]) -> None:
+        """Arm the commit op at `pos` for the validators (lock held,
+        before the model swap): its evidence, and one round of the
+        round's blobs with the previous model under its own hash.  The
+        previous commit's `mblob` and the round's cell evidence are
+        dropped here once their ops are certified: each is load-bearing
+        only until then, and a replay of certified backlog admits on
+        the certificate."""
+        def certified(p: int) -> bool:
+            return self._bft is None or p < self._certified_size
+
+        prev = self._rederive_commit_pos
+        if prev is not None and prev in self._op_auth and certified(prev):
+            self._op_auth[prev].pop("mblob", None)
+        # a cell upload whose certificate is still being gathered keeps
+        # its evidence to the next commit (the reference drops it here,
+        # and its validators then skip that partial)
+        keep = []
+        for p in self._rederive_cell_auth:
+            a = self._op_auth.get(p)
+            if a is None:
+                continue
+            if not certified(p):
+                keep.append(p)
+                continue
+            a.pop("cell", None)
+            if not self._sparse:
+                a.pop("blob", None)
+        self._rederive_cell_auth = keep
+        round_blobs[self._model_hash] = self._model_blob
+        self._rederive_blobs = round_blobs
+        self._rederive_commit_pos = pos
+        self._op_auth[pos] = {
+            "mblob": new_blob.hex(),
+            "rs": [list(ep) for ep in self._read_set()],
+            "co": [self.host, self.port]}
+
+    def _state_knobs(self) -> dict:
+        """The effective knobs a `state` reply carries when the loop is
+        armed (certified chain state): every honest encoder uses them
+        this epoch.  A cell aggregator overrides it to pass the root's
+        knobs to its members."""
+        if not self._adapt:
+            return {}
+        return {"eff_density": float(self.ledger.effective_density),
+                "eff_staleness": int(self.ledger.effective_staleness)}
+
+    def _propose_genome_if_due(self, new_flat, commit_epoch: int) -> None:
+        """The closed loop's knob transition at the round boundary (lock
+        held, right after a commit, so no request sees the new epoch
+        before the transition lands).  The telemetry is host numpy over
+        the old model (still installed) and the new one; the ledger runs
+        the checks every replica will.  A refusal is reported, never a
+        wedge."""
+        if not self._adapt or not self.ledger.genome_due():
+            return
+        from bflc_demo_tpu_torch.control.loop import model_telemetry
+        old_flat = unpack_pytree(self._model_blob)
+        norm, drift = model_telemetry(
+            old_flat, {k: np.asarray(v) for k, v in new_flat.items()})
+        old_d = float(self.ledger.effective_density)
+        old_s = int(self.ledger.effective_staleness)
+        disag = float(self.ledger.last_disagreement)
+        st = self.ledger.propose_genome(float(norm), float(drift))
+        if st != LedgerStatus.OK:
+            self._say(f"genome update refused: {st.name}")
+            return
+        self.genome_log.append({
+            "epoch": self.ledger.epoch, "commit_epoch": commit_epoch,
+            "old_density": old_d,
+            "new_density": float(self.ledger.effective_density),
+            "old_staleness": old_s,
+            "new_staleness": int(self.ledger.effective_staleness),
+            "update_norm": float(norm), "drift": float(drift),
+            "disagreement": disag})
+        self._say(f"epoch {self.ledger.epoch} genome update: density "
+                  f"{old_d:g} -> {self.ledger.effective_density:g}, "
+                  f"staleness {old_s} -> "
+                  f"{self.ledger.effective_staleness} (norm={norm:g} "
+                  f"drift={drift:g} disag={disag:g})")
 
     def _publish(self, epoch: int, hashes: List[bytes], blob: bytes,
                  digest: bytes, new_flat, blocks: int, t0: float,

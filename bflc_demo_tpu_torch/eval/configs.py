@@ -14,13 +14,14 @@ active participation, `client_chunk` 4 and `remat`) and config 5 (the
 transformer on SST-2-shaped text).  The image sets are the seeded
 stand-ins of `data/synthetic.py` unless `$BFLC_DATA_DIR` holds the real
 arrays.  Still to port, and raising with the item: the executor runtime
-and the fleet's other options (chaos, telemetry, rederive:
-A9/A14, unexpected keywords here) and config 4's `secure=True` (A12).
-`standbys`, `quorum`, `bft_validators`, `tls_dir`, `snapshot_interval`
-and `snapshot_dir` reach the fleet, `cells` and `cell_size` the hier
-fleet (`BFLC_HIER_LEGACY=1` pins the single tier); another runtime
-refuses them, and refuses an async genome (`cfg.async_buffer` > 0 unless
-`BFLC_ASYNC_LEGACY=1`, reference :70-76) or a sparse one
+and the fleet's other options (chaos, telemetry: A9/A14, unexpected
+keywords here) and config 4's `secure=True` (A12).
+`standbys`, `quorum`, `bft_validators`, `tls_dir`, `snapshot_interval`,
+`snapshot_dir` and `rederive` reach the fleet, `cells`, `cell_size`,
+`bft_validators` and `rederive` the hier fleet (`BFLC_HIER_LEGACY=1`
+pins the single tier); another runtime refuses them, and refuses an
+async genome (`cfg.async_buffer` > 0 unless `BFLC_ASYNC_LEGACY=1`,
+reference :70-76) or a sparse one
 (`cfg.delta_density` < 1 unless `BFLC_SPARSE_LEGACY=1`, :77-84): only
 the fleet runs FedBuff and moves upload blobs.
 """
@@ -76,6 +77,7 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
                      bft_validators: int = 0, tls_dir: str = "",
                      snapshot_interval: int = 0, snapshot_dir: str = "",
                      cells: int = 0, cell_size: int = 0,
+                     rederive: str = "off",
                      **mesh_kw) -> SimulationResult:
     """Dispatch a federated run to the chosen runtime.
 
@@ -92,13 +94,14 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
     (`hier/runtime.run_federated_hier`, reference :122-155: root, cell
     aggregators and members, `bft_validators` at the root), which
     refuses standbys, quorum, TLS, snapshots and an async genome, and
-    which `BFLC_HIER_LEGACY=1` pins back to the single tier.
+    which `BFLC_HIER_LEGACY=1` pins back to the single tier; `rederive`
+    arms the validators' re-derivation of every commit on both.
     attest_scores and mesh_kw (participation, client_chunk, ...) apply
     only to 'mesh'; asking another runtime for them raises, never
     silently drops.  `ledger_backend` is the reference's: "auto" and
     "python" run the python ledger, "native" raises (ROADMAP A9).
-    The fleet's other options (rederive, chaos, ...) come with the items
-    that give them a meaning (ROADMAP A9/A14).
+    The fleet's other options (chaos, telemetry, ...) come with the
+    items that give them a meaning (ROADMAP A9/A14).
     """
     if runtime not in RUNTIMES:
         raise ValueError(UNPORTED_RUNTIME.format(runtime=runtime))
@@ -113,7 +116,8 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
              ("bft_validators", bft_validators), ("tls_dir", tls_dir),
              ("snapshot_interval", snapshot_interval),
              ("snapshot_dir", snapshot_dir), ("cells", cells),
-             ("cell_size", cell_size))
+             ("cell_size", cell_size),
+             ("rederive", rederive != "off" and rederive))
     if runtime != "processes" and any(v for _, v in fleet):
         bad = [n for n, v in fleet if v]
         raise ValueError(f"options {bad} do not apply to the {runtime!r} "
@@ -162,6 +166,7 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
                                   cell_size=cell_size,
                                   factory_kw=factory_kw or {},
                                   bft_validators=bft_validators,
+                                  rederive=rederive,
                                   device=device, verbose=verbose)
     from bflc_demo_tpu_torch.client.process_runtime import \
         run_federated_processes
@@ -172,6 +177,7 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
                                    tls_dir=tls_dir,
                                    snapshot_interval=snapshot_interval,
                                    snapshot_dir=snapshot_dir,
+                                   rederive=rederive,
                                    device=device, verbose=verbose)
 
 

@@ -35,20 +35,26 @@ leg, blocks, seconds, admitted count), so the `kernels` method reports
 the cell's B5 launches and merges, and the root's replies to the
 bridge by status (`bridge`).
 
+The rederive plane (reference :204-224, :254-300): with
+`BFLC_REDERIVE` armed each partial's outbox carries the member-signed
+evidence (`cell_ev`: every admitted member record with the member's own
+upload tag and public key, the medians, the selection and this
+aggregator's read endpoint), which the bridge's upload hands the root,
+and the round's member blobs stay servable one round for the root
+validators' fetches.  A promoted aggregator that lost a member's tag
+ships none, and the validators skip, counted.  The closed compression
+loop (reference :127-132, :346-383, :510-516): the bridge mirrors the
+root's effective density from its `state` replies, re-encodes a partial
+at the density in force when it uploads (`_outbox_blob`) and serves the
+mirrored knob to its members (`_state_knobs`).
+
 Dropped, as the port's `LedgerServer` drops them: the obs metrics,
-health plane, trace spans and flight recorder (ROADMAP A14), the
-member-signed evidence a cell ships for validator re-derivation
-(`rederive`, A9 item 9) and the mirror of the root's effective density
-(the closed compression loop, A9 item 9: the port's `state` reply
-carries none, so the bridge encodes at `cfg.delta_density` as the
-reference does with the loop off).  Asking for either raises naming its
-item.
+health plane, trace spans and flight recorder (ROADMAP A14).
 """
 
 from __future__ import annotations
 
 import hashlib
-import os
 import struct
 import threading
 import time
@@ -74,18 +80,6 @@ Endpoint = Tuple[str, int]
 ROOT_TIMEOUT_S = 30.0
 
 
-def refuse_unported_cell_paths() -> None:
-    """Raise naming the item when the environment arms the rederive
-    plane (`BFLC_REDERIVE`, the legacy pin aside): a cell's part of it,
-    the member-signed evidence, is ROADMAP A9 item 9."""
-    mode = os.environ.get("BFLC_REDERIVE", "off").strip().lower()
-    if mode in ("shard", "full") and \
-            not os.environ.get("BFLC_REDERIVE_LEGACY"):
-        raise NotImplementedError(
-            "a cell aggregator's rederive evidence is not ported yet "
-            "(ROADMAP A9 item 9: rederive)")
-
-
 class CellAggregatorServer(LedgerServer):
     """One cell's coordinator + the root's client (module docstring).
 
@@ -105,7 +99,6 @@ class CellAggregatorServer(LedgerServer):
                  val_shard: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                  root_bft_keys: Optional[Dict[int, bytes]] = None,
                  **kw):
-        refuse_unported_cell_paths()
         # the cell ledger is the python backend (tiny chains)
         kw.setdefault("ledger_backend", "python")
         self._device_arg = kw.get("device")
@@ -124,6 +117,10 @@ class CellAggregatorServer(LedgerServer):
         # submission for its epoch (one at a time — rounds are serial)
         self._outbox: Optional[dict] = None
         self._partial_epoch: Optional[int] = None
+        # the ROOT's effective delta density, mirrored off its `state`
+        # replies when the closed loop is armed there (None: the
+        # genome's): the partial's re-encode and the members' knob
+        self._root_eff_density: Optional[float] = None
         # the root's replies to this bridge's uploads and scores, by
         # status (`kernels` reports them: a refused partial shows here)
         self.bridge_replies: Dict[str, Dict[str, int]] = {"upload": {},
@@ -182,13 +179,29 @@ class CellAggregatorServer(LedgerServer):
             [(u.sender, u.payload_hash, u.n_samples, u.avg_cost)
              for u in updates],
             [float(m) for m in pending.medians], list(pending.selected))
-        # the sparse bridge: re-sparsified at the genome's density
+        # the sparse bridge: re-sparsified at the density in force (the
+        # root's effective knob, re-checked when the bridge uploads)
+        enc_density = self._bridge_density() if self._sparse else 1.0
         blob = partial_blob(partial, self.cell_index, n_clients, evidence,
-                            density=(self.cfg.delta_density if self._sparse
-                                     else 1.0))
+                            density=enc_density)
         self._outbox = {"epoch": epoch, "blob": blob, "n": n_clients,
                         "cost": mean_cost,
-                        "hash": hashlib.sha256(blob).digest()}
+                        "hash": hashlib.sha256(blob).digest(),
+                        "partial": partial, "ev": evidence,
+                        "enc_density": enc_density}
+        if self._rederive:
+            # the member-signed evidence a root validator re-derives
+            # the partial from; the member blobs stay servable a round
+            rows = self._member_evidence(epoch, updates)
+            self._outbox["cell_ev"] = ({
+                "epoch": epoch, "updates": rows,
+                "medians": [float(m) for m in pending.medians],
+                "selected": [int(s) for s in pending.selected],
+                "read_ep": [self.host, self.port]}
+                if rows is not None else None)
+            self._rederive_blobs = {
+                u.payload_hash: self._blobs[u.payload_hash]
+                for u in updates if u.payload_hash in self._blobs}
         self._partial_epoch = epoch
         for u in updates:
             self._blobs.pop(u.payload_hash, None)
@@ -206,7 +219,79 @@ class CellAggregatorServer(LedgerServer):
                   f"{n_clients} clients ready ({dt * 1e3:.1f} ms)",
                   flush=True)
 
+    def _member_evidence(self, epoch: int, updates):
+        """[[sender, hash hex, n, cost, tag hex, pubkey hex], ...] in
+        ledger slot order: the member-signed admission listing a root
+        validator re-verifies (`rederive.core.Rederiver.check_cell`).
+        None when a member's auth evidence is gone (a promoted aggregator
+        holds the chain, not the process-local tags): the bridge then
+        ships none and the validators skip, counted, rather than refuse
+        an honest cell."""
+        from bflc_demo_tpu_torch.ledger.base import decode_op
+        want = {(u.sender, u.payload_hash): i
+                for i, u in enumerate(updates)}
+        rows = [None] * len(updates)
+        found = 0
+        base = self.ledger.log_base
+        for pos in sorted(self._op_auth, reverse=True):
+            if found == len(updates):
+                break
+            if pos < base:
+                continue
+            try:
+                d = decode_op(self.ledger.log_op(pos))
+            except (ValueError, IndexError, struct.error):
+                continue
+            if d.get("op") != "upload" or d.get("epoch") != epoch:
+                continue
+            try:
+                key = (d["sender"], bytes.fromhex(d["payload_hash"]))
+            except (KeyError, ValueError):
+                continue
+            i = want.get(key)
+            if i is None or rows[i] is not None:
+                continue
+            a = self._op_auth[pos]
+            if not a.get("tag") or not a.get("pubkey"):
+                continue
+            u = updates[i]
+            rows[i] = [u.sender, u.payload_hash.hex(), int(u.n_samples),
+                       float(u.avg_cost), a["tag"], a["pubkey"]]
+            found += 1
+        return rows if found == len(updates) else None
+
     # ------------------------------------------------------ root bridge
+    def _bridge_density(self) -> float:
+        """The partial's re-encode density: the root's mirrored
+        effective knob when its loop is armed, else the genome's."""
+        ed = self._root_eff_density
+        return float(ed) if ed is not None \
+            else float(self.cfg.delta_density)
+
+    def _state_knobs(self) -> dict:
+        """Serve the members the root's mirrored effective density (the
+        cell ledger runs no loop of its own): a member's next upload
+        encodes at the knob the whole hierarchy agreed on."""
+        ed = self._root_eff_density
+        if ed is None:
+            return super()._state_knobs()
+        return {"eff_density": float(ed)}
+
+    def _outbox_blob(self, outbox: dict) -> Tuple[bytes, bytes]:
+        """(blob, hash) of the outbox at the density in force now: a
+        genome op that landed between the partial and its upload would
+        otherwise leave the cell at the old knob, and the root's
+        validators, re-encoding at the certified one, would refuse an
+        honest cell."""
+        dens = self._bridge_density() if self._sparse else 1.0
+        if outbox.get("enc_density") != dens:
+            outbox["blob"] = partial_blob(
+                outbox["partial"], self.cell_index, outbox["n"],
+                outbox["ev"], density=dens)
+            outbox["hash"] = hashlib.sha256(outbox["blob"]).digest()
+            outbox["enc_density"] = dens
+        return outbox["blob"], outbox["hash"]
+
     def _sign(self, kind: str, epoch: int, payload: bytes) -> str:
         return self.wallet.sign(_op_bytes(
             kind, self.wallet.address, epoch, payload)).hex()
@@ -333,6 +418,9 @@ class CellAggregatorServer(LedgerServer):
                     st = client.request("state",
                                         addr=self.wallet.address)
                     repoch = st["epoch"]
+                    ed = st.get("eff_density")
+                    self._root_eff_density = (float(ed) if ed is not None
+                                              else None)
                     if repoch < 0:      # root still enrolling cells
                         known_log = client.request(
                             "wait", log_size=known_log,
@@ -344,14 +432,15 @@ class CellAggregatorServer(LedgerServer):
                     if st["role"] == "trainer" and outbox is not None \
                             and outbox["epoch"] == repoch \
                             and repoch > submitted_epoch:
-                        payload = outbox["hash"] + struct.pack(
+                        blob, digest = self._outbox_blob(outbox)
+                        payload = digest + struct.pack(
                             "<qd", outbox["n"], float(outbox["cost"]))
                         r = client.request(
                             "upload", addr=self.wallet.address,
-                            blob=outbox["blob"],
-                            hash=outbox["hash"].hex(), n=outbox["n"],
+                            blob=blob, hash=digest.hex(), n=outbox["n"],
                             cost=float(outbox["cost"]), epoch=repoch,
-                            tag=self._sign("upload", repoch, payload))
+                            tag=self._sign("upload", repoch, payload),
+                            cell_ev=outbox.get("cell_ev"))
                         self._count_reply("upload", r)
                         if r.get("status") in ("OK", "DUPLICATE",
                                                "CAP_REACHED",

@@ -3,9 +3,6 @@ protocol geometry each tier runs.
 
 Copy of `bflc_demo_tpu/hier/cells.py` (`CellPlan`, `plan_cells`,
 `cell_seed`, `cell_protocol`, `root_protocol`), the imports aside.
-Dropped: `cell_protocol` does not zero `adapt_every` — the port's
-`ProtocolConfig` has no closed compression loop to switch off (ROADMAP
-A9 item 9), so the cell genome is otherwise the reference's.
 
 Cohorting is a pure function of (n_clients, n_cells): contiguous blocks,
 remainder spread one-per-cell from the front.  Every party — driver,
@@ -107,9 +104,13 @@ def cell_protocol(cfg: ProtocolConfig, n_members: int) -> ProtocolConfig:
     comm = max(1, min(cfg.comm_count, n_members // 2, n_members - 1))
     needed = max(1, min(cfg.needed_update_count, n_members - comm))
     agg = max(1, min(cfg.aggregate_count, needed))
+    # the closed compression loop runs at the root only: an aggregator
+    # passes the root's effective knobs to its members, so one certified
+    # schedule governs the whole hierarchy
     return dataclasses.replace(
         cfg, client_num=n_members, comm_count=comm,
-        needed_update_count=needed, aggregate_count=agg).validate()
+        needed_update_count=needed, aggregate_count=agg,
+        adapt_every=0).validate()
 
 
 def root_protocol(cfg: ProtocolConfig, n_cells: int) -> ProtocolConfig:

@@ -30,21 +30,32 @@ fork from the port's forkserver (`client/children.py`), and each
 aggregator and member leads a process group of its own, as the fleet's
 clients do: the drill SIGKILLs an aggregator, and a group orphaned by
 that exit could otherwise bring SIGHUP to its members and the parent.
-Validators are spawned and import no torch.  On `cuda` the parent builds
+Disarmed validators are spawned and import no torch (armed ones fork
+too).  On `cuda` the parent builds
 every kernel library before the fleet starts.  Before it stops the
 fleet, the parent collects the root's and every live aggregator's
 `kernels` reply (launch counts, engine report, merge records), the
 root's op stream (each op's name, sender and epoch) and the members'
 reports.
 
+With `rederive` shard or full (reference :54-92, :164-206, :280-340)
+`BFLC_REDERIVE` arms the root (its commit evidence), every aggregator
+(the member-signed evidence of each partial) and the root's validators,
+which re-derive every root commit and every cell partial from its
+members' blobs on the run's device before they co-sign; their stats
+land in `validator_reports` as in the single-tier fleet.  With the
+closed loop armed (`cfg.adapt_every`) the root runs it and each
+aggregator passes the root's effective density to its members
+(`hier/cells.cell_protocol` zeroes the cells' own).
+
 Not ported, raising with their ROADMAP item when asked for: the chaos
-schedule and its directory, telemetry and causal traces (A14), and the
-rederive plane with its cell evidence leg (A9 item 9).
+schedule and its directory, telemetry and causal traces (A14).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -53,8 +64,8 @@ import numpy as np
 from bflc_demo_tpu_torch.client import children
 from bflc_demo_tpu_torch.client.process_runtime import (
     ProcessFederationResult, _child_device, _client_proc, _drain_reports,
-    absorb_reports, client_args, client_seed, final_info, join_clients,
-    sponsor_rounds, start_validators, stop_processes)
+    absorb_reports, client_args, client_seed, collect_rederive, final_info,
+    join_clients, sponsor_rounds, start_validators, stop_processes)
 from bflc_demo_tpu_torch.hier.cells import (cell_protocol, cell_seed,
                                             plan_cells, root_protocol)
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
@@ -66,9 +77,7 @@ Endpoint = Tuple[str, int]
 UNPORTED_HIER_OPTIONS = {
     "chaos_schedule": "A14 (chaos)", "chaos_dir": "A14 (chaos)",
     "telemetry_dir": "A14 (telemetry)", "trace_sample": "A14 (telemetry)",
-    "rederive": "A9 item 9 (rederive)",
 }
-_HIER_DEFAULTS = {"rederive": "off"}
 
 # a member's request timeout (the reference's, without chaos)
 MEMBER_TIMEOUT_S = 60.0
@@ -77,10 +86,12 @@ MEMBER_TIMEOUT_S = 60.0
 def _root_proc(cfg_kw: dict, initial_blob: bytes, port_q,
                stall_timeout_s: float, wal_path: str,
                cell_registry: dict, bft_endpoints: list, bft_keys: dict,
-               device: str, verbose: bool) -> None:
+               device: str, verbose: bool, rederive: str = "") -> None:
     """The root coordinator: a plain LedgerServer whose clients are the
     cell aggregators (the cell registry arms the hier admission
     contract); it merges the partials on `device`."""
+    if rederive:
+        os.environ["BFLC_REDERIVE"] = rederive
     _child_device(device)
     from bflc_demo_tpu_torch.comm.ledger_service import LedgerServer
     server = LedgerServer(ProtocolConfig(**cfg_kw), initial_blob,
@@ -99,9 +110,12 @@ def _cell_proc(cell_cfg_kw: dict, initial_blob: bytes, cell_index: int,
                wallet_seed: bytes, root_endpoints: list,
                model_factory: str, factory_kw: dict, val_x, val_y,
                root_bft_keys: dict, port_q, stall_timeout_s: float,
-               device: str, verbose: bool) -> None:
+               device: str, verbose: bool, rederive: str = "") -> None:
     """One cell aggregator process (`hier/aggregator.py`): coordinator
-    for its members, bridge client of the root, computing on `device`."""
+    for its members, bridge client of the root, computing on `device`;
+    with `rederive` it ships each partial's member-signed evidence."""
+    if rederive:
+        os.environ["BFLC_REDERIVE"] = rederive
     _child_device(device)
     from bflc_demo_tpu_torch.comm.identity import Wallet
     from bflc_demo_tpu_torch.hier.aggregator import CellAggregatorServer
@@ -181,6 +195,7 @@ def run_federated_hier(
         timeout_s: float = 600.0,
         init_seed: int = 0,
         kill_cell_at_epoch: Optional[Dict[int, int]] = None,
+        rederive: str = "off",
         device: Optional[str] = None,
         verbose: bool = False,
         **unported) -> ProcessFederationResult:
@@ -197,15 +212,19 @@ def run_federated_hier(
     kill_cell_at_epoch: {cell_index: root_epoch} — SIGKILL that cell's
     aggregator once the root reaches the epoch (the re-home drill: its
     members fail over to the ring sibling).
+    rederive: "off", "shard" or "full" — the root's validators re-derive
+    every root commit and every cell partial (needs bft_validators).
     device: where every role computes, `cuda` (None) or `cpu`; the
     validators compute nothing on it.
     """
-    for name, default in _HIER_DEFAULTS.items():
-        if unported.get(name) == default:
-            unported.pop(name)
     from bflc_demo_tpu_torch.comm.ledger_service import refuse_unported
     refuse_unported(unported, UNPORTED_HIER_OPTIONS)
     cfg.validate()
+    from bflc_demo_tpu_torch.rederive import REDERIVE_MODES
+    if rederive not in REDERIVE_MODES:
+        raise ValueError(f"rederive must be one of {REDERIVE_MODES}, "
+                         f"got {rederive!r}")
+    armed = rederive if rederive != "off" else ""
     if len(shards) != cfg.client_num:
         raise ValueError(f"need {cfg.client_num} shards, got {len(shards)}")
     plan = plan_cells(len(shards), cells, cell_size)
@@ -254,14 +273,15 @@ def run_federated_hier(
         from bflc_demo_tpu_torch.comm.bft import provision_validators
         _, bft_keys = provision_validators(bft_validators, master_seed)
 
-    vctx = children.spawn_context()
     ctx = children.torch_context()
+    vctx = ctx if armed else children.spawn_context()
     host = "127.0.0.1"
     port_of: Dict[str, int] = {}
     t_val = time.monotonic()
     validator_procs, validator_reports, bft_endpoints = start_validators(
         vctx, root_cfg_kw, master_seed, bft_validators, bft_keys, verbose,
-        host, cell_registry)
+        host, cell_registry, rederive=rederive, initial_blob=initial_blob,
+        device=device_name)
     validator_spawn_s = time.monotonic() - t_val
     for role, rep_v in validator_reports.items():
         port_of[role] = rep_v["port"]
@@ -288,7 +308,7 @@ def run_federated_hier(
             root_cfg_kw, initial_blob, q,
             root_stall_timeout_s or max(stall_timeout_s * 2, 8.0),
             wal_path, cell_registry, bft_endpoints, bft_keys, device_name,
-            verbose))
+            verbose, armed))
         root.start()
         root_port = q.get(timeout=120)
         port_of["writer"] = root_port
@@ -303,7 +323,7 @@ def run_federated_hier(
             p = children.process(ctx, _cell_proc, (
                 cell_cfg_kw[c], initial_blob, c, agg_seeds[c],
                 root_endpoints, model_factory, factory_kw, vx, vy,
-                bft_keys, cq, stall_timeout_s, device_name, verbose),
+                bft_keys, cq, stall_timeout_s, device_name, verbose, armed),
                 own_group=True)
             p.start()
             cell_procs[c] = p
@@ -369,6 +389,8 @@ def run_federated_hier(
                 cell_engines[c] = ck["engine"]
                 cell_merges[c] = ck["merges"]
                 cell_bridge[c] = ck.get("bridge", {})
+        if armed:
+            collect_rederive(bft_endpoints, validator_reports, launches)
     finally:
         if router is not None:
             router.close()

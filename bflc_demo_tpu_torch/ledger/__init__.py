@@ -6,7 +6,10 @@ geometry (`base.reduce_blocks`: a blocked genome's commit ops carry the
 REDUCTION SPEC v2 claim) and, when `base.async_enabled(cfg)`, with the
 async buffered family armed (`async_buffer`, `max_staleness`,
 `async_reseat_every`, reference :23-52; `BFLC_ASYNC_LEGACY=1` keeps the
-synchronous ledger, byte for byte).  `backend` is the reference's:
+synchronous ledger, byte for byte) and, when `base.adapt_enabled(cfg)`,
+with the closed compression loop armed (`delta_density`,
+`density_floor`, `adapt_every`; `BFLC_ADAPT_LEGACY=1` keeps the static
+knobs).  `backend` is the reference's:
 "auto" and "python" give the python ledger; "native", the reference's
 C++ `.so`, raises (ROADMAP A9: the native ledger), blocked genome or
 not.
@@ -19,8 +22,9 @@ the retained tail.
 from __future__ import annotations
 
 from bflc_demo_tpu_torch.ledger.base import (  # noqa: F401
-    AsyncUpdateInfo, LedgerStatus, PendingInfo, UpdateInfo, async_enabled,
-    async_legacy, blocked_enabled, blocked_legacy, reduce_blocks)
+    AsyncUpdateInfo, LedgerStatus, PendingInfo, UpdateInfo, adapt_enabled,
+    adapt_legacy, async_enabled, async_legacy, blocked_enabled,
+    blocked_legacy, reduce_blocks)
 from bflc_demo_tpu_torch.ledger.pyledger import PyLedger
 from bflc_demo_tpu_torch.protocol.constants import (DEFAULT_PROTOCOL,
                                                     ProtocolConfig)
@@ -49,6 +53,10 @@ def make_ledger(cfg: ProtocolConfig = DEFAULT_PROTOCOL, *,
         kw = dict(async_buffer=cfg.async_buffer,
                   max_staleness=cfg.max_staleness,
                   async_reseat_every=cfg.async_reseat_every)
+    if adapt_enabled(cfg):
+        kw.update(delta_density=cfg.delta_density,
+                  density_floor=cfg.density_floor,
+                  adapt_every=cfg.adapt_every)
     return PyLedger(cfg.client_num, cfg.comm_count, cfg.aggregate_count,
                     cfg.needed_update_count, cfg.genesis_epoch,
                     reduce_blocks=reduce_blocks(cfg), **kw)

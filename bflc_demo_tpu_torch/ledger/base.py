@@ -16,8 +16,10 @@ and the asynchronous buffered family (:31-54, :141-240): `OP_AUPLOAD`/
 `encode_aupload_op`, `encode_ascores_op`, `ascores_sign_payload`,
 `AsyncUpdateInfo` and `parse_acommit`, the opcode-12 body parse of the
 reference's `PyLedger.apply_op` (:1307-1338), which the ledger's replay
-and the writer's chain record share.  Dropped: the genome op
-(`OP_GENOME`) and the closed loop's switches (ROADMAP A9, item 9).
+and the writer's chain record share, and the closed compression loop:
+`OP_GENOME` (opcode 13, :39), `encode_genome_op` (:170-190),
+`adapt_legacy` and `adapt_enabled` (:84-97).  `decode_op` renders
+opcode 13 too, which the reference's tool names unknown.
 """
 
 from __future__ import annotations
@@ -36,12 +38,15 @@ OP_CLOSE, OP_FORCE, OP_RESEAT, OP_PROMOTE = 5, 6, 7, 8
 OP_SNAPSHOT = 9
 # asynchronous buffered aggregation (FedBuff on the certified op stream)
 OP_AUPLOAD, OP_ASCORES, OP_ACOMMIT = 10, 11, 12
+# the certified genome update (the closed compression loop)
+OP_GENOME = 13
 OP_NAMES = {OP_REGISTER: "register", OP_UPLOAD: "upload",
             OP_SCORES: "scores", OP_COMMIT: "commit",
             OP_CLOSE: "close_round", OP_FORCE: "force_aggregate",
             OP_RESEAT: "reseat_committee", OP_PROMOTE: "promote_writer",
             OP_SNAPSHOT: "snapshot", OP_AUPLOAD: "async_upload",
-            OP_ASCORES: "async_scores", OP_ACOMMIT: "async_commit"}
+            OP_ASCORES: "async_scores", OP_ACOMMIT: "async_commit",
+            OP_GENOME: "genome_update"}
 
 
 def async_legacy() -> bool:
@@ -80,6 +85,21 @@ def blocked_enabled(cfg) -> bool:
     """True when commit ops carry (and replicas enforce) a geometry
     claim: the chain speaks the v2 wire format."""
     return reduce_blocks(cfg) > 1
+
+
+def adapt_legacy() -> bool:
+    """True when BFLC_ADAPT_LEGACY pins the static compression knobs
+    whatever ProtocolConfig.adapt_every says: no genome-update op is
+    proposed or accepted, and the bytes are the static protocol's."""
+    return bool(os.environ.get("BFLC_ADAPT_LEGACY"))
+
+
+def adapt_enabled(cfg) -> bool:
+    """The one decision point for the closed compression loop: a
+    positive adapt interval in the genome and no legacy pin.  The
+    ledger, the writer, the clients, the cells and the validators all
+    read it here."""
+    return getattr(cfg, "adapt_every", 0) > 0 and not adapt_legacy()
 
 
 def staleness_weight(staleness: int) -> float:
@@ -142,6 +162,24 @@ def encode_ascores_op(sender: str,
     for aseq, s in pairs:
         op += struct.pack("<q", int(aseq))
         op += struct.pack("<f", np.float32(s))
+    return bytes(op)
+
+
+def encode_genome_op(epoch: int, new_density: float, new_staleness: int,
+                     update_norm: float, drift: float,
+                     disagreement: float) -> bytes:
+    """Genome update (opcode 13): the writer's proposed effective-knob
+    transition and the telemetry it derived it from.  Every replica
+    re-runs the rule (`control/loop.decide`) over the carried inputs,
+    re-derives `disagreement` from its own certified score state and
+    refuses BAD_ARG on a mismatch.  Floats store f32."""
+    op = bytearray([OP_GENOME])
+    op += struct.pack("<q", int(epoch))
+    op += struct.pack("<f", np.float32(new_density))
+    op += struct.pack("<q", int(new_staleness))
+    op += struct.pack("<f", np.float32(update_norm))
+    op += struct.pack("<f", np.float32(drift))
+    op += struct.pack("<f", np.float32(disagreement))
     return bytes(op)
 
 
@@ -216,8 +254,9 @@ def encode_promote_op(generation: int, writer_index: int) -> bytes:
 
 def decode_op(op: bytes) -> dict:
     """One op's fields, rendered as the reference's `ledger/tool.py`
-    does; no state rules applied.  Opcodes 1-9; others are named
-    unknown, and a malformed body adds `malformed`."""
+    does; no state rules applied.  Opcodes 1-13 (the reference's tool
+    stops at 12 and names 13 unknown); others are named unknown, and a
+    malformed body adds `malformed`."""
     if not op:
         return {"op": "empty"}
     code, body = op[0], op[1:]
@@ -295,6 +334,12 @@ def decode_op(op: bytes) -> dict:
                     a, off = s_at(off)
                     addrs.append(a)
                 out["committee"] = addrs
+        elif code == OP_GENOME:
+            out["epoch"], = struct.unpack_from("<q", body, 0)
+            out["density"], = struct.unpack_from("<f", body, 8)
+            out["staleness"], = struct.unpack_from("<q", body, 12)
+            out["update_norm"], out["drift"], out["disagreement"] = \
+                struct.unpack_from("<fff", body, 20)
     except (struct.error, ValueError, UnicodeDecodeError) as e:
         out["malformed"] = f"{type(e).__name__}: {e}"
     return out

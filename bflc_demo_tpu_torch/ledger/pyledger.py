@@ -9,8 +9,7 @@ recovery ops `close_round` (:404), `force_aggregate` (:422) and
 `reseat_committee` (:437) with `round_closed` (:462); the writer fence
 `promote_writer` (opcode 8, :466-488) with `generation` and
 `writer_index` read from the chain; the inspection properties
-(`num_registered` :945, `last_disagreement` :922, which stays 0.0
-without the closed compression loop); the SHA-256 op-log chain
+(`num_registered` :945, `last_disagreement` :922); the SHA-256 op-log chain
 (`_append_log`, `log_head`, `log_size`, `verify_log`, `log_op`,
 `head_at`); the write-ahead log in the `BFLCWAL1` format byte for byte
 (`attach_wal`, `save_wal`, `detach_wal`, `replay_wal`, :148-253: a
@@ -33,14 +32,20 @@ untouched; asynchronous buffered aggregation (FedBuff, :592-825,
 `async_selection`, `async_reseat_due`, `derive_async_seats`,
 `async_commit` (12, with its seats and `BLK1` tails), `async_buffer_view`,
 `async_buffer_depth`, `async_score_rows`, and the `async` and
-`async_acommits` tails of the state bytes.  `effective_staleness` is
-`max_staleness`: only a genome op moves it.  Same op bytes, same
-statuses, same median / rank / election order, so the same op sequence
-gives the same chain head as the reference ledger, bit for bit.
+`async_acommits` tails of the state bytes; and the closed compression
+loop (:71-115, :515-568, :785-795, :827-928, :1041-1055, :1339-1353):
+the genome's `delta_density`/`density_floor`/`adapt_every` constants,
+the effective knobs `_eff_density`/`_eff_staleness` with
+`_genome_epoch` and `_last_disagreement` (captured by `commit_model`
+and `async_commit` before the scores clear), `committee_score_rows`,
+`genome_due`, `propose_genome`, `genome_update` (opcode 13, re-run by
+every replica) with its properties, the `genome` state tail and the
+opcode-13 arm of `apply_op`; `async_upload` gates on
+`effective_staleness`.  Same op bytes, same statuses, same median /
+rank / election order, so the same op sequence gives the same chain
+head as the reference ledger, bit for bit.
 
-Not ported: genome updates (opcode 13, ROADMAP A9 item 9) with their
-state tail; `apply_op` refuses the opcode with BAD_ARG, as the reference
-does an unknown one.  The native `.so` is not bound.
+Not ported: the native `.so` is not bound.
 """
 
 from __future__ import annotations
@@ -55,12 +60,14 @@ import numpy as np
 
 from bflc_demo_tpu_torch.ledger.base import (
     OP_ACOMMIT, OP_ASCORES, OP_AUPLOAD, OP_CLOSE, OP_COMMIT, OP_FORCE,
-    OP_PROMOTE, OP_REGISTER, OP_RESEAT, OP_SCORES, OP_SNAPSHOT, OP_UPLOAD,
+    OP_GENOME, OP_PROMOTE, OP_REGISTER, OP_RESEAT, OP_SCORES, OP_SNAPSHOT,
+    OP_UPLOAD,
     AsyncUpdateInfo, LedgerStatus, PendingInfo, UpdateInfo,
     _put_str, encode_ascores_op, encode_aupload_op, encode_close_op,
     encode_commit_op, encode_force_op, encode_promote_op,
     encode_register_op, encode_reseat_op, encode_scores_op,
-    encode_upload_op, parse_acommit, staleness_weight)
+    encode_genome_op, encode_upload_op, parse_acommit, staleness_weight)
+from bflc_demo_tpu_torch.control.loop import decide, score_disagreement
 
 # commit_model's `blocks` default: "derive the claim from this replica's
 # genome" (the writer path).  Distinct from None, which means "the op
@@ -80,7 +87,9 @@ class PyLedger:
     def __init__(self, client_num: int, comm_count: int, aggregate_count: int,
                  needed_update_count: int, genesis_epoch: int = -999,
                  async_buffer: int = 0, max_staleness: int = 20,
-                 async_reseat_every: int = 0, reduce_blocks: int = 1):
+                 async_reseat_every: int = 0, reduce_blocks: int = 1,
+                 delta_density: float = 1.0, density_floor: float = 0.01,
+                 adapt_every: int = 0):
         self.client_num = client_num
         self.comm_count = comm_count
         self.aggregate_count = aggregate_count
@@ -98,6 +107,21 @@ class PyLedger:
         self.async_buffer = max(int(async_buffer), 0)
         self.max_staleness = max(int(max_staleness), 0)
         self.async_reseat_every = max(int(async_reseat_every), 0)
+        # the closed compression loop (ledger.base.adapt_enabled): the
+        # genome's delta_density and density_floor are constants (the
+        # rule's bounds); the EFFECTIVE knobs are protocol state that
+        # only a certified genome-update op (opcode 13) moves, so they
+        # ride the state bytes
+        self.adapt_every = max(int(adapt_every), 0)
+        self.delta_density = float(delta_density)
+        self.density_floor = float(density_floor)
+        self._eff_density = float(delta_density)
+        self._eff_staleness = self.max_staleness
+        self._genome_epoch: Optional[int] = None
+        # the last committed round's committee disagreement (f32), the
+        # genome op's re-derivable input, captured at commit before the
+        # score buffers clear, on the writer and every replica alike
+        self._last_disagreement = 0.0
         self._acommit_count = 0
         self._abuf: List[AsyncUpdateInfo] = []
         self._ascores: Dict[int, Dict[str, float]] = {}
@@ -459,6 +483,13 @@ class PyLedger:
             return []
         return list(self._updates)
 
+    def committee_score_rows(self) -> List[List[float]]:
+        """The current round's complete committee score rows in sorted
+        sender order (the disagreement capture reads them)."""
+        k = len(self._updates)
+        return [list(self._scores[a]) for a in sorted(self._scores)
+                if len(self._scores[a]) == k]
+
     # --- aggregation handshake ---
     def aggregate_ready(self) -> bool:
         return self._pending is not None
@@ -481,6 +512,11 @@ class PyLedger:
                           if self.reduce_blocks > 1 else None)
         if blocks is not _DERIVE_BLOCKS and blocks != derived_blocks:
             return LedgerStatus.BAD_ARG
+        if self.adapt_every:
+            # the round's committee disagreement, before the score
+            # buffers clear: the input the next genome op must match
+            self._last_disagreement = float(
+                score_disagreement(self.committee_score_rows()))
         self._model_hash = bytes(new_model_hash)
         self._last_loss = self._pending.global_loss
         for a in self._roles:
@@ -660,6 +696,15 @@ class PyLedger:
                     return LedgerStatus.BAD_ARG
             elif seats is not None:
                 return LedgerStatus.BAD_ARG
+        if self.adapt_every:
+            # the async capture: a scorer x entry matrix over the drained
+            # window, complete rows only, in sorted scorer order
+            maps = [self._ascores.get(e.aseq, {})
+                    for e in self._abuf[:k]]
+            scorers = sorted({s for m in maps for s in m})
+            self._last_disagreement = float(score_disagreement(
+                [[m[s] for m in maps] for s in scorers
+                 if all(s in m for m in maps)]))
         _, _, _, loss = self.async_selection(k)
         for e in self._abuf[:k]:
             self._ascores.pop(e.aseq, None)
@@ -687,11 +732,87 @@ class PyLedger:
         self._append_log(bytes(op))
         return LedgerStatus.OK
 
+    # --- the certified genome update (closed compression loop) ---
+    # The writer retunes the effective knobs from one round's telemetry
+    # only through an op every replica re-validates: the rule is re-run
+    # over the op's inputs and the disagreement re-derived from this
+    # replica's own certified scores; a mismatch is BAD_ARG before any
+    # state changes.
+
+    def genome_due(self) -> bool:
+        """Would a genome-update op be accepted at the current epoch?
+        (the writer's proposal gate)"""
+        return (self.adapt_every > 0
+                and self._epoch != self.genesis_epoch
+                and self._epoch > 0
+                and self._epoch % self.adapt_every == 0
+                and self._genome_epoch != self._epoch)
+
+    def propose_genome(self, update_norm: float,
+                       drift: float) -> LedgerStatus:
+        """The writer's path: the rule's transition over this ledger's
+        state and the round's model telemetry, appended through the
+        checks a replica runs."""
+        nd, ns = decide(
+            self._eff_density, self._eff_staleness, update_norm, drift,
+            self._last_disagreement, density_floor=self.density_floor,
+            density_cap=self.delta_density,
+            staleness_cap=self.max_staleness if self.async_buffer else 0)
+        return self.genome_update(self._epoch, float(nd), int(ns),
+                                  update_norm, drift,
+                                  self._last_disagreement)
+
+    def genome_update(self, epoch: int, new_density: float,
+                      new_staleness: int, update_norm: float,
+                      drift: float, disagreement: float) -> LedgerStatus:
+        """Validate and apply a genome-update claim (the writer's append
+        and the replica's replay share it): only armed, at positive
+        multiples of adapt_every, once an epoch, at the round boundary;
+        `disagreement` equal to this replica's capture in f32; and the
+        knobs equal to the rule's output over the carried telemetry."""
+        if not self.adapt_every:
+            return LedgerStatus.BAD_ARG     # static chain: op family off
+        if self._epoch == self.genesis_epoch:
+            return LedgerStatus.NOT_STARTED
+        if epoch != self._epoch:
+            return LedgerStatus.WRONG_EPOCH
+        if self._epoch <= 0 or self._epoch % self.adapt_every != 0:
+            return LedgerStatus.BAD_ARG     # off-schedule
+        if self._genome_epoch == self._epoch:
+            return LedgerStatus.DUPLICATE   # one transition per epoch
+        if self._updates or self._scores or self._pending is not None:
+            return LedgerStatus.NOT_READY   # mid-round: boundary only
+        if np.float32(disagreement) != np.float32(self._last_disagreement):
+            return LedgerStatus.BAD_ARG     # fabricated telemetry
+        nd, ns = decide(
+            self._eff_density, self._eff_staleness, update_norm, drift,
+            disagreement, density_floor=self.density_floor,
+            density_cap=self.delta_density,
+            staleness_cap=self.max_staleness if self.async_buffer else 0)
+        if np.float32(new_density) != nd or int(new_staleness) != ns:
+            return LedgerStatus.BAD_ARG     # not the rule's output
+        self._eff_density = float(nd)
+        self._eff_staleness = int(ns)
+        self._genome_epoch = self._epoch
+        self._append_log(encode_genome_op(epoch, nd, ns, update_norm,
+                                          drift, disagreement))
+        return LedgerStatus.OK
+
+    @property
+    def effective_density(self) -> float:
+        """The density every honest encoder and validator uses this
+        epoch (the genome's delta_density until a genome op moves it)."""
+        return self._eff_density
+
     @property
     def effective_staleness(self) -> int:
-        """The staleness bound async_upload gates on (only the genome
-        op, not ported, moves it off max_staleness)."""
-        return self.max_staleness
+        """The staleness bound async_upload gates on this epoch."""
+        return self._eff_staleness
+
+    @property
+    def genome_epoch(self) -> Optional[int]:
+        """Epoch of the last applied genome-update op (None: never)."""
+        return self._genome_epoch
 
     def async_buffer_view(self) -> List[AsyncUpdateInfo]:
         """The buffered entries in admission order (the committee's
@@ -720,7 +841,7 @@ class PyLedger:
 
     @property
     def last_disagreement(self) -> float:
-        return 0.0
+        return self._last_disagreement
 
     @property
     def update_count(self) -> int:
@@ -803,6 +924,14 @@ class PyLedger:
         acommits = (self._acommit_count
                     if self.async_buffer and self.async_reseat_every
                     else None)
+        # the genome tail only when the loop is armed: a static chain
+        # keeps the legacy state bytes
+        genome = None
+        if self.adapt_every:
+            genome = (self._eff_density, self._eff_staleness,
+                      -1 if self._genome_epoch is None
+                      else self._genome_epoch,
+                      self._last_disagreement)
         return encode_state_dict({
             "epoch": self._epoch, "model_hash": self._model_hash,
             "last_loss": self._last_loss,
@@ -812,7 +941,7 @@ class PyLedger:
             "updates": [(u.sender, u.payload_hash, u.n_samples,
                          u.avg_cost) for u in self._updates],
             "scores": self._scores, "pending": pend, "async": asy,
-            "async_acommits": acommits})
+            "async_acommits": acommits, "genome": genome})
 
     def state_digest(self) -> bytes:
         """SHA-256 of the canonical state: what a snapshot op embeds and
@@ -823,10 +952,8 @@ class PyLedger:
                        base_head: bytes) -> None:
         """Install canonical state at chain offset `base` (snapshot
         restore and BFLCWAL2 replay; the caller verified the bytes)."""
-        from bflc_demo_tpu_torch.ledger.snapshot import (
-            decode_state, refuse_unported_tails)
+        from bflc_demo_tpu_torch.ledger.snapshot import decode_state
         d = decode_state(state_bytes)
-        refuse_unported_tails(d)
         self._epoch = int(d["epoch"])
         self._model_hash = bytes(d["model_hash"])
         self._last_loss = float(d["last_loss"])
@@ -861,6 +988,18 @@ class PyLedger:
             self._ascores = {int(a): {k: float(v) for k, v in r.items()}
                              for a, r in rows.items()}
         self._acommit_count = int(d.get("async_acommits") or 0)
+        genome = d.get("genome")
+        if genome is None:
+            self._eff_density = self.delta_density
+            self._eff_staleness = self.max_staleness
+            self._genome_epoch = None
+            self._last_disagreement = 0.0
+        else:
+            dens, stale, gep, disag = genome
+            self._eff_density = float(dens)
+            self._eff_staleness = int(stale)
+            self._genome_epoch = None if int(gep) < 0 else int(gep)
+            self._last_disagreement = float(disag)
         self._ops = []
         self._log = []
         self._base = int(base)
@@ -905,14 +1044,18 @@ class PyLedger:
                 self._pending, self._closed, self._generation,
                 self._writer_index, list(self._abuf),
                 {k: dict(v) for k, v in self._ascores.items()},
-                self._aseq_next, self._acommit_count, len(self._ops))
+                self._aseq_next, self._acommit_count,
+                self._eff_density, self._eff_staleness,
+                self._genome_epoch, self._last_disagreement,
+                len(self._ops))
 
     def _restore(self, snap) -> None:
         (self._epoch, self._model_hash, self._last_loss, self._reg_order,
          self._roles, self._updates, self._update_slot, self._scores,
          self._pending, self._closed, self._generation,
          self._writer_index, self._abuf, self._ascores, self._aseq_next,
-         self._acommit_count, n_ops) = snap
+         self._acommit_count, self._eff_density, self._eff_staleness,
+         self._genome_epoch, self._last_disagreement, n_ops) = snap
         del self._ops[n_ops:]
         del self._log[n_ops:]
 
@@ -930,7 +1073,7 @@ class PyLedger:
 
     # --- replay (the replica path) ---
     def apply_op(self, op: bytes) -> LedgerStatus:
-        """Deterministic replay of a serialized op, opcodes 1-12; every
+        """Deterministic replay of a serialized op, opcodes 1-13; every
         other opcode (and a malformed body) is BAD_ARG."""
         if not op:
             return LedgerStatus.BAD_ARG
@@ -1029,6 +1172,17 @@ class PyLedger:
                     return LedgerStatus.BAD_ARG
                 mh, ep, k, seats, claim = parsed
                 return self.async_commit(mh, ep, k, seats, blocks=claim)
+            if code == OP_GENOME:
+                # strict 32-byte body; the f32 fields round-trip exactly,
+                # so the replayed append reproduces the writer's bytes
+                if len(body) != 32:
+                    return LedgerStatus.BAD_ARG
+                ep, = struct.unpack_from("<q", body, 0)
+                dens, = struct.unpack_from("<f", body, 8)
+                stale, = struct.unpack_from("<q", body, 12)
+                norm, drift, disag = struct.unpack_from("<fff", body, 20)
+                return self.genome_update(ep, dens, stale, norm, drift,
+                                          disag)
         except (struct.error, UnicodeDecodeError, IndexError):
             return LedgerStatus.BAD_ARG
         return LedgerStatus.BAD_ARG

@@ -31,10 +31,10 @@ buffered entries and their committee scores), emitted only when the mode
 is armed, and `async_acommits` (the drain counter), emitted only when
 re-election is armed.  A synchronous ledger keeps the legacy bytes.
 
-Not ported: the closed-loop genome tail (ROADMAP A9 (rederive): the
-port's ledger does not run the closed loop).  `decode_state` reads it
-byte for byte; `encode_state_dict` and `restore_snapshot` raise naming
-the item for a state that carries it.
+The closed compression loop's `GNM1` tail (reference :160-176,
+:279-295): the effective density and staleness, the last genome epoch
+and the disagreement capture, emitted last and only when the loop is
+armed.
 """
 
 from __future__ import annotations
@@ -67,27 +67,12 @@ def _put_str(b: bytearray, s: str) -> None:
     b += struct.pack("<q", len(raw)) + raw
 
 
-_UNPORTED_TAILS = {"genome": "A9 (rederive)"}
-
-
-def refuse_unported_tails(d: Dict) -> None:
-    """Raise naming the ROADMAP item of every state tail the port's
-    ledger cannot hold (the genome section)."""
-    asked = sorted(k for k in _UNPORTED_TAILS if d.get(k) is not None)
-    if asked:
-        raise NotImplementedError(
-            "snapshot state tails not ported yet: " + ", ".join(
-                f"{k} (ROADMAP {_UNPORTED_TAILS[k]})" for k in asked))
-
-
 def encode_state_dict(d: Dict) -> bytes:
     """Canonical bytes of a ledger-state dict (see `decode_state` for the
     field set), the reference's layout: registration order carries the
     roles, score rows sort by sender (bytewise == sorted() for ASCII
     addresses), floats are f32, counts are <q>, slots are <i>; the async
-    tails follow when present.  A dict carrying a genome tail raises
-    (not ported)."""
-    refuse_unported_tails(d)
+    tails and the genome tail follow when present."""
     b = bytearray(STATE_MAGIC)
     b += struct.pack("<q", int(d["epoch"]))
     mh = bytes(d["model_hash"])
@@ -168,6 +153,16 @@ def encode_state_dict(d: Dict) -> bytes:
             raise ValueError(
                 "async_acommits tail requires the async tail")
         b += struct.pack("<q", int(acommits))
+    # the closed compression loop's tail: last, behind its magic tag, so
+    # it parses with or without the async tails before it
+    genome = d.get("genome")
+    if genome is not None:
+        eff_density, eff_staleness, genome_epoch, disagreement = genome
+        b += _GENOME_MAGIC
+        b += struct.pack("<f", _np.float32(eff_density))
+        b += struct.pack("<q", int(eff_staleness))
+        b += struct.pack("<q", int(genome_epoch))
+        b += struct.pack("<f", _np.float32(disagreement))
     return bytes(b)
 
 
@@ -352,7 +347,6 @@ def restore_snapshot(state_bytes: bytes, cfg, base: int, base_head: bytes):
     the caller's (`verify_snapshot_meta`): this only decodes + installs,
     raising ValueError on malformed bytes."""
     from bflc_demo_tpu_torch.ledger import make_ledger
-    refuse_unported_tails(decode_state(state_bytes))
     led = make_ledger(cfg, backend="python")
     led._install_state(state_bytes, base, base_head)
     return led

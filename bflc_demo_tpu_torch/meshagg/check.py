@@ -21,9 +21,14 @@ gate (a repeated scenario launches at no new geometry).
 exit 0 = every scenario matched; exit 1 = divergence (prints it).  The
 default device is the card's; `--device cpu` holds B5's plain version.
 
-Still dropped: the rederive leg (:228-319) and the density-transition
-leg (:322-395), which come with rederive and the genome (ROADMAP A9
-item 9).
+The rederive leg (`run_rederive_differential`, :228-319) and the
+density-transition leg (`run_density_transition_differential`,
+:322-395): the writer's merge and the validators' re-derivation
+(`rederive/core.py`, full and per shard, plain and blocked) over the
+raw wire blobs must give one committed hash, and a round whose blobs
+straddle a density or codec change re-derives byte-identically.  Both
+run on the checker's engine and report each trial's writer hash
+(`hashes`).
 
 Also here: the merge geometries `chip_smoke.py` runs B5 at — config 5's
 and config 4's writer merges, the reference benchmark's full drains and
@@ -369,6 +374,148 @@ def geometry_case(name: str, seed: int = 0
     return g, rows, weights, selected, 0.05
 
 
+def run_rederive_differential(engine: MeshAggEngine, trials: int = 12,
+                              seed: int = 1, max_n: int = 24,
+                              n_validators: int = 4) -> dict:
+    """The validator re-derivation leg: for randomized trees, weights,
+    selections, dtypes and densities, the writer's path (decode every
+    admitted blob, one engine merge, pack, hash) and the validator's
+    (`rederive_model_flat` over the raw wire blobs, selected only, plain
+    and at a swept block count) give one committed hash, and in shard
+    mode every validator's leaves equal the writer's with the shards'
+    union covering every leaf.  Empty `mismatches`: the plane never
+    refuses an honest writer."""
+    from bflc_demo_tpu_torch.rederive.core import (derive_leaves,
+                                                   rederive_model_flat)
+    from bflc_demo_tpu_torch.rederive.shards import leaf_shard
+    from bflc_demo_tpu_torch.utils.codecs import (pack_entries,
+                                                  unpack_pytree)
+    rng = np.random.default_rng(seed)
+    mismatches, hashes = [], []
+    with np.errstate(over="ignore", invalid="ignore"):
+        for t in range(trials):
+            g, _, weights, selected, lr, quant, density, codec = \
+                _scenario(rng, max_n)
+            n = len(weights)
+            shapes = {k: np.asarray(v).shape for k, v in g.items()}
+            blobs = []
+            for _ in range(n):
+                flat = {k: (rng.standard_normal(shp)
+                            * 10.0 ** float(rng.integers(-6, 6))
+                            ).astype(np.float32)
+                        for k, shp in shapes.items()}
+                blobs.append(pack_entries(quantize_entries(
+                    _sparse_image(flat, density, codec), quant)))
+            prev_blob = pack_entries(g)
+            decoded = [densify_entries(dequantize_entries(
+                           unpack_pytree(b))) for b in blobs]
+            w_out = engine.aggregate_flat(g, decoded, weights, selected,
+                                          lr)
+            w_hash = hashlib.sha256(pack_entries(w_out)).digest()
+            hashes.append(w_hash.hex())
+            v_out = rederive_model_flat(prev_blob, blobs, weights,
+                                        selected, lr,
+                                        sparse=density < 1.0,
+                                        engine=engine)
+            bad = []
+            if hashlib.sha256(pack_entries(v_out)).digest() != w_hash:
+                bad.append("#full-hash")
+            blk = int(BLOCKS_SWEEP[t % len(BLOCKS_SWEEP)])
+            blk = min(blk, max(sum(int(np.asarray(v).size)
+                                   for v in g.values()), 1))
+            vb_out = rederive_model_flat(prev_blob, blobs, weights,
+                                         selected, lr,
+                                         sparse=density < 1.0, blocks=blk,
+                                         engine=engine)
+            if hashlib.sha256(pack_entries(vb_out)).digest() != w_hash:
+                bad.append(f"#full-blocked-hash-b{blk}")
+            keys = sorted(g.keys())
+            epoch = int(rng.integers(0, 50))
+            covered = set()
+            sel = set(selected)
+            flats = [decoded[i] if i in sel else None for i in range(n)]
+            for v in range(n_validators):
+                mine = leaf_shard(keys, v, n_validators, epoch)
+                covered.update(mine)
+                got = derive_leaves(g, flats, weights, selected, lr, mine,
+                                    blocks=blk, engine=engine)
+                bad += [f"#shard-v{v}:{k}" for k in mine
+                        if np.asarray(got[k]).tobytes()
+                        != np.asarray(w_out[k]).tobytes()]
+            if covered != set(keys):
+                bad.append("#shard-coverage")
+            if bad:
+                mismatches.append({"trial": t, "n": n, "quant": quant,
+                                   "density": density, "codec": codec,
+                                   "leaves": bad})
+    return {"trials": trials, "seed": seed, "max_n": max_n,
+            "n_validators": n_validators, "mismatches": mismatches,
+            "hashes": hashes}
+
+
+def run_density_transition_differential(engine: MeshAggEngine,
+                                        trials: int = 8, seed: int = 2,
+                                        max_n: int = 24) -> dict:
+    """The closed loop's knob change: a genome op can move the density
+    between a round's encodes and its admissions, so one merge may hold
+    blobs of two densities and codecs.  The writer's path and the
+    validator's (`rederive_model_flat`, plain and blocked) must give one
+    committed hash over such a mixed round."""
+    from bflc_demo_tpu_torch.rederive.core import rederive_model_flat
+    from bflc_demo_tpu_torch.utils.codecs import (pack_entries,
+                                                  unpack_pytree)
+    rng = np.random.default_rng(seed)
+    mismatches, hashes = [], []
+    with np.errstate(over="ignore", invalid="ignore"):
+        for t in range(trials):
+            g, _, weights, selected, lr, quant, _, _ = \
+                _scenario(rng, max_n)
+            n = len(weights)
+            shapes = {k: np.asarray(v).shape for k, v in g.items()}
+            d_pre = (1.0, 0.1)[int(rng.integers(0, 2))]
+            d_post = (0.1, 0.05, 0.01)[int(rng.integers(0, 3))]
+            c_pre = ("topk", "sketch")[int(rng.integers(0, 2))]
+            c_post = ("topk", "sketch")[int(rng.integers(0, 2))]
+            cut = int(rng.integers(0, n + 1))
+            blobs = []
+            for i in range(n):
+                flat = {k: (rng.standard_normal(shp)
+                            * 10.0 ** float(rng.integers(-6, 6))
+                            ).astype(np.float32)
+                        for k, shp in shapes.items()}
+                d, c = (d_pre, c_pre) if i < cut else (d_post, c_post)
+                blobs.append(pack_entries(quantize_entries(
+                    _sparse_image(flat, d, c), quant)))
+            prev_blob = pack_entries(g)
+            decoded = [densify_entries(dequantize_entries(
+                           unpack_pytree(b))) for b in blobs]
+            w_out = engine.aggregate_flat(g, decoded, weights, selected,
+                                          lr)
+            w_hash = hashlib.sha256(pack_entries(w_out)).digest()
+            hashes.append(w_hash.hex())
+            bad = []
+            v_out = rederive_model_flat(prev_blob, blobs, weights,
+                                        selected, lr, sparse=True,
+                                        engine=engine)
+            if hashlib.sha256(pack_entries(v_out)).digest() != w_hash:
+                bad.append("#transition-full-hash")
+            blk = min(int(BLOCKS_SWEEP[t % len(BLOCKS_SWEEP)]),
+                      max(sum(int(np.asarray(v).size)
+                              for v in g.values()), 1))
+            vb_out = rederive_model_flat(prev_blob, blobs, weights,
+                                         selected, lr, sparse=True,
+                                         blocks=blk, engine=engine)
+            if hashlib.sha256(pack_entries(vb_out)).digest() != w_hash:
+                bad.append(f"#transition-blocked-hash-b{blk}")
+            if bad:
+                mismatches.append({
+                    "trial": t, "n": n, "quant": quant, "cut": cut,
+                    "pre": [d_pre, c_pre], "post": [d_post, c_post],
+                    "leaves": bad})
+    return {"trials": trials, "seed": seed, "max_n": max_n,
+            "mismatches": mismatches, "hashes": hashes}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trials", type=int, default=20)
@@ -404,6 +551,15 @@ def main(argv=None) -> int:
         print("FAIL: a repeated identical scenario launched at a new "
               "geometry after its warmup pass")
         return 1
+    for name, leg in (("rederive", run_rederive_differential),
+                      ("density transition",
+                       run_density_transition_differential)):
+        out = leg(engine, seed=args.seed + 1)
+        print(f"{name} leg: {out['trials']} trials, "
+              f"{len(out['mismatches'])} mismatches")
+        if out["mismatches"]:
+            print(f"FAIL: the {name} leg diverged: {out['mismatches']}")
+            return 1
     return 0
 
 

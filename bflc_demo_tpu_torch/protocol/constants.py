@@ -5,14 +5,13 @@ Copy of `bflc_demo_tpu/protocol/constants.py` (`ProtocolConfig` and its
 `delta_density`, `delta_codec`, :55-71, :99-110, checked at :158-165,
 :188-191), asynchronous buffered aggregation (`async_buffer`,
 `max_staleness`, `async_reseat_every`, :74-96, checked at :166-187),
-REDUCTION SPEC v2's `reduce_blocks` (:128-140, checked at :210-216) and
-the BFT quorum algebra (`BFT_REFERENCE_VALIDATORS`,
-`bft_fault_tolerance`, `bft_quorum`, :236-261).  Still dropped, with
-their checks: the closed compression loop's `adapt_every` and
-`density_floor` (the genome, ROADMAP A9 item 9); hier cells and
-rederive carry no genome field (their run options stay refused,
-`utils/flags.py`).  The values and the checks kept are the reference's,
-unchanged.
+the closed compression loop's `adapt_every` and `density_floor`
+(:112-125, checked at :192-207), REDUCTION SPEC v2's `reduce_blocks`
+(:128-140, checked at :210-216) and the BFT quorum algebra
+(`BFT_REFERENCE_VALIDATORS`, `bft_fault_tolerance`, `bft_quorum`,
+:236-261).  Hier cells and rederive carry no genome field (they are run
+options, `utils/flags.py`).  The values and the checks are the
+reference's, unchanged.
 """
 
 from __future__ import annotations
@@ -72,6 +71,18 @@ class ProtocolConfig:
     # Inert at delta_density 1.0 or under BFLC_SPARSE_LEGACY=1.
     delta_codec: str = "topk"
 
+    # the closed compression loop: with adapt_every = R > 0 the writer
+    # proposes a certified genome-update op (opcode 13) after every R-th
+    # committed round, retuning the EFFECTIVE delta_density (and, in
+    # async mode, max_staleness) from certified convergence telemetry by
+    # the one fixed rule (`control/loop.decide`); every replica re-runs
+    # the rule and refuses BAD_ARG on a mismatch.  delta_density stays
+    # the starting density and the cap, density_floor the lowest rung.
+    # 0 (the default) or BFLC_ADAPT_LEGACY=1 keeps the static knobs
+    # byte for byte.
+    adapt_every: int = 0
+    density_floor: float = 0.01
+
     # REDUCTION SPEC v2: the flattened (P,) param axis is cut into
     # reduce_blocks fixed contiguous blocks (meshagg.spec.block_bounds);
     # the committed bytes are v1's for every value.  Blocked commit ops
@@ -130,6 +141,24 @@ class ProtocolConfig:
             raise ValueError(
                 f"delta_codec must be one of ('topk', 'sketch'), got "
                 f"{self.delta_codec!r}")
+        if self.adapt_every < 0:
+            raise ValueError(
+                f"adapt_every must be >= 0, got {self.adapt_every}")
+        if not 0.0 < self.density_floor <= 1.0:
+            raise ValueError(
+                f"density_floor must be in (0, 1], got "
+                f"{self.density_floor}")
+        if self.adapt_every > 0 and self.delta_density >= 1.0:
+            raise ValueError(
+                "adapt_every > 0 retunes a SPARSE fleet's effective "
+                "density (delta_density is the starting value and the "
+                "cap); arm sparsity with delta_density < 1 first")
+        if self.adapt_every > 0 and self.density_floor > \
+                self.delta_density:
+            raise ValueError(
+                f"density_floor ({self.density_floor}) exceeds the "
+                f"starting delta_density ({self.delta_density}): the "
+                f"control loop could never hold a legal density")
         if self.reduce_blocks < 1:
             raise ValueError(
                 f"reduce_blocks must be >= 1 (1 = REDUCTION SPEC v1 "

@@ -26,16 +26,17 @@ f32|f16|i8` (choices checked at parse time), `--delta-density`
 (a float), `--delta-codec topk|sketch` (the reference's flags and
 help, :152-172; `BFLC_SPARSE_LEGACY=1` pins the dense protocol) and the
 client-local `--error-feedback` / `--no-error-feedback`
-(`BFLC_ERROR_FEEDBACK=1` in the children).  The reference's other run
+(`BFLC_ERROR_FEEDBACK=1` in the children), the closed compression loop's
+genome fields (`--adapt-every`, `--density-floor` and their `BFLC_*`
+variables, plain flags as in the reference; `BFLC_ADAPT_LEGACY=1` pins
+the static knobs) and the validator re-derivation plane (`--rederive
+off|shard|full`, the reference's choices, :136-143).  The reference's other run
 options belong to parts not ported yet.  Each such flag is accepted by
 the parser so that the CLI can refuse it by name (exit 2 with the
 ROADMAP item) rather than fail on an unknown argument or drop it.  Still
-dropped: rederive (`--rederive`), attested scores and chaos (A9;
-`--ledger-backend` is ported: auto and python, native exits 2),
-checkpoints and the device profiler (A11), secure aggregation (A12), and
-traces, plots and telemetry (A14); and the genome fields of the closed
-compression loop (`adapt_every`, `density_floor`, A9 item 9), as flags
-and as `BFLC_*` variables.
+dropped: attested scores and chaos (A9; `--ledger-backend` is ported:
+auto and python, native exits 2), checkpoints and the device profiler
+(A11), secure aggregation (A12), and traces, plots and telemetry (A14).
 """
 
 from __future__ import annotations
@@ -46,17 +47,14 @@ import os
 from typing import Dict, Optional
 
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
+from bflc_demo_tpu_torch.rederive import REDERIVE_MODES
 
 _ENV_PREFIX = "BFLC_"
-
-# the reference's ProtocolConfig fields the port's does not carry yet
-UNPORTED_FIELDS = ("adapt_every", "density_floor")
 
 # reference run options -> the ROADMAP item that ports them
 UNPORTED_OPTIONS: Dict[str, str] = {
     **{name: "A9" for name in (
-        "attest_scores", "chaos_seed", "chaos_profile", "rederive",
-        *UNPORTED_FIELDS)},
+        "attest_scores", "chaos_seed", "chaos_profile")},
     **{name: "A11" for name in ("checkpoint_dir", "checkpoint_every",
                                 "xprof_window")},
     **{name: "A14" for name in ("trace_path", "plot_path", "telemetry_dir",
@@ -69,10 +67,6 @@ def protocol_from_env(base: Optional[ProtocolConfig] = None
                       ) -> ProtocolConfig:
     """`base` (default `ProtocolConfig()`) with every field that has a
     `BFLC_<FIELD>` variable set to its value, validated."""
-    for name in UNPORTED_FIELDS:
-        if os.environ.get(_ENV_PREFIX + name.upper()) is not None:
-            raise ValueError(f"{_ENV_PREFIX + name.upper()}: protocol field "
-                             f"{name!r} is not ported yet (ROADMAP A9)")
     values = dataclasses.asdict(base or ProtocolConfig())
     for name in values:
         raw = os.environ.get(_ENV_PREFIX + name.upper())
@@ -147,6 +141,10 @@ def add_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--cell-size", type=int, default=0,
                    help="processes runtime: cells of at most M members "
                         "(with --cells the two must agree)")
+    p.add_argument("--rederive", choices=list(REDERIVE_MODES),
+                   default="off",
+                   help="validator re-derivation plane mode (processes "
+                        "runtime with --bft-validators; default off)")
     p.add_argument("--error-feedback", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="processes runtime: client-local error feedback "

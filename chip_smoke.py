@@ -235,6 +235,29 @@ first at the bar and the evaluations to spare after it.
              Each prints a `hier` line: the root's ops and `wire.*` a
              round, each cell's partials (ms, B5's engine ms, bytes, its
              K1, the bridge's replies by status), the root's merges.
+             Then the validator re-derivation plane: (n)
+             `rederive_config5`, config 5 at full width with 4 validator
+             processes armed `--rederive shard` at 8 blocks, top-k in i8
+             with error feedback on a closed compression loop from
+             density 0.1 (`adapt_every` 2, floor 0.01) and a replica —
+             the rounds and the bar, no `REDERIVE` or `SPARSE` refusal
+             and no skip, every validator re-deriving every commit with
+             torch imported and B5 launched (role `validator`), genome
+             ops on the chain with every validator's and the replica's
+             knobs at the writer's, the density moved; a `rederive` line
+             with each validator's re-derivations, seconds and B5.
+   rederive_drill — (m), after phase 9, in this process on the card: a
+             writer and 4 validators armed `shard` on `cuda` in threads
+             at config 5's protocol and width: an honest commit every
+             validator re-derives (B5 at least once each; its hash the
+             legacy pin's), each validator's shard on the card byte for
+             byte the plain version's on a CPU copy and the committed
+             leaves, a lie at one leaf refused on a sync commit and on an
+             async drain with one colluding validator, a NaN delta
+             refused, withheld evidence a counted skip that certifies;
+             B5's time at one shard's geometry and the full model's
+             (timing rows `rederive_shard`, `rederive_full`) beside the
+             bound, the plain version and `c @ mat`.
 
 Then the `kernels` line and, last, {"ok": true, "device": {...}}.
 Without a card, or without the package beside it, it exits non-zero and
@@ -275,6 +298,10 @@ runs only the build, `bft_config5` (the dense twin) and the codec legs
     python3 chip_smoke.py --hier
 
 runs only the build and the hier legs (k, l).
+
+    python3 chip_smoke.py --rederive
+
+runs only the build and the rederive legs (m, n).
 """
 
 from __future__ import annotations
@@ -530,6 +557,27 @@ HIER_DRILL_CELLS, HIER_DRILL_ROUNDS = 3, 8
 HIER_DRILL = dict(bft_validators=BFT_VALIDATORS, kill_cell_at_epoch={1: 1},
                   stall_timeout_s=3.0, root_stall_timeout_s=5.0)
 HIER_DRILL_MIN_BEST = FLEET_MIN_BEST
+# the validator re-derivation plane: (m) `rederive_drill`, in this
+# process on the card (config 5's protocol and width, 4 validators armed
+# `shard` on `cuda`); (n) `rederive_config5`, config 5's fleet at full
+# width with 4 validators armed `shard` at 8 blocks, a sparse genome
+# (top-k in i8 with error feedback) whose closed loop starts at density
+# 0.1 (the reference drill's cap) and may step down every 2 rounds to
+# 0.01, one replica.  Rounds and bar from the CPU trajectories of both
+# packages (`tests/rederive_trajectory.py`, PERF.md section 6)
+REDERIVE_VALIDATORS = BFT_VALIDATORS
+REDERIVE_PROTO = dict(delta_density=0.1, delta_codec="topk",
+                      delta_dtype="i8", reduce_blocks=BFT_CONFIG5_BLOCKS,
+                      adapt_every=2, density_floor=0.01)
+REDERIVE_FLEET = dict(bft_validators=BFT_VALIDATORS, rederive="shard",
+                      replicas=1)
+REDERIVE_C5_ROUNDS = 9
+REDERIVE_MIN_BEST = MIN_BEST_ACC
+# the drill's certification budgets: an honest config-5 commit (each
+# validator fetches the selected deltas and re-derives: 3.3 s on the
+# card with a cold connection, chip run 1) certifies well inside the
+# first; a refused one (a lie, a NaN) gives up after the second
+REDERIVE_DRILL_TIMEOUT_S, REDERIVE_LIE_TIMEOUT_S = 10.0, 3.0
 # config 5's launches a training (10 minibatches of 16 of a 160-row
 # shard, a forward and a backward per layer, depth 2) and a forward's
 # (a scored entry, a sponsor evaluation)
@@ -2203,6 +2251,7 @@ def processes_phase(torch, card: str) -> tuple:
                  (xte[:500], yte[:500]), bft5)
     hier_phase(torch, card, note, c5_shards, c5_test, drill_shards,
                (xte[:500], yte[:500]))
+    rederive_config5_phase(torch, card, note, c5_shards, c5_test)
     return paths, roles
 
 
@@ -2966,10 +3015,12 @@ def snapshot_phase(torch, card: str, note, c5_shards, c5_test,
                                         "writer": b5["writer"]}))
 
 
-def bft_account(label: str, card: str, res, blocks: int) -> dict:
+def bft_account(label: str, card: str, res, blocks: int,
+                armed: bool = False) -> dict:
     """Emit a BFT run's account and hold it: every op certified, every
     writer's B5 launches past its self-check equal to `blocks` a merge,
-    no validator process with torch (hence no CUDA context).  Returns
+    no validator process with torch (hence no CUDA context) — or, with
+    `armed` (the rederive plane), every validator with torch.  Returns
     the run's B5 launches by writer role: {"bft_writer": n}."""
     writers = [("final", res.kernel_launches.get("writer", {}),
                 res.writer_engine or {}, res.writer_merges)]
@@ -3005,13 +3056,14 @@ def bft_account(label: str, card: str, res, blocks: int) -> dict:
            if w["launches"] != blocks * w["merges"]
            or w["blocks"] not in ([blocks], [])}
     held = [r for r in res.validator_reports.values()
-            if r["torch_imported"] or r["cuda_initialized"]]
+            if (r["torch_imported"] or r["cuda_initialized"]) != armed]
     leg = label
     hold(leg, "certified ops", res.certified_size == res.ledger_log_size,
          res.certified_size, res.ledger_log_size)
     hold(leg, "B5 launches a merge by writer", not bad, b5,
          f"{blocks} a merge at blocks {blocks}")
-    hold(leg, "validators without torch", not held, len(held), 0)
+    hold(leg, "validators with torch" if armed else
+         "validators without torch", not held, len(held), 0)
     hold(leg, "validators", len(res.validator_reports) == BFT_VALIDATORS,
          len(res.validator_reports), BFT_VALIDATORS)
     return {"bft_writer": sum(w["launches"] for w in b5.values())}
@@ -3034,6 +3086,457 @@ def failover_check(label: str, res, rounds: int, bar: float) -> None:
     hold(leg, "replica at the promoted writer's head",
          res.replica_report["head"] == res.ledger_log_head,
          res.replica_report["head"], res.ledger_log_head)
+
+
+# ------------------------------------------------ the rederive plane (m, n)
+def _counted_engine(device: str):
+    """A merge engine of its own whose `launched` counts its B5 launches
+    on the path (its self-check runs first, before any is counted)."""
+    from bflc_demo_tpu_torch.meshagg.engine import MeshAggEngine
+    engine = MeshAggEngine(device)
+    engine.run_selfcheck()
+    engine.launched = 0
+    inner = engine._launch
+
+    def launch(*args, **kw):
+        engine.launched += 1
+        return inner(*args, **kw)
+
+    engine._launch = launch
+    return engine
+
+
+class _DrillFleet:
+    """A writer and `len(modes)` validators in this process's threads on
+    the card.  Each armed validator re-derives on an engine of its own
+    (`_counted_engine`): in one process the validators would otherwise
+    share the writer's `ENGINE`, and their B5 launches could not be told
+    apart."""
+
+    def __init__(self, cfg, init: bytes, modes, seed: bytes,
+                 bft_timeout_s: float = REDERIVE_DRILL_TIMEOUT_S):
+        from bflc_demo_tpu_torch.comm import bft
+        from bflc_demo_tpu_torch.comm.identity import provision_wallets
+        from bflc_demo_tpu_torch.comm.ledger_service import (
+            CoordinatorClient, LedgerServer)
+        vwallets, keys = bft.provision_validators(len(modes), seed)
+        self.nodes = []
+        for i, w in enumerate(vwallets):
+            node = bft.ValidatorNode(cfg, w, i, validator_keys=keys,
+                                     initial_model_blob=init,
+                                     rederive=modes[i], device="cuda")
+            if node._rederiver is not None:
+                node._rederiver.engine = _counted_engine("cuda")
+            node.start()
+            self.nodes.append(node)
+        self.server = LedgerServer(
+            cfg, init, bft_validators=[(v.host, v.port) for v in self.nodes],
+            bft_keys=keys, bft_timeout_s=bft_timeout_s,
+            stall_timeout_s=600.0, device="cuda")
+        self.server.start()
+        self.client = CoordinatorClient(self.server.host, self.server.port,
+                                        timeout_s=300.0)
+        self.wallets, _ = provision_wallets(cfg.client_num, seed + b"-c")
+        for w in self.wallets:
+            r = self.request("register", addr=w.address,
+                             pubkey=w.public_bytes.hex(),
+                             tag=self.sign(w, "register", 0, b""))
+            hold("rederive_drill", "register", r["ok"], r, "ok")
+
+    def request(self, method, **fields):
+        return self.client.request(method, **fields)
+
+    @staticmethod
+    def sign(w, kind, epoch, payload):
+        from bflc_demo_tpu_torch.comm.identity import _op_bytes
+        return w.sign(_op_bytes(kind, w.address, epoch, payload)).hex()
+
+    def sync_round(self, epoch: int, deltas, scores):
+        """One signed round: the first len(deltas) trainers upload, each
+        committee member sends `scores`; the last scores reply (it
+        carries the commit's certification)."""
+        import hashlib
+        import struct
+        committee = set(self.request("committee")["committee"])
+        trainers = [w for w in self.wallets if w.address not in committee]
+        for i, w in enumerate(trainers[:len(deltas)]):
+            d = hashlib.sha256(deltas[i]).digest()
+            payload = d + struct.pack("<qd", 100 + i, 1.0)
+            r = self.request("upload", addr=w.address, blob=deltas[i],
+                             hash=d.hex(), n=100 + i, cost=1.0, epoch=epoch,
+                             tag=self.sign(w, "upload", epoch, payload))
+            hold("rederive_drill", "upload", r["ok"], r, "ok")
+        last = None
+        for w in (w for w in self.wallets if w.address in committee):
+            last = self.request(
+                "scores", addr=w.address, epoch=epoch, scores=scores,
+                tag=self.sign(w, "scores", epoch, struct.pack(
+                    f"<{len(scores)}d", *scores)))
+        return last
+
+    def async_round(self, deltas):
+        """len(deltas) auploads at base 0: the last one drains."""
+        import hashlib
+        import struct
+        last = None
+        for i, blob in enumerate(deltas):
+            w = self.wallets[i]
+            d = hashlib.sha256(blob).digest()
+            payload = d + struct.pack("<qd", 100 + i, 1.0)
+            last = self.request("aupload", addr=w.address, blob=blob,
+                                hash=d.hex(), n=100 + i, cost=1.0,
+                                base_epoch=0,
+                                tag=self.sign(w, "aupload", 0, payload))
+        return last
+
+    def armed(self):
+        return [v._rederiver for v in self.nodes
+                if v._rederiver is not None]
+
+    def close(self):
+        self.client.close()
+        self.server.close()
+        for v in self.nodes:
+            v.close()
+
+
+def rederive_drill_phase(torch, cr, card: str) -> tuple:
+    """(m) `rederive_drill`, in this process on the card: a writer and 4
+    validators armed `shard` on `cuda` in threads, config 5's protocol
+    (10 admitted of 20 clients, top-6) and width (P = 535,298) at 8
+    blocks, every merge on B5 (`BFLC_MESH_AGG_MIN=1`), between a reset
+    and a read of the launch counts.  Holds: an honest commit certifies,
+    every validator re-derived it with B5 launched at least once, its
+    hash equals the legacy pin's; each validator's shard re-derived on
+    the card equals, byte for byte, the plain version's on a CPU copy
+    and the committed leaves (these comparisons' launches do not count);
+    a writer lying at one leaf is refused on a sync commit and on an
+    async drain with one colluding validator; a NaN delta is refused;
+    withheld evidence is a counted skip that certifies.  Times B5 at one
+    shard's geometry and at the full model's beside the bound, the plain
+    version and `c @ mat`.  Returns (launches, the validators' B5
+    launches, the timing rows)."""
+    import dataclasses
+    import hashlib
+    from unittest import mock
+
+    import bflc_demo_tpu_torch.comm.ledger_service as ls
+    from bflc_demo_tpu_torch.ledger import clone_prefix
+    from bflc_demo_tpu_torch.meshagg.engine import ENGINE, MeshAggEngine
+    from bflc_demo_tpu_torch.models import make_transformer_classifier
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig
+    from bflc_demo_tpu_torch.rederive.core import derive_leaves
+    from bflc_demo_tpu_torch.rederive.shards import leaf_shard
+    from bflc_demo_tpu_torch.utils.serialization import (pack_entries,
+                                                         pack_pytree,
+                                                         unpack_pytree)
+    leg = "rederive_drill"
+    t_leg = time.perf_counter()
+    cfg = ProtocolConfig(**CONFIG5_PROTO, reduce_blocks=BFT_CONFIG5_BLOCKS)
+    n_up = cfg.needed_update_count
+    init = pack_pytree(make_transformer_classifier(
+        **CONFIG5_ARCH).init_params(0, "cpu"))
+    flat = unpack_pytree(init)
+    keys = sorted(flat)
+    p_full = sum(int(a.size) for a in flat.values())
+    hold(leg, "params", p_full == CONFIG5_PARAMS, p_full, CONFIG5_PARAMS)
+    rng = np.random.default_rng(23)
+
+    def delta_blob(nan: bool = False) -> bytes:
+        d = {k: (rng.standard_normal(a.shape) * 0.01).astype(np.float32)
+             for k, a in flat.items()}
+        if nan:
+            d[keys[0]].flat[0] = np.float32("nan")
+        return pack_entries(d)
+
+    def corrupt(entries):
+        e = dict(entries)
+        a = np.array(e[keys[0]], np.float32).copy()
+        a.flat[0] += np.float32(0.25)
+        e[keys[0]] = a
+        return pack_entries(e)
+
+    honest = [delta_blob() for _ in range(n_up)]
+    scores = [0.9 - 0.01 * u for u in range(n_up)]     # slots 0-5 win
+    shards = {v: leaf_shard(keys, v, REDERIVE_VALIDATORS, 0)
+              for v in range(REDERIVE_VALIDATORS)}
+    out = {"validators": REDERIVE_VALIDATORS,
+           "shard_p": {v: sum(int(flat[k].size) for k in s)
+                       for v, s in shards.items()}}
+    b5 = {}
+    writer_check = ENGINE.report()["selfcheck"] == "untested"
+    reset_counts()
+    compare_launches = 0
+
+    def closed(name, fleet):
+        """Close a drill fleet, recording its validators' B5 launches
+        on the path (their engines' self-checks are comparisons)."""
+        nonlocal compare_launches
+        b5[name] = [r.engine.launched for r in fleet.armed()]
+        compare_launches += sum(r.engine.selfcheck_launches
+                                for r in fleet.armed())
+        fleet.close()
+    with fleet_env({"BFLC_REDERIVE": "shard"}):
+        # an honest commit, then a NaN delta, on one armed fleet
+        fleet = _DrillFleet(cfg, init, ["shard"] * REDERIVE_VALIDATORS,
+                            b"chip-rederive-honest")
+        try:
+            t0 = time.perf_counter()
+            last = fleet.sync_round(0, honest, scores)
+            out["honest_commit_s"] = time.perf_counter() - t0
+            hold(leg, "honest commit certified", last["ok"], last, "ok")
+            armed_hash = fleet.request("model", meta=1)["hash"]
+            stats = [dict(r.stats) for r in fleet.armed()]
+            b5["honest"] = [r.engine.launched for r in fleet.armed()]
+            hold(leg, "every validator re-derived the commit",
+                 all(s["ok"] == 1 and not s["skipped"] and not s["refused"]
+                     for s in stats), stats, "ok 1, no skip or refusal")
+            hold(leg, "B5 launches a commit in every validator",
+                 all(n >= 1 for n in b5["honest"]), b5["honest"], 1)
+            honest_b5 = b5.pop("honest")
+            out["derive_s"] = [s["derive_s"] for s in stats]
+            out["fetch_s"] = [s["fetch_s"] for s in stats]
+            # the inputs as the validators read them: the writer's chain
+            # before its commit op, replayed
+            writer = fleet.server.ledger
+            pos = next(j for j in range(writer.log_size())
+                       if writer.log_op(j)[0] == 4)
+            pre = clone_prefix(writer, pos, cfg)
+            sel = list(pre.pending().selected)
+            ups = pre.query_all_updates()
+            by_hash = {hashlib.sha256(b).digest(): b for b in honest}
+            flats = [unpack_pytree(by_hash[u.payload_hash])
+                     if i in sel else None for i, u in enumerate(ups)]
+            weights = [u.n_samples for u in ups]
+            committed = unpack_pytree(fleet.request("model")["blob"])
+            before = read_counts()["certified_reduce"]
+            card_engine = MeshAggEngine("cuda")
+            cpu_engine = MeshAggEngine("cpu")
+            same = {}
+            for v, mine in shards.items():
+                got = derive_leaves(flat, flats, weights, sel,
+                                    cfg.learning_rate, mine,
+                                    blocks=BFT_CONFIG5_BLOCKS,
+                                    engine=card_engine)
+                want = derive_leaves(flat, flats, weights, sel,
+                                     cfg.learning_rate, mine,
+                                     blocks=BFT_CONFIG5_BLOCKS,
+                                     engine=cpu_engine)
+                same[v] = all(got[k].tobytes() == want[k].tobytes()
+                              == committed[k].tobytes() for k in mine)
+            compare_launches += read_counts()["certified_reduce"] - before
+            out["shard_bytes_equal_plain_and_committed"] = same
+            hold(leg, "shards equal the plain version's and the committed "
+                 "leaves", all(same.values()), same, True)
+            hold(leg, "plain comparison on the kernel leg",
+                 cpu_engine.calls.get("blocked", 0) ==
+                 REDERIVE_VALIDATORS, cpu_engine.calls, "blocked")
+            # a NaN delta that wins its round: refused (its certification
+            # gives up after the lies' budget)
+            fleet.server._bft.timeout_s = REDERIVE_LIE_TIMEOUT_S
+            nan = [delta_blob(nan=(i == 0)) for i in range(n_up)]
+            last = fleet.sync_round(1, nan, scores)
+            nan_stats = [dict(r.stats) for r in fleet.armed()]
+            out["nan"] = {"status": last.get("status"),
+                          "refusals": [s["refusals"] for s in nan_stats]}
+            hold(leg, "NaN delta refused", last.get("status") ==
+                 "CERT_TIMEOUT", last.get("status"), "CERT_TIMEOUT")
+            n_nan = sum(s["refusals"].get("nonfinite", 0)
+                        for s in nan_stats)
+            hold(leg, "nonfinite refusals", n_nan >= 2, n_nan, 2)
+        finally:
+            closed("honest_and_nan", fleet)
+        # a lie at one leaf, one validator colluding: sync and async
+        for kind, c in (("sync", cfg),
+                        ("async", dataclasses.replace(
+                            cfg, async_buffer=n_up,
+                            max_staleness=5).validate())):
+            fleet = _DrillFleet(c, init, ["off"] + ["shard"] * (
+                REDERIVE_VALIDATORS - 1), b"chip-rederive-lie-" +
+                kind.encode(), bft_timeout_s=REDERIVE_LIE_TIMEOUT_S)
+            try:
+                with mock.patch.object(ls, "pack_entries", corrupt):
+                    last = (fleet.sync_round(0, honest, scores)
+                            if kind == "sync" else fleet.async_round(honest))
+                st = [dict(r.stats) for r in fleet.armed()]
+                out[f"lie_{kind}"] = {
+                    "status": last.get("status"),
+                    "refusals": [s["refusals"] for s in st]}
+                refused = sum(s["refused"] for s in st)
+                hold(leg, f"{kind} lie refused", last.get("status") ==
+                     "CERT_TIMEOUT", last.get("status"), "CERT_TIMEOUT")
+                hold(leg, f"{kind} lie's refusals", refused >= 2, refused, 2)
+            finally:
+                closed(f"lie_{kind}", fleet)
+    # the legacy pin's hash, and withheld evidence (the writer disarmed)
+    with fleet_env({"BFLC_REDERIVE_LEGACY": "1"}):
+        fleet = _DrillFleet(cfg, init, ["shard"] * REDERIVE_VALIDATORS,
+                            b"chip-rederive-honest")
+        try:
+            hold(leg, "legacy commit", fleet.sync_round(
+                0, honest, scores)["ok"], False, True)
+            legacy_hash = fleet.request("model", meta=1)["hash"]
+            hold(leg, "legacy pin disarms the validators",
+                 not fleet.armed(), len(fleet.armed()), 0)
+        finally:
+            closed("legacy", fleet)
+    out["hash_armed_equals_legacy"] = armed_hash == legacy_hash
+    hold(leg, "armed hash equals the legacy pin's",
+         armed_hash == legacy_hash, armed_hash, legacy_hash)
+    with fleet_env():
+        fleet = _DrillFleet(cfg, init, ["shard"] * REDERIVE_VALIDATORS,
+                            b"chip-rederive-skip")
+        try:
+            last = fleet.sync_round(0, honest, scores)
+            st = [dict(r.stats) for r in fleet.armed()]
+            out["withheld"] = {"ok": last["ok"],
+                               "skips": [s["skips"] for s in st]}
+            hold(leg, "withheld evidence certifies", last["ok"], last, "ok")
+            hold(leg, "withheld evidence is a counted skip",
+                 all(s["skipped"] == 1 and not s["refused"] for s in st),
+                 [s["skips"] for s in st], "1 skip each")
+        finally:
+            closed("withheld", fleet)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if writer_check:
+        compare_launches += ENGINE.selfcheck_launches
+    counts["certified_reduce"] -= compare_launches
+    validator_b5 = sum(sum(v) for v in b5.values())
+    # B5 at validator 0's shard and at the full model (an escalation or
+    # `full` mode), 10 rows, blocks 1 and 8 (the genome's)
+    cases = {}
+    for name, p in (("rederive_shard", out["shard_p"][0]),
+                    ("rederive_full", p_full)):
+        g = np.random.default_rng(29)
+        cases[name] = ({"x": np.zeros(p, np.float32)},
+                       [g.standard_normal(p, dtype=np.float32)
+                        * np.float32(0.01) for _ in range(n_up)],
+                       [100.0 + i for i in range(n_up)], list(range(6)),
+                       cfg.learning_rate)
+    timed = merge_timing_rows(torch, cr, "cuda", cases)
+    rows = {name[len("rederive_"):]: timed[(name, BFT_CONFIG5_BLOCKS)]
+            for name in cases}
+    emit("rederive", path=leg, nvidia_smi=card, leg_s=time.perf_counter()
+         - t_leg, b5_by_validator=b5, b5_honest_commit=honest_b5,
+         validator_b5=validator_b5,
+         launches=counts, compare_launches=compare_launches, **out)
+    return counts, validator_b5, rows
+
+
+def rederive_config5_phase(torch, card: str, note, c5_shards,
+                           c5_test) -> None:
+    """(n) `rederive_config5`: config 5 at full width (`CONFIG5_PROTO`,
+    `REDERIVE_PROTO`: top-k from density REDERIVE_PROTO's, i8, 8 blocks,
+    the closed loop every 2 rounds down to 0.01) with 4 validators armed
+    `shard` (`REDERIVE_FLEET`), error feedback, REDERIVE_C5_ROUNDS
+    rounds.  Holds: the rounds; the bar; no `REDERIVE` or `SPARSE`
+    refusal and no skip; every validator re-derived every commit and
+    imported torch; genome ops on the chain, every validator's and the
+    replica's knobs equal to the writer's; the density moved; B5
+    launched in every validator (role `validator`, past its
+    self-check)."""
+    from bflc_demo_tpu_torch.client.process_runtime import \
+        run_federated_processes
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig
+    label = "rederive_config5"
+    cfg = ProtocolConfig(**CONFIG5_PROTO, **REDERIVE_PROTO)
+    t0 = time.perf_counter()
+    res, total, _ = fleet_run(
+        torch, label, card,
+        lambda: run_federated_processes(
+            "make_transformer_classifier", c5_shards, c5_test, cfg,
+            rounds=REDERIVE_C5_ROUNDS, factory_kw=CONFIG5_ARCH,
+            device="cuda", timeout_s=FLEET_TIMEOUT_S, **REDERIVE_FLEET),
+        env=CODEC_ENV)
+    total, by_role = rederive_account(label, card, res, total,
+                                      time.perf_counter() - t0)
+    note(label, (total, by_role))
+
+
+def rederive_account(label: str, card: str, res, total: dict,
+                     leg_s: float) -> tuple:
+    """Emit `rederive_config5`'s `bft` and `rederive` lines and hold
+    its gates (`rederive_config5_phase`; torch in every validator is
+    `bft_account`'s); returns (main-path launches,
+    the validators' self-checks taken out; B5 by role: `bft_writer`
+    and `validator`)."""
+    by_role = bft_account(label, card, res, REDERIVE_PROTO["reduce_blocks"],
+                          armed=True)
+    reports = res.validator_reports
+    commits = len(res.writer_merges)
+    val = {}
+    for role, rep in sorted(reports.items()):
+        st = rep.get("rederive") or {}
+        launches = res.kernel_launches.get(role, {})
+        check = (rep.get("engine") or {}).get("selfcheck_launches", 0)
+        val[role] = {"ok": st.get("ok"), "refused": st.get("refused"),
+                     "skipped": st.get("skipped"),
+                     "escalated": st.get("escalated"),
+                     "leaves": st.get("leaves"),
+                     "derive_s": st.get("derive_s"),
+                     "fetch_s": st.get("fetch_s"),
+                     "seconds": st.get("seconds"),
+                     "b5": launches.get("certified_reduce", 0) - check,
+                     "selfcheck": check, "genome": rep.get("genome"),
+                     "torch_imported": rep.get("torch_imported"),
+                     "spawn_cuda": rep.get("cuda_initialized")}
+    by_role["validator"] = sum(v["b5"] for v in val.values())
+    total = dict(total, certified_reduce=total.get("certified_reduce", 0)
+                 - sum(v["selfcheck"] for v in val.values()))
+    info = res.final_info or {}
+    writer_knobs = {"eff_density": info.get("eff_density"),
+                    "eff_staleness": info.get("eff_staleness"),
+                    "genome_epoch": info.get("genome_epoch")}
+    replica = res.replica_report or {}
+    replica_knobs = {"eff_density": replica.get("eff_density"),
+                     "eff_staleness": replica.get("eff_staleness"),
+                     "genome_epoch": (-1 if replica.get("genome_epoch")
+                                      is None
+                                      else replica.get("genome_epoch"))}
+    densities = [g["new_density"] for g in res.writer_genomes]
+    costs = _costs(res.final_info)
+    refusals = {k: v for k, v in costs.items()
+                if k.startswith("bft.refused.")}
+    nums = codec_numbers(res, max(commits, 1))
+    emit("rederive", path=label, nvidia_smi=card, leg_s=leg_s,
+         rounds=res.rounds_completed, commits=commits,
+         validators=val, writer_genomes=res.writer_genomes,
+         writer_knobs=writer_knobs, replica_knobs=replica_knobs,
+         refusals=refusals, b5_by_role=by_role,
+         warm_merge_ms=[m["merge_s"] * 1e3 for m in res.writer_merges[1:]],
+         blob_bytes_per_upload=nums["blob_bytes_per_upload"],
+         encode_ms_per_upload=nums["encode_ms_per_upload"],
+         spawn_s=res.spawn_s, validator_spawn_s=res.validator_spawn_s,
+         accuracy=[a for _, a in res.accuracy_history])
+    leg = label
+    hold(leg, "rounds", res.rounds_completed >= REDERIVE_C5_ROUNDS,
+         res.rounds_completed, REDERIVE_C5_ROUNDS)
+    accuracy_gate(leg, res, REDERIVE_MIN_BEST)
+    hold(leg, "REDERIVE and SPARSE refusals", not any(
+        k in refusals for k in ("bft.refused.REDERIVE",
+                                "bft.refused.SPARSE")), refusals, {})
+    hold(leg, "validators", len(val) == REDERIVE_VALIDATORS, len(val),
+         REDERIVE_VALIDATORS)
+    bad = {r: v for r, v in val.items()
+           if (v["ok"] or 0) < commits or v["refused"] or v["skipped"]}
+    hold(leg, "every validator re-derived every commit", not bad, bad,
+         f"ok >= {commits}, no refusal, no skip")
+    hold(leg, "B5 launches in every validator",
+         all(v["b5"] > 0 for v in val.values()),
+         {r: v["b5"] for r, v in val.items()}, 1)
+    hold(leg, "genome ops on the chain", bool(res.writer_genomes),
+         len(res.writer_genomes), 1)
+    knobs = {r: v["genome"] for r, v in val.items()}
+    hold(leg, "validators' knobs equal the writer's",
+         all(k == writer_knobs for k in knobs.values()), knobs,
+         writer_knobs)
+    hold(leg, "replica's knobs equal the writer's",
+         replica_knobs == writer_knobs, replica_knobs, writer_knobs)
+    hold(leg, "density moved", any(
+        d != REDERIVE_PROTO["delta_density"] for d in densities),
+        densities, f"!= {REDERIVE_PROTO['delta_density']}")
+    return total, by_role
 
 
 def load_port(root: str = None):
@@ -3218,6 +3721,35 @@ def hier_main() -> int:
     return 0
 
 
+def rederive_main() -> int:
+    """Only the build and the rederive legs (m, n)."""
+    port = load_port()
+    if port is None:
+        return 1
+    torch, _, build, _ = port
+    from bflc_demo_tpu_torch.eval.configs import config5_data
+    from bflc_demo_tpu_torch.ops import certified_reduce as cr
+    t0 = time.perf_counter()
+    build.build_all()
+    emit("build", seconds=time.perf_counter() - t0)
+    card = card_line()
+    print(card, flush=True)
+    emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
+    counts, validator_b5, _ = rederive_drill_phase(torch, cr, card)
+    paths, roles = {"rederive_drill": counts}, {"validator": validator_b5}
+
+    def note(path, launches_roles):
+        paths[path], by_role = launches_roles
+        for role, v in by_role.items():
+            roles[role] = roles.get(role, 0) + v
+
+    c5_shards, c5_test = config5_data(0, 4000, CONFIG5_PROTO["client_num"])
+    rederive_config5_phase(torch, card, note, c5_shards, c5_test)
+    emit("fleet", paths=paths, b5_by_role=roles,
+         seconds=time.perf_counter() - t0)
+    return 0
+
+
 def processes_main() -> int:
     """Only the build and the processes phase."""
     port = load_port()
@@ -3286,13 +3818,17 @@ def main() -> int:
     timings["certified_reduce"] = merge_timing_phase(torch, cr, device,
                                                      cases)
     del cases
+    drill, drill_b5, drill_rows = rederive_drill_phase(torch, cr, card)
+    for name, row in drill_rows.items():
+        timings["certified_reduce"]["at"][f"rederive_{name}"] = row
     fleet, roles = processes_phase(torch, card)
+    roles["validator"] = roles.get("validator", 0) + drill_b5
     paths = {"host_config5": host5["launches"],
              "mesh_config5": mesh5["launches"],
              "mesh_config1": mesh1["launches"],
              **presets,
              "sp": {"flash_carry": sp_slice_phase(torch, fa, device)},
-             **merge_paths, **fleet}
+             **merge_paths, "rederive_drill": drill, **fleet}
     by_path = {name: {path: counts.get(name, 0)
                       for path, counts in paths.items()}
                for name in KERNELS}
@@ -3320,7 +3856,7 @@ def dispatch(argv) -> int:
         return merge_timing_main(argv[1])
     modes = {"--processes": processes_main, "--snapshots": snapshots_main,
              "--async": async_main, "--codecs": codecs_main,
-             "--hier": hier_main}
+             "--hier": hier_main, "--rederive": rederive_main}
     if len(argv) == 1 and argv[0] in modes:
         rc = modes[argv[0]]()
         if rc == 0:
@@ -3329,7 +3865,7 @@ def dispatch(argv) -> int:
     if argv:
         print("usage: chip_smoke.py [--backward-timing DIR | "
               "--merge-timing DIR | --processes | --snapshots | --async | "
-              "--codecs | --hier]", file=sys.stderr)
+              "--codecs | --hier | --rederive]", file=sys.stderr)
         return 2
     return main()
 

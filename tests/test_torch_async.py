@@ -797,3 +797,46 @@ def test_cli_refuses_async_off_the_processes_runtime(capsys, monkeypatch):
     assert "--runtime processes" in capsys.readouterr().err
     monkeypatch.setenv("BFLC_ASYNC_BUFFER", "3")
     assert main(["--device", "cpu", "--runtime", "host"]) == 2
+
+
+# ------------------------------------------------------------------ C16
+def test_c16_a_still_buffered_sender_gets_a_certless_duplicate():
+    """C16: the ledger keeps one buffered delta a sender, so a second
+    aupload while the first waits in the buffer is answered DUPLICATE,
+    and no op of that request reaches the chain, so the ack carries no
+    certificate.  A certificate-checking client takes it as "still
+    buffered, retry at the next version" and gets the reply; before the
+    repair it took the writer for dead and raised.  A DUPLICATE whose
+    certificate is present but forged is still refused."""
+    vwallets, vkeys = provision_validators(4, b"c16-validators")
+    nodes = [ValidatorNode(ACFG, w, i, validator_keys=vkeys)
+             for i, w in enumerate(vwallets)]
+    for v in nodes:
+        v.start()
+    server = LedgerServer(ACFG, _model_blob(),
+                          bft_validators=[(v.host, v.port) for v in nodes],
+                          bft_keys=vkeys, device="cpu")
+    server.start()
+    wallets, _ = provision_wallets(ACFG.client_num, b"c16-clients")
+    cl = FailoverClient([(server.host, server.port)], timeout_s=10.0,
+                        max_cycles=1, bft_keys=vkeys)
+    try:
+        for w in wallets:
+            assert cl.request("register", addr=w.address,
+                              pubkey=w.public_bytes.hex(),
+                              tag=_sign(w, "register", 0, b""))["ok"]
+        w = wallets[0]
+        first = _aupload(cl, w, 1, 0)
+        assert first["ok"] and first["cert"] is not None
+        second = _aupload(cl, w, 2, 0)      # the first is still buffered
+        assert second["status"] == "DUPLICATE" and not second["ok"]
+        assert second.get("cert") is None
+        assert server.ledger.async_buffer_depth == 1
+        # a DUPLICATE with a certificate must still verify
+        forged = dict(second, cert=dict(first["cert"], sigs={}))
+        assert not cl._certified_ack("aupload", {}, forged)
+    finally:
+        cl.close()
+        server.close()
+        for v in nodes:
+            v.close()

@@ -1401,13 +1401,20 @@ def test_unported_legs_raise_naming_their_items(monkeypatch):
     w = Wallet.from_seed(b"bft-unported")
     # the cell registry is ported (A9 item 8): a validator holds it
     ValidatorNode(CFG, w, 0, cell_registry={}).close()
-    with pytest.raises(NotImplementedError, match=r"A9 \(rederive\)"):
-        ValidatorNode(CFG, w, 0, rederive="shard")
+    # the rederive plane is ported (A9 item 9): an armed validator
+    # builds its Rederiver on the device it is given, from the argument
+    # or BFLC_REDERIVE, and the legacy pin wins
+    v = ValidatorNode(CFG, w, 0, rederive="shard", device="cpu")
+    assert v._rederiver is not None and v._rederiver.mode == "shard"
+    v.close()
     monkeypatch.setenv("BFLC_REDERIVE", "full")
-    with pytest.raises(NotImplementedError, match=r"A9 \(rederive\)"):
-        ValidatorNode(CFG, w, 0)
+    v = ValidatorNode(CFG, w, 0, device="cpu")
+    assert v._rederiver.mode == "full"
+    v.close()
     monkeypatch.setenv("BFLC_REDERIVE_LEGACY", "1")
-    ValidatorNode(CFG, w, 0).close()            # the legacy pin wins
+    v = ValidatorNode(CFG, w, 0)
+    assert v._rederiver is None                 # the legacy pin wins
+    v.close()
     # TLS to the validators is ported (A9.4): the context is kept for
     # the connection, which the reference's fleet never opens
     for kw in (dict(tls=object()),):

@@ -302,3 +302,104 @@ def test_each_hier_leg_gate_raises_through_hold(capsys, leg, over, gate):
     failed = [x for x in _lines(capsys.readouterr().out)
               if x["phase"] == "gate_failed"]
     assert [x["gate"] for x in failed] == [gate]
+
+
+# ------------------------------------------------- the rederive legs
+def test_rederive_leg_holds_the_jax_bar_with_its_rounds():
+    """`rederive_config5` holds the JAX tests' 0.9 above config 5's
+    majority rate, over the sync fleets' 9 rounds at least (its CPU
+    trajectories first reached 0.9 by round 4, PERF.md section 6), on a
+    sparse genome whose closed loop has room to move."""
+    rates = _majority_rates()
+    assert cs.REDERIVE_MIN_BEST >= CONFIG5_BAR
+    assert cs.REDERIVE_MIN_BEST > rates["config5"]
+    assert cs.REDERIVE_C5_ROUNDS >= cs.FLEET_C5_ROUNDS
+    proto = cs.REDERIVE_PROTO
+    assert proto["adapt_every"] > 0
+    assert proto["density_floor"] < proto["delta_density"] < 1.0
+    assert cs.REDERIVE_FLEET["rederive"] in ("shard", "full")
+    assert cs.REDERIVE_LIE_TIMEOUT_S < cs.REDERIVE_DRILL_TIMEOUT_S
+
+
+_KNOBS = {"eff_density": 0.025, "eff_staleness": 20, "genome_epoch": 4}
+
+
+def _rederive_result(**over):
+    """A `rederive_config5` result as `rederive_account` reads it: 4
+    commits on one writer at 8 blocks, 4 armed validators re-deriving
+    each on B5, two genome ops; every gate passes unless `over` changes
+    a field."""
+    blocks = cs.REDERIVE_PROTO["reduce_blocks"]
+    validators = {f"validator-{v}": {
+        "torch_imported": True, "cuda_initialized": False,
+        "rederive": {"ok": 4, "refused": 0, "skipped": 0},
+        "engine": {"selfcheck_launches": 6}, "genome": dict(_KNOBS)}
+        for v in range(4)}
+    res = _HierRun(
+        rounds_completed=cs.REDERIVE_C5_ROUNDS,
+        accuracy_history=[(0, 0.6), (1, 0.95), (2, 0.97), (3, 0.99)],
+        writer_merges=[{"blocks": blocks, "merge_s": 0.02}] * 4,
+        writer_engine={"selfcheck_launches": 6}, failover=None,
+        kernel_launches={"writer": {"certified_reduce": 6 + 4 * blocks},
+                         **{r: {"certified_reduce": 6 + 4 * blocks}
+                            for r in validators}},
+        validator_reports=validators,
+        writer_genomes=[{"new_density": 0.05}, {"new_density": 0.025}],
+        final_info=dict(_KNOBS, perf={"costs": {}}),
+        replica_report=dict(_KNOBS), certified_size=40,
+        ledger_log_size=40, epoch_times=[(0, 1.0), (3, 4.0)],
+        spawn_s=1.0, validator_spawn_s=0.5, client_perf={},
+        client_counts={})
+    for k, v in over.items():
+        setattr(res, k, v)
+    return res
+
+
+def test_rederive_account_passes_an_honest_run(capsys):
+    total, by_role = cs.rederive_account(
+        "rederive_config5", "card", _rederive_result(),
+        {"certified_reduce": 5 * 32 + 24}, 1.0)
+    assert by_role == {"bft_writer": 32, "validator": 128}
+    assert total["certified_reduce"] == 5 * 32
+    lines = _lines(capsys.readouterr().out)
+    assert [x["phase"] for x in lines] == ["bft", "rederive", "accuracy"]
+
+
+def _bad_validator(**fields):
+    reports = _rederive_result().validator_reports
+    reports["validator-2"] = dict(reports["validator-2"], **fields)
+    return reports
+
+
+@pytest.mark.parametrize("over, gate", [
+    (dict(rounds_completed=1), "rounds"),
+    (dict(accuracy_history=[(0, 0.6)]), "best accuracy"),
+    (dict(final_info=dict(_KNOBS, perf={"costs": {
+        "bft.refused.REDERIVE": 1}})), "REDERIVE and SPARSE refusals"),
+    (dict(validator_reports=_bad_validator(rederive={
+        "ok": 3, "refused": 0, "skipped": 0})),
+     "every validator re-derived every commit"),
+    (dict(validator_reports=_bad_validator(rederive={
+        "ok": 4, "refused": 0, "skipped": 1})),
+     "every validator re-derived every commit"),
+    (dict(validator_reports=_bad_validator(
+        engine={"selfcheck_launches": 6 + 32})),
+     "B5 launches in every validator"),
+    (dict(writer_genomes=[]), "genome ops on the chain"),
+    (dict(validator_reports=_bad_validator(genome=dict(
+        _KNOBS, eff_density=0.05))), "validators' knobs equal the writer's"),
+    (dict(replica_report=dict(_KNOBS, genome_epoch=2)),
+     "replica's knobs equal the writer's"),
+    (dict(writer_genomes=[{"new_density": cs.REDERIVE_PROTO[
+        "delta_density"]}]), "density moved"),
+    (dict(validator_reports=_bad_validator(torch_imported=False)),
+     "validators with torch"),
+])
+def test_each_rederive_gate_raises_through_hold(capsys, over, gate):
+    with pytest.raises(RuntimeError, match=gate):
+        cs.rederive_account("rederive_config5", "card",
+                            _rederive_result(**over),
+                            {"certified_reduce": 0}, 1.0)
+    failed = [x for x in _lines(capsys.readouterr().out)
+              if x["phase"] == "gate_failed"]
+    assert [x["gate"] for x in failed] == [gate]

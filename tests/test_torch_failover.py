@@ -27,7 +27,7 @@ fleet, against the reference.
   4, the standby promotes and a replica reaches the promoted writer's
   head, with `timeout_s` so a hang fails.
 - The standby's TLS and snapshot options (ported), the fleet's refusals
-  of what is still unported (rederive, chaos) and the CLI's quorum check.
+  of what is still unported (chaos, telemetry) and the CLI's quorum check.
 Every wait is bounded; no assertion depends on a sub-second race.
 """
 
@@ -1417,7 +1417,7 @@ def test_standby_refuses_unported_options(kw, item):
 
 
 @pytest.mark.parametrize("kw", [dict(chaos_seed=7),
-                                dict(rederive="shard"),
+                                dict(chaos_profile="light"),
                                 dict(telemetry_dir="t")])
 def test_fleet_refuses_unported_options(kw):
     shards = [(np.zeros((2, 5), np.float32), np.zeros(2, np.int64))] * 6

@@ -4,8 +4,8 @@ against the reference's `bflc_demo_tpu/hier/` on the CPU.
 The 23 fast scenarios of the reference's `tests/test_hier.py`, each run
 through both packages from the same numpy seeds:
 
-- `TestCellPlan`: the plans, the tier genomes (field by field; the
-  port's genome has no `adapt_every`) and the refusals are equal;
+- `TestCellPlan`: the plans, the tier genomes (field by field, the
+  closed loop's fields included) and the refusals are equal;
 - `TestPartialDeterminism`: the partial's bytes, the evidence digest
   and the blob are the reference's, byte for byte, under every arrival
   order; the degenerate sets raise in both;
@@ -81,8 +81,7 @@ def _same(fn):
 
 
 def _genome(c) -> dict:
-    """The genome's fields the port carries (the reference's also has
-    the closed compression loop's, ROADMAP A9 item 9)."""
+    """The genome's fields (the port carries all of the reference's)."""
     return {f.name: getattr(c, f.name)
             for f in dataclasses.fields(constants.ProtocolConfig)}
 
@@ -670,24 +669,37 @@ def test_hier_runtime_refuses_unported_options_naming_their_items():
     for kw, item in ((dict(chaos_schedule=object()), "A14"),
                      (dict(chaos_dir="d"), "A14"),
                      (dict(telemetry_dir="t"), "A14"),
-                     (dict(trace_sample=0.5), "A14"),
-                     (dict(rederive="shard"), r"A9 item 9")):
+                     (dict(trace_sample=0.5), "A14")):
         with pytest.raises(NotImplementedError, match=item):
             run_federated_hier("make_softmax_regression", shards,
                                shards[0], cfg, cells=2, device="cpu", **kw)
     with pytest.raises(TypeError):
         run_federated_hier("make_softmax_regression", shards, shards[0],
                            cfg, cells=2, device="cpu", standbys=1)
+    # the rederive plane is ported (A9 item 9); a bad mode is refused
+    with pytest.raises(ValueError, match="rederive"):
+        run_federated_hier("make_softmax_regression", shards, shards[0],
+                           cfg, cells=2, device="cpu", rederive="bogus")
 
 
 def test_cell_rederive_evidence_refused_naming_item_9(monkeypatch):
+    """The cell's rederive evidence is ported (A9 item 9): an armed
+    aggregator builds, with the plane armed from the environment, and
+    its genome runs no closed loop of its own."""
     from bflc_demo_tpu_torch.hier.aggregator import CellAggregatorServer
     monkeypatch.setenv("BFLC_REDERIVE", "shard")
-    cfg = cells.cell_protocol(constants.ProtocolConfig(), 5)
-    with pytest.raises(NotImplementedError, match="A9 item 9"):
-        CellAggregatorServer(cfg, _blob(PKG["port"], _model0()), 0,
-                             identity.Wallet.from_seed(b"c"), [],
-                             device="cpu")
+    cfg = cells.cell_protocol(constants.ProtocolConfig(
+        delta_density=0.1, adapt_every=2), 5)
+    assert cfg.adapt_every == 0
+    srv = CellAggregatorServer(cfg, _blob(PKG["port"], _model0()), 0,
+                               identity.Wallet.from_seed(b"c"), [],
+                               device="cpu")
+    try:
+        assert srv._rederive and srv._state_knobs() == {}
+        srv._root_eff_density = 0.025
+        assert srv._state_knobs() == {"eff_density": 0.025}
+    finally:
+        srv.close()
 
 
 def test_hier_merge_geometries_for_the_card():

@@ -473,12 +473,10 @@ def test_round_factory_guards():
     ("mesh", dict(snapshot_interval=2)), ("mesh", dict(rederive="shard")),
 ])
 def test_run_with_runtime_refuses_what_does_not_apply(runtime, kw):
-    # options of parts not ported yet (rederive) are unexpected keywords
-    # of the mesh runtime; the fleet's options (standbys, bft_validators,
-    # tls_dir, snapshot_interval) are refused on the mesh runtime and the
-    # mesh-only ones on 'host'
-    unported = {"rederive"}
-    exc = TypeError if unported & set(kw) else ValueError
+    # the fleet's options (standbys, bft_validators, tls_dir,
+    # snapshot_interval, rederive) are refused on the mesh runtime and
+    # the mesh-only ones on 'host'
+    exc = ValueError
     with pytest.raises(exc):
         run_with_runtime(make_softmax_regression(), [], ([], []),
                          ProtocolConfig(), runtime=runtime, device="cpu",

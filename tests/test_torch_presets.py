@@ -186,8 +186,8 @@ def test_protocol_overrides_match_the_reference(monkeypatch):
     assert cfg.client_num == ref_cfg.client_num == 40
     for name, value in vars(cfg).items():
         assert getattr(ref_cfg, name) == value, name
-    # the blocked geometry and the codecs are ported (string fields as
-    # they stand); the genome's closed-loop fields are not
+    # the blocked geometry, the codecs and the closed loop's fields are
+    # ported (string fields as they stand)
     monkeypatch.setenv("BFLC_REDUCE_BLOCKS", "4")
     assert flags.protocol_from_env().reduce_blocks == \
         ref_flags.protocol_from_env().reduce_blocks == 4
@@ -200,7 +200,12 @@ def test_protocol_overrides_match_the_reference(monkeypatch):
     assert (got.delta_density, got.delta_dtype, got.delta_codec) == \
         (0.5, "i8", "sketch")
     monkeypatch.setenv("BFLC_ADAPT_EVERY", "2")
-    with pytest.raises(ValueError, match="ROADMAP A9"):
+    monkeypatch.setenv("BFLC_DENSITY_FLOOR", "0.05")
+    got, want = flags.protocol_from_env(), ref_flags.protocol_from_env()
+    assert (got.adapt_every, got.density_floor) == \
+        (want.adapt_every, want.density_floor) == (2, 0.05)
+    monkeypatch.setenv("BFLC_DENSITY_FLOOR", "0.9")
+    with pytest.raises(ValueError, match="density_floor"):
         flags.protocol_from_env()
 
 
@@ -214,8 +219,8 @@ def test_no_preset_override_keeps_the_preset_protocol():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--rederive", "shard"], "A9"), (["--chaos-seed", "7"], "A9"),
-    (["--adapt-every", "2"], "A9"), (["--density-floor", "0.1"], "A9"),
+    (["--attest-scores"], "A9"), (["--chaos-seed", "7"], "A9"),
+    (["--chaos-profile", "light"], "A9"),
     (["--checkpoint-dir", "ckpt"], "A11"),
     (["--config", "config4", "--secure"], "A12"),
     (["--trace-path", "t.json"], "A14")])

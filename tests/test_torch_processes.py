@@ -256,11 +256,15 @@ def test_threaded_whole_committee_dead_reseated(small_data):
 def test_unported_fleet_options_raise_naming_the_item():
     shards, test_set = _occupancy_shards(CFG.client_num)
     for kw in (dict(telemetry_dir="t"), dict(chaos_dir="d"),
-               dict(trace_sample=0.5), dict(chaos_seed=7),
-               dict(rederive="shard")):
+               dict(trace_sample=0.5), dict(chaos_seed=7)):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             pr.run_federated_processes("make_softmax_regression", shards,
                                        test_set, CFG, device="cpu", **kw)
+    # the rederive plane is ported (A9 item 9): a mode it lacks raises
+    with pytest.raises(ValueError, match="rederive"):
+        pr.run_federated_processes("make_softmax_regression", shards,
+                                   test_set, CFG, device="cpu",
+                                   rederive="bogus")
     with pytest.raises(ValueError, match="shards"):
         pr.run_federated_processes("make_softmax_regression", shards[:3],
                                    test_set, CFG, device="cpu")

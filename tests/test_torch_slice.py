@@ -217,7 +217,7 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
                                   ["--runtime", "processes",
                                    "--ledger-backend", "native"],
                                   ["--config", "config2",
-                                   "--rederive", "shard"]])
+                                   "--chaos-seed", "7"]])
 def test_cli_rejects_unported_with_exit_2(argv, capsys):
     assert cli(argv) == 2
     assert "ROADMAP" in capsys.readouterr().err

@@ -182,8 +182,8 @@ class TestCanonicalState:
         dict(genome=True), dict(async_=True, acommits=True, genome=True)])
     def test_unported_tails_decode_and_refuse_by_name(self, tails):
         """Every tail decodes as the reference's; the async tails (A9.6)
-        re-encode and install byte for byte, the genome tail still
-        refuses naming its item."""
+        and the genome tail (A9.9) re-encode and install byte for
+        byte."""
         d = ref_snap.decode_state(_with_rounds(
             1, ref_make_ledger(REF_CFG, backend="python")).encode_state())
         if tails.get("async_"):
@@ -195,18 +195,21 @@ class TestCanonicalState:
             d["genome"] = (0.5, 3, 2, 0.125)
         blob = ref_snap.encode_state_dict(d)
         assert snap.decode_state(blob) == ref_snap.decode_state(blob)
-        if tails.get("genome"):
-            with pytest.raises(NotImplementedError, match="rederive"):
-                snap.restore_snapshot(blob, CFG, 20, b"\3" * 32)
-            with pytest.raises(NotImplementedError, match="rederive"):
-                snap.encode_state_dict(snap.decode_state(blob))
-            return
         assert snap.encode_state_dict(snap.decode_state(blob)) == blob
-        acfg = ProtocolConfig(**PROTO, async_buffer=3, async_reseat_every=(
-            2 if tails.get("acommits") else 0))
+        extra = (dict(delta_density=0.6, adapt_every=2)
+                 if tails.get("genome") else {})
+        if tails.get("async_"):
+            extra.update(async_buffer=3, async_reseat_every=(
+                2 if tails.get("acommits") else 0))
+        acfg = ProtocolConfig(**PROTO, **extra)
         led = snap.restore_snapshot(blob, acfg, 20, b"\3" * 32)
         assert led.encode_state() == blob
-        assert [e.aseq for e in led.async_buffer_view()] == [5]
+        if tails.get("async_"):
+            assert [e.aseq for e in led.async_buffer_view()] == [5]
+        if tails.get("genome"):
+            assert (led.effective_density, led.effective_staleness,
+                    led.genome_epoch, led.last_disagreement) == \
+                (0.5, 3, 2, 0.125)
 
 
 # ---------------------------------------------------------- snapshot op
