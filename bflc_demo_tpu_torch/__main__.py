@@ -17,7 +17,14 @@ runtime exits 2, as `--error-feedback` does there or without a lossy
 encode (the reference's :141-157, :195-207), and `--error-feedback`
 exports `BFLC_ERROR_FEEDBACK=1` to the children; run it from the shell
 or a real file, as spawned children re-import `__main__`), on `cuda`
-unless `--device cpu` (the counterpart of `JAX_PLATFORMS=cpu`), with
+unless `--device cpu` (the counterpart of `JAX_PLATFORMS=cpu`), on
+`--runtime executor` the mesh executor (thin client processes that
+stage their shards once while an executor process runs every round as
+one program; score attestation on unless `--no-attest-scores`, TLS with
+`--tls-dir`; every other fleet flag exits 2, as in the reference's
+:164-177), with `--attest-scores` on the mesh runtime exiting 2 (its
+wallets come only with config 4's `--secure`, A12) and
+`--[no-]attest-scores` on another runtime exiting 2 (:136-185), with
 `--cells N`/`--cell-size M` the two-tier hier fleet (`hier/`; with
 `--standbys`, `--quorum`, `--tls-dir` or `--snapshot-interval`, or on
 another runtime, exit 2), `--rederive shard|full` the validators'
@@ -25,9 +32,10 @@ re-derivation of every commit (it needs `--bft-validators` and the
 processes runtime, else exit 2, as in the reference's :70-77), with
 the protocol overridable by `--field-name` flags and `BFLC_*` variables
 (`utils/flags.py`; the closed compression loop's `--adapt-every` and
-`--density-floor` with a sparse genome) and the ledger by `--ledger-backend auto|python`.  An
-unknown config, an unported runtime (the executor), the native ledger,
-the fleet's flags on another runtime than `processes`, a negative
+`--density-floor` with a sparse genome) and the ledger by
+`--ledger-backend auto|python`.  An unknown config or runtime, the
+native ledger, the fleet's flags on another runtime than `processes`
+(`--tls-dir` also on `executor`), a negative
 `--bft-validators` or `--snapshot-interval`, `--snapshot-dir` without
 an interval, or a flag of a part not ported yet (the fleet's chaos A9,
 checkpoints A11, secure aggregation A12, traces and telemetry A14)
@@ -35,7 +43,9 @@ exits 2 naming the ROADMAP item.
 Prints the reference CLI's final JSON keys, and on `processes` a
 `fleet` key besides: the round times, the spawn time, the
 writer's phase split, every role's kernel launches and the writer's
-merge-engine report (with `--bft-validators`, `certified_size`).
+merge-engine report (with `--bft-validators`, `certified_size`); on
+`executor` an `executor` key: the executor's rounds, every role's
+kernel launches and each thin client's attestations.
 """
 
 from __future__ import annotations
@@ -60,14 +70,16 @@ def _parser() -> argparse.ArgumentParser:
                "--delta-density/--error-feedback the upload codecs, "
                "--adapt-every/--density-floor the closed compression "
                "loop and --rederive the validators' re-derivation), "
-               "--reduce-blocks, --delta-dtype, --delta-codec.  The "
-               "executor runtime, the native ledger and the fleet's "
-               "other flags are ROADMAP A9; they exit 2 until ported.")
+               "--reduce-blocks, --delta-dtype, --delta-codec; "
+               "--runtime executor (with --tls-dir and "
+               "--[no-]attest-scores).  The native ledger and the "
+               "fleet's other flags are ROADMAP A9; they exit 2 until "
+               "ported.")
     p.add_argument("--config", default="config1",
                    help="benchmark preset, config0 ... config5")
     p.add_argument("--runtime", default="mesh",
-                   help="runtime (ported: mesh, host, threaded, processes; "
-                        "executor is ROADMAP A9)")
+                   help="runtime: mesh, host, threaded, processes or "
+                        "executor")
     p.add_argument("--rounds", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
@@ -80,14 +92,14 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     opts = _parser().parse_args(argv)
     from bflc_demo_tpu_torch.eval.configs import (CONFIGS, RUNTIMES,
-                                                  UNPORTED_RUNTIME)
+                                                  UNKNOWN_RUNTIME)
     from bflc_demo_tpu_torch.utils.flags import parse_protocol, unported_given
     if opts.config not in CONFIGS:
         print(f"unknown config {opts.config!r}; have {list(CONFIGS)}",
               file=sys.stderr)
         return 2
     if opts.runtime not in RUNTIMES:
-        print(UNPORTED_RUNTIME.format(runtime=opts.runtime), file=sys.stderr)
+        print(UNKNOWN_RUNTIME.format(runtime=opts.runtime), file=sys.stderr)
         return 2
     unported = unported_given(opts)
     if opts.ledger_backend == "native":
@@ -129,15 +141,31 @@ def main(argv=None) -> int:
         # client-local: the spawned clients inherit the decision
         os.environ["BFLC_ERROR_FEEDBACK"] = "1"
     if (opts.standbys or opts.quorum or opts.bft_validators
-            or opts.tls_dir or opts.snapshot_interval
-            or opts.snapshot_dir or opts.cells
+            or opts.snapshot_interval or opts.snapshot_dir or opts.cells
             or opts.cell_size or opts.rederive != "off") \
             and opts.runtime != "processes":
-        print("--standbys, --quorum, --bft-validators, --tls-dir, "
+        print("--standbys, --quorum, --bft-validators, "
               "--snapshot-interval, --snapshot-dir, --cells, "
               "--cell-size and --rederive apply only to --runtime "
               "processes", file=sys.stderr)
         return 2
+    if opts.tls_dir and opts.runtime not in ("processes", "executor"):
+        print("--tls-dir applies to the processes and executor runtimes",
+              file=sys.stderr)
+        return 2
+    if opts.attest_scores is not None:
+        # never silently drop a requested trust feature
+        if opts.runtime not in ("mesh", "executor"):
+            print("--attest-scores applies to the mesh/executor runtimes",
+                  file=sys.stderr)
+            return 2
+        if opts.runtime == "mesh" and opts.attest_scores:
+            # mesh attestation signs with wallets, which only config 4's
+            # --secure provisions from the CLI (ROADMAP A12)
+            print("--attest-scores on the mesh runtime needs wallets: "
+                  "use --config config4 --secure, or --runtime executor "
+                  "(attestation is default-on there)", file=sys.stderr)
+            return 2
     if opts.cells or opts.cell_size:
         # hierarchical cells: one certified cell partial a cell a round
         # reaches the root (the reference's :125-137)
@@ -189,6 +217,8 @@ def main(argv=None) -> int:
                   f"f=0 (no Byzantine tolerance); the reference geometry "
                   f"is 4", file=sys.stderr)
         kw["bft_validators"] = opts.bft_validators
+    if opts.attest_scores is not None:
+        kw["attest_scores"] = opts.attest_scores
     if opts.rederive != "off":
         # only meaningful with a commit quorum to refuse from
         if not opts.bft_validators:
@@ -239,6 +269,13 @@ def main(argv=None) -> int:
                 "client_exitcodes": res.client_exitcodes,
                 "root_ops": res.root_ops,
                 "cell_merges": res.cell_merges}
+    if opts.runtime == "executor":
+        # the executor's rounds, every role's launches, the attestations
+        out["executor"] = {"epoch_times": res.epoch_times,
+                           "spawn_s": res.spawn_s, "stage_s": res.stage_s,
+                           "rounds": (res.executor or {}).get("rounds"),
+                           "kernel_launches": res.kernel_launches,
+                           "client_counts": res.client_counts}
     print(json.dumps(out))
     return 0
 

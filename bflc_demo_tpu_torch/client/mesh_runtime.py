@@ -25,15 +25,27 @@ Uploader choice keeps the reference's numpy draw — a seeded permutation
 of the round's trainers, first K, in ascending client order — so ledger
 slot order equals the device's index-ascending tiebreak.
 
-`client_chunk` and `remat` go to the round (`parallel/fedavg.py`).  Not
-ported, and refused with the ROADMAP item rather than ignored:
-`rounds_per_dispatch > 1` (A7), secure aggregation (A12), score
-attestation with wallets (A9), checkpoints and resume (A11),
-`estimate_flops` (A11), local optimizers (A11).
+`client_chunk` and `remat` go to the round (`parallel/fedavg.py`).
+
+Score attestation (:73-98, :341-353, :524-528): with `attest_wallets`
+(one `comm.identity.Wallet` per client) every committee member's
+wallet signs its score row — the `scores` op payload, the row as
+little-endian f64 — before the round reaches the ledger; each signature
+is verified and `SimulationResult.attest_log[epoch]` holds them by
+address.  `attest_scores=None` means on exactly when wallets exist,
+True without wallets raises, False opts out.  In process this is
+signature evidence, not a second trust domain: the mesh executor
+(`comm/executor_service.py`) has members re-score on their own shards.
+
+Not ported, and refused with the ROADMAP item rather than ignored:
+`rounds_per_dispatch > 1` (A7, attested or not), secure aggregation
+(A12), checkpoints and resume (A11), `estimate_flops` (A11), local
+optimizers (A11).
 """
 
 from __future__ import annotations
 
+import struct
 import time
 from typing import Optional, Sequence, Tuple
 
@@ -55,6 +67,28 @@ from bflc_demo_tpu_torch.protocol.constants import (DEFAULT_PROTOCOL,
 
 def _addr(i: int) -> str:
     return f"0x{i:040x}"
+
+
+def _attest_rows(wallets, committee_ids, comm_slots, up_slots, score_rows,
+                 epoch: int, attest_log: dict) -> None:
+    """Wallet-sign each committee member's score row before it reaches
+    the ledger; each signature verified, recorded in attest_log[epoch].
+    A signature that does not verify aborts the round."""
+    from bflc_demo_tpu_torch.comm.identity import (_op_bytes,
+                                                   verify_signature)
+    sigs = {}
+    for cid, cs in zip(committee_ids, comm_slots):
+        row = [float(score_rows[cs, us]) for us in up_slots]
+        payload = struct.pack(f"<{len(row)}d", *row)
+        msg = _op_bytes("scores", _addr(cid), epoch, payload)
+        w = wallets[cid]
+        tag = w.sign(msg)
+        if not verify_signature(w.public_bytes, msg, tag):
+            raise RuntimeError(
+                f"epoch {epoch}: committee member {cid}'s score-row "
+                f"attestation failed verification — refusing the round")
+        sigs[_addr(cid)] = tag.hex()
+    attest_log[epoch] = sigs
 
 
 def run_federated_mesh(model: Model,
@@ -89,6 +123,16 @@ def run_federated_mesh(model: Model,
     plain versions of the kernels on the CPU.
     """
     cfg.validate()
+    # on exactly when wallets exist; an explicit False opts out
+    if attest_scores is None:
+        attest_scores = attest_wallets is not None
+    if attest_scores and attest_wallets is None:
+        raise ValueError("attest_scores=True needs wallets "
+                         "(attest_wallets or secure_wallets)")
+    if attest_wallets is not None and len(attest_wallets) != cfg.client_num:
+        raise ValueError(f"need {cfg.client_num} attest wallets, "
+                         f"got {len(attest_wallets)}")
+    attest_log: dict = {}
     if participation not in ("full", "active"):
         raise ValueError(f"participation must be 'full'|'active', "
                          f"got {participation!r}")
@@ -96,8 +140,6 @@ def run_federated_mesh(model: Model,
         (rounds_per_dispatch > 1, "rounds_per_dispatch > 1", "A7"),
         (secure_aggregation or secure_wallets is not None,
          "secure aggregation", "A12"),
-        (bool(attest_scores) or attest_wallets is not None,
-         "score attestation", "A9"),
         (resume_ledger is not None or checkpoint_dir or checkpoint_every,
          "checkpoints and resume", "A11"),
         (estimate_flops, "estimate_flops", "A11")]
@@ -174,10 +216,15 @@ def run_federated_mesh(model: Model,
             up_slots, comm_slots = list(range(k)), list(range(k, k + c))
         params = res.params
         # host side: the tiny artifacts only; slot rows map to client ids
+        score_rows = res.score_matrix.cpu().numpy()
+        if attest_scores:
+            # the ledger only accepts attested rounds
+            _attest_rows(attest_wallets, committee_ids, comm_slots,
+                         up_slots, score_rows, epoch, attest_log)
         audit_round(ledger, _addr, epoch, uploader_ids, committee_ids,
                     up_slots, comm_slots, res.delta_fps.cpu().numpy(),
                     lambda cid: sizes_np[cid], res.avg_costs.cpu().numpy(),
-                    res.score_matrix.cpu().numpy(),
+                    score_rows,
                     np.flatnonzero(res.selected.cpu().numpy()),
                     res.params_fp.cpu().numpy())
         loss_history.append((epoch, ledger.last_global_loss))
@@ -197,4 +244,5 @@ def run_federated_mesh(model: Model,
         ledger_log_head=ledger.log_head(),
         ledger_log_size=ledger.log_size(),
         ledger=ledger,
-        n_devices=1)
+        n_devices=1,
+        attest_log=attest_log or None)

@@ -109,8 +109,24 @@ land in `validator_reports` (beside the start report, whose
 stand-in for the reference's telemetry scrape.  A disarmed validator is
 spawned and never imports torch.
 
+The mesh-executor deployment (reference :1396-1724,
+`run_federated_mesh_processes`): one executor process
+(`comm/executor_service.MeshExecutorServer`) owns the device and runs
+every round as one program (K1-K3 and B6 on the card), replaying each
+into its ledger; N thin client processes register, stage their shard
+once with a signed `stage` request and watch the rounds over the socket,
+evaluating each committed model on their own shard (K1); the parent is
+the sponsor.  With attestation (on by default: every thin client holds a
+wallet) each committee member re-scores the round's K candidates on its
+own shard (`attest_score_row`: one stacked forward of the K candidates,
+K1 on the card) and signs its row before the round reaches the ledger.
+With `tls_dir` every byte, the staged shards included, rides TLS.  The
+executor and the thin clients fork from the forkserver, each thin
+client in a process group of its own; each reports its kernel launches
+(roles `executor`, `thin-i`, `sponsor`).
+
 Not ported, raising with their ROADMAP item when asked for: the chaos
-campaign, telemetry and traces (A14); the mesh-executor deployment (A9).
+campaign, telemetry and traces (A14).
 """
 
 from __future__ import annotations
@@ -841,6 +857,13 @@ class ProcessFederationResult:
         self.cell_merges: Dict[int, List[dict]] = {}
         self.cell_engines: Dict[int, dict] = {}
         self.cell_bridge: Dict[int, dict] = {}
+        # a mesh-executor fleet (`run_federated_mesh_processes`): the
+        # executor's `kernels` record (its rounds: seconds on its clock,
+        # the device round, the attestation wait, the evidence bytes; when
+        # its runner started on the monotonic clock) and the seconds from
+        # the start until every client had staged
+        self.executor: Optional[dict] = None
+        self.stage_s = 0.0
 
     @property
     def final_accuracy(self) -> float:
@@ -1501,3 +1524,347 @@ def _promotion_account(failover: dict, kernels: dict) -> dict:
             "gap_s": after[0]["mono"] - kill if after else None,
             "first_merge_s": after[0]["merge_s"] if after else None,
             "warm_merge_s": [m["merge_s"] for m in after[1:]]}
+
+
+# ------------------------------------------------- mesh-executor federation
+def _executor_proc(cfg_kw: dict, model_factory: str, factory_kw: dict,
+                   rounds: int, port_q, stall_timeout_s: float,
+                   attest_scores: bool, tls_dir: str, device: str,
+                   verbose: bool) -> None:
+    """The executor process: it owns the device and runs each round as
+    one program (`comm/executor_service.MeshExecutorServer`)."""
+    boot = {"entry": process_age_s()}
+    _child_device(device)
+    boot["device"] = process_age_s()
+    from bflc_demo_tpu_torch.comm.executor_service import MeshExecutorServer
+    from bflc_demo_tpu_torch.utils import tracing
+    server = MeshExecutorServer(
+        ProtocolConfig(**cfg_kw), model_factory, factory_kw,
+        rounds=rounds, stall_timeout_s=stall_timeout_s,
+        attest_scores=attest_scores, tls=_server_tls(tls_dir),
+        device=device, verbose=verbose)
+    boot["server"] = process_age_s()
+    _charge_boot(tracing.PROC, boot)
+    port_q.put(server.port)
+    server.serve_forever()
+
+
+def attest_score_row(client, wallet, model, template, cfg,
+                     x_np: np.ndarray, y_np: np.ndarray, pa: dict,
+                     router=None) -> bool:
+    """Re-score a pending round's candidates on OUR shard; sign on match.
+
+    The device row is admitted to the ledger only once the member
+    reproduced it from the candidate deltas against its own data (the
+    committed model of the round's epoch through `router` where given,
+    the K evidence blobs, batched when a router is given, through the
+    codecs' one decode, the shard padded by the staging's own
+    `cyc_pad`/`cast_features`, the K candidates scored in one stacked
+    forward on `template`'s device, `parallel.fedavg.score_block`).
+    Returns True when an attestation was submitted, False when the round
+    moved on under us; raises
+    RuntimeError on a row that does not match (beyond two flipped
+    samples, 2/s_pad + 1e-6) or an attestation the executor rejected.
+    """
+    import torch
+
+    from bflc_demo_tpu_torch.client.runtime import feature_tensor
+    from bflc_demo_tpu_torch.client.staging import cast_features, cyc_pad
+    from bflc_demo_tpu_torch.comm.identity import _op_bytes
+    from bflc_demo_tpu_torch.comm.wire import blob_bytes, split_blob_parts
+    from bflc_demo_tpu_torch.data.partition import one_hot
+    from bflc_demo_tpu_torch.parallel.fedavg import score_block
+    from bflc_demo_tpu_torch.utils.serialization import (densify_entries,
+                                                         dequantize_entries,
+                                                         restore_pytree,
+                                                         unpack_pytree)
+
+    def decode(blob: bytes):
+        return restore_pytree(template, densify_entries(
+            dequantize_entries(unpack_pytree(blob))))
+
+    epoch, s_pad = pa["epoch"], int(pa["s_pad"])
+    mr = (router.fetch_model() if router is not None
+          else client.request("model"))
+    if not mr.get("ok", True) or mr["epoch"] != epoch:
+        return False                    # the round turned over; re-poll
+    gparams = restore_pytree(template, unpack_pytree(blob_bytes(mr["blob"])))
+    # the evidence is keyed by payload fingerprints, not SHA-256, so the
+    # router's verified reads would miss every blob (C18): one batched
+    # `blobs` request taken by its manifest, each part it lacks by hash
+    hashes = list(pa["hashes"])
+    blobs = (split_blob_parts(client.request("blobs", hashes=hashes),
+                              verify=False) if router is not None else {})
+    for h in hashes:
+        if h not in blobs:
+            br = client.request("blob", hash=h)
+            if not br.get("ok"):
+                return False            # the round turned over; re-poll
+            blobs[h] = blob_bytes(br["blob"])
+    deltas = [decode(blobs[h]) for h in hashes]
+    stacked = {k: torch.stack([d[k] for d in deltas]) for k in template}
+    dev = next(iter(template.values())).device
+    xp = cast_features(cyc_pad(x_np, s_pad))
+    yp = cyc_pad(y_np, s_pad)
+    # the reference's score_candidates, a vmap: one stacked forward of the
+    # K candidates on the shard, as the mesh round scores its committee
+    mine = score_block(
+        model, gparams, stacked, cfg.learning_rate,
+        feature_tensor(xp, dev)[None],
+        torch.as_tensor(one_hot(yp, model.num_classes), device=dev)[None]
+    )[0].cpu().numpy().astype(np.float64)
+    row = np.asarray(pa["row"], np.float64)
+    if np.max(np.abs(mine - row)) > 2.0 / s_pad + 1e-6:
+        raise RuntimeError(
+            f"epoch {epoch}: device score row {row.tolist()} does not "
+            f"match local recomputation {mine.tolist()} — refusing to "
+            f"attest (tampered or corrupt executor scoring)")
+    payload = struct.pack(f"<{len(row)}d", *row)
+    r = client.request(
+        "attest", addr=wallet.address, epoch=epoch,
+        scores=[float(v) for v in row],
+        tag=wallet.sign(_op_bytes("scores", wallet.address, epoch,
+                                  payload)).hex())
+    if not r.get("ok"):
+        if r.get("status") == "WRONG_EPOCH":
+            return False
+        # fail loudly with the executor's reason, not a timeout later
+        raise RuntimeError(
+            f"epoch {epoch}: attestation rejected by the executor: {r}")
+    return True
+
+
+def _thin_client_proc(host: str, port: int, wallet_seed: bytes,
+                      model_factory: str, factory_kw: dict,
+                      x: np.ndarray, y: np.ndarray, cfg_kw: dict,
+                      rounds: int, attest_scores: bool, tls_dir: str,
+                      device: str, report_q=None,
+                      role: str = "thin") -> None:
+    """A thin client of the mesh executor: register, stage the shard
+    once, then watch the rounds, attest its rows as a committee member
+    and evaluate each committed model on its own shard.  `report_q`
+    receives, at exit, its kernel launches (and apart the K1 of its
+    attestations), its attestations and evaluations."""
+    dev = _child_device(device)
+    import torch
+
+    import bflc_demo_tpu_torch.models as models
+    from bflc_demo_tpu_torch.client.runtime import feature_tensor
+    from bflc_demo_tpu_torch.comm.dataplane import ReadRouter
+    from bflc_demo_tpu_torch.comm.identity import Wallet, _op_bytes
+    from bflc_demo_tpu_torch.comm.ledger_service import CoordinatorClient
+    from bflc_demo_tpu_torch.core.local_train import evaluate
+    from bflc_demo_tpu_torch.data.partition import one_hot
+    from bflc_demo_tpu_torch.utils.serialization import (pack_entries,
+                                                         restore_pytree,
+                                                         unpack_pytree)
+
+    model = getattr(models, model_factory)(**factory_kw).to(dev)
+    template = model.init_params(0, dev)
+    wallet = Wallet.from_seed(wallet_seed)
+    tls = _client_tls(tls_dir)
+    client = CoordinatorClient(host, port, timeout_s=120.0, tls=tls)
+    router = ReadRouter(client, tls=tls)
+    r = client.request("register", addr=wallet.address,
+                       pubkey=wallet.public_bytes.hex(),
+                       tag=_sign(wallet, "register", 0, b""))
+    if not r["ok"] and r.get("status") not in ("ALREADY_REGISTERED",
+                                               "DUPLICATE"):
+        raise RuntimeError(f"register failed: {r}")
+    # flat entries keep the literal keys "x"/"y" on the wire
+    xb = pack_entries({"x": np.asarray(x)})
+    yb = pack_entries({"y": np.asarray(y).astype(np.int32)})
+    payload = hashlib.sha256(xb).digest() + hashlib.sha256(yb).digest()
+    tag = wallet.sign(_op_bytes("stage", wallet.address, 0, payload)).hex()
+    r = client.request("stage", addr=wallet.address, x=xb, y=yb, tag=tag)
+    if not r["ok"]:
+        raise RuntimeError(f"stage failed: {r}")
+
+    xt = feature_tensor(x, dev)
+    yt = torch.as_tensor(one_hot(np.asarray(y), model.num_classes),
+                         device=dev)
+    cfg = ProtocolConfig(**cfg_kw)
+    x_np, y_np = np.asarray(x), np.asarray(y)
+    counts = {"attested": 0, "evaluations": 0, "attest_launches": {}}
+    seen = 0
+    known_log = 0
+    while True:
+        pr = client.request("progress")
+        if pr.get("error"):
+            raise RuntimeError(f"executor failed: {pr['error']}")
+        if attest_scores:
+            pa = client.request("round_pending", addr=wallet.address)
+            if pa.get("epoch") is not None:
+                before = launch_counts()
+                if attest_score_row(client, wallet, model, template, cfg,
+                                    x_np, y_np, pa, router=router):
+                    counts["attested"] += 1
+                for k, v in launch_counts().items():
+                    if v - before.get(k, 0):
+                        counts["attest_launches"][k] = (
+                            counts["attest_launches"].get(k, 0)
+                            + v - before.get(k, 0))
+        # the cheap `info` first: fetch the model only once a new epoch
+        # committed, through the router (cache and meta probe)
+        if client.request("info")["epoch"] > seen:
+            mr = router.fetch_model()
+            if mr.get("ok") and mr["epoch"] > seen:
+                params = restore_pytree(template, unpack_pytree(mr["blob"]))
+                acc = float(evaluate(model, params, xt, yt))
+                if not np.isfinite(acc):
+                    raise RuntimeError("non-finite local accuracy")
+                counts["evaluations"] += 1
+                seen = mr["epoch"]
+        if pr["rounds_done"] >= rounds:
+            break
+        known_log = client.request("wait", log_size=known_log,
+                                   timeout_s=2.0)["log_size"]
+    router.close()
+    client.close()
+    if report_q is not None:
+        report_q.put({"role": role, "launches": launch_counts(),
+                      "foreign_modules": foreign_modules(), **counts})
+
+
+def run_federated_mesh_processes(
+        model_factory: str,
+        shards: Sequence[Tuple[np.ndarray, np.ndarray]],
+        test_set: Tuple[np.ndarray, np.ndarray],
+        cfg: ProtocolConfig,
+        rounds: int = 5, *,
+        factory_kw: Optional[dict] = None,
+        master_seed: bytes = b"mesh-executor-master-0001",
+        n_virtual_devices: int = 0,
+        stall_timeout_s: float = 120.0,
+        attest_scores: Optional[bool] = None,
+        tls_dir: str = "",
+        timeout_s: float = 600.0,
+        device: Optional[str] = None,
+        verbose: bool = False) -> ProcessFederationResult:
+    """The composed deployment: thin client processes stage their shards
+    once and watch the rounds over the socket while the executor runs
+    every round as one program on the device (`comm/executor_service`);
+    the parent is the sponsor.
+
+    attest_scores: every committee member re-scores the round's
+    candidates on its own shard and signs its row before the ledger
+    accepts the round; None (the default) is on, since every thin client
+    holds a wallet; False opts out.  tls_dir: provision the CA and the
+    server certificate there; every byte (registration, the staged
+    shards, model fetches, attestations, the sponsor) rides TLS.
+    n_virtual_devices: accepted, no effect (the reference's CPU mesh
+    width; the port folds the client axis onto one device).  device:
+    where the executor, the thin clients and the sponsor compute, `cuda`
+    (None) or `cpu`.
+    """
+    cfg.validate()
+    if len(shards) != cfg.client_num:
+        raise ValueError(f"need {cfg.client_num} shards, got {len(shards)}")
+    if attest_scores is None:
+        attest_scores = True        # wallets always exist here
+    factory_kw = factory_kw or {}
+    t_start = time.monotonic()
+    if tls_dir:
+        from bflc_demo_tpu_torch.comm.tls import provision_tls
+        provision_tls(tls_dir)
+    tls = _client_tls(tls_dir)
+
+    import torch
+
+    import bflc_demo_tpu_torch.models as models
+    from bflc_demo_tpu_torch.client.runtime import feature_tensor
+    from bflc_demo_tpu_torch.comm.dataplane import ReadRouter
+    from bflc_demo_tpu_torch.comm.ledger_service import CoordinatorClient
+    from bflc_demo_tpu_torch.data.partition import one_hot
+    from bflc_demo_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        # every kernel library built once, before any child loads one
+        from bflc_demo_tpu_torch.ops.build import build_all
+        build_all()
+    model = getattr(models, model_factory)(**factory_kw).to(dev)
+    template = model.init_params(0, dev)
+    cfg_kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+    ctx = children.torch_context()
+    host = "127.0.0.1"
+    port_q = ctx.Queue()
+    report_q = ctx.Queue()
+    server = children.process(ctx, _executor_proc, (
+        cfg_kw, model_factory, factory_kw, rounds, port_q, stall_timeout_s,
+        attest_scores, tls_dir, dev.type, verbose))
+    server.start()
+    clients: List = []
+    sponsor = router = None
+    kr: Optional[dict] = None
+    final = None
+    reports: List[dict] = []
+    launches: Dict[str, Dict[str, int]] = {}
+    try:
+        port = port_q.get(timeout=120)
+        for i, (sx, sy) in enumerate(shards):
+            p = children.process(ctx, _thin_client_proc, (
+                host, port, client_seed(master_seed, i), model_factory,
+                factory_kw, np.asarray(sx), np.asarray(sy), cfg_kw, rounds,
+                attest_scores, tls_dir, dev.type, report_q, f"thin-{i}"),
+                own_group=True)
+            p.start()
+            clients.append(p)
+
+        xte, yte = test_set
+        test_t = (feature_tensor(xte, dev),
+                  torch.as_tensor(one_hot(np.asarray(yte),
+                                          model.num_classes), device=dev))
+        sponsor = CoordinatorClient(host, port, timeout_s=120.0, tls=tls)
+        router = ReadRouter(sponsor, timeout_s=120.0, tls=tls)
+
+        def runner_failed(info: dict) -> bool:
+            pr = sponsor.request("progress")
+            if pr.get("error"):
+                raise RuntimeError(f"executor failed: {pr['error']}")
+            return False
+
+        history, epoch_times, spawn_s = sponsor_rounds(
+            sponsor, router, model, template, test_t, rounds,
+            time.monotonic() + timeout_s, t_start, verbose,
+            f"mesh-executor federation incomplete after {timeout_s}s",
+            runner_failed)
+        reports = _drain_reports(report_q, clients, wait_s=60.0)
+        final = _info_with_retry(sponsor)
+        kr = sponsor.request("kernels")
+    finally:
+        if router is not None:
+            router.close()
+        if sponsor is not None:
+            sponsor.close()
+        join_clients(clients)
+        stop_processes([server])
+
+    result = ProcessFederationResult(
+        accuracy_history=history,
+        rounds_completed=final["epoch"],
+        log_head=final["log_head"],
+        log_size=final["log_size"],
+        recovered_clients=[],
+        replica_report=None,
+        wall_time_s=time.monotonic() - t_start,
+        final_info=final)
+    result.epoch_times = epoch_times
+    result.spawn_s = spawn_s
+    if kr is not None and kr.get("ok"):
+        launches["executor"] = kr["launches"]
+        result.executor = kr["executor"]
+        result.ed25519_backend = kr["ed25519_backend"]
+        if kr["executor"]["runner_mono"] is not None:
+            result.stage_s = kr["executor"]["runner_mono"] - t_start
+    for rep in reports:
+        launches[rep["role"]] = rep["launches"]
+        result.child_foreign_modules[rep["role"]] = rep["foreign_modules"]
+        result.client_counts[rep["role"]] = {
+            k: rep[k] for k in ("attested", "evaluations",
+                                "attest_launches")}
+    launches["sponsor"] = launch_counts()
+    result.kernel_launches = launches
+    result.client_exitcodes = [p.exitcode for p in clients]
+    return result

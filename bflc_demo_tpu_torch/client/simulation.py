@@ -11,9 +11,10 @@ numpy.
 Added for cross-framework runs: `init_params` starts from given values
 (for example the reference's, through `Model.params_from_jax`) instead of
 the port's own seeded init.  `SimulationResult.n_devices` is 1: the port
-runs every runtime on one card.  Dropped: the mesh-only result fields
-`flops_per_round`, `attest_log` and `mfu` (their features are not
-ported), and local optimizers other than plain SGD.
+runs every runtime on one card; `attest_log` is the mesh runtime's
+signed committee rows (`client/mesh_runtime.py`).  Dropped: the
+mesh-only result fields `flops_per_round` and `mfu` (their features are
+not ported), and local optimizers other than plain SGD.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ class SimulationResult:
     ledger_log_size: int
     ledger: Any = None          # the live ledger (for inspection)
     n_devices: int = 1          # devices the data plane used
+    attest_log: Any = None      # {epoch: {addr: sig_hex}} of the wallet-
+    # signed committee score rows (mesh runtime attestation), else None
 
     @property
     def final_accuracy(self) -> float:

@@ -1,21 +1,25 @@
 """Benchmark presets (port of `bflc_demo_tpu/eval/configs.py`).
 
 Ported: `run_with_runtime` (:36-180) for the `mesh` (the default, as in
-the reference), `host`, `threaded` and `processes` runtimes, refusing
-the mesh-only options elsewhere and a preset without a process factory
-on `processes`; and all six presets (:191-330) with the reference's
-defaults, each with its `process_factory` and `factory_kw` (the
-`models` entry every fleet process builds its model with):
-config 0 (MLP, MNIST shapes), config 1 (softmax regression on
+the reference), `host`, `threaded`, `processes` and `executor` runtimes
+(the mesh executor with thin client processes,
+`client/process_runtime.run_federated_mesh_processes`, :169-178),
+refusing the mesh-only options elsewhere and a preset without a process
+factory on `processes` or `executor`; and all six presets (:191-330)
+with the reference's defaults, each with its `process_factory` and
+`factory_kw` (the `models` entry every fleet process builds its model
+with): config 0 (MLP, MNIST shapes), config 1 (softmax regression on
 occupancy), config 2 (LeNet-5, CIFAR-10 shapes, Dirichlet 0.5), config
 3 (FEMNIST CNN, 100 clients, active participation on the mesh runtime),
 config 4 (ResNet-18, CIFAR-100 shapes, 32 clients; on the mesh runtime
 active participation, `client_chunk` 4 and `remat`) and config 5 (the
 transformer on SST-2-shaped text).  The image sets are the seeded
 stand-ins of `data/synthetic.py` unless `$BFLC_DATA_DIR` holds the real
-arrays.  Still to port, and raising with the item: the executor runtime
-and the fleet's other options (chaos, telemetry: A9/A14, unexpected
-keywords here) and config 4's `secure=True` (A12).
+arrays.  Still to port, and raising with the item: the fleet's other
+options (chaos, telemetry: A9/A14, unexpected keywords here) and config
+4's `secure=True` (A12).  `attest_scores` applies to `mesh` and
+`executor`, `tls_dir` to `processes` and `executor` (:94-99); every
+other pairing raises, never silently dropped.
 `standbys`, `quorum`, `bft_validators`, `tls_dir`, `snapshot_interval`,
 `snapshot_dir` and `rederive` reach the fleet, `cells`, `cell_size`,
 `bft_validators` and `rederive` the hier fleet (`BFLC_HIER_LEGACY=1`
@@ -53,10 +57,9 @@ from bflc_demo_tpu_torch.models import (make_femnist_cnn, make_lenet5,
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
 from bflc_demo_tpu_torch.utils.codecs import sparse_enabled
 
-RUNTIMES = ("mesh", "host", "threaded", "processes")
-UNPORTED_RUNTIME = ("the {runtime!r} runtime is not ported yet (ROADMAP A9: "
-                    "the executor); the port runs 'mesh', 'host', "
-                    "'threaded' and 'processes'")
+RUNTIMES = ("mesh", "host", "threaded", "processes", "executor")
+UNKNOWN_RUNTIME = ("runtime must be mesh|host|threaded|processes|executor, "
+                   "got {runtime!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +88,10 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
     host: per-client calls, the reference-shaped event loop;
     threaded: a thread per client against one locked ledger, with the
     failure detector's recovery ops;
+    executor: thin client processes that stage their shards once while
+    an executor process runs every round as one program on the device
+    (score attestation on unless `attest_scores` is False, TLS with
+    `tls_dir`);
     processes: the writer, the clients and a replica as OS processes
     over the socket ledger (`process_factory`/`factory_kw` name the
     model each process builds), the parent as sponsor, with `standbys`
@@ -96,15 +103,17 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
     refuses standbys, quorum, TLS, snapshots and an async genome, and
     which `BFLC_HIER_LEGACY=1` pins back to the single tier; `rederive`
     arms the validators' re-derivation of every commit on both.
-    attest_scores and mesh_kw (participation, client_chunk, ...) apply
-    only to 'mesh'; asking another runtime for them raises, never
-    silently drops.  `ledger_backend` is the reference's: "auto" and
-    "python" run the python ledger, "native" raises (ROADMAP A9).
+    attest_scores applies to 'mesh' and 'executor', tls_dir to
+    'processes' and 'executor', and mesh_kw (participation,
+    client_chunk, ...) only to 'mesh'; asking another runtime for them
+    raises, never silently drops.  `ledger_backend` is the reference's:
+    "auto" and "python" run the python ledger, "native" raises (ROADMAP
+    A9).
     The fleet's other options (chaos, telemetry, ...) come with the
     items that give them a meaning (ROADMAP A9/A14).
     """
     if runtime not in RUNTIMES:
-        raise ValueError(UNPORTED_RUNTIME.format(runtime=runtime))
+        raise ValueError(UNKNOWN_RUNTIME.format(runtime=runtime))
     # async FedBuff and sparse upload deltas are process-runtime
     # protocol modes: the other runtimes drive the synchronous round loop
     # and move no blobs, so they would ignore them
@@ -113,18 +122,21 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
              ("delta_density (protocol)",
               cfg.delta_density if sparse_enabled(cfg) else 0),
              ("standbys", standbys), ("quorum", quorum),
-             ("bft_validators", bft_validators), ("tls_dir", tls_dir),
+             ("bft_validators", bft_validators),
              ("snapshot_interval", snapshot_interval),
              ("snapshot_dir", snapshot_dir), ("cells", cells),
              ("cell_size", cell_size),
              ("rederive", rederive != "off" and rederive))
-    if runtime != "processes" and any(v for _, v in fleet):
-        bad = [n for n, v in fleet if v]
+    inapplicable = list(fleet) if runtime != "processes" else []
+    if runtime not in ("mesh", "executor"):
+        # attestation exists on both mesh-family runtimes
+        inapplicable.append(("attest_scores", attest_scores))
+    if runtime not in ("processes", "executor"):
+        inapplicable.append(("tls_dir", tls_dir))
+    bad = [n for n, v in inapplicable if v]
+    if bad:
         raise ValueError(f"options {bad} do not apply to the {runtime!r} "
                          f"runtime")
-    if runtime != "mesh" and attest_scores:
-        raise ValueError(f"option 'attest_scores' does not apply to the "
-                         f"{runtime!r} runtime")
     check_backend(ledger_backend)
     if runtime == "mesh":
         return run_federated_mesh(model, shards, test_set, cfg,
@@ -143,8 +155,15 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
                                   ledger_backend=ledger_backend,
                                   device=device).run(rounds=rounds)
     if not process_factory:
-        raise ValueError("this preset does not support the 'processes' "
-                         "runtime (no model factory registered)")
+        raise ValueError(f"this preset does not support the {runtime!r} "
+                         f"runtime (no model factory registered)")
+    if runtime == "executor":
+        from bflc_demo_tpu_torch.client.process_runtime import \
+            run_federated_mesh_processes
+        return run_federated_mesh_processes(
+            process_factory, shards, test_set, cfg, rounds=rounds,
+            factory_kw=factory_kw or {}, tls_dir=tls_dir,
+            attest_scores=attest_scores, device=device, verbose=verbose)
     if (cells or cell_size) and os.environ.get("BFLC_HIER_LEGACY"):
         # the reference benchmark's single-tier pin: ignore the cell tier
         # and run the unchanged flat fleet

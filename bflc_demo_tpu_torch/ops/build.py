@@ -5,7 +5,13 @@ shared library with a plain C interface, loaded with `ctypes`.  The
 library lands in `build/torch_kernels/` at the repository root, named by
 a hash of its source and flags, so an edited source never loads a stale
 build.  `build_all` starts one `nvcc` per missing library and waits for
-all of them, so the sources compile in parallel.
+all of them, so the sources compile in parallel.  A library with
+`PARTS` compiles as that many objects at once, each with `-D<macro>=i`
+selecting the entry points (and so the kernel instantiations) of part
+i, linked into the one library: the flash-attention source instantiates
+each of its four entry points at two dtypes and four head dims, one
+part an entry point at one dtype, and one `nvcc` over all of it took
+49-55 s of a cold build on the card's host.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU path never needs a compiler.
@@ -32,6 +38,8 @@ SOURCES = {"flash_attention": "flash_attention.cu",
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# library -> (macro, parts): compiled as parts objects in parallel
+PARTS = {"flash_attention": ("BFLC_FA_PART", 8)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -47,16 +55,18 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (_CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(NVCC_FLAGS) + repr(PARTS.get(name))
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile every named library that is not built yet, all at once.
 
-    Returns {name: {"path", "seconds", "log"}} — `log` holds nvcc's
-    `-Xptxas -v` report (registers, shared memory, spills per kernel);
-    seconds is 0.0 for a library that was already built.
+    Returns {name: {"path", "seconds", "parts_s", "log"}} — `log` holds
+    nvcc's `-Xptxas -v` report (registers, shared memory, spills per
+    kernel); seconds is 0.0 for a library that was already built, and
+    `parts_s` the seconds at which each part's compile was seen done.
     """
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -65,22 +75,49 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     for name in names:
         path = library_path(name)
         if path.exists():
-            out[name] = {"path": str(path), "seconds": 0.0, "log": ""}
+            out[name] = {"path": str(path), "seconds": 0.0, "parts_s": [],
+                         "log": ""}
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(_CSRC / SOURCES[name])]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, path, time.perf_counter())
-    for name, (proc, tmp, path, t0) in running.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
-                               f"(exit {proc.returncode}):\n{log}")
+        src = str(_CSRC / SOURCES[name])
+        if name in PARTS:
+            macro, n = PARTS[name]
+            objs = [path.with_suffix(f".{os.getpid()}.{i}.o")
+                    for i in range(n)]
+            flags = [f for f in NVCC_FLAGS if f != "-shared"]
+            cmds = [[_nvcc(), *flags, f"-D{macro}={i}", "-c", "-o",
+                     str(obj), src] for i, obj in enumerate(objs)]
+        else:
+            objs = []
+            cmds = [[_nvcc(), *NVCC_FLAGS, "-o", str(tmp), src]]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        running[name] = (procs, objs, tmp, path, time.perf_counter())
+    for name, (procs, objs, tmp, path, t0) in running.items():
+        logs, parts_s = [], []
+        for proc in procs:
+            log, _ = proc.communicate()
+            logs.append(log)
+            parts_s.append(time.perf_counter() - t0)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
+                                   f"(exit {proc.returncode}):\n{log}")
+        if objs:
+            link = subprocess.run(
+                [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True)
+            for obj in objs:
+                obj.unlink()
+            if link.returncode != 0:
+                raise RuntimeError(f"linking {SOURCES[name]} failed "
+                                   f"(exit {link.returncode}):\n"
+                                   f"{link.stdout}{link.stderr}")
         os.replace(tmp, path)     # atomic: a reader never sees half a file
+        # seconds until each compile was seen done (in start order)
         out[name] = {"path": str(path),
-                     "seconds": time.perf_counter() - t0, "log": log}
+                     "seconds": time.perf_counter() - t0,
+                     "parts_s": parts_s, "log": "".join(logs)}
     return out
 
 

@@ -902,58 +902,151 @@ int run_dq(const void* q, const void* k, const void* v, const void* mask,
                 Skv, H, scale);
 }
 
-// dtype code 0 = float32, 1 = bfloat16; head dims 16/32/64/128
-#define BFLC_DISPATCH(RUN, ...)                                    \
-  switch (dtype * 1000 + head_dim) {                               \
-    case 16: return RUN<float, 16>(__VA_ARGS__);                   \
-    case 32: return RUN<float, 32>(__VA_ARGS__);                   \
-    case 64: return RUN<float, 64>(__VA_ARGS__);                   \
-    case 128: return RUN<float, 128>(__VA_ARGS__);                 \
-    case 1016: return RUN<__nv_bfloat16, 16>(__VA_ARGS__);         \
-    case 1032: return RUN<__nv_bfloat16, 32>(__VA_ARGS__);         \
-    case 1064: return RUN<__nv_bfloat16, 64>(__VA_ARGS__);         \
-    case 1128: return RUN<__nv_bfloat16, 128>(__VA_ARGS__);        \
+// head dims 16/32/64/128 of one dtype
+#define BFLC_HEAD_DIMS(RUN, T, ...)                                \
+  switch (head_dim) {                                              \
+    case 16: return RUN<T, 16>(__VA_ARGS__);                       \
+    case 32: return RUN<T, 32>(__VA_ARGS__);                       \
+    case 64: return RUN<T, 64>(__VA_ARGS__);                       \
+    case 128: return RUN<T, 128>(__VA_ARGS__);                     \
     default: return static_cast<int>(cudaErrorInvalidValue);       \
   }
 
 }  // namespace
 
+// BFLC_FA_PART (0-7) compiles entry point BFLC_FA_PART / 2 at dtype
+// BFLC_FA_PART % 2 (0 float32, 1 bfloat16), and so only the kernels that
+// pair instantiates: the build compiles the eight parts in parallel and
+// links them into one library (ops/build.py).  Unset, this file compiles
+// all of them.  An entry point's float32 part holds its C entry, which
+// hands bfloat16 (dtype code 1) to its twin `_bf16` in the other part.
+#if defined(BFLC_FA_PART)
+#define BFLC_FA_PART_IS(entry, dtype) (BFLC_FA_PART == 2 * (entry) + (dtype))
+#else
+#define BFLC_FA_PART_IS(entry, dtype) 1
+#endif
+
 extern "C" {
 
+// the bfloat16 twins, which a float32 part calls across parts
+int bflc_flash_fwd_bf16(int head_dim, const void* q, const void* k,
+                        const void* v, const void* mask, void* out, void* lse,
+                        int B, int Sq, int Skv, int H, float scale, int warps,
+                        void* stream);
+int bflc_flash_dkdv_bf16(int head_dim, const void* q, const void* k,
+                         const void* v, const void* mask, const void* dout,
+                         const void* lse, const void* delta, void* dk,
+                         void* dv, int B, int Sq, int Skv, int H, float scale,
+                         int warps, void* stream);
+int bflc_flash_dq_bf16(int head_dim, const void* q, const void* k,
+                       const void* v, const void* mask, const void* dout,
+                       const void* lse, const void* delta, void* dq, int B,
+                       int Sq, int Skv, int H, float scale, int warps,
+                       void* stream);
+int bflc_flash_carry_bf16(int head_dim, const void* q, const void* k,
+                          const void* v, const void* mask, const void* acc_in,
+                          const void* m_in, const void* l_in, void* acc_out,
+                          void* m_out, void* l_out, int B, int Sq, int Skv,
+                          int H, float scale, int warps, void* stream);
+
+#if BFLC_FA_PART_IS(0, 1)
+int bflc_flash_fwd_bf16(int head_dim, const void* q, const void* k,
+                        const void* v, const void* mask, void* out, void* lse,
+                        int B, int Sq, int Skv, int H, float scale, int warps,
+                        void* stream) {
+  BFLC_HEAD_DIMS(run_fwd, __nv_bfloat16, q, k, v, mask, out, lse, B, Sq, Skv,
+                 H, scale, warps, static_cast<cudaStream_t>(stream))
+}
+#endif
+
+#if BFLC_FA_PART_IS(0, 0)
 int bflc_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
                    const void* v, const void* mask, void* out, void* lse,
                    int B, int Sq, int Skv, int H, float scale, int warps,
                    void* stream) {
-  BFLC_DISPATCH(run_fwd, q, k, v, mask, out, lse, B, Sq, Skv, H, scale,
-                warps, static_cast<cudaStream_t>(stream))
+  if (dtype == 1) return bflc_flash_fwd_bf16(head_dim, q, k, v, mask, out, lse,
+      B, Sq, Skv, H, scale, warps, stream);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  BFLC_HEAD_DIMS(run_fwd, float, q, k, v, mask, out, lse, B, Sq, Skv, H, scale,
+                 warps, static_cast<cudaStream_t>(stream))
 }
+#endif
 
+#if BFLC_FA_PART_IS(1, 1)
+int bflc_flash_dkdv_bf16(int head_dim, const void* q, const void* k,
+                         const void* v, const void* mask, const void* dout,
+                         const void* lse, const void* delta, void* dk,
+                         void* dv, int B, int Sq, int Skv, int H, float scale,
+                         int warps, void* stream) {
+  BFLC_HEAD_DIMS(run_dkdv, __nv_bfloat16, q, k, v, mask, dout, lse, delta, dk,
+                 dv, B, Sq, Skv, H, scale, warps,
+                 static_cast<cudaStream_t>(stream))
+}
+#endif
+
+#if BFLC_FA_PART_IS(1, 0)
 int bflc_flash_dkdv(int dtype, int head_dim, const void* q, const void* k,
                     const void* v, const void* mask, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv,
                     int B, int Sq, int Skv, int H, float scale, int warps,
                     void* stream) {
-  BFLC_DISPATCH(run_dkdv, q, k, v, mask, dout, lse, delta, dk, dv, B, Sq,
-                Skv, H, scale, warps, static_cast<cudaStream_t>(stream))
+  if (dtype == 1) return bflc_flash_dkdv_bf16(head_dim, q, k, v, mask, dout,
+      lse, delta, dk, dv, B, Sq, Skv, H, scale, warps, stream);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  BFLC_HEAD_DIMS(run_dkdv, float, q, k, v, mask, dout, lse, delta, dk, dv, B,
+                 Sq, Skv, H, scale, warps, static_cast<cudaStream_t>(stream))
 }
+#endif
 
+#if BFLC_FA_PART_IS(2, 1)
+int bflc_flash_dq_bf16(int head_dim, const void* q, const void* k,
+                       const void* v, const void* mask, const void* dout,
+                       const void* lse, const void* delta, void* dq, int B,
+                       int Sq, int Skv, int H, float scale, int warps,
+                       void* stream) {
+  BFLC_HEAD_DIMS(run_dq, __nv_bfloat16, q, k, v, mask, dout, lse, delta, dq, B,
+                 Sq, Skv, H, scale, warps, static_cast<cudaStream_t>(stream))
+}
+#endif
+
+#if BFLC_FA_PART_IS(2, 0)
 int bflc_flash_dq(int dtype, int head_dim, const void* q, const void* k,
                   const void* v, const void* mask, const void* dout,
-                  const void* lse, const void* delta, void* dq, int B,
-                  int Sq, int Skv, int H, float scale, int warps,
-                  void* stream) {
-  BFLC_DISPATCH(run_dq, q, k, v, mask, dout, lse, delta, dq, B, Sq, Skv, H,
-                scale, warps, static_cast<cudaStream_t>(stream))
+                  const void* lse, const void* delta, void* dq, int B, int Sq,
+                  int Skv, int H, float scale, int warps, void* stream) {
+  if (dtype == 1) return bflc_flash_dq_bf16(head_dim, q, k, v, mask, dout, lse,
+      delta, dq, B, Sq, Skv, H, scale, warps, stream);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  BFLC_HEAD_DIMS(run_dq, float, q, k, v, mask, dout, lse, delta, dq, B, Sq,
+                 Skv, H, scale, warps, static_cast<cudaStream_t>(stream))
 }
+#endif
 
+#if BFLC_FA_PART_IS(3, 1)
+int bflc_flash_carry_bf16(int head_dim, const void* q, const void* k,
+                          const void* v, const void* mask, const void* acc_in,
+                          const void* m_in, const void* l_in, void* acc_out,
+                          void* m_out, void* l_out, int B, int Sq, int Skv,
+                          int H, float scale, int warps, void* stream) {
+  BFLC_HEAD_DIMS(run_carry, __nv_bfloat16, q, k, v, mask, acc_in, m_in, l_in,
+                 acc_out, m_out, l_out, B, Sq, Skv, H, scale, warps,
+                 static_cast<cudaStream_t>(stream))
+}
+#endif
+
+#if BFLC_FA_PART_IS(3, 0)
 int bflc_flash_carry(int dtype, int head_dim, const void* q, const void* k,
                      const void* v, const void* mask, const void* acc_in,
                      const void* m_in, const void* l_in, void* acc_out,
                      void* m_out, void* l_out, int B, int Sq, int Skv, int H,
                      float scale, int warps, void* stream) {
-  BFLC_DISPATCH(run_carry, q, k, v, mask, acc_in, m_in, l_in, acc_out, m_out,
-                l_out, B, Sq, Skv, H, scale, warps,
-                static_cast<cudaStream_t>(stream))
+  if (dtype == 1) return bflc_flash_carry_bf16(head_dim, q, k, v, mask, acc_in,
+      m_in, l_in, acc_out, m_out, l_out, B, Sq, Skv, H, scale, warps, stream);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  BFLC_HEAD_DIMS(run_carry, float, q, k, v, mask, acc_in, m_in, l_in, acc_out,
+                 m_out, l_out, B, Sq, Skv, H, scale, warps,
+                 static_cast<cudaStream_t>(stream))
 }
+#endif
 
 }  // extern "C"

@@ -16,14 +16,18 @@ Port of `bflc_demo_tpu/parallel/fedavg.py:make_sharded_protocol_round`
    `core.aggregate.apply_selection` given the trained models (on CPU
    tensors it takes the order XLA:CPU compiles into the round program);
 5. the payload ids of all N deltas and of the new model come from the
-   fingerprint kernel (`ops/fingerprint.py`, two launches).
+   fingerprint kernel (`ops/fingerprint.py`, two launches);
+6. with `expose_candidates` the K uploaded deltas, stacked in ascending
+   uploader id (:425-433): the reference all-gathers them over the
+   client axis, one card indexes its stacked deltas with the scoring's
+   own `_first_k_indices`.  They are the evidence committee members
+   re-score to attest their rows (`comm/executor_service.py`).
 
 `make_sharded_protocol_round` checks what the reference checks (the
 scoring schedule, the static committee geometry, client_chunk
 divisibility) and raises
 `NotImplementedError`, naming the ROADMAP item, for what is not ported:
-ring scoring, secure aggregation, local optimizers and exposed
-candidates.  The memory controls are ported: `client_chunk` trains the
+ring scoring, secure aggregation and local optimizers.  The memory controls are ported: `client_chunk` trains the
 slots, and scores the committee, in sequential chunks, and `remat`
 recomputes each training step's forward in its backward
 (`core.local_train.sgd_stacked`).  The returned function checks the masks'
@@ -57,6 +61,8 @@ class ShardedRoundResult(NamedTuple):
     global_loss: torch.Tensor   # mean avg_cost of the selected
     delta_fps: torch.Tensor     # (N, 8) payload fingerprints (uint32 words)
     params_fp: torch.Tensor     # (8,) fingerprint of the new model
+    cand_deltas: Params = ()    # expose_candidates: the K uploaded deltas,
+                                # stacked ascending-uploader-id; else ()
 
 
 def _first_k_indices(mask: torch.Tensor, k: int) -> torch.Tensor:
@@ -99,12 +105,16 @@ def committee_score_matrix(model: Model, params: Params, deltas: Params,
     n = xs.shape[0]
     up_idx = _first_k_indices(uploader_mask, k_up)
     comm_idx = _first_k_indices(committee_mask, comm_count)
-    part = score_block(model, params, {k: d[up_idx] for k, d in
-                                       deltas.items()}, lr,
+    part = score_block(model, params, candidate_deltas(deltas, up_idx), lr,
                        xs[comm_idx], ys[comm_idx], chunk)
     mat = torch.zeros((n, n), dtype=torch.float32, device=xs.device)
     mat[comm_idx[:, None], up_idx[None, :]] = part
     return mat
+
+
+def candidate_deltas(deltas: Params, up_idx: torch.Tensor) -> Params:
+    """The uploaders' rows of the stacked deltas, in `up_idx` order."""
+    return {k: d[up_idx] for k, d in deltas.items()}
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -160,8 +170,7 @@ def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
     for asked, what, item in (
             (scoring == "ring", "scoring='ring'", "ROADMAP A7"),
             (secure, "secure aggregation", "ROADMAP A12"),
-            (local_optimizer is not None, "local_optimizer", "ROADMAP A11"),
-            (expose_candidates, "expose_candidates", "ROADMAP A9")):
+            (local_optimizer is not None, "local_optimizer", "ROADMAP A11")):
         if asked:
             raise _unported(what, item)
     k = aggregate_count
@@ -224,7 +233,10 @@ def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
             # 5. payload ids of every delta and of the new model
             delta_fps = fingerprint_stacked(deltas)
             params_fp = fingerprint_pytree(new_params)
+            # 6. the K uploaded deltas, ascending uploader id
+            cands = (candidate_deltas(deltas, _first_k_indices(
+                up, needed_update_count)) if expose_candidates else ())
         return ShardedRoundResult(new_params, score, med, sel, order, costs,
-                                  g_loss, delta_fps, params_fp)
+                                  g_loss, delta_fps, params_fp, cands)
 
     return round_fn

@@ -34,9 +34,12 @@ off|shard|full`, the reference's choices, :136-143).  The reference's other run
 options belong to parts not ported yet.  Each such flag is accepted by
 the parser so that the CLI can refuse it by name (exit 2 with the
 ROADMAP item) rather than fail on an unknown argument or drop it.  Still
-dropped: attested scores and chaos (A9; `--ledger-backend` is ported:
-auto and python, native exits 2), checkpoints and the device profiler
-(A11), secure aggregation (A12), and traces, plots and telemetry (A14).
+dropped: chaos (A9; `--ledger-backend` is ported: auto and python,
+native exits 2), checkpoints and the device profiler (A11), secure
+aggregation (A12), and traces, plots and telemetry (A14).  Score
+attestation is ported: `--attest-scores` / `--no-attest-scores`, the
+reference's tri-state (:48-51; not given = on wherever wallets exist),
+for the mesh and executor runtimes.
 """
 
 from __future__ import annotations
@@ -53,8 +56,7 @@ _ENV_PREFIX = "BFLC_"
 
 # reference run options -> the ROADMAP item that ports them
 UNPORTED_OPTIONS: Dict[str, str] = {
-    **{name: "A9" for name in (
-        "attest_scores", "chaos_seed", "chaos_profile")},
+    **{name: "A9" for name in ("chaos_seed", "chaos_profile")},
     **{name: "A11" for name in ("checkpoint_dir", "checkpoint_every",
                                 "xprof_window")},
     **{name: "A14" for name in ("trace_path", "plot_path", "telemetry_dir",
@@ -151,6 +153,11 @@ def add_flags(p: argparse.ArgumentParser) -> None:
                         "(fold what the lossy encode dropped into the "
                         "next delta; needs --delta-density < 1 or "
                         "--delta-dtype f16|i8)")
+    p.add_argument("--attest-scores", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="mesh/executor runtimes: score attestation (not "
+                        "given: on wherever wallets exist; "
+                        "--no-attest-scores opts out)")
     for name, item in UNPORTED_OPTIONS.items():
         p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True,
                        default=None, help=f"not ported yet (ROADMAP {item})")

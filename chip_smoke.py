@@ -306,6 +306,7 @@ runs only the build and the rederive legs (m, n).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -313,6 +314,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -337,12 +339,14 @@ MESH_TRAIN_SHAPE = (320, 64, 4, 32)  # mesh round: 20 clients x batch 16
 MESH_SCORE_SHAPE = (6400, 64, 4, 32)  # 4 scorers x 10 candidates x 160 rows
 SPONSOR_SHAPE = (800, 64, 4, 32)     # the sponsor's test set
 AGG_SCORE_SHAPE = (128, 64, 4, 32)   # a cell aggregator's root score
+ATTEST_SCORE_SHAPE = (1600, 64, 4, 32)  # a member's re-score: 10 x 160
 # every kernel's block geometry follows the shape (launch_warps): on an
 # H100 the training batch and MULTI_SHAPE take one-warp blocks, PAIR_SHAPE
 # two and the score (and sponsor) batch four, for the forward, dK/dV and
 # dQ alike (S_kv = S_q); the compare phase covers each
 DENSE_SHAPES = (TRAIN_SHAPE, MULTI_SHAPE, PAIR_SHAPE, SCORE_SHAPE,
-                MESH_TRAIN_SHAPE, MESH_SCORE_SHAPE, AGG_SCORE_SHAPE)
+                MESH_TRAIN_SHAPE, MESH_SCORE_SHAPE, AGG_SCORE_SHAPE,
+                ATTEST_SCORE_SHAPE)
 BIG_FEW = dict(calls=5, replays=2, repeats=5)   # device_ms at 6400 rows
 SHARD_SHAPE = (32, 1024, 4, 32)      # sp training shard: 8 shards x B 4
 RING_SHAPE = (4, 8192, 4, 32)        # the same sequence, unsharded
@@ -578,10 +582,34 @@ REDERIVE_MIN_BEST = MIN_BEST_ACC
 # card with a cold connection, chip run 1) certifies well inside the
 # first; a refused one (a lie, a NaN) gives up after the second
 REDERIVE_DRILL_TIMEOUT_S, REDERIVE_LIE_TIMEOUT_S = 10.0, 3.0
+# the mesh executor: (o) `executor_config5`, config 5 at full width
+# through the preset's entry point on runtime="executor" over TLS (20
+# thin client processes that stage their shards once, the executor
+# process running every round as one program, each committee member
+# re-scoring the K candidates on its own shard and signing its row),
+# EXECUTOR_C5_ROUNDS rounds, from the CPU trajectories of both packages
+# (`tests/executor_trajectory.py`, PERF.md section 6); (p)
+# `executor_attest_drill`, executors in threads of this process on the
+# card at the reference test's 6-client protocol (FLEET_PROTO,
+# tests/test_mesh_executor.py:17-19): the stage refusals, an honest
+# attested round, a tampering executor (its members refuse within
+# EXECUTOR_TAMPER_TIMEOUT_S), then the in-process mesh runtime at config
+# 5 with wallets, EXECUTOR_MESH_ROUNDS rounds; and the CLI line, config
+# 1 on the executor runtime for EXECUTOR_CLI_ROUNDS rounds
+EXECUTOR_C5_ROUNDS = 10
+EXECUTOR_MIN_BEST = MIN_BEST_ACC
+EXECUTOR_TAMPER_TIMEOUT_S = 3.0
+EXECUTOR_MESH_ROUNDS = 2
+EXECUTOR_CLI_ROUNDS = 3
+EXECUTOR_MASTER_SEED = b"attest-master-0001"    # the reference test's
 # config 5's launches a training (10 minibatches of 16 of a 160-row
 # shard, a forward and a backward per layer, depth 2) and a forward's
 # (a scored entry, a sponsor evaluation)
 ASYNC_K_TRAIN, ASYNC_K1_FORWARD = 20, 2
+# the executor's launches a round: the mesh round's without the
+# sponsor's evaluation, which runs in the sponsor's process
+EXECUTOR_PER_ROUND = dict(MESH_PER_ROUND, flash_fwd=MESH_PER_ROUND[
+    "flash_fwd"] - ASYNC_K1_FORWARD)
 B5_SELFCHECK_LAUNCHES = 6            # the engine's self-check: 1 + 5 blocks
 WORK_DIR = os.path.join("build", "chip_smoke")
 FLEET_MASTER_SEED = b"process-federation-master-0001"   # the fleet's default
@@ -970,9 +998,10 @@ def backward_timing(torch, fa, device, shape, seed, **few) -> dict:
     return rows
 
 
-def forward_timing(torch, fa, device, shape, seed, **few) -> dict:
+def forward_timing(torch, fa, device, shape, seed, card: str = None,
+                   **few) -> dict:
     """The forward kernel at `shape` (float32) beside its plain version
-    and SDPA."""
+    and SDPA (the row names the card when `card` is given)."""
     import torch.nn.functional as F
     q, k, v, _, mask = attention_inputs(torch, shape, torch.float32, device,
                                         seed)
@@ -984,25 +1013,30 @@ def forward_timing(torch, fa, device, shape, seed, **few) -> dict:
         device_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=attn_mask), **few))
     row["library"] = "scaled_dot_product_attention"
+    if card is not None:
+        row["nvidia_smi"] = card
     emit("timing", kernel="flash_fwd", shape=list(shape), dtype="float32",
          **row)
     return row
 
 
-def timing_phase(torch, fa, device) -> dict:
+def timing_phase(torch, fa, device, card: str) -> dict:
     result = {"flash_fwd": forward_timing(torch, fa, device, TRAIN_SHAPE,
                                           seed=2)}
     result.update(backward_timing(torch, fa, device, TRAIN_SHAPE, seed=2))
     for row in result.values():
         row["at"] = {}
     # the forward at the host round's score batch and the mesh round's
-    # shapes (eval only, no backward, at the score and sponsor shapes)
+    # shapes (eval only, no backward, at the score and sponsor shapes),
+    # a cell's root score and an executor member's re-score
     for name, shape, few in (("score", SCORE_SHAPE, {}),
                              ("mesh_train", MESH_TRAIN_SHAPE, {}),
                              ("mesh_score", MESH_SCORE_SHAPE, BIG_FEW),
                              ("sponsor", SPONSOR_SHAPE, {}),
-                             ("agg_score", AGG_SCORE_SHAPE, {})):
-        row = forward_timing(torch, fa, device, shape, seed=8, **few)
+                             ("agg_score", AGG_SCORE_SHAPE, {}),
+                             ("attest_score", ATTEST_SCORE_SHAPE, {})):
+        row = forward_timing(torch, fa, device, shape, seed=8, card=card,
+                             **few)
         result["flash_fwd"]["at"][name] = dict(row, shape=list(shape))
     for name, row in backward_timing(torch, fa, device, MESH_TRAIN_SHAPE,
                                      seed=8).items():
@@ -2170,7 +2204,9 @@ def processes_phase(torch, card: str) -> tuple:
          len(res.replica_reports), FLEET_REPLICAS)
     accuracy_gate(leg, res, FLEET_MIN_BEST, above=True)
 
-    # config 1 at its preset through the CLI, as a user runs it
+    # config 1 at its preset through the CLI, as a user runs it, beside
+    # the executor's CLI line (two light config-1 fleets at once)
+    executor_cli = executor_cli_start()
     env = dict(os.environ, **FLEET_ENV)
     t0 = time.perf_counter()
     reset_counts()
@@ -2197,6 +2233,7 @@ def processes_phase(torch, card: str) -> tuple:
     hold(leg, "rounds", cli["rounds"] == CONFIG1_ROUNDS, cli["rounds"],
          CONFIG1_ROUNDS)
     hold(leg, "best accuracy", cli["best_acc"] >= bar, cli["best_acc"], bar)
+    executor_cli_phase(card, note, executor_cli)
 
     res, *out = fleet_run(
         torch, "processes_config5", card,
@@ -2252,6 +2289,7 @@ def processes_phase(torch, card: str) -> tuple:
     hier_phase(torch, card, note, c5_shards, c5_test, drill_shards,
                (xte[:500], yte[:500]))
     rederive_config5_phase(torch, card, note, c5_shards, c5_test)
+    executor_phase(torch, card, note, cli=False)
     return paths, roles
 
 
@@ -3539,6 +3577,388 @@ def rederive_account(label: str, card: str, res, total: dict,
     return total, by_role
 
 
+# ------------------------------------------------------ the mesh executor
+def executor_log_size(cfg: dict, rounds: int) -> int:
+    """The executor ledger's ops after `rounds` rounds: the registrations
+    and, a round, K uploads, C score rows and the commit
+    (tests/test_mesh_executor.py:38-41)."""
+    return cfg["client_num"] + rounds * (
+        cfg["needed_update_count"] + cfg["comm_count"] + 1)
+
+
+def executor_account(label: str, card: str, res, cfg: dict, rounds: int,
+                     leg_s: float) -> dict:
+    """Emit an executor fleet's `executor` line and hold its gates: the
+    rounds (the executor's own count too, so no runner error), the
+    ledger's size by the arithmetic, K1-K3 and B6 in role `executor` at
+    the mesh round's counts less the sponsor's evaluation
+    (EXECUTOR_PER_ROUND), C attestations a round, K1 in every member's
+    process at one stacked forward an attestation, K1 in every thin
+    client and the sponsor at one forward an evaluation, every thin
+    client exited 0, and the best at EXECUTOR_MIN_BEST.  Returns the
+    main path's launches, every role's."""
+    rec = res.executor or {}
+    execu = res.kernel_launches.get("executor", {})
+    thin = {r: v for r, v in res.kernel_launches.items()
+            if r.startswith("thin-")}
+    counts = res.client_counts
+    sponsor = res.kernel_launches.get("sponsor", {})
+    total = {}
+    for launches in res.kernel_launches.values():
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    thin_total = {k: sum(v.get(k, 0) for v in thin.values())
+                  for k in DENSE_KERNELS}
+    attested = {r: c["attested"] for r, c in counts.items()}
+    rounds_log = rec.get("rounds") or []
+    emit("executor", path=label, nvidia_smi=card, leg_s=leg_s,
+         spawn_s=res.spawn_s, stage_s=res.stage_s,
+         rounds=res.rounds_completed,
+         round_s=[r["round_s"] for r in rounds_log],
+         device_round_s=[r["device_s"] for r in rounds_log],
+         attest_wait_s=[r["attest_s"] for r in rounds_log],
+         evidence_bytes=[r["evidence_bytes"] for r in rounds_log],
+         sponsor_round_s=round_seconds(res.epoch_times),
+         launches_by_role={"executor": execu, "thin": thin_total,
+                           "sponsor": sponsor},
+         attested=attested,
+         evaluations={r: c["evaluations"] for r, c in counts.items()},
+         ledger_log_size=res.ledger_log_size,
+         client_exitcodes=res.client_exitcodes,
+         accuracy=[a for _, a in res.accuracy_history])
+    leg = label
+    hold(leg, "rounds", res.rounds_completed >= rounds,
+         res.rounds_completed, rounds)
+    hold(leg, "executor rounds done", rec.get("rounds_done") == rounds,
+         rec.get("rounds_done"), rounds)
+    want = executor_log_size(cfg, res.rounds_completed)
+    hold(leg, "ledger log size", res.ledger_log_size == want,
+         res.ledger_log_size, want)
+    want = {k: v * res.rounds_completed
+            for k, v in EXECUTOR_PER_ROUND.items()}
+    got = {k: execu.get(k, 0) for k in want}
+    hold(leg, "executor launches at the mesh round's counts", got == want,
+         got, want)
+    want = cfg["comm_count"] * res.rounds_completed
+    hold(leg, "attestations", sum(attested.values()) == want,
+         sum(attested.values()), want)
+    bad = {r: c for r, c in counts.items()
+           if c["attest_launches"].get("flash_fwd", 0)
+           != ASYNC_K1_FORWARD * c["attested"]}
+    hold(leg, "member K1 a re-score", not bad, bad,
+         f"{ASYNC_K1_FORWARD} an attestation")
+    bad = {r: v.get("flash_fwd", 0) for r, v in thin.items()
+           if not counts[r]["evaluations"] or v.get("flash_fwd", 0)
+           != ASYNC_K1_FORWARD * (counts[r]["evaluations"]
+                                  + counts[r]["attested"])}
+    hold(leg, "thin client K1", len(thin) == cfg["client_num"]
+         and not bad, bad, f"{ASYNC_K1_FORWARD} an evaluation")
+    want = ASYNC_K1_FORWARD * len(res.accuracy_history)
+    hold(leg, "sponsor K1", want and sponsor.get("flash_fwd") == want,
+         sponsor.get("flash_fwd"), want)
+    hold(leg, "thin clients' exit codes",
+         res.client_exitcodes == [0] * cfg["client_num"],
+         res.client_exitcodes, 0)
+    accuracy_gate(leg, res, EXECUTOR_MIN_BEST)
+    return total
+
+
+def executor_config5_phase(torch, card: str, note) -> None:
+    """(o) `executor_config5` (the constants above), between a reset and
+    a read of the launch counts: held by `executor_account`, and no
+    process of the fleet left."""
+    from bflc_demo_tpu_torch.eval.configs import config5_transformer_sst2
+    label = "executor_config5"
+    reset_counts()
+    t0 = time.perf_counter()
+    res = config5_transformer_sst2(
+        rounds=EXECUTOR_C5_ROUNDS, runtime="executor", device="cuda",
+        tls_dir=os.path.join(WORK_DIR, "executor_tls"))
+    torch.cuda.synchronize()
+    total = executor_account(label, card, res, CONFIG5_PROTO,
+                             EXECUTOR_C5_ROUNDS, time.perf_counter() - t0)
+    # the fleet's children still alive (the forkserver, which lives until
+    # the script's end, aside)
+    import multiprocessing
+    left = [p.pid for p in multiprocessing.active_children()]
+    hold(label, "fleet processes left", not left, left, [])
+    note(label, (total, {}))
+
+
+def executor_cli_start() -> tuple:
+    """Start the CLI line, `python -m bflc_demo_tpu_torch --config config1
+    --runtime executor --rounds EXECUTOR_CLI_ROUNDS` as a user runs it,
+    its output to files under WORK_DIR (no pipe to fill while it runs
+    beside another leg): (the process, its start, the output's path)."""
+    os.makedirs(WORK_DIR, exist_ok=True)
+    base = os.path.join(WORK_DIR, "executor_cli")
+    with open(base + ".out", "w") as out, open(base + ".err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "bflc_demo_tpu_torch", "--config",
+             "config1", "--runtime", "executor", "--rounds",
+             str(EXECUTOR_CLI_ROUNDS)], stdout=out, stderr=err,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, time.perf_counter(), base
+
+
+def executor_cli_phase(card: str, note, started: tuple = None) -> None:
+    """The CLI line (`executor_cli_start`, started here unless `started`
+    is given): exit 0, its rounds and its ledger's size."""
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig
+    label = "executor_config1_cli"
+    proc, t0, base = started or executor_cli_start()
+    try:
+        proc.wait(timeout=FLEET_TIMEOUT_S + 60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(base + ".out") as out, open(base + ".err") as err:
+        stdout, stderr = out.read(), err.read()
+    if proc.returncode != 0:
+        raise gate_failed(label, "CLI exit code", proc.returncode, 0,
+                          stderr[-4000:])
+    cli = json.loads(stdout.strip().splitlines()[-1])
+    ex = cli["executor"]
+    total = {}
+    for launches in ex["kernel_launches"].values():
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    cfg = dataclasses.asdict(ProtocolConfig())
+    emit("executor", path=label, nvidia_smi=card,
+         cli_wall_s=time.perf_counter() - t0, spawn_s=ex["spawn_s"],
+         stage_s=ex["stage_s"],
+         round_s=[r["round_s"] for r in ex["rounds"] or []],
+         attest_wait_s=[r["attest_s"] for r in ex["rounds"] or []],
+         attested={r: c["attested"]
+                   for r, c in ex["client_counts"].items()},
+         best_acc=cli["best_acc"], ledger_log_size=cli["ledger_log_size"])
+    hold(label, "rounds", cli["rounds"] == EXECUTOR_CLI_ROUNDS,
+         cli["rounds"], EXECUTOR_CLI_ROUNDS)
+    want = executor_log_size(cfg, EXECUTOR_CLI_ROUNDS)
+    hold(label, "ledger log size", cli["ledger_log_size"] == want,
+         cli["ledger_log_size"], want)
+    note(label, (total, {}))
+
+
+def _staged_executor(cls, cfg, timeout_s: float):
+    """An executor of class `cls` on the card in threads, attesting, with
+    the reference test's 6 wallets registered and their ragged seeded
+    shards staged (tests/test_mesh_executor.py:65-100): (server, client,
+    wallets, shards)."""
+    import hashlib
+
+    from bflc_demo_tpu_torch.comm.identity import (_op_bytes,
+                                                   provision_wallets)
+    from bflc_demo_tpu_torch.comm.ledger_service import CoordinatorClient
+    from bflc_demo_tpu_torch.utils.serialization import pack_entries
+    wallets, directory = provision_wallets(cfg.client_num,
+                                           EXECUTOR_MASTER_SEED)
+    srv = cls(cfg, "make_softmax_regression", rounds=1, attest_scores=True,
+              attest_timeout_s=timeout_s, directory=directory,
+              stall_timeout_s=600.0, device="cuda")
+    srv.start()
+    rng = np.random.default_rng(7)
+    shards = {}
+    c = CoordinatorClient(srv.host, srv.port, timeout_s=30.0)
+    for i, w in enumerate(wallets):
+        size = 40 if i == 0 else 32         # ragged: cyclic padding
+        shards[w.address] = (
+            rng.standard_normal((size, 5)).astype(np.float32),
+            rng.integers(0, 2, (size,)).astype(np.int32))
+        c.request("register", addr=w.address, pubkey=w.public_bytes.hex(),
+                  tag=w.sign(_op_bytes("register", w.address, 0,
+                                       b"")).hex())
+    for w in wallets:
+        x, y = shards[w.address]
+        xb, yb = pack_entries({"x": x}), pack_entries({"y": y})
+        payload = hashlib.sha256(xb).digest() + hashlib.sha256(yb).digest()
+        c.request("stage", addr=w.address, x=xb, y=yb,
+                  tag=w.sign(_op_bytes("stage", w.address, 0,
+                                       payload)).hex())
+    return srv, c, wallets, shards
+
+
+def _drive_attestations(c, wallets, shards, cfg, deadline_s: float) -> dict:
+    """Each wallet, as a committee member, re-scores and attests every
+    round pending for it (its own shard, the batched evidence fetch)
+    until the executor finished its round or failed: the attestations
+    made, the refusals (rows that did not match) and the last
+    `progress`."""
+    from bflc_demo_tpu_torch.client.process_runtime import attest_score_row
+    from bflc_demo_tpu_torch.comm.dataplane import ReadRouter
+    from bflc_demo_tpu_torch.models import make_softmax_regression
+    model = make_softmax_regression().to("cuda")
+    template = model.init_params(0, "cuda")
+    router = ReadRouter(c)
+    out = {"attested": 0, "refused": 0, "refusals": []}
+    deadline = time.monotonic() + deadline_s
+    while time.monotonic() < deadline:
+        pr = c.request("progress")
+        if pr.get("error") or pr["rounds_done"] >= 1:
+            break
+        for w in wallets:
+            pa = c.request("round_pending", addr=w.address)
+            if pa.get("epoch") is None:
+                continue
+            x, y = shards[w.address]
+            try:
+                out["attested"] += bool(attest_score_row(
+                    c, w, model, template, cfg, x, y, pa, router=router))
+            except RuntimeError as exc:
+                out["refused"] += 1
+                out["refusals"].append(str(exc)[:200])
+        time.sleep(0.05)
+    out["progress"] = c.request("progress")
+    out["epoch"] = c.request("info")["epoch"]
+    return out
+
+
+def executor_attest_drill_phase(torch, card: str) -> dict:
+    """(p) `executor_attest_drill`, in this process on the card, between
+    a reset and a read of the launch counts: executors in threads at the
+    reference test's protocol (FLEET_PROTO) — a mismatched and an
+    undecodable shard refused BAD_ARG and a good one staged with no
+    round run; an honest round whose C members each re-score and sign
+    (`attest_log` holds C signatures, one round done); a tampering
+    executor that perturbs one member's row, which that member refuses
+    ("does not match"), so `progress` names the members that "did not
+    attest" and epoch 0 stays uncommitted; then the mesh runtime at
+    config 5 with wallets, C signatures a round.  Returns the launch
+    counts."""
+    from bflc_demo_tpu_torch.client.mesh_runtime import run_federated_mesh
+    from bflc_demo_tpu_torch.comm.executor_service import MeshExecutorServer
+    from bflc_demo_tpu_torch.comm.identity import provision_wallets
+    from bflc_demo_tpu_torch.comm.ledger_service import CoordinatorClient
+    from bflc_demo_tpu_torch.eval.configs import config5_data
+    from bflc_demo_tpu_torch.models import make_transformer_classifier
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig
+    from bflc_demo_tpu_torch.utils.serialization import pack_entries
+
+    class TamperingExecutor(MeshExecutorServer):
+        def _collect_attestations(self, epoch, addrs, uploader_ids,
+                                  committee_ids, delta_fps, score_rows,
+                                  cand_deltas, s_pad):
+            rows = np.array(score_rows, copy=True)
+            rows[committee_ids[0], uploader_ids[0]] += 0.25
+            super()._collect_attestations(
+                epoch, addrs, uploader_ids, committee_ids, delta_fps, rows,
+                cand_deltas, s_pad)
+
+    leg = "executor_attest_drill"
+    cfg = ProtocolConfig(**FLEET_PROTO)
+    c_count = cfg.comm_count
+    reset_counts()
+    t0 = time.perf_counter()
+    srv = MeshExecutorServer(cfg, "make_softmax_regression", rounds=1,
+                             require_auth=False, stall_timeout_s=600.0,
+                             device="cuda")
+    srv.start()
+    try:
+        c = CoordinatorClient(srv.host, srv.port)
+        addr = "0x" + "0" * 40
+        xb = pack_entries({"x": np.zeros((10, 5), np.float32)})
+        stage = {
+            "mismatched": c.request("stage", addr=addr, x=xb,
+                                    y=pack_entries({"y": np.zeros(
+                                        (9,), np.int32)})),
+            "undecodable": c.request("stage", addr=addr, x="zz", y="zz"),
+            "good": c.request("stage", addr=addr, x=xb,
+                              y=pack_entries({"y": np.zeros(
+                                  (10,), np.int32)}))}
+        stage_progress = c.request("progress")
+        c.close()
+    finally:
+        srv.close()
+    stage_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    srv, c, wallets, shards = _staged_executor(MeshExecutorServer, cfg,
+                                               30.0)
+    try:
+        honest = _drive_attestations(c, wallets, shards, cfg, 60.0)
+        honest_log = {e: len(v) for e, v in srv.attest_log.items()}
+        honest_rounds = list(srv.round_log)
+    finally:
+        c.close()
+        srv.close()
+    honest_s = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    srv, c, wallets, shards = _staged_executor(
+        TamperingExecutor, cfg, EXECUTOR_TAMPER_TIMEOUT_S)
+    try:
+        tamper = _drive_attestations(c, wallets, shards, cfg,
+                                     EXECUTOR_TAMPER_TIMEOUT_S + 30.0)
+    finally:
+        c.close()
+        srv.close()
+    tamper_s = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    c5_shards, c5_test = config5_data(0, 4000, CONFIG5_PROTO["client_num"])
+    c5_wallets, _ = provision_wallets(CONFIG5_PROTO["client_num"],
+                                      EXECUTOR_MASTER_SEED)
+    mesh = run_federated_mesh(
+        make_transformer_classifier(**CONFIG5_ARCH), c5_shards, c5_test,
+        ProtocolConfig(**CONFIG5_PROTO), rounds=EXECUTOR_MESH_ROUNDS,
+        attest_wallets=c5_wallets, device="cuda")
+    torch.cuda.synchronize()
+    mesh_log = {e: len(v) for e, v in (mesh.attest_log or {}).items()}
+    mesh_s = time.perf_counter() - t1
+    counts = read_counts()
+    emit(leg, nvidia_smi=card,
+         stage={k: v.get("status", "OK" if v.get("ok") else None)
+                for k, v in stage.items()},
+         stage_s=stage_s, honest_attest_log=honest_log,
+         honest_rounds=honest_rounds, honest_s=honest_s,
+         tamper_refused=tamper["refused"],
+         tamper_refusals=tamper["refusals"][:2],
+         tamper_error=tamper["progress"].get("error"), tamper_s=tamper_s,
+         mesh_attest_log=mesh_log, mesh_round_s=mesh.round_times_s,
+         mesh_s=mesh_s, launches=counts)
+    hold(leg, "mismatched shard refused",
+         stage["mismatched"].get("status") == "BAD_ARG",
+         stage["mismatched"].get("status"), "BAD_ARG")
+    hold(leg, "undecodable shard refused",
+         stage["undecodable"].get("status") == "BAD_ARG",
+         stage["undecodable"].get("status"), "BAD_ARG")
+    hold(leg, "good shard staged", stage["good"].get("staged") == 1,
+         stage["good"].get("staged"), 1)
+    hold(leg, "no round before every client staged",
+         stage_progress["rounds_done"] == 0, stage_progress["rounds_done"],
+         0)
+    hold(leg, "honest round attested",
+         honest["attested"] == c_count and honest_log == {0: c_count},
+         [honest["attested"], honest_log], [c_count, {0: c_count}])
+    hold(leg, "honest round done", honest["progress"]["rounds_done"] == 1,
+         honest["progress"], 1)
+    hold(leg, "tampered row refused", tamper["refused"] >= 1 and all(
+        "does not match" in r for r in tamper["refusals"]),
+         tamper["refusals"][:2], "does not match")
+    err = tamper["progress"].get("error") or ""
+    hold(leg, "the tampered round did not attest", "did not attest" in err,
+         err, "did not attest")
+    hold(leg, "nothing committed after the tampered round",
+         tamper["progress"]["rounds_done"] == 0 and tamper["epoch"] == 0,
+         [tamper["progress"]["rounds_done"], tamper["epoch"]], [0, 0])
+    want = {e: CONFIG5_PROTO["comm_count"]
+            for e in range(EXECUTOR_MESH_ROUNDS)}
+    hold(leg, "mesh runtime signatures a round", mesh_log == want,
+         mesh_log, want)
+    return counts
+
+
+def executor_phase(torch, card: str, note, cli: bool = True) -> None:
+    """The mesh executor's legs: (p) the drill, (o) config 5 and, unless
+    `cli` is False (the full script runs it beside `processes_config1`),
+    the CLI line."""
+    note("executor_attest_drill",
+         (executor_attest_drill_phase(torch, card), {}))
+    executor_config5_phase(torch, card, note)
+    if cli:
+        executor_cli_phase(card, note)
+
+
 def load_port(root: str = None):
     """(torch, the flash-attention module, the build module, the card) of
     the package beside this script, or of the checkout at `root`; None
@@ -3558,6 +3978,52 @@ def load_port(root: str = None):
               f"({exc})", file=sys.stderr)
         return None
     return torch, fa, build, resolve_device("cuda")   # also turns TF32 off
+
+
+_BUILD: dict = {}
+
+
+def start_build() -> None:
+    """Start compiling every kernel in a thread (one `nvcc` a source or
+    part, all at once) before torch is imported and the card is
+    initialised, which then overlap the compiles; `finish_build` waits.
+    Without the package beside this script nothing starts."""
+    try:
+        from bflc_demo_tpu_torch.ops import build
+    except ImportError:
+        return
+
+    def run():
+        try:
+            _BUILD["built"] = build.build_all()
+        except Exception as exc:        # noqa: BLE001 — raised by finish
+            _BUILD["error"] = exc
+
+    _BUILD["t0"] = time.perf_counter()
+    _BUILD["thread"] = threading.Thread(target=run, daemon=True)
+    _BUILD["thread"].start()
+
+
+def finish_build(build) -> dict:
+    """`build_all`'s result for the build `start_build` started (its
+    failure raised here), or for one run now; `_BUILD["seconds"]` is its
+    wall time from its start."""
+    thread = _BUILD.get("thread")
+    if thread is None:
+        _BUILD["t0"] = time.perf_counter()
+        _BUILD["built"] = build.build_all()
+    else:
+        thread.join()
+        if "error" in _BUILD:
+            raise _BUILD["error"]
+    _BUILD["seconds"] = time.perf_counter() - _BUILD["t0"]
+    return _BUILD["built"]
+
+
+def build_fields(built: dict) -> dict:
+    """The build line's seconds and each library's parts' seconds."""
+    return {"seconds": _BUILD["seconds"],
+            "parts_s": {n: b["parts_s"] for n, b in built.items()}}
 
 
 def backward_timing_main(root: str) -> int:
@@ -3604,8 +4070,7 @@ def snapshots_main() -> int:
     from bflc_demo_tpu_torch.data import iid_shards, load_occupancy
     from bflc_demo_tpu_torch.eval.configs import config5_data
     t0 = time.perf_counter()
-    build.build_all()
-    emit("build", seconds=time.perf_counter() - t0)
+    emit("build", **build_fields(finish_build(build)))
     card = card_line()
     print(card, flush=True)
     emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
@@ -3636,8 +4101,7 @@ def async_main() -> int:
     torch, _, build, _ = port
     from bflc_demo_tpu_torch.eval.configs import config5_data
     t0 = time.perf_counter()
-    build.build_all()
-    emit("build", seconds=time.perf_counter() - t0)
+    emit("build", **build_fields(finish_build(build)))
     card = card_line()
     print(card, flush=True)
     emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
@@ -3665,8 +4129,7 @@ def codecs_main() -> int:
     from bflc_demo_tpu_torch.data import iid_shards, load_occupancy
     from bflc_demo_tpu_torch.eval.configs import config5_data
     t0 = time.perf_counter()
-    build.build_all()
-    emit("build", seconds=time.perf_counter() - t0)
+    emit("build", **build_fields(finish_build(build)))
     card = card_line()
     print(card, flush=True)
     emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
@@ -3698,8 +4161,7 @@ def hier_main() -> int:
     from bflc_demo_tpu_torch.data import iid_shards, load_occupancy
     from bflc_demo_tpu_torch.eval.configs import config5_data
     t0 = time.perf_counter()
-    build.build_all()
-    emit("build", seconds=time.perf_counter() - t0)
+    emit("build", **build_fields(finish_build(build)))
     card = card_line()
     print(card, flush=True)
     emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
@@ -3730,8 +4192,7 @@ def rederive_main() -> int:
     from bflc_demo_tpu_torch.eval.configs import config5_data
     from bflc_demo_tpu_torch.ops import certified_reduce as cr
     t0 = time.perf_counter()
-    build.build_all()
-    emit("build", seconds=time.perf_counter() - t0)
+    emit("build", **build_fields(finish_build(build)))
     card = card_line()
     print(card, flush=True)
     emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
@@ -3750,6 +4211,29 @@ def rederive_main() -> int:
     return 0
 
 
+def executor_main() -> int:
+    """Only the build and the executor legs (o, p) with the CLI line."""
+    port = load_port()
+    if port is None:
+        return 1
+    torch, _, build, _ = port
+    t0 = time.perf_counter()
+    emit("build", **build_fields(finish_build(build)))
+    card = card_line()
+    print(card, flush=True)
+    emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
+    forward_timing(torch, port[1], port[3], ATTEST_SCORE_SHAPE, seed=8,
+                   card=card)
+    paths = {}
+
+    def note(path, launches_roles):
+        paths[path] = launches_roles[0]
+
+    executor_phase(torch, card, note)
+    emit("fleet", paths=paths, seconds=time.perf_counter() - t0)
+    return 0
+
+
 def processes_main() -> int:
     """Only the build and the processes phase."""
     port = load_port()
@@ -3757,8 +4241,7 @@ def processes_main() -> int:
         return 1
     torch, _, build, _ = port
     t0 = time.perf_counter()
-    build.build_all()
-    emit("build", seconds=time.perf_counter() - t0)
+    emit("build", **build_fields(finish_build(build)))
     card = card_line()
     print(card, flush=True)
     emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
@@ -3776,9 +4259,9 @@ def main() -> int:
     from bflc_demo_tpu_torch.ops import fingerprint as fp
 
     t0 = time.perf_counter()
-    built = build.build_all()
+    built = finish_build(build)
     logs = "".join(b["log"] for b in built.values())
-    emit("build", seconds=time.perf_counter() - t0,
+    emit("build", **build_fields(built),
          libraries={n: b["path"] for n, b in built.items()},
          kernels_compiled=len(re.findall(r"Compiling entry", logs)),
          max_registers=max(map(int, re.findall(r"Used (\d+) registers",
@@ -3792,7 +4275,7 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     errors = compare_phase(torch, fa, device)
-    timings = timing_phase(torch, fa, device)
+    timings = timing_phase(torch, fa, device, card)
     # each path between a reset and a read of the launch counts
     host5 = slice_phase(torch, fa, device)
     mesh5 = mesh_slice_phase(torch, fa, fp, device)
@@ -3856,8 +4339,10 @@ def dispatch(argv) -> int:
         return merge_timing_main(argv[1])
     modes = {"--processes": processes_main, "--snapshots": snapshots_main,
              "--async": async_main, "--codecs": codecs_main,
-             "--hier": hier_main, "--rederive": rederive_main}
+             "--hier": hier_main, "--rederive": rederive_main,
+             "--executor": executor_main}
     if len(argv) == 1 and argv[0] in modes:
+        start_build()
         rc = modes[argv[0]]()
         if rc == 0:
             hold_no_processes_left(argv[0])
@@ -3865,8 +4350,10 @@ def dispatch(argv) -> int:
     if argv:
         print("usage: chip_smoke.py [--backward-timing DIR | "
               "--merge-timing DIR | --processes | --snapshots | --async | "
-              "--codecs | --hier | --rederive]", file=sys.stderr)
+              "--codecs | --hier | --rederive | --executor]",
+              file=sys.stderr)
         return 2
+    start_build()
     return main()
 
 

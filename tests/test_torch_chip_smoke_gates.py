@@ -403,3 +403,108 @@ def test_each_rederive_gate_raises_through_hold(capsys, over, gate):
     failed = [x for x in _lines(capsys.readouterr().out)
               if x["phase"] == "gate_failed"]
     assert [x["gate"] for x in failed] == [gate]
+
+
+# ------------------------------------------------- the executor legs
+def test_executor_leg_holds_the_jax_bar_above_the_majority_rate():
+    """`executor_config5` holds the JAX tests' 0.9, above config 5's
+    majority rate (0.52375), over its rounds."""
+    rates = _majority_rates()
+    assert cs.EXECUTOR_MIN_BEST >= CONFIG5_BAR
+    assert cs.EXECUTOR_MIN_BEST > rates["config5"]
+    assert cs.EXECUTOR_C5_ROUNDS >= 5
+    assert cs.EXECUTOR_TAMPER_TIMEOUT_S > 0 and cs.EXECUTOR_CLI_ROUNDS == 3
+
+
+@pytest.mark.parametrize("cfg, rounds, size", [
+    (cs.FLEET_PROTO, 3, 6 + 3 * (3 + 2 + 1)),   # test_mesh_executor.py:38
+    (cs.CONFIG5_PROTO, 10, 20 + 10 * (10 + 4 + 1)),
+    (dict(client_num=20, comm_count=4, needed_update_count=10), 3, 65),
+])
+def test_executor_log_size_is_registrations_plus_k_c_and_commit(cfg, rounds,
+                                                                 size):
+    assert cs.executor_log_size(cfg, rounds) == size
+
+
+def test_executor_per_round_is_the_mesh_round_less_the_sponsor():
+    assert cs.EXECUTOR_PER_ROUND == {
+        "flash_fwd": 22, "flash_dkdv": 20, "flash_dq": 20,
+        "flash_carry": 0, "fingerprint": 2, "certified_reduce": 0}
+
+
+def _executor_result(rounds: int = 3, **over):
+    """An `executor_config5` result as `executor_account` reads it: 20
+    thin clients, members 0-3 attesting every round, every evaluation
+    seen; every gate passes unless `over` changes a field."""
+    members = range(4)
+    counts = {f"thin-{i}": {"attested": rounds if i in members else 0,
+                            "evaluations": rounds,
+                            "attest_launches": (
+                                {"flash_fwd": 2 * rounds} if i in members
+                                else {})}
+              for i in range(20)}
+    launches = {"executor": {k: v * rounds
+                             for k, v in cs.EXECUTOR_PER_ROUND.items()},
+                **{r: {"flash_fwd": 2 * (c["evaluations"] + c["attested"])}
+                   for r, c in counts.items()},
+                "sponsor": {"flash_fwd": 2 * rounds}}
+    res = _HierRun(
+        rounds_completed=rounds, ledger_log_size=20 + rounds * 15,
+        executor={"rounds_done": rounds, "rounds": [
+            {"round_s": 2.0, "device_s": 0.1, "attest_s": 1.9,
+             "evidence_bytes": 21_432_170}] * rounds},
+        kernel_launches=launches, client_counts=counts,
+        accuracy_history=[(e, a) for e, a in
+                          enumerate([0.6, 0.95, 0.97][:rounds])],
+        client_exitcodes=[0] * 20, spawn_s=9.0, stage_s=9.5,
+        epoch_times=[(e, 10.0 + 2 * e) for e in range(rounds)])
+    for k, v in over.items():
+        setattr(res, k, v)
+    return res
+
+
+def test_executor_account_passes_an_honest_run(capsys):
+    total = cs.executor_account("executor_config5", "card",
+                                _executor_result(), cs.CONFIG5_PROTO, 3,
+                                1.0)
+    assert total["flash_fwd"] == 66 + 2 * (20 * 3 + 12) + 6
+    lines = _lines(capsys.readouterr().out)
+    assert [x["phase"] for x in lines] == ["executor", "accuracy"]
+    assert lines[0]["attest_wait_s"] == [1.9] * 3
+
+
+def _with_thin(role: str, **fields):
+    res = _executor_result()
+    counts = dict(res.client_counts)
+    counts[role] = dict(counts[role], **fields)
+    return counts
+
+
+@pytest.mark.parametrize("over, gate", [
+    (dict(rounds_completed=2, ledger_log_size=50), "rounds"),
+    (dict(executor={"rounds_done": 2, "rounds": []}),
+     "executor rounds done"),
+    (dict(ledger_log_size=64), "ledger log size"),
+    (dict(kernel_launches=dict(_executor_result().kernel_launches,
+                               executor={"flash_fwd": 66})),
+     "executor launches at the mesh round's counts"),
+    (dict(client_counts=_with_thin("thin-0", attested=2)),
+     "attestations"),
+    (dict(client_counts=_with_thin("thin-1", attest_launches={})),
+     "member K1 a re-score"),
+    (dict(client_counts=_with_thin("thin-9", evaluations=0)),
+     "thin client K1"),
+    (dict(kernel_launches=dict(_executor_result().kernel_launches,
+                               sponsor={})), "sponsor K1"),
+    (dict(client_exitcodes=[0] * 19 + [-15]), "thin clients' exit codes"),
+    (dict(accuracy_history=[(0, 0.6), (1, 0.8), (2, 0.85)]),
+     "best accuracy"),
+])
+def test_each_executor_gate_raises_through_hold(capsys, over, gate):
+    with pytest.raises(RuntimeError, match=gate):
+        cs.executor_account("executor_config5", "card",
+                            _executor_result(**over), cs.CONFIG5_PROTO, 3,
+                            1.0)
+    failed = [x for x in _lines(capsys.readouterr().out)
+              if x["phase"] == "gate_failed"]
+    assert [x["gate"] for x in failed] == [gate]

@@ -429,7 +429,7 @@ def test_tiny_mesh_run_completes():
     (dict(participation="active", rounds_per_dispatch=2), "A7"),
     (dict(rounds_per_dispatch=2), "A7"),
     (dict(secure_aggregation=True), "A12"),
-    (dict(attest_scores=True), "A9"),
+    (dict(attest_wallets=[None] * 6, rounds_per_dispatch=2), "A7"),
     (dict(checkpoint_dir="ckpt", checkpoint_every=1), "A11"),
     (dict(estimate_flops=True), "A11"),
     (dict(client_chunk=2, rounds_per_dispatch=3), "A7"),
@@ -451,9 +451,13 @@ def test_round_factory_guards():
             make_sharded_protocol_round(model, **base, **kw)
     counts = dict(comm_count=2, needed_update_count=3)
     for kw, item in ((dict(secure=True), "A12"),
-                     (dict(expose_candidates=True), "A9")):
+                     (dict(expose_candidates=True, secure=True), "A12")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             make_sharded_protocol_round(model, **base, **counts, **kw)
+    # exposed candidates need the committee schedule's static K
+    with pytest.raises(ValueError, match="expose_candidates"):
+        make_sharded_protocol_round(model, **base, scoring="ring",
+                                    expose_candidates=True)
     with pytest.raises(ValueError, match="half-specified"):
         make_sharded_protocol_round(model, **base, comm_count=2)
     fn = make_sharded_protocol_round(model, **base, comm_count=2,

@@ -219,7 +219,7 @@ def test_no_preset_override_keeps_the_preset_protocol():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--attest-scores"], "A9"), (["--chaos-seed", "7"], "A9"),
+    (["--checkpoint-every", "2"], "A11"), (["--chaos-seed", "7"], "A9"),
     (["--chaos-profile", "light"], "A9"),
     (["--checkpoint-dir", "ckpt"], "A11"),
     (["--config", "config4", "--secure"], "A12"),

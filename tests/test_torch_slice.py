@@ -11,8 +11,9 @@
 - The port's CPU slice runs in a subprocess that never loads JAX or the
   reference package.
 - Without a card the entry points raise unless given the CPU; the CLI
-  rejects the unported runtime (the executor), the native ledger and
-  the process fleet's unported flags with exit 2.
+  rejects the native ledger (on any runtime, the executor's too) and
+  the process fleet's unported flags with exit 2, and the presets an
+  unknown runtime.
 """
 
 import ast
@@ -213,7 +214,8 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
         cli(["--rounds", "1"])
 
 
-@pytest.mark.parametrize("argv", [["--runtime", "executor"],
+@pytest.mark.parametrize("argv", [["--runtime", "executor",
+                                   "--ledger-backend", "native"],
                                   ["--runtime", "processes",
                                    "--ledger-backend", "native"],
                                   ["--config", "config2",
@@ -224,5 +226,10 @@ def test_cli_rejects_unported_with_exit_2(argv, capsys):
 
 
 def test_preset_rejects_unported_runtime():
-    with pytest.raises(ValueError, match="ROADMAP A9"):
-        config5_transformer_sst2(runtime="executor", device="cpu")
+    # every runtime of the reference is ported; an unknown one is refused
+    # by name, and the executor's unported ledger names its item
+    with pytest.raises(ValueError, match="runtime must be"):
+        config5_transformer_sst2(runtime="mpi", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        config5_transformer_sst2(runtime="executor", device="cpu",
+                                 ledger_backend="native")
