@@ -33,8 +33,9 @@ processes runtime, else exit 2, as in the reference's :70-77), with
 the protocol overridable by `--field-name` flags and `BFLC_*` variables
 (`utils/flags.py`; the closed compression loop's `--adapt-every` and
 `--density-floor` with a sparse genome) and the ledger by
-`--ledger-backend auto|python`.  An unknown config or runtime, the
-native ledger, the fleet's flags on another runtime than `processes`
+`--ledger-backend auto|native|python` (auto: the native C++ ledger
+where the reference's gates allow it).  An unknown config or runtime,
+the fleet's flags on another runtime than `processes`
 (`--tls-dir` also on `executor`), a negative
 `--bft-validators` or `--snapshot-interval`, `--snapshot-dir` without
 an interval, or a flag of a part not ported yet (the fleet's chaos A9,
@@ -72,9 +73,9 @@ def _parser() -> argparse.ArgumentParser:
                "loop and --rederive the validators' re-derivation), "
                "--reduce-blocks, --delta-dtype, --delta-codec; "
                "--runtime executor (with --tls-dir and "
-               "--[no-]attest-scores).  The native ledger and the "
-               "fleet's other flags are ROADMAP A9; they exit 2 until "
-               "ported.")
+               "--[no-]attest-scores), --ledger-backend "
+               "auto|native|python.  The fleet's other flags are "
+               "ROADMAP A9; they exit 2 until ported.")
     p.add_argument("--config", default="config1",
                    help="benchmark preset, config0 ... config5")
     p.add_argument("--runtime", default="mesh",
@@ -102,8 +103,6 @@ def main(argv=None) -> int:
         print(UNKNOWN_RUNTIME.format(runtime=opts.runtime), file=sys.stderr)
         return 2
     unported = unported_given(opts)
-    if opts.ledger_backend == "native":
-        unported["--ledger-backend native"] = "A9: the native ledger"
     if unported:
         print("not ported yet: " + ", ".join(
             f"{flag} (ROADMAP {item})" for flag, item in unported.items()),
@@ -258,6 +257,7 @@ def main(argv=None) -> int:
                         "validator_reports": res.validator_reports,
                         "genomes": res.writer_genomes,
                         "ed25519_backend": res.ed25519_backend,
+                        "writer_backend": res.writer_backend,
                         "replica_head_ok": bool(
                             res.replica_report and res.replica_report["head"]
                             == res.ledger_log_head)}
@@ -274,6 +274,7 @@ def main(argv=None) -> int:
         out["executor"] = {"epoch_times": res.epoch_times,
                            "spawn_s": res.spawn_s, "stage_s": res.stage_s,
                            "rounds": (res.executor or {}).get("rounds"),
+                           "writer_backend": res.writer_backend,
                            "kernel_launches": res.kernel_launches,
                            "client_counts": res.client_counts}
     print(json.dumps(out))

@@ -1,7 +1,7 @@
 """The mesh runtime: the protocol with a device-resident data plane.
 
 Port of `bflc_demo_tpu/client/mesh_runtime.py:run_federated_mesh`
-(:271-561) for one round per dispatch, on one card: each round is one
+(:271-561) and `_run_batched` (:141-268), on one card: each round is one
 call of `parallel.fedavg`'s round (the slots train, the committee scores
 the K uploaders, the decision, the FedAvg and the payload ids, all on
 the device), and the host exchanges only the committee's score rows, the
@@ -37,17 +37,30 @@ True without wallets raises, False opts out.  In process this is
 signature evidence, not a second trust domain: the mesh executor
 (`comm/executor_service.py`) has members re-score on their own shards.
 
+rounds_per_dispatch R > 1 (full participation only, no local
+optimizer, `rounds % R == 0`, as in the reference): R rounds run as one
+dispatch of `parallel.fedavg.make_multi_round_program` (the uploader
+draw, the election and the sponsor's evaluation on the device, one key
+of `utils.prng.split(PRNGKey(seed))` a dispatch); the dispatch's stacked
+artifacts come to the host in one copy, and each round is replayed into
+the ledger, which raises on any committee or selection divergence (the
+reference's audit), its committee rows attested first when attestation
+is on.  `SimulationResult.round_times_s` gives each round of a dispatch
+the dispatch's seconds over R, the replay and audit included.
+
+`ledger_backend` is the reference's: "auto" gives the native ledger
+where `ledger.make_ledger` does.
+
 Not ported, and refused with the ROADMAP item rather than ignored:
-`rounds_per_dispatch > 1` (A7, attested or not), secure aggregation
-(A12), checkpoints and resume (A11), `estimate_flops` (A11), local
-optimizers (A11).
+secure aggregation (A12), checkpoints and resume (A11), `estimate_flops`
+(A11), local optimizers (A11).
 """
 
 from __future__ import annotations
 
 import struct
 import time
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,11 +71,14 @@ from bflc_demo_tpu_torch.client.staging import (audit_round,
                                                 stage_padded_arrays)
 from bflc_demo_tpu_torch.data.partition import one_hot
 from bflc_demo_tpu_torch.device import DeviceLike, resolve_device
-from bflc_demo_tpu_torch.ledger import make_ledger
+from bflc_demo_tpu_torch.ledger import LedgerStatus, make_ledger
 from bflc_demo_tpu_torch.models.base import Model, Params
-from bflc_demo_tpu_torch.parallel.fedavg import make_sharded_protocol_round
+from bflc_demo_tpu_torch.ops.fingerprint import fingerprint_to_bytes
+from bflc_demo_tpu_torch.parallel.fedavg import (make_multi_round_program,
+                                                 make_sharded_protocol_round)
 from bflc_demo_tpu_torch.protocol.constants import (DEFAULT_PROTOCOL,
                                                     ProtocolConfig)
+from bflc_demo_tpu_torch.utils import prng
 
 
 def _addr(i: int) -> str:
@@ -91,11 +107,117 @@ def _attest_rows(wallets, committee_ids, comm_slots, up_slots, score_rows,
     attest_log[epoch] = sigs
 
 
+def to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """numpy copies of `tensors` through one device-to-host copy: their
+    bytes are concatenated on the device, copied once, and split."""
+    flat = [t.detach().contiguous().reshape(-1).view(torch.uint8)
+            for t in tensors]
+    blob = torch.cat(flat).cpu().numpy()
+    out, off = [], 0
+    for t, f in zip(tensors, flat):
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(blob[off:off + f.numel()].view(dtype)
+                   .reshape(tuple(t.shape)))
+        off += f.numel()
+    return out
+
+
+def _run_batched(model, cfg, ledger, params, xs, ys, ns, sponsor, rounds,
+                 rounds_per_dispatch, seed, client_chunk, remat, sizes_np,
+                 attest_scores, attest_wallets, attest_log, verbose,
+                 ) -> SimulationResult:
+    """R rounds a dispatch, each replayed into the ledger and audited
+    afterwards: the ledger stays the authority, and a ledger decision
+    that differs from the device's raises."""
+    n = cfg.client_num
+    program = make_multi_round_program(
+        model, client_num=n, lr=cfg.learning_rate,
+        batch_size=cfg.batch_size, local_epochs=cfg.local_epochs,
+        aggregate_count=cfg.aggregate_count, comm_count=cfg.comm_count,
+        needed_update_count=cfg.needed_update_count,
+        rounds_per_dispatch=rounds_per_dispatch,
+        client_chunk=client_chunk, remat=remat)
+    loss_history, round_times = [], []
+    t0 = time.perf_counter()
+    key = prng.PRNGKey(seed)
+    for _ in range(rounds // rounds_per_dispatch):
+        dt0 = time.perf_counter()
+        comm_mask0 = np.zeros(n, bool)
+        comm_mask0[[int(a, 16) for a in ledger.committee()]] = True
+        key, sub = prng.split(key)
+        res = program(params, xs, ys, ns, comm_mask0, sub, sponsor.x,
+                      sponsor.y)
+        params = res.params
+        # the dispatch's artifacts to the host, in one copy
+        up_masks, comm_masks, score_ms, sels, costs, dfps, pfps, accs = \
+            to_host([res.uploader_masks, res.committee_masks,
+                     res.score_matrices, res.selected, res.avg_costs,
+                     res.delta_fps, res.params_fps, res.test_accs])
+        for r in range(rounds_per_dispatch):
+            epoch = ledger.epoch
+            ledger_comm = sorted(int(a, 16) for a in ledger.committee())
+            device_comm = np.flatnonzero(comm_masks[r]).tolist()
+            if ledger_comm != device_comm:
+                raise RuntimeError(
+                    f"committee divergence at epoch {epoch}: "
+                    f"ledger={ledger_comm} device={device_comm}")
+            uploader_ids = np.flatnonzero(up_masks[r]).tolist()
+            if attest_scores:
+                # full participation: slot ids are client ids
+                _attest_rows(attest_wallets, ledger_comm, ledger_comm,
+                             uploader_ids, score_ms[r], epoch, attest_log)
+            for cid in uploader_ids:
+                st = ledger.upload_local_update(
+                    _addr(cid), fingerprint_to_bytes(dfps[r, cid]),
+                    int(sizes_np[cid]), float(costs[r, cid]), epoch)
+                if st != LedgerStatus.OK:
+                    raise RuntimeError(f"upload rejected: {st.name}")
+            for cid in ledger_comm:
+                st = ledger.upload_scores(
+                    _addr(cid), epoch,
+                    [float(score_ms[r, cid, u]) for u in uploader_ids])
+                if st != LedgerStatus.OK:
+                    raise RuntimeError(f"scores rejected: {st.name}")
+            pending = ledger.pending()
+            sel_ledger = np.sort([uploader_ids[s] for s in pending.selected])
+            sel_device = np.flatnonzero(sels[r])
+            if not np.array_equal(sel_ledger, sel_device):
+                raise RuntimeError(
+                    f"selection divergence at epoch {epoch}: "
+                    f"ledger={sel_ledger} device={sel_device}")
+            st = ledger.commit_model(fingerprint_to_bytes(pfps[r]), epoch)
+            if st != LedgerStatus.OK:
+                raise RuntimeError(f"commit rejected: {st.name}")
+            loss_history.append((epoch, ledger.last_global_loss))
+            sponsor.history.append((epoch, float(accs[r])))
+            if verbose:
+                print(f"Epoch: {epoch:03d}, test_acc: {float(accs[r]):.4f}, "
+                      f"global_loss: {ledger.last_global_loss:.5f}")
+        # each round's share of the dispatch, the replay and audit
+        # included, comparable with the one-round-a-dispatch path
+        total = time.perf_counter() - dt0
+        round_times.extend([total / rounds_per_dispatch]
+                           * rounds_per_dispatch)
+    return SimulationResult(
+        accuracy_history=sponsor.history,
+        loss_history=loss_history,
+        final_params=params,
+        rounds_completed=rounds,
+        wall_time_s=time.perf_counter() - t0,
+        round_times_s=round_times,
+        ledger_log_head=ledger.log_head(),
+        ledger_log_size=ledger.log_size(),
+        ledger=ledger,
+        n_devices=1,
+        attest_log=attest_log or None)
+
+
 def run_federated_mesh(model: Model,
                        shards: Sequence[Tuple[np.ndarray, np.ndarray]],
                        test_set: Tuple[np.ndarray, np.ndarray],
                        cfg: ProtocolConfig = DEFAULT_PROTOCOL,
                        rounds: int = 10,
+                       ledger_backend: str = "auto",
                        seed: int = 0,
                        init_seed: int = 0,
                        init_params: Optional[Params] = None,
@@ -123,6 +245,10 @@ def run_federated_mesh(model: Model,
     plain versions of the kernels on the CPU.
     """
     cfg.validate()
+    if estimate_flops and rounds_per_dispatch > 1:
+        raise ValueError("estimate_flops is only supported on the plain "
+                         "per-round path (rounds_per_dispatch=1, no "
+                         "secure aggregation)")
     # on exactly when wallets exist; an explicit False opts out
     if attest_scores is None:
         attest_scores = attest_wallets is not None
@@ -136,8 +262,18 @@ def run_federated_mesh(model: Model,
     if participation not in ("full", "active"):
         raise ValueError(f"participation must be 'full'|'active', "
                          f"got {participation!r}")
+    if rounds_per_dispatch > 1:
+        # fail fast, before any staging or program construction
+        if local_optimizer is not None:
+            raise ValueError("local_optimizer requires "
+                             "rounds_per_dispatch=1")
+        if participation != "full":
+            raise ValueError("rounds_per_dispatch requires "
+                             "participation='full'")
+        if rounds % rounds_per_dispatch:
+            raise ValueError(f"rounds {rounds} must be a multiple of "
+                             f"rounds_per_dispatch {rounds_per_dispatch}")
     unported = [
-        (rounds_per_dispatch > 1, "rounds_per_dispatch > 1", "A7"),
         (secure_aggregation or secure_wallets is not None,
          "secure aggregation", "A12"),
         (resume_ledger is not None or checkpoint_dir or checkpoint_every,
@@ -147,7 +283,7 @@ def run_federated_mesh(model: Model,
         if asked:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                       f"{item}); the port's mesh runtime "
-                                      f"runs one round per dispatch")
+                                      f"runs plain rounds")
     dev = resolve_device(device)
     n = cfg.client_num
     if len(shards) != n:
@@ -172,18 +308,19 @@ def run_federated_mesh(model: Model,
     else:
         static_uploader = np.array([True] * k + [False] * c)
         static_committee = ~static_uploader
-    round_fn = make_sharded_protocol_round(
-        model, client_num=n_slots, lr=cfg.learning_rate,
-        batch_size=cfg.batch_size, local_epochs=cfg.local_epochs,
-        aggregate_count=cfg.aggregate_count, client_chunk=client_chunk,
-        remat=remat, local_optimizer=local_optimizer, comm_count=c,
-        needed_update_count=k)
+    if rounds_per_dispatch <= 1:    # the batched path builds its own
+        round_fn = make_sharded_protocol_round(
+            model, client_num=n_slots, lr=cfg.learning_rate,
+            batch_size=cfg.batch_size, local_epochs=cfg.local_epochs,
+            aggregate_count=cfg.aggregate_count, client_chunk=client_chunk,
+            remat=remat, local_optimizer=local_optimizer, comm_count=c,
+            needed_update_count=k)
 
     xte, yte = test_set
     sponsor = Sponsor(model, feature_tensor(xte, dev),
                       torch.as_tensor(one_hot(yte, nc), device=dev))
     rng = np.random.default_rng(seed)
-    ledger = make_ledger(cfg)
+    ledger = make_ledger(cfg, backend=ledger_backend)
     params = ({key: v.to(dev) for key, v in init_params.items()}
               if init_params is not None else model.init_params(init_seed,
                                                                dev))
@@ -191,6 +328,11 @@ def run_federated_mesh(model: Model,
         ledger.register_node(_addr(i))
     if ledger.epoch != 0:
         raise RuntimeError(f"FL did not start (epoch={ledger.epoch})")
+    if rounds_per_dispatch > 1:
+        return _run_batched(model, cfg, ledger, params, xs, ys, ns, sponsor,
+                            rounds, rounds_per_dispatch, seed, client_chunk,
+                            remat, sizes_np, attest_scores, attest_wallets,
+                            attest_log, verbose)
 
     loss_history, round_times = [], []
     t0 = time.perf_counter()

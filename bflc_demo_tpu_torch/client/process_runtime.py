@@ -758,12 +758,16 @@ def _replica_proc(host: str, port: int, cfg_kw: dict, until_ops: int,
         replica = replicate(host, port, ProtocolConfig(**cfg_kw),
                             until_ops=until_ops, timeout_s=120.0,
                             tls=_client_tls(tls_dir))
-        out_q.put({"ok": True, "head": replica.log_head().hex(),
-                   "size": replica.log_size(), "epoch": replica.epoch,
-                   "eff_density": replica.effective_density,
-                   "eff_staleness": replica.effective_staleness,
-                   "genome_epoch": replica.genome_epoch,
-                   "foreign_modules": foreign_modules()})
+        rep = {"ok": True, "head": replica.log_head().hex(),
+               "size": replica.log_size(), "epoch": replica.epoch,
+               "backend": replica.backend,
+               "foreign_modules": foreign_modules()}
+        if replica.backend == "python":
+            # the genome's knobs (the native ledger carries no genome)
+            rep.update(eff_density=replica.effective_density,
+                       eff_staleness=replica.effective_staleness,
+                       genome_epoch=replica.genome_epoch)
+        out_q.put(rep)
     except Exception as e:              # report, don't hang the parent
         out_q.put({"ok": False, "error": f"{type(e).__name__}: {e}"})
 
@@ -835,6 +839,8 @@ class ProcessFederationResult:
         # start ({"log_base", "async_buffer": the aseqs it inherited})
         self.writer_chain: Optional[dict] = None
         self.writer_start: Optional[dict] = None
+        # the final writer's ledger backend ("native" or "python")
+        self.writer_backend: Optional[str] = None
         # the final writer's genome-update ops (the closed loop): epoch,
         # the knobs before and after, the telemetry
         self.writer_genomes: List[dict] = []
@@ -1094,6 +1100,7 @@ def absorb_reports(result: "ProcessFederationResult",
             "log_base": kr.get("started_log_base"),
             "async_buffer": kr.get("started_async_buffer")}
         result.ed25519_backend = kr["ed25519_backend"]
+        result.writer_backend = kr.get("ledger_backend")
     for rep in client_reports:
         launches[rep["role"]] = rep["launches"]
         result.client_perf[rep["role"]] = rep["perf"]
@@ -1856,6 +1863,7 @@ def run_federated_mesh_processes(
         launches["executor"] = kr["launches"]
         result.executor = kr["executor"]
         result.ed25519_backend = kr["ed25519_backend"]
+        result.writer_backend = kr.get("ledger_backend")
         if kr["executor"]["runner_mono"] is not None:
             result.stage_s = kr["executor"]["runner_mono"] - t_start
     for rep in reports:

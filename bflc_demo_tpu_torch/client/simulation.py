@@ -68,11 +68,14 @@ def run_federated(model: Model,
                   seed: int = 0,
                   init_seed: int = 0,
                   init_params: Optional[Params] = None,
+                  ledger_backend: str = "auto",
                   device: DeviceLike = None,
                   verbose: bool = False) -> SimulationResult:
     """Run the committee-consensus protocol for `rounds` aggregations.
 
     shards: per-client (x, y) with integer class labels; test_set likewise.
+    ledger_backend: 'auto' (native where `ledger.make_ledger` gives it),
+    'native' or 'python'.
     device: None means `cuda` (raises without a card); pass "cpu" to run
     on the CPU.
     """
@@ -92,7 +95,7 @@ def run_federated(model: Model,
                     trained_epoch=cfg.initial_trained_epoch)
              for i, (sx, sy) in enumerate(shards)]
     sponsor = Sponsor(model, *tensors(*test_set))
-    ledger = make_ledger(cfg)
+    ledger = make_ledger(cfg, backend=ledger_backend)
     store = UpdateStore()
     plane = ComputePlane(cfg)
     rng = np.random.default_rng(seed)

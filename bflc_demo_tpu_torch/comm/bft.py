@@ -78,8 +78,10 @@ launches (the port's own fields).
 
 Dropped: the obs metrics, flight recorder and trace spans (ROADMAP A14;
 `utils/tracing.PROC` still charges `bft.validate_s` / `bft.validate_n`
-on the validator).  Not ported, refused by `make_ledger`: the native
-ledger (A9 (native ledger)).
+on the validator).  Validators default to the python ledger, as the
+reference's do (a native one probes each op by replaying its log into a
+python mirror); one of another backend runs no `Rederiver`, as in the
+reference (:668).
 """
 
 from __future__ import annotations
@@ -560,7 +562,7 @@ class ValidatorNode:
             mode = (rederive if rederive in REDERIVE_MODES
                     and not rederive_legacy() else "off")
         self._rederiver = None
-        if mode != "off" and ledger_backend in ("python", "auto"):
+        if mode != "off" and ledger_backend == "python":
             from bflc_demo_tpu_torch.rederive.core import Rederiver
             self._rederiver = Rederiver(
                 mode, index, len(self.validator_keys) or 1, cfg,

@@ -105,7 +105,7 @@ from bflc_demo_tpu_torch.ledger import LedgerStatus, clone_prefix, make_ledger
 from bflc_demo_tpu_torch.ledger.base import (OP_ACOMMIT, OP_AUPLOAD,
                                              OP_COMMIT, OP_PROMOTE,
                                              OP_SNAPSHOT, OP_UPLOAD,
-                                             decode_op)
+                                             async_enabled, decode_op)
 from bflc_demo_tpu_torch.protocol.constants import ProtocolConfig
 from bflc_demo_tpu_torch.protocol.constants import bft_quorum as _bft_quorum
 from bflc_demo_tpu_torch.protocol.types import CommitCertificate
@@ -315,6 +315,9 @@ class Standby:
                                   else max(int(snapshot_interval), 0))
         self.snapshot_dir = snapshot_dir
         self._latest_snapshot: Optional[dict] = None
+        if self.snapshot_interval and ledger_backend != "python":
+            # compaction needs the python ledger (reference :362-369)
+            ledger_backend = "python"
         self.tls_client = tls_client        # following the writer
         self.tls_server = tls_server        # read fan-out, then writer
         self.endpoints = list(endpoints)
@@ -675,6 +678,7 @@ class Standby:
         self.ledger = restore_snapshot(meta["state"], self.cfg,
                                        int(meta["i"]) + 1,
                                        snapshot_base_head(meta))
+        self._ledger_backend = "python"     # restored replicas compact
         self._model_blob = bytes(meta["model"])
         self._certs = ({int(meta["i"]): meta["cert"]}
                        if meta.get("cert") else {})
@@ -1111,8 +1115,9 @@ class Standby:
                 evidence["cert_ix"] = self.ledger.log_size() - 1
         missing = [h.hex()[:12] for h in
                    [u.payload_hash for u in self.ledger.query_all_updates()]
-                   + [e.payload_hash
-                      for e in self.ledger.async_buffer_view()]
+                   + ([e.payload_hash
+                       for e in self.ledger.async_buffer_view()]
+                      if async_enabled(self.cfg) else [])
                    if h not in self._blobs]
         if missing:
             self._say(f"promoting with {len(missing)} unmirrored update "

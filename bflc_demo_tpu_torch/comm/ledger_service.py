@@ -427,6 +427,15 @@ class LedgerServer:
         # point); subscribers and `wait` callers sleep on the condition
         self._lock = threading.RLock()
         self._cv = threading.Condition(self._lock)
+        if self._snap_interval and resume_ledger is None:
+            # compaction needs the python ledger (the native one has no
+            # state-injection or GC ABI; it still applies snapshot ops,
+            # so native replicas and validators stay chain-compatible)
+            if ledger_backend == "native":
+                raise ValueError(
+                    "snapshot_interval > 0 needs the python ledger "
+                    "backend (the native ledger cannot compact its log)")
+            ledger_backend = "python"
         self.ledger = (resume_ledger if resume_ledger is not None
                        else make_ledger(cfg, backend=ledger_backend))
         if wal_path and not self.ledger.attach_wal(wal_path):
@@ -473,7 +482,8 @@ class LedgerServer:
         # opcode-12 op's claims
         self._chain = {"from": self.ledger.log_base, "opcodes": [],
                        "acommits": []}
-        self._t0_abuf = [e.aseq for e in self.ledger.async_buffer_view()]
+        self._t0_abuf = ([e.aseq for e in self.ledger.async_buffer_view()]
+                         if self._async else [])
         self._scan_chain()
         self._stop = threading.Event()
         # accepted connections, shut down by close(): a closed writer is a
@@ -1389,8 +1399,8 @@ class LedgerServer:
         snapshot op's record and every snapshot offered to a lagging
         validator, with the seconds its install took; the chain this
         writer held (`_scan_chain`) and the async buffer it started with;
-        the genome ops it proposed and the rederive digest cross-checks
-        of its certificates."""
+        the genome ops it proposed, the rederive digest cross-checks
+        of its certificates and its ledger's backend."""
         from bflc_demo_tpu_torch.comm.identity import ED25519_BACKEND
         self._scan_chain()
         return {"ok": True, "launches": launch_counts(),
@@ -1399,6 +1409,7 @@ class LedgerServer:
                                if self._bft is not None else None),
                 "engine": self.engine.report(), "merges": self.merge_log,
                 "ed25519_backend": ED25519_BACKEND,
+                "ledger_backend": self.ledger.backend,
                 "gen": self.ledger.generation,
                 "writer_index": self.ledger.writer_index,
                 "started_mono": self._t0,
@@ -1468,7 +1479,7 @@ class LedgerServer:
         """Keep a hash-verified payload of a buffered entry this writer
         lacks (a promoted standby that inherited the entry, not its
         blob)."""
-        if digest not in self._blobs and any(
+        if self._async and digest not in self._blobs and any(
                 e.payload_hash == digest
                 for e in self.ledger.async_buffer_view()):
             self._blobs[digest] = blob

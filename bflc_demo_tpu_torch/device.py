@@ -7,8 +7,9 @@ so no run can report CPU numbers as if they were the card's.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -37,3 +38,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     return dev
+
+
+def upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on `dev`.  To the card it goes from pinned memory
+    without waiting on the stream: the copy runs ahead of later work in
+    stream order and the host never syncs (a multi-round dispatch runs
+    with no sync)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)

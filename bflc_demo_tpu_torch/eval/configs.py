@@ -106,9 +106,11 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
     attest_scores applies to 'mesh' and 'executor', tls_dir to
     'processes' and 'executor', and mesh_kw (participation,
     client_chunk, ...) only to 'mesh'; asking another runtime for them
-    raises, never silently drops.  `ledger_backend` is the reference's:
-    "auto" and "python" run the python ledger, "native" raises (ROADMAP
-    A9).
+    raises, never silently drops.  `ledger_backend` is the reference's
+    ("auto", "native" or "python"), passed to the mesh, host and
+    threaded runtimes as the reference passes it (:104-120); the fleet
+    runtimes' writers take "auto" whatever it says, as the reference's
+    do.
     The fleet's other options (chaos, telemetry, ...) come with the
     items that give them a meaning (ROADMAP A9/A14).
     """
@@ -141,6 +143,7 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
     if runtime == "mesh":
         return run_federated_mesh(model, shards, test_set, cfg,
                                   rounds=rounds, seed=seed,
+                                  ledger_backend=ledger_backend,
                                   attest_scores=attest_scores,
                                   device=device, verbose=verbose, **mesh_kw)
     if mesh_kw:
@@ -148,7 +151,8 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
                          f"runtime, not {runtime!r}")
     if runtime == "host":
         return run_federated(model, shards, test_set, cfg, rounds=rounds,
-                             seed=seed, device=device, verbose=verbose)
+                             seed=seed, ledger_backend=ledger_backend,
+                             device=device, verbose=verbose)
     if runtime == "threaded":
         from bflc_demo_tpu_torch.client.threaded import ThreadedFederation
         return ThreadedFederation(model, shards, test_set, cfg,

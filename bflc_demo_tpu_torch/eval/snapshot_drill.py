@@ -338,7 +338,9 @@ def run_snapshot_rejoin(device: str = None, workdir: str = "",
         wal = os.path.join(workdir, "writer.wal")
         with open(wal, "rb") as f:
             account["writer_wal_magic"] = f.read(8).decode()
-        replay = make_ledger(cfg)
+        # a compacted (BFLCWAL2) journal replays into the python ledger:
+        # the native one reads BFLCWAL1 only
+        replay = make_ledger(cfg, backend="python")
         replay.replay_wal(wal)
         account["writer_wal_replayed"] = {
             "log_size": replay.log_size(), "log_base": replay.log_base,

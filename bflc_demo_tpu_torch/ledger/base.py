@@ -19,7 +19,8 @@ reference's `PyLedger.apply_op` (:1307-1338), which the ledger's replay
 and the writer's chain record share, and the closed compression loop:
 `OP_GENOME` (opcode 13, :39), `encode_genome_op` (:170-190),
 `adapt_legacy` and `adapt_enabled` (:84-97).  `decode_op` renders
-opcode 13 too, which the reference's tool names unknown.
+opcode 13 too, which the reference's tool names unknown.  `ADDR_CAP`
+(:26) is the address length the native ledger's C ABI carries.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ import struct
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+ADDR_CAP = 128   # max address string length crossing the C ABI (incl. NUL)
 
 OP_REGISTER, OP_UPLOAD, OP_SCORES, OP_COMMIT = 1, 2, 3, 4
 OP_CLOSE, OP_FORCE, OP_RESEAT, OP_PROMOTE = 5, 6, 7, 8

@@ -45,7 +45,7 @@ opcode-13 arm of `apply_op`; `async_upload` gates on
 rank / election order, so the same op sequence gives the same chain
 head as the reference ledger, bit for bit.
 
-Not ported: the native `.so` is not bound.
+The native C++ ledger is `ledger/bindings.py:NativeLedger`.
 """
 
 from __future__ import annotations
@@ -84,6 +84,8 @@ _BLOCKS_MAGIC = b"BLK1"
 
 
 class PyLedger:
+    backend = "python"
+
     def __init__(self, client_num: int, comm_count: int, aggregate_count: int,
                  needed_update_count: int, genesis_epoch: int = -999,
                  async_buffer: int = 0, max_staleness: int = 20,

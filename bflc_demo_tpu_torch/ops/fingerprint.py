@@ -41,6 +41,8 @@ from typing import List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from bflc_demo_tpu_torch.device import upload
+
 LANES = 8                      # 8 x uint32 = 32 bytes, the ledger digest
 FNV_PRIME = 16777619
 FNV_OFFSET = 2166136261
@@ -206,6 +208,7 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+
 class KernelPlan:
     """The kernel's leaf table for one tree of CUDA tensors, on the card.
 
@@ -235,9 +238,9 @@ class KernelPlan:
                         n_words, 4 if wide else leaf.element_size(),
                         len(salts), len(s) - 1, 0)
             salts += s
-        self.table = torch.from_numpy(table.view(np.uint8).copy()).to(dev)
-        self.salts = torch.as_tensor(np.asarray(salts, np.uint32)
-                                     .view(np.int32)).to(dev)
+        self.table = upload(table.view(np.uint8).copy(), dev)
+        self.salts = upload(np.asarray(salts, np.uint32).view(np.int32),
+                            dev)
         self.device = dev
 
     def launch(self) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """The FL round as one program on one card: train, score, decide, merge.
 
 Port of `bflc_demo_tpu/parallel/fedavg.py:make_sharded_protocol_round`
-(:261-494) with the committee scoring schedule (`committee_score_matrix`
-:187-240, `_score_block` :101-122), on one card.  The reference's
+(:261-494) with both scoring schedules (`committee_score_matrix`
+:187-240, `ring_score_matrix` :125-153, `_score_block` :101-122), and
+of `make_multi_round_program` (:497-697), on one card.  The reference's
 `shard_map` over a client axis becomes batch dimensions on one device:
 
 1. every client trains, all in lockstep (`core.local_train_stacked`);
@@ -23,16 +24,31 @@ Port of `bflc_demo_tpu/parallel/fedavg.py:make_sharded_protocol_round`
    own `_first_k_indices`.  They are the evidence committee members
    re-score to attest their rows (`comm/executor_service.py`).
 
+Scoring: "committee" is the reference's C x K; "ring" has every client
+score every candidate, the dense (N, N) matrix, which on one card is the
+reference's ring in one step (`ring_score_matrix`); "auto" is committee
+when both static counts are given, else ring.
+
 `make_sharded_protocol_round` checks what the reference checks (the
 scoring schedule, the static committee geometry, client_chunk
-divisibility) and raises
-`NotImplementedError`, naming the ROADMAP item, for what is not ported:
-ring scoring, secure aggregation and local optimizers.  The memory controls are ported: `client_chunk` trains the
-slots, and scores the committee, in sequential chunks, and `remat`
-recomputes each training step's forward in its backward
-(`core.local_train.sgd_stacked`).  The returned function checks the masks'
+divisibility) and raises `NotImplementedError`, naming the ROADMAP
+item, for what is not ported: secure aggregation and local optimizers.
+The memory controls are ported: `client_chunk` trains the slots, and
+scores, in sequential chunks, and `remat` recomputes each training
+step's forward in its backward (`core.local_train.sgd_stacked`).  Under
+the committee schedule the returned function checks the masks'
 popcounts against the static counts, as the reference's `_check_masks`
 (:448-472) does.
+
+`make_multi_round_program` runs R protocol rounds a dispatch with no
+host sync inside: each round draws its K uploaders on the device (the
+host draws the dispatch's R uniform vectors with `utils/prng`, which do
+not depend on device state, and uploads them once; the committee's
+entries go to -inf on the card and the top K of a stable sort win),
+trains, scores (committee or ring), decides, merges, fingerprints,
+elects the next committee (`order[:comm_count]`) and evaluates the
+sponsor's accuracy; every gather is a static-K stable sort, never a
+boolean mask.
 """
 
 from __future__ import annotations
@@ -42,12 +58,31 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from bflc_demo_tpu_torch.core.aggregate import apply_selection, decide
-from bflc_demo_tpu_torch.core.local_train import sgd_stacked, wire_deltas
+from bflc_demo_tpu_torch.core.aggregate import (apply_selection, decide,
+                                                rank_desc_stable)
+from bflc_demo_tpu_torch.core.local_train import (evaluate, sgd_stacked,
+                                                  wire_deltas)
 from bflc_demo_tpu_torch.core.losses import xla_mean
+from bflc_demo_tpu_torch.device import upload
 from bflc_demo_tpu_torch.models.base import Model, Params
 from bflc_demo_tpu_torch.ops.fingerprint import (fingerprint_pytree,
                                                  fingerprint_stacked)
+from bflc_demo_tpu_torch.utils import prng
+
+
+class MultiRoundResult(NamedTuple):
+    params: Params              # model after the last round
+    uploader_masks: torch.Tensor   # (R, N) bool, the device's draw
+    committee_masks: torch.Tensor  # (R, N) bool, the committee a round
+    score_matrices: torch.Tensor   # (R, N, N)
+    medians: torch.Tensor       # (R, N)
+    selected: torch.Tensor      # (R, N) bool
+    orders: torch.Tensor        # (R, N)
+    avg_costs: torch.Tensor     # (R, N)
+    global_losses: torch.Tensor  # (R,)
+    delta_fps: torch.Tensor     # (R, N, 8) fingerprints (uint32 words)
+    params_fps: torch.Tensor    # (R, 8) the model's after each round
+    test_accs: torch.Tensor     # (R,) sponsor accuracy after each round
 
 
 class ShardedRoundResult(NamedTuple):
@@ -87,8 +122,12 @@ def score_block(model: Model, params: Params, block: Params, lr: float,
     n_block = next(iter(block.values())).shape[0]
     reps = lambda t: t.repeat((n_scorers,) + (1,) * (t.ndim - 1))  # noqa
     cands = {k: reps(params[k][None] - lr * block[k]) for k in params}
-    x = xs.repeat_interleave(n_block, dim=0)
-    y = ys.repeat_interleave(n_block, dim=0)
+    # each scorer's shard n_block times, scorer-major (an expand: no
+    # repeat count to read back)
+    x = xs[:, None].expand(n_scorers, n_block, *xs.shape[1:]).reshape(
+        n_scorers * n_block, *xs.shape[1:])
+    y = ys[:, None].expand(n_scorers, n_block, *ys.shape[1:]).reshape(
+        n_scorers * n_block, *ys.shape[1:])
     logits = model.apply_stacked(cands, x)
     hits = (logits.argmax(-1) == y.argmax(-1)).to(torch.float32)
     return xla_mean(hits, dim=1).reshape(n_scorers, n_block)
@@ -110,6 +149,16 @@ def committee_score_matrix(model: Model, params: Params, deltas: Params,
     mat = torch.zeros((n, n), dtype=torch.float32, device=xs.device)
     mat[comm_idx[:, None], up_idx[None, :]] = part
     return mat
+
+
+def ring_score_matrix(model: Model, params: Params, deltas: Params,
+                      lr: float, xs: torch.Tensor, ys: torch.Tensor,
+                      chunk: int = 0) -> torch.Tensor:
+    """(N, N) scorer x candidate: every client scores every candidate.
+    The reference passes candidate blocks around a ring of devices; on
+    one card the ring has one step, the whole block, scored as one
+    stacked apply (in chunks of `chunk` scorers)."""
+    return score_block(model, params, deltas, lr, xs, ys, chunk)
 
 
 def candidate_deltas(deltas: Params, up_idx: torch.Tensor) -> Params:
@@ -168,7 +217,6 @@ def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
         raise ValueError(f"clients/device {client_num} not divisible by "
                          f"client_chunk {client_chunk}")
     for asked, what, item in (
-            (scoring == "ring", "scoring='ring'", "ROADMAP A7"),
             (secure, "secure aggregation", "ROADMAP A12"),
             (local_optimizer is not None, "local_optimizer", "ROADMAP A11")):
         if asked:
@@ -179,6 +227,8 @@ def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
                     committee_mask: np.ndarray) -> None:
         # the committee schedule gathers exactly the static C/K slots; a
         # mask whose popcount disagrees would score the wrong clients
+        if scoring != "committee":
+            return
         for name, m, want in (("uploader_mask", uploader_mask,
                                needed_update_count),
                               ("committee_mask", committee_mask,
@@ -221,10 +271,15 @@ def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
                                      client_chunk=client_chunk, remat=remat)
         deltas = wire_deltas(params, trained, lr)
         with torch.no_grad():
-            # 2. C x K committee scoring -> sparse (N, N) matrix
-            score = committee_score_matrix(
-                model, params, deltas, lr, xs, ys, comm, up, comm_count,
-                needed_update_count, client_chunk)
+            # 2. C x K committee scoring -> sparse (N, N) matrix, or the
+            #    dense ring
+            if scoring == "committee":
+                score = committee_score_matrix(
+                    model, params, deltas, lr, xs, ys, comm, up, comm_count,
+                    needed_update_count, client_chunk)
+            else:
+                score = ring_score_matrix(model, params, deltas, lr, xs, ys,
+                                          client_chunk)
             # 3. the decision, as the reference takes it replicated
             med, order, sel, g_loss = decide(score, comm, up, costs, k)
             # 4. masked sample-weighted FedAvg (one shard: no psum)
@@ -240,3 +295,116 @@ def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
                                   g_loss, delta_fps, params_fp, cands)
 
     return round_fn
+
+
+def draw_uniforms(rng_key: np.ndarray, rounds: int, n: int) -> np.ndarray:
+    """(rounds, n) float32: `jax.random.uniform(k, (n,))` for each key k
+    of `jax.random.split(rng_key, rounds)`, the reference's per-round
+    uploader draw (:590, :680)."""
+    return np.stack([prng.uniform(k, (n,))
+                     for k in prng.split(rng_key, rounds)])
+
+
+
+def make_multi_round_program(model: Model, *, client_num: int, lr: float,
+                             batch_size: int, local_epochs: int,
+                             aggregate_count: int, comm_count: int,
+                             needed_update_count: int,
+                             rounds_per_dispatch: int,
+                             client_chunk: int = 0, remat: bool = False,
+                             secure: bool = False,
+                             scoring: str = "committee",
+                             ) -> Callable[..., MultiRoundResult]:
+    """R protocol rounds as one dispatch, the amortised data plane.
+
+    Returned fn(params, xs, ys, n_samples, committee_mask0, rng_key,
+    xte, yte): the padded shards and true sizes as for the one-round
+    program, committee_mask0 (N,) bool the ledger's committee at the
+    dispatch's start, rng_key a `utils.prng` key (the reference's
+    `jax.random.PRNGKey` split per dispatch), (xte, yte) the sponsor's
+    test set (one-hot labels).  Per round, in the reference's order
+    (:586-668): the uploader draw, training, scoring, the decision, the
+    FedAvg merge, the fingerprints, the next committee, the sponsor's
+    accuracy.  The host ledger replays and audits every round afterwards
+    (`client/mesh_runtime.py`), as in the reference.
+    """
+    if secure:
+        raise _unported("secure aggregation", "ROADMAP A12")
+    if needed_update_count < comm_count:
+        # the device election takes the top comm_count of the K uploader
+        # slots; with K < comm_count it would seat non-uploaders the
+        # ledger never elects, a certain audit divergence
+        raise ValueError(
+            f"needed_update_count ({needed_update_count}) must be >= "
+            f"comm_count ({comm_count}) for the batched multi-round program")
+    if client_num - comm_count < needed_update_count:
+        # committee members are excluded from the draw: with fewer than K
+        # candidates the top-K mask would hold fewer than K entries
+        raise ValueError(
+            f"client_num - comm_count ({client_num - comm_count}) must be "
+            f">= needed_update_count ({needed_update_count}): the uploader "
+            f"draw excludes committee members")
+    if scoring not in ("committee", "ring"):
+        raise ValueError(f"scoring must be 'committee'|'ring', "
+                         f"got {scoring!r}")
+    if client_chunk and client_chunk < client_num \
+            and client_num % client_chunk:
+        raise ValueError(f"clients/device {client_num} not divisible by "
+                         f"client_chunk {client_chunk}")
+    n, k_up, rounds = client_num, needed_update_count, rounds_per_dispatch
+
+    def program(params: Params, xs: torch.Tensor, ys: torch.Tensor,
+                n_samples: torch.Tensor, committee_mask0,
+                rng_key: np.ndarray, xte: torch.Tensor,
+                yte: torch.Tensor) -> MultiRoundResult:
+        if xs.shape[0] != n:
+            raise ValueError(f"program built for {n} clients, got "
+                             f"{xs.shape[0]} shards")
+        dev = xs.device
+        comm0 = np.asarray(committee_mask0, bool)
+        if comm0.shape != (n,) or int(comm0.sum()) != comm_count:
+            raise ValueError(f"committee_mask0 must be ({n},) bool with "
+                             f"{comm_count} True entries")
+        # the dispatch's inputs from the host, once: R uniform vectors
+        # and the starting committee
+        draws = upload(draw_uniforms(rng_key, rounds, n), dev)
+        comm = upload(comm0, dev)
+        outs = []
+        for r in range(rounds):
+            # the uploader draw: top K of the uniforms over the trainers
+            # (committee at -inf), the index-ascending stable order
+            not_comm = ~comm
+            up = (torch.sort(rank_desc_stable(draws[r], not_comm),
+                             stable=True).indices < k_up) & not_comm
+            trained, costs = sgd_stacked(
+                model, params, xs, ys, lr=lr, batch_size=batch_size,
+                local_epochs=local_epochs, client_chunk=client_chunk,
+                remat=remat)
+            deltas = wire_deltas(params, trained, lr)
+            with torch.no_grad():
+                if scoring == "committee":
+                    score = committee_score_matrix(
+                        model, params, deltas, lr, xs, ys, comm, up,
+                        comm_count, k_up, client_chunk)
+                else:
+                    score = ring_score_matrix(model, params, deltas, lr,
+                                              xs, ys, client_chunk)
+                med, order, sel, g_loss = decide(score, comm, up, costs,
+                                                 aggregate_count)
+                new_params = apply_selection(params, deltas, n_samples, sel,
+                                             lr, trained=trained)
+                delta_fps = fingerprint_stacked(deltas)
+                params_fp = fingerprint_pytree(new_params)
+                # the next committee (.cpp:443-455): the top comm_count
+                # uploader slots; K >= comm_count, so all are uploaders
+                electees = order[:comm_count]
+                comm_next = torch.zeros(n, dtype=torch.bool,
+                                        device=dev).scatter(
+                    0, electees, torch.ones_like(electees, dtype=torch.bool))
+                acc = evaluate(model, new_params, xte, yte)
+            outs.append((up, comm, score, med, sel, order, costs, g_loss,
+                         delta_fps, params_fp, acc))
+            params, comm = new_params, comm_next
+        return MultiRoundResult(params, *(torch.stack(f) for f in zip(*outs)))
+
+    return program

@@ -34,8 +34,8 @@ off|shard|full`, the reference's choices, :136-143).  The reference's other run
 options belong to parts not ported yet.  Each such flag is accepted by
 the parser so that the CLI can refuse it by name (exit 2 with the
 ROADMAP item) rather than fail on an unknown argument or drop it.  Still
-dropped: chaos (A9; `--ledger-backend` is ported: auto and python,
-native exits 2), checkpoints and the device profiler (A11), secure
+dropped: chaos (A9; `--ledger-backend` is ported: auto, native and
+python), checkpoints and the device profiler (A11), secure
 aggregation (A12), and traces, plots and telemetry (A14).  Score
 attestation is ported: `--attest-scores` / `--no-attest-scores`, the
 reference's tri-state (:48-51; not given = on wherever wallets exist),
@@ -115,8 +115,8 @@ def add_flags(p: argparse.ArgumentParser) -> None:
                        default=None, help=help_)
     p.add_argument("--ledger-backend", default="auto",
                    choices=("auto", "python", "native"),
-                   help="ledger backend (auto/python: the python ledger; "
-                        "native is ROADMAP A9)")
+                   help="ledger backend (auto: the native C++ ledger "
+                        "where the config allows it, else python)")
     p.add_argument("--standbys", type=int, default=0,
                    help="processes runtime: hot standbys that promote "
                         "when the writer dies")

@@ -13,8 +13,12 @@ leg with an accuracy bar prints an `accuracy` line: each evaluation, the
 first at the bar and the evaluations to spare after it.
 
 1. build   — compile every kernel from the sources in this checkout
-             (one nvcc per source, started together);
+             (one nvcc per source, started together) and, beside them,
+             the native ledger (one g++);
 2. device  — the card's name and power limit, as nvidia-smi reports them;
+   native_ledger — a config-5 chain (50 rounds) applied op by op into
+             fresh native and python ledgers: µs an applied op of each,
+             heads, state bytes and digests held equal, `auto` native;
 3. compare — each kernel against its plain PyTorch version on the same
              card tensors, float32 and bfloat16, at the transformer's
              training and scoring shapes, at a multi-tile shape (S = 256)
@@ -47,7 +51,22 @@ first at the bar and the evaluations to spare after it.
              of its final model against the CPU path's; then config 1 —
              the CLI's default — for 10 rounds on the mesh runtime and 10
              on the host runtime (round times of both), its final model
-             against the CPU path;
+             against the CPU path; every in-process leg's ledger held to
+             the backend the reference runs there (native);
+   dispatch — configs 1 and 5 on the mesh runtime, 10 rounds in
+             dispatches of 5 (`rounds_per_dispatch`: the uploader draw,
+             the election and the sponsor's evaluation on the card) with
+             the card's sync debugging at "error" inside each dispatch,
+             launch counts reset just before and read just after and
+             held to 10 times the mesh round's, the ledger's audit of
+             every round; config 1's final model against the CPU path
+             and its bar, config 5's sponsor decisions against the CPU
+             path's; then one config-5 round under ring scoring (launches
+             K1 22, K2 20, K3 20, B6 2), the dense matrix's committee x
+             uploader entries within one example of the committee path's
+             on the same params and deltas with the same selection, and
+             K1 at the ring's shape (64000, 64, 4, 32) against its plain
+             version and timed beside SDPA and its bound;
    presets — configs 0, 2, 3 and 4 (`PRESET_RUNS`), each run between a
              reset and a read of the launch counts (fingerprint 2 a mesh
              round, nothing else) and held to the reference tests' bar:
@@ -302,6 +321,14 @@ runs only the build and the hier legs (k, l).
     python3 chip_smoke.py --rederive
 
 runs only the build and the rederive legs (m, n).
+
+    python3 chip_smoke.py --dispatch
+
+runs only the build, the native ledger's line and the dispatch phase.
+
+Every fleet leg's line names its final writer's ledger backend
+(`writer_backend`), held to the one the reference runs at that leg's
+configuration (`reference_backend`).
 """
 
 from __future__ import annotations
@@ -611,6 +638,29 @@ ASYNC_K_TRAIN, ASYNC_K1_FORWARD = 20, 2
 EXECUTOR_PER_ROUND = dict(MESH_PER_ROUND, flash_fwd=MESH_PER_ROUND[
     "flash_fwd"] - ASYNC_K1_FORWARD)
 B5_SELFCHECK_LAUNCHES = 6            # the engine's self-check: 1 + 5 blocks
+# the multi-round dispatch (`--dispatch`): configs 1 and 5 on the mesh
+# runtime, 10 rounds in dispatches of 5 (the uploader draw, the election
+# and the sponsor's evaluation on the card, no host sync inside a
+# dispatch), each dispatch's launches R times the round's; and one config-5
+# round under ring scoring, every client scoring every candidate: K1 at
+# 20 scorers x 20 candidates x 160 rows
+DISPATCH_ROUNDS, DISPATCH_R = 10, 5
+RING_SCORE_SHAPE = (64000, 64, 4, 32)
+# the ring round's launches: the mesh round's without the sponsor's
+# evaluation (the one-round program does not evaluate)
+RING_PER_ROUND = EXECUTOR_PER_ROUND
+# config 1's dispatch bar: on the CPU both packages' trajectories at
+# R = 5 over seeds 0-4 (`tests/test_torch_dispatch.py::
+# test_config1_dispatch_bar_has_evaluations_to_spare`, equal bit for
+# bit) first reach 0.85 at evaluation 2 of 10, 7 evaluations to spare
+# (PERF.md section 6), so the bar is held
+DISPATCH_C1_MIN_BEST = CONFIG1_MIN_BEST
+# one example of a scorer's 160-row shard: the most the ring's entries
+# may differ from the committee's on the card (K1 at another batch)
+RING_ENTRY_TOL = 1.0 / 160
+# the native ledger's timing: a config-5 chain of this many rounds,
+# applied into fresh ledgers of both backends
+LEDGER_CHAIN_ROUNDS = 50
 WORK_DIR = os.path.join("build", "chip_smoke")
 FLEET_MASTER_SEED = b"process-federation-master-0001"   # the fleet's default
 
@@ -652,6 +702,25 @@ def hold(leg: str, gate: str, ok: bool, value, bar,
     """Raise the failing gate's error, its line printed first."""
     if not ok:
         raise gate_failed(leg, gate, value, bar, detail)
+
+
+def reference_backend(cfg, compacts: bool = False) -> str:
+    """The ledger the reference's `make_ledger(backend="auto")` gives a
+    writer at this configuration (`bflc_demo_tpu/ledger/__init__.py:
+    40-63`, a snapshotting writer or standby `comm/ledger_service.py:
+    360-371`, `comm/failover.py:362-369`): the native one unless the
+    config is asynchronous, blocked or adaptive or the writer compacts."""
+    if compacts or cfg.async_buffer > 0 or cfg.reduce_blocks > 1 \
+            or cfg.adapt_every > 0:
+        return "python"
+    return "native"
+
+
+def hold_backend(leg: str, got, want: str = "native") -> None:
+    """A leg's ledger is the one the reference runs there: a leg that
+    asked for `auto` and got `python` where the reference runs native
+    fails."""
+    hold(leg, "ledger backend", got == want, got, want)
 
 
 PR_SET_CHILD_SUBREAPER = 36          # <linux/prctl.h>
@@ -746,6 +815,21 @@ def attention_inputs(torch, shape, dtype, device, seed):
                   for _ in range(4))
     lengths = rng.integers(s // 2, s + 1, b)
     mask = np.arange(s)[None, :] < lengths[:, None]
+    if s > 64:
+        mask[0, 64:128] = False
+    return q, k, v, g, torch.as_tensor(mask).to(device)
+
+
+def device_attention_inputs(torch, shape, device, seed):
+    """`attention_inputs` with q/k/v/dO drawn on the card by a seeded
+    torch generator (at the ring's 64000 rows a numpy draw takes tens of
+    seconds); the key mask as there."""
+    b, s, _, _ = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=device)
+                  for _ in range(4))
+    rng = np.random.default_rng(seed)
+    mask = np.arange(s)[None, :] < rng.integers(s // 2, s + 1, b)[:, None]
     if s > 64:
         mask[0, 64:128] = False
     return q, k, v, g, torch.as_tensor(mask).to(device)
@@ -866,11 +950,13 @@ def carry_compare_phase(torch, fa, device) -> float:
     return shard_err
 
 
-def device_ms(torch, fn, calls: int = 50, replays: int = 5,
-              repeats: int = 7, stream=None) -> float:
+def device_ms(torch, fn, calls: int = 20, replays: int = 3,
+              repeats: int = 5, stream=None) -> float:
     """Median device time of one `fn()` call: `calls` calls captured in a
     CUDA graph (no host launch overhead) on `stream` (default: the
-    graph's own), replayed between CUDA events."""
+    graph's own), replayed between CUDA events.  The defaults (20 calls,
+    3 replays, 5 repeats) keep the timing phases short enough for the
+    full script's time limit (PERF.md section 6)."""
     for _ in range(3):
         fn()                        # warm up: build, autotune, allocate
     torch.cuda.synchronize()
@@ -999,12 +1085,14 @@ def backward_timing(torch, fa, device, shape, seed, **few) -> dict:
 
 
 def forward_timing(torch, fa, device, shape, seed, card: str = None,
-                   **few) -> dict:
+                   inputs=None, **few) -> dict:
     """The forward kernel at `shape` (float32) beside its plain version
-    and SDPA (the row names the card when `card` is given)."""
+    and SDPA (the row names the card when `card` is given), on `inputs`
+    (q, k, v, dO, mask) where given."""
     import torch.nn.functional as F
-    q, k, v, _, mask = attention_inputs(torch, shape, torch.float32, device,
-                                        seed)
+    q, k, v, _, mask = inputs or attention_inputs(torch, shape,
+                                                  torch.float32, device,
+                                                  seed)
     qt, kt, vt, attn_mask = sdpa_inputs(q, k, v, mask)
     row = timing_row(
         shape, mask, "float32", "flash_fwd",
@@ -1207,11 +1295,13 @@ def slice_phase(torch, fa, device) -> dict:
          round_s=res.round_times_s, wall_s=res.wall_time_s,
          best_acc=best, ledger_log_head=res.ledger_log_head.hex(),
          ledger_log_size=res.ledger_log_size,
-         ledger_verified=res.ledger.verify_log(), launches=launches)
+         ledger_verified=res.ledger.verify_log(), launches=launches,
+         ledger_backend=res.ledger.backend)
     leg = "host_config5"
     hold(leg, "rounds", res.rounds_completed == ROUNDS,
          res.rounds_completed, ROUNDS)
     hold(leg, "chain verified", res.ledger.verify_log(), False, True)
+    hold_backend(leg, res.ledger.backend)
     hold(leg, "kernels never launched",
          all(launches.get(n, 0) > 0 for n in DENSE_KERNELS),
          [n for n in DENSE_KERNELS if launches.get(n, 0) <= 0], [])
@@ -1266,11 +1356,13 @@ def mesh_slice_phase(torch, fa, fp, device) -> dict:
          ledger_log_head=res.ledger_log_head.hex(),
          ledger_log_size=res.ledger_log_size,
          ledger_verified=res.ledger.verify_log(), n_devices=res.n_devices,
-         launches=launches, expected_launches=expected)
+         launches=launches, expected_launches=expected,
+         ledger_backend=res.ledger.backend)
     leg = "mesh_config5"
     hold(leg, "rounds", res.rounds_completed == ROUNDS,
          res.rounds_completed, ROUNDS)
     hold(leg, "chain verified", res.ledger.verify_log(), False, True)
+    hold_backend(leg, res.ledger.backend)
     hold(leg, "launches", launches == expected, launches, expected)
     hold(leg, "best accuracy", best >= MIN_BEST_ACC, best, MIN_BEST_ACC)
     decision_check(torch, res.final_params, device, "mesh final",
@@ -1283,11 +1375,8 @@ def config1_phase(torch, fa, fp, device) -> dict:
     between a reset and a read of the launch counts; the same 10 rounds
     on the host runtime; the mesh run's final model on the card against
     the CPU path on the sponsor's test set."""
-    from bflc_demo_tpu_torch.core.losses import accuracy
-    from bflc_demo_tpu_torch.data.occupancy import (load_occupancy,
-                                                    occupancy_source)
+    from bflc_demo_tpu_torch.data.occupancy import occupancy_source
     from bflc_demo_tpu_torch.eval.configs import config1_occupancy
-    from bflc_demo_tpu_torch.models import make_softmax_regression
 
     reset_counts()
     mesh = config1_occupancy(rounds=CONFIG1_ROUNDS, runtime="mesh",
@@ -1307,9 +1396,12 @@ def config1_phase(torch, fa, fp, device) -> dict:
          min_best_acc=bar, ledger_log_head=mesh.ledger_log_head.hex(),
          ledger_log_size=mesh.ledger_log_size,
          host_ledger_log_size=host.ledger_log_size,
-         ledger_verified=mesh.ledger.verify_log(), launches=launches)
+         ledger_verified=mesh.ledger.verify_log(), launches=launches,
+         ledger_backend=mesh.ledger.backend,
+         host_ledger_backend=host.ledger.backend)
     leg = "mesh_config1"
     for name, res in (("mesh", mesh), ("host", host)):
+        hold_backend(f"{leg} {name}", res.ledger.backend)
         hold(leg, f"{name} ledger ops", res.ledger_log_size == want_size,
              res.ledger_log_size, want_size)
         hold(leg, f"{name} chain verified", res.ledger.verify_log(), False,
@@ -1319,34 +1411,39 @@ def config1_phase(torch, fa, fp, device) -> dict:
     want = {k: 0 for k in launches}
     want["fingerprint"] = MESH_PER_ROUND["fingerprint"] * CONFIG1_ROUNDS
     hold(leg, "launches", launches == want, launches, want)
+    config1_card_check(torch, device, mesh, leg)
+    return {"launches": launches, "round_s": mesh.round_times_s,
+            "host_round_s": host.round_times_s}
 
-    # the final model on the card vs on the CPU: logits within float32
-    # rounding of the raw-scale features, the same decisions but for
-    # rows whose two logits are within that tolerance of each other
+
+def config1_card_check(torch, device, res, leg: str) -> None:
+    """A config-1 run's final model on the card vs on the CPU: logits
+    within float32 rounding of the raw-scale features, the same
+    decisions but for rows whose two logits are within that tolerance of
+    each other, and the recorded sponsor accuracy re-evaluated."""
+    from bflc_demo_tpu_torch.core.losses import accuracy
+    from bflc_demo_tpu_torch.data.occupancy import load_occupancy
+    from bflc_demo_tpu_torch.models import make_softmax_regression
     _, _, xte, yte = load_occupancy()
     model = make_softmax_regression()
     x = torch.as_tensor(xte)
-    on_card = model.to(device).apply(mesh.final_params, x.to(device)).cpu()
+    on_card = model.to(device).apply(res.final_params, x.to(device)).cpu()
     on_cpu = model.cpu().apply({k: p.cpu() for k, p in
-                                mesh.final_params.items()}, x)
+                                res.final_params.items()}, x)
     tol = 1e-5 * max(1.0, float(on_cpu.abs().max()))
     err = float((on_card - on_cpu).abs().max())
     gap = (on_cpu[:, 0] - on_cpu[:, 1]).abs()
     flips = on_card.argmax(-1) != on_cpu.argmax(-1)
     acc_card = float(accuracy(on_card, torch.nn.functional.one_hot(
         torch.as_tensor(yte).long(), 2).float()))
-    emit("mesh_check", config="config1", max_abs_err_vs_cpu=err, tol=tol,
-         ties_flipped=int(flips.sum()), sponsor_acc_card=acc_card,
-         sponsor_acc_recorded=mesh.final_accuracy)
-    leg = "mesh_config1"
+    emit("mesh_check", config="config1", leg=leg, max_abs_err_vs_cpu=err,
+         tol=tol, ties_flipped=int(flips.sum()), sponsor_acc_card=acc_card,
+         sponsor_acc_recorded=res.final_accuracy)
     hold(leg, "logits vs CPU max_abs_err", err <= tol, err, tol)
     hold(leg, "decisions flipped", not (flips & (gap > 2 * tol)).any(),
          int((flips & (gap > 2 * tol)).sum()), 0)
     hold(leg, "sponsor accuracy re-evaluated",
-         acc_card == mesh.final_accuracy, acc_card,
-         mesh.final_accuracy)
-    return {"launches": launches, "round_s": mesh.round_times_s,
-            "host_round_s": host.round_times_s}
+         acc_card == res.final_accuracy, acc_card, res.final_accuracy)
 
 
 def preset_run(torch, name: str, label: str, rounds: int, bar, **kw):
@@ -1373,10 +1470,11 @@ def preset_run(torch, name: str, label: str, rounds: int, bar, **kw):
          round_s=res.round_times_s, wall_s=res.wall_time_s,
          ledger_log_size=res.ledger_log_size,
          ledger_verified=res.ledger.verify_log(), launches=launches,
-         peak_mem_bytes=peak)
+         peak_mem_bytes=peak, ledger_backend=res.ledger.backend)
     leg = label
     hold(leg, "rounds", res.rounds_completed == rounds,
          res.rounds_completed, rounds)
+    hold_backend(leg, res.ledger.backend)
     hold(leg, "chain verified", res.ledger.verify_log(), False, True)
     hold(leg, "finite accuracies", bool(all(np.isfinite(acc))), acc, True)
     if bar[0] == "best":
@@ -1946,14 +2044,17 @@ def boot_account(res) -> dict:
                         for k in steps}}
 
 
-def fleet_run(torch, label: str, card: str, run, env=None) -> tuple:
+def fleet_run(torch, label: str, card: str, run, env=None,
+              backend: str = "native") -> tuple:
     """`run()` between a reset and a read of the launch counts, with the
-    fleet's environment (and `env`); returns (result, main-path launches,
-    B5 by writer role)."""
+    fleet's environment (and `env`), its final writer's ledger held to
+    `backend` (`reference_backend` of the leg's configuration); returns
+    (result, main-path launches, B5 by writer role)."""
     reset_counts()
     with fleet_env(env):
         res = run()
     torch.cuda.synchronize()
+    hold_backend(label, res.writer_backend, backend)
     ok = bool(res.replica_reports) and all(
         r["ok"] and r["head"] == res.ledger_log_head
         for r in res.replica_reports)
@@ -1968,6 +2069,7 @@ def fleet_run(torch, label: str, card: str, run, env=None) -> tuple:
         res.writer_merges, [a for _, a in res.accuracy_history], ok,
         primary=primary, client_perf=res.client_perf,
         wall_s=res.wall_time_s, ed25519_backend=res.ed25519_backend,
+        writer_backend=res.writer_backend,
         ledger_log_size=res.ledger_log_size,
         recovered_clients=res.recovered_clients, phase_s=res.phase_s,
         boot=boot_account(res), **extra)
@@ -2121,8 +2223,10 @@ def failover_merge_phase(torch, card: str) -> tuple:
          leg=merge["leg"], promote_s=promote_s, first_merge_s=merge["merge_s"],
          engine_selfcheck_before=check_before, selfcheck_b5_launches=check,
          b5_launches=b5, upload_s_quorum1=upload_s,
-         upload_s_cpu_no_standby=cpu_upload_s, launches=counts)
+         upload_s_cpu_no_standby=cpu_upload_s, launches=counts,
+         writer_backend=promoted.ledger.backend)
     leg = "failover_merge"
+    hold_backend(leg, promoted.ledger.backend)
     hold(leg, "bytes equal the host leg's", got == want, got == want, True)
     hold(leg, "merge leg", merge["leg"] == "mesh", merge["leg"], "mesh")
     hold(leg, "B5 launches", b5 >= 1, b5, 1)
@@ -2197,7 +2301,8 @@ def processes_phase(torch, card: str) -> tuple:
     res, *out = fleet_run(
         torch, "processes_reference", card,
         lambda: reference_test(rounds=FLEET_ROUNDS, stall_timeout_s=20.0,
-                               replicas=FLEET_REPLICAS))
+                               replicas=FLEET_REPLICAS),
+        backend=reference_backend(cfg))
     note("processes_reference", out)
     leg = "processes_reference"
     hold(leg, "replicas", len(res.replica_reports) == FLEET_REPLICAS,
@@ -2227,9 +2332,11 @@ def processes_phase(torch, card: str) -> tuple:
         fleet["writer_engine"], fleet["perf"], fleet["epoch_times"],
         fleet["spawn_s"], fleet["writer_merges"], None,
         fleet["replica_head_ok"], ed25519_backend=fleet["ed25519_backend"],
+        writer_backend=fleet["writer_backend"],
         cli_wall_s=time.perf_counter() - t0, best_acc=cli["best_acc"],
         ledger_log_size=cli["ledger_log_size"], bar=bar))
     leg = "processes_config1"
+    hold_backend(leg, fleet["writer_backend"])
     hold(leg, "rounds", cli["rounds"] == CONFIG1_ROUNDS, cli["rounds"],
          CONFIG1_ROUNDS)
     hold(leg, "best accuracy", cli["best_acc"] >= bar, cli["best_acc"], bar)
@@ -2239,14 +2346,16 @@ def processes_phase(torch, card: str) -> tuple:
         torch, "processes_config5", card,
         lambda: config5_transformer_sst2(rounds=FLEET_C5_ROUNDS,
                                          runtime="processes",
-                                         device="cuda"))
+                                         device="cuda"),
+        backend=reference_backend(ProtocolConfig(**CONFIG5_PROTO)))
     note("processes_config5", out)
     config5_check("processes_config5", res, FLEET_C5_ROUNDS)
 
     res, *out = fleet_run(
         torch, "processes_crash", card,
         lambda: reference_test(rounds=3, crash_at=FLEET_CRASH,
-                               stall_timeout_s=4.0))
+                               stall_timeout_s=4.0),
+        backend=reference_backend(cfg))
     note("processes_crash", out)
     if sorted(res.recovered_clients) != sorted(FLEET_CRASH):
         raise gate_failed("processes_crash", "recovered clients",
@@ -2263,7 +2372,8 @@ def processes_phase(torch, card: str) -> tuple:
         lambda: run_federated_processes(
             "make_softmax_regression", drill_shards, (xte[:500], yte[:500]),
             cfg, rounds=FAILOVER_ROUNDS, device="cuda",
-            timeout_s=FLEET_TIMEOUT_S, **FAILOVER_DRILL))
+            timeout_s=FLEET_TIMEOUT_S, **FAILOVER_DRILL),
+        backend=reference_backend(cfg))
     note("failover_drill", out)
     failover_check("failover_drill", res, FAILOVER_ROUNDS,
                    FAILOVER_MIN_BEST)
@@ -2275,7 +2385,8 @@ def processes_phase(torch, card: str) -> tuple:
             "make_transformer_classifier", c5_shards, c5_test,
             ProtocolConfig(**CONFIG5_PROTO), rounds=FLEET_C5_ROUNDS,
             factory_kw=CONFIG5_ARCH, device="cuda",
-            timeout_s=FLEET_TIMEOUT_S, **CONFIG5_FAILOVER))
+            timeout_s=FLEET_TIMEOUT_S, **CONFIG5_FAILOVER),
+        backend=reference_backend(ProtocolConfig(**CONFIG5_PROTO)))
     note("failover_config5", out)
     config5_check("failover_config5", res, FLEET_C5_ROUNDS)
     failover_check("failover_config5", res, FLEET_C5_ROUNDS, MIN_BEST_ACC)
@@ -2349,7 +2460,9 @@ def async_phase(torch, card: str, note, c5_shards, c5_test) -> None:
             "make_transformer_classifier", c5_shards, c5_test, cfg,
             rounds=ASYNC_EPOCHS, factory_kw=CONFIG5_ARCH, device="cuda",
             timeout_s=FLEET_TIMEOUT_S,
-            snapshot_dir=os.path.join(work, "snaps"), **ASYNC_FLEET))
+            snapshot_dir=os.path.join(work, "snaps"), **ASYNC_FLEET),
+        backend=reference_backend(cfg, compacts=bool(
+            ASYNC_FLEET.get("snapshot_interval"))))
     leg_s = time.perf_counter() - t0
     bft_account("async_config5", card, res, BFT_CONFIG5_BLOCKS)
     note("async_config5", (total, by_role))
@@ -2572,7 +2685,8 @@ def codecs_phase(torch, card: str, note, c5_shards, c5_test, drill_shards,
             torch, label, card,
             lambda: run_federated_processes(
                 model, shards, test, cfg, rounds=rounds, device="cuda",
-                timeout_s=FLEET_TIMEOUT_S, **fleet), env=CODEC_ENV)
+                timeout_s=FLEET_TIMEOUT_S, **fleet), env=CODEC_ENV,
+            backend=reference_backend(cfg))
         leg_s = time.perf_counter() - t0
         note(label, (total, bft_account(label, card, res,
                                         cfg.reduce_blocks)))
@@ -2701,7 +2815,9 @@ def hier_account(label: str, card: str, res, leg_s: float,
     bad_arg = {c: v["bridge"] for c, v in cells.items()
                if any("BAD_ARG" in r for r in v["bridge"].values())}
     warm = [ms for c in cells.values() for ms in c["merge_ms"][1:]]
+    hold_backend(label, res.writer_backend)
     emit("hier", path=label, nvidia_smi=card, cells=plan.n_cells,
+         writer_backend=res.writer_backend,
          members=[list(m) for m in plan.members],
          killed_cells=res.killed_cells,
          client_exitcodes=res.client_exitcodes, spawn_s=res.spawn_s,
@@ -2823,14 +2939,14 @@ def bft_phase(torch, card: str, note, drill_shards, drill_test, c5_shards,
     from bflc_demo_tpu_torch.client.process_runtime import \
         run_federated_processes
     from bflc_demo_tpu_torch.protocol import ProtocolConfig
+    cfg = ProtocolConfig(**FLEET_PROTO, reduce_blocks=BFT_DRILL_BLOCKS)
     res, total, _ = fleet_run(
         torch, "bft_drill", card,
         lambda: run_federated_processes(
-            "make_softmax_regression", drill_shards, drill_test,
-            ProtocolConfig(**FLEET_PROTO, reduce_blocks=BFT_DRILL_BLOCKS),
+            "make_softmax_regression", drill_shards, drill_test, cfg,
             rounds=FAILOVER_ROUNDS, device="cuda",
             timeout_s=FLEET_TIMEOUT_S, bft_validators=BFT_VALIDATORS,
-            **FAILOVER_DRILL))
+            **FAILOVER_DRILL), backend=reference_backend(cfg))
     note("bft_drill", (total, bft_account("bft_drill", card, res,
                                           BFT_DRILL_BLOCKS)))
     leg = "bft_drill"
@@ -2850,14 +2966,14 @@ def bft_config5_run(torch, card: str, note, c5_shards, c5_test):
     from bflc_demo_tpu_torch.client.process_runtime import \
         run_federated_processes
     from bflc_demo_tpu_torch.protocol import ProtocolConfig
+    cfg = ProtocolConfig(**CONFIG5_PROTO, reduce_blocks=BFT_CONFIG5_BLOCKS)
     res, total, _ = fleet_run(
         torch, "bft_config5", card,
         lambda: run_federated_processes(
-            "make_transformer_classifier", c5_shards, c5_test,
-            ProtocolConfig(**CONFIG5_PROTO, reduce_blocks=BFT_CONFIG5_BLOCKS),
+            "make_transformer_classifier", c5_shards, c5_test, cfg,
             rounds=FLEET_C5_ROUNDS, factory_kw=CONFIG5_ARCH,
             device="cuda", timeout_s=FLEET_TIMEOUT_S,
-            bft_validators=BFT_VALIDATORS))
+            bft_validators=BFT_VALIDATORS), backend=reference_backend(cfg))
     note("bft_config5", (total, bft_account("bft_config5", card, res,
                                             BFT_CONFIG5_BLOCKS)))
     config5_check("bft_config5", res, FLEET_C5_ROUNDS)
@@ -2895,12 +3011,13 @@ def snapshot_artifacts(root: str, keys: dict, quorum: int) -> dict:
 
 
 def wal_account(path: str, cfg) -> dict:
-    """A journal's magic and what replaying it into a fresh ledger
-    gives."""
+    """A journal's magic and what replaying it into a fresh python
+    ledger gives (a compacted BFLCWAL2 journal: the native ledger reads
+    BFLCWAL1 only)."""
     from bflc_demo_tpu_torch.ledger import make_ledger
     with open(path, "rb") as f:
         magic = f.read(8).decode()
-    led = make_ledger(cfg)
+    led = make_ledger(cfg, backend="python")
     led.replay_wal(path)
     return {"magic": magic, "log_size": led.log_size(),
             "log_base": led.log_base, "log_head": led.log_head().hex(),
@@ -2933,7 +3050,8 @@ def snapshot_phase(torch, card: str, note, c5_shards, c5_test,
             rounds=FLEET_C5_ROUNDS, factory_kw=CONFIG5_ARCH, device="cuda",
             timeout_s=FLEET_TIMEOUT_S, tls_dir=os.path.join(work, "certs"),
             snapshot_dir=os.path.join(work, "snaps"), wal_path=wal,
-            **TLS_SNAPSHOT))
+            **TLS_SNAPSHOT),
+        backend=reference_backend(cfg, compacts=True))
     note("tls_snapshot_config5", (total, bft_account(
         "tls_snapshot_config5", card, res, BFT_CONFIG5_BLOCKS)))
     config5_check("tls_snapshot_config5", res, FLEET_C5_ROUNDS)
@@ -3171,6 +3289,8 @@ class _DrillFleet:
             cfg, init, bft_validators=[(v.host, v.port) for v in self.nodes],
             bft_keys=keys, bft_timeout_s=bft_timeout_s,
             stall_timeout_s=600.0, device="cuda")
+        hold_backend("rederive_drill", self.server.ledger.backend,
+                     reference_backend(cfg))
         self.server.start()
         self.client = CoordinatorClient(self.server.host, self.server.port,
                                         timeout_s=300.0)
@@ -3486,7 +3606,7 @@ def rederive_config5_phase(torch, card: str, note, c5_shards,
             "make_transformer_classifier", c5_shards, c5_test, cfg,
             rounds=REDERIVE_C5_ROUNDS, factory_kw=CONFIG5_ARCH,
             device="cuda", timeout_s=FLEET_TIMEOUT_S, **REDERIVE_FLEET),
-        env=CODEC_ENV)
+        env=CODEC_ENV, backend=reference_backend(cfg))
     total, by_role = rederive_account(label, card, res, total,
                                       time.perf_counter() - t0)
     note(label, (total, by_role))
@@ -3611,7 +3731,9 @@ def executor_account(label: str, card: str, res, cfg: dict, rounds: int,
                   for k in DENSE_KERNELS}
     attested = {r: c["attested"] for r, c in counts.items()}
     rounds_log = rec.get("rounds") or []
+    hold_backend(label, res.writer_backend)
     emit("executor", path=label, nvidia_smi=card, leg_s=leg_s,
+         writer_backend=res.writer_backend,
          spawn_s=res.spawn_s, stage_s=res.stage_s,
          rounds=res.rounds_completed,
          round_s=[r["round_s"] for r in rounds_log],
@@ -3731,7 +3853,9 @@ def executor_cli_phase(card: str, note, started: tuple = None) -> None:
          attest_wait_s=[r["attest_s"] for r in ex["rounds"] or []],
          attested={r: c["attested"]
                    for r, c in ex["client_counts"].items()},
-         best_acc=cli["best_acc"], ledger_log_size=cli["ledger_log_size"])
+         best_acc=cli["best_acc"], ledger_log_size=cli["ledger_log_size"],
+         writer_backend=ex["writer_backend"])
+    hold_backend(label, ex["writer_backend"])
     hold(label, "rounds", cli["rounds"] == EXECUTOR_CLI_ROUNDS,
          cli["rounds"], EXECUTOR_CLI_ROUNDS)
     want = executor_log_size(cfg, EXECUTOR_CLI_ROUNDS)
@@ -3915,7 +4039,9 @@ def executor_attest_drill_phase(torch, card: str) -> dict:
          tamper_refusals=tamper["refusals"][:2],
          tamper_error=tamper["progress"].get("error"), tamper_s=tamper_s,
          mesh_attest_log=mesh_log, mesh_round_s=mesh.round_times_s,
-         mesh_s=mesh_s, launches=counts)
+         mesh_s=mesh_s, launches=counts,
+         mesh_ledger_backend=mesh.ledger.backend)
+    hold_backend(leg, mesh.ledger.backend)
     hold(leg, "mismatched shard refused",
          stage["mismatched"].get("status") == "BAD_ARG",
          stage["mismatched"].get("status"), "BAD_ARG")
@@ -3959,6 +4085,261 @@ def executor_phase(torch, card: str, note, cli: bool = True) -> None:
         executor_cli_phase(card, note)
 
 
+def native_ledger_phase(card: str) -> dict:
+    """The native C++ ledger (built in the build phase, beside nvcc):
+    a config-5 chain of LEDGER_CHAIN_ROUNDS rounds written through the
+    python ledger, then applied op by op into fresh ledgers of both
+    backends (the replica's path): the µs an applied op of each, best of
+    3, with the heads, state bytes and digests held equal, and `auto` at
+    config 5 held to native."""
+    from bflc_demo_tpu_torch.ledger import bindings, make_ledger
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig
+    cfg = ProtocolConfig(**CONFIG5_PROTO)
+    src = make_ledger(cfg, backend="python")
+    addrs = [f"0x{i:040x}" for i in range(cfg.client_num)]
+    for a in addrs:
+        src.register_node(a)
+    rng = np.random.default_rng(0)
+    for ep in range(LEDGER_CHAIN_ROUNDS):
+        comm = src.committee()
+        trainers = [a for a in addrs if a not in comm]
+        for j in sorted(rng.permutation(len(trainers))
+                        [:cfg.needed_update_count]):
+            src.upload_local_update(trainers[j], rng.bytes(32),
+                                    int(rng.integers(100, 200)),
+                                    float(rng.random()), ep)
+        for c in comm:
+            src.upload_scores(c, ep, rng.random(
+                cfg.needed_update_count).astype(np.float32).tolist())
+        src.commit_model(rng.bytes(32), ep)
+    ops = [src.log_op(i) for i in range(src.log_size())]
+    us, leds = {}, {}
+    for backend in ("native", "python"):
+        best = None
+        for _ in range(3):
+            led = make_ledger(cfg, backend=backend)
+            t0 = time.perf_counter()
+            for op in ops:
+                led.apply_op(op)
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        us[backend] = best / len(ops) * 1e6
+        leds[backend] = led
+    nat, py = leds["native"], leds["python"]
+    auto = make_ledger(cfg).backend
+    emit("native_ledger", nvidia_smi=card, build_s=_BUILD.get("ledger_s"),
+         library=str(bindings.library_path()), ops=len(ops),
+         rounds=LEDGER_CHAIN_ROUNDS, us_per_op=us,
+         python_over_native=us["python"] / us["native"],
+         head_equal=nat.log_head() == py.log_head() == src.log_head(),
+         state_equal=nat.encode_state() == py.encode_state(),
+         digest_equal=nat.state_digest() == py.state_digest(),
+         auto_backend=auto)
+    leg = "native_ledger"
+    hold(leg, "ops applied", nat.log_size() == py.log_size() == len(ops),
+         nat.log_size(), len(ops))
+    hold(leg, "head", nat.log_head() == py.log_head() == src.log_head(),
+         nat.log_head().hex(), src.log_head().hex())
+    hold(leg, "state bytes", nat.encode_state() == py.encode_state(),
+         False, True)
+    hold(leg, "state digest", nat.state_digest() == py.state_digest(),
+         nat.state_digest().hex(), py.state_digest().hex())
+    hold_backend(leg, auto)
+    return us
+
+
+def strict_dispatches(torch):
+    """Make the mesh runtime's multi-round programs run with the card's
+    sync debugging at "error": any operation that waits on the card
+    inside a dispatch (`.item()`, a boolean-mask gather, a blocking copy)
+    raises.  The dispatch's one copy to the host comes after.  Returns
+    the undo."""
+    from bflc_demo_tpu_torch.client import mesh_runtime
+    real = mesh_runtime.make_multi_round_program
+
+    def strict(*a, **kw):
+        program = real(*a, **kw)
+
+        def run(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return program(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+    mesh_runtime.make_multi_round_program = strict
+    return lambda: setattr(mesh_runtime, "make_multi_round_program", real)
+
+
+def dispatch_run(torch, leg: str, build, per_round: dict) -> tuple:
+    """A preset on the mesh runtime, DISPATCH_ROUNDS rounds in dispatches
+    of DISPATCH_R under `strict_dispatches`, between a reset and a read
+    of the launch counts held to `per_round` a round: the ledger's audit
+    of every round (a divergence raises), its chain and backend.
+    Returns (result, launches)."""
+    undo = strict_dispatches(torch)
+    try:
+        reset_counts()
+        res = build(rounds=DISPATCH_ROUNDS, runtime="mesh", device="cuda",
+                    rounds_per_dispatch=DISPATCH_R)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        undo()
+    want = {k: per_round.get(k, 0) * DISPATCH_ROUNDS for k in launches}
+    times = res.round_times_s
+    emit("dispatch", path=leg, rounds=DISPATCH_ROUNDS, r=DISPATCH_R,
+         accuracy=[a for _, a in res.accuracy_history],
+         round_s=times, first_dispatch_round_s=times[0],
+         warm_round_s=times[-1], wall_s=res.wall_time_s,
+         ledger_log_size=res.ledger_log_size,
+         ledger_log_head=res.ledger_log_head.hex(),
+         ledger_backend=res.ledger.backend, launches=launches,
+         expected_launches=want)
+    hold(leg, "rounds", res.rounds_completed == DISPATCH_ROUNDS,
+         res.rounds_completed, DISPATCH_ROUNDS)
+    hold(leg, "chain verified", res.ledger.verify_log(), False, True)
+    hold_backend(leg, res.ledger.backend)
+    hold(leg, "launches", launches == want, launches, want)
+    return res, launches
+
+
+def ring_phase(torch, fa, device, card: str) -> tuple:
+    """One config-5 round under ring scoring on the card between a reset
+    and a read of the launch counts (RING_PER_ROUND); then, on one set of
+    params and deltas, the ring's (N, N) matrix against the committee
+    path's: the committee x uploader entries within one example, the
+    same selection; then K1 at the ring's shape against its plain
+    version and timed beside SDPA and its bound.  Returns (launches, K1's
+    error, K1's timing row)."""
+    from bflc_demo_tpu_torch.client.runtime import feature_tensor
+    from bflc_demo_tpu_torch.client.staging import stage_padded_arrays
+    from bflc_demo_tpu_torch.core.aggregate import decide
+    from bflc_demo_tpu_torch.core.local_train import (sgd_stacked,
+                                                      wire_deltas)
+    from bflc_demo_tpu_torch.eval.configs import config5_data
+    from bflc_demo_tpu_torch.models import make_transformer_classifier
+    from bflc_demo_tpu_torch.parallel import fedavg
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig
+    cfg = ProtocolConfig(**CONFIG5_PROTO)
+    n, c, k = cfg.client_num, cfg.comm_count, cfg.needed_update_count
+    shards, _ = config5_data(0, 4000, n)
+    xs_np, ys_np, ns_np = stage_padded_arrays(
+        [x for x, _ in shards], [y for _, y in shards], 2)
+    xs, ys = feature_tensor(xs_np, device), torch.as_tensor(ys_np).to(device)
+    ns = torch.as_tensor(ns_np, dtype=torch.int32).to(device)
+    model = make_transformer_classifier(**CONFIG5_ARCH).to(device)
+    params = model.init_params(0, device)
+    rng = np.random.default_rng(0)
+    comm = np.zeros(n, bool)
+    comm[:c] = True
+    up = np.zeros(n, bool)
+    up[c + rng.permutation(n - c)[:k]] = True
+    leg = "ring_config5"
+    kw = dict(client_num=n, lr=cfg.learning_rate, batch_size=cfg.batch_size,
+              local_epochs=cfg.local_epochs,
+              aggregate_count=cfg.aggregate_count, comm_count=c,
+              needed_update_count=k)
+    ring_round = fedavg.make_sharded_protocol_round(model, scoring="ring",
+                                                    **kw)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = ring_round(params, xs, ys, ns, up, comm)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: RING_PER_ROUND.get(name, 0) for name in launches}
+    # the two schedules on one set of params and deltas
+    trained, costs = sgd_stacked(model, params, xs, ys, lr=cfg.learning_rate,
+                                 batch_size=cfg.batch_size)
+    deltas = wire_deltas(params, trained, cfg.learning_rate)
+    comm_t, up_t = torch.as_tensor(comm).to(device), \
+        torch.as_tensor(up).to(device)
+    with torch.no_grad():
+        ring = fedavg.ring_score_matrix(model, params, deltas,
+                                        cfg.learning_rate, xs, ys)
+        committee = fedavg.committee_score_matrix(
+            model, params, deltas, cfg.learning_rate, xs, ys, comm_t, up_t,
+            c, k)
+    region = np.ix_(comm, up)
+    ring_np, comm_np = ring.cpu().numpy(), committee.cpu().numpy()
+    diff = float(np.abs(ring_np[region] - comm_np[region]).max())
+    sel_ring = decide(ring, comm_t, up_t, costs, cfg.aggregate_count)[2]
+    sel_comm = decide(committee, comm_t, up_t, costs,
+                      cfg.aggregate_count)[2]
+    emit("ring", path=leg, nvidia_smi=card, round_s=round_s,
+         peak_mem_bytes=peak, scores=list(ring_np.shape),
+         launches=launches, expected_launches=want,
+         max_entry_diff_vs_committee=diff, tol=RING_ENTRY_TOL,
+         selected=np.flatnonzero(res.selected.cpu().numpy()).tolist(),
+         selection_equal=bool((sel_ring == sel_comm).all()))
+    hold(leg, "launches", launches == want, launches, want)
+    hold(leg, "dense matrix", ring_np.shape == (n, n)
+         and bool(np.isfinite(ring_np).all()), list(ring_np.shape), [n, n])
+    hold(leg, "entries vs committee", diff <= RING_ENTRY_TOL + 1e-6, diff,
+         RING_ENTRY_TOL)
+    hold(leg, "selection vs committee", bool((sel_ring == sel_comm).all()),
+         np.flatnonzero(sel_ring.cpu().numpy()).tolist(),
+         np.flatnonzero(sel_comm.cpu().numpy()).tolist())
+    hold(leg, "selected", int(res.selected.sum()) == cfg.aggregate_count,
+         int(res.selected.sum()), cfg.aggregate_count)
+    del res, trained, deltas, ring, committee
+    # K1 at the ring's shape: against its plain version, then timed
+    inputs = device_attention_inputs(torch, RING_SCORE_SHAPE, device, 9)
+    q, kk, v, _, mask = inputs
+    got, lse = fa.flash_fwd(q, kk, v, mask)
+    plain, plain_lse = fa.flash_fwd_plain(q, kk, v, mask)
+    err = max(float((got - plain).abs().max()),
+              float((lse - plain_lse).abs().max()))
+    tol = TOL["float32"] * max(1.0, float(plain.abs().max()),
+                               float(plain_lse.abs().max()))
+    emit("compare", kernel="flash_fwd", dtype="float32",
+         shape=list(RING_SCORE_SHAPE), max_abs_err=err, tol=tol,
+         ok=err <= tol)
+    hold(leg, "K1 at the ring shape max_abs_err", err <= tol, err, tol)
+    del got, lse, plain, plain_lse
+    row = forward_timing(torch, fa, device, RING_SCORE_SHAPE, seed=9,
+                         card=card, inputs=inputs, **RING_FEW)
+    del inputs, q, kk, v, mask
+    torch.cuda.empty_cache()
+    return launches, err, dict(row, shape=list(RING_SCORE_SHAPE))
+
+
+def dispatch_phase(torch, fa, device, card: str) -> tuple:
+    """Configs 1 and 5 at R = 5 (`dispatch_run`) and the ring round
+    (`ring_phase`): config 1's final model against the CPU path and its
+    accuracy bar, config 5's final model's decisions on the sponsor's
+    rows against the CPU path's.  Returns ({path: launches}, K1's error
+    and timing row at the ring's shape, {config: round seconds})."""
+    from bflc_demo_tpu_torch.data.occupancy import occupancy_source
+    from bflc_demo_tpu_torch.eval.configs import (config1_occupancy,
+                                                  config5_data,
+                                                  config5_transformer_sst2)
+    leg = "dispatch_config1"
+    c1, c1_launches = dispatch_run(torch, leg, config1_occupancy,
+                                   {"fingerprint":
+                                    MESH_PER_ROUND["fingerprint"]})
+    accuracy_gate(leg, c1, DISPATCH_C1_MIN_BEST[occupancy_source()])
+    config1_card_check(torch, device, c1, leg)
+    leg = "dispatch_config5"
+    c5, c5_launches = dispatch_run(torch, leg, config5_transformer_sst2,
+                                   MESH_PER_ROUND)
+    # printed without a bar: config 5's accuracy at R = 5 on the card has
+    # no CPU trajectory over seeds to rest a bar on
+    emit("accuracy", leg=leg, history=[a for _, a in c5.accuracy_history],
+         bar=None, best=c5.best_accuracy())
+    _, test = config5_data()
+    decision_check(torch, c5.final_params, device, "dispatch final",
+                   c5.final_accuracy, data=([], test))
+    ring_launches, err, row = ring_phase(torch, fa, device, card)
+    return ({"dispatch_config1": c1_launches,
+             "dispatch_config5": c5_launches,
+             "ring_config5": ring_launches}, err, row,
+            {"config1": c1.round_times_s, "config5": c5.round_times_s})
+
+
 def load_port(root: str = None):
     """(torch, the flash-attention module, the build module, the card) of
     the package beside this script, or of the checkout at `root`; None
@@ -3989,6 +4370,7 @@ def start_build() -> None:
     initialised, which then overlap the compiles; `finish_build` waits.
     Without the package beside this script nothing starts."""
     try:
+        from bflc_demo_tpu_torch.ledger import bindings
         from bflc_demo_tpu_torch.ops import build
     except ImportError:
         return
@@ -3999,9 +4381,18 @@ def start_build() -> None:
         except Exception as exc:        # noqa: BLE001 — raised by finish
             _BUILD["error"] = exc
 
+    def run_ledger():
+        # the native ledger (g++, one process) beside the nvcc parts
+        try:
+            _BUILD["ledger_s"] = bindings.build_library()["seconds"]
+        except Exception as exc:        # noqa: BLE001 — raised by finish
+            _BUILD["error"] = exc
+
     _BUILD["t0"] = time.perf_counter()
     _BUILD["thread"] = threading.Thread(target=run, daemon=True)
+    _BUILD["ledger"] = threading.Thread(target=run_ledger, daemon=True)
     _BUILD["thread"].start()
+    _BUILD["ledger"].start()
 
 
 def finish_build(build) -> dict:
@@ -4010,10 +4401,13 @@ def finish_build(build) -> dict:
     wall time from its start."""
     thread = _BUILD.get("thread")
     if thread is None:
+        from bflc_demo_tpu_torch.ledger import bindings
         _BUILD["t0"] = time.perf_counter()
         _BUILD["built"] = build.build_all()
+        _BUILD["ledger_s"] = bindings.build_library()["seconds"]
     else:
         thread.join()
+        _BUILD["ledger"].join()
         if "error" in _BUILD:
             raise _BUILD["error"]
     _BUILD["seconds"] = time.perf_counter() - _BUILD["t0"]
@@ -4021,9 +4415,11 @@ def finish_build(build) -> dict:
 
 
 def build_fields(built: dict) -> dict:
-    """The build line's seconds and each library's parts' seconds."""
+    """The build line's seconds, each library's parts' seconds and the
+    native ledger's."""
     return {"seconds": _BUILD["seconds"],
-            "parts_s": {n: b["parts_s"] for n, b in built.items()}}
+            "parts_s": {n: b["parts_s"] for n, b in built.items()},
+            "native_ledger_s": _BUILD.get("ledger_s")}
 
 
 def backward_timing_main(root: str) -> int:
@@ -4234,6 +4630,24 @@ def executor_main() -> int:
     return 0
 
 
+def dispatch_main() -> int:
+    """Only the build, the native ledger's line and the dispatch phase
+    (configs 1 and 5 at R = 5, the ring round, K1 at the ring's shape)."""
+    port = load_port()
+    if port is None:
+        return 1
+    torch, fa, build, device = port
+    emit("build", **build_fields(finish_build(build)))
+    card = card_line()
+    print(card, flush=True)
+    emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
+    native_ledger_phase(card)
+    paths, _, _, dispatched = dispatch_phase(torch, fa, device, card)
+    emit("round_times", nvidia_smi=card, mesh_dispatch=dispatched,
+         launches=paths)
+    return 0
+
+
 def processes_main() -> int:
     """Only the build and the processes phase."""
     port = load_port()
@@ -4273,6 +4687,7 @@ def main() -> int:
     emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
+    native_ledger_phase(card)
 
     errors = compare_phase(torch, fa, device)
     timings = timing_phase(torch, fa, device, card)
@@ -4280,9 +4695,15 @@ def main() -> int:
     host5 = slice_phase(torch, fa, device)
     mesh5 = mesh_slice_phase(torch, fa, fp, device)
     mesh1 = config1_phase(torch, fa, fp, device)
+    dispatch_paths, ring_err, ring_row, dispatched = dispatch_phase(
+        torch, fa, device, card)
+    timings["flash_fwd"]["at"]["ring_score"] = dict(ring_row,
+                                                    max_abs_err=ring_err)
     emit("round_times", nvidia_smi=card,
-         config5={"host": host5["round_s"], "mesh": mesh5["round_s"]},
-         config1={"host": mesh1["host_round_s"], "mesh": mesh1["round_s"]})
+         config5={"host": host5["round_s"], "mesh": mesh5["round_s"],
+                  "mesh_dispatch": dispatched["config5"]},
+         config1={"host": mesh1["host_round_s"], "mesh": mesh1["round_s"],
+                  "mesh_dispatch": dispatched["config1"]})
     presets = presets_phase(torch, device, card)
     trees, errors["fingerprint"] = fingerprint_compare_phase(torch, fp,
                                                              device)
@@ -4309,6 +4730,7 @@ def main() -> int:
     paths = {"host_config5": host5["launches"],
              "mesh_config5": mesh5["launches"],
              "mesh_config1": mesh1["launches"],
+             **dispatch_paths,
              **presets,
              "sp": {"flash_carry": sp_slice_phase(torch, fa, device)},
              **merge_paths, "rederive_drill": drill, **fleet}
@@ -4340,7 +4762,7 @@ def dispatch(argv) -> int:
     modes = {"--processes": processes_main, "--snapshots": snapshots_main,
              "--async": async_main, "--codecs": codecs_main,
              "--hier": hier_main, "--rederive": rederive_main,
-             "--executor": executor_main}
+             "--executor": executor_main, "--dispatch": dispatch_main}
     if len(argv) == 1 and argv[0] in modes:
         start_build()
         rc = modes[argv[0]]()
@@ -4350,7 +4772,8 @@ def dispatch(argv) -> int:
     if argv:
         print("usage: chip_smoke.py [--backward-timing DIR | "
               "--merge-timing DIR | --processes | --snapshots | --async | "
-              "--codecs | --hier | --rederive | --executor]",
+              "--codecs | --hier | --rederive | --executor | "
+              "--dispatch]",
               file=sys.stderr)
         return 2
     start_build()

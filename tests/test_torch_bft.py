@@ -170,28 +170,28 @@ class TestValidateWithoutApply:
         assert led.num_registered == 2
 
     def test_native_backend_agrees(self):
-        """The native ledger is not ported: asking for it raises by
-        name; the python ledger's probe agrees with the reference's."""
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP A9: the native ledger"):
-            make_ledger(CFG, backend="native")
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP A9: the native ledger"):
-            ValidatorNode(CFG, Wallet.from_seed(b"v"), 0,
-                          ledger_backend="native")
+        """The reference's case on the port's native ledger: its probe
+        (a python mirror replayed from its log) agrees with the python
+        ledgers of both packages, and a validator runs on it."""
+        node = ValidatorNode(CFG, Wallet.from_seed(b"v"), 0,
+                             ledger_backend="native")
+        assert node.ledger.backend == "native"
+        node.close()
         py = make_ledger(CFG, backend="python")
+        nat = make_ledger(CFG, backend="native")
         ref = ref_make_ledger(REF_CFG, backend="python")
         ops = []
         scratch = make_ledger(CFG, backend="python")
         for i in range(3):
             scratch.register_node(f"0x{i:040x}")
             ops.append(scratch.log_op(i))
-        for led in (py, ref):
+        for led in (py, nat, ref):
             for op in ops[:2]:
                 assert led.apply_op(op) == LedgerStatus.OK
         for op in (ops[2], ops[0], b"\xff"):
-            assert int(py.validate_op(op)) == int(ref.validate_op(op))
-        assert py.log_head() == ref.log_head()
+            assert int(py.validate_op(op)) == int(ref.validate_op(op)) \
+                == int(nat.validate_op(op))
+        assert py.log_head() == ref.log_head() == nat.log_head()
 
 
 class TestCertificateAlgebra:

@@ -95,11 +95,14 @@ def test_legacy_env_pins_v1(monkeypatch):
     assert make_ledger(cfg).reduce_blocks == 8
     monkeypatch.setenv("BFLC_BLOCKED_LEGACY", "1")
     assert reduce_blocks(cfg) == ref_reduce_blocks(ref_cfg) == 1
-    assert make_ledger(cfg).reduce_blocks == 1
+    # the pinned v1 chain: native under auto, as in the reference
+    assert make_ledger(cfg).backend == "native"
+    assert make_ledger(cfg, backend="python").reduce_blocks == 1
 
 
 def test_native_backend_refused_by_name():
-    with pytest.raises(NotImplementedError, match="A9: the native ledger"):
+    # the reference's refusal: the native ledger has no geometry claim
+    with pytest.raises(ValueError, match="python ledger backend"):
         make_ledger(ProtocolConfig(reduce_blocks=2), backend="native")
 
 
@@ -228,7 +231,9 @@ def test_commit_op_equals_the_references(blocks):
 
 
 def _replay(cfg, src, upto):
-    led = make_ledger(cfg)
+    # the python ledger's refusals (a native v1 replica accepts a v2
+    # commit, C19: tests/test_torch_native_ledger.py)
+    led = make_ledger(cfg, backend="python")
     for j in range(upto):
         assert led.apply_op(src.log_op(j)) == LedgerStatus.OK, j
     return led

@@ -237,7 +237,8 @@ def _hier_result(**over):
                            for v in range(4)},
         epoch_times=[(0, 1.0), (1, 2.0), (2, 3.0)], spawn_s=1.0,
         validator_spawn_s=0.5, killed_cells=[], client_exitcodes=[0] * 6,
-        member_addresses=[f"0xmember{i}" for i in range(6)], phase_s={})
+        member_addresses=[f"0xmember{i}" for i in range(6)], phase_s={},
+        writer_backend="native")
     for k, v in over.items():
         setattr(res, k, v)
     return res
@@ -268,6 +269,7 @@ def test_hier_account_passes_an_honest_run(capsys):
      "validator refusals"),
     (dict(cell_bridge={0: {"upload": {"BAD_ARG": 1}}, 1: {}}),
      "BAD_ARG replies to a bridge"),
+    (dict(writer_backend="python"), "ledger backend"),
 ])
 def test_each_hier_account_gate_raises_through_hold(capsys, over, gate):
     with pytest.raises(RuntimeError, match=gate):
@@ -457,7 +459,8 @@ def _executor_result(rounds: int = 3, **over):
         accuracy_history=[(e, a) for e, a in
                           enumerate([0.6, 0.95, 0.97][:rounds])],
         client_exitcodes=[0] * 20, spawn_s=9.0, stage_s=9.5,
-        epoch_times=[(e, 10.0 + 2 * e) for e in range(rounds)])
+        epoch_times=[(e, 10.0 + 2 * e) for e in range(rounds)],
+        writer_backend="native")
     for k, v in over.items():
         setattr(res, k, v)
     return res
@@ -499,6 +502,7 @@ def _with_thin(role: str, **fields):
     (dict(client_exitcodes=[0] * 19 + [-15]), "thin clients' exit codes"),
     (dict(accuracy_history=[(0, 0.6), (1, 0.8), (2, 0.85)]),
      "best accuracy"),
+    (dict(writer_backend="python"), "ledger backend"),
 ])
 def test_each_executor_gate_raises_through_hold(capsys, over, gate):
     with pytest.raises(RuntimeError, match=gate):
@@ -508,3 +512,33 @@ def test_each_executor_gate_raises_through_hold(capsys, over, gate):
     failed = [x for x in _lines(capsys.readouterr().out)
               if x["phase"] == "gate_failed"]
     assert [x["gate"] for x in failed] == [gate]
+
+
+@pytest.mark.parametrize("knobs, compacts, want", [
+    (dict(), False, "native"),
+    (dict(delta_density=0.01, delta_codec="topk"), False, "native"),
+    (dict(async_buffer=10), False, "python"),
+    (dict(reduce_blocks=8), False, "python"),
+    (dict(delta_density=0.1, adapt_every=2), False, "python"),
+    (dict(), True, "python"),
+])
+def test_reference_backend_follows_the_references_gates(knobs, compacts,
+                                                        want, capsys):
+    """The writer ledger each leg is held to: native unless the config is
+    async, blocked or adaptive or the writer compacts (the reference's
+    `make_ledger` and snapshot gates), and the port's `make_ledger`
+    agrees; a leg whose writer ran the other backend fails by name."""
+    from bflc_demo_tpu_torch.ledger import make_ledger
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig
+    cfg = ProtocolConfig(**dict(cs.CONFIG5_PROTO, **knobs))
+    assert cs.reference_backend(cfg, compacts) == want
+    if not compacts:
+        assert make_ledger(cfg).backend == want
+    cs.hold_backend("leg", want, want)
+    other = "python" if want == "native" else "native"
+    with pytest.raises(RuntimeError, match="ledger backend"):
+        cs.hold_backend("leg", other, want)
+    failed = [x for x in _lines(capsys.readouterr().out)
+              if x["phase"] == "gate_failed"]
+    assert [(x["gate"], x["value"], x["bar"]) for x in failed] == \
+        [("ledger backend", other, want)]

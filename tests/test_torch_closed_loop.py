@@ -132,7 +132,9 @@ def test_legacy_pin_and_a_static_chain_refuse_the_loop(monkeypatch):
         == LedgerStatus.BAD_ARG
     monkeypatch.setenv("BFLC_ADAPT_LEGACY", "1")
     assert not adapt_enabled(cfg)
-    assert make_ledger(cfg).adapt_every == 0
+    # the pinned static chain: native under auto, as in the reference
+    assert make_ledger(cfg).backend == "native"
+    assert make_ledger(cfg, backend="python").adapt_every == 0
 
 
 def test_encoder_density_override_is_the_references(monkeypatch):

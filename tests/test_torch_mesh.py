@@ -19,7 +19,8 @@ Same numpy inputs (made from a seed) through both:
   the delta's division by lr and the merge carry into the params;
 - 3 rounds of `run_federated_mesh` on config 1: equal committees and
   selections every round, sponsor accuracies within 0.005.
-Plus the CLI's new defaults and the refusals of what is not ported.
+Plus the CLI's new defaults, the refusals of what is not ported and the
+options that now run in a multi-round dispatch.
 """
 
 import importlib
@@ -413,9 +414,10 @@ def _tiny_run(**kw):
     y = (x[:, 0] > 0).astype(np.int32)
     cfg = ProtocolConfig(client_num=6, comm_count=2, aggregate_count=2,
                          needed_update_count=3, batch_size=5)
+    kw.setdefault("rounds", 1)
     return mesh_runtime.run_federated_mesh(
         make_softmax_regression(), iid_shards(x, y, 6), (x, y), cfg,
-        rounds=1, device="cpu", **kw)
+        device="cpu", **kw)
 
 
 def test_tiny_mesh_run_completes():
@@ -424,21 +426,40 @@ def test_tiny_mesh_run_completes():
 
 
 @pytest.mark.parametrize("kw,item", [
-    # active participation, client_chunk and remat are ported: each is
-    # held here beside an option that is not, which still raises
-    (dict(participation="active", rounds_per_dispatch=2), "A7"),
-    (dict(rounds_per_dispatch=2), "A7"),
     (dict(secure_aggregation=True), "A12"),
-    (dict(attest_wallets=[None] * 6, rounds_per_dispatch=2), "A7"),
     (dict(checkpoint_dir="ckpt", checkpoint_every=1), "A11"),
     (dict(estimate_flops=True), "A11"),
-    (dict(client_chunk=2, rounds_per_dispatch=3), "A7"),
-    (dict(remat=True, rounds_per_dispatch=2), "A7"),
     (dict(local_optimizer=object()), "A11"),
 ])
 def test_unported_mesh_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         _tiny_run(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    # rounds_per_dispatch > 1 is ported (`tests/test_torch_dispatch.py`
+    # holds it against the reference): each option that used to be
+    # refused beside it now runs two rounds in one dispatch
+    dict(rounds_per_dispatch=2),
+    dict(attest_wallets="provision", rounds_per_dispatch=2),
+    dict(client_chunk=2, rounds_per_dispatch=2),
+    dict(remat=True, rounds_per_dispatch=2),
+    # active participation keeps the reference's refusal
+    dict(participation="active", rounds_per_dispatch=2),
+])
+def test_dispatch_mesh_options_run(kw):
+    if kw.get("attest_wallets") == "provision":
+        from bflc_demo_tpu_torch.comm.identity import provision_wallets
+        kw = dict(kw, attest_wallets=provision_wallets(6, b"rpd-attest")[0])
+    if kw.get("participation") == "active":
+        with pytest.raises(ValueError, match="participation='full'"):
+            _tiny_run(**kw)
+        return
+    res = _tiny_run(**dict(kw, rounds=2))
+    assert res.rounds_completed == 2 and res.ledger.verify_log()
+    assert res.ledger_log_size == 6 + 2 * (3 + 2 + 1)
+    if "attest_wallets" in kw:
+        assert sorted(res.attest_log) == [0, 1]
 
 
 def test_round_factory_guards():
@@ -447,8 +468,13 @@ def test_round_factory_guards():
                 aggregate_count=2)
     for kw in (dict(scoring="ring", comm_count=2, needed_update_count=3),
                dict()):                      # auto without counts = ring
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            make_sharded_protocol_round(model, **base, **kw)
+        ring = make_sharded_protocol_round(model, **base, **kw)(
+            model.init_params(), torch.zeros((6, 10, 5)),
+            torch.zeros((6, 10, 2)), torch.full((6,), 10), UPLOADERS,
+            COMMITTEE)
+        # the dense matrix: every client scored every candidate
+        assert ring.score_matrix.shape == (6, 6)
+        assert int(ring.selected.sum()) == 2
     counts = dict(comm_count=2, needed_update_count=3)
     for kw, item in ((dict(secure=True), "A12"),
                      (dict(expose_candidates=True, secure=True), "A12")):

@@ -293,7 +293,8 @@ class TestLegacyBytePins:
     def test_async_legacy_env_disables_the_reseat_family(self, monkeypatch):
         monkeypatch.setenv("BFLC_ASYNC_LEGACY", "1")
         assert not async_enabled(RCFG)
-        led = make_ledger(RCFG)
+        assert make_ledger(RCFG).backend == "native"
+        led = make_ledger(RCFG, backend="python")
         assert led.async_buffer == 0 and led.async_reseat_every == 0
 
     def test_reseat_requires_async_buffer(self):

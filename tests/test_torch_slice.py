@@ -17,6 +17,7 @@
 """
 
 import ast
+import json
 import pathlib
 import subprocess
 import sys
@@ -214,22 +215,44 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
         cli(["--rounds", "1"])
 
 
-@pytest.mark.parametrize("argv", [["--runtime", "executor",
-                                   "--ledger-backend", "native"],
-                                  ["--runtime", "processes",
-                                   "--ledger-backend", "native"],
-                                  ["--config", "config2",
+@pytest.mark.parametrize("argv", [["--config", "config2",
                                    "--chaos-seed", "7"]])
 def test_cli_rejects_unported_with_exit_2(argv, capsys):
     assert cli(argv) == 2
     assert "ROADMAP" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("runtime", ["mesh", "host"])
+def test_cli_runs_the_native_ledger(runtime, capsys, monkeypatch):
+    """`--ledger-backend native` runs where the reference passes it on
+    (it used to exit 2): the run's ledger is the native one, and its
+    head is the python ledger's."""
+    from bflc_demo_tpu_torch.eval import configs
+    seen = []
+    real = configs.run_with_runtime
+
+    def spy(*a, **kw):
+        res = real(*a, **kw)
+        seen.append(res.ledger.backend)
+        return res
+    monkeypatch.setattr(configs, "run_with_runtime", spy)
+    heads = []
+    for backend in ("native", "python"):
+        assert cli(["--runtime", runtime, "--ledger-backend", backend,
+                    "--device", "cpu", "--rounds", "1"]) == 0
+        out = capsys.readouterr().out.strip().splitlines()[-1]
+        heads.append(json.loads(out)["ledger_log_head"])
+    assert seen == ["native", "python"] and heads[0] == heads[1]
+
+
 def test_preset_rejects_unported_runtime():
     # every runtime of the reference is ported; an unknown one is refused
-    # by name, and the executor's unported ledger names its item
+    # by name, and the native ledger (once refused here) runs
     with pytest.raises(ValueError, match="runtime must be"):
         config5_transformer_sst2(runtime="mpi", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        config5_transformer_sst2(runtime="executor", device="cpu",
-                                 ledger_backend="native")
+    with pytest.raises(ValueError, match="ledger backend must be"):
+        config5_transformer_sst2(runtime="mesh", device="cpu",
+                                 ledger_backend="rust")
+    res = config5_transformer_sst2(runtime="mesh", device="cpu", rounds=1,
+                                   n_data=400, ledger_backend="native")
+    assert res.ledger.backend == "native" and res.ledger.verify_log()

@@ -73,7 +73,10 @@ ADDRS = [f"0x{i:040x}" for i in range(CFG.client_num)]
 
 
 def _ledgers():
-    return make_ledger(CFG), ref_make_ledger(REF_CFG, backend="python")
+    # the python ledgers, which compact (the native one never does:
+    # tests/test_torch_native_ledger.py), as in the reference's tests
+    return (make_ledger(CFG, backend="python"),
+            ref_make_ledger(REF_CFG, backend="python"))
 
 
 def _fill(led):
@@ -114,7 +117,7 @@ def _drive_round(led):
 
 
 def _with_rounds(n, led=None):
-    led = led if led is not None else make_ledger(CFG)
+    led = led if led is not None else make_ledger(CFG, backend="python")
     _fill(led)
     for _ in range(n):
         _drive_round(led)
@@ -335,7 +338,7 @@ class TestGcAndRestore:
 
     def test_wal_bytes_bounded_across_rounds(self, tmp_path):
         wal = str(tmp_path / "bounded.wal")
-        led = make_ledger(CFG)
+        led = make_ledger(CFG, backend="python")
         assert led.attach_wal(wal)
         _fill(led)
         sizes = []

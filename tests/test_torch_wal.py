@@ -38,7 +38,8 @@ ADDRS = [f"0x{i:040x}" for i in range(PROTO["client_num"])]
 
 
 def _ledgers():
-    return (make_ledger(ProtocolConfig(**PROTO)),
+    # the port's python ledger (the native one: test_torch_native_ledger)
+    return (make_ledger(ProtocolConfig(**PROTO), backend="python"),
             ref_make_ledger(RefConfig(**PROTO), backend="python"))
 
 

@@ -292,7 +292,9 @@ def test_recovery_ops_give_the_reference_ops_and_heads():
 
 def test_make_ledger_backends():
     assert make_ledger(ProtocolConfig(**CFG), backend="python").epoch == -999
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_ledger(ProtocolConfig(**CFG), backend="native")
+    # the native ledger (once refused here) and auto, which gives it
+    for backend in ("native", "auto"):
+        led = make_ledger(ProtocolConfig(**CFG), backend=backend)
+        assert led.backend == "native" and led.epoch == -999
     with pytest.raises(ValueError):
         make_ledger(ProtocolConfig(**CFG), backend="rocksdb")
