@@ -38,9 +38,13 @@ where the reference's gates allow it).  An unknown config or runtime,
 the fleet's flags on another runtime than `processes`
 (`--tls-dir` also on `executor`), a negative
 `--bft-validators` or `--snapshot-interval`, `--snapshot-dir` without
-an interval, or a flag of a part not ported yet (the fleet's chaos A9,
-checkpoints A11, secure aggregation A12, traces and telemetry A14)
-exits 2 naming the ROADMAP item.
+an interval, or a flag of a part not ported yet (the device profiler
+A11, secure aggregation A12, the fleet's chaos, traces and telemetry
+A14) exits 2 naming the ROADMAP item.  `--checkpoint-dir D` saves the
+final model and the ledger's op log to D (`utils/checkpoint.py`) where
+the runtime returns them (mesh, host, threaded), printing the
+reference's line (:214-226); with `--checkpoint-every N` the mesh
+runtime also saves every N rounds.
 Prints the reference CLI's final JSON keys, and on `processes` a
 `fleet` key besides: the round times, the spawn time, the
 writer's phase split, every role's kernel launches and the writer's
@@ -74,8 +78,9 @@ def _parser() -> argparse.ArgumentParser:
                "--reduce-blocks, --delta-dtype, --delta-codec; "
                "--runtime executor (with --tls-dir and "
                "--[no-]attest-scores), --ledger-backend "
-               "auto|native|python.  The fleet's other flags are "
-               "ROADMAP A9; they exit 2 until ported.")
+               "auto|native|python, --checkpoint-dir and "
+               "--checkpoint-every.  The fleet's chaos and telemetry "
+               "flags are ROADMAP A14; they exit 2 until ported.")
     p.add_argument("--config", default="config1",
                    help="benchmark preset, config0 ... config5")
     p.add_argument("--runtime", default="mesh",
@@ -227,7 +232,17 @@ def main(argv=None) -> int:
         kw["rederive"] = opts.rederive
     if cfg is not None:
         kw["cfg"] = cfg
+    if opts.checkpoint_dir and opts.checkpoint_every and \
+            opts.runtime == "mesh":
+        kw["checkpoint_dir"] = opts.checkpoint_dir
+        kw["checkpoint_every"] = opts.checkpoint_every
     res = CONFIGS[opts.config].build(**kw)
+    if opts.checkpoint_dir and hasattr(res, "final_params"):
+        from bflc_demo_tpu_torch.utils.checkpoint import save_checkpoint
+        save_checkpoint(opts.checkpoint_dir, res.final_params, res.ledger,
+                        extra={"config": opts.config,
+                               "rounds": res.rounds_completed})
+        print(f"checkpoint (model + ledger oplog) -> {opts.checkpoint_dir}")
     out = {
         "config": opts.config,
         "rounds": res.rounds_completed,

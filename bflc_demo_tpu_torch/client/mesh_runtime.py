@@ -37,6 +37,10 @@ True without wallets raises, False opts out.  In process this is
 signature evidence, not a second trust domain: the mesh executor
 (`comm/executor_service.py`) has members re-score on their own shards.
 
+`local_optimizer` (a `core.optim` transform) drives every client's
+local steps in the round program, one state a client, fresh each round
+(:398).
+
 rounds_per_dispatch R > 1 (full participation only, no local
 optimizer, `rounds % R == 0`, as in the reference): R rounds run as one
 dispatch of `parallel.fedavg.make_multi_round_program` (the uploader
@@ -51,9 +55,17 @@ the dispatch's seconds over R, the replay and audit included.
 `ledger_backend` is the reference's: "auto" gives the native ledger
 where `ledger.make_ledger` does.
 
+Checkpoints and resume (:250-254, :407-413, :540-543): with
+`checkpoint_dir` and `checkpoint_every` N the model and the ledger's op
+log go to `checkpoint_dir` (`utils/checkpoint.py`, extra `{"acc"}`)
+after every round whose next epoch is a multiple of N, and with R > 1
+after every dispatch (the state is consistent only at a dispatch's
+end).  `resume_ledger` (from `load_checkpoint`) continues a run: it
+needs `initial_params`, registers no one, and the run goes on at the
+ledger's epoch with its committee.
+
 Not ported, and refused with the ROADMAP item rather than ignored:
-secure aggregation (A12), checkpoints and resume (A11), `estimate_flops`
-(A11), local optimizers (A11).
+secure aggregation (A12) and `estimate_flops` (A11).
 """
 
 from __future__ import annotations
@@ -79,6 +91,7 @@ from bflc_demo_tpu_torch.parallel.fedavg import (make_multi_round_program,
 from bflc_demo_tpu_torch.protocol.constants import (DEFAULT_PROTOCOL,
                                                     ProtocolConfig)
 from bflc_demo_tpu_torch.utils import prng
+from bflc_demo_tpu_torch.utils.checkpoint import save_checkpoint
 
 
 def _addr(i: int) -> str:
@@ -124,8 +137,8 @@ def to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
 
 def _run_batched(model, cfg, ledger, params, xs, ys, ns, sponsor, rounds,
                  rounds_per_dispatch, seed, client_chunk, remat, sizes_np,
-                 attest_scores, attest_wallets, attest_log, verbose,
-                 ) -> SimulationResult:
+                 attest_scores, attest_wallets, attest_log, checkpoint_dir,
+                 checkpoint_every, verbose) -> SimulationResult:
     """R rounds a dispatch, each replayed into the ledger and audited
     afterwards: the ledger stays the authority, and a ledger decision
     that differs from the device's raises."""
@@ -198,6 +211,11 @@ def _run_batched(model, cfg, ledger, params, xs, ys, ns, sponsor, rounds,
         total = time.perf_counter() - dt0
         round_times.extend([total / rounds_per_dispatch]
                            * rounds_per_dispatch)
+        if checkpoint_dir and checkpoint_every:
+            # dispatch-granular: params and ledger agree at a dispatch's
+            # end (the epoch after its last replayed round)
+            save_checkpoint(checkpoint_dir, params, ledger,
+                            extra={"acc": float(accs[-1])})
     return SimulationResult(
         accuracy_history=sponsor.history,
         loss_history=loss_history,
@@ -220,11 +238,11 @@ def run_federated_mesh(model: Model,
                        ledger_backend: str = "auto",
                        seed: int = 0,
                        init_seed: int = 0,
-                       init_params: Optional[Params] = None,
                        participation: str = "full",
                        client_chunk: int = 0,
                        remat: bool = False,
                        rounds_per_dispatch: int = 1,
+                       initial_params: Optional[Params] = None,
                        resume_ledger=None,
                        checkpoint_dir: str = "",
                        checkpoint_every: int = 0,
@@ -239,8 +257,11 @@ def run_federated_mesh(model: Model,
     """Run `rounds` protocol rounds, one device round each.
 
     shards: per-client (x, y) with integer class labels; test_set likewise.
-    init_params: start from these values (for example the reference's,
-    through `Model.params_from_jax`) instead of `model.init_params`.
+    initial_params: start from these values (for example the
+    reference's, through `Model.params_from_jax`, or a checkpoint's)
+    instead of `model.init_params`.
+    resume_ledger: a replayed ledger (`utils.checkpoint.load_checkpoint`)
+    to continue from; needs the params.
     device: None means `cuda` (raises without a card); "cpu" runs the
     plain versions of the kernels on the CPU.
     """
@@ -273,11 +294,11 @@ def run_federated_mesh(model: Model,
         if rounds % rounds_per_dispatch:
             raise ValueError(f"rounds {rounds} must be a multiple of "
                              f"rounds_per_dispatch {rounds_per_dispatch}")
+    if resume_ledger is not None and initial_params is None:
+        raise ValueError("resume_ledger requires initial_params")
     unported = [
         (secure_aggregation or secure_wallets is not None,
          "secure aggregation", "A12"),
-        (resume_ledger is not None or checkpoint_dir or checkpoint_every,
-         "checkpoints and resume", "A11"),
         (estimate_flops, "estimate_flops", "A11")]
     for asked, what, item in unported:
         if asked:
@@ -320,19 +341,27 @@ def run_federated_mesh(model: Model,
     sponsor = Sponsor(model, feature_tensor(xte, dev),
                       torch.as_tensor(one_hot(yte, nc), device=dev))
     rng = np.random.default_rng(seed)
-    ledger = make_ledger(cfg, backend=ledger_backend)
-    params = ({key: v.to(dev) for key, v in init_params.items()}
-              if init_params is not None else model.init_params(init_seed,
-                                                               dev))
-    for i in range(n):
-        ledger.register_node(_addr(i))
-    if ledger.epoch != 0:
-        raise RuntimeError(f"FL did not start (epoch={ledger.epoch})")
+    params = ({key: v.to(dev) for key, v in initial_params.items()}
+              if initial_params is not None else model.init_params(
+                  init_seed, dev))
+    if resume_ledger is not None:
+        # continue from a replayed ledger and its saved model: the
+        # reference's "chain restart resumes exactly"
+        ledger = resume_ledger
+        if ledger.epoch < 0:
+            raise RuntimeError("resume ledger has not started FL")
+    else:
+        ledger = make_ledger(cfg, backend=ledger_backend)
+        for i in range(n):
+            ledger.register_node(_addr(i))
+        if ledger.epoch != 0:
+            raise RuntimeError(f"FL did not start (epoch={ledger.epoch})")
     if rounds_per_dispatch > 1:
         return _run_batched(model, cfg, ledger, params, xs, ys, ns, sponsor,
                             rounds, rounds_per_dispatch, seed, client_chunk,
                             remat, sizes_np, attest_scores, attest_wallets,
-                            attest_log, verbose)
+                            attest_log, checkpoint_dir, checkpoint_every,
+                            verbose)
 
     loss_history, round_times = [], []
     t0 = time.perf_counter()
@@ -372,6 +401,10 @@ def run_federated_mesh(model: Model,
         loss_history.append((epoch, ledger.last_global_loss))
         acc = sponsor.observe(epoch, params)     # syncs the device
         round_times.append(time.perf_counter() - rt0)
+        if checkpoint_dir and checkpoint_every and \
+                ledger.epoch % checkpoint_every == 0:
+            save_checkpoint(checkpoint_dir, params, ledger,
+                            extra={"acc": acc})
         if verbose:
             print(f"Epoch: {epoch:03d}, test_acc: {acc:.4f}, "
                   f"global_loss: {ledger.last_global_loss:.5f}")

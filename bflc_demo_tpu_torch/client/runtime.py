@@ -9,14 +9,15 @@ Port of `bflc_demo_tpu/client/runtime.py` (`FLNode`, `ComputePlane`,
   commits the new model's content hash;
 - `Sponsor`: held-out accuracy after every commit.
 
-Dropped: keyring-signed ops (`comm.identity`) and non-SGD local
-optimizers — neither runs in the host round this slice ports.
+`FLNode.optimizer` is the reference's local optimizer (a `core.optim`
+transform; None = plain SGD).  Dropped: keyring-signed ops
+(`comm.identity`), which the host round does not run.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
@@ -53,6 +54,7 @@ class FLNode:
     cfg: ProtocolConfig
     trained_epoch: int = -1
     scored_epoch: int = -1
+    optimizer: Any = None        # core.optim transform; None = plain SGD
 
     def step(self, ledger, store: UpdateStore,
              global_params: Params) -> Optional[str]:
@@ -72,7 +74,7 @@ class FLNode:
         delta, avg_cost = local_train(
             self.model, global_params, self.x, self.y,
             lr=self.cfg.learning_rate, batch_size=self.cfg.batch_size,
-            local_epochs=self.cfg.local_epochs)
+            local_epochs=self.cfg.local_epochs, optimizer=self.optimizer)
         payload_hash = store.put(delta)
         st = ledger.upload_local_update(
             self.address, payload_hash, int(self.x.shape[0]),

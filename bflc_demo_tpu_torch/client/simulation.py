@@ -12,9 +12,10 @@ Added for cross-framework runs: `init_params` starts from given values
 (for example the reference's, through `Model.params_from_jax`) instead of
 the port's own seeded init.  `SimulationResult.n_devices` is 1: the port
 runs every runtime on one card; `attest_log` is the mesh runtime's
-signed committee rows (`client/mesh_runtime.py`).  Dropped: the
-mesh-only result fields `flops_per_round` and `mfu` (their features are
-not ported), and local optimizers other than plain SGD.
+signed committee rows (`client/mesh_runtime.py`).  `local_optimizer` is
+the reference's: a `core.optim` transform for every client's local
+steps (None = plain SGD).  Dropped: the mesh-only result fields
+`flops_per_round` and `mfu` (their features are not ported).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from bflc_demo_tpu_torch.client.runtime import (ComputePlane, FLNode, Sponsor,
                                                 feature_tensor)
 from bflc_demo_tpu_torch.comm.store import UpdateStore
+from bflc_demo_tpu_torch.core.optim import check_optimizer
 from bflc_demo_tpu_torch.data.partition import one_hot
 from bflc_demo_tpu_torch.device import DeviceLike, resolve_device
 from bflc_demo_tpu_torch.ledger import make_ledger
@@ -69,6 +71,7 @@ def run_federated(model: Model,
                   init_seed: int = 0,
                   init_params: Optional[Params] = None,
                   ledger_backend: str = "auto",
+                  local_optimizer=None,
                   device: DeviceLike = None,
                   verbose: bool = False) -> SimulationResult:
     """Run the committee-consensus protocol for `rounds` aggregations.
@@ -76,11 +79,14 @@ def run_federated(model: Model,
     shards: per-client (x, y) with integer class labels; test_set likewise.
     ledger_backend: 'auto' (native where `ledger.make_ledger` gives it),
     'native' or 'python'.
+    local_optimizer: a `core.optim` transform for the clients' local
+    steps (None = the reference's plain SGD).
     device: None means `cuda` (raises without a card); pass "cpu" to run
     on the CPU.
     """
     dev = resolve_device(device)
     cfg.validate()
+    check_optimizer(local_optimizer)
     if len(shards) != cfg.client_num:
         raise ValueError(f"need {cfg.client_num} shards, got {len(shards)}")
 
@@ -92,7 +98,8 @@ def run_federated(model: Model,
                 torch.as_tensor(one_hot(y, nc), device=dev))
 
     nodes = [FLNode(f"0x{i:040x}", *tensors(sx, sy), model=model, cfg=cfg,
-                    trained_epoch=cfg.initial_trained_epoch)
+                    trained_epoch=cfg.initial_trained_epoch,
+                    optimizer=local_optimizer)
              for i, (sx, sy) in enumerate(shards)]
     sponsor = Sponsor(model, *tensors(*test_set))
     ledger = make_ledger(cfg, backend=ledger_backend)

@@ -628,7 +628,11 @@ class LedgerServer:
         try:
             while not self._stop.is_set():
                 msg = recv_msg(conn)
-                if msg is None:
+                if msg is None or self._stop.is_set():
+                    # a closed writer serves nothing that reached its
+                    # socket after close(): shutting the read side does
+                    # not drop bytes already queued when this thread
+                    # wakes (C20)
                     return
                 method = msg.get("method", "")
                 if method == "subscribe":

@@ -13,7 +13,9 @@ the reference's:
 - the top-k mask is `rank < k & valid`.
 `apply_selection` is float arithmetic: weights `n_samples * sel` in
 float32 with their sum clamped at 1e-12; given the trained models, on
-CPU tensors it takes the order of the reference's round program.
+CPU tensors it takes the order of the reference's round program.  A
+bfloat16 leaf (the bfloat16 MLP) merges in bfloat16, `g - lr * m` with
+lr in the leaf's dtype, as the reference's `_psum_fedavg_body` does.
 """
 
 from __future__ import annotations
@@ -88,14 +90,18 @@ def apply_selection(global_params: Params, deltas: Params,
     divided by the weights' sum; `global - lr * mean` is one FMA."""
     w = n_samples.to(torch.float32) * sel_mask.to(torch.float32)
     wsum = w.sum().clamp_min(1e-12)
-    if trained is not None and xla_cpu_order(w):
+    if trained is not None and xla_cpu_order(w) and all(
+            g.dtype == torch.float32 for g in global_params.values()):
         return _folded_merge(global_params, trained, w, wsum, lr)
     out = {}
     for k, g in global_params.items():
         d = deltas[k]
         wb = w.reshape((-1,) + (1,) * (d.ndim - 1)).to(d.dtype)
         mean = (d * wb).sum(0) / wsum.to(d.dtype)
-        out[k] = g - lr * mean
+        # g - lr * mean in the leaf's dtype (reference :72-78: lr is
+        # cast to it, so a bfloat16 model stays bfloat16)
+        out[k] = g - (lr if g.dtype == torch.float32 else torch.tensor(
+            lr, dtype=g.dtype, device=g.device)) * mean
     return out
 
 

@@ -245,8 +245,9 @@ class _LogSoftmax(torch.autograd.Function):
 
 
 def log_softmax(logits: torch.Tensor) -> torch.Tensor:
-    """Log-softmax over the last axis: XLA:CPU's on a CPU tensor."""
-    if not xla_cpu_order(logits):
+    """Log-softmax over the last axis: XLA:CPU's on a float32 CPU tensor
+    (another dtype, such as the bfloat16 MLP's logits, takes torch's)."""
+    if not xla_cpu_order(logits) or logits.dtype != torch.float32:
         return F.log_softmax(logits, dim=-1)
     return _LogSoftmax.apply(logits)
 

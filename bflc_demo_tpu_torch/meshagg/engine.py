@@ -57,6 +57,7 @@ import torch
 
 from bflc_demo_tpu_torch.device import DeviceLike, resolve_device
 from bflc_demo_tpu_torch.meshagg import spec
+from bflc_demo_tpu_torch.utils.codecs import as_float32
 from bflc_demo_tpu_torch.ops.certified_reduce import (LAUNCHES,
                                                      certified_reduce)
 
@@ -81,11 +82,11 @@ def flatten_delta(flat: Dict[str, np.ndarray],
                   keys: Sequence[str]) -> np.ndarray:
     """One delta as a contiguous ``(P,)`` float32 row: leaves raveled in
     `keys` order — pure repacking, so the reduction over rows is
-    elementwise-identical to the per-leaf loops."""
+    elementwise-identical to the per-leaf loops.  A bfloat16 leaf
+    widens to float32 exactly (reference :118-124)."""
     if not keys:
         return np.zeros(0, np.float32)
-    return np.concatenate([np.asarray(flat[k], np.float32).ravel()
-                           for k in keys])
+    return np.concatenate([as_float32(flat[k]).ravel() for k in keys])
 
 
 def _leaf_layout(keys: Sequence[str], flat: Dict[str, np.ndarray]):

@@ -113,6 +113,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from bflc_demo_tpu_torch.utils.codecs import as_float32, cast_like
+
 SPEC_VERSION = 2
 
 # smallest normal float32 (2**-126): the FTZ/DAZ threshold
@@ -161,7 +163,7 @@ def host_weighted_sum(keys: Sequence[str],
         for key in keys:
             acc = None
             for i, d in enumerate(delta_flats):
-                leaf = np.asarray(d[key], np.float32)
+                leaf = as_float32(d[key])
                 if acc is None:
                     acc = np.zeros_like(leaf)
                 if gates[i]:
@@ -212,7 +214,7 @@ def blocked_host_weighted_sum(keys: Sequence[str],
     if blocks <= 1 or not delta_flats:
         return host_weighted_sum(keys, delta_flats, w, wsum)
     shapes = [np.asarray(delta_flats[0][k]) for k in keys]
-    rows = [np.concatenate([np.asarray(d[k], np.float32).ravel()
+    rows = [np.concatenate([as_float32(d[k]).ravel()
                             for k in keys]) if keys
             else np.zeros(0, np.float32) for d in delta_flats]
     p = int(rows[0].size)
@@ -250,7 +252,7 @@ def legacy_host_weighted_sum(keys: Sequence[str],
     for key in keys:
         acc = None
         for i, d in enumerate(delta_flats):
-            leaf = np.asarray(d[key], np.float32)
+            leaf = as_float32(d[key])
             if acc is None:
                 acc = np.zeros_like(leaf)
             if w[i] > 0.0:
@@ -266,6 +268,6 @@ def apply_step(global_flat: Dict[str, np.ndarray],
     dtype.  Host-side numpy in BOTH legs (separate IEEE mul + sub)."""
     out: Dict[str, np.ndarray] = {}
     for key, g in global_flat.items():
-        out[key] = (np.asarray(g, np.float32) - lr * accs[key]).astype(
-            np.asarray(g).dtype)
+        out[key] = cast_like(as_float32(g) - lr * accs[key],
+                             np.asarray(g).dtype)
     return out

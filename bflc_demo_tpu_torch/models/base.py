@@ -24,6 +24,31 @@ from torch import nn
 
 Params = Dict[str, torch.Tensor]
 
+# the reference's `dtype` knob takes these two (by torch dtype or name)
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """`dtype` (a torch dtype, or a name such as "bfloat16" or
+    "torch.bfloat16") as float32 or bfloat16; another raises
+    ValueError."""
+    name = str(dtype).replace("torch.", "")
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+    return COMPUTE_DTYPES[name]
+
+
+def numpy_to_tensor(arr: np.ndarray, device: torch.device | str = "cpu"
+                    ) -> torch.Tensor:
+    """A tensor of `arr`'s values and dtype; a bfloat16 array (ml_dtypes'
+    or `utils.codecs.BF16`) becomes a bfloat16 tensor, bit for bit."""
+    from bflc_demo_tpu_torch.utils.codecs import is_bf16
+    arr = np.ascontiguousarray(arr)
+    if is_bf16(arr.dtype):
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(arr), device=device)
+
 
 def keystr(name: str) -> str:
     """Module parameter name -> the reference's keystr path:
@@ -80,11 +105,14 @@ class Model(nn.Module):
     def params_from_jax(self, tree: Any,
                         device: torch.device | str = "cpu") -> Params:
         """The reference's params (nested dicts and tuples of arrays, as
-        numpy) as a `Params` dict on `device`.  Keys and shapes must match
-        this module's exactly."""
+        numpy) as a `Params` dict on `device`: float32, or bfloat16 where
+        the reference's leaf is.  Keys and shapes must match this
+        module's exactly."""
         want = {k: tuple(p.shape) for k, p in
                 canonical_params(self).items()}
-        got = {k: np.array(v, np.float32) for k, v in _flatten_tree(tree)}
+        got = {k: np.asarray(v) for k, v in _flatten_tree(tree)}
+        got = {k: a if a.dtype.name == "bfloat16" else a.astype(np.float32)
+               for k, a in got.items()}
         if set(got) != set(want):
             raise KeyError(f"parameter trees differ: missing "
                            f"{sorted(set(want) - set(got))}, extra "
@@ -92,5 +120,4 @@ class Model(nn.Module):
         for k, arr in got.items():
             if arr.shape != want[k]:
                 raise ValueError(f"{k}: shape {arr.shape} != {want[k]}")
-        return {k: torch.as_tensor(arr, device=device)
-                for k, arr in got.items()}
+        return {k: numpy_to_tensor(arr, device) for k, arr in got.items()}

@@ -23,6 +23,12 @@ flax's values (`utils/flax_init.py`).  The layers compute in NCHW for
   (`use_fast_variance=True`), epsilon 1e-6, then (x - mean) *
   (rsqrt(var + eps) * scale) + bias.
 
+`dtype` is flax's compute dtype (float32 or bfloat16): the parameters
+stay float32; the input is cast to `dtype`, every conv and hidden Dense
+runs in `dtype` on weights cast at use (`FlaxModel.w`), GroupNorm
+computes in float32 and casts its output to `dtype` (flax promotes its
+statistics to float32), and the head is a float32 Dense.
+
 `FlaxModel.apply_stacked` runs G models at once: on the card with
 `torch.func.vmap` over `apply` (`apply_vmapped`; these models launch no
 ctypes kernel, so vmap can batch them: a vmapped conv with per-model
@@ -43,7 +49,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from bflc_demo_tpu_torch.core.losses import xla_cpu_order
-from bflc_demo_tpu_torch.models.base import Model, Params, keystr
+from bflc_demo_tpu_torch.models.base import (Model, Params, compute_dtype,
+                                             keystr)
 from bflc_demo_tpu_torch.utils.flax_init import ParamSpec, init_tree
 
 GN_EPSILON = 1e-6
@@ -114,10 +121,12 @@ class FlaxModel(Model):
     flax's creation order."""
 
     def __init__(self, specs: Sequence[ParamSpec], num_classes: int,
-                 input_shape: Tuple[int, ...]):
+                 input_shape: Tuple[int, ...],
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_classes = num_classes
         self.input_shape = tuple(input_shape)
+        self.dtype = compute_dtype(dtype)
         self.specs = tuple(specs)
         for spec in self.specs:
             owner = self
@@ -135,6 +144,11 @@ class FlaxModel(Model):
         for name in path.split("."):
             owner = getattr(owner, name)
         return owner
+
+    def w(self, path: str) -> torch.Tensor:
+        """`p(path)` cast to the compute dtype (flax's `dtype=`: the
+        parameters stay float32, a layer computes in `dtype`)."""
+        return self.p(path).to(self.dtype)
 
     def init_params(self, seed: int = 0,
                     device: torch.device | str = "cpu") -> Params:

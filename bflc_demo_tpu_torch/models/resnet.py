@@ -10,7 +10,9 @@ pads (0, 1) (`models/layers.py`).  The parameter tree is flax's:
 `['_BasicBlock_3']['GroupNorm_1']['scale']` and so on, 62 leaves and
 11,220,132 parameters at CIFAR-100's shapes.  `stage_sizes` stays a
 constructor argument (reference :50), so tests can build a shallower
-net.  float32 only: the reference's bfloat16 `dtype` is ROADMAP A10.
+net.  `dtype` float32 or bfloat16 is the reference's compute dtype
+(:25-54): the convs in `dtype`, GroupNorm in float32 cast to `dtype`,
+the head float32, the parameters float32.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ def _block_plan(stage_sizes: Sequence[int]):
 class ResNet18(FlaxModel):
     def __init__(self, input_shape: Tuple[int, ...] = (32, 32, 3),
                  num_classes: int = 100,
-                 stage_sizes: Sequence[int] = (2, 2, 2, 2)):
+                 stage_sizes: Sequence[int] = (2, 2, 2, 2),
+                 dtype: torch.dtype = torch.float32):
         specs = conv_specs(("Conv_0",), 3, input_shape[-1], 64, False) \
             + group_norm_specs(("GroupNorm_0",), 64)
         self.plan = _block_plan(stage_sizes)
@@ -56,30 +59,33 @@ class ResNet18(FlaxModel):
                 specs += group_norm_specs((name, "GroupNorm_2"), filters)
             n_in = filters
         specs += dense_specs(("Dense_0",), n_in, num_classes)
-        super().__init__(specs, num_classes, input_shape)
+        super().__init__(specs, num_classes, input_shape, dtype)
 
     def _gn(self, x: torch.Tensor, scope: str) -> torch.Tensor:
-        return group_norm(x, self.p(f"{scope}.scale"), self.p(f"{scope}.bias"),
-                          min(32, x.shape[1]))
+        return group_norm(x.float(), self.p(f"{scope}.scale"),
+                          self.p(f"{scope}.bias"),
+                          min(32, x.shape[1])).to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        p = self.p
-        x = conv(nchw(x), p("Conv_0.kernel"))
+        w = self.w
+        x = conv(nchw(x).to(self.dtype), w("Conv_0.kernel"))
         x = torch.relu(self._gn(x, "GroupNorm_0"))
         for name, _, stride in self.plan:
-            y = conv(x, p(f"{name}.Conv_0.kernel"), stride=stride)
+            y = conv(x, w(f"{name}.Conv_0.kernel"), stride=stride)
             y = torch.relu(self._gn(y, f"{name}.GroupNorm_0"))
-            y = self._gn(conv(y, p(f"{name}.Conv_1.kernel")),
+            y = self._gn(conv(y, w(f"{name}.Conv_1.kernel")),
                          f"{name}.GroupNorm_1")
             if y.shape != x.shape:
-                x = self._gn(conv(x, p(f"{name}.Conv_2.kernel"),
+                x = self._gn(conv(x, w(f"{name}.Conv_2.kernel"),
                                   stride=stride), f"{name}.GroupNorm_2")
             x = torch.relu(y + x)
-        return dense(x.mean(dim=(2, 3)), p("Dense_0.kernel"),
-                     p("Dense_0.bias"))
+        return dense(x.mean(dim=(2, 3)).float(), self.p("Dense_0.kernel"),
+                     self.p("Dense_0.bias"))
 
 
 def make_resnet18(input_shape: Tuple[int, ...] = (32, 32, 3),
                   num_classes: int = 100,
-                  stage_sizes: Sequence[int] = (2, 2, 2, 2)) -> ResNet18:
-    return ResNet18(tuple(input_shape), num_classes, tuple(stage_sizes))
+                  stage_sizes: Sequence[int] = (2, 2, 2, 2),
+                  dtype: torch.dtype = torch.float32) -> ResNet18:
+    return ResNet18(tuple(input_shape), num_classes, tuple(stage_sizes),
+                    dtype)

@@ -36,9 +36,26 @@ serves every model.
 
 `init_params(seed)` draws the reference's initial model from the same
 seed: `jax.random`'s key splits and normal draws, reproduced by
-`utils/prng.py` (normal within a few float32 ulp).  Not ported: the
-`dtype` knob (the port computes in float32, as config 5 does) and the
-mixture-of-experts MLP.
+`utils/prng.py` (normal within a few float32 ulp).
+
+`dtype` (float32 or bfloat16) is the reference's compute dtype
+(:110-115, :139-200): parameters stay float32 and each weight is cast
+to `dtype` where it is used; the embeddings, the residual stream, the
+projections, attention (the bfloat16 instantiations of the flash
+kernels) and the MLP run in `dtype`; layer norm computes in float32 and
+casts its output to `dtype`, except the final one, which stays float32
+with the pooling and the head.
+
+`moe_experts` E > 0 is the reference's dense mixture of experts (:72-98,
+:153-165): each block's MLP becomes E expert MLPs (`we1` (E, d, h),
+`wb1` (E, h), `we2` (E, h, d), `wb2` (E, d)) weighted by a softmax
+router (`router` (d, E); the gates in float32).  Every expert computes;
+the port runs them one after another and sums their gated outputs in
+float32, so no (rows, E, hidden) activation is held at once (the
+reference's einsum over e contracts the same sum).  Its initial model
+splits 7 keys a block (`router`, `we1`, `we2` from keys 4-6); the dense
+path keeps its 6, so config 5's initial model does not change.
+Dropped: the expert axis's sharding over "ep" (`parallel/ep.py`).
 """
 
 from __future__ import annotations
@@ -69,6 +86,8 @@ class TransformerConfig:
     depth: int = 2
     heads: int = 4
     mlp_ratio: int = 4
+    dtype: torch.dtype = torch.float32
+    moe_experts: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -91,9 +110,34 @@ class LayerNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(d))
         self.bias = nn.Parameter(torch.zeros(d))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, (x.shape[-1],), self.scale, self.bias,
-                            eps=1e-6)
+    def forward(self, x: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Computed in float32, the result cast to `dtype`."""
+        return F.layer_norm(x.float(), (x.shape[-1],), self.scale,
+                            self.bias, eps=1e-6).to(dtype)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def _moe(y: torch.Tensor, router: torch.Tensor, we1: torch.Tensor,
+         wb1: torch.Tensor, we2: torch.Tensor, wb2: torch.Tensor,
+         matmul) -> torch.Tensor:
+    """The dense mixture of experts on `y` (..., d) in y's dtype:
+    sum_e gate_e * (gelu(y @ we1_e + wb1_e) @ we2_e + wb2_e), the gates a
+    float32 softmax of `y @ router`.  The weights come cast to y's dtype
+    with the expert axis at -3 (`we1` (..., E, d, h)) and -2 for the
+    biases; `matmul(x, w)` is the product with one expert's weight."""
+    dt = y.dtype
+    gates = torch.softmax(matmul(y, router).float(), -1)
+    out = None
+    for e in range(we1.shape[-3]):
+        h = _gelu(matmul(y, we1[..., e, :, :]) + wb1[..., e, :])
+        o = (matmul(h, we2[..., e, :, :]) + wb2[..., e, :]).float() \
+            * gates[..., e:e + 1].to(dt).float()
+        out = o if out is None else out + o
+    return out.to(dt)
 
 
 class Block(nn.Module):
@@ -101,36 +145,50 @@ class Block(nn.Module):
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        d, hid = cfg.dim, cfg.mlp_ratio * cfg.dim
+        d, hid, e = cfg.dim, cfg.mlp_ratio * cfg.dim, cfg.moe_experts
         self.heads = cfg.heads
+        self.dtype = cfg.dtype
+        self.moe = e > 0
         self.ln1 = LayerNorm(d)
         self.wq = nn.Parameter(torch.empty(d, d))
         self.wk = nn.Parameter(torch.empty(d, d))
         self.wv = nn.Parameter(torch.empty(d, d))
         self.wo = nn.Parameter(torch.empty(d, d))
         self.ln2 = LayerNorm(d)
-        self.w1 = nn.Parameter(torch.empty(d, hid))
-        self.b1 = nn.Parameter(torch.zeros(hid))
-        self.w2 = nn.Parameter(torch.empty(hid, d))
-        self.b2 = nn.Parameter(torch.zeros(d))
+        if self.moe:
+            self.router = nn.Parameter(torch.empty(d, e))
+            self.we1 = nn.Parameter(torch.empty(e, d, hid))
+            self.wb1 = nn.Parameter(torch.zeros(e, hid))
+            self.we2 = nn.Parameter(torch.empty(e, hid, d))
+            self.wb2 = nn.Parameter(torch.zeros(e, d))
+        else:
+            self.w1 = nn.Parameter(torch.empty(d, hid))
+            self.b1 = nn.Parameter(torch.zeros(hid))
+            self.w2 = nn.Parameter(torch.empty(hid, d))
+            self.b2 = nn.Parameter(torch.zeros(d))
 
     def forward(self, x: torch.Tensor, pad: torch.Tensor,
                 attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
         b, s, d = x.shape
+        dt = self.dtype
         shape = (b, s, self.heads, d // self.heads)
-        y = self.ln1(x)
-        q = (y @ self.wq).reshape(shape)
-        k = (y @ self.wk).reshape(shape)
-        v = (y @ self.wv).reshape(shape)
+        y = self.ln1(x, dt)
+        q = (y @ self.wq.to(dt)).reshape(shape)
+        k = (y @ self.wk.to(dt)).reshape(shape)
+        v = (y @ self.wv.to(dt)).reshape(shape)
         if attn_fn is None:
             blk = attention_block(s)
             o = flash_attention(q, k, v, pad, blk, blk)
         else:
             o = attn_fn(q, k, v, pad)
-        x = x + o.reshape(b, s, d) @ self.wo
-        y = self.ln2(x)
-        y = F.gelu(y @ self.w1 + self.b1, approximate="tanh")
-        return x + (y @ self.w2 + self.b2)
+        x = x + o.reshape(b, s, d) @ self.wo.to(dt)
+        y = self.ln2(x, dt)
+        if self.moe:
+            return x + _moe(y, *(w.to(dt) for w in (
+                self.router, self.we1, self.wb1, self.we2, self.wb2)),
+                torch.matmul)
+        y = _gelu(y @ self.w1.to(dt) + self.b1.to(dt))
+        return x + (y @ self.w2.to(dt) + self.b2.to(dt))
 
 
 def _per_model(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -139,12 +197,13 @@ def _per_model(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.reshape(g, b * s, a) @ w).reshape(g, b, s, w.shape[-1])
 
 
-def _stacked_ln(x: torch.Tensor, scale: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
-    """Layer norm of (G, ..., d) with each model's (G, d) scale and bias."""
+def _stacked_ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Layer norm of (G, ..., d) with each model's (G, d) scale and bias,
+    in float32, cast to `dtype`."""
     bcast = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
-    y = F.layer_norm(x, (x.shape[-1],), eps=1e-6)
-    return y * scale.reshape(bcast) + bias.reshape(bcast)
+    y = F.layer_norm(x.float(), (x.shape[-1],), eps=1e-6)
+    return (y * scale.reshape(bcast) + bias.reshape(bcast)).to(dtype)
 
 
 class TransformerClassifier(Model):
@@ -167,12 +226,13 @@ class TransformerClassifier(Model):
         The hooks are `forward_hooked`'s."""
         pad = tokens != 0
         s = tokens.shape[1]
+        dt = self.cfg.dtype
         if pos_offset is None:
             pos = self.pos[:s][None]
         else:
             pos = self.pos[pos_offset[:, None]
                            + torch.arange(s, device=tokens.device)]
-        x = self.embed[tokens] + pos
+        x = self.embed[tokens].to(dt) + pos.to(dt)
         for blk in self.blocks:
             x = blk(x, pad, attn_fn)
         x = self.ln_f(x)
@@ -201,26 +261,38 @@ class TransformerClassifier(Model):
                       tokens: torch.Tensor) -> torch.Tensor:
         """Logits (G, B, classes) of G models on tokens (G, B, S)."""
         cfg = self.cfg
+        dt = cfg.dtype
         g, b, s = tokens.shape
         tokens = tokens.long()
         pad = tokens != 0
         models = torch.arange(g, device=tokens.device)[:, None, None]
-        x = params["['embed']"][models, tokens] \
-            + params["['pos']"][:, None, :s]
+        x = params["['embed']"][models, tokens].to(dt) \
+            + params["['pos']"][:, None, :s].to(dt)
         blk = attention_block(s)
         shape = (g * b, s, cfg.heads, cfg.head_dim)
         for i in range(cfg.depth):
             p = {k[len(f"['blocks'][{i}]"):]: v for k, v in params.items()
                  if k.startswith(f"['blocks'][{i}]")}
-            y = _stacked_ln(x, p["['ln1']['scale']"], p["['ln1']['bias']"])
-            q, k, v = (_per_model(y, p[f"['{n}']"]).reshape(shape)
+
+            def w(name):
+                return p[f"['{name}']"].to(dt)
+            y = _stacked_ln(x, p["['ln1']['scale']"], p["['ln1']['bias']"],
+                            dt)
+            q, k, v = (_per_model(y, w(n)).reshape(shape)
                        for n in ("wq", "wk", "wv"))
             o = flash_attention(q, k, v, pad.reshape(g * b, s), blk, blk)
-            x = x + _per_model(o.reshape(g, b, s, cfg.dim), p["['wo']"])
-            y = _stacked_ln(x, p["['ln2']['scale']"], p["['ln2']['bias']"])
-            y = F.gelu(_per_model(y, p["['w1']"])
-                       + p["['b1']"][:, None, None], approximate="tanh")
-            x = x + _per_model(y, p["['w2']"]) + p["['b2']"][:, None, None]
+            x = x + _per_model(o.reshape(g, b, s, cfg.dim), w("wo"))
+            y = _stacked_ln(x, p["['ln2']['scale']"], p["['ln2']['bias']"],
+                            dt)
+            if cfg.moe_experts:
+                # the expert axis after the model axis; each expert's
+                # (G, a, c) slice is one batched product
+                x = x + _moe(y, w("router"), w("we1"),
+                             w("wb1")[:, None, None], w("we2"),
+                             w("wb2")[:, None, None], _per_model)
+                continue
+            y = _gelu(_per_model(y, w("w1")) + w("b1")[:, None, None])
+            x = x + _per_model(y, w("w2")) + w("b2")[:, None, None]
         x = _stacked_ln(x, params["['ln_f']['scale']"],
                         params["['ln_f']['bias']"])
         num = (x * pad[..., None]).sum(2)
@@ -236,9 +308,12 @@ class TransformerClassifier(Model):
         scales; zeros for the biases and the head."""
         keys = prng.split(prng.PRNGKey(seed), 4 + self.cfg.depth)
         drawn = {"['embed']": keys[0], "['pos']": keys[1]}
+        names = (("wq", "wk", "wv", "wo", "router", "we1", "we2")
+                 if self.cfg.moe_experts else
+                 ("wq", "wk", "wv", "wo", "w1", "w2"))
         for i in range(self.cfg.depth):
-            ks = prng.split(keys[2 + i], 6)
-            for j, name in enumerate(("wq", "wk", "wv", "wo", "w1", "w2")):
+            ks = prng.split(keys[2 + i], len(names))
+            for j, name in enumerate(names):
                 drawn[f"['blocks'][{i}]['{name}']"] = ks[j]
         params = {}
         for name, p in self.named_parameters():
@@ -258,8 +333,13 @@ class TransformerClassifier(Model):
 def make_transformer_classifier(vocab_size: int = 1000, seq_len: int = 64,
                                 num_classes: int = 2, dim: int = 128,
                                 depth: int = 2, heads: int = 4,
+                                dtype: torch.dtype = torch.float32,
+                                moe_experts: int = 0,
                                 ) -> TransformerClassifier:
-    """Vocabulary padded to a multiple of 128, as in the reference."""
+    """Vocabulary padded to a multiple of 128, as in the reference;
+    `dtype` float32 or bfloat16 (also by name)."""
+    from bflc_demo_tpu_torch.models.base import compute_dtype
     return TransformerClassifier(TransformerConfig(
         vocab_size=_round_up(vocab_size, 128), seq_len=seq_len,
-        num_classes=num_classes, dim=dim, depth=depth, heads=heads))
+        num_classes=num_classes, dim=dim, depth=depth, heads=heads,
+        dtype=compute_dtype(dtype), moe_experts=int(moe_experts)))

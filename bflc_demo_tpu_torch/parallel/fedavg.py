@@ -32,7 +32,11 @@ when both static counts are given, else ring.
 `make_sharded_protocol_round` checks what the reference checks (the
 scoring schedule, the static committee geometry, client_chunk
 divisibility) and raises `NotImplementedError`, naming the ROADMAP
-item, for what is not ported: secure aggregation and local optimizers.
+item, for what is not ported: secure aggregation.  `local_optimizer` (a
+`core.optim` transform) drives every client's local steps, one
+optimizer state a client stacked on the client axis and fresh each
+round, as the reference's per-client `local_train_impl` (:334-340); the
+deltas stay `(params - trained) / lr`.
 The memory controls are ported: `client_chunk` trains the slots, and
 scores, in sequential chunks, and `remat` recomputes each training
 step's forward in its backward (`core.local_train.sgd_stacked`).  Under
@@ -63,6 +67,7 @@ from bflc_demo_tpu_torch.core.aggregate import (apply_selection, decide,
 from bflc_demo_tpu_torch.core.local_train import (evaluate, sgd_stacked,
                                                   wire_deltas)
 from bflc_demo_tpu_torch.core.losses import xla_mean
+from bflc_demo_tpu_torch.core.optim import check_optimizer
 from bflc_demo_tpu_torch.device import upload
 from bflc_demo_tpu_torch.models.base import Model, Params
 from bflc_demo_tpu_torch.ops.fingerprint import (fingerprint_pytree,
@@ -168,8 +173,7 @@ def candidate_deltas(deltas: Params, up_idx: torch.Tensor) -> Params:
 
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet ({item}); the "
-                               f"port's mesh round runs the committee "
-                               f"schedule, plain FedAvg and plain SGD")
+                               f"port's mesh round runs plain FedAvg")
 
 
 def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
@@ -216,11 +220,9 @@ def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
             and client_num % client_chunk:
         raise ValueError(f"clients/device {client_num} not divisible by "
                          f"client_chunk {client_chunk}")
-    for asked, what, item in (
-            (secure, "secure aggregation", "ROADMAP A12"),
-            (local_optimizer is not None, "local_optimizer", "ROADMAP A11")):
-        if asked:
-            raise _unported(what, item)
+    if secure:
+        raise _unported("secure aggregation", "ROADMAP A12")
+    check_optimizer(local_optimizer)
     k = aggregate_count
 
     def check_masks(uploader_mask: np.ndarray,
@@ -268,7 +270,8 @@ def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
         trained, costs = sgd_stacked(model, params, xs, ys, lr=lr,
                                      batch_size=batch_size,
                                      local_epochs=local_epochs,
-                                     client_chunk=client_chunk, remat=remat)
+                                     client_chunk=client_chunk, remat=remat,
+                                     optimizer=local_optimizer)
         deltas = wire_deltas(params, trained, lr)
         with torch.no_grad():
             # 2. C x K committee scoring -> sparse (N, N) matrix, or the

@@ -25,6 +25,14 @@ read through `.detach().cpu().numpy()`.  This module imports no torch:
 validators re-execute a sparse upload through `densify_entries` and
 never load torch (`comm/bft.check_sparse_upload_op`).
 `utils/serialization.py` re-exports every name here.
+
+bfloat16 leaves (the reference's bfloat16 MLP, whose params, deltas and
+uploads are bfloat16) encode as the reference encodes them: the dtype
+string "bfloat16" and 2 bytes an element.  numpy has no bfloat16 of its
+own: `BF16` is ml_dtypes' (the reference's) where it is installed, else
+a 2-byte record named "bfloat16" over the same bits, so the port never
+needs ml_dtypes; `is_bf16`, `as_float32` (exact widening) and
+`cast_like` (round to nearest even) work on either.
 """
 
 from __future__ import annotations
@@ -37,6 +45,45 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 
 _MAGIC = b"BFLCT\x01"
+
+
+def _bf16_dtype() -> np.dtype:
+    try:
+        import ml_dtypes
+        return np.dtype(ml_dtypes.bfloat16)
+    except ImportError:
+        return np.dtype([("bfloat16", "<u2")])
+
+
+BF16 = _bf16_dtype()
+
+
+def is_bf16(dtype) -> bool:
+    """Whether `dtype` is a numpy bfloat16 (ml_dtypes' or `BF16`)."""
+    dtype = np.dtype(dtype)
+    return dtype.name == "bfloat16" or dtype.names == ("bfloat16",)
+
+
+def as_float32(a) -> np.ndarray:
+    """`a` as float32; a bfloat16 array widens exactly, by its bits."""
+    a = np.asarray(a)
+    if is_bf16(a.dtype):
+        bits = np.ascontiguousarray(a).view(np.uint16).astype(np.uint32)
+        return (bits << np.uint32(16)).view(np.float32)
+    return np.asarray(a, np.float32)
+
+
+def cast_like(a: np.ndarray, dtype) -> np.ndarray:
+    """float32 `a` cast to `dtype`; to bfloat16 rounded to nearest even
+    (a NaN stays a quiet NaN), as numpy's ml_dtypes cast rounds."""
+    if not is_bf16(dtype):
+        return np.asarray(a).astype(dtype)
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    nan = (u & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
+    with np.errstate(over="ignore"):
+        r = u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))
+    r = np.where(nan, u | np.uint32(0x00400000), r)
+    return (r >> np.uint32(16)).astype(np.uint16).view(np.dtype(dtype))
 
 # opt-in reduced-precision delta encodings (--delta-dtype)
 DELTA_DTYPES = ("f32", "f16", "i8")
@@ -120,7 +167,11 @@ def _as_numpy(leaf) -> np.ndarray:
     # a torch tensor (duck-typed: this module never imports torch) or an
     # array-like, in the reference's orientation
     if hasattr(leaf, "detach"):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if str(leaf.dtype) == "torch.bfloat16":
+            import torch            # a torch tensor: torch is loaded
+            return leaf.view(torch.int16).numpy().view(BF16)
+        return leaf.numpy()
     return np.asarray(leaf)
 
 
@@ -143,8 +194,8 @@ def _encode_entries(entries: List[Tuple[str, np.ndarray]]) -> bytes:
         # '<f4' style codes carry endianness; extension dtypes stringify as
         # opaque '<V2', so the reference writes their registered name
         ds = arr.dtype.str
-        db = (arr.dtype.name if ds.endswith(f"V{arr.dtype.itemsize}")
-              else ds).encode()
+        db = ("bfloat16" if is_bf16(arr.dtype) else arr.dtype.name
+              if ds.endswith(f"V{arr.dtype.itemsize}") else ds).encode()
         out.append(struct.pack("<q", len(kb)))
         out.append(kb)
         out.append(struct.pack("<q", len(db)))
@@ -196,7 +247,8 @@ def unpack_pytree(data: bytes) -> Dict[str, np.ndarray]:
         key = data[off:off + klen].decode()
         off += klen
         (dlen,) = take("<q")
-        dtype = np.dtype(data[off:off + dlen].decode())
+        name = data[off:off + dlen].decode()
+        dtype = BF16 if name == "bfloat16" else np.dtype(name)
         off += dlen
         (ndim,) = take("<q")
         shape = take(f"<{ndim}q") if ndim else ()

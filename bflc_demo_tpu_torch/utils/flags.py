@@ -33,10 +33,13 @@ the static knobs) and the validator re-derivation plane (`--rederive
 off|shard|full`, the reference's choices, :136-143).  The reference's other run
 options belong to parts not ported yet.  Each such flag is accepted by
 the parser so that the CLI can refuse it by name (exit 2 with the
-ROADMAP item) rather than fail on an unknown argument or drop it.  Still
-dropped: chaos (A9; `--ledger-backend` is ported: auto, native and
-python), checkpoints and the device profiler (A11), secure
-aggregation (A12), and traces, plots and telemetry (A14).  Score
+ROADMAP item) rather than fail on an unknown argument or drop it.
+Checkpoints are ported: `--checkpoint-dir D` and `--checkpoint-every N`
+(the reference's :33-34; the CLI saves at a run's end, and every N
+rounds on the mesh runtime).  `--ledger-backend` is ported (auto,
+native and python).  Still dropped: the device profiler (A11), secure
+aggregation (A12), and chaos, traces, plots and telemetry (A14, where
+the fleet's own `UNPORTED_FLEET_OPTIONS` puts them).  Score
 attestation is ported: `--attest-scores` / `--no-attest-scores`, the
 reference's tri-state (:48-51; not given = on wherever wallets exist),
 for the mesh and executor runtimes.
@@ -56,9 +59,8 @@ _ENV_PREFIX = "BFLC_"
 
 # reference run options -> the ROADMAP item that ports them
 UNPORTED_OPTIONS: Dict[str, str] = {
-    **{name: "A9" for name in ("chaos_seed", "chaos_profile")},
-    **{name: "A11" for name in ("checkpoint_dir", "checkpoint_every",
-                                "xprof_window")},
+    **{name: "A14" for name in ("chaos_seed", "chaos_profile")},
+    "xprof_window": "A11",
     **{name: "A14" for name in ("trace_path", "plot_path", "telemetry_dir",
                                 "trace_sample")},
     "secure": "A12",
@@ -153,6 +155,12 @@ def add_flags(p: argparse.ArgumentParser) -> None:
                         "(fold what the lossy encode dropped into the "
                         "next delta; needs --delta-density < 1 or "
                         "--delta-dtype f16|i8)")
+    p.add_argument("--checkpoint-dir", default="",
+                   help="save the final model and the ledger's op log "
+                        "here (model.bflct, ledger.oplog, meta.json)")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="mesh runtime: also checkpoint every N rounds "
+                        "(0 = only at the end)")
     p.add_argument("--attest-scores", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="mesh/executor runtimes: score attestation (not "

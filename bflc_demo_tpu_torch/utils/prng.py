@@ -15,6 +15,10 @@ the default since JAX 0.5):
 - `uniform` keeps the top 23 bits as the mantissa of a float in [1, 2),
   subtracts 1, then scales to [minval, maxval) and clamps at minval;
 - `normal` is ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``;
+  `normal(..., dtype="bfloat16")` is jax's bfloat16 draw: 8 random bits
+  a value (bfloat16 has 7 mantissa bits, so `jax._src.random._uniform`
+  draws 8) shifted right by one into the mantissa of [1, 2), and every
+  step rounded to bfloat16 as XLA:CPU rounds it (`round_bf16`);
 - `truncated_normal(key, lower, upper)` is ``sqrt(2) * erfinv(uniform(
   erf(lower / sqrt(2)), erf(upper / sqrt(2))))``, clamped to the open
   interval (lower, upper) (`jax._src.random._truncated_normal`).
@@ -31,6 +35,9 @@ approximation (odd degree-9 numerator over even degree-12 denominator,
 FMA Horner steps), equal to jax's for |x| < 3, which holds the bounds
 flax's initialisers use (±2/sqrt(2)).  `torch.erfinv`
 would differ by up to tens of ulp.
+
+The bfloat16 draw equals jax's bit for bit (its erfinv input takes 256
+values, each of which the float32 polynomial rounds as XLA does).
 
 Dropped: jax's typed key arrays, the non-partitionable mode, 64-bit
 seeds and the other distributions.  Everything returns numpy arrays;
@@ -163,8 +170,35 @@ def erfinv(x: np.ndarray) -> np.ndarray:
                         out).astype(np.float32)
 
 
-def normal(key: np.ndarray, shape: Shape = ()) -> np.ndarray:
-    """float32 standard normal draws."""
+def round_bf16(x: np.ndarray) -> np.ndarray:
+    """float32 values rounded to the nearest bfloat16 (ties to even), as
+    float32: the rounding of every bfloat16 step, without a bfloat16
+    dtype in numpy.  Finite inputs and infinities."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    with np.errstate(over="ignore"):
+        u = u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))
+    return (u & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _normal_bf16(key: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
+    """jax's bfloat16 standard normal draw, as bfloat16 values in float32."""
+    lo = np.float32(-0.99609375)        # nextafter(-1, 0) in bfloat16
+    span = round_bf16(np.float32(1.0) - lo)
+    mant = ((bits(key, shape) & np.uint32(0xFF)) >> np.uint32(1)) \
+        | np.uint32(0x3F80)
+    floats = (mant << np.uint32(16)).view(np.float32) - np.float32(1.0)
+    u = np.maximum(lo, round_bf16(round_bf16(floats * span) + lo))
+    return round_bf16(round_bf16(erfinv(u)) * round_bf16(_SQRT2))
+
+
+def normal(key: np.ndarray, shape: Shape = (),
+           dtype: str = "float32") -> np.ndarray:
+    """Standard normal draws: float32, or with dtype "bfloat16" jax's
+    bfloat16 draw (its values, held in a float32 array)."""
+    if dtype == "bfloat16":
+        return _normal_bf16(key, _shape(shape))
+    if dtype != "float32":
+        raise ValueError(f"normal draws float32 or bfloat16, got {dtype}")
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     return _SQRT2 * erfinv(uniform(key, shape, lo, 1.0))
 

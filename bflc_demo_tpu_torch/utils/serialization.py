@@ -21,7 +21,8 @@ and count-sketch sparsification, and their one decode chain
 `densify_entries(dequantize_entries(...))`.  `restore_pytree` (entries
 -> tensors laid out like a template `Params`) is here.  A blob's
 SHA-256 is what a client signs and the ledger certifies, so all of this
-is bit-exact.  Still dropped: the checkpoint format (A11).
+is bit-exact, bfloat16 leaves included (`codecs.BF16`).  The
+checkpoint format is `utils/checkpoint.py`.
 """
 
 from __future__ import annotations
@@ -31,8 +32,10 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from bflc_demo_tpu_torch.models.base import numpy_to_tensor
+
 from bflc_demo_tpu_torch.utils.codecs import (  # noqa: F401 (re-exported)
-    DELTA_CODECS, DELTA_DTYPES, QSCALE_SUFFIX, SKETCH_SUFFIX, TOPK_SUFFIX,
+    BF16, DELTA_CODECS, DELTA_DTYPES, QSCALE_SUFFIX, SKETCH_SUFFIX, TOPK_SUFFIX,
     canonical_bytes, delta_codec, densify_entries, dequantize_entries,
     error_feedback_enabled, hash_pytree, pack_entries, pack_pytree,
     pack_quantized, pack_sparse, quantize_entries, sketch_entries,
@@ -53,6 +56,5 @@ def restore_pytree(template: Mapping[str, torch.Tensor],
         if tuple(arr.shape) != tuple(want.shape):
             raise ValueError(f"leaf {key}: shape {arr.shape} != "
                              f"{tuple(want.shape)}")
-        out[key] = torch.as_tensor(np.array(arr), device=want.device).to(
-            want.dtype)
+        out[key] = numpy_to_tensor(arr, want.device).to(want.dtype)
     return out

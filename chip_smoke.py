@@ -67,6 +67,29 @@ first at the bar and the evaluations to spare after it.
              on the same params and deltas with the same selection, and
              K1 at the ring's shape (64000, 64, 4, 32) against its plain
              version and timed beside SDPA and its bound;
+   knobs   — the model and training knobs on the mesh runtime
+             (`knobs_phase`), each between a reset and a read of the
+             launch counts: `bf16_config5`, config 5 with
+             `make_transformer_classifier(dtype=torch.bfloat16)` (float32
+             params, bfloat16 compute), 10 rounds, and `moe_config5`,
+             config 5 with a 4-expert MoE MLP (float32; its parameter
+             count held to the reference layout's 1,326,594), 10 rounds:
+             each held to the mesh round's launches, every K1-K3 launch
+             at the leg's dtype at the training, score and sponsor
+             batches (K1) and the training batch (K2, K3), and each such
+             (kernel, shape) held once against its plain version on the
+             inputs of the path's last launch there; the final
+             model's decisions against the CPU path's (the dtype's TOL);
+             warm round seconds, peak memory and the accuracy (no bar);
+             then `optim_checkpoint_config1`, config 1 with momentum SGD
+             (lr 0.001, momentum 0.9), 5 rounds checkpointed through the
+             preset, the CLI's `--checkpoint-dir D --checkpoint-every 5`
+             in this process (its line, its checkpoint at its head), the
+             checkpoint loaded (head verified) and 5 rounds resumed to
+             epoch 10 with their own checkpoint, a tampered copy refused,
+             B6 2 a round; the bfloat16 timing rows of K1 (training,
+             score and sponsor batches) and K2/K3 (training batch) run in
+             phase 4 beside SDPA in bfloat16;
    presets — configs 0, 2, 3 and 4 (`PRESET_RUNS`), each run between a
              reset and a read of the launch counts (fingerprint 2 a mesh
              round, nothing else) and held to the reference tests' bar:
@@ -142,7 +165,9 @@ first at the bar and the evaluations to spare after it.
              250-row occupancy shards, 3 replicas, 4 rounds, best above
              0.85); config 1 at its preset (20 clients) through
              `python -m bflc_demo_tpu_torch --config config1 --runtime
-             processes` as a subprocess, 10 rounds, at config 1's bar;
+             processes` as a subprocess, 10 rounds, at config 1's bar
+             (started with the executor's CLI line before the process
+             test, the three fleets side by side);
              config 5 at full width, 9 rounds, best 0.9, K1-K3 launched
              in the clients; and the crash case (:333-357: clients 0 and
              5 die at epoch 1), `recovered_clients == [0, 5]`.  Each run
@@ -326,6 +351,10 @@ runs only the build and the rederive legs (m, n).
 
 runs only the build, the native ledger's line and the dispatch phase.
 
+    python3 chip_smoke.py --knobs
+
+runs only the build, the bfloat16 timing rows and the knob legs.
+
 Every fleet leg's line names its final writer's ledger backend
 (`writer_backend`), held to the one the reference runs at that leg's
 configuration (`reference_backend`).
@@ -375,6 +404,10 @@ DENSE_SHAPES = (TRAIN_SHAPE, MULTI_SHAPE, PAIR_SHAPE, SCORE_SHAPE,
                 MESH_TRAIN_SHAPE, MESH_SCORE_SHAPE, AGG_SCORE_SHAPE,
                 ATTEST_SCORE_SHAPE)
 BIG_FEW = dict(calls=5, replays=2, repeats=5)   # device_ms at 6400 rows
+# attention inputs of this many elements a tensor and more are drawn on
+# the card (the sponsor's 800 rows and up): a numpy draw of config 5's
+# score batch takes 2-5 s a tensor set
+DEVICE_DRAW_ELEMENTS = 1 << 22
 SHARD_SHAPE = (32, 1024, 4, 32)      # sp training shard: 8 shards x B 4
 RING_SHAPE = (4, 8192, 4, 32)        # the same sequence, unsharded
 RING_FEW = dict(calls=2, replays=2, repeats=3)   # device_ms at RING_SHAPE
@@ -661,6 +694,26 @@ RING_ENTRY_TOL = 1.0 / 160
 # the native ledger's timing: a config-5 chain of this many rounds,
 # applied into fresh ledgers of both backends
 LEDGER_CHAIN_ROUNDS = 50
+# the model and training knobs (`knobs_phase`): config 5 on the mesh
+# runtime in bfloat16 and with a 4-expert MoE MLP, KNOB_ROUNDS each, every
+# round the mesh round's launches (MESH_PER_ROUND); config 1 with momentum
+# SGD, OPTIM_ROUNDS rounds checkpointed, the CLI's checkpoint line, then
+# OPTIM_ROUNDS rounds resumed from the checkpoint.  No accuracy bar: no
+# CPU trajectory over seeds backs one for these legs (printed, as
+# dispatch_config5's)
+KNOB_ROUNDS = 10
+MOE_EXPERTS = 4
+# the reference's MoE layout at config 5's width (embed 1024 x 128, pos
+# 64 x 128, two blocks of 593,408, ln_f, head)
+MOE_PARAMS = 1_326_594
+OPTIM_ROUNDS = 5
+OPTIM_LR, OPTIM_MOMENTUM = 0.001, 0.9
+# (kernel, shapes) each leg's path must launch: K1 at the training,
+# committee-score and sponsor batches, K2 and K3 at the training batch
+KNOB_SHAPES = {"flash_fwd": {MESH_TRAIN_SHAPE, MESH_SCORE_SHAPE,
+                             SPONSOR_SHAPE},
+               "flash_dkdv": {MESH_TRAIN_SHAPE},
+               "flash_dq": {MESH_TRAIN_SHAPE}}
 WORK_DIR = os.path.join("build", "chip_smoke")
 FLEET_MASTER_SEED = b"process-federation-master-0001"   # the fleet's default
 
@@ -807,7 +860,13 @@ def card_line() -> str:
 def attention_inputs(torch, shape, dtype, device, seed):
     """q/k/v/dO from a numpy seed; key mask with ragged lengths like the
     data's (at least half the sequence), and for S > 64 one fully masked
-    64-key tile in batch row 0."""
+    64-key tile in batch row 0.  From DEVICE_DRAW_ELEMENTS elements a
+    tensor up, q/k/v/dO are drawn on the card instead
+    (`device_attention_inputs`: numpy takes seconds a draw there)."""
+    if int(np.prod(shape)) >= DEVICE_DRAW_ELEMENTS:
+        q, k, v, g, mask = device_attention_inputs(torch, shape, device,
+                                                   seed)
+        return (q.to(dtype), k.to(dtype), v.to(dtype), g.to(dtype), mask)
     b, s, _, _ = shape
     rng = np.random.default_rng(seed)
     q, k, v, g = (torch.as_tensor(rng.standard_normal(shape)
@@ -1051,24 +1110,26 @@ def sdpa_backward_ms(torch, q, k, v, g, mask, **few) -> float:
         out, (qg, kg, vg), gt, retain_graph=True), stream=side, **few)
 
 
-def backward_timing(torch, fa, device, shape, seed, **few) -> dict:
-    """The dK/dV and dQ kernels at `shape` (float32), each beside its
-    plain version, and the pair beside SDPA's backward.  No one PyTorch
-    call computes dK/dV or dQ alone: those rows have no library time, and
-    the pair's row (a line of its own, and `pair` on both rows) holds
-    SDPA's backward."""
-    q, k, v, g, mask = attention_inputs(torch, shape, torch.float32, device,
+def backward_timing(torch, fa, device, shape, seed,
+                    dtype_name: str = "float32", **few) -> dict:
+    """The dK/dV and dQ kernels at `shape` (float32, or `dtype_name`),
+    each beside its plain version, and the pair beside SDPA's backward
+    in the same dtype.  No one PyTorch call computes dK/dV or dQ alone:
+    those rows have no library time, and the pair's row (a line of its
+    own, and `pair` on both rows) holds SDPA's backward."""
+    q, k, v, g, mask = attention_inputs(torch, shape,
+                                        getattr(torch, dtype_name), device,
                                         seed)
     out, lse = fa.flash_fwd(q, k, v, mask)
     args = (q, k, v, mask, g, lse, fa.attention_delta(g, out))
     rows = {}
     for name in ("flash_dkdv", "flash_dq"):
         kernel, plain = getattr(fa, name), getattr(fa, name + "_plain")
-        row = timing_row(shape, mask, "float32", name,
+        row = timing_row(shape, mask, dtype_name, name,
                          device_ms(torch, lambda: kernel(*args), **few),
                          device_ms(torch, lambda: plain(*args), **few), None)
         row["library"] = None
-        emit("timing", kernel=name, shape=list(shape), dtype="float32",
+        emit("timing", kernel=name, shape=list(shape), dtype=dtype_name,
              **row)
         rows[name] = row
     pair = {"kernels": list(rows),
@@ -1078,24 +1139,25 @@ def backward_timing(torch, fa, device, shape, seed, **few) -> dict:
             "library": "scaled_dot_product_attention backward (dQ, dK and "
                        "dV in one call)"}
     emit("timing", kernel="flash_dkdv+flash_dq", shape=list(shape),
-         dtype="float32", **pair)
+         dtype=dtype_name, **pair)
     for row in rows.values():
         row["pair"] = pair
     return rows
 
 
 def forward_timing(torch, fa, device, shape, seed, card: str = None,
-                   inputs=None, **few) -> dict:
-    """The forward kernel at `shape` (float32) beside its plain version
-    and SDPA (the row names the card when `card` is given), on `inputs`
-    (q, k, v, dO, mask) where given."""
+                   inputs=None, dtype_name: str = "float32",
+                   **few) -> dict:
+    """The forward kernel at `shape` (float32, or `dtype_name`) beside its
+    plain version and SDPA in the same dtype (the row names the card
+    when `card` is given), on `inputs` (q, k, v, dO, mask) where
+    given."""
     import torch.nn.functional as F
-    q, k, v, _, mask = inputs or attention_inputs(torch, shape,
-                                                  torch.float32, device,
-                                                  seed)
+    q, k, v, _, mask = inputs or attention_inputs(
+        torch, shape, getattr(torch, dtype_name), device, seed)
     qt, kt, vt, attn_mask = sdpa_inputs(q, k, v, mask)
     row = timing_row(
-        shape, mask, "float32", "flash_fwd",
+        shape, mask, dtype_name, "flash_fwd",
         device_ms(torch, lambda: fa.flash_fwd(q, k, v, mask), **few),
         device_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, mask), **few),
         device_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -1103,7 +1165,7 @@ def forward_timing(torch, fa, device, shape, seed, card: str = None,
     row["library"] = "scaled_dot_product_attention"
     if card is not None:
         row["nvidia_smi"] = card
-    emit("timing", kernel="flash_fwd", shape=list(shape), dtype="float32",
+    emit("timing", kernel="flash_fwd", shape=list(shape), dtype=dtype_name,
          **row)
     return row
 
@@ -1130,7 +1192,26 @@ def timing_phase(torch, fa, device, card: str) -> dict:
                                      seed=8).items():
         result[name]["at"]["mesh_train"] = dict(row,
                                                 shape=list(MESH_TRAIN_SHAPE))
+    bf16_timing_rows(torch, fa, device, card, result)
     return result
+
+
+def bf16_timing_rows(torch, fa, device, card: str, result: dict) -> None:
+    """The bfloat16 rows of `bf16_config5`'s path: K1 at its training,
+    score and sponsor shapes, K2 and K3 at its training shape, each beside
+    its plain version and SDPA in bfloat16, under "at" in `result`."""
+    for name, shape, few in (("bf16_mesh_train", MESH_TRAIN_SHAPE, {}),
+                             ("bf16_mesh_score", MESH_SCORE_SHAPE, BIG_FEW),
+                             ("bf16_sponsor", SPONSOR_SHAPE, {})):
+        row = forward_timing(torch, fa, device, shape, seed=8, card=card,
+                             dtype_name="bfloat16", **few)
+        result["flash_fwd"]["at"][name] = dict(row, shape=list(shape),
+                                               dtype="bfloat16")
+    for name, row in backward_timing(torch, fa, device, MESH_TRAIN_SHAPE,
+                                     seed=8, dtype_name="bfloat16").items():
+        result[name]["at"]["bf16_mesh_train"] = dict(
+            row, shape=list(MESH_TRAIN_SHAPE), dtype="bfloat16",
+            nvidia_smi=card)
 
 
 def carry_timing_phase(torch, fa, device) -> tuple:
@@ -1342,11 +1423,13 @@ def mesh_slice_phase(torch, fa, fp, device) -> dict:
     the CPU path's.  Returns the launches and the round times."""
     from bflc_demo_tpu_torch.eval.configs import config5_transformer_sst2
 
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     res = config5_transformer_sst2(rounds=ROUNDS, runtime="mesh",
                                    device="cuda")
     torch.cuda.synchronize()
     launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
     expected = {k: n * ROUNDS for k, n in MESH_PER_ROUND.items()}
     best = res.best_accuracy()
     emit("mesh_slice", config="config5", runtime="mesh", rounds=ROUNDS,
@@ -1356,7 +1439,7 @@ def mesh_slice_phase(torch, fa, fp, device) -> dict:
          ledger_log_head=res.ledger_log_head.hex(),
          ledger_log_size=res.ledger_log_size,
          ledger_verified=res.ledger.verify_log(), n_devices=res.n_devices,
-         launches=launches, expected_launches=expected,
+         launches=launches, expected_launches=expected, peak_mem_bytes=peak,
          ledger_backend=res.ledger.backend)
     leg = "mesh_config5"
     hold(leg, "rounds", res.rounds_completed == ROUNDS,
@@ -1851,7 +1934,7 @@ def merge_timing_phase(torch, cr, device, cases) -> dict:
 
 def decision_check(torch, params, device, model_name: str,
                    recorded: float = None, model=None, data=None,
-                   rel_tol: bool = False) -> None:
+                   rel_tol: bool = False, tol_factor: float = 1e-4) -> None:
     """A model's decisions on the card (the sponsor's and the committee's
     batch shapes) against the CPU path's on the same params: logits
     within TOL on every row, and the accuracies — the sponsor's and the
@@ -1860,7 +1943,8 @@ def decision_check(torch, params, device, model_name: str,
     tolerance).  By default config 5's transformer on config 5's data,
     TOL 1e-4; else `model` (a factory) on `data` = (shards, test set),
     with TOL = 1e-4 * max(1, max |CPU logit|) where `rel_tol` (float32
-    convolutions summed in other orders, cuDNN against the CPU's).
+    convolutions summed in other orders, cuDNN against the CPU's), and
+    `tol_factor` in place of 1e-4 (bfloat16's TOL for a bfloat16 model).
     `recorded`: the sponsor accuracy the run recorded for these params,
     which the card's must equal."""
     from bflc_demo_tpu_torch.client.runtime import feature_tensor
@@ -1882,7 +1966,7 @@ def decision_check(torch, params, device, model_name: str,
             logits[name] = (card_model.apply(params, feats.to(device)).cpu(),
                             cpu_model.apply(cpu_params, feats))
     scale = max(float(c.abs().max()) for _, c in logits.values())
-    tol = 1e-4 * max(1.0, scale) if rel_tol else 1e-4
+    tol = tol_factor * max(1.0, scale) if rel_tol else tol_factor
     acc, err, ties = {}, 0.0, 0
     for name, (on_card, on_cpu) in logits.items():
         labels = torch.as_tensor(sets[name][1]).long()
@@ -2298,6 +2382,11 @@ def processes_phase(torch, card: str) -> tuple:
             "make_softmax_regression", shards, (xte[:500], yte[:500]), cfg,
             device="cuda", timeout_s=FLEET_TIMEOUT_S, **kw)
 
+    # config 1 at its preset through the CLI, as a user runs it, beside
+    # the executor's CLI line (two light config-1 fleets at once), both
+    # started before the reference's process test, which runs beside them
+    executor_cli = executor_cli_start()
+    config1_cli = config1_cli_start()
     res, *out = fleet_run(
         torch, "processes_reference", card,
         lambda: reference_test(rounds=FLEET_ROUNDS, stall_timeout_s=20.0,
@@ -2309,22 +2398,18 @@ def processes_phase(torch, card: str) -> tuple:
          len(res.replica_reports), FLEET_REPLICAS)
     accuracy_gate(leg, res, FLEET_MIN_BEST, above=True)
 
-    # config 1 at its preset through the CLI, as a user runs it, beside
-    # the executor's CLI line (two light config-1 fleets at once)
-    executor_cli = executor_cli_start()
-    env = dict(os.environ, **FLEET_ENV)
-    t0 = time.perf_counter()
-    reset_counts()
-    out = subprocess.run(
-        [sys.executable, "-m", "bflc_demo_tpu_torch", "--config",
-         "config1", "--runtime", "processes", "--rounds",
-         str(CONFIG1_ROUNDS)], capture_output=True, text=True, env=env,
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        timeout=FLEET_TIMEOUT_S + 60)
-    if out.returncode != 0:
+    proc, t0, base = config1_cli
+    try:
+        proc.wait(timeout=FLEET_TIMEOUT_S + 60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(base + ".out") as f_out, open(base + ".err") as f_err:
+        stdout, stderr = f_out.read(), f_err.read()
+    if proc.returncode != 0:
         raise gate_failed("processes_config1", "CLI exit code",
-                          out.returncode, 0, out.stderr[-4000:])
-    cli = json.loads(out.stdout.strip().splitlines()[-1])
+                          proc.returncode, 0, stderr[-4000:])
+    cli = json.loads(stdout.strip().splitlines()[-1])
     fleet = cli["fleet"]
     bar = CONFIG1_MIN_BEST[occupancy_source()]
     note("processes_config1", fleet_account(
@@ -3807,6 +3892,23 @@ def executor_config5_phase(torch, card: str, note) -> None:
     note(label, (total, {}))
 
 
+def config1_cli_start() -> tuple:
+    """Start config 1's CLI line, `python -m bflc_demo_tpu_torch --config
+    config1 --runtime processes --rounds CONFIG1_ROUNDS` with FLEET_ENV,
+    its output to files under WORK_DIR: (the process, its start, the
+    output's path)."""
+    os.makedirs(WORK_DIR, exist_ok=True)
+    base = os.path.join(WORK_DIR, "config1_cli")
+    with open(base + ".out", "w") as out, open(base + ".err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "bflc_demo_tpu_torch", "--config",
+             "config1", "--runtime", "processes", "--rounds",
+             str(CONFIG1_ROUNDS)], stdout=out, stderr=err,
+            env=dict(os.environ, **FLEET_ENV),
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, time.perf_counter(), base
+
+
 def executor_cli_start() -> tuple:
     """Start the CLI line, `python -m bflc_demo_tpu_torch --config config1
     --runtime executor --rounds EXECUTOR_CLI_ROUNDS` as a user runs it,
@@ -4083,6 +4185,299 @@ def executor_phase(torch, card: str, note, cli: bool = True) -> None:
     executor_config5_phase(torch, card, note)
     if cli:
         executor_cli_phase(card, note)
+
+
+class KernelTap:
+    """Keeps the inputs of the last launch at each (kernel, dtype, shape)
+    a path makes, so that each can be held against its plain version
+    after the path's run (those launches are not the path's).  The last,
+    not the first: the first training step's gradients are all zero (the
+    head starts at zero), so the first K2/K3 launch proves nothing.  It
+    wraps the three dense wrappers of the flash module and keeps
+    references (no copy: nothing writes an activation in place); the
+    wrappers themselves, and so the launch counts, are unchanged."""
+
+    def __init__(self, fa):
+        self.fa, self.last = fa, {}
+        self.real = {name: getattr(fa, name) for name in DENSE_KERNELS}
+        for name in DENSE_KERNELS:
+            setattr(fa, name, self._wrap(name))
+
+    def _wrap(self, name):
+        real = self.real[name]
+
+        def call(q, *rest):
+            if q.is_cuda:
+                key = (name, str(q.dtype).replace("torch.", ""),
+                       tuple(q.shape))
+                self.last[key] = tuple(t.detach() for t in (q,) + rest)
+            return real(q, *rest)
+        return call
+
+    def undo(self) -> None:
+        for name, fn in self.real.items():
+            setattr(self.fa, name, fn)
+
+    def hold(self, torch, leg: str) -> dict:
+        """Each recorded launch again, kernel against plain on its inputs:
+        {kernel: {dtype: [shape, ...]}}; raises on an error above TOL."""
+        fa, seen = self.fa, {}
+        for (name, dtype, shape), args in sorted(self.last.items()):
+            got = getattr(fa, name)(*args)
+            want = getattr(fa, name + "_plain")(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = scale = 0.0
+            for a, b in zip(got, want):
+                a, b = a.float(), b.float()
+                if not torch.isfinite(a).all():
+                    raise gate_failed(leg, f"{name} {dtype} {list(shape)} "
+                                      f"finite", False, True)
+                err = max(err, float((a - b).abs().max()))
+                scale = max(scale, float(b.abs().max()))
+            tol = TOL[dtype] * max(1.0, scale)
+            emit("compare", kernel=name, dtype=dtype, shape=list(shape),
+                 leg=leg, on="the path's last launch at this shape",
+                 max_abs_err=err, max_abs_plain=scale, tol=tol,
+                 ok=err <= tol)
+            hold(leg, f"{name} {dtype} {list(shape)} max_abs_err",
+                 err <= tol, err, tol)
+            hold(leg, f"{name} {dtype} {list(shape)} inputs not all zero",
+                 scale > 0.0, scale, "> 0")
+            seen.setdefault(name, {}).setdefault(dtype, []).append(
+                list(shape))
+        self.last.clear()
+        return seen
+
+
+def knob_config5_leg(torch, fa, device, card: str, leg: str, dtype,
+                     moe_experts: int) -> dict:
+    """Config 5 on the mesh runtime (`run_federated_mesh`, the CLI's
+    default) with `make_transformer_classifier(dtype=..., moe_experts=
+    ...)`, KNOB_ROUNDS rounds between a reset and a read of the launch
+    counts, held to MESH_PER_ROUND a round; every launch of K1-K3 on the
+    path at the leg's dtype and at KNOB_SHAPES, each (kernel, shape) held
+    once against its plain version on the inputs of the path's last
+    launch there (`KernelTap`); the
+    parameters float32; the final model's decisions on the sponsor's
+    rows against the CPU path's (TOL of the dtype).  Returns the
+    launches."""
+    from bflc_demo_tpu_torch.client.mesh_runtime import run_federated_mesh
+    from bflc_demo_tpu_torch.eval.configs import config5_data
+    from bflc_demo_tpu_torch.models import make_transformer_classifier
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig
+
+    dtype_name = str(dtype).replace("torch.", "")
+    shards, test = config5_data(0, 4000, CONFIG5_PROTO["client_num"])
+
+    def make():
+        return make_transformer_classifier(**CONFIG5_ARCH, dtype=dtype,
+                                           moe_experts=moe_experts)
+    model = make()
+    n_params = sum(p.numel() for p in model.parameters())
+    tap = KernelTap(fa)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run_federated_mesh(model, shards, test,
+                                 ProtocolConfig(**CONFIG5_PROTO),
+                                 rounds=KNOB_ROUNDS, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        tap.undo()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: MESH_PER_ROUND.get(k, 0) * KNOB_ROUNDS for k in launches}
+    acc = [a for _, a in res.accuracy_history]
+    seen = tap.hold(torch, leg)
+    times = res.round_times_s
+    emit("knob", path=leg, nvidia_smi=card, dtype=dtype_name,
+         moe_experts=moe_experts, rounds=KNOB_ROUNDS, accuracy=acc,
+         best_acc=res.best_accuracy(), round_s=times,
+         warm_round_s=statistics.median(times[1:]), wall_s=wall,
+         peak_mem_bytes=peak, params=n_params,
+         param_dtypes=sorted({str(v.dtype) for v in
+                              res.final_params.values()}),
+         launches=launches, expected_launches=want, held=seen,
+         ledger_log_size=res.ledger_log_size,
+         ledger_log_head=res.ledger_log_head.hex(),
+         ledger_backend=res.ledger.backend)
+    hold(leg, "rounds", res.rounds_completed == KNOB_ROUNDS,
+         res.rounds_completed, KNOB_ROUNDS)
+    hold(leg, "chain verified", res.ledger.verify_log(), False, True)
+    hold_backend(leg, res.ledger.backend)
+    hold(leg, "launches", launches == want, launches, want)
+    hold(leg, "finite accuracies", bool(all(np.isfinite(acc))), acc, True)
+    hold(leg, "float32 parameters", all(
+        v.dtype == torch.float32 for v in res.final_params.values()),
+        sorted({str(v.dtype) for v in res.final_params.values()}),
+        ["torch.float32"])
+    want_seen = {name: {dtype_name: sorted(map(list, shapes))}
+                 for name, shapes in KNOB_SHAPES.items()}
+    got_seen = {name: {d: sorted(v) for d, v in by.items()}
+                for name, by in seen.items()}
+    hold(leg, "kernel launches by dtype and shape", got_seen == want_seen,
+         got_seen, want_seen)
+    if moe_experts:
+        hold(leg, "parameters", n_params == MOE_PARAMS, n_params, MOE_PARAMS)
+    emit("accuracy", leg=leg, history=acc, bar=None,
+         best=res.best_accuracy())
+    decision_check(torch, res.final_params, device, f"{leg} final",
+                   res.final_accuracy, model=make, data=([], test),
+                   tol_factor=TOL[dtype_name])
+    return launches
+
+
+def optim_checkpoint_leg(torch, device, card: str) -> dict:
+    """Config 1 with a local optimizer, checkpointed and resumed:
+    OPTIM_ROUNDS mesh rounds with `sgd(OPTIM_LR, momentum=OPTIM_MOMENTUM)`
+    through the preset (`config1_occupancy`) with `checkpoint_dir` and
+    `checkpoint_every` OPTIM_ROUNDS; the CLI's own line in this process
+    (`--rounds OPTIM_ROUNDS --checkpoint-dir D --checkpoint-every
+    OPTIM_ROUNDS`: its checkpoint line, its checkpoint at the JSON's
+    head); `load_checkpoint` of the optimizer run's directory (the head
+    verified on load) and OPTIM_ROUNDS rounds resumed from it with the
+    optimizer, which checkpoint again; that checkpoint at epoch 2 x
+    OPTIM_ROUNDS with the resumed run's head; a tampered copy refused;
+    the momentum run's model unlike plain SGD's; the final model on the
+    card against the CPU path.  The launch counts are reset before the
+    first run and read after the resumed one (B6 2 a round of the three
+    runs).  Returns the launches."""
+    import contextlib
+    import io
+    import shutil
+
+    from bflc_demo_tpu_torch.__main__ import main as cli_main
+    from bflc_demo_tpu_torch.core import optim
+    from bflc_demo_tpu_torch.eval.configs import config1_occupancy
+    from bflc_demo_tpu_torch.models import make_softmax_regression
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig
+    from bflc_demo_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                      restore_params_like)
+    leg = "optim_checkpoint_config1"
+    cfg = ProtocolConfig()
+    root = os.path.join(WORK_DIR, "checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    run_dir, cli_dir = (os.path.join(root, n) for n in ("optim", "cli"))
+
+    def sgd():
+        return optim.sgd(OPTIM_LR, momentum=OPTIM_MOMENTUM)
+    reset_counts()
+    t0 = time.perf_counter()
+    first = config1_occupancy(rounds=OPTIM_ROUNDS, runtime="mesh",
+                              device="cuda", local_optimizer=sgd(),
+                              checkpoint_dir=run_dir,
+                              checkpoint_every=OPTIM_ROUNDS)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["--rounds", str(OPTIM_ROUNDS), "--checkpoint-dir",
+                       cli_dir, "--checkpoint-every", str(OPTIM_ROUNDS)])
+    cli_s = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    hold(leg, "CLI exit code", rc == 0, rc, 0)
+    cli = json.loads(lines[-1])
+    want_line = f"checkpoint (model + ledger oplog) -> {cli_dir}"
+    hold(leg, "CLI checkpoint line", lines[-2] == want_line, lines[-2],
+         want_line)
+    cli_flat, cli_ledger, cli_meta = load_checkpoint(cli_dir, cfg)
+    hold(leg, "CLI checkpoint head", cli_ledger.log_head().hex()
+         == cli["ledger_log_head"], cli_ledger.log_head().hex(),
+         cli["ledger_log_head"])
+    hold(leg, "CLI checkpoint epoch", cli_meta["epoch"] == OPTIM_ROUNDS,
+         cli_meta["epoch"], OPTIM_ROUNDS)
+    t0 = time.perf_counter()
+    flat, ledger, meta = load_checkpoint(run_dir, cfg)
+    load_s = time.perf_counter() - t0
+    hold(leg, "checkpoint epoch", meta["epoch"] == ledger.epoch
+         == OPTIM_ROUNDS, [meta["epoch"], ledger.epoch], OPTIM_ROUNDS)
+    hold(leg, "checkpoint head", ledger.log_head()
+         == first.ledger_log_head, ledger.log_head().hex(),
+         first.ledger_log_head.hex())
+    hold_backend(leg, ledger.backend)
+    moved = float(max((first.final_params[k].cpu()
+                       - torch.as_tensor(np.array(cli_flat[k]))).abs().max()
+                      for k in first.final_params))
+    hold(leg, "momentum changed the model", moved > 0.0, moved, "> 0")
+    model = make_softmax_regression()
+    params = restore_params_like(model.init_params(0, device), flat)
+    t0 = time.perf_counter()
+    resumed = config1_occupancy(rounds=OPTIM_ROUNDS, runtime="mesh",
+                                device="cuda", seed=1,
+                                local_optimizer=sgd(),
+                                initial_params=params, resume_ledger=ledger,
+                                checkpoint_dir=run_dir,
+                                checkpoint_every=OPTIM_ROUNDS)
+    torch.cuda.synchronize()
+    resumed_s = time.perf_counter() - t0
+    launches = read_counts()
+    total = 2 * OPTIM_ROUNDS + OPTIM_ROUNDS          # + the CLI's rounds
+    want = {k: 0 for k in launches}
+    want["fingerprint"] = MESH_PER_ROUND["fingerprint"] * total
+    _, end_ledger, end_meta = load_checkpoint(run_dir, cfg)
+    tampered = os.path.join(root, "tampered")
+    shutil.copytree(run_dir, tampered)
+    path = os.path.join(tampered, "ledger.oplog")
+    blob = bytearray(open(path, "rb").read())
+    blob[40] ^= 0xFF                  # a byte inside the first op
+    with open(path, "wb") as f:
+        f.write(bytes(blob))
+    try:
+        load_checkpoint(tampered, cfg)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    acc = [a for _, a in first.accuracy_history + resumed.accuracy_history]
+    end = 2 * OPTIM_ROUNDS
+    want_size = 20 + end * 15
+    emit("knob", path=leg, nvidia_smi=card, optimizer=dict(
+        name="sgd", learning_rate=OPTIM_LR, momentum=OPTIM_MOMENTUM),
+         rounds=[OPTIM_ROUNDS, OPTIM_ROUNDS], accuracy=acc,
+         best_acc=max(acc), round_s=first.round_times_s
+         + resumed.round_times_s, first_s=first_s, cli_s=cli_s,
+         load_s=load_s, resumed_s=resumed_s,
+         checkpoint_bytes={f: os.path.getsize(os.path.join(run_dir, f))
+                           for f in sorted(os.listdir(run_dir))},
+         cli_best_acc=cli["best_acc"], momentum_vs_plain_max_diff=moved,
+         resumed_epoch=resumed.ledger.epoch,
+         resumed_log_size=resumed.ledger_log_size,
+         end_checkpoint_epoch=end_meta["epoch"], tampered_refused=refused,
+         launches=launches, expected_launches=want,
+         ledger_backend=resumed.ledger.backend)
+    hold(leg, "resumed epoch", resumed.ledger.epoch == end,
+         resumed.ledger.epoch, end)
+    hold(leg, "resumed ledger ops", resumed.ledger_log_size == want_size,
+         resumed.ledger_log_size, want_size)
+    hold(leg, "resumed chain verified", resumed.ledger.verify_log(), False,
+         True)
+    hold(leg, "end checkpoint", end_meta["epoch"] == end_ledger.epoch == end
+         and end_ledger.log_head() == resumed.ledger_log_head,
+         [end_meta["epoch"], end_ledger.log_head().hex()],
+         [end, resumed.ledger_log_head.hex()])
+    hold(leg, "tampered checkpoint refused", refused is not None, refused,
+         "ValueError")
+    hold(leg, "launches", launches == want, launches, want)
+    hold(leg, "finite accuracies", bool(all(np.isfinite(acc))), acc, True)
+    emit("accuracy", leg=leg, history=acc, bar=None, best=max(acc))
+    config1_card_check(torch, device, resumed, leg)
+    return launches
+
+
+def knobs_phase(torch, fa, device, card: str) -> dict:
+    """The three knob legs: `bf16_config5`, `moe_config5` and
+    `optim_checkpoint_config1`.  Returns {path: launches}."""
+    t0 = time.perf_counter()
+    paths = {"bf16_config5": knob_config5_leg(
+        torch, fa, device, card, "bf16_config5", torch.bfloat16, 0)}
+    paths["moe_config5"] = knob_config5_leg(
+        torch, fa, device, card, "moe_config5", torch.float32, MOE_EXPERTS)
+    paths["optim_checkpoint_config1"] = optim_checkpoint_leg(torch, device,
+                                                             card)
+    emit("knobs", nvidia_smi=card, seconds=time.perf_counter() - t0)
+    return paths
 
 
 def native_ledger_phase(card: str) -> dict:
@@ -4648,6 +5043,23 @@ def dispatch_main() -> int:
     return 0
 
 
+def knobs_main() -> int:
+    """Only the build, the bfloat16 timing rows and the knob legs."""
+    port = load_port()
+    if port is None:
+        return 1
+    torch, fa, build, device = port
+    emit("build", **build_fields(finish_build(build)))
+    card = card_line()
+    print(card, flush=True)
+    emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
+    rows = {name: {"at": {}} for name in DENSE_KERNELS}
+    bf16_timing_rows(torch, fa, device, card, rows)
+    paths = knobs_phase(torch, fa, device, card)
+    emit("knob_launches", nvidia_smi=card, launches=paths)
+    return 0
+
+
 def processes_main() -> int:
     """Only the build and the processes phase."""
     port = load_port()
@@ -4699,6 +5111,7 @@ def main() -> int:
         torch, fa, device, card)
     timings["flash_fwd"]["at"]["ring_score"] = dict(ring_row,
                                                     max_abs_err=ring_err)
+    knob_paths = knobs_phase(torch, fa, device, card)
     emit("round_times", nvidia_smi=card,
          config5={"host": host5["round_s"], "mesh": mesh5["round_s"],
                   "mesh_dispatch": dispatched["config5"]},
@@ -4730,7 +5143,7 @@ def main() -> int:
     paths = {"host_config5": host5["launches"],
              "mesh_config5": mesh5["launches"],
              "mesh_config1": mesh1["launches"],
-             **dispatch_paths,
+             **dispatch_paths, **knob_paths,
              **presets,
              "sp": {"flash_carry": sp_slice_phase(torch, fa, device)},
              **merge_paths, "rederive_drill": drill, **fleet}
@@ -4762,7 +5175,8 @@ def dispatch(argv) -> int:
     modes = {"--processes": processes_main, "--snapshots": snapshots_main,
              "--async": async_main, "--codecs": codecs_main,
              "--hier": hier_main, "--rederive": rederive_main,
-             "--executor": executor_main, "--dispatch": dispatch_main}
+             "--executor": executor_main, "--dispatch": dispatch_main,
+             "--knobs": knobs_main}
     if len(argv) == 1 and argv[0] in modes:
         start_build()
         rc = modes[argv[0]]()
@@ -4773,7 +5187,7 @@ def dispatch(argv) -> int:
         print("usage: chip_smoke.py [--backward-timing DIR | "
               "--merge-timing DIR | --processes | --snapshots | --async | "
               "--codecs | --hier | --rederive | --executor | "
-              "--dispatch]",
+              "--dispatch | --knobs]",
               file=sys.stderr)
         return 2
     start_build()

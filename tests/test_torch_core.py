@@ -65,7 +65,8 @@ def test_local_train_rejects_what_is_not_ported(setup):
     xt, yt = torch.as_tensor(x).long(), torch.as_tensor(y)
     with pytest.raises(ValueError, match="batch_size"):
         core.local_train(port, flat, xt[:4], yt[:4], 0.05, 8)
-    with pytest.raises(NotImplementedError, match="SGD"):
+    # local optimizers are ported (core/optim.py); a non-optimizer raises
+    with pytest.raises(TypeError, match="GradientTransformation"):
         core.local_train(port, flat, xt, yt, 0.05, 8, optimizer=object())
 
 

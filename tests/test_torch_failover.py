@@ -58,7 +58,8 @@ from bflc_demo_tpu_torch.comm.identity import (Wallet, _op_bytes,
 from bflc_demo_tpu_torch.comm.ledger_service import (
     CoordinatorClient, LedgerServer, make_promotion_evidence,
     verify_promotion_evidence, verify_promotion_signature)
-from bflc_demo_tpu_torch.comm.wire import blob_bytes, recv_msg, send_msg
+from bflc_demo_tpu_torch.comm.wire import (WireError, blob_bytes, recv_msg,
+                                           send_msg)
 from bflc_demo_tpu_torch.data import iid_shards, load_occupancy
 from bflc_demo_tpu_torch.ledger import make_ledger
 from bflc_demo_tpu_torch.ledger.base import OP_UPLOAD, decode_op
@@ -1160,6 +1161,33 @@ def test_committed_model_bytes_survive_a_failover(monkeypatch):
     assert port_leg == moved_leg == "mesh"
     assert info["gen"] == 1
     assert moved == port == ref
+
+
+def test_closed_writer_serves_no_late_request(monkeypatch):
+    """C20: a request that reaches a writer's socket after close() is not
+    served.  Shutting a connection's read side does not drop bytes that
+    arrive before its serving thread wakes, so under load the failover
+    drill's closed writer took the first committee score while the
+    promoted standby took the second (epoch 0 after both scores:
+    `test_committed_model_bytes_survive_a_failover`'s flake).  The
+    serving thread here wakes 0.5 s late, after the close."""
+    from bflc_demo_tpu_torch.comm import ledger_service
+    srv = _server()
+    real = ledger_service.recv_msg
+
+    def wakes_late(conn):
+        time.sleep(0.5)
+        return real(conn)
+    monkeypatch.setattr(ledger_service, "recv_msg", wakes_late)
+    client = CoordinatorClient(srv.host, srv.port, timeout_s=5.0)
+    try:
+        time.sleep(0.1)          # its serving thread is in the late recv
+        srv.close()
+        with pytest.raises((ConnectionError, WireError, OSError)):
+            client.request("info")
+    finally:
+        client.close()
+        srv.close()
 
 
 class _ScriptedWriter:

@@ -30,6 +30,9 @@ column offsets
 subnormal sum at tile, stage, batch and strip boundaries, NaN/inf in
 unselected slots, and every route (each strip width and copy width, and
 the column kernel) forced on the same inputs.
+K1-K3 also run in bfloat16 at config 5's mesh shapes (320, 6400 and
+800 rows), and the bfloat16 and MoE transformers on the card are held
+against the CPU path.
 Tolerances: float32 differs only in summation order and the 3xTF32
 products (~2^-21 relative each) (1e-4); bfloat16 rounds p, dS and
 outputs at the same places in both versions, so they agree to a couple
@@ -107,6 +110,67 @@ def test_kernels_match_plain(cuda_device, dtype, shape, s_kv):
     for got, want in ((out, want_out), (lse, want_lse), (dq, want_dq),
                       (dk, want_dk), (dv, want_dv)):
         _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (320, 64, 4, 32),                    # config 5's mesh training batch
+    (6400, 64, 4, 32),                   # its committee scoring batch
+    (800, 64, 4, 32),                    # its sponsor's test set
+])
+def test_bf16_kernels_match_plain_at_config5_path_shapes(cuda_device,
+                                                         shape):
+    """K1-K3 in bfloat16 at the shapes the bfloat16 config-5 round gives
+    them (K1 at all three; K2 and K3 train at the first), each against
+    its plain version, with config 5's ragged padding."""
+    q, k, v, g, _ = _inputs(shape, torch.bfloat16, cuda_device)
+    lengths = np.random.default_rng(12).integers(32, 65, shape[0])
+    mask = torch.as_tensor(np.arange(64)[None, :] < lengths[:, None],
+                           device=cuda_device)
+    out, lse = fa.flash_fwd(q, k, v, mask)
+    want_out, want_lse = fa.flash_fwd_plain(q, k, v, mask)
+    delta = fa.attention_delta(g, out)
+    dk, dv = fa.flash_dkdv(q, k, v, mask, g, lse, delta)
+    dq = fa.flash_dq(q, k, v, mask, g, lse, delta)
+    want_dk, want_dv = fa.flash_dkdv_plain(q, k, v, mask, g, lse, delta)
+    want_dq = fa.flash_dq_plain(q, k, v, mask, g, lse, delta)
+    torch.cuda.synchronize()
+    assert out.dtype == dq.dtype == dk.dtype == torch.bfloat16
+    for got, want in ((out, want_out), (lse, want_lse), (dq, want_dq),
+                      (dk, want_dk), (dv, want_dv)):
+        _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moe_experts", [0, 4])
+def test_bf16_and_moe_transformer_on_the_card_match_the_cpu(cuda_device,
+                                                            moe_experts):
+    """Config 5's model in bfloat16 (and the MoE MLP in float32): G
+    stacked models' logits on the card, through the kernels, within the
+    dtype's tolerance of the CPU path's, and one bfloat16 training step's
+    gradients finite and launched through K2/K3 in bfloat16."""
+    dtype = torch.float32 if moe_experts else torch.bfloat16
+    model = make_transformer_classifier(dtype=dtype, moe_experts=moe_experts)
+    params = model.init_params(0)
+    rng = np.random.default_rng(13)
+    params["['head_w']"] = torch.as_tensor(
+        rng.standard_normal((128, 2)).astype(np.float32))
+    stacked = {k: torch.stack([v, v * 1.01]) for k, v in params.items()}
+    toks = torch.as_tensor(rng.integers(1, 1000, (2, 8, 64)))
+    toks[:, :, 48:] = 0
+    want = model.apply_stacked(stacked, toks)
+    card = model.to(cuda_device)
+    on_card = {k: v.to(cuda_device) for k, v in stacked.items()}
+    fa.reset_launches()
+    got = card.apply_stacked(on_card, toks.to(cuda_device))
+    scale = max(1.0, float(want.abs().max()))
+    tol = (2e-2 if dtype == torch.bfloat16 else 1e-4) * scale
+    assert float((got.cpu() - want).abs().max()) <= tol
+    work = {k: v.clone().requires_grad_(True) for k, v in on_card.items()}
+    card.apply_stacked(work, toks.to(cuda_device)).sum().backward()
+    assert all(torch.isfinite(w.grad).all() for w in work.values())
+    assert fa.LAUNCHES["flash_fwd"] == 2 * 2
+    assert fa.LAUNCHES["flash_dkdv"] == fa.LAUNCHES["flash_dq"] == 2
 
 
 @pytest.mark.cuda

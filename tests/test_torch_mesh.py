@@ -25,6 +25,7 @@ options that now run in a multi-round dispatch.
 
 import importlib
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -427,11 +428,24 @@ def test_tiny_mesh_run_completes():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(secure_aggregation=True), "A12"),
-    (dict(checkpoint_dir="ckpt", checkpoint_every=1), "A11"),
+    (dict(checkpoint_dir="ckpt", checkpoint_every=1), "ported"),
     (dict(estimate_flops=True), "A11"),
-    (dict(local_optimizer=object()), "A11"),
+    (dict(local_optimizer="momentum"), "ported"),
 ])
-def test_unported_mesh_options_raise(kw, item):
+def test_unported_mesh_options_raise(kw, item, tmp_path):
+    if item == "ported":
+        # checkpoints and local optimizers are ported (A11): each runs
+        from bflc_demo_tpu_torch.core import optim
+        if "checkpoint_dir" in kw:
+            kw = dict(kw, checkpoint_dir=str(tmp_path / "ckpt"))
+        else:
+            kw = dict(local_optimizer=optim.sgd(0.001, momentum=0.9))
+        res = _tiny_run(**kw)
+        assert res.rounds_completed == 1 and res.ledger.verify_log()
+        if "checkpoint_dir" in kw:
+            assert os.path.exists(os.path.join(kw["checkpoint_dir"],
+                                               "ledger.oplog"))
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         _tiny_run(**kw)
 

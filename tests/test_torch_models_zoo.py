@@ -227,8 +227,11 @@ def test_resnet18_tree_and_leaf_order():
 def test_registry_and_float32_only():
     assert set(models.REGISTRY) == set(ref_models.REGISTRY)
     assert isinstance(models.REGISTRY["lenet5"](), models.LeNet5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        models.make_resnet18(dtype="bfloat16")
+    # the bfloat16 knob is ported (tests/test_torch_bf16.py); another
+    # dtype still raises
+    assert models.make_resnet18(dtype="bfloat16").dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        models.make_resnet18(dtype="float16")
 
 
 def test_erf_and_truncated_normal_match_jax():

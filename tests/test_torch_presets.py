@@ -16,8 +16,8 @@
   protocol overrides (flags, and `BFLC_*` for config 3); config 4's run
   is in `tests/test_torch_participation.py`.  The overrides start from
   `ProtocolConfig()` as the reference's `protocol_from_env` does.
-  `secure=True` raises naming A12, and the fleet's, codecs' and
-  checkpoints' flags exit 2 naming their item.
+  `secure=True` raises naming A12, and the fleet's, codecs' and the
+  device profiler's flags exit 2 naming their item.
 """
 
 import json
@@ -219,9 +219,11 @@ def test_no_preset_override_keeps_the_preset_protocol():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--checkpoint-every", "2"], "A11"), (["--chaos-seed", "7"], "A9"),
-    (["--chaos-profile", "light"], "A9"),
-    (["--checkpoint-dir", "ckpt"], "A11"),
+    # the checkpoint flags are ported (tests/test_torch_checkpoint.py);
+    # the device profiler's is still A11
+    (["--xprof-window", "2"], "A11"), (["--chaos-seed", "7"], "A14"),
+    (["--chaos-profile", "light"], "A14"),
+    (["--runtime", "host", "--xprof-window", "3"], "A11"),
     (["--config", "config4", "--secure"], "A12"),
     (["--trace-path", "t.json"], "A14")])
 def test_cli_refuses_unported_flags(capsys, argv, item):
