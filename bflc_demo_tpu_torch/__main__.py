@@ -22,9 +22,12 @@ unless `--device cpu` (the counterpart of `JAX_PLATFORMS=cpu`), on
 stage their shards once while an executor process runs every round as
 one program; score attestation on unless `--no-attest-scores`, TLS with
 `--tls-dir`; every other fleet flag exits 2, as in the reference's
-:164-177), with `--attest-scores` on the mesh runtime exiting 2 (its
-wallets come only with config 4's `--secure`, A12) and
-`--[no-]attest-scores` on another runtime exiting 2 (:136-185), with
+:164-177), `--config config4 --secure` config 4's secure-aggregation
+variant (X25519-keyed masked merges on the mesh runtime; `--secure` on
+another config exits 2, as in the reference's :208-213), with
+`--attest-scores` on the mesh runtime exiting 2 unless `--secure`
+provisions its wallets and `--[no-]attest-scores` on another runtime
+exiting 2 (:136-185), with
 `--cells N`/`--cell-size M` the two-tier hier fleet (`hier/`; with
 `--standbys`, `--quorum`, `--tls-dir` or `--snapshot-interval`, or on
 another runtime, exit 2), `--rederive shard|full` the validators'
@@ -39,8 +42,8 @@ the fleet's flags on another runtime than `processes`
 (`--tls-dir` also on `executor`), a negative
 `--bft-validators` or `--snapshot-interval`, `--snapshot-dir` without
 an interval, or a flag of a part not ported yet (the device profiler
-A11, secure aggregation A12, the fleet's chaos, traces and telemetry
-A14) exits 2 naming the ROADMAP item.  `--checkpoint-dir D` saves the
+A11, the fleet's chaos, traces and telemetry A14) exits 2 naming the
+ROADMAP item.  `--checkpoint-dir D` saves the
 final model and the ledger's op log to D (`utils/checkpoint.py`) where
 the runtime returns them (mesh, host, threaded), printing the
 reference's line (:214-226); with `--checkpoint-every N` the mesh
@@ -77,7 +80,8 @@ def _parser() -> argparse.ArgumentParser:
                "loop and --rederive the validators' re-derivation), "
                "--reduce-blocks, --delta-dtype, --delta-codec; "
                "--runtime executor (with --tls-dir and "
-               "--[no-]attest-scores), --ledger-backend "
+               "--[no-]attest-scores), --config config4 --secure, "
+               "--ledger-backend "
                "auto|native|python, --checkpoint-dir and "
                "--checkpoint-every.  The fleet's chaos and telemetry "
                "flags are ROADMAP A14; they exit 2 until ported.")
@@ -163,9 +167,10 @@ def main(argv=None) -> int:
             print("--attest-scores applies to the mesh/executor runtimes",
                   file=sys.stderr)
             return 2
-        if opts.runtime == "mesh" and opts.attest_scores:
+        if opts.runtime == "mesh" and opts.attest_scores \
+                and not opts.secure:
             # mesh attestation signs with wallets, which only config 4's
-            # --secure provisions from the CLI (ROADMAP A12)
+            # --secure provisions from the CLI
             print("--attest-scores on the mesh runtime needs wallets: "
                   "use --config config4 --secure, or --runtime executor "
                   "(attestation is default-on there)", file=sys.stderr)
@@ -232,6 +237,12 @@ def main(argv=None) -> int:
         kw["rederive"] = opts.rederive
     if cfg is not None:
         kw["cfg"] = cfg
+    if opts.secure:
+        if opts.config != "config4":
+            print("--secure is the config4 secure-aggregation variant",
+                  file=sys.stderr)
+            return 2
+        kw["secure"] = True
     if opts.checkpoint_dir and opts.checkpoint_every and \
             opts.runtime == "mesh":
         kw["checkpoint_dir"] = opts.checkpoint_dir

@@ -64,12 +64,27 @@ end).  `resume_ledger` (from `load_checkpoint`) continues a run: it
 needs `initial_params`, registers no one, and the run goes on at the
 ledger's epoch with its committee.
 
+Secure aggregation (:101-116, :144-186, :439-503): with
+`secure_aggregation` every round's merge is the pairwise-masked
+fixed-point one (`parallel/secure.py`, kernel B7 on the card), clipped at
+`secure_clip`.  With `secure_wallets` (one `comm.identity.Wallet` a
+client) the masks are keyed by per-pair X25519 seeds over the round's
+slot occupants (`derive_pair_seeds`, the epoch bound into the KDF), so
+the aggregator cannot strip them; without, by one shared key drawn from
+OS entropy at the run's start (`_fresh_mask_key`, never from `seed`: its
+mask bits are not reproducible, by design; the merged model is, because
+the masks cancel) with the epoch folded in.  A dispatch of R rounds
+takes one pair-seed matrix (or one fresh key) and re-keys each round by
+its counter.  Attestation wallets default to `secure_wallets`, so the
+score rows of a secure run are signed whenever wallets exist.
+
 Not ported, and refused with the ROADMAP item rather than ignored:
-secure aggregation (A12) and `estimate_flops` (A11).
+`estimate_flops` (A11).
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -88,6 +103,7 @@ from bflc_demo_tpu_torch.models.base import Model, Params
 from bflc_demo_tpu_torch.ops.fingerprint import fingerprint_to_bytes
 from bflc_demo_tpu_torch.parallel.fedavg import (make_multi_round_program,
                                                  make_sharded_protocol_round)
+from bflc_demo_tpu_torch.parallel.secure import derive_pair_seeds
 from bflc_demo_tpu_torch.protocol.constants import (DEFAULT_PROTOCOL,
                                                     ProtocolConfig)
 from bflc_demo_tpu_torch.utils import prng
@@ -120,6 +136,14 @@ def _attest_rows(wallets, committee_ids, comm_slots, up_slots, score_rows,
     attest_log[epoch] = sigs
 
 
+def _fresh_mask_key() -> np.ndarray:
+    """A shared-key secure run's mask key from 64 bits of OS entropy:
+    never from the public run seed (a seed-derived key would let anyone
+    who knows the config unmask a delta)."""
+    w = int.from_bytes(os.urandom(8), "little")
+    return prng.fold_in(np.array([0, w & 0xFFFFFFFF], np.uint32), w >> 32)
+
+
 def to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     """numpy copies of `tensors` through one device-to-host copy: their
     bytes are concatenated on the device, copied once, and split."""
@@ -138,18 +162,24 @@ def to_host(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
 def _run_batched(model, cfg, ledger, params, xs, ys, ns, sponsor, rounds,
                  rounds_per_dispatch, seed, client_chunk, remat, sizes_np,
                  attest_scores, attest_wallets, attest_log, checkpoint_dir,
-                 checkpoint_every, verbose) -> SimulationResult:
+                 checkpoint_every, verbose, secure=False,
+                 secure_wallets=None,
+                 secure_clip=1024.0) -> SimulationResult:
     """R rounds a dispatch, each replayed into the ledger and audited
     afterwards: the ledger stays the authority, and a ledger decision
-    that differs from the device's raises."""
+    that differs from the device's raises.  A secure dispatch takes one
+    pair-seed matrix (the dispatch's first epoch bound in) or one fresh
+    mask key."""
     n = cfg.client_num
+    dh = secure_wallets is not None
     program = make_multi_round_program(
         model, client_num=n, lr=cfg.learning_rate,
         batch_size=cfg.batch_size, local_epochs=cfg.local_epochs,
         aggregate_count=cfg.aggregate_count, comm_count=cfg.comm_count,
         needed_update_count=cfg.needed_update_count,
         rounds_per_dispatch=rounds_per_dispatch,
-        client_chunk=client_chunk, remat=remat)
+        client_chunk=client_chunk, remat=remat, secure=secure,
+        secure_dh=dh, secure_clip=secure_clip)
     loss_history, round_times = [], []
     t0 = time.perf_counter()
     key = prng.PRNGKey(seed)
@@ -158,8 +188,13 @@ def _run_batched(model, cfg, ledger, params, xs, ys, ns, sponsor, rounds,
         comm_mask0 = np.zeros(n, bool)
         comm_mask0[[int(a, 16) for a in ledger.committee()]] = True
         key, sub = prng.split(key)
+        mask_arg = ()
+        if secure:
+            # the mask argument, independent of the public sampling key
+            mask_arg = ((derive_pair_seeds(secure_wallets, ledger.epoch)
+                         if dh else _fresh_mask_key()),)
         res = program(params, xs, ys, ns, comm_mask0, sub, sponsor.x,
-                      sponsor.y)
+                      sponsor.y, *mask_arg)
         params = res.params
         # the dispatch's artifacts to the host, in one copy
         up_masks, comm_masks, score_ms, sels, costs, dfps, pfps, accs = \
@@ -248,6 +283,9 @@ def run_federated_mesh(model: Model,
                        checkpoint_every: int = 0,
                        secure_aggregation: bool = False,
                        secure_wallets=None,
+                       # each delta's clip: above honest update
+                       # magnitudes, below the 2**15 fixed-point capacity
+                       secure_clip: float = 1024.0,
                        attest_scores: Optional[bool] = None,
                        attest_wallets=None,
                        estimate_flops: bool = False,
@@ -266,11 +304,17 @@ def run_federated_mesh(model: Model,
     plain versions of the kernels on the CPU.
     """
     cfg.validate()
-    if estimate_flops and rounds_per_dispatch > 1:
+    if estimate_flops and (secure_aggregation or rounds_per_dispatch > 1):
         raise ValueError("estimate_flops is only supported on the plain "
                          "per-round path (rounds_per_dispatch=1, no "
                          "secure aggregation)")
-    # on exactly when wallets exist; an explicit False opts out
+    if secure_wallets is not None and len(secure_wallets) != cfg.client_num:
+        raise ValueError(f"need {cfg.client_num} wallets, "
+                         f"got {len(secure_wallets)}")
+    # attestation: on exactly when wallets exist (the secure run's too);
+    # an explicit False opts out
+    if attest_wallets is None:
+        attest_wallets = secure_wallets
     if attest_scores is None:
         attest_scores = attest_wallets is not None
     if attest_scores and attest_wallets is None:
@@ -296,15 +340,10 @@ def run_federated_mesh(model: Model,
                              f"rounds_per_dispatch {rounds_per_dispatch}")
     if resume_ledger is not None and initial_params is None:
         raise ValueError("resume_ledger requires initial_params")
-    unported = [
-        (secure_aggregation or secure_wallets is not None,
-         "secure aggregation", "A12"),
-        (estimate_flops, "estimate_flops", "A11")]
-    for asked, what, item in unported:
-        if asked:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
-                                      f"{item}); the port's mesh runtime "
-                                      f"runs plain rounds")
+    if estimate_flops:
+        raise NotImplementedError("estimate_flops is not ported yet "
+                                  "(ROADMAP A11); the port's mesh runtime "
+                                  "measures no flops")
     dev = resolve_device(device)
     n = cfg.client_num
     if len(shards) != n:
@@ -334,8 +373,10 @@ def run_federated_mesh(model: Model,
             model, client_num=n_slots, lr=cfg.learning_rate,
             batch_size=cfg.batch_size, local_epochs=cfg.local_epochs,
             aggregate_count=cfg.aggregate_count, client_chunk=client_chunk,
-            remat=remat, local_optimizer=local_optimizer, comm_count=c,
-            needed_update_count=k)
+            remat=remat, local_optimizer=local_optimizer,
+            secure=secure_aggregation,
+            secure_dh=secure_wallets is not None, secure_clip=secure_clip,
+            comm_count=c, needed_update_count=k)
 
     xte, yte = test_set
     sponsor = Sponsor(model, feature_tensor(xte, dev),
@@ -361,7 +402,13 @@ def run_federated_mesh(model: Model,
                             rounds, rounds_per_dispatch, seed, client_chunk,
                             remat, sizes_np, attest_scores, attest_wallets,
                             attest_log, checkpoint_dir, checkpoint_every,
-                            verbose)
+                            verbose, secure_aggregation, secure_wallets,
+                            secure_clip)
+    # shared-key secure mode: one OS-entropy run key, the epoch folded in
+    # each round
+    run_mask_key = (_fresh_mask_key()
+                    if secure_aggregation and secure_wallets is None
+                    else None)
 
     loss_history, round_times = [], []
     t0 = time.perf_counter()
@@ -372,18 +419,29 @@ def run_federated_mesh(model: Model,
         trainer_ids = [i for i in range(n) if i not in committee_ids]
         pick = rng.permutation(len(trainer_ids))[:k]
         uploader_ids = sorted(trainer_ids[int(j)] for j in pick)
+        slot_clients = (list(range(n)) if participation == "full"
+                        else uploader_ids + committee_ids)
+        secure_key = ()
+        if secure_aggregation:
+            # keyed over the round's slot occupants: every slot takes
+            # part in the masked sum, so the pairs span exactly them
+            secure_key = ((derive_pair_seeds(
+                [secure_wallets[i] for i in slot_clients], epoch)
+                if secure_wallets is not None
+                else prng.fold_in(run_mask_key, epoch)),)
         if participation == "full":
             uploader_mask = np.zeros(n, bool)
             uploader_mask[uploader_ids] = True
             committee_mask = np.zeros(n, bool)
             committee_mask[committee_ids] = True
-            res = round_fn(params, xs, ys, ns, uploader_mask, committee_mask)
+            res = round_fn(params, xs, ys, ns, uploader_mask, committee_mask,
+                           *secure_key)
             up_slots, comm_slots = uploader_ids, committee_ids
         else:
             # this round's participants onto the card; slots [uploaders
             # asc | committee asc], so the masks stay static
-            res = round_fn(params, *to_card(uploader_ids + committee_ids),
-                           static_uploader, static_committee)
+            res = round_fn(params, *to_card(slot_clients),
+                           static_uploader, static_committee, *secure_key)
             up_slots, comm_slots = list(range(k)), list(range(k, k + c))
         params = res.params
         # host side: the tiny artifacts only; slot rows map to client ids

@@ -10,8 +10,10 @@ Port of `bflc_demo_tpu/client/runtime.py` (`FLNode`, `ComputePlane`,
 - `Sponsor`: held-out accuracy after every commit.
 
 `FLNode.optimizer` is the reference's local optimizer (a `core.optim`
-transform; None = plain SGD).  Dropped: keyring-signed ops
-(`comm.identity`), which the host round does not run.
+transform; None = plain SGD).  `FLNode.keyring` (:53-61, :91-95,
+:128-132): a `comm.identity.KeyRing` (or a wallet, the same signer
+surface) signs every client op, register, upload and scores, for an
+`AuthenticatedLedger`.
 """
 
 from __future__ import annotations
@@ -55,6 +57,15 @@ class FLNode:
     trained_epoch: int = -1
     scored_epoch: int = -1
     optimizer: Any = None        # core.optim transform; None = plain SGD
+    keyring: Any = None          # comm.identity.KeyRing: every client op
+                                 # then carries a tag
+
+    def register(self, ledger) -> LedgerStatus:
+        if self.keyring is not None:
+            from bflc_demo_tpu_torch.comm.identity import sign_register
+            return ledger.register_node(
+                self.address, sign_register(self.keyring, self.address))
+        return ledger.register_node(self.address)
 
     def step(self, ledger, store: UpdateStore,
              global_params: Params) -> Optional[str]:
@@ -76,9 +87,16 @@ class FLNode:
             lr=self.cfg.learning_rate, batch_size=self.cfg.batch_size,
             local_epochs=self.cfg.local_epochs, optimizer=self.optimizer)
         payload_hash = store.put(delta)
-        st = ledger.upload_local_update(
-            self.address, payload_hash, int(self.x.shape[0]),
-            float(avg_cost), epoch)
+        n_samples, cost = int(self.x.shape[0]), float(avg_cost)
+        if self.keyring is not None:
+            from bflc_demo_tpu_torch.comm.identity import sign_upload
+            st = ledger.upload_local_update(
+                self.address, payload_hash, n_samples, cost, epoch,
+                sign_upload(self.keyring, self.address, payload_hash,
+                            n_samples, cost, epoch))
+        else:
+            st = ledger.upload_local_update(self.address, payload_hash,
+                                            n_samples, cost, epoch)
         if st == LedgerStatus.OK:
             self.trained_epoch = epoch
             return "train:OK"
@@ -101,7 +119,13 @@ class FLNode:
         # honest node from ever emitting a row the ledger rejects
         score_list = [float(s) for s in np.nan_to_num(
             scores.cpu().numpy(), nan=0.0, posinf=1.0, neginf=0.0)]
-        st = ledger.upload_scores(self.address, epoch, score_list)
+        if self.keyring is not None:
+            from bflc_demo_tpu_torch.comm.identity import sign_scores
+            st = ledger.upload_scores(
+                self.address, epoch, score_list,
+                sign_scores(self.keyring, self.address, epoch, score_list))
+        else:
+            st = ledger.upload_scores(self.address, epoch, score_list)
         self.scored_epoch = epoch
         return f"score:{st.name}" if st == LedgerStatus.OK else None
 

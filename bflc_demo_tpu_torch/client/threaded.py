@@ -14,11 +14,14 @@ exception in the aggregator thread fails `run()` instead of timing it
 out.  The aggregator
 thread applies each round's merge with the port's `ComputePlane` on the
 run's device (`cuda` unless the caller asks for the CPU) and the
-sponsor evaluates every committed model.
+sponsor evaluates every committed model.  `ledger_backend` is
+`make_ledger`'s ("auto" takes the native ledger where the reference
+does).  With `keyring` (:72, :87, :93-97) every node signs its ops and
+the ledger is wrapped in `comm.identity.AuthenticatedLedger`, inside the
+lock: an op whose tag does not verify is refused (BAD_ARG), a replayed
+one answers DUPLICATE.
 
-Not ported: keyring-authenticated ops (`keyring`, with the HMAC
-`KeyRing` and `AuthenticatedLedger`, ROADMAP A9) and the tracer hook;
-the native ledger backend (A9).
+Not ported: the tracer hook (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ class ThreadedFederation:
                  crash_at: Optional[Dict[int, int]] = None,
                  stall_timeout_s: float = 5.0,
                  init_seed: int = 0,
+                 keyring=None,
                  device: DeviceLike = None):
         cfg.validate()
         if len(shards) != cfg.client_num:
@@ -89,10 +93,16 @@ class ThreadedFederation:
 
         self.nodes = [FLNode(f"0x{i:040x}", *tensors(sx, sy),
                              model=self.model, cfg=cfg,
-                             trained_epoch=cfg.initial_trained_epoch)
+                             trained_epoch=cfg.initial_trained_epoch,
+                             keyring=keyring)
                       for i, (sx, sy) in enumerate(shards)]
         self.sponsor = Sponsor(self.model, *tensors(*test_set))
-        self.ledger = LockingLedger(make_ledger(cfg, backend=ledger_backend))
+        inner = make_ledger(cfg, backend=ledger_backend)
+        if keyring is not None:
+            # origin authentication inside the serialization lock
+            from bflc_demo_tpu_torch.comm.identity import AuthenticatedLedger
+            inner = AuthenticatedLedger(inner, keyring)
+        self.ledger = LockingLedger(inner)
         self.store = UpdateStore()
         self.plane = ComputePlane(cfg)
         self.params = self.model.init_params(init_seed, dev)
@@ -214,7 +224,7 @@ class ThreadedFederation:
             ) -> SimulationResult:
         t0 = time.perf_counter()
         for node in self.nodes:
-            self.ledger.register_node(node.address)
+            node.register(self.ledger)
         if self.ledger.epoch != 0:
             raise RuntimeError("registration did not start FL")
         threads = [threading.Thread(target=self._client_loop, args=(i,),

@@ -16,8 +16,10 @@ active participation, `client_chunk` 4 and `remat`) and config 5 (the
 transformer on SST-2-shaped text).  The image sets are the seeded
 stand-ins of `data/synthetic.py` unless `$BFLC_DATA_DIR` holds the real
 arrays.  Still to port, and raising with the item: the fleet's other
-options (chaos, telemetry: A9/A14, unexpected keywords here) and config
-4's `secure=True` (A12).  `attest_scores` applies to `mesh` and
+options (chaos, telemetry: A14, unexpected keywords here).  Config 4's
+`secure=True` runs on the mesh runtime (X25519-keyed masked merges,
+`parallel/secure.py`) and raises ValueError on another, as in the
+reference.  `attest_scores` applies to `mesh` and
 `executor`, `tls_dir` to `processes` and `executor` (:94-99); every
 other pairing raises, never silently dropped.
 `standbys`, `quorum`, `bft_validators`, `tls_dir`, `snapshot_interval`,
@@ -112,7 +114,7 @@ def run_with_runtime(model, shards, test_set, cfg: ProtocolConfig, *,
     runtimes' writers take "auto" whatever it says, as the reference's
     do.
     The fleet's other options (chaos, telemetry, ...) come with the
-    items that give them a meaning (ROADMAP A9/A14).
+    item that gives them a meaning (ROADMAP A14).
     """
     if runtime not in RUNTIMES:
         raise ValueError(UNKNOWN_RUNTIME.format(runtime=runtime))
@@ -300,12 +302,11 @@ def config4_resnet_cifar100(rounds: int = 5, seed: int = 0,
     """ResNet-18 (GroupNorm), CIFAR-100 shapes, 32-client cross-silo IID;
     committee 4, 12 admitted, top-8, lr 0.1, batch 16, one local epoch.
     On the mesh runtime: active participation, `client_chunk` 4 and
-    `remat` (the reference's memory controls).  `secure=True`, the
-    secure-aggregation variant, is ROADMAP A12 and raises."""
-    if secure:
-        raise NotImplementedError(
-            "config 4's secure aggregation (secure=True) is not ported yet "
-            "(ROADMAP A12)")
+    `remat` (the reference's memory controls).  `secure=True` is the
+    secure-aggregation variant (:299-306), mesh runtime only: 32 wallets
+    from `provision_wallets(32, b"config4-secure-seed-0001")` key each
+    slot pair's masks by X25519 (`parallel/secure.py`, kernel B7), and
+    sign the committee's score rows."""
     cfg = (cfg or ProtocolConfig(
         client_num=32, comm_count=4, aggregate_count=8,
         needed_update_count=12, learning_rate=0.1,
@@ -317,6 +318,14 @@ def config4_resnet_cifar100(rounds: int = 5, seed: int = 0,
         kw.setdefault("participation", "active")
         kw.setdefault("client_chunk", 4)
         kw.setdefault("remat", True)
+        if secure:
+            from bflc_demo_tpu_torch.comm.identity import provision_wallets
+            wallets, _ = provision_wallets(cfg.client_num,
+                                           b"config4-secure-seed-0001")
+            kw.setdefault("secure_aggregation", True)
+            kw.setdefault("secure_wallets", wallets)
+    elif secure:
+        raise ValueError("secure aggregation runs on the mesh runtime")
     kw.setdefault("process_factory", "make_resnet18")
     return run_with_runtime(make_resnet18(), shards, (xte, yte), cfg,
                             rounds=rounds, seed=seed, **kw)

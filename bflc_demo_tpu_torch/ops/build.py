@@ -34,7 +34,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # library name -> source file under ops/csrc
 SOURCES = {"flash_attention": "flash_attention.cu",
            "fingerprint": "fingerprint.cu",
-           "certified_reduce": "certified_reduce.cu"}
+           "certified_reduce": "certified_reduce.cu",
+           "secure_mask": "secure_mask.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

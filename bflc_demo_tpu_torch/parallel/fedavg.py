@@ -16,6 +16,11 @@ of `make_multi_round_program` (:497-697), on one card.  The reference's
 4. FedAvg is `_psum_fedavg_body` (:59-78) over one shard,
    `core.aggregate.apply_selection` given the trained models (on CPU
    tensors it takes the order XLA:CPU compiles into the round program);
+   with `secure` it is the pairwise-masked fixed-point merge
+   (`parallel/secure.py:secure_fedavg_body`, kernel B7 on the card,
+   :407-414), keyed by the round's trailing argument: a `utils.prng` key
+   (shared-key mode) or, with `secure_dh`, the (N, N, 8) X25519 pair
+   seeds;
 5. the payload ids of all N deltas and of the new model come from the
    fingerprint kernel (`ops/fingerprint.py`, two launches);
 6. with `expose_candidates` the K uploaded deltas, stacked in ascending
@@ -31,8 +36,7 @@ when both static counts are given, else ring.
 
 `make_sharded_protocol_round` checks what the reference checks (the
 scoring schedule, the static committee geometry, client_chunk
-divisibility) and raises `NotImplementedError`, naming the ROADMAP
-item, for what is not ported: secure aggregation.  `local_optimizer` (a
+divisibility).  `local_optimizer` (a
 `core.optim` transform) drives every client's local steps, one
 optimizer state a client stacked on the client axis and fresh each
 round, as the reference's per-client `local_train_impl` (:334-340); the
@@ -52,7 +56,11 @@ entries go to -inf on the card and the top K of a stable sort win),
 trains, scores (committee or ring), decides, merges, fingerprints,
 elects the next committee (`order[:comm_count]`) and evaluates the
 sponsor's accuracy; every gather is a static-K stable sort, never a
-boolean mask.
+boolean mask.  With `secure` each round's merge is the masked one
+(:518-552, :641-649), keyed by the dispatch's trailing argument (a fresh
+key, or one pair-seed matrix) with round r of the dispatch folded in as
+`round_tweak`: into the key in shared-key mode, into each pair's chain
+in DH mode.
 """
 
 from __future__ import annotations
@@ -72,6 +80,7 @@ from bflc_demo_tpu_torch.device import upload
 from bflc_demo_tpu_torch.models.base import Model, Params
 from bflc_demo_tpu_torch.ops.fingerprint import (fingerprint_pytree,
                                                  fingerprint_stacked)
+from bflc_demo_tpu_torch.parallel.secure import secure_fedavg_body
 from bflc_demo_tpu_torch.utils import prng
 
 
@@ -171,27 +180,26 @@ def candidate_deltas(deltas: Params, up_idx: torch.Tensor) -> Params:
     return {k: d[up_idx] for k, d in deltas.items()}
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({item}); the "
-                               f"port's mesh round runs plain FedAvg")
-
-
 def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
                                 batch_size: int, local_epochs: int,
                                 aggregate_count: int, client_chunk: int = 0,
                                 remat: bool = False, local_optimizer=None,
                                 secure: bool = False,
+                                secure_dh: bool = False,
+                                secure_clip: float = 64.0,
                                 scoring: str = "auto", comm_count: int = 0,
                                 needed_update_count: int = 0,
                                 expose_candidates: bool = False,
                                 ) -> Callable[..., ShardedRoundResult]:
     """Build the round for a fixed geometry.
 
-    Returned fn(params, xs, ys, n_samples, uploader_mask, committee_mask):
-    xs (N, S, *feat) and ys (N, S, C) the padded shards, n_samples (N,)
-    the true sizes, the masks (N,) bool (tensors or numpy) picking the
-    round's K uploaders and C committee members; all tensors on one
-    device.  Every client trains.
+    Returned fn(params, xs, ys, n_samples, uploader_mask, committee_mask)
+    — plus a trailing `secure_key` with `secure`: a `utils.prng` key, or
+    the (N, N, 8) pair seeds with `secure_dh` — xs (N, S, *feat) and ys
+    (N, S, C) the padded shards, n_samples (N,) the true sizes, the
+    masks (N,) bool (tensors or numpy) picking the round's K uploaders
+    and C committee members; all tensors on one device.  Every client
+    trains.
     """
     if scoring not in ("auto", "committee", "ring"):
         raise ValueError(f"scoring must be 'auto'|'committee'|'ring', "
@@ -220,8 +228,6 @@ def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
             and client_num % client_chunk:
         raise ValueError(f"clients/device {client_num} not divisible by "
                          f"client_chunk {client_chunk}")
-    if secure:
-        raise _unported("secure aggregation", "ROADMAP A12")
     check_optimizer(local_optimizer)
     k = aggregate_count
 
@@ -253,7 +259,12 @@ def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
     def round_fn(params: Params, xs: torch.Tensor, ys: torch.Tensor,
                  n_samples: torch.Tensor,
                  uploader_mask: Sequence[bool],
-                 committee_mask: Sequence[bool]) -> ShardedRoundResult:
+                 committee_mask: Sequence[bool],
+                 *secure_key) -> ShardedRoundResult:
+        if len(secure_key) != int(secure):
+            raise TypeError("the secure round takes one trailing key (a "
+                            "prng key or the pair seeds); the plain round "
+                            "none")
         if xs.shape[0] != client_num:
             raise ValueError(f"round built for {client_num} clients, got "
                              f"{xs.shape[0]} shards")
@@ -285,9 +296,15 @@ def make_sharded_protocol_round(model: Model, *, client_num: int, lr: float,
                                           client_chunk)
             # 3. the decision, as the reference takes it replicated
             med, order, sel, g_loss = decide(score, comm, up, costs, k)
-            # 4. masked sample-weighted FedAvg (one shard: no psum)
-            new_params = apply_selection(params, deltas, n_samples, sel,
-                                         lr, trained=trained)
+            # 4. masked sample-weighted FedAvg (one shard: no psum),
+            #    pairwise-blinded fixed point in secure mode
+            if secure:
+                new_params = secure_fedavg_body(
+                    params, deltas, n_samples, sel, lr, secure_key[0],
+                    clip=secure_clip, dh_mode=secure_dh)
+            else:
+                new_params = apply_selection(params, deltas, n_samples,
+                                             sel, lr, trained=trained)
             # 5. payload ids of every delta and of the new model
             delta_fps = fingerprint_stacked(deltas)
             params_fp = fingerprint_pytree(new_params)
@@ -316,12 +333,17 @@ def make_multi_round_program(model: Model, *, client_num: int, lr: float,
                              rounds_per_dispatch: int,
                              client_chunk: int = 0, remat: bool = False,
                              secure: bool = False,
+                             secure_dh: bool = False,
+                             secure_clip: float = 1024.0,
                              scoring: str = "committee",
                              ) -> Callable[..., MultiRoundResult]:
     """R protocol rounds as one dispatch, the amortised data plane.
 
     Returned fn(params, xs, ys, n_samples, committee_mask0, rng_key,
-    xte, yte): the padded shards and true sizes as for the one-round
+    xte, yte) — plus a trailing mask key (or, with `secure_dh`, the pair
+    seeds) with `secure`, never derived from `rng_key`, the public
+    uploader draw's key — the padded shards and true sizes as for the
+    one-round
     program, committee_mask0 (N,) bool the ledger's committee at the
     dispatch's start, rng_key a `utils.prng` key (the reference's
     `jax.random.PRNGKey` split per dispatch), (xte, yte) the sponsor's
@@ -331,8 +353,6 @@ def make_multi_round_program(model: Model, *, client_num: int, lr: float,
     accuracy.  The host ledger replays and audits every round afterwards
     (`client/mesh_runtime.py`), as in the reference.
     """
-    if secure:
-        raise _unported("secure aggregation", "ROADMAP A12")
     if needed_update_count < comm_count:
         # the device election takes the top comm_count of the K uploader
         # slots; with K < comm_count it would seat non-uploaders the
@@ -359,7 +379,10 @@ def make_multi_round_program(model: Model, *, client_num: int, lr: float,
     def program(params: Params, xs: torch.Tensor, ys: torch.Tensor,
                 n_samples: torch.Tensor, committee_mask0,
                 rng_key: np.ndarray, xte: torch.Tensor,
-                yte: torch.Tensor) -> MultiRoundResult:
+                yte: torch.Tensor, *mask_arg) -> MultiRoundResult:
+        if len(mask_arg) != int(secure):
+            raise TypeError("the secure program takes one trailing mask "
+                            "key (or the pair seeds); the plain one none")
         if xs.shape[0] != n:
             raise ValueError(f"program built for {n} clients, got "
                              f"{xs.shape[0]} shards")
@@ -394,8 +417,14 @@ def make_multi_round_program(model: Model, *, client_num: int, lr: float,
                                               xs, ys, client_chunk)
                 med, order, sel, g_loss = decide(score, comm, up, costs,
                                                  aggregate_count)
-                new_params = apply_selection(params, deltas, n_samples, sel,
-                                             lr, trained=trained)
+                if secure:
+                    # the round counter re-keys every round's masks
+                    new_params = secure_fedavg_body(
+                        params, deltas, n_samples, sel, lr, mask_arg[0],
+                        clip=secure_clip, dh_mode=secure_dh, round_tweak=r)
+                else:
+                    new_params = apply_selection(params, deltas, n_samples,
+                                                 sel, lr, trained=trained)
                 delta_fps = fingerprint_stacked(deltas)
                 params_fp = fingerprint_pytree(new_params)
                 # the next committee (.cpp:443-455): the top comm_count

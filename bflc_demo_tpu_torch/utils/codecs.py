@@ -74,15 +74,17 @@ def as_float32(a) -> np.ndarray:
 
 
 def cast_like(a: np.ndarray, dtype) -> np.ndarray:
-    """float32 `a` cast to `dtype`; to bfloat16 rounded to nearest even
-    (a NaN stays a quiet NaN), as numpy's ml_dtypes cast rounds."""
+    """float32 `a` cast to `dtype`; to bfloat16 rounded to nearest even,
+    every NaN to the canonical quiet NaN with its sign (0x7FC0 / 0xFFC0,
+    its payload dropped), as numpy's ml_dtypes cast does."""
     if not is_bf16(dtype):
         return np.asarray(a).astype(dtype)
     u = np.ascontiguousarray(a, np.float32).view(np.uint32)
     nan = (u & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
     with np.errstate(over="ignore"):
         r = u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))
-    r = np.where(nan, u | np.uint32(0x00400000), r)
+    r = np.where(nan, (u & np.uint32(0x80000000)) | np.uint32(0x7FC00000),
+                 r)
     return (r >> np.uint32(16)).astype(np.uint16).view(np.dtype(dtype))
 
 # opt-in reduced-precision delta encodings (--delta-dtype)

@@ -37,12 +37,13 @@ ROADMAP item) rather than fail on an unknown argument or drop it.
 Checkpoints are ported: `--checkpoint-dir D` and `--checkpoint-every N`
 (the reference's :33-34; the CLI saves at a run's end, and every N
 rounds on the mesh runtime).  `--ledger-backend` is ported (auto,
-native and python).  Still dropped: the device profiler (A11), secure
-aggregation (A12), and chaos, traces, plots and telemetry (A14, where
-the fleet's own `UNPORTED_FLEET_OPTIONS` puts them).  Score
-attestation is ported: `--attest-scores` / `--no-attest-scores`, the
-reference's tri-state (:48-51; not given = on wherever wallets exist),
-for the mesh and executor runtimes.
+native and python).  `--secure` is ported: config 4's
+secure-aggregation variant (the CLI refuses it on another config).
+Still dropped: the device profiler (A11) and chaos, traces, plots and
+telemetry (A14, where the fleet's own `UNPORTED_FLEET_OPTIONS` puts
+them).  Score attestation is ported: `--attest-scores` /
+`--no-attest-scores`, the reference's tri-state (:48-51; not given = on
+wherever wallets exist), for the mesh and executor runtimes.
 """
 
 from __future__ import annotations
@@ -63,7 +64,6 @@ UNPORTED_OPTIONS: Dict[str, str] = {
     "xprof_window": "A11",
     **{name: "A14" for name in ("trace_path", "plot_path", "telemetry_dir",
                                 "trace_sample")},
-    "secure": "A12",
 }
 
 
@@ -166,6 +166,10 @@ def add_flags(p: argparse.ArgumentParser) -> None:
                    help="mesh/executor runtimes: score attestation (not "
                         "given: on wherever wallets exist; "
                         "--no-attest-scores opts out)")
+    p.add_argument("--secure", action="store_true",
+                   help="config4 on the mesh runtime: secure aggregation "
+                        "(pairwise-masked merges keyed by X25519 pair "
+                        "seeds; wallets provisioned per run)")
     for name, item in UNPORTED_OPTIONS.items():
         p.add_argument("--" + name.replace("_", "-"), nargs="?", const=True,
                        default=None, help=f"not ported yet (ROADMAP {item})")

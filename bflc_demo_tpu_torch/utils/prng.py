@@ -79,25 +79,30 @@ def _shape(shape: Shape) -> Tuple[int, ...]:
     return (int(shape),) if np.ndim(shape) == 0 else tuple(map(int, shape))
 
 
-def _rotl(x: np.ndarray, r: int) -> np.ndarray:
-    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
-
-
 def threefry2x32(key: np.ndarray, x0: np.ndarray,
                  x1: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Threefry-2x32, 20 rounds, of the counter pairs (x0, x1) under `key`
-    — jax's `threefry2x32_p`.  uint32 arithmetic wraps mod 2**32."""
-    k0, k1 = (np.uint32(k) for k in np.asarray(key, np.uint32))
+    — jax's `threefry2x32_p`.  uint32 arithmetic wraps mod 2**32.  `key`
+    is (2,), or (..., 2) keys that broadcast against the counters.  Every
+    step runs in place on the two words (a draw of millions of words
+    allocates nothing more)."""
+    key = np.asarray(key, np.uint32)
+    k0, k1 = key[..., 0], key[..., 1]
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x0 = np.asarray(x0, np.uint32) + ks[0]
-    x1 = np.asarray(x1, np.uint32) + ks[1]
     with np.errstate(over="ignore"):
+        x0, x1 = (np.array(a, np.uint32) for a in np.broadcast_arrays(
+            np.asarray(x0, np.uint32) + ks[0],
+            np.asarray(x1, np.uint32) + ks[1]))
+        tmp = np.empty_like(x1)
         for i in range(5):
             for r in _ROTATIONS[i % 2]:
-                x0 = x0 + x1
-                x1 = _rotl(x1, r) ^ x0
-            x0 = x0 + ks[(i + 1) % 3]
-            x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+                np.add(x0, x1, out=x0)
+                np.left_shift(x1, np.uint32(r), out=tmp)
+                np.right_shift(x1, np.uint32(32 - r), out=x1)
+                np.bitwise_or(x1, tmp, out=x1)
+                np.bitwise_xor(x1, x0, out=x1)
+            np.add(x0, ks[(i + 1) % 3], out=x0)
+            np.add(x1, ks[(i + 2) % 3] + np.uint32(i + 1), out=x1)
     return x0, x1
 
 
@@ -128,6 +133,16 @@ def fold_in(key: np.ndarray, data: int) -> np.ndarray:
     y0, y1 = threefry2x32(key, np.zeros(1, np.uint32),
                           np.array([int(data) & 0xFFFFFFFF], np.uint32))
     return np.array([y0[0], y1[0]], np.uint32)
+
+
+def fold_in_many(keys: np.ndarray, data) -> np.ndarray:
+    """`fold_in` of each key of `keys` (..., 2) with the integer(s)
+    `data` (broadcast against the keys' leading shape), in one pass."""
+    keys = np.asarray(keys, np.uint32)
+    data = np.broadcast_to(np.asarray(data, np.int64) & 0xFFFFFFFF,
+                           keys.shape[:-1]).astype(np.uint32)
+    y0, y1 = threefry2x32(keys, np.zeros_like(data), data)
+    return np.stack([y0, y1], axis=-1)
 
 
 def bits(key: np.ndarray, shape: Shape = ()) -> np.ndarray:

@@ -107,6 +107,43 @@ first at the bar and the evaluations to spare after it.
              beside the card's name and power limit; then the trained
              config-2 model's logits and decisions on the card against
              the CPU path's on all of config 2's rows;
+   secure  — the secure rounds and the HMAC keyring (`secure_phase`),
+             each leg between a reset and a read of the launch counts:
+             `secure_config4`, config 4 at the full preset with
+             `secure=True` (32 X25519 wallets, masked merges on B7,
+             attestation on) through the CLI's entry point in this
+             process (`main(["--config", "config4", "--secure",
+             "--rounds", "2"])`: exit 0, its JSON's rounds and ledger
+             size), from `mesh_config4`'s seed — its first round's
+             committee, uploaders and selection equal `mesh_config4`'s
+             (later rounds printed, with the first that differs: a
+             decision may flip on the fixed point's rounding), its
+             ledger's size that run's, its final parameters within
+             SECURE_C4_PARAM_TOL of that run's, B6 2 and B7 62 (a leaf)
+             a round; every merge within the fixed point's bound of the
+             plain weighted mean of the same deltas; on the last round's
+             B7 inputs the sum over the slots of every leaf's masked
+             words equals the sum of the unmasked fixed-point words bit
+             for bit, B7's words equal its plain version's on every leaf
+             under 1 M elements and on the last 1 M of each larger one,
+             and no slot's masked word equals its unmasked one on more
+             than SECURE_BLIND_SHARE of a leaf; each round's pair-seed
+             seconds; B7 timed at the whole round's 62 launches and at
+             the largest leaf beside the bound (integer operations, each
+             pair's mask once, against bytes) and the plain version;
+             `secure_dispatch_config5`, config 5 with 20 DH wallets at
+             `rounds_per_dispatch` 5, 10 rounds — the same gates against
+             `dispatch_config5` (parameters within SECURE_C5_PARAM_TOL),
+             K1-K3, B6 and B7 held to the mesh round's counts plus B7's
+             30 leaves a round, B7 timed at its shape;
+             `keyring_threaded_config5`, the threaded runtime at config 5
+             with an HMAC `KeyRing`, 3 rounds — every client op on the
+             chain authenticated, a forged tag, a replayed tag, a
+             client's tag on another's address and a forged registration
+             refused, K1-K3 launched (the full script runs this leg in
+             a child process, `--keyring-leg`, beside `executor_config5`,
+             whose round waits on its members most of the time; its line
+             is printed again by this process);
    fingerprint — the fingerprint kernel against its plain version on the
              card, bit for bit (float32, bfloat16, float16, int8, bool and
              int32 leaves, a ragged leaf, config 5's 20 stacked deltas, a
@@ -313,6 +350,11 @@ runs only the dK/dV and dQ timing rows (phase 4's and phase 7's) for the
 package of the checkout at DIR — another version's, unpacked beside this
 one, so that two versions are timed on one card in one call.
 
+    python3 chip_smoke.py --keyring-leg
+
+runs only `keyring_threaded_config5` on kernels already built (the full
+script's child beside `executor_config5`).
+
     python3 chip_smoke.py --merge-timing DIR
 
 runs only B5's timing rows (phase 9's: every merge geometry at blocks 1
@@ -355,6 +397,11 @@ runs only the build, the native ledger's line and the dispatch phase.
 
 runs only the build, the bfloat16 timing rows and the knob legs.
 
+    python3 chip_smoke.py --secure
+
+runs only the build, the plain legs the secure legs are held against
+(`mesh_config4`, `dispatch_config5`) and the secure phase.
+
 Every fleet leg's line names its final writer's ledger backend
 (`writer_backend`), held to the one the reference runs at that leg's
 configuration (`reference_backend`).
@@ -368,6 +415,7 @@ import os
 import re
 import signal
 import statistics
+import struct
 import subprocess
 import sys
 import threading
@@ -481,6 +529,7 @@ KERNELS = {
     "flash_carry": "bflc_demo_tpu/ops/pallas_attention.py:300",
     "fingerprint": "bflc_demo_tpu/ops/fingerprint.py:62",
     "certified_reduce": "bflc_demo_tpu/meshagg/engine.py:260",
+    "secure_mask": "bflc_demo_tpu/parallel/secure.py:217",
 }
 DENSE_KERNELS = ("flash_fwd", "flash_dkdv", "flash_dq")
 SOURCES = {name: "bflc_demo_tpu_torch/ops/csrc/flash_attention.cu"
@@ -488,6 +537,7 @@ SOURCES = {name: "bflc_demo_tpu_torch/ops/csrc/flash_attention.cu"
 SOURCES["fingerprint"] = "bflc_demo_tpu_torch/ops/csrc/fingerprint.cu"
 SOURCES["certified_reduce"] = \
     "bflc_demo_tpu_torch/ops/csrc/certified_reduce.cu"
+SOURCES["secure_mask"] = "bflc_demo_tpu_torch/ops/csrc/secure_mask.cu"
 # B5 at each merge geometry (meshagg/check.py GEOMETRIES): blocks 1 (spec
 # v1) and 8, one launch per block; the timing row of the kernels line is
 # config 5's writer merge at one block
@@ -714,6 +764,39 @@ KNOB_SHAPES = {"flash_fwd": {MESH_TRAIN_SHAPE, MESH_SCORE_SHAPE,
                              SPONSOR_SHAPE},
                "flash_dkdv": {MESH_TRAIN_SHAPE},
                "flash_dq": {MESH_TRAIN_SHAPE}}
+# the secure legs: config 4's secure variant at mesh_config4's rounds and
+# seed, the secure dispatch at dispatch_config5's, the keyring leg
+SECURE_C4_ROUNDS = 2
+SECURE_C5_WALLET_SEED = b"secure-dispatch-config5-0001"
+KEYRING_ROUNDS = 3
+KEYRING_MASTER_SEED = b"keyring-threaded-master-0001"
+# B7 against its plain version on the card: whole leaves below this many
+# elements, the last this many of a larger leaf (a numpy-sized draw of
+# the whole model costs seconds)
+SECURE_WINDOW = 1 << 20
+# the share of a slot's elements whose masked word may equal its unmasked
+# one: by chance 2**-32 (2.3e-10); 1e-6 allows 11 of config 4's 11.2 M
+SECURE_BLIND_SHARE = 1e-6
+# the secure runs' final parameters against the plain runs' (max |diff|):
+# 5x the largest gap `tests/secure_pair.py` measured between the same
+# pair of runs (PERF.md section 6): config 4 0.00456 on the card (both
+# rounds' decisions equal); config 5 0.0212 on the card, 0.0137 on the
+# CPU.  The fixed point's rounding moves the model by up to S x 2**-17 x
+# lr a round, and once a decision flips on it (config 5 at R = 5: round
+# 5 of 10, on the card and the CPU alike) the two trajectories part
+SECURE_C4_PARAM_TOL = 5 * 0.00456
+SECURE_C5_PARAM_TOL = 5 * 0.0212
+# B7's integer operations a pair's mask word: Threefry-2x32's two
+# initial adds, 20 rounds of add, funnel shift and xor, 5 key injections
+# of two adds, the final xor, and the add into a slot's sum
+B7_OPS_PER_MASK = 2 + 20 * 3 + 5 * 2 + 1 + 1
+# the most 32-bit integer operations the card issues: one instruction a
+# lane a clock on all 128 lanes of an SM (4 warp instructions a clock,
+# the SM's issue limit), half the float32 rate's 67e12 (an FMA counts 2).
+# Not the INT32 pipe's 64 lanes alone: ptxas moves adds onto the FMA
+# pipe (IMAD), and B7 ran below that pipe's count on an H100 (PERF.md
+# section 6)
+INT_ISSUE_OPS = F32_CUDA_CORE_OPS / 2
 WORK_DIR = os.path.join("build", "chip_smoke")
 FLEET_MASTER_SEED = b"process-federation-master-0001"   # the fleet's default
 
@@ -721,17 +804,16 @@ FLEET_MASTER_SEED = b"process-federation-master-0001"   # the fleet's default
 def reset_counts() -> None:
     """Every kernel's launch count to 0 (just before a path runs)."""
     from bflc_demo_tpu_torch.ops import (certified_reduce, fingerprint,
-                                         flash_attention)
-    for module in (flash_attention, fingerprint, certified_reduce):
+                                         flash_attention, secure_mask)
+    for module in (flash_attention, fingerprint, certified_reduce,
+                   secure_mask):
         module.reset_launches()
 
 
 def read_counts() -> dict:
     """Every kernel's launches since the last `reset_counts`."""
-    from bflc_demo_tpu_torch.ops import (certified_reduce, fingerprint,
-                                         flash_attention)
-    return {**flash_attention.LAUNCHES, **fingerprint.LAUNCHES,
-            **certified_reduce.LAUNCHES}
+    from bflc_demo_tpu_torch.ops import launch_counts
+    return launch_counts()
 
 
 def emit(phase: str, **fields) -> None:
@@ -1430,7 +1512,7 @@ def mesh_slice_phase(torch, fa, fp, device) -> dict:
     torch.cuda.synchronize()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    expected = {k: n * ROUNDS for k, n in MESH_PER_ROUND.items()}
+    expected = {k: MESH_PER_ROUND.get(k, 0) * ROUNDS for k in launches}
     best = res.best_accuracy()
     emit("mesh_slice", config="config5", runtime="mesh", rounds=ROUNDS,
          accuracy=[a for _, a in res.accuracy_history],
@@ -1540,10 +1622,17 @@ def preset_run(torch, name: str, label: str, rounds: int, bar, **kw):
 
     args = dict(kw, cfg=ProtocolConfig(**kw["cfg"])) if "cfg" in kw else kw
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    res = CONFIGS[name].build(rounds=rounds, device="cuda", **args)
-    torch.cuda.synchronize()
-    launches = read_counts()
+    tap = DecisionTap()
+    try:
+        reset_counts()
+        res = CONFIGS[name].build(rounds=rounds, device="cuda", **args)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        tap.undo()
+    if label in PLAIN_KEPT:
+        PLAIN_RUNS[label] = (tap.rounds, res.final_params,
+                             res.ledger_log_size)
     peak = torch.cuda.max_memory_allocated()
     runtime = kw.get("runtime", "mesh")
     acc = [a for _, a in res.accuracy_history]
@@ -2352,12 +2441,14 @@ def config5_check(label, res, rounds):
          all(clients.get(k, 0) > 0 for k in DENSE_KERNELS), clients, 1)
 
 
-def processes_phase(torch, card: str) -> tuple:
+def processes_phase(torch, card: str, keyring: bool = False) -> tuple:
     """The process fleet on the card: the reference's process test, config
     1 through the CLI, config 5 at full width, the crash case, B5 on a
     promoted writer in threads, the reference's failover drill and
-    config 5's failover with quorum-ack.  Returns ({path: launches},
-    {writer role: B5 launches})."""
+    config 5's failover with quorum-ack; with `keyring`,
+    `keyring_threaded_config5` in a child process beside the executor's
+    config-5 leg.  Returns ({path: launches}, {writer role: B5
+    launches})."""
     from bflc_demo_tpu_torch.client.process_runtime import \
         run_federated_processes
     from bflc_demo_tpu_torch.data import iid_shards, load_occupancy
@@ -2485,7 +2576,10 @@ def processes_phase(torch, card: str) -> tuple:
     hier_phase(torch, card, note, c5_shards, c5_test, drill_shards,
                (xte[:500], yte[:500]))
     rederive_config5_phase(torch, card, note, c5_shards, c5_test)
+    child = keyring_child_start() if keyring else None
     executor_phase(torch, card, note, cli=False)
+    if child:
+        note("keyring_threaded_config5", (keyring_child_finish(child), {}))
     return paths, roles
 
 
@@ -4566,21 +4660,28 @@ def strict_dispatches(torch):
     return lambda: setattr(mesh_runtime, "make_multi_round_program", real)
 
 
-def dispatch_run(torch, leg: str, build, per_round: dict) -> tuple:
-    """A preset on the mesh runtime, DISPATCH_ROUNDS rounds in dispatches
-    of DISPATCH_R under `strict_dispatches`, between a reset and a read
-    of the launch counts held to `per_round` a round: the ledger's audit
-    of every round (a divergence raises), its chain and backend.
-    Returns (result, launches)."""
+def dispatch_run(torch, leg: str, build, per_round: dict, **kw) -> tuple:
+    """A preset on the mesh runtime (with `kw`), DISPATCH_ROUNDS rounds in
+    dispatches of DISPATCH_R under `strict_dispatches`, between a reset
+    and a read of the launch counts held to `per_round` a round: the
+    ledger's audit of every round (a divergence raises), its chain and
+    backend; each round's decision recorded (`DecisionTap`, its copies
+    after each dispatch).  Returns (result, launches)."""
     undo = strict_dispatches(torch)
+    tap = DecisionTap()
     try:
         reset_counts()
         res = build(rounds=DISPATCH_ROUNDS, runtime="mesh", device="cuda",
-                    rounds_per_dispatch=DISPATCH_R)
+                    rounds_per_dispatch=DISPATCH_R, **kw)
         torch.cuda.synchronize()
         launches = read_counts()
     finally:
+        tap.undo()
         undo()
+    if leg in PLAIN_KEPT:
+        PLAIN_RUNS[leg] = (tap.rounds, res.final_params,
+                           res.ledger_log_size)
+    res.decisions = tap.rounds
     want = {k: per_round.get(k, 0) * DISPATCH_ROUNDS for k in launches}
     times = res.round_times_s
     emit("dispatch", path=leg, rounds=DISPATCH_ROUNDS, r=DISPATCH_R,
@@ -4733,6 +4834,589 @@ def dispatch_phase(torch, fa, device, card: str) -> tuple:
              "dispatch_config5": c5_launches,
              "ring_config5": ring_launches}, err, row,
             {"config1": c1.round_times_s, "config5": c5.round_times_s})
+
+
+# the plain runs the secure legs are held against: label -> (decisions
+# a round, final params, ledger size)
+PLAIN_KEPT = ("mesh_config4", "dispatch_config5")
+PLAIN_RUNS: dict = {}
+
+
+class DecisionTap:
+    """Records each mesh round's decision as the runtime audits it:
+    (uploaders, committee, selected), client ids ascending — the
+    one-round path through `audit_round`, a dispatch from its program's
+    masks, copied after the dispatch returns (outside its strict sync
+    mode).  Install it after `strict_dispatches`, undo it before."""
+
+    def __init__(self):
+        from bflc_demo_tpu_torch.client import mesh_runtime
+        self.mr, self.rounds = mesh_runtime, []
+        self.real = (mesh_runtime.audit_round,
+                     mesh_runtime.make_multi_round_program)
+        mesh_runtime.audit_round = self._audit
+        mesh_runtime.make_multi_round_program = self._program
+
+    def _audit(self, *args):
+        uploader_ids, committee_ids, up_slots = args[3], args[4], args[5]
+        client_of = dict(zip(up_slots, uploader_ids))
+        self.rounds.append((sorted(uploader_ids), sorted(committee_ids),
+                            sorted(client_of[int(s)] for s in args[11])))
+        return self.real[0](*args)
+
+    def _program(self, *a, **kw):
+        program = self.real[1](*a, **kw)
+
+        def run(*args):
+            res = program(*args)
+            up, comm, sel = (m.cpu().numpy() for m in (
+                res.uploader_masks, res.committee_masks, res.selected))
+            for r in range(up.shape[0]):
+                self.rounds.append(tuple(np.flatnonzero(m[r]).tolist()
+                                         for m in (up, comm, sel)))
+            return res
+        return run
+
+    def undo(self) -> None:
+        self.mr.audit_round, self.mr.make_multi_round_program = self.real
+
+
+class B7Tap:
+    """Keeps the inputs and words of every B7 launch a path makes (one a
+    leaf a round, in leaf order), by reference: nothing writes a round's
+    deltas or words after the merge reads them.  `last` is the last
+    round's, by leaf index."""
+
+    def __init__(self, leaves: int):
+        from bflc_demo_tpu_torch.ops import secure_mask
+        self.sm, self.leaves, self.calls = secure_mask, leaves, []
+        self.real = secure_mask.masked_encode
+        secure_mask.masked_encode = self._call
+
+    def _call(self, deltas, wn, keys, clip, out=None):
+        words = self.real(deltas, wn, keys, clip, out)
+        if deltas.is_cuda:
+            self.calls.append((deltas, wn, keys, clip, words))
+        return words
+
+    @property
+    def last(self) -> dict:
+        return dict(enumerate(self.calls[-self.leaves:]))
+
+    def undo(self) -> None:
+        self.sm.masked_encode = self.real
+
+
+def b7_merge_hold(torch, leg: str, tap: B7Tap) -> dict:
+    """Every round's masked merge against the plain weighted mean of the
+    same deltas (float64 on the card), leaf by leaf: the difference
+    within the fixed point's own error, S x 2**-17 (each slot's rounding
+    to 2**-16) plus the float32 roundings of the products and the sum
+    (2**-23 of their magnitudes).  Returns the worst share of that bound
+    and the largest difference."""
+    sm = tap.sm
+    worst, largest = 0.0, 0.0
+    for deltas, wn, _, clip, words in tap.calls:
+        x = torch.nan_to_num(deltas.double(), nan=0.0, posinf=clip,
+                             neginf=-clip).clamp(-clip, clip)
+        x = (x * wn.double()[:, None]).clamp(-clip, clip)
+        exact = x.sum(0)
+        diff = (sm.unmask_sum(words).double() - exact).abs()
+        bound = deltas.shape[0] * 2.0 ** -17 + 2.0 ** -23 * (
+            x.abs().sum(0) + exact.abs())
+        worst = max(worst, float((diff / bound).max()))
+        largest = max(largest, float(diff.max()))
+    hold(leg, "masked merge vs plain mean, every round", worst <= 1.0,
+         worst, 1.0)
+    return {"merges_held": len(tap.calls),
+            "max_merge_diff_vs_plain_mean": largest,
+            "max_share_of_fixed_point_bound": worst}
+
+
+def first_divergence(got: list, want: list):
+    """The index of the first round whose decision differs, or None."""
+    for r, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return r
+    return None if len(got) == len(want) else min(len(got), len(want))
+
+
+def pair_seed_timer():
+    """Time each `derive_pair_seeds` call the mesh runtime makes: (the
+    list of seconds, the undo)."""
+    from bflc_demo_tpu_torch.client import mesh_runtime
+    real, seconds = mesh_runtime.derive_pair_seeds, []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+    mesh_runtime.derive_pair_seeds = timed
+    return seconds, lambda: setattr(mesh_runtime, "derive_pair_seeds", real)
+
+
+def b7_hold(torch, leg: str, tap: B7Tap) -> dict:
+    """On the last round's B7 launches of a path: the sum over the slots
+    of every leaf's masked words against the sum of the unmasked
+    fixed-point words, bit for bit; the kernel's words against the plain
+    version's on every leaf under SECURE_WINDOW elements and on the last
+    SECURE_WINDOW of each larger one, bit for bit; each slot's share of
+    masked words equal to its unmasked one.  Returns the line's fields
+    (and the plain version's seconds)."""
+    sm = tap.sm
+    worst_share, plain_s, compared, mismatched = 0.0, 0.0, 0, 0
+    for idx in sorted(tap.last):
+        deltas, wn, keys, clip, words = tap.last[idx]
+        q = sm.encode_plain(deltas, wn, clip)
+        want = q.sum(0) & sm.MASK
+        got = words.to(torch.int64).sum(0) & sm.MASK
+        hold(leg, f"leaf {idx} sum over slots vs unmasked",
+             bool(torch.equal(got, want)),
+             int((got != want).sum()), 0)
+        equal = (words.to(torch.int64) & sm.MASK) == q
+        share = float(equal.sum(1).max()) / deltas.shape[1]
+        worst_share = max(worst_share, share)
+        hold(leg, f"leaf {idx} slot words blinded",
+             share <= SECURE_BLIND_SHARE, share, SECURE_BLIND_SHARE)
+        n = deltas.shape[1]
+        start = max(0, n - SECURE_WINDOW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = sm.masked_encode_plain(deltas[:, start:], wn, keys, clip,
+                                       offset=start)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        bad = int((plain != words[:, start:]).sum())
+        compared += plain.numel()
+        mismatched += bad
+        hold(leg, f"leaf {idx} B7 vs plain words", bad == 0, bad, 0)
+        del plain, q, want, got, equal
+    return {"leaves": len(tap.last), "words_compared": compared,
+            "words_mismatched": mismatched,
+            "max_share_equal_unmasked": worst_share,
+            "plain_compare_s": plain_s}
+
+
+def b7_work(slots: int, elements: int) -> tuple:
+    """(integer operations, bytes) of B7 over `elements` of a leaf at
+    `slots` slots: each pair's mask once, each delta read and each word
+    written once (the keys and weights are bytes to spare)."""
+    pairs = slots * (slots - 1) // 2
+    return (pairs * elements * B7_OPS_PER_MASK,
+            slots * elements * (4 + 4))
+
+
+def b7_timing(torch, tap: B7Tap, case: str, card: str) -> dict:
+    """B7 over the last round's launches (every leaf, into fresh outputs)
+    and at its largest leaf, each timed from CUDA-graph replays beside
+    its bound (operations over INT_ISSUE_OPS against bytes over
+    HBM_BYTES_PER_S) and the plain version's one call between CUDA
+    events."""
+    sm = tap.sm
+    calls = [(d, w, k, c, torch.empty_like(words))
+             for d, w, k, c, words in (tap.last[i] for i in sorted(tap.last))]
+    largest = max(calls, key=lambda a: a[0].shape[1])
+    rows = {}
+    for name, group in ((case, calls), (f"{case}_largest_leaf", [largest])):
+        slots = group[0][0].shape[0]
+        elements = sum(a[0].shape[1] for a in group)
+
+        def run_kernel(group=group):
+            for d, w, k, c, out in group:
+                sm.launch(d, w, k, c, out)
+        ms = device_ms(torch, run_kernel, calls=3, replays=2, repeats=3)
+        plain_ms = event_ms(torch, lambda group=group: [
+            sm.masked_encode_plain(d, w, k, c) for d, w, k, c, _ in group])
+        ops, moved = b7_work(slots, elements)
+        t_ops = ops / INT_ISSUE_OPS * 1e3
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "library": None, "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "ops": ops, "bytes": moved, "slots": slots,
+               "elements": elements, "launches_a_call": len(group),
+               "shape": [slots, elements] if len(group) == 1 else None,
+               "nvidia_smi": card}
+        row["share_of_bound"] = row["bound_ms"] / ms
+        emit("timing", kernel="secure_mask", case=name, **row)
+        rows[name] = row
+    main = rows[case]
+    main["at"] = {f"{case}_largest_leaf": rows[f"{case}_largest_leaf"]}
+    return main
+
+
+def max_param_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def secure_config4_leg(torch, card: str) -> tuple:
+    """Config 4 at the full preset with `secure=True` on the mesh runtime
+    through the CLI's own entry point, in this process: `main(["--config",
+    "config4", "--secure", "--rounds", SECURE_C4_ROUNDS])` (exit 0, its
+    JSON), between a reset and a read of the launch counts, held against
+    `mesh_config4` (its decisions, ledger size and final params), B7 on
+    its last round's inputs (`b7_hold`) and timed.  Returns (launches,
+    B7's timing row)."""
+    import contextlib
+    import io
+    from bflc_demo_tpu_torch import __main__ as cli
+    from bflc_demo_tpu_torch.eval import configs
+    leg = "secure_config4"
+    decisions, plain_params, log_size = PLAIN_RUNS["mesh_config4"]
+    leaves = len(plain_params)
+    torch.cuda.reset_peak_memory_stats()
+    seeds_s, undo_seeds = pair_seed_timer()
+    tap, b7 = DecisionTap(), B7Tap(leaves)
+    runs, real_run = [], configs.run_federated_mesh
+
+    def kept(*a, **kw):
+        runs.append(real_run(*a, **kw))
+        return runs[-1]
+    configs.run_federated_mesh = kept
+    out = io.StringIO()
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--config", "config4", "--secure", "--rounds",
+                           str(SECURE_C4_ROUNDS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        configs.run_federated_mesh = real_run
+        b7.undo()
+        tap.undo()
+        undo_seeds()
+    hold(leg, "CLI exit code", rc == 0, rc, 0)
+    printed = json.loads(out.getvalue().strip().splitlines()[-1])
+    res = runs[0]
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in launches}
+    want["fingerprint"] = MESH_PER_ROUND["fingerprint"] * SECURE_C4_ROUNDS
+    want["secure_mask"] = leaves * SECURE_C4_ROUNDS
+    diff = max_param_diff(res.final_params, plain_params)
+    acc = [a for _, a in res.accuracy_history]
+    merged = b7_merge_hold(torch, leg, b7)
+    held = b7_hold(torch, leg, b7)
+    diverged = first_divergence(tap.rounds, decisions)
+    emit("secure", path=leg, nvidia_smi=card, rounds=SECURE_C4_ROUNDS,
+         round_s=res.round_times_s, derive_pair_seeds_s=seeds_s,
+         wall_s=wall, peak_mem_bytes=peak, accuracy=acc,
+         launches=launches, expected_launches=want, decisions=tap.rounds,
+         plain_decisions=decisions, first_divergent_round=diverged,
+         max_param_diff_vs_plain=diff, param_tol=SECURE_C4_PARAM_TOL,
+         attested_epochs=sorted(res.attest_log or {}),
+         ledger_log_size=res.ledger_log_size,
+         ledger_backend=res.ledger.backend, cli_json=printed, **merged,
+         **held)
+    hold(leg, "rounds", res.rounds_completed == SECURE_C4_ROUNDS,
+         res.rounds_completed, SECURE_C4_ROUNDS)
+    hold(leg, "chain verified", res.ledger.verify_log(), False, True)
+    hold_backend(leg, res.ledger.backend)
+    hold(leg, "launches", launches == want, launches, want)
+    # the first round starts from the same model: the same decision; a
+    # later one may flip on the fixed point's rounding (printed)
+    hold(leg, "first round's decision vs mesh_config4",
+         tap.rounds[:1] == decisions[:1], tap.rounds[:1], decisions[:1])
+    hold(leg, "ledger log size", res.ledger_log_size == log_size
+         and printed["ledger_log_size"] == log_size,
+         [res.ledger_log_size, printed["ledger_log_size"]], log_size)
+    hold(leg, "CLI rounds", printed["rounds"] == SECURE_C4_ROUNDS,
+         printed["rounds"], SECURE_C4_ROUNDS)
+    hold(leg, "params vs mesh_config4", diff <= SECURE_C4_PARAM_TOL, diff,
+         SECURE_C4_PARAM_TOL)
+    hold(leg, "finite accuracies", bool(all(np.isfinite(acc))), acc, True)
+    hold(leg, "attested rounds",
+         sorted(res.attest_log or {}) == list(range(SECURE_C4_ROUNDS)),
+         sorted(res.attest_log or {}), list(range(SECURE_C4_ROUNDS)))
+    row = b7_timing(torch, b7, "config4_round", card)
+    del b7, res
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def secure_dispatch_config5_leg(torch, card: str) -> tuple:
+    """Config 5 with 20 DH wallets at `rounds_per_dispatch` DISPATCH_R,
+    DISPATCH_ROUNDS rounds (`dispatch_run`): decisions round for round
+    equal `dispatch_config5`'s, final params within SECURE_C5_PARAM_TOL,
+    launches the mesh round's plus B7 a leaf a round; B7 on the last
+    round's inputs (`b7_hold`) and timed.  Returns (launches, B7's
+    timing row)."""
+    from bflc_demo_tpu_torch.comm.identity import provision_wallets
+    from bflc_demo_tpu_torch.eval.configs import config5_transformer_sst2
+    leg = "secure_dispatch_config5"
+    decisions, plain_params, log_size = PLAIN_RUNS["dispatch_config5"]
+    leaves = len(plain_params)
+    wallets, _ = provision_wallets(CONFIG5_PROTO["client_num"],
+                                   SECURE_C5_WALLET_SEED)
+    seeds_s, undo_seeds = pair_seed_timer()
+    b7 = B7Tap(leaves)
+    try:
+        res, launches = dispatch_run(
+            torch, leg, config5_transformer_sst2,
+            dict(MESH_PER_ROUND, secure_mask=leaves),
+            secure_aggregation=True, secure_wallets=wallets)
+    finally:
+        b7.undo()
+        undo_seeds()
+    diff = max_param_diff(res.final_params, plain_params)
+    merged = b7_merge_hold(torch, leg, b7)
+    held = b7_hold(torch, leg, b7)
+    diverged = first_divergence(res.decisions, decisions)
+    emit("secure", path=leg, nvidia_smi=card, rounds=DISPATCH_ROUNDS,
+         r=DISPATCH_R, round_s=res.round_times_s,
+         derive_pair_seeds_s=seeds_s,
+         accuracy=[a for _, a in res.accuracy_history],
+         launches=launches, max_param_diff_vs_plain=diff,
+         param_tol=SECURE_C5_PARAM_TOL, decisions=res.decisions,
+         plain_decisions=decisions, first_divergent_round=diverged,
+         **merged, **held)
+    hold(leg, "first round's decision vs dispatch_config5",
+         res.decisions[:1] == decisions[:1], res.decisions[:1],
+         decisions[:1])
+    hold(leg, "ledger log size", res.ledger_log_size == log_size,
+         res.ledger_log_size, log_size)
+    hold(leg, "params vs dispatch_config5", diff <= SECURE_C5_PARAM_TOL,
+         diff, SECURE_C5_PARAM_TOL)
+    hold(leg, "attested rounds",
+         sorted(res.attest_log or {}) == list(range(DISPATCH_ROUNDS)),
+         sorted(res.attest_log or {}), list(range(DISPATCH_ROUNDS)))
+    row = b7_timing(torch, b7, "config5_round", card)
+    del b7, res
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+class CountingKeyRing:
+    """A `KeyRing` that counts the tags it verified, by op kind, and keeps
+    each verified upload's signed bytes and tag by (sender, epoch,
+    payload hash), to replay."""
+
+    def __init__(self, master: bytes):
+        from bflc_demo_tpu_torch.comm.identity import KeyRing
+        self.ring, self.verified, self.refused = KeyRing(master), {}, 0
+        self.uploads = {}
+        self.lock = threading.Lock()
+
+    def mac(self, address: str, op_bytes: bytes) -> bytes:
+        return self.ring.mac(address, op_bytes)
+
+    def verify(self, address: str, op_bytes: bytes, tag: bytes) -> bool:
+        ok = self.ring.verify(address, op_bytes, tag)
+        (kind_len,) = struct.unpack_from("<q", op_bytes, 0)
+        kind = op_bytes[8:8 + kind_len].decode()
+        with self.lock:
+            if ok:
+                self.verified[kind] = self.verified.get(kind, 0) + 1
+                if kind == "upload":
+                    sender, payload, _, _, epoch = upload_args(op_bytes)
+                    self.uploads[(sender, epoch, payload.hex())] = (
+                        op_bytes, tag)
+            else:
+                self.refused += 1
+        return ok
+
+
+def upload_args(op_bytes: bytes) -> tuple:
+    """(sender, payload hash, n_samples, avg_cost, epoch) of a signed
+    upload's bytes (`comm.identity._op_bytes`)."""
+    off = 8 + struct.unpack_from("<q", op_bytes, 0)[0]
+    (n,) = struct.unpack_from("<q", op_bytes, off)
+    sender = op_bytes[off + 8:off + 8 + n].decode()
+    off += 8 + n
+    (epoch,) = struct.unpack_from("<q", op_bytes, off)
+    body = op_bytes[off + 16:]
+    n_samples, cost = struct.unpack_from("<qd", body, 32)
+    return sender, body[:32], n_samples, cost, epoch
+
+
+def keyring_threaded_leg(torch, card: str) -> dict:
+    """The threaded runtime at config 5 on the card with an HMAC keyring,
+    KEYRING_ROUNDS rounds between a reset and a read of the launch
+    counts: every client op on the chain authenticated (a verified tag
+    for each register, upload and scores op), then at the live ledger a
+    forged tag, a replayed tag and a client's tag for another's address
+    refused.  Returns the launches."""
+    from bflc_demo_tpu_torch.client.threaded import ThreadedFederation
+    from bflc_demo_tpu_torch.comm.identity import (KeyRing, sign_register,
+                                                   sign_upload)
+    from bflc_demo_tpu_torch.eval.configs import config5_data
+    from bflc_demo_tpu_torch.ledger.base import decode_op
+    from bflc_demo_tpu_torch.models import make_transformer_classifier
+    from bflc_demo_tpu_torch.protocol import ProtocolConfig
+    leg = "keyring_threaded_config5"
+    shards, test = config5_data(0, 4000, CONFIG5_PROTO["client_num"])
+    ring = CountingKeyRing(KEYRING_MASTER_SEED)
+    fed = ThreadedFederation(make_transformer_classifier(**CONFIG5_ARCH),
+                             shards, test, ProtocolConfig(**CONFIG5_PROTO),
+                             keyring=ring, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = fed.run(rounds=KEYRING_ROUNDS, timeout_s=FLEET_TIMEOUT_S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    led = fed.ledger
+    kinds = {"register": 0, "upload": 0, "scores": 0}
+    for i in range(led.log_size()):
+        op = decode_op(led.log_op(i))
+        if op["op"] in kinds:
+            kinds[op["op"]] += 1
+        if op["op"] == "upload":
+            last = (op["sender"], op["epoch"], op["payload_hash"])
+    verified, refused_in_run = dict(ring.verified), ring.refused
+    # the impostors, at the live ledger: a forged tag on a trainer's
+    # upload, the run's last verified upload replayed, a client's tag on
+    # another's address, a forged registration
+    size = led.log_size()
+    epoch = led.epoch
+    committee = set(led.committee())
+    trainer, other = [n.address for n in fed.nodes
+                      if n.address not in committee][:2]
+    body = (b"\x07" * 32, 100, 1.0, epoch)
+    impostor = KeyRing(b"an-impostor-master-seed-0001")
+    # the chain's last upload, as its client signed it
+    replay_bytes, replay_tag = ring.uploads[last]
+    probes = {
+        "forged_tag": led.upload_local_update(
+            trainer, *body, sign_upload(impostor, trainer, *body)),
+        "replayed_tag": led.upload_local_update(
+            *upload_args(replay_bytes), replay_tag),
+        "signed_for_another_address": led.upload_local_update(
+            trainer, *body, sign_upload(ring, other, *body)),
+        "forged_register": led.register_node(
+            "0x" + "ab" * 20, sign_register(impostor, "0x" + "ab" * 20))}
+    acc = [a for _, a in res.accuracy_history]
+    emit("keyring", path=leg, nvidia_smi=card, rounds=res.rounds_completed,
+         wall_s=wall, accuracy=acc, ops_on_chain=kinds,
+         tags_verified=verified, tags_refused_in_run=refused_in_run,
+         refusals={k: st.name for k, st in probes.items()},
+         replayed_epoch=upload_args(replay_bytes)[4], epoch=epoch,
+         launches=launches, recoveries=fed.recoveries,
+         client_errors=fed.client_errors,
+         ledger_log_size=res.ledger_log_size)
+    hold(leg, "rounds", res.rounds_completed == KEYRING_ROUNDS,
+         res.rounds_completed, KEYRING_ROUNDS)
+    hold(leg, "chain verified", res.ledger.verify_log(), False, True)
+    hold(leg, "client ops authenticated",
+         all(verified.get(k, 0) >= v for k, v in kinds.items())
+         and kinds["upload"] > 0 and kinds["scores"] > 0, verified, kinds)
+    hold(leg, "no tag refused in the run", refused_in_run == 0,
+         refused_in_run, 0)
+    # a replay at the tag's own epoch is a DUPLICATE; past it the epoch
+    # guard refuses it (WRONG_EPOCH): either way it is not taken
+    for name, bar in (("forged_tag", ("BAD_ARG",)),
+                      ("replayed_tag", ("DUPLICATE", "WRONG_EPOCH")),
+                      ("signed_for_another_address", ("BAD_ARG",)),
+                      ("forged_register", ("BAD_ARG",))):
+        hold(leg, f"impostor {name} refused", probes[name].name in bar,
+             probes[name].name, list(bar))
+    hold(leg, "impostors added no op", led.log_size() == size,
+         led.log_size(), size)
+    hold(leg, "no client errors", not fed.client_errors, fed.client_errors,
+         [])
+    hold(leg, "finite accuracies", bool(all(np.isfinite(acc))), acc, True)
+    for name in DENSE_KERNELS:
+        hold(leg, f"{name} launched", launches[name] > 0, launches[name],
+             "> 0")
+    return launches
+
+
+def secure_phase(torch, card: str, keyring: bool = True) -> tuple:
+    """The secure legs after the presets (`secure_config4` through the
+    CLI's entry point, `secure_dispatch_config5` and, with `keyring`,
+    `keyring_threaded_config5`).  Returns ({path: launches}, B7's error,
+    B7's timing row)."""
+    from bflc_demo_tpu_torch.ops import secure_mask
+    secure_mask.reset_launches()
+    c4, row = secure_config4_leg(torch, card)
+    c5, row5 = secure_dispatch_config5_leg(torch, card)
+    row["at"].update({"config5_round": row5, **row5.pop("at")})
+    PLAIN_RUNS.clear()
+    paths = {"secure_config4": c4, "secure_dispatch_config5": c5}
+    if keyring:
+        paths["keyring_threaded_config5"] = keyring_threaded_leg(torch, card)
+    return paths, 0, row
+
+
+def keyring_child_start() -> tuple:
+    """Start `keyring_threaded_config5` in a child process (`python3
+    chip_smoke.py --keyring-leg`, on the kernels this run built), its
+    output to files under WORK_DIR: (the process, its start, the
+    output's path)."""
+    os.makedirs(WORK_DIR, exist_ok=True)
+    base = os.path.join(WORK_DIR, "keyring_leg")
+    here = os.path.abspath(__file__)
+    with open(base + ".out", "w") as out, open(base + ".err", "w") as err:
+        proc = subprocess.Popen([sys.executable, here, "--keyring-leg"],
+                                stdout=out, stderr=err,
+                                cwd=os.path.dirname(here))
+    return proc, time.perf_counter(), base
+
+
+def keyring_child_finish(started: tuple) -> dict:
+    """Wait for the child of `keyring_child_start`, print its leg's line
+    again (its gate's line too, if one failed there) and return the
+    leg's launches; fail unless it exited 0 with that line."""
+    leg = "keyring_threaded_config5"
+    proc, t0, base = started
+    try:
+        proc.wait(timeout=FLEET_TIMEOUT_S + 60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(base + ".out") as out, open(base + ".err") as err:
+        stdout, stderr = out.read(), err.read()
+    lines = [json.loads(x) for x in stdout.splitlines()
+             if x.startswith("{")]
+    for rec in lines:
+        if rec["phase"] == "gate_failed":
+            print(json.dumps(rec), flush=True)
+    found = [rec for rec in lines if rec["phase"] == "keyring"]
+    if proc.returncode != 0 or not found:
+        raise gate_failed(leg, "child exit code", proc.returncode, 0,
+                          stderr[-4000:])
+    rec = {k: v for k, v in found[0].items() if k not in ("phase", "t")}
+    emit("keyring", **rec, child_t=found[0]["t"],
+         child_wall_s=time.perf_counter() - t0)
+    return rec["launches"]
+
+
+def keyring_leg_main() -> int:
+    """Only `keyring_threaded_config5`, on kernels already built."""
+    port = load_port()
+    if port is None:
+        return 1
+    torch = port[0]
+    card = card_line()
+    print(card, flush=True)
+    keyring_threaded_leg(torch, card)
+    return 0
+
+
+def secure_main() -> int:
+    """Only the build, the plain legs the secure legs are held against
+    and the secure phase."""
+    port = load_port()
+    if port is None:
+        return 1
+    torch, _, build, device = port
+    from bflc_demo_tpu_torch.eval.configs import config5_transformer_sst2
+    emit("build", **build_fields(finish_build(build)))
+    card = card_line()
+    print(card, flush=True)
+    emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0))
+    label, name, rounds, bar, kw = PRESET_RUNS[-1]
+    preset_run(torch, name, label, rounds, bar, **kw)
+    dispatch_run(torch, "dispatch_config5", config5_transformer_sst2,
+                 MESH_PER_ROUND)
+    paths, err, row = secure_phase(torch, card)
+    emit("secure_launches", nvidia_smi=card, launches=paths,
+         secure_mask={**row, "max_abs_err": err})
+    return 0
 
 
 def load_port(root: str = None):
@@ -5118,6 +5802,8 @@ def main() -> int:
          config1={"host": mesh1["host_round_s"], "mesh": mesh1["round_s"],
                   "mesh_dispatch": dispatched["config1"]})
     presets = presets_phase(torch, device, card)
+    secure_paths, errors["secure_mask"], timings["secure_mask"] = \
+        secure_phase(torch, card, keyring=False)
     trees, errors["fingerprint"] = fingerprint_compare_phase(torch, fp,
                                                              device)
     timings["fingerprint"] = fingerprint_timing_phase(torch, fp, device,
@@ -5138,13 +5824,13 @@ def main() -> int:
     drill, drill_b5, drill_rows = rederive_drill_phase(torch, cr, card)
     for name, row in drill_rows.items():
         timings["certified_reduce"]["at"][f"rederive_{name}"] = row
-    fleet, roles = processes_phase(torch, card)
+    fleet, roles = processes_phase(torch, card, keyring=True)
     roles["validator"] = roles.get("validator", 0) + drill_b5
     paths = {"host_config5": host5["launches"],
              "mesh_config5": mesh5["launches"],
              "mesh_config1": mesh1["launches"],
              **dispatch_paths, **knob_paths,
-             **presets,
+             **presets, **secure_paths,
              "sp": {"flash_carry": sp_slice_phase(torch, fa, device)},
              **merge_paths, "rederive_drill": drill, **fleet}
     by_path = {name: {path: counts.get(name, 0)
@@ -5172,11 +5858,13 @@ def dispatch(argv) -> int:
         return backward_timing_main(argv[1])
     if len(argv) == 2 and argv[0] == "--merge-timing":
         return merge_timing_main(argv[1])
+    if argv == ["--keyring-leg"]:
+        return keyring_leg_main()
     modes = {"--processes": processes_main, "--snapshots": snapshots_main,
              "--async": async_main, "--codecs": codecs_main,
              "--hier": hier_main, "--rederive": rederive_main,
              "--executor": executor_main, "--dispatch": dispatch_main,
-             "--knobs": knobs_main}
+             "--knobs": knobs_main, "--secure": secure_main}
     if len(argv) == 1 and argv[0] in modes:
         start_build()
         rc = modes[argv[0]]()
@@ -5185,9 +5873,9 @@ def dispatch(argv) -> int:
         return rc
     if argv:
         print("usage: chip_smoke.py [--backward-timing DIR | "
-              "--merge-timing DIR | --processes | --snapshots | --async | "
-              "--codecs | --hier | --rederive | --executor | "
-              "--dispatch | --knobs]",
+              "--merge-timing DIR | --keyring-leg | --processes | "
+              "--snapshots | --async | --codecs | --hier | --rederive | "
+              "--executor | --dispatch | --knobs | --secure]",
               file=sys.stderr)
         return 2
     start_build()

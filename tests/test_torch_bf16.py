@@ -28,6 +28,7 @@ import torch
 
 from bflc_demo_tpu.core.local_train import local_train as ref_local_train
 from bflc_demo_tpu.meshagg import engine as ref_engine
+from bflc_demo_tpu.meshagg import spec as ref_spec
 from bflc_demo_tpu.models import cnn as ref_cnn
 from bflc_demo_tpu.models import make_mlp as ref_mlp
 from bflc_demo_tpu.models import resnet as ref_resnet
@@ -40,7 +41,7 @@ from bflc_demo_tpu_torch import models
 from bflc_demo_tpu_torch.client.mesh_runtime import run_federated_mesh
 from bflc_demo_tpu_torch.core.local_train import local_train
 from bflc_demo_tpu_torch.data import iid_shards
-from bflc_demo_tpu_torch.meshagg import engine
+from bflc_demo_tpu_torch.meshagg import engine, spec
 from bflc_demo_tpu_torch.ops import fingerprint as fp
 from bflc_demo_tpu_torch.protocol import ProtocolConfig
 from bflc_demo_tpu_torch.utils import codecs
@@ -202,6 +203,30 @@ def test_bf16_blob_without_ml_dtypes(monkeypatch):
     np.testing.assert_array_equal(
         codecs.as_float32(codecs.cast_like(halves, record)),
         np.asarray(torch.as_tensor(halves).bfloat16().float()))
+
+
+@pytest.mark.parametrize("form", ["ml_dtypes", "record"])
+def test_c21_nan_payloads_cast_as_the_reference(form, monkeypatch):
+    """C21: the certified merge's step casts a NaN to bfloat16 as
+    numpy's ml_dtypes cast does, 0x7FC0 / 0xFFC0 with its sign and no
+    payload, in both `BF16` forms; a bfloat16 global leaf holding a
+    payload NaN (0x7F81, 0xFF81, 0x7FC1) and a float32 accumulator NaN
+    (0x7F810000) commit the reference's bytes."""
+    import ml_dtypes
+    dtype = codecs.BF16 if form == "ml_dtypes" else np.dtype(
+        [("bfloat16", "<u2")])
+    monkeypatch.setattr(codecs, "BF16", dtype)
+    bits = np.array([0x7F81, 0xFF81, 0x7FC1, 0x3F80, 0xBF80, 0x0001],
+                    np.uint16)
+    acc = np.array([0.5, 0.25, 0.0, 0x7F810000, 1.0, 0.0], np.float32)
+    acc[3] = np.array([0x7F810000], np.uint32).view(np.float32)[0]
+    want = ref_spec.apply_step({"w": bits.view(ml_dtypes.bfloat16)},
+                               {"w": acc}, 0.05)["w"]
+    got = spec.apply_step({"w": bits.view(dtype)}, {"w": acc}, 0.05)["w"]
+    assert codecs.is_bf16(got.dtype)
+    np.testing.assert_array_equal(got.view(np.uint16), want.view(np.uint16))
+    assert [hex(b) for b in got.view(np.uint16)[:4]] == \
+        ["0x7fc0", "0xffc0", "0x7fc0", "0x7fc0"]
 
 
 def test_bf16_stacked_fingerprints_match_reference():

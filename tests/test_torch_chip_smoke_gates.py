@@ -542,3 +542,159 @@ def test_reference_backend_follows_the_references_gates(knobs, compacts,
               if x["phase"] == "gate_failed"]
     assert [(x["gate"], x["value"], x["bar"]) for x in failed] == \
         [("ledger backend", other, want)]
+
+
+# ------------------------------------------------------ the secure legs
+def _b7_calls(slots=4, n=300, rounds=2, seed=0):
+    """B7's plain launches of a few rounds, as `B7Tap` keeps them."""
+    import torch
+    from bflc_demo_tpu_torch.ops import secure_mask as sm
+    from bflc_demo_tpu_torch.parallel import secure
+    rng = np.random.default_rng(seed)
+    calls = []
+    for r in range(rounds):
+        keys = torch.as_tensor(secure.leaf_keys(
+            np.array([0, r], np.uint32), slots, 1, False)[0].view(np.int32))
+        d = torch.as_tensor((rng.standard_normal((slots, n)) * 30)
+                            .astype(np.float32))
+        d[0, 5] = float("nan")
+        w = torch.as_tensor(rng.random(slots).astype(np.float32))
+        w = w / w.sum()
+        calls.append((d, w, keys, 64.0,
+                      sm.masked_encode_plain(d, w, keys, 64.0)))
+    return calls
+
+
+class _Tap:
+    def __init__(self, calls):
+        from bflc_demo_tpu_torch.ops import secure_mask
+        self.sm, self.calls, self.leaves = secure_mask, calls, 1
+
+    last = property(cs.B7Tap.last.fget)
+
+
+def test_b7_gates_pass_on_honest_words(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    tap = _Tap(_b7_calls())
+    merged = cs.b7_merge_hold(torch, "leg", tap)
+    assert merged["merges_held"] == 2
+    assert merged["max_share_of_fixed_point_bound"] <= 1.0
+    held = cs.b7_hold(torch, "leg", tap)
+    assert held["words_mismatched"] == 0 and held["leaves"] == 1
+    assert held["max_share_equal_unmasked"] <= cs.SECURE_BLIND_SHARE
+
+
+@pytest.mark.parametrize("fault,gate", [
+    ("masks", "slot words blinded"),
+    ("word", "sum over slots vs unmasked"),
+    ("merge", "masked merge vs plain mean")])
+def test_each_b7_gate_raises_through_hold(monkeypatch, capsys, fault, gate):
+    """Unmasked words (the masks left out), one flipped word, and a merge
+    off by one fixed-point unit in every slot each fail their gate."""
+    import torch
+    from bflc_demo_tpu_torch.ops import secure_mask as sm
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = _b7_calls(rounds=1)
+    d, w, keys, clip, words = calls[0]
+    q = sm.encode_plain(d, w, clip)
+    if fault == "masks":
+        words = (q - ((q >> 31) << 32)).to(torch.int32)
+    elif fault == "word":
+        words = words.clone()
+        words[1, 7] += 1
+    else:
+        words = words.clone() + 3
+    tap = _Tap([(d, w, keys, clip, words)])
+    with pytest.raises(RuntimeError, match=gate):
+        (cs.b7_merge_hold if fault == "merge" else cs.b7_hold)(
+            torch, "leg", tap)
+    failed = [x for x in _lines(capsys.readouterr().out)
+              if x["phase"] == "gate_failed"]
+    assert len(failed) == 1 and gate in failed[0]["gate"]
+
+
+def test_b7_bound_counts_each_pair_once():
+    ops, moved = cs.b7_work(16, 11_220_132)
+    assert ops == 120 * 11_220_132 * cs.B7_OPS_PER_MASK
+    assert moved == 16 * 11_220_132 * 8
+    assert cs.B7_OPS_PER_MASK == 74
+    assert cs.INT_ISSUE_OPS == cs.F32_CUDA_CORE_OPS / 2
+
+
+@pytest.mark.parametrize("got,want,first", [
+    ([1, 2, 3], [1, 2, 3], None), ([1, 2, 4], [1, 2, 3], 2),
+    ([0], [1], 0), ([1, 2], [1, 2, 3], 2)])
+def test_first_divergence(got, want, first):
+    assert cs.first_divergence(got, want) == first
+
+
+def test_upload_args_read_a_signed_upload():
+    from bflc_demo_tpu_torch.comm.identity import _op_bytes
+    body = b"\x07" * 32 + __import__("struct").pack("<qd", 137, 0.625)
+    args = cs.upload_args(_op_bytes("upload", "0x" + "12" * 20, 9, body))
+    assert args == ("0x" + "12" * 20, b"\x07" * 32, 137, 0.625, 9)
+
+
+def test_counting_keyring_counts_and_keeps_uploads():
+    from bflc_demo_tpu_torch.comm.identity import (KeyRing, sign_register,
+                                                   sign_upload)
+    ring = cs.CountingKeyRing(b"keyring-threaded-master-0001")
+    assert ring.mac("0x01", b"x") == KeyRing(
+        b"keyring-threaded-master-0001").mac("0x01", b"x")
+    tag = sign_upload(ring, "0x01", b"\1" * 32, 5, 1.0, 3)
+    from bflc_demo_tpu_torch.comm.identity import _op_bytes
+    import struct
+    ob = _op_bytes("upload", "0x01", 3,
+                   b"\1" * 32 + struct.pack("<qd", 5, 1.0))
+    assert ring.verify("0x01", ob, tag)
+    assert not ring.verify("0x02", ob, tag)
+    assert ring.verify("0x01", _op_bytes("register", "0x01", 0, b""),
+                       sign_register(ring, "0x01"))
+    assert ring.verified == {"upload": 1, "register": 1}
+    assert ring.refused == 1
+    assert ring.uploads[("0x01", 3, ("01" * 32))] == (ob, tag)
+
+
+class _DoneChild:
+    def __init__(self, rc):
+        self.returncode = rc
+
+    def wait(self, timeout=None):
+        return self.returncode
+
+    def kill(self):
+        pass
+
+
+@pytest.mark.parametrize("rc", [0, 1])
+def test_keyring_child_line_printed_again_or_its_failure_raised(
+        tmp_path, capsys, rc):
+    """The keyring leg's child: its leg's line printed again by the
+    parent with the child's launches returned, or, when it exited
+    non-zero, its failing gate's line printed again and the parent's
+    own gate raised."""
+    import time
+    base = str(tmp_path / "keyring_leg")
+    launches = {"flash_fwd": 3, "secure_mask": 0}
+    leg = {"phase": "keyring", "path": "keyring_threaded_config5",
+           "launches": launches, "t": 4.5}
+    gate = {"phase": "gate_failed", "leg": "keyring_threaded_config5",
+            "gate": "impostor forged_tag refused", "value": "OK",
+            "bar": ["BAD_ARG"]}
+    with open(base + ".out", "w") as f:
+        f.write("NVIDIA H100\n" + json.dumps(gate if rc else leg) + "\n")
+    with open(base + ".err", "w") as f:
+        f.write("Traceback: the child's error\n" if rc else "")
+    started = (_DoneChild(rc), time.perf_counter(), base)
+    if rc == 0:
+        assert cs.keyring_child_finish(started) == launches
+        (line,) = _lines(capsys.readouterr().out)
+        assert line["phase"] == "keyring" and line["child_t"] == 4.5
+        assert line["launches"] == launches
+        return
+    with pytest.raises(RuntimeError, match="child's error"):
+        cs.keyring_child_finish(started)
+    printed = _lines(capsys.readouterr().out)
+    assert printed[0] == gate
+    assert printed[1]["gate"] == "child exit code" and printed[1]["value"] == 1

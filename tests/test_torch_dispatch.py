@@ -121,9 +121,14 @@ def test_multi_round_program_guards():
         fedavg.make_multi_round_program(model, **base, comm_count=2,
                                         needed_update_count=3,
                                         scoring="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        fedavg.make_multi_round_program(model, **base, comm_count=2,
-                                        needed_update_count=3, secure=True)
+    # the secure program (ported) takes its trailing mask argument
+    secure_fn = fedavg.make_multi_round_program(
+        model, **base, comm_count=2, needed_update_count=3, secure=True)
+    with pytest.raises(TypeError, match="trailing mask"):
+        secure_fn(model.init_params(), torch.zeros((6, 10, 5)),
+                  torch.zeros((6, 10, 2)), torch.full((6,), 10),
+                  np.array([1, 1, 0, 0, 0, 0], bool), prng.PRNGKey(0),
+                  torch.zeros((2, 5)), torch.zeros((2, 2)))
     with pytest.raises(ValueError, match="client_chunk"):
         fedavg.make_multi_round_program(model, **base, comm_count=2,
                                         needed_update_count=3,
@@ -163,6 +168,10 @@ def test_batched_runtime_guards(kw, match):
 
 @pytest.mark.parametrize("what", ["checkpoint", "secure"])
 def test_batched_runtime_still_refuses_a11_a12(what, tmp_path):
+    """Both ported: dispatch-granular checkpoints, and secure rounds a
+    dispatch (one fresh mask key, each round re-keyed by its counter)
+    committing the plain dispatch's model within the fixed point's
+    quantisation."""
     if what == "checkpoint":
         # checkpoints are ported (A11): dispatch-granular, as in the
         # reference, the directory holds the state at the dispatch's end
@@ -176,8 +185,13 @@ def test_batched_runtime_still_refuses_a11_a12(what, tmp_path):
         assert meta["epoch"] == ledger.epoch == 2
         assert ledger.log_head() == res.ledger_log_head
         return
-    with pytest.raises(NotImplementedError, match="A12"):
-        _tiny(rounds=2, rounds_per_dispatch=2, secure_aggregation=True)
+    plain = _tiny(rounds=2, rounds_per_dispatch=2)
+    masked = _tiny(rounds=2, rounds_per_dispatch=2, secure_aggregation=True)
+    assert masked.rounds_completed == 2 and masked.ledger.verify_log()
+    assert masked.ledger_log_size == plain.ledger_log_size
+    for k in plain.final_params:
+        np.testing.assert_allclose(masked.final_params[k].numpy(),
+                                   plain.final_params[k].numpy(), atol=5e-3)
 
 
 # ------------------------------------------------------------ config 1

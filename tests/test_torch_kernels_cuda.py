@@ -30,6 +30,11 @@ column offsets
 subnormal sum at tile, stage, batch and strip boundaries, NaN/inf in
 unselected slots, and every route (each strip width and copy width, and
 the column kernel) forced on the same inputs.
+The secure-aggregation mask kernel (B7) is held against its plain
+version bit for bit: 1 to 40 slots (the shared-memory opt-in above 48
+KB), ragged element counts around its 128-thread block, NaN, +-inf and
+values past the clip, zero weights, and config 4's largest leaf (16 x
+2,359,296) on its last 1 M elements.
 K1-K3 also run in bfloat16 at config 5's mesh shapes (320, 6400 and
 800 rows), and the bfloat16 and MoE transformers on the card are held
 against the CPU path.
@@ -48,6 +53,7 @@ from bflc_demo_tpu_torch.models import make_transformer_classifier
 from bflc_demo_tpu_torch.ops import certified_reduce as cr
 from bflc_demo_tpu_torch.ops import fingerprint as fp
 from bflc_demo_tpu_torch.ops import flash_attention as fa
+from bflc_demo_tpu_torch.ops import secure_mask as sm
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -479,3 +485,60 @@ def test_certified_reduce_every_route_gives_the_spec_bytes(cuda_device, n,
 def test_certified_chain_latency_is_measured(cuda_device):
     ms, cycles = cr.chain_latency(1 << 16, cuda_device)
     assert 0 < ms < 1e-3 and 1 <= cycles < 100
+
+
+def _secure_inputs(slots, n, seed, device):
+    rng = np.random.default_rng(seed)
+    d = (rng.standard_normal((slots, n)) * 50).astype(np.float32)
+    d.reshape(-1)[rng.integers(0, d.size, 8)] = np.nan
+    d.reshape(-1)[rng.integers(0, d.size, 8)] = np.inf
+    d.reshape(-1)[rng.integers(0, d.size, 8)] = -np.inf
+    w = rng.random(slots).astype(np.float32)
+    w[rng.random(slots) < 0.3] = 0.0
+    w = w / max(w.sum(), 1e-12)
+    keys = rng.integers(0, 2**32, (slots, slots, 2), dtype=np.uint64)
+    keys = np.triu(keys.transpose(2, 0, 1), 1)
+    keys = (keys + keys.transpose(0, 2, 1)).transpose(1, 2, 0)
+    return (torch.as_tensor(d, device=device),
+            torch.as_tensor(w.astype(np.float32), device=device),
+            torch.as_tensor(keys.astype(np.uint32).view(np.int32),
+                            device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,n", [(1, 1), (2, 127), (3, 129), (16, 4099),
+                                     (20, 70001), (40, 513)])
+def test_secure_mask_matches_plain_bit_for_bit(cuda_device, slots, n):
+    d, w, keys = _secure_inputs(slots, n, slots * 1000 + n, cuda_device)
+    sm.reset_launches()
+    got = sm.masked_encode(d, w, keys, 64.0)
+    torch.cuda.synchronize()
+    assert sm.LAUNCHES["secure_mask"] == 1
+    want = sm.masked_encode_plain(d, w, keys, 64.0)
+    assert torch.equal(got, want)
+    # the masks cancel: the sum over slots is the unmasked words' sum
+    q = sm.encode_plain(d, w, 64.0)
+    assert torch.equal(got.to(torch.int64).sum(0) & sm.MASK,
+                       q.sum(0) & sm.MASK)
+
+
+@pytest.mark.cuda
+def test_secure_mask_config4_largest_leaf_window(cuda_device):
+    slots, n, window = 16, 2_359_296, 1 << 20
+    d, w, keys = _secure_inputs(slots, n, 4, cuda_device)
+    got = sm.masked_encode(d, w, keys, 1024.0)
+    want = sm.masked_encode_plain(d[:, n - window:], w, keys, 1024.0,
+                                  offset=n - window)
+    assert torch.equal(got[:, n - window:], want)
+
+
+@pytest.mark.cuda
+def test_secure_mask_rejects_what_it_cannot_take(cuda_device):
+    d, w, keys = _secure_inputs(4, 100, 0, cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        sm.masked_encode(d, w, keys.to(torch.int64), 64.0)
+    with pytest.raises(ValueError, match="one card"):
+        sm.masked_encode(d, w.cpu(), keys, 64.0)
+    with pytest.raises(ValueError, match="S, S, 2"):
+        sm.masked_encode(d, w, keys[:3], 64.0)
+

@@ -58,6 +58,7 @@ from bflc_demo_tpu_torch.models import (make_softmax_regression,
 from bflc_demo_tpu_torch.ops import fingerprint as fp
 from bflc_demo_tpu_torch.parallel.fedavg import make_sharded_protocol_round
 from bflc_demo_tpu_torch.protocol import ProtocolConfig
+from bflc_demo_tpu_torch.utils import prng
 
 # the module, not the `aggregate` function bflc_demo_tpu.core exports
 ref_agg = importlib.import_module("bflc_demo_tpu.core.aggregate")
@@ -433,6 +434,16 @@ def test_tiny_mesh_run_completes():
     (dict(local_optimizer="momentum"), "ported"),
 ])
 def test_unported_mesh_options_raise(kw, item, tmp_path):
+    if item == "A12":
+        # secure aggregation is ported: a shared-key run and a DH one
+        # with wallets (which also attest the committee rows)
+        from bflc_demo_tpu_torch.comm.identity import provision_wallets
+        for wallets in (None, provision_wallets(6, b"mesh-sec-01")[0]):
+            res = _tiny_run(secure_aggregation=True,
+                            secure_wallets=wallets, rounds=2)
+            assert res.rounds_completed == 2 and res.ledger.verify_log()
+            assert (res.attest_log is None) == (wallets is None)
+        return
     if item == "ported":
         # checkpoints and local optimizers are ported (A11): each runs
         from bflc_demo_tpu_torch.core import optim
@@ -490,10 +501,23 @@ def test_round_factory_guards():
         assert ring.score_matrix.shape == (6, 6)
         assert int(ring.selected.sum()) == 2
     counts = dict(comm_count=2, needed_update_count=3)
-    for kw, item in ((dict(secure=True), "A12"),
-                     (dict(expose_candidates=True, secure=True), "A12")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            make_sharded_protocol_round(model, **base, **counts, **kw)
+    args = (model.init_params(), torch.zeros((6, 10, 5)),
+            torch.zeros((6, 10, 2)), torch.full((6,), 10), UPLOADERS,
+            COMMITTEE)
+    for kw in (dict(secure=True), dict(expose_candidates=True, secure=True)):
+        # the secure round (ported) takes one trailing key, the plain none
+        fn = make_sharded_protocol_round(model, **base, **counts, **kw)
+        with pytest.raises(TypeError, match="trailing key"):
+            fn(*args)
+        res = fn(*args, prng.PRNGKey(3))
+        assert int(res.selected.sum()) == 2
+        if kw.get("expose_candidates"):
+            assert all(v.shape[0] == 3 for v in res.cand_deltas.values())
+        else:
+            assert res.cand_deltas == ()
+    with pytest.raises(TypeError, match="trailing key"):
+        make_sharded_protocol_round(model, **base, **counts)(
+            *args, prng.PRNGKey(3))
     # exposed candidates need the committee schedule's static K
     with pytest.raises(ValueError, match="expose_candidates"):
         make_sharded_protocol_round(model, **base, scoring="ring",

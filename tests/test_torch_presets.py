@@ -16,8 +16,10 @@
   protocol overrides (flags, and `BFLC_*` for config 3); config 4's run
   is in `tests/test_torch_participation.py`.  The overrides start from
   `ProtocolConfig()` as the reference's `protocol_from_env` does.
-  `secure=True` raises naming A12, and the fleet's, codecs' and the
-  device profiler's flags exit 2 naming their item.
+  Config 4's `secure=True` provisions the preset's 32 X25519 wallets and
+  runs the mesh runtime's secure aggregation (another runtime raises);
+  the CLI's `--secure` exits 2 on any other config; the fleet's,
+  codecs' and the device profiler's flags exit 2 naming their item.
 """
 
 import json
@@ -224,14 +226,75 @@ def test_no_preset_override_keeps_the_preset_protocol():
     (["--xprof-window", "2"], "A11"), (["--chaos-seed", "7"], "A14"),
     (["--chaos-profile", "light"], "A14"),
     (["--runtime", "host", "--xprof-window", "3"], "A11"),
-    (["--config", "config4", "--secure"], "A12"),
     (["--trace-path", "t.json"], "A14")])
 def test_cli_refuses_unported_flags(capsys, argv, item):
     assert cli(["--device", "cpu", *argv]) == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
 
 
-def test_config4_secure_raises_naming_a12():
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        configs.config4_resnet_cifar100(rounds=1, secure=True, device="cpu")
+@pytest.mark.parametrize("config", ["config0", "config1", "config2",
+                                    "config3", "config5"])
+def test_cli_secure_is_config4_only(capsys, config):
+    """`--secure` is config 4's variant: on any other config the CLI
+    exits 2, as the reference's (:208-213)."""
+    assert cli(["--device", "cpu", "--config", config, "--secure"]) == 2
+    assert "config4 secure-aggregation variant" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["--attest-scores", "--no-attest-scores",
+                                  None])
+def test_cli_secure_takes_attest_scores_on_the_mesh(monkeypatch, capsys,
+                                                    flag):
+    """`--config config4 --secure` hands the preset `secure=True`, and
+    `--[no-]attest-scores` with it on the mesh runtime (its wallets
+    sign the rows; the reference's :174-180)."""
+    import types
+    seen = {}
+
+    def build(**kw):
+        seen.update(kw)
+        return types.SimpleNamespace(
+            rounds_completed=1, final_accuracy=0.5, wall_time_s=1.0,
+            best_accuracy=lambda: 0.5, ledger_log_size=37,
+            ledger_log_head=b"\0" * 32)
+    monkeypatch.setitem(configs.CONFIGS, "config4", configs.BenchConfig(
+        "config4", "", build))
+    argv = ["--device", "cpu", "--config", "config4", "--secure",
+            "--rounds", "1"] + ([flag] if flag else [])
+    assert cli(argv) == 0
+    assert seen["secure"] is True and seen["runtime"] == "mesh"
+    assert seen.get("attest_scores") == {"--attest-scores": True,
+                                         "--no-attest-scores": False,
+                                         None: None}[flag]
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "config"] == "config4"
+    # without --secure the mesh runtime has no wallets to attest with
+    assert cli(["--device", "cpu", "--config", "config4",
+                "--attest-scores"]) == 2
+
+
+def test_config4_secure_raises_naming_a12(monkeypatch):
+    """Config 4's `secure=True` (ported): on the mesh runtime the preset
+    hands the runtime secure aggregation and the 32 wallets of its seed
+    (the reference's, byte for byte); on another runtime it raises."""
+    from bflc_demo_tpu.comm.identity import provision_wallets as ref_wallets
+    seen = {}
+
+    def spy(model, shards, test_set, cfg, **kw):
+        seen.update(kw, clients=cfg.client_num)
+        return "ran"
+    monkeypatch.setattr(configs, "run_with_runtime", spy)
+    assert configs.config4_resnet_cifar100(rounds=1, n_data=400,
+                                           secure=True) == "ran"
+    assert seen["secure_aggregation"] is True
+    assert (seen["participation"], seen["client_chunk"], seen["remat"]) \
+        == ("active", 4, True)
+    want, _ = ref_wallets(32, b"config4-secure-seed-0001")
+    assert [w.address for w in seen["secure_wallets"]] == \
+        [w.address for w in want]
+    assert [w.dh_public_bytes for w in seen["secure_wallets"]] == \
+        [w.dh_public_bytes for w in want]
+    with pytest.raises(ValueError, match="mesh runtime"):
+        configs.config4_resnet_cifar100(rounds=1, n_data=400, secure=True,
+                                        runtime="host")
     assert set(configs.CONFIGS) == set(ref_configs.CONFIGS)
