@@ -2,10 +2,10 @@
 variant) on one card.
 
 Port of `bflc_demo_tpu/parallel/secure.py`, whole: `_FRAC_BITS` /
-`_SCALE`, the mask keys of `_client_mask` (:54-83) and `_client_mask_dh`
-(:86-117), `derive_pair_seeds` (:120-146), `secure_masked_sum`
-(:152-214), `secure_fedavg_body` (:217-295) and `secure_fedavg`
-(:298-329).  Every slot pair (i, j) shares a key; slot i adds the pair's
+`_SCALE`, the mask keys of `_client_mask` (:55-81) and `_client_mask_dh`
+(:84-121), `derive_pair_seeds` (:124-147), `secure_masked_sum`
+(:153-232), `secure_fedavg_body` (:235-307) and `secure_fedavg`
+(:310-344).  Every slot pair (i, j) shares a key; slot i adds the pair's
 mask for j > i and subtracts it for j < i, so the masks cancel exactly in
 the sum mod 2**32, which therefore equals the sum of the unmasked
 fixed-point values bit for bit, while a single slot's words are noise
@@ -21,13 +21,14 @@ to anyone without the pair keys.  Two key modes, as in the reference:
 
 The merge: nan_to_num -> clip -> times w_i / sum(w) -> clip ->
 ``round(x * 2**16)`` int32 -> mask -> sum mod 2**32 -> int32 -> float32 /
-2**16 -> ``g - lr * m`` in g's dtype.  The per-leaf encode and mask is
-kernel B7 (`ops/secure_mask.py`, `csrc/secure_mask.cu`); the sum over
-slots and the unmask are elementwise torch.  One card has no psum: the
-client axis is the slots' leading axis, and the sum over it is the sum
-mod 2**32, which no order changes.  The mask keys are derived on the
-host (`leaf_keys`: every pair, every leaf, one vectorised Threefry pass a
-fold) and copied to the card once a merge.
+2**16 -> ``g - lr * m`` in g's dtype.  The encode and mask of every
+leaf is kernel B7 (`ops/secure_mask.py`, `csrc/secure_mask.cu`), one
+launch a merge into one (S, total) array of words; the sum over slots
+and the unmask are elementwise torch, once over that array.  One card
+has no psum: the client axis is the slots' leading axis, and the sum
+over it is the sum mod 2**32, which no order changes.  The mask keys are
+derived on the host (`leaf_pair_keys`: every pair, every leaf, one
+vectorised Threefry pass a fold) and copied to the card once a merge.
 
 Leaf order is `jax.tree_util.tree_flatten`'s (`ops.fingerprint.
 leaf_order` of the keystr keys), so each leaf's index, and with it every
@@ -60,11 +61,12 @@ _SCALE = secure_mask.SCALE
 _CAPACITY = float(1 << (31 - _FRAC_BITS))    # int32 fixed-point ceiling
 
 
-def leaf_keys(key_or_seeds, n: int, n_leaves: int, dh_mode: bool,
-              tweak: Optional[int] = None) -> np.ndarray:
-    """(n_leaves, n, n, 2) uint32: the mask key of every slot pair and
-    leaf (symmetric; the diagonal unused), `_client_mask`'s chain in
-    shared-key mode and `_client_mask_dh`'s in DH mode."""
+def leaf_pair_keys(key_or_seeds, n: int, n_leaves: int, dh_mode: bool,
+                   tweak: Optional[int] = None) -> np.ndarray:
+    """(n_leaves, n(n-1)/2, 2) uint32: the mask key of every slot pair
+    (i, j), i < j in row order, and leaf — `_client_mask`'s chain in
+    shared-key mode and `_client_mask_dh`'s in DH mode; B7's packed key
+    table."""
     lo, hi = np.triu_indices(n, k=1)
     if dh_mode:
         seeds = np.asarray(key_or_seeds, np.uint32)
@@ -78,8 +80,16 @@ def leaf_keys(key_or_seeds, n: int, n_leaves: int, dh_mode: bool,
         base = prng.fold_in_many(np.broadcast_to(key, (lo.size, 2)),
                                  lo * n + hi)
     leaves = np.arange(n_leaves)[:, None]
-    keys = prng.fold_in_many(
+    return prng.fold_in_many(
         np.broadcast_to(base, (n_leaves,) + base.shape), leaves)
+
+
+def leaf_keys(key_or_seeds, n: int, n_leaves: int, dh_mode: bool,
+              tweak: Optional[int] = None) -> np.ndarray:
+    """(n_leaves, n, n, 2) uint32: `leaf_pair_keys` as symmetric pair
+    matrices (the diagonal unused)."""
+    keys = leaf_pair_keys(key_or_seeds, n, n_leaves, dh_mode, tweak)
+    lo, hi = np.triu_indices(n, k=1)
     out = np.zeros((n_leaves, n, n, 2), np.uint32)
     out[:, lo, hi] = keys
     out[:, hi, lo] = keys
@@ -145,20 +155,19 @@ def _masked_leaves(values: Params, wn: torch.Tensor, key_or_seeds,
                    clip: float, dh_mode: bool,
                    tweak: Optional[int]) -> dict:
     """{key: dequantised float32 sum over the slots} of the stacked
-    `values`, each leaf's slots encoded and masked by B7 (`wn` the slots'
-    weights), summed mod 2**32 and unmasked."""
+    `values`: every leaf's slots encoded and masked by one B7 launch
+    (`wn` the slots' weights), summed mod 2**32 and unmasked once over
+    the round's (S, total) words; each leaf's sum is a view of that."""
     order = leaf_order(list(values))
     first = values[order[0]]
     n = first.shape[0]
-    keys = upload(leaf_keys(key_or_seeds, n, len(order), dh_mode, tweak)
-                  .view(np.int32), first.device)
-    out = {}
-    for idx, k in enumerate(order):
-        leaf = values[k]
-        masked = secure_mask.masked_encode(leaf.reshape(n, -1), wn,
-                                           keys[idx], clip)
-        out[k] = secure_mask.unmask_sum(masked).reshape(leaf.shape[1:])
-    return out
+    keys = upload(leaf_pair_keys(key_or_seeds, n, len(order), dh_mode,
+                                 tweak).view(np.int32), first.device)
+    flat = [values[k].reshape(n, -1) for k in order]
+    words, _ = secure_mask.masked_encode_leaves(flat, wn, keys, clip)
+    sums = torch.split(secure_mask.unmask_sum(words),
+                       [d.shape[1] for d in flat])
+    return {k: m.reshape(values[k].shape[1:]) for k, m in zip(order, sums)}
 
 
 def secure_masked_sum(values: Params, round_key=None, clip: float = 64.0,

@@ -119,23 +119,27 @@ first at the bar and the evaluations to spare after it.
              (later rounds printed, with the first that differs: a
              decision may flip on the fixed point's rounding), its
              ledger's size that run's, its final parameters within
-             SECURE_C4_PARAM_TOL of that run's, B6 2 and B7 62 (a leaf)
-             a round; every merge within the fixed point's bound of the
-             plain weighted mean of the same deltas; on the last round's
+             SECURE_C4_PARAM_TOL of that run's, B6 2 and B7 1 (one
+             launch over the 62 leaves) a round; every merge within the
+             fixed point's bound of the plain weighted mean of the same
+             deltas; on the last round's
              B7 inputs the sum over the slots of every leaf's masked
              words equals the sum of the unmasked fixed-point words bit
              for bit, B7's words equal its plain version's on every leaf
              under 1 M elements and on the last 1 M of each larger one,
              and no slot's masked word equals its unmasked one on more
              than SECURE_BLIND_SHARE of a leaf; each round's pair-seed
-             seconds; B7 timed at the whole round's 62 launches and at
-             the largest leaf beside the bound (integer operations, each
-             pair's mask once, against bytes) and the plain version;
+             seconds; B7 timed at the round's one launch and at the
+             largest leaf's one-leaf launch beside the bound (integer
+             operations, each pair's mask once, against bytes), the
+             floors its SASS implies and the plain version, and its
+             SASS counted by pipe on a line of its own;
              `secure_dispatch_config5`, config 5 with 20 DH wallets at
              `rounds_per_dispatch` 5, 10 rounds — the same gates against
              `dispatch_config5` (parameters within SECURE_C5_PARAM_TOL),
              K1-K3, B6 and B7 held to the mesh round's counts plus B7's
-             30 leaves a round, B7 timed at its shape;
+             one launch over the 30 leaves a round, B7 timed at its
+             shape;
              `keyring_threaded_config5`, the threaded runtime at config 5
              with an HMAC `KeyRing`, 3 rounds — every client op on the
              chain authenticated, a forged tag, a replayed tag, a
@@ -529,7 +533,7 @@ KERNELS = {
     "flash_carry": "bflc_demo_tpu/ops/pallas_attention.py:300",
     "fingerprint": "bflc_demo_tpu/ops/fingerprint.py:62",
     "certified_reduce": "bflc_demo_tpu/meshagg/engine.py:260",
-    "secure_mask": "bflc_demo_tpu/parallel/secure.py:217",
+    "secure_mask": "bflc_demo_tpu/parallel/secure.py:235",
 }
 DENSE_KERNELS = ("flash_fwd", "flash_dkdv", "flash_dq")
 SOURCES = {name: "bflc_demo_tpu_torch/ops/csrc/flash_attention.cu"
@@ -790,6 +794,12 @@ SECURE_C5_PARAM_TOL = 5 * 0.0212
 # initial adds, 20 rounds of add, funnel shift and xor, 5 key injections
 # of two adds, the final xor, and the add into a slot's sum
 B7_OPS_PER_MASK = 2 + 20 * 3 + 5 * 2 + 1 + 1
+# B7's LOP3 instructions a mask word in its SASS: a Threefry round's xor
+# (20) and the final x0 ^ x1; the rotates are funnel shifts (SHF)
+B7_LOP3_PER_MASK = 21
+# B7's launches a secure round: one over every leaf
+B7_PER_ROUND = 1
+SECURE_C5_PER_ROUND = dict(MESH_PER_ROUND, secure_mask=B7_PER_ROUND)
 # the most 32-bit integer operations the card issues: one instruction a
 # lane a clock on all 128 lanes of an SM (4 warp instructions a clock,
 # the SM's issue limit), half the float32 rate's 67e12 (an FMA counts 2).
@@ -4840,6 +4850,8 @@ def dispatch_phase(torch, fa, device, card: str) -> tuple:
 # a round, final params, ledger size)
 PLAIN_KEPT = ("mesh_config4", "dispatch_config5")
 PLAIN_RUNS: dict = {}
+# B7's SASS counts, measured once a run (`b7_sass`)
+_SASS: dict = {}
 
 
 class DecisionTap:
@@ -4882,29 +4894,40 @@ class DecisionTap:
 
 
 class B7Tap:
-    """Keeps the inputs and words of every B7 launch a path makes (one a
-    leaf a round, in leaf order), by reference: nothing writes a round's
-    deltas or words after the merge reads them.  `last` is the last
-    round's, by leaf index."""
+    """Keeps the inputs and words of every B7 round a path makes (one
+    launch a round over every leaf, `masked_encode_leaves`), by
+    reference: nothing writes a round's deltas or words after the merge
+    reads them.  `rounds` holds each round's (leaves, wn, packed keys,
+    clip, words, views); `calls` every round's leaves and `last` the
+    last round's, by leaf index, each as (deltas, wn, the leaf's packed
+    (S(S-1)/2, 2) keys, clip, words)."""
 
-    def __init__(self, leaves: int):
+    def __init__(self):
         from bflc_demo_tpu_torch.ops import secure_mask
-        self.sm, self.leaves, self.calls = secure_mask, leaves, []
-        self.real = secure_mask.masked_encode
-        secure_mask.masked_encode = self._call
+        self.sm, self.rounds = secure_mask, []
+        self.real = secure_mask.masked_encode_leaves
+        secure_mask.masked_encode_leaves = self._call
 
-    def _call(self, deltas, wn, keys, clip, out=None):
-        words = self.real(deltas, wn, keys, clip, out)
-        if deltas.is_cuda:
-            self.calls.append((deltas, wn, keys, clip, words))
-        return words
+    def _call(self, leaves, wn, keys, clip):
+        words, views = self.real(leaves, wn, keys, clip)
+        if words.is_cuda:
+            self.rounds.append((leaves, wn, keys, clip, words, views))
+        return words, views
+
+    def _leaves(self, round_: tuple) -> list:
+        leaves, wn, keys, clip, _, views = round_
+        return [(d, wn, k, clip, v) for d, k, v in zip(leaves, keys, views)]
+
+    @property
+    def calls(self) -> list:
+        return [leaf for r in self.rounds for leaf in self._leaves(r)]
 
     @property
     def last(self) -> dict:
-        return dict(enumerate(self.calls[-self.leaves:]))
+        return dict(enumerate(self._leaves(self.rounds[-1])))
 
     def undo(self) -> None:
-        self.sm.masked_encode = self.real
+        self.sm.masked_encode_leaves = self.real
 
 
 def b7_merge_hold(torch, leg: str, tap: B7Tap) -> dict:
@@ -5008,36 +5031,79 @@ def b7_work(slots: int, elements: int) -> tuple:
             slots * elements * (4 + 4))
 
 
-def b7_timing(torch, tap: B7Tap, case: str, card: str) -> dict:
-    """B7 over the last round's launches (every leaf, into fresh outputs)
-    and at its largest leaf, each timed from CUDA-graph replays beside
-    its bound (operations over INT_ISSUE_OPS against bytes over
-    HBM_BYTES_PER_S) and the plain version's one call between CUDA
-    events."""
-    sm = tap.sm
-    calls = [(d, w, k, c, torch.empty_like(words))
-             for d, w, k, c, words in (tap.last[i] for i in sorted(tap.last))]
-    largest = max(calls, key=lambda a: a[0].shape[1])
-    rows = {}
-    for name, group in ((case, calls), (f"{case}_largest_leaf", [largest])):
-        slots = group[0][0].shape[0]
-        elements = sum(a[0].shape[1] for a in group)
+def b7_mask_words_a_pass(loop: dict, per: int) -> int:
+    """The mask words one pass of B7's pair loop draws, from its SASS
+    counts `loop` (`eval/sass.py:counts`): its LOP3s over
+    B7_LOP3_PER_MASK, which must be a whole multiple of the `per`
+    elements a thread (more when ptxas unrolls the loop), else the gate
+    fails."""
+    lop3 = sum(n for op, n in loop["opcodes"].items()
+               if op.split(".")[0] == "LOP3")
+    ok = lop3 > 0 and lop3 % (B7_LOP3_PER_MASK * per) == 0
+    hold("secure", "B7 pair loop's LOP3s a whole number of passes", ok,
+         lop3, f"a multiple of {B7_LOP3_PER_MASK} x {per}")
+    return lop3 // B7_LOP3_PER_MASK
 
-        def run_kernel(group=group):
-            for d, w, k, c, out in group:
-                sm.launch(d, w, k, c, out)
-        ms = device_ms(torch, run_kernel, calls=3, replays=2, repeats=3)
-        plain_ms = event_ms(torch, lambda group=group: [
-            sm.masked_encode_plain(d, w, k, c) for d, w, k, c, _ in group])
+
+def b7_sass(sm) -> dict:
+    """B7's SASS by pipe (`eval/sass.py`: the whole kernel and its pair
+    loop), per mask word (the loop's counts over the words a pass draws,
+    `b7_mask_words_a_pass`), printed on a line of its own the first
+    time."""
+    if "secure_mask" not in _SASS:
+        from bflc_demo_tpu_torch.eval import sass
+        from bflc_demo_tpu_torch.ops.build import library_path
+        found = sass.pipe_counts(str(library_path("secure_mask")),
+                                 "secure_mask_kernel", "LOP3")
+        per = sm.elements_a_thread()
+        words = b7_mask_words_a_pass(found["loop"], per)
+        found["elements_a_thread"] = per
+        found["mask_words_a_pass"] = words
+        found["per_mask_word"] = {k: found["loop"][k] / words for k in
+                                  ("total", "alu", "fma", "mio", "other")}
+        emit("sass", **found)
+        _SASS["secure_mask"] = found
+    return _SASS["secure_mask"]
+
+
+def b7_timing(torch, tap: B7Tap, case: str, card: str) -> dict:
+    """B7 over the last round (its one launch over every leaf, into a
+    fresh output) and at its largest leaf (a one-leaf launch), each
+    timed from CUDA-graph replays beside its bound (operations over
+    INT_ISSUE_OPS against bytes over HBM_BYTES_PER_S) and the floors its
+    pair loop's SASS implies (the INT pipe's and the FMA pipe's
+    instructions a mask word, each pipe 64 lanes an SM a clock), and the
+    plain version's one call between CUDA events."""
+    sm = tap.sm
+    leaves, wn, keys, clip, _, _ = tap.rounds[-1]
+    full = tap.last
+    big = max(full, key=lambda i: leaves[i].shape[1])
+    per_word = b7_sass(sm)["per_mask_word"]
+    rows = {}
+    for name, idx in ((case, sorted(full)), (f"{case}_largest_leaf", [big])):
+        plan = sm.RoundPlan([leaves[i] for i in idx], wn, keys[idx], clip)
+        out = torch.empty((plan.slots, plan.total), dtype=torch.int32,
+                          device=leaves[0].device)
+        ms = device_ms(torch, lambda plan=plan, out=out: plan.launch(out),
+                       calls=3, replays=2, repeats=3)
+        plain_ms = event_ms(torch, lambda idx=idx: [
+            sm.masked_encode_plain(*full[i][:4]) for i in idx])
+        slots, elements = plan.slots, plan.total
         ops, moved = b7_work(slots, elements)
         t_ops = ops / INT_ISSUE_OPS * 1e3
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        words = slots * (slots - 1) // 2 * elements
         row = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                "library": None, "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "ops": ops, "bytes": moved, "slots": slots,
-               "elements": elements, "launches_a_call": len(group),
-               "shape": [slots, elements] if len(group) == 1 else None,
+               "elements": elements, "leaves": len(idx),
+               "launches_a_call": 1,
+               "int_pipe_floor_ms": words * per_word["alu"]
+               / (INT_ISSUE_OPS / 2) * 1e3,
+               "fma_pipe_floor_ms": words * per_word["fma"]
+               / (INT_ISSUE_OPS / 2) * 1e3,
+               "shape": [slots, elements] if len(idx) == 1 else None,
                "nvidia_smi": card}
         row["share_of_bound"] = row["bound_ms"] / ms
         emit("timing", kernel="secure_mask", case=name, **row)
@@ -5045,6 +5111,15 @@ def b7_timing(torch, tap: B7Tap, case: str, card: str) -> dict:
     main = rows[case]
     main["at"] = {f"{case}_largest_leaf": rows[f"{case}_largest_leaf"]}
     return main
+
+
+def secure_c4_launches(launches: dict) -> dict:
+    """`secure_config4`'s launches: B6 2 and B7 1 (one launch over the
+    62 leaves) a round, nothing else."""
+    want = {k: 0 for k in launches}
+    want["fingerprint"] = MESH_PER_ROUND["fingerprint"] * SECURE_C4_ROUNDS
+    want["secure_mask"] = B7_PER_ROUND * SECURE_C4_ROUNDS
+    return want
 
 
 def max_param_diff(a: dict, b: dict) -> float:
@@ -5065,10 +5140,9 @@ def secure_config4_leg(torch, card: str) -> tuple:
     from bflc_demo_tpu_torch.eval import configs
     leg = "secure_config4"
     decisions, plain_params, log_size = PLAIN_RUNS["mesh_config4"]
-    leaves = len(plain_params)
     torch.cuda.reset_peak_memory_stats()
     seeds_s, undo_seeds = pair_seed_timer()
-    tap, b7 = DecisionTap(), B7Tap(leaves)
+    tap, b7 = DecisionTap(), B7Tap()
     runs, real_run = [], configs.run_federated_mesh
 
     def kept(*a, **kw):
@@ -5094,9 +5168,7 @@ def secure_config4_leg(torch, card: str) -> tuple:
     printed = json.loads(out.getvalue().strip().splitlines()[-1])
     res = runs[0]
     peak = torch.cuda.max_memory_allocated()
-    want = {k: 0 for k in launches}
-    want["fingerprint"] = MESH_PER_ROUND["fingerprint"] * SECURE_C4_ROUNDS
-    want["secure_mask"] = leaves * SECURE_C4_ROUNDS
+    want = secure_c4_launches(launches)
     diff = max_param_diff(res.final_params, plain_params)
     acc = [a for _, a in res.accuracy_history]
     merged = b7_merge_hold(torch, leg, b7)
@@ -5142,22 +5214,20 @@ def secure_dispatch_config5_leg(torch, card: str) -> tuple:
     """Config 5 with 20 DH wallets at `rounds_per_dispatch` DISPATCH_R,
     DISPATCH_ROUNDS rounds (`dispatch_run`): decisions round for round
     equal `dispatch_config5`'s, final params within SECURE_C5_PARAM_TOL,
-    launches the mesh round's plus B7 a leaf a round; B7 on the last
+    launches the mesh round's plus B7 one a round; B7 on the last
     round's inputs (`b7_hold`) and timed.  Returns (launches, B7's
     timing row)."""
     from bflc_demo_tpu_torch.comm.identity import provision_wallets
     from bflc_demo_tpu_torch.eval.configs import config5_transformer_sst2
     leg = "secure_dispatch_config5"
     decisions, plain_params, log_size = PLAIN_RUNS["dispatch_config5"]
-    leaves = len(plain_params)
     wallets, _ = provision_wallets(CONFIG5_PROTO["client_num"],
                                    SECURE_C5_WALLET_SEED)
     seeds_s, undo_seeds = pair_seed_timer()
-    b7 = B7Tap(leaves)
+    b7 = B7Tap()
     try:
         res, launches = dispatch_run(
-            torch, leg, config5_transformer_sst2,
-            dict(MESH_PER_ROUND, secure_mask=leaves),
+            torch, leg, config5_transformer_sst2, SECURE_C5_PER_ROUND,
             secure_aggregation=True, secure_wallets=wallets)
     finally:
         b7.undo()

@@ -545,38 +545,37 @@ def test_reference_backend_follows_the_references_gates(knobs, compacts,
 
 
 # ------------------------------------------------------ the secure legs
-def _b7_calls(slots=4, n=300, rounds=2, seed=0):
-    """B7's plain launches of a few rounds, as `B7Tap` keeps them."""
+def _b7_rounds(slots=4, n=300, rounds=2, seed=0):
+    """B7's plain rounds (one leaf each), as `B7Tap` keeps them: (leaves,
+    wn, packed keys, clip, words, views)."""
     import torch
     from bflc_demo_tpu_torch.ops import secure_mask as sm
     from bflc_demo_tpu_torch.parallel import secure
     rng = np.random.default_rng(seed)
-    calls = []
+    out = []
     for r in range(rounds):
-        keys = torch.as_tensor(secure.leaf_keys(
-            np.array([0, r], np.uint32), slots, 1, False)[0].view(np.int32))
+        keys = torch.as_tensor(secure.leaf_pair_keys(
+            np.array([0, r], np.uint32), slots, 1, False).view(np.int32))
         d = torch.as_tensor((rng.standard_normal((slots, n)) * 30)
                             .astype(np.float32))
         d[0, 5] = float("nan")
         w = torch.as_tensor(rng.random(slots).astype(np.float32))
         w = w / w.sum()
-        calls.append((d, w, keys, 64.0,
-                      sm.masked_encode_plain(d, w, keys, 64.0)))
-    return calls
+        words, views = sm.masked_encode_leaves_plain([d], w, keys, 64.0)
+        out.append(([d], w, keys, 64.0, words, views))
+    return out
 
 
-class _Tap:
-    def __init__(self, calls):
+class _Tap(cs.B7Tap):
+    def __init__(self, rounds):
         from bflc_demo_tpu_torch.ops import secure_mask
-        self.sm, self.calls, self.leaves = secure_mask, calls, 1
-
-    last = property(cs.B7Tap.last.fget)
+        self.sm, self.rounds = secure_mask, rounds
 
 
 def test_b7_gates_pass_on_honest_words(monkeypatch):
     import torch
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
-    tap = _Tap(_b7_calls())
+    tap = _Tap(_b7_rounds())
     merged = cs.b7_merge_hold(torch, "leg", tap)
     assert merged["merges_held"] == 2
     assert merged["max_share_of_fixed_point_bound"] <= 1.0
@@ -595,9 +594,8 @@ def test_each_b7_gate_raises_through_hold(monkeypatch, capsys, fault, gate):
     import torch
     from bflc_demo_tpu_torch.ops import secure_mask as sm
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
-    calls = _b7_calls(rounds=1)
-    d, w, keys, clip, words = calls[0]
-    q = sm.encode_plain(d, w, clip)
+    (leaves, w, keys, clip, words, _), = _b7_rounds(rounds=1)
+    q = sm.encode_plain(leaves[0], w, clip)
     if fault == "masks":
         words = (q - ((q >> 31) << 32)).to(torch.int32)
     elif fault == "word":
@@ -605,13 +603,59 @@ def test_each_b7_gate_raises_through_hold(monkeypatch, capsys, fault, gate):
         words[1, 7] += 1
     else:
         words = words.clone() + 3
-    tap = _Tap([(d, w, keys, clip, words)])
+    tap = _Tap([(leaves, w, keys, clip, words, [words])])
     with pytest.raises(RuntimeError, match=gate):
         (cs.b7_merge_hold if fault == "merge" else cs.b7_hold)(
             torch, "leg", tap)
     failed = [x for x in _lines(capsys.readouterr().out)
               if x["phase"] == "gate_failed"]
     assert len(failed) == 1 and gate in failed[0]["gate"]
+
+
+def test_b7_tap_keeps_each_round_leaf_by_leaf():
+    """The tap's rounds read leaf by leaf: every round's leaves in
+    `calls`, the last round's in `last`, each with its packed (S(S-1)/2,
+    2) keys and its view of the round's words."""
+    import torch
+    rounds = _b7_rounds(rounds=3)
+    tap = _Tap(rounds)
+    assert len(tap.calls) == 3 and sorted(tap.last) == [0]
+    d, w, keys, clip, words = tap.last[0]
+    leaves, _, packed, _, round_words, _ = rounds[-1]
+    assert d is leaves[0] and torch.equal(words, round_words)
+    assert torch.equal(keys, packed[0])
+
+
+@pytest.mark.parametrize("lop3,per,words", [
+    (42, 2, 2), (84, 2, 4), (21, 1, 1), (42, 1, 2), (40, 2, None),
+    (21, 2, None), (0, 1, None)])
+def test_b7_mask_words_a_pass_from_lop3(capsys, lop3, per, words):
+    """The pair loop's LOP3s (21 a mask word) give the words a pass
+    draws, an unrolled loop's too; a count that is no whole number of
+    passes at `per` elements a thread fails its gate."""
+    loop = {"opcodes": {"LOP3.LUT": lop3, "SHF.L.W.U32.HI": 20 * per}}
+    if words is not None:
+        assert cs.b7_mask_words_a_pass(loop, per) == words
+        return
+    with pytest.raises(RuntimeError, match="LOP3"):
+        cs.b7_mask_words_a_pass(loop, per)
+    failed = [x for x in _lines(capsys.readouterr().out)
+              if x["phase"] == "gate_failed"]
+    assert [x["value"] for x in failed] == [lop3]
+
+
+def test_b7_launch_gates_are_one_a_round():
+    """B7 is one launch a round: `secure_config4`'s 2 rounds hold it at
+    2 (B6 at 2 a round beside it, nothing else), and
+    `secure_dispatch_config5`'s 10 rounds at 10 (`dispatch_run` times
+    the per-round counts by its rounds)."""
+    counts = {"flash_fwd": 7, "fingerprint": 4, "secure_mask": 2}
+    want = cs.secure_c4_launches(counts)
+    assert want == {"flash_fwd": 0, "fingerprint": 4, "secure_mask": 2}
+    assert cs.SECURE_C5_PER_ROUND["secure_mask"] \
+        * cs.DISPATCH_ROUNDS == 10
+    assert {k: v for k, v in cs.SECURE_C5_PER_ROUND.items()
+            if k != "secure_mask"} == cs.MESH_PER_ROUND
 
 
 def test_b7_bound_counts_each_pair_once():

@@ -31,10 +31,16 @@ subnormal sum at tile, stage, batch and strip boundaries, NaN/inf in
 unselected slots, and every route (each strip width and copy width, and
 the column kernel) forced on the same inputs.
 The secure-aggregation mask kernel (B7) is held against its plain
-version bit for bit: 1 to 40 slots (the shared-memory opt-in above 48
-KB), ragged element counts around its 128-thread block, NaN, +-inf and
-values past the clip, zero weights, and config 4's largest leaf (16 x
-2,359,296) on its last 1 M elements.
+version bit for bit: one leaf (`masked_encode`, a one-leaf table) at 1
+to 40 slots (the shared-memory opt-in above 48 KB), ragged element
+counts around its 256-element tile, NaN, +-inf and values past the
+clip, zero weights, and config 4's largest leaf (16 x 2,359,296) on its
+last 1 M elements; a round's one launch over every leaf
+(`masked_encode_leaves`) at 2, 3, 16, 20 and 40 slots over leaves of 1,
+2, 127, 128, 129, 4097 and 65,537 elements, over config 5's 30 leaf
+shapes at 20 slots, and over config 4's 62 at 16 (each leaf whole below
+64 K elements, else its first and last 64 K); and what the wrappers
+refuse.
 K1-K3 also run in bfloat16 at config 5's mesh shapes (320, 6400 and
 800 rows), and the bfloat16 and MoE transformers on the card are held
 against the CPU path.
@@ -505,6 +511,13 @@ def _secure_inputs(slots, n, seed, device):
                             device=device))
 
 
+def _upper(keys):
+    """The packed (S(S-1)/2, 2) upper triangle of (S, S, 2) pair keys."""
+    lo, hi = torch.triu_indices(keys.shape[0], keys.shape[0], offset=1,
+                                device=keys.device)
+    return keys[lo, hi]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("slots,n", [(1, 1), (2, 127), (3, 129), (16, 4099),
                                      (20, 70001), (40, 513)])
@@ -514,7 +527,7 @@ def test_secure_mask_matches_plain_bit_for_bit(cuda_device, slots, n):
     got = sm.masked_encode(d, w, keys, 64.0)
     torch.cuda.synchronize()
     assert sm.LAUNCHES["secure_mask"] == 1
-    want = sm.masked_encode_plain(d, w, keys, 64.0)
+    want = sm.masked_encode_plain(d, w, _upper(keys), 64.0)
     assert torch.equal(got, want)
     # the masks cancel: the sum over slots is the unmasked words' sum
     q = sm.encode_plain(d, w, 64.0)
@@ -527,13 +540,14 @@ def test_secure_mask_config4_largest_leaf_window(cuda_device):
     slots, n, window = 16, 2_359_296, 1 << 20
     d, w, keys = _secure_inputs(slots, n, 4, cuda_device)
     got = sm.masked_encode(d, w, keys, 1024.0)
-    want = sm.masked_encode_plain(d[:, n - window:], w, keys, 1024.0,
-                                  offset=n - window)
+    want = sm.masked_encode_plain(d[:, n - window:], w, _upper(keys),
+                                  1024.0, offset=n - window)
     assert torch.equal(got[:, n - window:], want)
 
 
 @pytest.mark.cuda
 def test_secure_mask_rejects_what_it_cannot_take(cuda_device):
+    sm.reset_launches()
     d, w, keys = _secure_inputs(4, 100, 0, cuda_device)
     with pytest.raises(TypeError, match="int32"):
         sm.masked_encode(d, w, keys.to(torch.int64), 64.0)
@@ -541,4 +555,95 @@ def test_secure_mask_rejects_what_it_cannot_take(cuda_device):
         sm.masked_encode(d, w.cpu(), keys, 64.0)
     with pytest.raises(ValueError, match="S, S, 2"):
         sm.masked_encode(d, w, keys[:3], 64.0)
+    leaves, w, packed = _round_inputs(4, [5, 300], 1, cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        sm.masked_encode_leaves(leaves, w, packed.to(torch.int64), 64.0)
+    with pytest.raises(TypeError, match="floating point"):
+        sm.masked_encode_leaves([leaves[0].to(torch.int32), leaves[1]], w,
+                                packed, 64.0)
+    with pytest.raises(ValueError, match="one card"):
+        sm.masked_encode_leaves([leaves[0], leaves[1].cpu()], w, packed,
+                                64.0)
+    with pytest.raises(ValueError, match="one card"):
+        sm.masked_encode_leaves(leaves, w, packed.cpu(), 64.0)
+    with pytest.raises(ValueError, match="L, S"):
+        sm.masked_encode_leaves(leaves, w, packed[:1], 64.0)
+    many, w41, keys41 = _round_inputs(41, [3], 2, cuda_device)
+    with pytest.raises(ValueError, match="over 40"):
+        sm.masked_encode_leaves(many, w41, keys41, 64.0)
+    assert sm.LAUNCHES["secure_mask"] == 0
+
+
+LEAF_SIZES = (1, 2, 127, 128, 129, 4097, 65537)
+
+
+def _round_inputs(slots, sizes, seed, device):
+    """A round's leaves (S, n) with NaN, +-inf and values past the clip,
+    the weights (some zero) and random packed pair keys (L, P, 2)."""
+    rng = np.random.default_rng(seed)
+    leaves = []
+    for n in sizes:
+        d = (rng.standard_normal((slots, n)) * 50).astype(np.float32)
+        flat = d.reshape(-1)
+        for v in (np.nan, np.inf, -np.inf):
+            flat[rng.integers(0, flat.size, 2)] = v
+        leaves.append(torch.as_tensor(d, device=device))
+    w = rng.random(slots).astype(np.float32)
+    w[rng.random(slots) < 0.3] = 0.0
+    w = w / max(w.sum(), 1e-12)
+    keys = rng.integers(0, 2**32, (len(sizes), slots * (slots - 1) // 2, 2),
+                        dtype=np.uint64).astype(np.uint32).view(np.int32)
+    return (leaves, torch.as_tensor(w.astype(np.float32), device=device),
+            torch.as_tensor(keys, device=device))
+
+
+def _hold_round(leaves, w, keys, clip, window=None):
+    """One launch over every leaf against the plain version, bit for bit:
+    each leaf whole, or its first and last `window` elements."""
+    sm.reset_launches()
+    words, views = sm.masked_encode_leaves(leaves, w, keys, clip)
+    torch.cuda.synchronize()
+    assert sm.LAUNCHES["secure_mask"] == 1
+    assert words.shape == (leaves[0].shape[0],
+                           sum(d.shape[1] for d in leaves))
+    for d, k, v in zip(leaves, keys, views):
+        n = d.shape[1]
+        spans = ([(0, n)] if window is None or n <= 2 * window else
+                 [(0, window), (n - window, n)])
+        for a, b in spans:
+            want = sm.masked_encode_plain(d[:, a:b], w, k, clip, offset=a)
+            assert torch.equal(v[:, a:b], want), (n, a, b)
+        if window is None or n <= 2 * window:
+            q = sm.encode_plain(d, w, clip)
+            assert torch.equal(v.to(torch.int64).sum(0) & sm.MASK,
+                               q.sum(0) & sm.MASK)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [2, 3, 16, 20, 40])
+def test_secure_round_matches_plain_bit_for_bit(cuda_device, slots):
+    leaves, w, keys = _round_inputs(slots, LEAF_SIZES, slots, cuda_device)
+    _hold_round(leaves, w, keys, 64.0)
+
+
+def _model_sizes(params):
+    from bflc_demo_tpu_torch.ops.fingerprint import leaf_order
+    return [params[k].numel() for k in leaf_order(list(params))]
+
+
+@pytest.mark.cuda
+def test_secure_round_config5_leaves(cuda_device):
+    sizes = _model_sizes(make_transformer_classifier().init_params(0))
+    assert len(sizes) == 30 and sum(sizes) == 535_298
+    leaves, w, keys = _round_inputs(20, sizes, 5, cuda_device)
+    _hold_round(leaves, w, keys, 64.0)
+
+
+@pytest.mark.cuda
+def test_secure_round_config4_leaves_through_windows(cuda_device):
+    from bflc_demo_tpu_torch.models import canonical_params, make_resnet18
+    sizes = _model_sizes(canonical_params(make_resnet18()))
+    assert len(sizes) == 62 and sum(sizes) == 11_220_132
+    leaves, w, keys = _round_inputs(16, sizes, 4, cuda_device)
+    _hold_round(leaves, w, keys, 1024.0, window=1 << 16)
 

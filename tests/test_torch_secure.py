@@ -4,7 +4,13 @@ plain version (`ops/secure_mask.py`) against the reference's
 
 Bit for bit: every masked word (both key modes, with and without the
 DH tweak, same-shape leaves) against the reference's `_client_mask` /
-`_client_mask_dh` jitted; `derive_pair_seeds`; `secure_fedavg` in
+`_client_mask_dh` jitted; B7's round entry (`masked_encode_leaves`,
+its plain version here) at 2-5 slots over leaves of 1 to 65,537
+elements against the same, its (S, total) words against per-leaf
+`masked_encode_plain`, one unmask over them against per-leaf unmasks,
+the host leaf table (every element in one block, no block across two
+leaves, counters from 0 a leaf) and the packed keys (`leaf_keys`' upper
+triangle); `derive_pair_seeds`; `secure_fedavg` in
 float32 on a 1- and an 8-device reference mesh (its psum is mod 2**32,
 so the mesh changes no bit; the step ``g - lr * m`` is one FMA, as
 XLA:CPU contracts it) and in bfloat16 (each step rounded to bfloat16,
@@ -132,10 +138,181 @@ def test_masked_words_window_equals_the_whole_leaf():
     rng = np.random.default_rng(2)
     d = T(rng.standard_normal((4, 300)).astype(np.float32))
     wn = T(np.full(4, 0.25, np.float32))
-    keys = T(secure.leaf_keys(_key(5), 4, 1, False)[0].view(np.int32))
+    keys = T(secure.leaf_pair_keys(_key(5), 4, 1, False)[0].view(np.int32))
     whole = sm.masked_encode_plain(d, wn, keys, 64.0)
     part = sm.masked_encode_plain(d[:, 173:], wn, keys, 64.0, offset=173)
     assert torch.equal(whole[:, 173:], part)
+
+
+# ------------------------------------------------ B7's round entry
+LEAF_SIZES = (1, 2, 127, 128, 129, 4097, 65537)
+
+
+def _round(slots, sizes, seed, clip=8.0):
+    """A round's (S, n) leaves with NaN, +-inf and values past the clip,
+    and the slots' weights."""
+    rng = np.random.default_rng(seed)
+    leaves = []
+    for n in sizes:
+        d = (rng.standard_normal((slots, n)) * 9).astype(np.float32)
+        flat = d.reshape(-1)
+        flat[rng.integers(0, flat.size, 3)] = [np.nan, np.inf, -np.inf]
+        leaves.append(d)
+    wn = rng.random(slots).astype(np.float32)
+    return leaves, wn / wn.sum()
+
+
+def _ref_round_masks(mode, tweak, slots, sizes, seeds):
+    """Each leaf's (S, n) uint32 client masks: the reference's
+    `_client_mask` / `_client_mask_dh`, one jitted program a leaf over
+    every client."""
+    out = []
+    for leaf, n in enumerate(sizes):
+        if mode == "dh":
+            fn = jax.jit(jax.vmap(lambda i, leaf=leaf, n=n:
+                                  ref_secure._client_mask_dh(
+                                      jnp.asarray(seeds), i, slots, (n,),
+                                      leaf, tweak=None if tweak is None
+                                      else jnp.uint32(tweak))))
+        else:
+            fn = jax.jit(jax.vmap(lambda i, leaf=leaf, n=n:
+                                  ref_secure._client_mask(
+                                      jax.random.PRNGKey(3), i, slots, (n,),
+                                      leaf)))
+        out.append(np.asarray(fn(jnp.arange(slots, dtype=jnp.int32))))
+    return out
+
+
+@pytest.mark.parametrize("slots", [2, 3, 4, 5])
+@pytest.mark.parametrize("mode,tweak", [("shared", None), ("dh", None),
+                                        ("dh", 7)])
+def test_round_words_equal_the_reference(mode, tweak, slots):
+    """The round entry's plain version over leaves of 1 to 65,537
+    elements: each slot's words are q_i plus the reference's client mask
+    of that leaf, bit for bit; the (S, total) words hold the leaves side
+    by side, and each leaf's view is its columns."""
+    seeds = _seeds(slots)
+    leaves, wn = _round(slots, LEAF_SIZES, slots)
+    keys = secure.leaf_pair_keys(seeds if mode == "dh" else _key(3), slots,
+                                 len(LEAF_SIZES), mode == "dh", tweak)
+    words, views = sm.masked_encode_leaves(
+        [T(d) for d in leaves], T(wn), T(keys.view(np.int32)), 8.0)
+    assert words.shape == (slots, sum(LEAF_SIZES))
+    assert words.dtype == torch.int32
+    masks = _ref_round_masks(mode, tweak, slots, LEAF_SIZES, seeds)
+    col = 0
+    for d, v, mask in zip(leaves, views, masks):
+        n = d.shape[1]
+        assert v.data_ptr() == words[:, col:].data_ptr()
+        col += n
+        fx = np.clip(np.clip(np.nan_to_num(d, nan=0, posinf=8.0,
+                                           neginf=-8.0), -8.0, 8.0)
+                     * wn[:, None], -8.0, 8.0)
+        q = np.round(fx * SCALE).astype(np.int32).astype(np.uint32)
+        with np.errstate(over="ignore"):
+            want = q + mask
+        np.testing.assert_array_equal(v.numpy().view(np.uint32), want)
+
+
+def test_round_words_equal_per_leaf_masked_encode_plain():
+    """(S, total) words are each leaf's `masked_encode_plain` words side
+    by side, and each leaf's `masked_encode` words under its symmetric
+    (S, S, 2) keys."""
+    slots = 4
+    leaves, wn = _round(slots, LEAF_SIZES, 11)
+    full = secure.leaf_keys(_key(8), slots, len(LEAF_SIZES), False)
+    packed = secure.leaf_pair_keys(_key(8), slots, len(LEAF_SIZES), False)
+    words, views = sm.masked_encode_leaves_plain(
+        [T(d) for d in leaves], T(wn), T(packed.view(np.int32)), 8.0)
+    want = torch.cat([sm.masked_encode_plain(T(d), T(wn),
+                                             T(k.view(np.int32)), 8.0)
+                      for d, k in zip(leaves, packed)], 1)
+    assert torch.equal(words, want)
+    for d, k, v in zip(leaves, full, views):
+        assert torch.equal(v, sm.masked_encode(T(d), T(wn),
+                                               T(k.view(np.int32)), 8.0))
+
+
+def test_one_unmask_over_the_round_equals_per_leaf_unmask():
+    """`unmask_sum` once over the (S, total) words, split by leaf, is each
+    leaf's own unmask bit for bit (the sum over slots is elementwise)."""
+    slots = 5
+    leaves, wn = _round(slots, LEAF_SIZES, 12)
+    keys = secure.leaf_pair_keys(_key(9), slots, len(LEAF_SIZES), False)
+    words, views = sm.masked_encode_leaves(
+        [T(d) for d in leaves], T(wn), T(keys.view(np.int32)), 8.0)
+    whole = torch.split(sm.unmask_sum(words), list(LEAF_SIZES))
+    for got, v in zip(whole, views):
+        want = sm.unmask_sum(v)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("tile", [128, 256, 512])
+def test_leaf_table_covers_every_element_once(tile):
+    """The host leaf table, read as the kernel reads it (block b
+    belongs to the leaf whose first block is the last at or below b):
+    every element of every leaf in exactly one block, no block across
+    two leaves, counters from 0 in each leaf's first block, the words'
+    columns side by side, and each leaf's pairs at its own rows."""
+    slots = 6
+    pairs = slots * (slots - 1) // 2
+    sizes = list(LEAF_SIZES) + [0, 300]
+    table, blocks = sm.leaf_table(sizes, slots, tile, list(range(
+        100, 100 + len(sizes))))
+    first = table["first_block"]
+    assert blocks == sum(-(-n // tile) for n in sizes)
+    seen = [np.zeros(n, np.int64) for n in sizes]
+    for b in range(blocks):
+        owners = [leaf for leaf in range(len(sizes))
+                  if first[leaf] <= b < (first[leaf + 1]
+                                         if leaf + 1 < len(sizes)
+                                         else blocks)]
+        assert len(owners) == 1, b            # one leaf, never two
+        leaf = owners[0]
+        start = (b - first[leaf]) * tile      # the block's first counter
+        assert 0 <= start < sizes[leaf]
+        seen[leaf][start:start + tile] += 1
+    for leaf, n in enumerate(sizes):
+        assert (seen[leaf] == 1).all(), leaf
+        assert table["n"][leaf] == n
+        assert table["out_off"][leaf] == sum(sizes[:leaf])
+        assert table["key_off"][leaf] == leaf * pairs
+        assert table["deltas"][leaf] == 100 + leaf
+    assert first[0] == 0 and (np.diff(first) >= 0).all()
+    with pytest.raises(ValueError, match="2\\*\\*32"):
+        sm.leaf_table([5, 1 << 32], slots, tile)
+    sm.leaf_table([(1 << 32) - 1], slots, tile)
+
+
+@pytest.mark.parametrize("mode,tweak", [("shared", None), ("dh", None),
+                                        ("dh", 7)])
+def test_packed_keys_are_leaf_keys_upper_triangle(mode, tweak):
+    """B7's packed key table, (L, S(S-1)/2, 2), is `leaf_keys`' upper
+    triangle in row order, leaf by leaf, and its lower triangle too
+    (each pair draws one mask)."""
+    slots, n_leaves = 5, 4
+    key = _seeds(slots) if mode == "dh" else _key(4)
+    packed = secure.leaf_pair_keys(key, slots, n_leaves, mode == "dh",
+                                   tweak)
+    full = secure.leaf_keys(key, slots, n_leaves, mode == "dh", tweak)
+    lo, hi = np.triu_indices(slots, k=1)
+    assert packed.shape == (n_leaves, slots * (slots - 1) // 2, 2)
+    np.testing.assert_array_equal(packed, full[:, lo, hi])
+    np.testing.assert_array_equal(packed, full[:, hi, lo])
+
+
+def test_round_entry_refuses_bad_shapes_and_mixed_inputs():
+    leaves, wn = _round(3, [4, 9], 0)
+    keys = T(secure.leaf_pair_keys(_key(1), 3, 2, False).view(np.int32))
+    ok = [T(d) for d in leaves]
+    with pytest.raises(ValueError, match="L, S"):
+        sm.masked_encode_leaves(ok, T(wn), keys[:1], 8.0)
+    with pytest.raises(ValueError, match="L, S"):
+        sm.masked_encode_leaves([ok[0], ok[1][:2]], T(wn), keys, 8.0)
+    with pytest.raises(ValueError, match="L, S"):
+        sm.masked_encode_leaves(ok, T(wn[:2]), keys, 8.0)
+    with pytest.raises(ValueError, match="no leaves"):
+        sm.masked_encode_leaves([], T(wn), keys, 8.0)
 
 
 def test_derive_pair_seeds_equal_the_reference():
@@ -604,19 +781,21 @@ def test_secure_config4_narrow_matches_reference(monkeypatch):
     merge are held by the config-5 dispatch above).  The
     decision (uploaders, committee and selection, through both
     runtimes' `audit_round`) equals the reference's, parameters within
-    C4_SLICE_TOL; B7 (its plain version) a launch a leaf, each merge
-    within the fixed point's bound of the plain weighted mean of its
-    deltas (S x 2**-17 plus float32 rounding)."""
-    ref_log, port_log, merges = [], [], []
+    C4_SLICE_TOL; B7 (its plain version) one call a round over the 62
+    leaves, each leaf's merge within the fixed point's bound of the
+    plain weighted mean of its deltas (S x 2**-17 plus float32
+    rounding)."""
+    ref_log, port_log, merges, calls = [], [], [], []
     _record(monkeypatch, ref_mesh_runtime, ref_log)
     _record(monkeypatch, mesh_runtime, port_log)
-    real = sm.masked_encode
+    real = sm.masked_encode_leaves
 
-    def tapped(deltas, wn, keys, clip, out=None):
-        words = real(deltas, wn, keys, clip, out)
-        merges.append((deltas, wn, clip, words))
-        return words
-    monkeypatch.setattr(sm, "masked_encode", tapped)
+    def tapped(leaves, wn, keys, clip):
+        words, views = real(leaves, wn, keys, clip)
+        calls.append(len(leaves))
+        merges.extend((d, wn, clip, v) for d, v in zip(leaves, views))
+        return words, views
+    monkeypatch.setattr(sm, "masked_encode_leaves", tapped)
     got = configs.config4_resnet_cifar100(
         rounds=1, n_data=200, cfg=ProtocolConfig(**C4), secure=True,
         device="cpu")
@@ -630,7 +809,7 @@ def test_secure_config4_narrow_matches_reference(monkeypatch):
                             - _ref_leaf(want.final_params, k)).max())
                for k in got.final_params)
     assert diff <= C4_SLICE_TOL, diff
-    assert len(merges) == 62
+    assert calls == [62] and len(merges) == 62
     for deltas, wn, clip, words in merges:
         assert deltas.shape[0] == 4
         x = np.clip(np.nan_to_num(deltas.double().numpy(), nan=0.0,
